@@ -1,0 +1,57 @@
+"""Reference parameters -> port modules.
+
+The input is the nested dict the reference's ``init_lm`` returns, brought
+to the host as numpy arrays (``jax.device_get(params)``): ``embed``
+(``tok``, and ``head`` when untied), ``blocks`` with every leaf stacked
+``(L, ...)`` along the layer axis, and ``final_norm``.  Taking numpy only
+keeps JAX out of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import LM
+
+__all__ = ["params_from_jax"]
+
+
+def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
+    arr = np.array(src, dtype=np.float32)      # a writable copy
+    if tuple(arr.shape) != tuple(dst.shape):
+        raise ValueError(f"{what}: shape {arr.shape}, port expects "
+                         f"{tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(arr).to(dst.dtype))
+
+
+@torch.no_grad()
+def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
+                    device: torch.device,
+                    dtype: Optional[torch.dtype] = None) -> LM:
+    """Unstack the ``(L, ...)`` blocks into per-layer modules on
+    ``device``.  Weights are stored in ``dtype`` (default: the config's
+    compute dtype) -- the values the reference gets from its cast at
+    each use; norm scales stay float32 as the reference reads them."""
+    if dtype is not None and dtype != cfg.compute_dtype:
+        raise ValueError(f"dtype {dtype} differs from the config's "
+                         f"{cfg.compute_dtype}; replace cfg.dtype instead")
+    lm = LM(cfg, torch.device("cpu"))
+    emb = np_params["embed"]
+    _copy(lm.embed.tok, emb["tok"], "embed.tok")
+    if not cfg.tie_embeddings:
+        _copy(lm.embed.head, emb["head"], "embed.head")
+    blocks = np_params["blocks"]
+    for i, blk in enumerate(lm.blocks):
+        _copy(blk.norm1.scale, blocks["norm1"]["scale"][i], "norm1.scale")
+        _copy(blk.norm2.scale, blocks["norm2"]["scale"][i], "norm2.scale")
+        for name, w in blk.attn.named_parameters():
+            _copy(w, blocks["attn"][name][i], f"attn.{name}")
+        for name, w in blk.mlp.named_parameters():
+            _copy(w, blocks["mlp"][name][i], f"mlp.{name}")
+    _copy(lm.final_norm.scale, np_params["final_norm"]["scale"],
+          "final_norm.scale")
+    return lm.to(device)

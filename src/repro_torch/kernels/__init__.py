@@ -1,0 +1,26 @@
+"""Hand-written Hopper kernels of the port, each beside its plain version.
+
+``launch_counts()`` / ``reset_launch_counts()`` read and zero the
+wrappers' launch counters, so a run can show which kernels its main
+path went through.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels.decode_attention import ops as _decode_ops
+from repro_torch.kernels.flash_attention import ops as _flash_ops
+
+__all__ = ["COUNTERS", "launch_counts", "reset_launch_counts"]
+
+COUNTERS = {c.name: c for c in (_decode_ops.COUNTER, _flash_ops.COUNTER)}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: c.n for name, c in COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in COUNTERS.values():
+        c.reset()

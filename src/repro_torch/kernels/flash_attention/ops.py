@@ -1,0 +1,80 @@
+"""Wrapper for the flash attention prefill kernel (K2).
+
+A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
+launches ``csrc/flash_attention.cu`` or raises -- there is no fallback
+on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
+                                        load)
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["flash_attention", "COUNTER", "HEAD_DIMS"]
+
+COUNTER = LaunchCounter("flash_attention")
+#: head dims the kernel is instantiated for (csrc: dispatch_d)
+HEAD_DIMS = (32, 64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k, v, window):
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError("q, k and v must be on one device")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: kernel "
+                        "takes one of float32/bfloat16 for all three")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("want q (B,H,Sq,D) and k/v (B,Hkv,Sk,D)")
+    b, h, sq, d = q.shape
+    bk, hkv, sk, dk = k.shape
+    if bk != b or dk != d or h % hkv:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    scale=None) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, H, Sq, D).
+
+    GQA maps query head h to KV head h // (H/Hkv); ``window`` keeps keys
+    with ``q_pos - k_pos < window``; rows with no live key give 0.
+    """
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, window)
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    out = torch.empty_like(q)
+    fn = load("flash_attention").flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, h, hkv, sq, sk, d, int(bool(causal)),
+                -1 if window is None else int(window), scale,
+                _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise KernelLaunchError(f"flash_attention: CUDA error {rc}")
+    COUNTER.n += 1
+    return out

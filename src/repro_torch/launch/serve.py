@@ -1,0 +1,120 @@
+"""Serving launcher: paged continuous batching on synthetic prompts.
+
+``python -m repro_torch.launch.serve --arch qwen2.5-1.5b --paged
+--page-size 16 --requests N --prompt-len P --gen G --lanes B [--smoke]
+[--device cuda|cpu]`` builds seeded random weights, serves N requests of
+P prompt tokens and G generated tokens each, and prints tokens/s with
+the prefill/decode split.  Runs on ``cuda`` unless ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.serving import Request, ServeEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-1.5b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--paged", action="store_true",
+                    help="serve over the page-pool KV cache (the only "
+                         "layout this port serves so far)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--lanes", type=int, default=4)
+    ap.add_argument("--device", default=None, choices=[None, "cuda", "cpu"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", default=None, metavar="TRACE.json",
+                    help="trace the run with torch.profiler, write a "
+                         "Chrome trace here and print device time by "
+                         "kernel")
+    args = ap.parse_args(argv)
+    if not args.paged:
+        ap.error("the fixed-lane engine is not ported yet: pass --paged")
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = build_model(cfg).init(gen, device)
+
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(uid=i, prompt=rng.integers(
+                0, cfg.vocab_size, args.prompt_len).astype(np.int32),
+                max_new_tokens=args.gen)
+            for i in range(args.requests)]
+    max_len = args.prompt_len + args.gen + 8
+    max_len = -(-max_len // args.page_size) * args.page_size
+
+    def make_engine():
+        return ServeEngine(cfg, params, n_lanes=args.lanes, max_len=max_len,
+                           paged=True, page_size=args.page_size,
+                           device=device, timed=args.profile is None)
+
+    # one untimed request first: kernel build/load and library set-up
+    # stay out of the numbers
+    make_engine().run([Request(uid=-1, prompt=reqs[0].prompt,
+                               max_new_tokens=2)])
+    engine = make_engine()
+    prof = contextlib.nullcontext()
+    if args.profile:
+        acts = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        prof = profile(activities=acts)
+    with prof:
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+    if args.profile:
+        _report_profile(prof, dt, args.profile)
+    n_gen = sum(len(r.generated) for r in reqs)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"served {len(reqs)} requests, {n_gen} tokens in {dt:.3f}s "
+          f"({n_gen / dt:.1f} tok/s on {where})")
+    if engine.timed:
+        t_prefill = sum(sum(v) for v in engine.timings["prefill"].values())
+        t_decode = sum(engine.timings["decode"])
+        print(f"prefill {t_prefill:.3f}s over {len(reqs)} prompts "
+              f"({len(reqs) * args.prompt_len / max(t_prefill, 1e-9):.1f} "
+              f"prompt tok/s); decode {t_decode:.3f}s over "
+              f"{engine.stats['decode_dispatches']} dispatches "
+              f"({n_gen / max(t_decode, 1e-9):.1f} tok/s)")
+    print(f"stats: {engine.stats}")
+
+
+def _report_profile(prof, wall_s: float, path: str) -> None:
+    """Device time by kernel and the device's busy share of the run."""
+    prof.export_chrome_trace(path)
+    # device-side rows only: a CPU op's row repeats its kernels' time
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_us = sum(e.self_device_time_total for e in rows)
+    print(f"profile: device busy {busy_us / 1e3:.3f} ms of "
+          f"{wall_s * 1e3:.3f} ms wall ({100 * busy_us / 1e6 / wall_s:.1f}"
+          f"%; idle {100 - 100 * busy_us / 1e6 / wall_s:.1f}%), trace "
+          f"{path}")
+    for e in rows[:20]:
+        print(f"profile: {e.self_device_time_total / 1e3:10.3f} ms "
+              f"{e.count:7d} calls  {e.key[:90]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,452 @@
+"""Serving engine: continuous batching over a paged KV cache.
+
+Port of the reference's ``serving/engine.py`` paged path
+(``ServeEngine(paged=True)``), greedy decoding only:
+
+* KV lives in a global page pool governed by :class:`PagePool`; each
+  lane holds a block table of page ids.  Admission is gated on free
+  PAGES (reserved for the request's worst case), pages are mapped at
+  admission and at dispatch boundaries and freed at retirement;
+* ``prefill`` pads prompts to power-of-two buckets, keeps the tail of
+  prompts longer than ``max_len - 1`` and scatters the prompt KV into
+  the lane's pages;
+* ``decode_n`` advances every lane ``dispatch_n`` tokens per dispatch
+  with no host sync inside; one host transfer drains the block;
+* a dead lane keeps stepping inside the batch: its block-table row
+  points at a scratch page the allocator never hands out.
+
+Prefix sharing, int8 KV, evict/restore, temperature sampling and the
+telemetry hooks come in later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import defaultdict
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.analysis.invariants import invariant
+from repro_torch.device import resolve_device
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import RNG_SLICE, paged_capacity
+from repro_torch.serving.resilience import AdmissionRejected
+
+__all__ = ["PagePool", "Request", "ServeEngine", "STATS_KEYS"]
+
+
+# ----------------------------------------------------------------------
+# page-pool allocator
+# ----------------------------------------------------------------------
+
+class PagePool:
+    """Host-side free-list allocator over the global KV page pool.
+
+    Invariants: ``n_free + n_in_use == n_pages``; pages move between two
+    disjoint sets (no double alloc, no double free); ``reserve(n)``
+    promises ``n`` future ``alloc`` pages and ``available()`` (what
+    admission gates on) never counts promised pages, so mid-generation
+    growth cannot fail.  The free list is LIFO, as in the reference, so
+    both hand out the same page ids for the same call sequence.
+    """
+
+    def __init__(self, n_pages: int, page_size: int):
+        self.n_pages = int(n_pages)
+        self.page_size = int(page_size)
+        self._free: List[int] = list(range(self.n_pages - 1, -1, -1))
+        self._in_use: set = set()
+        self._reserved = 0
+        self.hwm = 0                 # high-water mark: in-use + reserved
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def n_in_use(self) -> int:
+        return len(self._in_use)
+
+    def available(self) -> int:
+        """Pages admissible to NEW requests (free minus promised)."""
+        return len(self._free) - self._reserved
+
+    def reserve(self, n: int) -> bool:
+        """Promise ``n`` pages to a request; False if over-committed."""
+        ok = n <= self.available()
+        if ok:
+            self._reserved += n
+            self.hwm = max(self.hwm, self.n_in_use + self._reserved)
+        return ok
+
+    def unreserve(self, n: int) -> None:
+        invariant(0 <= n <= self._reserved,
+                  "unreserve exceeds reservation",
+                  n=n, reserved=self._reserved)
+        self._reserved -= n
+
+    def alloc(self, n: int) -> List[int]:
+        """Take ``n`` previously reserved pages off the free list."""
+        invariant(n <= self._reserved, "alloc without reservation",
+                  n=n, reserved=self._reserved)
+        invariant(n <= len(self._free), "free list underflow",
+                  n=n, n_free=len(self._free))
+        self._reserved -= n
+        pages = [self._free.pop() for _ in range(n)]
+        self._in_use.update(pages)
+        return pages
+
+    def free(self, pages: List[int]) -> None:
+        for p in pages:
+            invariant(p in self._in_use, f"double free of page {p}",
+                      page=p)
+            self._in_use.remove(p)
+            self._free.append(p)
+
+    def check(self) -> None:
+        """Raise unless the conservation invariants hold (test hook)."""
+        invariant(len(self._free) + len(self._in_use) == self.n_pages,
+                  "page conservation broken", n_free=len(self._free),
+                  n_in_use=len(self._in_use), n_pages=self.n_pages)
+        invariant(len(set(self._free)) == len(self._free),
+                  "duplicate page on the free list")
+        invariant(not self._in_use.intersection(self._free),
+                  "page both in use and free")
+        invariant(0 <= self._reserved <= len(self._free),
+                  "reservation exceeds the free list",
+                  reserved=self._reserved, n_free=len(self._free))
+
+
+# ----------------------------------------------------------------------
+# continuous-batching engine
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray           # (len,) int32
+    max_new_tokens: int
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def _bucket_len(n: int, floor: int = 8) -> int:
+    """Smallest power-of-two >= n (>= floor) -- the prefill shape bucket."""
+    b = floor
+    while b < n:
+        b <<= 1
+    return b
+
+
+#: the reference's STATS_SCHEMA keys this slice moves
+STATS_KEYS = ("decode_dispatches", "decode_steps", "generated_tokens",
+              "prefill_compiles", "kv_pages_hwm", "kv_admit_blocked",
+              "admit_rejected")
+
+
+class ServeEngine:
+    """Paged continuous batcher around the dense decoder (greedy).
+
+    ``n_lanes`` bounds the decode batch width, ``n_pages`` bounds KV
+    bytes (default: ``n_lanes`` full contexts).  ``dispatch_n`` is the
+    number of tokens each lane advances per dispatch.  ``stats`` holds
+    the counters named in :data:`STATS_KEYS`; ``prefill_compiles`` counts
+    distinct prefill buckets (the reference compiles once per bucket).
+
+    ``timed=True`` synchronises the device around each prefill and each
+    decode dispatch and records host-clock seconds in ``timings``
+    (``prefill`` per bucket, ``decode`` per dispatch); off by default,
+    since the syncs cost throughput.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, n_lanes: int = 4,
+                 max_len: int = 512, temperature: float = 0.0,
+                 dispatch_n: int = 8, paged: bool = True, page_size: int = 16,
+                 n_pages: Optional[int] = None, device=None,
+                 timed: bool = False):
+        if temperature > 0.0:
+            raise ValueError(f"temperature={temperature}: temperature "
+                             f"sampling is not ported yet, it comes with "
+                             f"{RNG_SLICE}")
+        if not paged:
+            raise ValueError("the fixed-lane engine (paged=False) is not "
+                             "ported yet; this slice serves paged=True")
+        self.device = resolve_device(device)
+        param_dev = next(params.parameters()).device
+        if param_dev.type != self.device.type:
+            raise ValueError(f"params on {param_dev}, engine on "
+                             f"{self.device}")
+        self.cfg = cfg
+        self.model = build_model(cfg)
+        self.params = params
+        self.n_lanes = n_lanes
+        self.max_len = max_len
+        self.dispatch_n = max(1, dispatch_n)
+        self.page_size = int(page_size)
+        self._bt_width = paged_capacity(max_len, cfg) // page_size
+        if n_pages is None:
+            n_pages = n_lanes * self._bt_width
+        invariant(n_pages >= self._bt_width, (
+            "page pool smaller than one full context: no request "
+            "could ever be admitted"), n_pages=n_pages,
+            bt_width=self._bt_width)
+        self.pool = PagePool(n_pages, page_size)
+        # one extra physical page the allocator never hands out: a DEAD
+        # lane still steps inside the batch and writes its (frozen) slot
+        # through its block table -- pointing dead rows at the scratch
+        # page keeps that write off pages re-issued to a live lane
+        self._scratch_page = n_pages
+        self.cache = self.model.init_paged_cache(
+            n_lanes, max_len, page_size=page_size, n_pages=n_pages + 1,
+            device=self.device)
+        self.cache["block_tables"].fill_(self._scratch_page)
+        self._lane_pages: List[List[int]] = [[] for _ in range(n_lanes)]
+        self._lane_reserved = [0] * n_lanes
+        self._blocked_uids: set = set()
+        self._len_host = np.zeros((n_lanes,), np.int64)
+        self.lane_req: List[Optional[Request]] = [None] * n_lanes
+        dev = self.device
+        self._next_token = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        self._remaining = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        self._remaining_host = np.zeros((n_lanes,), np.int64)
+        self._tok_idx = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+        self._admit_count = 0
+        self._buckets: set = set()
+        self.stats: Dict[str, int] = {k: 0 for k in STATS_KEYS}
+        self.timed = timed
+        self.timings: Dict[str, Any] = {"prefill": defaultdict(list),
+                                        "decode": []}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- admission --------------------------------------------------------
+    def free_lanes(self) -> List[int]:
+        return [i for i, r in enumerate(self.lane_req) if r is None]
+
+    def live_lanes(self) -> List[int]:
+        return [i for i, r in enumerate(self.lane_req) if r is not None]
+
+    def _pages_needed(self, positions: int) -> int:
+        """Pages backing ``positions`` cache slots (capped at the table
+        width: a sliding-window lane rotates within its page set)."""
+        ps = self.page_size
+        return min(-(-int(positions) // ps), self._bt_width)
+
+    def _trunc_prompt(self, req: Request) -> np.ndarray:
+        """The prompt as the lane holds it: a cache cannot back more than
+        ``max_len - 1`` prompt positions and still decode, so over-long
+        prompts keep their TAIL (llama.cpp-style truncation)."""
+        limit = self.max_len - 1
+        prompt = req.prompt
+        return prompt[-limit:] if prompt.shape[0] > limit else prompt
+
+    def _trunc_plen(self, req: Request) -> int:
+        return min(int(req.prompt.shape[0]), self.max_len - 1)
+
+    def admission_pages(self, req: Request) -> int:
+        """Worst-case page need of ``req`` (prompt + full budget + the
+        trailing write slot), clamped to ``max_len`` positions since
+        generation stops at the length cap regardless of budget."""
+        worst = min(self._trunc_plen(req) + req.max_new_tokens + 1,
+                    self.max_len)
+        return self._pages_needed(worst)
+
+    def admit(self, req: Request) -> bool:
+        lanes = self.free_lanes()
+        if not lanes:
+            return False
+        lane = lanes[0]
+        need = self.admission_pages(req)
+        if not self.pool.reserve(need):
+            # a lane is free but the KV bytes are not; counted once per
+            # blocked episode, not per retry
+            if req.uid not in self._blocked_uids:
+                self._blocked_uids.add(req.uid)
+                self.stats["kv_admit_blocked"] += 1
+            return False
+        self._blocked_uids.discard(req.uid)
+        self._lane_reserved[lane] = need
+        self._lane_pages[lane] = []
+        # map the prompt's pages plus the first decode write slot;
+        # generation growth maps the rest at dispatch boundaries
+        self._map_pages(lane, self._pages_needed(self._trunc_plen(req) + 1))
+        self._tok_idx[lane] = 0
+        self._prefill_into_lane(req, lane)
+        self.lane_req[lane] = req
+        self._remaining[lane] = req.max_new_tokens
+        self._remaining_host[lane] = req.max_new_tokens
+        return True
+
+    def _map_pages(self, lane: int, target: int) -> None:
+        """Grow ``lane``'s block table to ``target`` mapped pages, drawing
+        on the admission-time reservation (infallible mid-flight)."""
+        have = len(self._lane_pages[lane])
+        if target <= have:
+            return
+        new = self.pool.alloc(target - have)
+        self._lane_reserved[lane] -= len(new)
+        self._lane_pages[lane].extend(new)
+        self.cache["block_tables"][lane, have:target] = torch.tensor(
+            new, dtype=torch.int32).to(self.device)
+        self.stats["kv_pages_hwm"] = max(self.stats["kv_pages_hwm"],
+                                         self.pool.hwm)
+
+    # -- prefill ----------------------------------------------------------
+    def _prefill_into_lane(self, req: Request, lane: int) -> None:
+        prompt = self._trunc_prompt(req)
+        plen = int(prompt.shape[0])
+        self._len_host[lane] = plen
+        bucket = _bucket_len(plen)
+        if bucket not in self._buckets:
+            self._buckets.add(bucket)
+            self.stats["prefill_compiles"] = len(self._buckets)
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :plen] = prompt
+        if self.timed:
+            self._sync()
+            t0 = time.perf_counter()
+        logits, kv = self.model.prefill(
+            self.params, torch.from_numpy(padded).to(self.device),
+            last_pos=torch.tensor([plen - 1], device=self.device))
+        self._scatter_prompt_paged(kv, lane, plen)
+        self.cache["len"][lane] = plen
+        self._set_first_token(logits, lane)
+        if self.timed:
+            self._sync()
+            self.timings["prefill"][bucket].append(time.perf_counter() - t0)
+
+    def _scatter_prompt_paged(self, kv, lane: int, plen: int) -> None:
+        """Write the prompt KV into the lane's mapped pages: the last
+        ``take = min(plen, capacity)`` positions, placed at their ring
+        slots (``slot = position mod capacity``), in one indexed copy."""
+        k, v = kv                       # (L, 1, Hkv, S_bucket, D)
+        ps = self.page_size
+        cap = ps * self._bt_width
+        take = min(plen, cap)
+        k = k[:, 0, :, plen - take:plen]
+        v = v[:, 0, :, plen - take:plen]
+        if take == cap:
+            shift = plen % cap
+            if shift:
+                k = torch.roll(k, shift, dims=2)
+                v = torch.roll(v, shift, dims=2)
+        n_pg = -(-take // ps)
+        pad = n_pg * ps - take
+        pages = torch.tensor(self._lane_pages[lane][:n_pg],
+                             dtype=torch.long).to(self.device)
+        for src, key in ((k, "k_pages"), (v, "v_pages")):
+            pool = self.cache[key]
+            if pad:
+                src = torch.nn.functional.pad(src, (0, 0, 0, pad))
+            n_l, hkv, _, d = src.shape
+            seg = src.reshape(n_l, hkv, n_pg, ps, d).permute(0, 2, 1, 3, 4)
+            pool[:, pages] = seg.to(pool.dtype)
+
+    def _set_first_token(self, logits: torch.Tensor, lane: int) -> None:
+        self._admit_count += 1
+        self._next_token[lane] = torch.argmax(logits[0]).to(torch.int32)
+
+    # -- stepping ----------------------------------------------------------
+    def _dispatch_size(self, n: Optional[int]) -> int:
+        """Tokens per dispatch: dispatch_n, shrunk to a power of two when
+        every live lane owes fewer tokens."""
+        n = n or self.dispatch_n
+        live = self.live_lanes()
+        max_rem = int(self._remaining_host[live].max()) if live else 0
+        return min(n, _bucket_len(max(max_rem, 1), floor=1))
+
+    def decode_n(self, n: Optional[int] = None) -> Dict[int, List[int]]:
+        """Advance all live lanes up to ``n`` tokens in ONE dispatch.
+
+        Returns {uid: [tokens]} for this block; requests that exhaust
+        their budget (or the cache) are retired at the boundary."""
+        live = self.live_lanes()
+        if not live:
+            return {}
+        n = self._dispatch_size(n)
+        # map the pages this block can write into BEFORE the dispatch;
+        # the admission-time reservation makes this infallible
+        for lane in live:
+            steps = min(n, int(self._remaining_host[lane]))
+            self._map_pages(lane, self._pages_needed(
+                int(self._len_host[lane]) + steps + 1))
+        if self.timed:
+            self._sync()
+            t0 = time.perf_counter()
+        (toks, valid, self._next_token, self.cache, self._remaining,
+         self._tok_idx) = self.model.decode_n_steps(
+            self.params, self.cache, self._next_token, self._remaining,
+            self._tok_idx, n_steps=n, len_cap=self.max_len - 1)
+        self.stats["decode_dispatches"] += 1
+        self.stats["decode_steps"] += n
+        # one host transfer drains the whole block
+        block = torch.cat([toks, valid.to(torch.int32),
+                           self._remaining[None]]).cpu().numpy()
+        if self.timed:
+            self.timings["decode"].append(time.perf_counter() - t0)
+        toks_h = block[:n]
+        valid_h = block[n:2 * n].astype(bool)
+        self._remaining_host = block[2 * n].astype(np.int64)
+        out: Dict[int, List[int]] = {}
+        for lane in live:
+            req = self.lane_req[lane]
+            seq = [int(t) for t in toks_h[valid_h[:, lane], lane]]
+            req.generated.extend(seq)
+            out[req.uid] = seq
+            self.stats["generated_tokens"] += len(seq)
+            # the device length advanced once per valid sample
+            self._len_host[lane] += len(seq)
+            if self._remaining_host[lane] <= 0:
+                req.done = True
+                self._release_lane(lane)
+        return out
+
+    def _release_lane(self, lane: int) -> None:
+        """Return a lane to the DEAD state: zero its length, drop its
+        pages and reservation, and point its block-table row at the
+        scratch page (its old page ids may be re-issued while the dead
+        lane keeps stepping)."""
+        self.lane_req[lane] = None
+        self.cache["len"][lane] = 0
+        self._len_host[lane] = 0
+        self.pool.free(self._lane_pages[lane])
+        self.pool.unreserve(self._lane_reserved[lane])
+        self._lane_pages[lane] = []
+        self._lane_reserved[lane] = 0
+        self.cache["block_tables"][lane] = self._scratch_page
+
+    def lane_pages(self, lane: int) -> List[int]:
+        """Page ids mapped by ``lane``'s block table, in logical order."""
+        return list(self._lane_pages[lane])
+
+    def _never_admissible(self, head: Request) -> AdmissionRejected:
+        """Terminal refusal: the head request was refused with NOTHING in
+        flight, so no retirement can ever free a lane or a page."""
+        self.stats["admit_rejected"] += 1
+        return AdmissionRejected(
+            uid=head.uid, reason="never_admissible", retry_after_s=None,
+            need_pages=self.admission_pages(head),
+            pool_pages=self.pool.n_pages, n_lanes=self.n_lanes)
+
+    def run(self, requests: List[Request],
+            dispatch_n: Optional[int] = None) -> List[Request]:
+        """Serve a workload to completion with continuous admission.
+
+        Raises :class:`AdmissionRejected` when the head request can never
+        be admitted and nothing is in flight."""
+        pending = list(requests)
+        while pending or self.live_lanes():
+            while pending and self.free_lanes():
+                if not self.admit(pending[0]):
+                    break           # wait for retirements to free pages
+                pending.pop(0)
+            if not self.live_lanes():
+                raise self._never_admissible(pending[0])
+            self.decode_n(dispatch_n if dispatch_n is not None
+                          else self.dispatch_n)
+        return requests
