@@ -10,14 +10,27 @@ order (any failure raises and the script exits non-zero):
    path's shapes, float32 (TF32 off, tol 1e-4) and bfloat16 (tol 2e-2);
 3. K2 (flash prefill) against its plain version, causal at Sq 64 and
    512 plus a sliding-window case, same tolerances;
-4. end to end at SMOKE width in float32: the same requests through
-   ``ServeEngine(paged=True)`` on the CPU (plain versions) and on the
-   card (kernels) must give identical greedy streams;
-5. end to end at full width: qwen2.5-1.5b in bfloat16 with seeded
-   random weights, 16 requests through the paged engine; every request
-   must finish its budget and both kernels must have launched;
-6. timings at the main-path shapes: each kernel, its plain version and
-   (for K2) PyTorch's own attention call, beside the card's bound.
+4. K3 (length-aware dense decode) and K6a (masked dense decode) against
+   their plain version at the fixed-lane path's shapes (S = 1024) and
+   at S = 1000, same tolerances; a dead lane gives exactly 0 and K3
+   equals K6a;
+5. end to end at SMOKE width in float32: the same requests through
+   ``ServeEngine()`` (fixed-lane) and ``ServeEngine(paged=True)``,
+   greedy and at temperature 0.8, on the CPU (plain versions) and on
+   the card (kernels): CPU and card streams, and fixed-lane and paged
+   streams on the card, must be identical;
+6. end to end at full width, paged: qwen2.5-1.5b in bfloat16 with
+   seeded random weights, 16 requests through ``ServeEngine(paged=
+   True)``; every request must finish its budget and K1 and K2 must
+   have launched;
+7. end to end at full width, fixed-lane (the engine's default): the
+   same 16 requests through ``ServeEngine()``; every request must
+   finish, K2 and K3 must have launched, K3 28 times per decode step;
+   then a short run at temperature 0.8 whose tokens must all finish
+   inside the vocabulary;
+8. timings at the main-path shapes: each kernel, its plain version and
+   PyTorch's own attention call where one computes the same function,
+   beside the card's bound.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -167,6 +180,53 @@ def phase_k2(dev):
     return errs
 
 
+def dense_inputs(dtype, dev, s=1024):
+    """Fixed-lane path shapes: B=8 lanes, H=12, Hkv=2, D=128, a cache of
+    S positions (max_len 1024), ragged lengths incl. a dead lane and a
+    full lane (clipped to S)."""
+    import numpy as np
+    import torch
+    b, h, hkv, d = 8, 12, 2, 128
+    rng = np.random.default_rng(SEED + s)
+    q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32))
+    k = torch.from_numpy(rng.standard_normal((b, hkv, s, d), np.float32))
+    v = torch.from_numpy(rng.standard_normal((b, hkv, s, d), np.float32))
+    lens = torch.tensor([0, 1, 15, 16, 17, 300, 777, 1024],
+                        dtype=torch.int32).clamp(max=s)
+    return [x.to(dev, dtype) for x in (q, k, v)] + [lens.to(dev)]
+
+
+def phase_dense(dev):
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    errs = {"decode_attention_lengthaware": {}, "decode_attention_masked": {}}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        worst = {name: 0.0 for name in errs}
+        for s in (1024, 1000):
+            args = dense_inputs(dtype, dev, s)
+            la = decode_attention(*args)
+            masked = decode_attention(*args, length_aware=False)
+            ref = decode_attention_ref(*args)
+            torch.cuda.synchronize()
+            for name, out in (("decode_attention_lengthaware", la),
+                              ("decode_attention_masked", masked)):
+                err = max_err(out, ref)
+                print(f"[K3/K6a] {name} {dtype} S={s}: max_abs_err "
+                      f"{err:.3e} (tol {tol})")
+                if not err <= tol:
+                    fail(f"{name} {dtype} S={s} disagrees with its plain "
+                         f"version: {err}")
+                if not bool(torch.all(out[0] == 0)):
+                    fail(f"{name}: dead lane did not give 0")
+                worst[name] = max(worst[name], err)
+            if not torch.equal(la, masked):
+                fail(f"K3 and K6a differ ({dtype}, S={s})")
+        for name in errs:
+            errs[name][str(dtype).split(".")[-1]] = (worst[name], tol)
+    return errs
+
+
 def _requests(cfg, n, plen_lo, plen_hi, gen, seed):
     import numpy as np
     from repro_torch.serving import Request
@@ -188,29 +248,45 @@ def phase_smoke_e2e(dev):
                               dtype="float32")
     cpu = torch.device("cpu")
     params = build_model(cfg).init(torch.Generator().manual_seed(SEED), cpu)
+    on_card = copy.deepcopy(params).to(dev)
     streams = {}
-    for where, p in (("cpu", params), ("cuda", copy.deepcopy(params).to(dev))):
-        eng = ServeEngine(cfg, p, n_lanes=4, max_len=128, page_size=16,
+    runs = [("cpu", False, 0.0), ("cuda", False, 0.0), ("cuda", True, 0.0),
+            ("cpu", False, 0.8), ("cuda", False, 0.8), ("cuda", True, 0.8),
+            ("cpu", True, 0.0)]
+    for where, paged, temperature in runs:
+        eng = ServeEngine(cfg, params if where == "cpu" else on_card,
+                          n_lanes=4, max_len=128, temperature=temperature,
+                          rng_seed=SEED + 3, paged=paged, page_size=16,
                           n_pages=24, device=where)
         reqs = _requests(cfg, 10, 3, 140, 16, SEED + 1)
         eng.run(reqs)
-        streams[where] = [r.generated for r in reqs]
-        eng.pool.check()
-    same = sum(a == b for a, b in zip(streams["cpu"], streams["cuda"]))
-    print(f"[smoke e2e] float32 SMOKE: {same}/{len(streams['cpu'])} "
-          f"greedy streams identical CPU vs card")
-    if same != len(streams["cpu"]):
-        fail("SMOKE greedy streams differ between CPU and card")
+        if paged:
+            eng.pool.check()
+        streams[where, paged, temperature] = [r.generated for r in reqs]
+    pairs = [(("cpu", True, 0.0), ("cuda", True, 0.0),
+              "paged greedy, CPU vs card"),
+             (("cpu", False, 0.0), ("cuda", False, 0.0),
+              "fixed-lane greedy, CPU vs card"),
+             (("cpu", False, 0.8), ("cuda", False, 0.8),
+              "fixed-lane temperature 0.8, CPU vs card"),
+             (("cuda", False, 0.0), ("cuda", True, 0.0),
+              "greedy, fixed-lane vs paged on the card"),
+             (("cuda", False, 0.8), ("cuda", True, 0.8),
+              "temperature 0.8, fixed-lane vs paged on the card")]
+    for a, b, what in pairs:
+        same = sum(x == y for x, y in zip(streams[a], streams[b]))
+        print(f"[smoke e2e] float32 SMOKE: {same}/{len(streams[a])} "
+              f"streams identical, {what}")
+        if same != len(streams[a]):
+            fail(f"SMOKE streams differ: {what}")
+    if streams["cuda", False, 0.0] == streams["cuda", False, 0.8]:
+        fail("temperature 0.8 gave the greedy streams: nothing was sampled")
 
 
-def phase_full_e2e(dev):
-    import numpy as np
+def init_full(dev):
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import lm_prefill_batched
-    from repro_torch.serving import ServeEngine
     cfg = get_config("qwen2.5-1.5b")
     t0 = time.perf_counter()
     params = build_model(cfg).init(
@@ -219,9 +295,21 @@ def phase_full_e2e(dev):
     n_params = sum(p.numel() for p in params.parameters())
     print(f"[full e2e] {cfg.name} bf16, {n_params / 1e9:.3f}B params "
           f"initialised in {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def serve_full(dev, cfg, params, tag, need, **engine_kw):
+    """Serve the full-width traffic (16 requests, prompts 64-700 from the
+    seed, 64 new tokens, 8 lanes, max_len 1024) through one engine with
+    the launch counts zeroed just before and read just after; fail
+    unless every budget finishes and every kernel in ``need`` ran."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServeEngine
     gen = 64
-    eng = ServeEngine(cfg, params, n_lanes=8, max_len=1024, page_size=16,
-                      n_pages=256, device=dev, timed=True)
+    eng = ServeEngine(cfg, params, n_lanes=8, max_len=1024, device=dev,
+                      timed=True, **engine_kw)
     reqs = _requests(cfg, 16, 64, 700, gen, SEED + 2)
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -230,40 +318,70 @@ def phase_full_e2e(dev):
     wall = time.perf_counter() - t0
     counts = launch_counts()
     n_gen = sum(len(r.generated) for r in reqs)
-    eng.pool.check()
+    if eng.paged:
+        eng.pool.check()
     if not all(r.done and len(r.generated) == gen for r in reqs):
-        fail("full-width run did not finish every request's budget")
+        fail(f"{tag}: full-width run did not finish every request's budget")
     toks = np.concatenate([r.generated for r in reqs])
     if toks.min() < 0 or toks.max() >= cfg.vocab_size:
-        fail("generated token outside the vocabulary")
-    if min(counts.values()) <= 0:
-        fail(f"a kernel of the main path never launched: {counts}")
+        fail(f"{tag}: generated token outside the vocabulary")
+    if min(counts[k] for k in need) <= 0:
+        fail(f"{tag}: a kernel of the path never launched: {counts}")
     pre = eng.timings["prefill"]
     dec = eng.timings["decode"]
-    print(f"[full e2e] {len(reqs)} requests, {n_gen} tokens in {wall:.3f}s "
+    print(f"[{tag}] {len(reqs)} requests, {n_gen} tokens in {wall:.3f}s "
           f"= {n_gen / wall:.1f} tok/s end to end; stats {eng.stats}")
     for bucket in sorted(pre):
-        print(f"[full e2e] prefill bucket {bucket}: {len(pre[bucket])} "
+        print(f"[{tag}] prefill bucket {bucket}: {len(pre[bucket])} "
               f"prompts, median {1e3 * statistics.median(pre[bucket]):.2f} "
               f"ms")
-    print(f"[full e2e] decode: {len(dec)} dispatches, median "
+    print(f"[{tag}] decode: {len(dec)} dispatches, median "
           f"{1e3 * statistics.median(dec):.2f} ms per dispatch "
           f"({eng.dispatch_n} steps x {eng.n_lanes} lanes max)")
-    print(f"[full e2e] launches: {counts}")
+    print(f"[{tag}] launches: {counts}")
+    summary = {"tok_s": n_gen / wall, "wall_s": wall,
+               "prefill_ms": {b: 1e3 * statistics.median(v)
+                              for b, v in pre.items()},
+               "decode_ms_per_dispatch": 1e3 * statistics.median(dec),
+               "n_dispatches": len(dec),
+               "decode_steps": eng.stats["decode_steps"]}
+    del eng
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def phase_full_paged(dev, cfg, params):
+    counts, summary = serve_full(dev, cfg, params, "full e2e paged",
+                                 ("decode_attention_paged",
+                                  "flash_attention"),
+                                 paged=True, page_size=16, n_pages=256)
     # outputs: finite last-position logits with the padded vocab masked
-    prompt = torch.from_numpy(reqs[0].prompt[None, :64]).to(dev)
+    import torch
+    from repro_torch.models.transformer import lm_prefill_batched
+    prompt = torch.from_numpy(_requests(cfg, 1, 64, 64, 1, SEED)[0]
+                              .prompt[None]).to(dev)
     logits, _ = lm_prefill_batched(params, prompt, cfg)
     if logits.shape != (1, cfg.padded_vocab) or \
             not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()) or \
             not bool((logits[:, cfg.vocab_size:] == -1e30).all()):
         fail("full-width prefill logits are not finite/masked as expected")
-    summary = {"tok_s": n_gen / wall, "wall_s": wall,
-               "prefill_ms": {b: 1e3 * statistics.median(v)
-                              for b, v in pre.items()},
-               "decode_ms_per_dispatch": 1e3 * statistics.median(dec),
-               "n_dispatches": len(dec)}
-    del params, eng
-    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def phase_full_fixed(dev, cfg, params):
+    need = ("decode_attention_lengthaware", "flash_attention")
+    counts, summary = serve_full(dev, cfg, params, "full e2e fixed-lane",
+                                 need)
+    per_step = counts["decode_attention_lengthaware"] / summary["decode_steps"]
+    print(f"[full e2e fixed-lane] K3 launches per decode step: {per_step}")
+    if per_step != cfg.n_layers:
+        fail(f"K3 launched {per_step} times per decode step, not "
+             f"{cfg.n_layers}")
+    # the same traffic sampled at temperature 0.8: every budget finishes
+    # inside the vocabulary (serve_full checks both)
+    _, sampled = serve_full(dev, cfg, params, "full e2e fixed-lane t=0.8",
+                            need, temperature=0.8, rng_seed=SEED)
+    summary["temperature_0.8"] = sampled
     return counts, summary
 
 
@@ -271,7 +389,8 @@ def phase_timings(dev):
     import torch
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import (
-        decode_attention_paged, decode_attention_paged_ref)
+        decode_attention, decode_attention_paged, decode_attention_paged_ref,
+        decode_attention_ref)
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     rows = {}
@@ -302,6 +421,27 @@ def phase_timings(dev):
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),
         bytes=k2_bytes, flops=k2_flops)
+    # K3 / K6a: bf16, fixed-lane path shapes (S = 1024)
+    q, k, v, lens = dense_inputs(torch.bfloat16, dev)
+    b, hkv, s, d = k.shape
+    h = q.shape[1]
+    n_live = int(lens.to(torch.int64).sum().item())
+    io_bytes = 2 * q.numel() * 2 + 4 * lens.numel()     # q, out, lens
+    live = lens >= 1                                    # SDPA: no dead lane
+    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[live]
+    mask = mask[:, None, None, :].contiguous()
+    ql, kl, vl = q[live][:, :, None].contiguous(), k[live], v[live]
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=mask, enable_gqa=True))
+    for name, la, n_pos in (("decode_attention_lengthaware", True, n_live),
+                            ("decode_attention_masked", False, b * s)):
+        rows[name] = dict(
+            ms=time_ms(lambda: decode_attention(q, k, v, lens,
+                                                length_aware=la)),
+            plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, lens)),
+            library_ms=sdpa_ms,
+            bytes=2 * n_pos * hkv * d * 2 + io_bytes,
+            flops=4 * n_pos * h * d)
     for name, r in rows.items():
         t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
         t_ops = 1e3 * r["flops"] / BF16_FLOPS_PER_S
@@ -332,32 +472,48 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
-    k1_err = phase_k1(dev)
-    k2_err = phase_k2(dev)
+    errs = {"decode_attention_paged": phase_k1(dev),
+            "flash_attention": phase_k2(dev)}
+    errs.update(phase_dense(dev))
     phase_smoke_e2e(dev)
-    counts, e2e = phase_full_e2e(dev)
+    cfg, params = init_full(dev)
+    paged_counts, paged_e2e = phase_full_paged(dev, cfg, params)
+    fixed_counts, fixed_e2e = phase_full_fixed(dev, cfg, params)
+    del params
     rows = phase_timings(dev)
 
     replaces = {
         "decode_attention_paged":
             "src/repro/kernels/decode_attention/kernel.py:322",
         "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
+        "decode_attention_lengthaware":
+            "src/repro/kernels/decode_attention/kernel.py:205",
+        "decode_attention_masked":
+            "src/repro/kernels/decode_attention/kernel.py:98",
     }
-    errs = {"decode_attention_paged": k1_err, "flash_attention": k2_err}
+    sources = {"decode_attention_lengthaware": "decode_attention_dense",
+               "decode_attention_masked": "decode_attention_dense"}
+    # each kernel's launches come from the main-path run that drives it:
+    # K1 from the paged serve, K2 and K3 from the fixed-lane (default)
+    # serve; K6a is on no serving path and reports that run's count, 0
+    launches = dict(fixed_counts)
+    launches["decode_attention_paged"] = paged_counts["decode_attention_paged"]
     kernels = []
-    for name in ("decode_attention_paged", "flash_attention"):
+    for name in ("decode_attention_paged", "flash_attention",
+                 "decode_attention_lengthaware", "decode_attention_masked"):
         r = rows[name]
         err_bf16, tol_bf16 = errs[name]["bfloat16"]
         err_f32, tol_f32 = errs[name]["float32"]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": counts[name],
+            "source": f"src/repro_torch/csrc/{sources.get(name, name)}.cu",
+            "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": err_bf16, "tol": tol_bf16,
             "max_abs_err_f32": err_f32, "tol_f32": tol_f32,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"], "bytes": r["bytes"]})
+    e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e}
     print(f"[e2e] {json.dumps(e2e)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())

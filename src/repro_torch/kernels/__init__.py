@@ -14,7 +14,10 @@ from repro_torch.kernels.flash_attention import ops as _flash_ops
 
 __all__ = ["COUNTERS", "launch_counts", "reset_launch_counts"]
 
-COUNTERS = {c.name: c for c in (_decode_ops.COUNTER, _flash_ops.COUNTER)}
+COUNTERS = {c.name: c for c in (_decode_ops.COUNTER,
+                                _decode_ops.COUNTER_LENGTHAWARE,
+                                _decode_ops.COUNTER_MASKED,
+                                _flash_ops.COUNTER)}
 
 
 def launch_counts() -> Dict[str, int]:

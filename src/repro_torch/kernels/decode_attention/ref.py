@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of paged decode attention (the reference's
-``kernels/decode_attention/ref.py`` oracles)."""
+"""Plain PyTorch versions of dense and paged decode attention (the
+reference's ``kernels/decode_attention/ref.py`` oracles)."""
 
 from __future__ import annotations
 
@@ -10,7 +10,8 @@ def decode_attention_ref(q, k, v, kv_lengths, *, scale=None):
     """q: (B, H, D); k/v: (B, Hkv, S, D); kv_lengths: (B,).
 
     GQA is computed grouped (q viewed as (B, Hkv, G, D)); float32
-    softmax; a lane with no live key outputs 0.
+    softmax over the positions ``< kv_lengths[b]``; a lane with no live
+    key outputs 0.  The plain version of both K3 and K6a.
     """
     b, h, d = q.shape
     _, hkv, sk, _ = k.shape

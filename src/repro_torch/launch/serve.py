@@ -1,10 +1,12 @@
-"""Serving launcher: paged continuous batching on synthetic prompts.
+"""Serving launcher: continuous batching on synthetic prompts.
 
-``python -m repro_torch.launch.serve --arch qwen2.5-1.5b --paged
---page-size 16 --requests N --prompt-len P --gen G --lanes B [--smoke]
+``python -m repro_torch.launch.serve --arch qwen2.5-1.5b [--paged
+--page-size 16] --requests N --prompt-len P --gen G --lanes B [--smoke]
 [--device cuda|cpu]`` builds seeded random weights, serves N requests of
-P prompt tokens and G generated tokens each, and prints tokens/s with
-the prefill/decode split.  Runs on ``cuda`` unless ``--device cpu``.
+P prompt tokens and G generated tokens each through the fixed-lane
+engine (the default) or, with ``--paged``, the page-pool engine, and
+prints tokens/s with the prefill/decode split.  Runs on ``cuda`` unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -29,8 +31,7 @@ def main(argv=None):
     ap.add_argument("--arch", default="qwen2.5-1.5b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--paged", action="store_true",
-                    help="serve over the page-pool KV cache (the only "
-                         "layout this port serves so far)")
+                    help="serve over the page-pool KV cache")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -43,8 +44,6 @@ def main(argv=None):
                          "Chrome trace here and print device time by "
                          "kernel")
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("the fixed-lane engine is not ported yet: pass --paged")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -57,11 +56,12 @@ def main(argv=None):
                 max_new_tokens=args.gen)
             for i in range(args.requests)]
     max_len = args.prompt_len + args.gen + 8
-    max_len = -(-max_len // args.page_size) * args.page_size
+    if args.paged:                 # cache capacity is page granular
+        max_len = -(-max_len // args.page_size) * args.page_size
 
     def make_engine():
         return ServeEngine(cfg, params, n_lanes=args.lanes, max_len=max_len,
-                           paged=True, page_size=args.page_size,
+                           paged=args.paged, page_size=args.page_size,
                            device=device, timed=args.profile is None)
 
     # one untimed request first: kernel build/load and library set-up

@@ -1,13 +1,14 @@
-"""GQA attention with RoPE: prompt forward (flash, K2) and paged decode
-step (block-table decode, K1).  Port of the reference's
-``models/attention.py`` dense paths."""
+"""GQA attention with RoPE: prompt forward (flash, K2), dense decode step
+(length-aware decode, K3) and paged decode step (block-table decode,
+K1).  Port of the reference's ``models/attention.py`` dense paths."""
 
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.kernels.decode_attention import decode_attention_paged
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_paged)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (ModelConfig, apply_rope, frozen,
                                        rope_angles)
@@ -69,6 +70,43 @@ def attention_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     if return_kv:
         return out, (kt, vt)
     return out
+
+
+def check_fp_kv(cfg: ModelConfig) -> None:
+    """The port's caches hold the compute dtype; int8 KV is M6."""
+    if cfg.kv_quant is not None:
+        raise ValueError(f"{cfg.name}: kv_quant={cfg.kv_quant!r} is not "
+                         "ported yet, it comes with M6 (int8 KV cache)")
+
+
+def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: torch.Tensor):
+    """Single-token decode against a dense per-lane cache.
+
+    x: (B, 1, d); k_cache/v_cache: (B, Hkv, Smax, D), one layer's slice
+    of the stacked cache; cache_len: (B,) int32.  The new token's K/V go
+    to ring slot ``len mod Smax`` of each lane IN PLACE (the reference
+    returns updated caches; the port saves the copy and returns the same
+    tensors).  A full-context cache never wraps (the engine caps the
+    length below Smax); a sliding-window cache rotates in it.
+    """
+    check_fp_kv(cfg)
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg)
+    cos, sin = rope_angles(cache_len[:, None], cfg.hd, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)[:, 0].contiguous()
+    k = apply_rope(k, cos, sin)[:, 0]
+    v = v[:, 0]
+    smax = k_cache.shape[2]
+    slot = (cache_len % smax).long()
+    lanes = torch.arange(b, device=x.device)
+    k_cache[lanes, :, slot] = k.to(k_cache.dtype)
+    v_cache[lanes, :, slot] = v.to(v_cache.dtype)
+    eff_len = torch.clamp(cache_len + 1, max=smax).to(torch.int32)
+    out = decode_attention(q, k_cache, v_cache, eff_len)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
+    return torch.matmul(out, p.wo), k_cache, v_cache
 
 
 def attention_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,

@@ -46,6 +46,7 @@ class ModelConfig:
     max_seq_len: int = 131072
     sliding_window: Optional[int] = None
     dtype: str = "bfloat16"
+    kv_quant: Optional[str] = None  # "int8" comes with M6; fp only here
 
     @property
     def hd(self) -> int:

@@ -26,6 +26,11 @@ class Model:
         return transformer.lm_prefill_batched(params, tokens, self.cfg,
                                               last_pos=last_pos)
 
+    def init_cache(self, batch: int, max_len: int, *,
+                   device: torch.device):
+        return transformer.init_cache(self.cfg, batch, max_len,
+                                      device=device)
+
     def init_paged_cache(self, batch: int, max_len: int, *,
                          page_size: int = 16, n_pages: Optional[int] = None,
                          device: torch.device):
@@ -36,12 +41,13 @@ class Model:
     def decode_step(self, params, cache, tokens):
         return transformer.lm_decode_step(params, self.cfg, cache, tokens)
 
-    def decode_n_steps(self, params, cache, tokens, remaining, tok_idx, *,
-                       n_steps: int, temperature: float = 0.0,
-                       len_cap: int = 0):
+    def decode_n_steps(self, params, cache, tokens, rng, remaining,
+                       lane_seed, tok_idx, *, n_steps: int,
+                       temperature: float = 0.0, len_cap: int = 0):
         return transformer.lm_decode_n_steps(
-            params, self.cfg, cache, tokens, remaining, tok_idx,
-            n_steps=n_steps, temperature=temperature, len_cap=len_cap)
+            params, self.cfg, cache, tokens, rng, remaining, lane_seed,
+            tok_idx, n_steps=n_steps, temperature=temperature,
+            len_cap=len_cap)
 
 
 def build_model(cfg: ModelConfig) -> Model:

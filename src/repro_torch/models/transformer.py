@@ -1,11 +1,12 @@
-"""Dense decoder-only LM: prompt prefill, paged cache, decode step and the
-multi-step decode dispatch.  Port of the reference's
-``models/transformer.py`` for the dense family.
+"""Dense decoder-only LM: prompt prefill, dense and paged caches, decode
+step, on-device sampling and the multi-step decode dispatch.  Port of
+the reference's ``models/transformer.py`` for the dense family.
 
 The reference stacks layers along a leading axis and runs them with
 ``lax.scan``; here each layer is its own module in a ``ModuleList`` and
-a Python loop walks them.  The paged KV pool keeps the reference layout
-``(L, P, Hkv, ps, D)`` and is updated in place.
+a Python loop walks them.  Both caches keep the reference layouts --
+dense ``(L, B, Hkv, S, D)``, paged pool ``(L, P, Hkv, ps, D)`` -- and are
+updated in place.
 """
 
 from __future__ import annotations
@@ -15,18 +16,17 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch import rng as trng
 from repro_torch.analysis.invariants import invariant
-from repro_torch.models.attention import (Attention, attention_decode_paged,
-                                          attention_forward)
+from repro_torch.models.attention import (Attention, attention_decode,
+                                          attention_decode_paged,
+                                          attention_forward, check_fp_kv)
 from repro_torch.models.common import (Embedding, ModelConfig, RMSNorm,
                                        apply_norm, dense_init, embed,
                                        lm_logits)
 from repro_torch.models.mlp import SwiGLU, swiglu
 
 Cache = Dict[str, torch.Tensor]
-
-#: the ROADMAP slice that brings temperature sampling (threefry parity)
-RNG_SLICE = "M4 (sampling RNG parity: threefry fold_in/categorical)"
 
 
 def check_dense(cfg: ModelConfig) -> None:
@@ -35,6 +35,7 @@ def check_dense(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with norm "
                          f"{cfg.norm!r} is not ported yet (dense rmsnorm "
                          "decoders only)")
+    check_fp_kv(cfg)
 
 
 # ----------------------------------------------------------------------
@@ -126,14 +127,28 @@ def lm_prefill_batched(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 # ----------------------------------------------------------------------
-# Paged KV cache + decode
+# KV caches + decode
 # ----------------------------------------------------------------------
 
 def paged_capacity(max_len: int, cfg: ModelConfig) -> int:
-    """Positions one lane's block table must back: the window if the
-    config slides, else the full context."""
+    """Positions one lane's cache (dense row or block table) must back:
+    the window if the config slides, else the full context."""
     win = cfg.sliding_window
     return min(max_len, win) if win else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: torch.device) -> Cache:
+    """Dense per-lane decode cache: ``k``/``v`` (L, B, Hkv, S, D) in the
+    compute dtype with ``S = min(max_len, window)``, and ``len`` (B,)
+    int32."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads,
+             paged_capacity(max_len, cfg), cfg.hd)
+    return {
+        "len": torch.zeros(batch, dtype=torch.int32, device=device),
+        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+    }
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -164,13 +179,22 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def block_decode(p: Block, x: torch.Tensor, cfg: ModelConfig,
-                 k_pages: torch.Tensor, v_pages: torch.Tensor,
-                 block_tables: torch.Tensor,
-                 cache_len: torch.Tensor) -> torch.Tensor:
-    """One-token decode through one block. x: (B, 1, d)."""
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 cache_len: torch.Tensor,
+                 block_tables: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """One-token decode through one block. x: (B, 1, d).
+
+    ``block_tables`` (B, T) selects the paged path (``k_cache``/
+    ``v_cache`` are this layer's pools); without it they are this
+    layer's dense per-lane caches."""
     h = apply_norm(p.norm1, x)
-    att, _, _ = attention_decode_paged(p.attn, h, cfg, k_pages, v_pages,
-                                       block_tables, cache_len)
+    if block_tables is None:
+        att, _, _ = attention_decode(p.attn, h, cfg, k_cache, v_cache,
+                                     cache_len)
+    else:
+        att, _, _ = attention_decode_paged(p.attn, h, cfg, k_cache, v_cache,
+                                           block_tables, cache_len)
     x = x + att
     h2 = apply_norm(p.norm2, x)
     return x + swiglu(p.mlp, h2)
@@ -181,14 +205,17 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
                    tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """tokens: (B,) -> (logits (B, V) float32, cache).
 
-    Each layer writes its new K/V into its slice of the pools in place;
-    the returned cache holds the same pool tensors and ``len + 1``."""
+    A cache with ``block_tables`` is paged, one without is dense (as the
+    reference's ``_attn_decode`` decides).  Each layer writes its new
+    K/V into its slice of the cache in place; the returned cache holds
+    the same tensors and ``len + 1``."""
     x = embed(params.embed, tokens[:, None])
     cache_len = cache["len"]
-    bt = cache["block_tables"]
+    bt = cache.get("block_tables")
+    k_all, v_all = ((cache["k"], cache["v"]) if bt is None
+                    else (cache["k_pages"], cache["v_pages"]))
     for i, blk in enumerate(params.blocks):
-        x = block_decode(blk, x, cfg, cache["k_pages"][i],
-                         cache["v_pages"][i], bt, cache_len)
+        x = block_decode(blk, x, cfg, k_all[i], v_all[i], cache_len, bt)
     x = apply_norm(params.final_norm, x)
     logits = lm_logits(params.embed, x[:, 0], cfg)
     new_cache = dict(cache)
@@ -196,37 +223,75 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
     return logits, new_cache
 
 
+def sample_tokens(logits: torch.Tensor, key: torch.Tensor,
+                  temperature: float) -> torch.Tensor:
+    """On-device greedy/temperature sampling. logits (B, V) -> (B,) int32.
+
+    ``key`` is one threefry key (2,) for the whole batch, or (B, 2) keys,
+    one per lane (the reference's ``sample_tokens_lanes``): each lane
+    then draws with its own key, so a request's stream depends only on
+    its key lineage and token index."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return trng.categorical(key, logits / temperature).to(torch.int32)
+
+
+#: per-lane keys need no separate code path: ``categorical`` batches
+#: over the leading axes of its key
+sample_tokens_lanes = sample_tokens
+
+
 @torch.no_grad()
 def lm_decode_n_steps(params: LM, cfg: ModelConfig, cache: Cache,
-                      tokens: torch.Tensor, remaining: torch.Tensor,
+                      tokens: torch.Tensor, rng: torch.Tensor,
+                      remaining: torch.Tensor, lane_seed: torch.Tensor,
                       tok_idx: torch.Tensor, *, n_steps: int,
                       temperature: float = 0.0, len_cap: int = 0):
-    """Advance every lane ``n_steps`` greedy tokens with no host sync.
+    """Advance every lane ``n_steps`` tokens with no host sync.
+
+    Each lane samples with key ``fold_in(fold_in(rng, lane_seed),
+    tok_idx)`` -- ``lane_seed`` is the request's admission index,
+    ``tok_idx`` its generated-token count -- so a request's stream is a
+    function of its own identity only.  A live lane's token index at
+    step ``j`` is ``tok_idx + j`` (a lane that runs out stays out, and
+    its samples are discarded), so the Gumbel noise of all ``n_steps``
+    is drawn in one batch before the loop: the same draws the
+    reference's per-step ``sample_tokens_lanes`` makes, with one
+    threefry pass per dispatch instead of one per step (each pass is a
+    few hundred small elementwise launches).  Greedy decoding draws
+    none.
 
     ``remaining`` (B,) int32 is each lane's generation budget; exhausted
-    lanes keep stepping (their writes land on pages the engine points at
-    a scratch page) but their samples are flagged invalid, their token
-    index stops advancing and their cache length is frozen.
-    ``len_cap`` > 0 zeroes the budget once the length reaches it (the
-    engine passes ``max_len - 1``).  Same semantics as the reference's
-    ``lm_decode_n_steps``; greedy only.
+    lanes keep stepping (their writes land where no live lane reads) but
+    their samples are flagged invalid, their token index stops advancing
+    and their cache length is frozen.  ``len_cap`` > 0 zeroes the budget
+    once the length reaches it (the engine passes ``max_len - 1``).
+    Same semantics as the reference's ``lm_decode_n_steps``.
 
     Returns (tokens (n, B) int32, valid (n, B) bool, next_tokens (B,),
     cache, remaining, tok_idx), all on the device.
     """
-    if temperature > 0.0:
-        raise ValueError(f"temperature sampling is not ported yet: it "
-                         f"comes with {RNG_SLICE}")
     b = tokens.shape[0]
     toks = torch.empty((n_steps, b), dtype=torch.int32, device=tokens.device)
     valid = torch.empty((n_steps, b), dtype=torch.bool, device=tokens.device)
+    sampling = temperature > 0.0
+    if sampling:
+        steps = torch.arange(n_steps, dtype=torch.int32,
+                             device=tokens.device)[:, None]
+        keys = trng.fold_in(trng.fold_in(rng, lane_seed)[None],
+                            tok_idx[None] + steps)           # (n, B, 2)
+        noise = trng.gumbel(keys, (cfg.padded_vocab,))      # (n, B, V)
     tok, rem, idx = tokens, remaining, tok_idx
     for step in range(n_steps):
         live = rem > 0
         len_before = cache["len"]
         logits, cache = lm_decode_step(params, cfg, cache, tok)
         cache["len"] = torch.where(live, cache["len"], len_before)
-        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        if sampling:    # sample_tokens_lanes with this step's noise
+            tok = torch.argmax(noise[step] + logits / temperature,
+                               dim=-1).to(torch.int32)
+        else:
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
         rem = torch.where(live, rem - 1, torch.zeros_like(rem))
         if len_cap > 0:
             rem = torch.where(cache["len"] >= len_cap,

@@ -1,22 +1,32 @@
-"""Serving engine: continuous batching over a paged KV cache.
+"""Serving engine: continuous batching over a fixed-lane or paged KV
+cache.
 
-Port of the reference's ``serving/engine.py`` paged path
-(``ServeEngine(paged=True)``), greedy decoding only:
+Port of the reference's ``serving/engine.py``, both cache layouts:
 
-* KV lives in a global page pool governed by :class:`PagePool`; each
-  lane holds a block table of page ids.  Admission is gated on free
-  PAGES (reserved for the request's worst case), pages are mapped at
-  admission and at dispatch boundaries and freed at retirement;
+* **fixed-lane** (default, the reference's parity oracle): the cache is
+  ``n_lanes x max_len`` from construction; admission needs a free lane;
+* **paged** (``paged=True``): KV lives in a global page pool governed by
+  :class:`PagePool`; each lane holds a block table of page ids.
+  Admission is gated on free PAGES (reserved for the request's worst
+  case), pages are mapped at admission and at dispatch boundaries and
+  freed at retirement; a dead lane's block-table row points at a
+  scratch page the allocator never hands out.
+
+On both:
+
 * ``prefill`` pads prompts to power-of-two buckets, keeps the tail of
   prompts longer than ``max_len - 1`` and scatters the prompt KV into
-  the lane's pages;
+  the lane's row or pages;
 * ``decode_n`` advances every lane ``dispatch_n`` tokens per dispatch
   with no host sync inside; one host transfer drains the block;
-* a dead lane keeps stepping inside the batch: its block-table row
-  points at a scratch page the allocator never hands out.
+* greedy or temperature sampling on the device, keyed as the reference
+  keys it (threefry, :mod:`repro_torch.rng`): the first token by
+  ``fold_in(rng_prefill, admission index)``, later ones by
+  ``fold_in(fold_in(rng_decode, lane_seed), tok_idx)``, so a stream
+  does not depend on dispatch size, neighbours or layout.
 
-Prefix sharing, int8 KV, evict/restore, temperature sampling and the
-telemetry hooks come in later slices.
+Prefix sharing, int8 KV, evict/restore and the telemetry hooks come in
+later slices.
 """
 
 from __future__ import annotations
@@ -29,11 +39,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import rng as trng
 from repro_torch.analysis.invariants import invariant
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import RNG_SLICE, paged_capacity
+from repro_torch.models.transformer import paged_capacity, sample_tokens
 from repro_torch.serving.resilience import AdmissionRejected
 
 __all__ = ["PagePool", "Request", "ServeEngine", "STATS_KEYS"]
@@ -148,13 +159,16 @@ STATS_KEYS = ("decode_dispatches", "decode_steps", "generated_tokens",
 
 
 class ServeEngine:
-    """Paged continuous batcher around the dense decoder (greedy).
+    """Continuous batcher around the dense decoder.
 
-    ``n_lanes`` bounds the decode batch width, ``n_pages`` bounds KV
-    bytes (default: ``n_lanes`` full contexts).  ``dispatch_n`` is the
-    number of tokens each lane advances per dispatch.  ``stats`` holds
-    the counters named in :data:`STATS_KEYS`; ``prefill_compiles`` counts
-    distinct prefill buckets (the reference compiles once per bucket).
+    ``n_lanes`` bounds the decode batch width; with ``paged=True``,
+    ``n_pages`` bounds KV bytes (default: ``n_lanes`` full contexts).
+    ``dispatch_n`` is the number of tokens each lane advances per
+    dispatch.  ``temperature`` > 0 samples, keyed from ``rng_seed``;
+    ``prefill_bucketing=False`` prefills each prompt at its own length.
+    ``stats`` holds the counters named in :data:`STATS_KEYS`;
+    ``prefill_compiles`` counts distinct prefill shapes (the reference
+    compiles once per shape).
 
     ``timed=True`` synchronises the device around each prefill and each
     decode dispatch and records host-clock seconds in ``timings``
@@ -164,16 +178,10 @@ class ServeEngine:
 
     def __init__(self, cfg: ModelConfig, params, n_lanes: int = 4,
                  max_len: int = 512, temperature: float = 0.0,
-                 dispatch_n: int = 8, paged: bool = True, page_size: int = 16,
-                 n_pages: Optional[int] = None, device=None,
-                 timed: bool = False):
-        if temperature > 0.0:
-            raise ValueError(f"temperature={temperature}: temperature "
-                             f"sampling is not ported yet, it comes with "
-                             f"{RNG_SLICE}")
-        if not paged:
-            raise ValueError("the fixed-lane engine (paged=False) is not "
-                             "ported yet; this slice serves paged=True")
+                 rng_seed: int = 0, dispatch_n: int = 8,
+                 prefill_bucketing: bool = True, paged: bool = False,
+                 page_size: int = 16, n_pages: Optional[int] = None,
+                 device=None, timed: bool = False):
         self.device = resolve_device(device)
         param_dev = next(params.parameters()).device
         if param_dev.type != self.device.type:
@@ -184,34 +192,50 @@ class ServeEngine:
         self.params = params
         self.n_lanes = n_lanes
         self.max_len = max_len
+        self.temperature = float(temperature)
         self.dispatch_n = max(1, dispatch_n)
+        self.prefill_bucketing = prefill_bucketing
+        self.paged = bool(paged)
         self.page_size = int(page_size)
-        self._bt_width = paged_capacity(max_len, cfg) // page_size
-        if n_pages is None:
-            n_pages = n_lanes * self._bt_width
-        invariant(n_pages >= self._bt_width, (
-            "page pool smaller than one full context: no request "
-            "could ever be admitted"), n_pages=n_pages,
-            bt_width=self._bt_width)
-        self.pool = PagePool(n_pages, page_size)
-        # one extra physical page the allocator never hands out: a DEAD
-        # lane still steps inside the batch and writes its (frozen) slot
-        # through its block table -- pointing dead rows at the scratch
-        # page keeps that write off pages re-issued to a live lane
-        self._scratch_page = n_pages
-        self.cache = self.model.init_paged_cache(
-            n_lanes, max_len, page_size=page_size, n_pages=n_pages + 1,
-            device=self.device)
-        self.cache["block_tables"].fill_(self._scratch_page)
+        if self.paged:
+            self._bt_width = paged_capacity(max_len, cfg) // page_size
+            if n_pages is None:
+                n_pages = n_lanes * self._bt_width
+            invariant(n_pages >= self._bt_width, (
+                "page pool smaller than one full context: no request "
+                "could ever be admitted"), n_pages=n_pages,
+                bt_width=self._bt_width)
+            self.pool: Optional[PagePool] = PagePool(n_pages, page_size)
+            # one extra physical page the allocator never hands out: a
+            # DEAD lane still steps inside the batch and writes its
+            # (frozen) slot through its block table -- pointing dead
+            # rows at the scratch page keeps that write off pages
+            # re-issued to a live lane
+            self._scratch_page = n_pages
+            self.cache = self.model.init_paged_cache(
+                n_lanes, max_len, page_size=page_size, n_pages=n_pages + 1,
+                device=self.device)
+            self.cache["block_tables"].fill_(self._scratch_page)
+        else:
+            self._bt_width = 0
+            self.pool = None
+            self.cache = self.model.init_cache(n_lanes, max_len,
+                                               device=self.device)
         self._lane_pages: List[List[int]] = [[] for _ in range(n_lanes)]
         self._lane_reserved = [0] * n_lanes
         self._blocked_uids: set = set()
         self._len_host = np.zeros((n_lanes,), np.int64)
         self.lane_req: List[Optional[Request]] = [None] * n_lanes
         dev = self.device
+        base = trng.PRNGKey(rng_seed, device=dev)
+        self._rng_decode = trng.fold_in(base, 0)
+        self._rng_prefill = trng.fold_in(base, 1)
         self._next_token = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         self._remaining = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         self._remaining_host = np.zeros((n_lanes,), np.int64)
+        # per-lane sampling identity: the admission index seeds the
+        # lane's key lineage, tok_idx counts its generated tokens
+        self._lane_seed = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         self._tok_idx = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         self._admit_count = 0
         self._buckets: set = set()
@@ -233,7 +257,8 @@ class ServeEngine:
 
     def _pages_needed(self, positions: int) -> int:
         """Pages backing ``positions`` cache slots (capped at the table
-        width: a sliding-window lane rotates within its page set)."""
+        width: a sliding-window lane rotates within its page set; 0 on
+        the fixed-lane layout, whose width is 0)."""
         ps = self.page_size
         return min(-(-int(positions) // ps), self._bt_width)
 
@@ -256,25 +281,35 @@ class ServeEngine:
                     self.max_len)
         return self._pages_needed(worst)
 
+    def can_admit(self, req: Request) -> bool:
+        if not self.free_lanes():
+            return False
+        if not self.paged:
+            return True
+        return self.admission_pages(req) <= self.pool.available()
+
     def admit(self, req: Request) -> bool:
         lanes = self.free_lanes()
         if not lanes:
             return False
         lane = lanes[0]
-        need = self.admission_pages(req)
-        if not self.pool.reserve(need):
-            # a lane is free but the KV bytes are not; counted once per
-            # blocked episode, not per retry
-            if req.uid not in self._blocked_uids:
-                self._blocked_uids.add(req.uid)
-                self.stats["kv_admit_blocked"] += 1
-            return False
-        self._blocked_uids.discard(req.uid)
-        self._lane_reserved[lane] = need
-        self._lane_pages[lane] = []
-        # map the prompt's pages plus the first decode write slot;
-        # generation growth maps the rest at dispatch boundaries
-        self._map_pages(lane, self._pages_needed(self._trunc_plen(req) + 1))
+        if self.paged:
+            need = self.admission_pages(req)
+            if not self.pool.reserve(need):
+                # a lane is free but the KV bytes are not; counted once
+                # per blocked episode, not per retry
+                if req.uid not in self._blocked_uids:
+                    self._blocked_uids.add(req.uid)
+                    self.stats["kv_admit_blocked"] += 1
+                return False
+            self._blocked_uids.discard(req.uid)
+            self._lane_reserved[lane] = need
+            self._lane_pages[lane] = []
+            # map the prompt's pages plus the first decode write slot;
+            # generation growth maps the rest at dispatch boundaries
+            self._map_pages(lane,
+                            self._pages_needed(self._trunc_plen(req) + 1))
+        self._lane_seed[lane] = self._admit_count
         self._tok_idx[lane] = 0
         self._prefill_into_lane(req, lane)
         self.lane_req[lane] = req
@@ -301,7 +336,7 @@ class ServeEngine:
         prompt = self._trunc_prompt(req)
         plen = int(prompt.shape[0])
         self._len_host[lane] = plen
-        bucket = _bucket_len(plen)
+        bucket = _bucket_len(plen) if self.prefill_bucketing else plen
         if bucket not in self._buckets:
             self._buckets.add(bucket)
             self.stats["prefill_compiles"] = len(self._buckets)
@@ -313,28 +348,48 @@ class ServeEngine:
         logits, kv = self.model.prefill(
             self.params, torch.from_numpy(padded).to(self.device),
             last_pos=torch.tensor([plen - 1], device=self.device))
-        self._scatter_prompt_paged(kv, lane, plen)
+        if self.paged:
+            self._scatter_prompt_paged(kv, lane, plen)
+        else:
+            self._scatter_prompt_dense(kv, lane, plen)
         self.cache["len"][lane] = plen
         self._set_first_token(logits, lane)
         if self.timed:
             self._sync()
             self.timings["prefill"][bucket].append(time.perf_counter() - t0)
 
-    def _scatter_prompt_paged(self, kv, lane: int, plen: int) -> None:
-        """Write the prompt KV into the lane's mapped pages: the last
-        ``take = min(plen, capacity)`` positions, placed at their ring
-        slots (``slot = position mod capacity``), in one indexed copy."""
+    @staticmethod
+    def _prompt_kv_views(kv, plen: int, smax: int):
+        """Last ``take = min(plen, smax)`` prompt positions of the
+        prefill KV (each (L, Hkv, take, D)), placed at their ring slots
+        (``slot = position mod smax``), so the decode step's ring write
+        (same formula) evicts the true oldest position.  fp only: int8
+        KV is M6."""
         k, v = kv                       # (L, 1, Hkv, S_bucket, D)
-        ps = self.page_size
-        cap = ps * self._bt_width
-        take = min(plen, cap)
+        take = min(plen, smax)
         k = k[:, 0, :, plen - take:plen]
         v = v[:, 0, :, plen - take:plen]
-        if take == cap:
-            shift = plen % cap
+        if take == smax:
+            shift = plen % smax
             if shift:
                 k = torch.roll(k, shift, dims=2)
                 v = torch.roll(v, shift, dims=2)
+        return k, v, take
+
+    def _scatter_prompt_dense(self, kv, lane: int, plen: int) -> None:
+        """Write the prompt KV into slots ``[0, take)`` of the lane's row
+        of the dense cache (positions past ``take`` keep stale values
+        that no read reaches)."""
+        k, v, take = self._prompt_kv_views(kv, plen, self.cache["k"].shape[3])
+        for src, key in ((k, "k"), (v, "v")):
+            dst = self.cache[key]
+            dst[:, lane, :, :take] = src.to(dst.dtype)
+
+    def _scatter_prompt_paged(self, kv, lane: int, plen: int) -> None:
+        """Write the prompt KV into the lane's mapped pages, in one
+        indexed copy per pool."""
+        ps = self.page_size
+        k, v, take = self._prompt_kv_views(kv, plen, ps * self._bt_width)
         n_pg = -(-take // ps)
         pad = n_pg * ps - take
         pages = torch.tensor(self._lane_pages[lane][:n_pg],
@@ -348,8 +403,11 @@ class ServeEngine:
             pool[:, pages] = seg.to(pool.dtype)
 
     def _set_first_token(self, logits: torch.Tensor, lane: int) -> None:
+        key = (trng.fold_in(self._rng_prefill, self._admit_count)
+               if self.temperature > 0.0 else None)
         self._admit_count += 1
-        self._next_token[lane] = torch.argmax(logits[0]).to(torch.int32)
+        self._next_token[lane] = sample_tokens(logits, key,
+                                               self.temperature)[0]
 
     # -- stepping ----------------------------------------------------------
     def _dispatch_size(self, n: Optional[int]) -> int:
@@ -369,19 +427,22 @@ class ServeEngine:
         if not live:
             return {}
         n = self._dispatch_size(n)
-        # map the pages this block can write into BEFORE the dispatch;
-        # the admission-time reservation makes this infallible
-        for lane in live:
-            steps = min(n, int(self._remaining_host[lane]))
-            self._map_pages(lane, self._pages_needed(
-                int(self._len_host[lane]) + steps + 1))
+        if self.paged:
+            # map the pages this block can write into BEFORE the
+            # dispatch; the admission-time reservation makes this
+            # infallible
+            for lane in live:
+                steps = min(n, int(self._remaining_host[lane]))
+                self._map_pages(lane, self._pages_needed(
+                    int(self._len_host[lane]) + steps + 1))
         if self.timed:
             self._sync()
             t0 = time.perf_counter()
         (toks, valid, self._next_token, self.cache, self._remaining,
          self._tok_idx) = self.model.decode_n_steps(
-            self.params, self.cache, self._next_token, self._remaining,
-            self._tok_idx, n_steps=n, len_cap=self.max_len - 1)
+            self.params, self.cache, self._next_token, self._rng_decode,
+            self._remaining, self._lane_seed, self._tok_idx, n_steps=n,
+            temperature=self.temperature, len_cap=self.max_len - 1)
         self.stats["decode_dispatches"] += 1
         self.stats["decode_steps"] += n
         # one host transfer drains the whole block
@@ -407,22 +468,28 @@ class ServeEngine:
         return out
 
     def _release_lane(self, lane: int) -> None:
-        """Return a lane to the DEAD state: zero its length, drop its
-        pages and reservation, and point its block-table row at the
-        scratch page (its old page ids may be re-issued while the dead
-        lane keeps stepping)."""
+        """Return a lane to the DEAD state: zero its length (so the
+        length-aware kernel reads nothing of the stale context); when
+        paged, drop its pages and reservation and point its block-table
+        row at the scratch page (its old page ids may be re-issued while
+        the dead lane keeps stepping)."""
         self.lane_req[lane] = None
         self.cache["len"][lane] = 0
         self._len_host[lane] = 0
-        self.pool.free(self._lane_pages[lane])
-        self.pool.unreserve(self._lane_reserved[lane])
-        self._lane_pages[lane] = []
-        self._lane_reserved[lane] = 0
-        self.cache["block_tables"][lane] = self._scratch_page
+        if self.paged:
+            self.pool.free(self._lane_pages[lane])
+            self.pool.unreserve(self._lane_reserved[lane])
+            self._lane_pages[lane] = []
+            self._lane_reserved[lane] = 0
+            self.cache["block_tables"][lane] = self._scratch_page
 
     def lane_pages(self, lane: int) -> List[int]:
         """Page ids mapped by ``lane``'s block table, in logical order."""
         return list(self._lane_pages[lane])
+
+    def decode_step(self) -> Dict[int, int]:
+        """Single-token wrapper; returns {uid: token}."""
+        return {uid: seq[0] for uid, seq in self.decode_n(1).items() if seq}
 
     def _never_admissible(self, head: Request) -> AdmissionRejected:
         """Terminal refusal: the head request was refused with NOTHING in
@@ -430,8 +497,9 @@ class ServeEngine:
         self.stats["admit_rejected"] += 1
         return AdmissionRejected(
             uid=head.uid, reason="never_admissible", retry_after_s=None,
-            need_pages=self.admission_pages(head),
-            pool_pages=self.pool.n_pages, n_lanes=self.n_lanes)
+            need_pages=(self.admission_pages(head) if self.paged else None),
+            pool_pages=(self.pool.n_pages if self.paged else None),
+            n_lanes=self.n_lanes)
 
     def run(self, requests: List[Request],
             dispatch_n: Optional[int] = None) -> List[Request]:

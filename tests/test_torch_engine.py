@@ -25,6 +25,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.device import DeviceUnavailable  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.models import LM  # noqa: E402
 from repro_torch.serving import (STATS_KEYS, AdmissionRejected,  # noqa: E402
                                  PagePool, Request, ServeEngine)
 
@@ -119,7 +120,7 @@ def test_run_matches_reference_run(setup):
 
 def test_never_admissible_raises(setup):
     _, _, cfg, params, prompts = setup
-    eng = ServeEngine(cfg, params, n_lanes=2, max_len=MAX_LEN,
+    eng = ServeEngine(cfg, params, n_lanes=2, max_len=MAX_LEN, paged=True,
                       page_size=PAGE, n_pages=N_PAGES, device="cpu")
     # the worst case is clamped to max_len: an over-budget request fits
     big = Request(uid=9, prompt=prompts[4], max_new_tokens=500)
@@ -135,10 +136,21 @@ def test_never_admissible_raises(setup):
 
 def test_engine_guards(setup):
     _, _, cfg, params, _ = setup
-    with pytest.raises(ValueError, match="M4"):
-        ServeEngine(cfg, params, temperature=0.8, device="cpu")
-    with pytest.raises(ValueError, match="paged"):
-        ServeEngine(cfg, params, paged=False, device="cpu")
+    # the default is the reference's: fixed-lane, greedy, seed 0
+    eng = ServeEngine(cfg, params, device="cpu")
+    assert not eng.paged and eng.pool is None and "k" in eng.cache
+    assert eng.temperature == 0.0
+    with pytest.raises(ValueError, match="M6"):
+        ServeEngine(dataclasses.replace(cfg, kv_quant="int8"), params,
+                    device="cpu")
+    with pytest.raises(AssertionError, match="page_size"):
+        ServeEngine(cfg, params, max_len=60, paged=True, page_size=16,
+                    device="cpu")
+    with pytest.raises(AssertionError, match="page pool smaller"):
+        ServeEngine(cfg, params, max_len=MAX_LEN, paged=True,
+                    page_size=PAGE, n_pages=2, device="cpu")
+    with pytest.raises(ValueError, match="params on"):
+        ServeEngine(cfg, LM(cfg, torch.device("meta")), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(DeviceUnavailable):
             ServeEngine(cfg, params)

@@ -38,7 +38,8 @@ def test_every_module_imports_with_jax_blocked():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'repro_torch.serving.engine' in names, names\n"
+        "for m in ('serving.engine', 'rng', 'kernels.decode_attention.ops'):\n"
+        "    assert 'repro_torch.' + m in names, names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
@@ -74,13 +75,17 @@ def test_cpu_serving_launches_no_kernel():
     cpu = torch.device("cpu")
     params = build_model(cfg).init(torch.Generator().manual_seed(0), cpu)
     reset_launch_counts()
-    eng = ServeEngine(cfg, params, n_lanes=2, max_len=32, page_size=8,
-                      device="cpu")
-    rng = np.random.default_rng(0)
-    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, 9 + i
-                                               ).astype(np.int32),
-                    max_new_tokens=4) for i in range(3)]
-    eng.run(reqs)
-    assert all(len(r.generated) == 4 for r in reqs)
+    for paged in (False, True):
+        eng = ServeEngine(cfg, params, n_lanes=2, max_len=32, paged=paged,
+                          page_size=8, temperature=0.5 * paged,
+                          device="cpu")
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, 9 + i
+                                                   ).astype(np.int32),
+                        max_new_tokens=4) for i in range(3)]
+        eng.run(reqs)
+        assert all(len(r.generated) == 4 for r in reqs)
     assert launch_counts() == {"decode_attention_paged": 0,
+                               "decode_attention_lengthaware": 0,
+                               "decode_attention_masked": 0,
                                "flash_attention": 0}

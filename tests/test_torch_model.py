@@ -20,6 +20,7 @@ from repro.models.transformer import (  # noqa: E402
     init_lm as jax_init_lm, init_paged_cache as jax_init_paged_cache,
     lm_decode_step as jax_lm_decode_step,
     lm_prefill_batched as jax_lm_prefill_batched)
+from repro_torch import rng  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
@@ -114,13 +115,25 @@ def test_decode_n_steps_budget_semantics(models):
         _shuffled_tables(b, max_len // ps, b * max_len // ps, seed=3))
     cache["len"] = torch.tensor([0, 5, 10], dtype=torch.int32)
     rem = torch.tensor([0, 2, 8], dtype=torch.int32)
+    key = rng.PRNGKey(0)
+    seeds = torch.arange(b, dtype=torch.int32)
     toks, valid, _, cache, rem, idx = lm_decode_n_steps(
-        params, cfg, cache, torch.zeros(b, dtype=torch.int32), rem,
-        torch.zeros(b, dtype=torch.int32), n_steps=6, len_cap=max_len - 1)
+        params, cfg, cache, torch.zeros(b, dtype=torch.int32), key, rem,
+        seeds, torch.zeros(b, dtype=torch.int32), n_steps=6,
+        len_cap=max_len - 1)
     assert valid.sum(0).tolist() == [0, 2, 5]
     assert cache["len"].tolist() == [0, 7, 15]
     assert idx.tolist() == [0, 2, 5] and rem.tolist() == [0, 0, 0]
     assert toks.shape == (6, b)
-    with pytest.raises(ValueError, match="M4"):
-        lm_decode_n_steps(params, cfg, cache, toks[0], rem, idx, n_steps=1,
-                          temperature=0.7)
+    # temperature sampling: a pure function of (key, lane seed, tok idx)
+    cache["len"] = torch.tensor([3, 5, 7], dtype=torch.int32)
+    draws = []
+    for _ in range(2):
+        c = {k: v.clone() for k, v in cache.items()}
+        budget = torch.full((b,), 4, dtype=torch.int32)
+        t, _, _, _, _, _ = lm_decode_n_steps(
+            params, cfg, c, toks[0], key, budget, seeds,
+            torch.zeros(b, dtype=torch.int32), n_steps=4, temperature=0.7)
+        draws.append(t)
+    assert torch.equal(draws[0], draws[1])
+    assert int(draws[0].min()) >= 0 and int(draws[0].max()) < cfg.vocab_size
