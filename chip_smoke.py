@@ -14,23 +14,36 @@ order (any failure raises and the script exits non-zero):
    their plain version at the fixed-lane path's shapes (S = 1024) and
    at S = 1000, same tolerances; a dead lane gives exactly 0 and K3
    equals K6a;
-5. end to end at SMOKE width in float32: the same requests through
+5. K5 (length-aware int8 dense decode), K6b (masked int8 dense decode)
+   and K4 (paged int8 decode) against their plain versions at the same
+   shapes, q in float32 and bfloat16, at the model's ``qblock=1``
+   (per-token scales) and the reference kernels' own (32 dense, 16
+   paged); a dead lane gives exactly 0, K5 equals K6b, and at
+   ``qblock=1`` each agrees with the reference model's route
+   (dequantize to float32, then K3 or K1);
+6. end to end at SMOKE width in float32: the same requests through
    ``ServeEngine()`` (fixed-lane) and ``ServeEngine(paged=True)``,
    greedy and at temperature 0.8, on the CPU (plain versions) and on
    the card (kernels): CPU and card streams, and fixed-lane and paged
-   streams on the card, must be identical;
-6. end to end at full width, paged: qwen2.5-1.5b in bfloat16 with
+   streams on the card, must be identical; once with the cache in the
+   compute dtype and once with ``kv_quant="int8"``;
+7. end to end at full width, paged: qwen2.5-1.5b in bfloat16 with
    seeded random weights, 16 requests through ``ServeEngine(paged=
    True)``; every request must finish its budget and K1 and K2 must
    have launched;
-7. end to end at full width, fixed-lane (the engine's default): the
+8. end to end at full width, fixed-lane (the engine's default): the
    same 16 requests through ``ServeEngine()``; every request must
    finish, K2 and K3 must have launched, K3 28 times per decode step;
    then a short run at temperature 0.8 whose tokens must all finish
    inside the vocabulary;
-8. timings at the main-path shapes: each kernel, its plain version and
+9. end to end at full width with ``kv_quant="int8"``: the same 16
+   requests fixed-lane and paged; every request must finish, K5 (resp.
+   K4) must launch 28 times per decode step and the fp decode kernels
+   not at all;
+10. timings at the main-path shapes: each kernel, its plain version and
    PyTorch's own attention call where one computes the same function,
-   beside the card's bound.
+   beside the card's bound; for the int8 kernels also the reference
+   model's route (dequantize to float32, then K3 or K1).
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -227,6 +240,110 @@ def phase_dense(dev):
     return errs
 
 
+def q8_dense_inputs(dtype, dev, s, qblock):
+    """``dense_inputs`` with K/V quantized to int8 with one f32 scale per
+    ``qblock`` positions (``qblock=1``: the model's per-token scales)."""
+    from repro_torch.kernels.decode_attention import quantize_kv_q8
+    q, k, v, lens = dense_inputs(dtype, dev, s)
+    kq, ks = quantize_kv_q8(k.float(), qblock)
+    vq, vs = quantize_kv_q8(v.float(), qblock)
+    return [q, kq, ks, vq, vs, lens]
+
+
+def q8_paged_inputs(dtype, dev, qblock):
+    """``k1_inputs`` with the pools quantized to int8 with one f32 scale
+    per ``qblock`` positions of a page."""
+    from repro_torch.kernels.decode_attention import quantize_kv_q8
+    q, kp, vp, bt, lens = k1_inputs(dtype, dev)
+    kq, ks = quantize_kv_q8(kp.float(), qblock)
+    vq, vs = quantize_kv_q8(vp.float(), qblock)
+    return [q, kq, ks, vq, vs, bt, lens]
+
+
+def _route_dense(q, kq, ks, vq, vs, lens, qblock):
+    """The reference model's int8 route: dequantize the whole cache to
+    float32, then the fp kernel (K3) in float32, cast back to q's dtype."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      dequant_kv_q8)
+    return decode_attention(q.float(), dequant_kv_q8(kq, ks, qblock),
+                            dequant_kv_q8(vq, vs, qblock), lens).to(q.dtype)
+
+
+def _route_paged(q, kq, ks, vq, vs, bt, lens, qblock):
+    """As :func:`_route_dense` over the pools, with K1."""
+    from repro_torch.kernels.decode_attention import (decode_attention_paged,
+                                                      dequant_kv_q8)
+    return decode_attention_paged(q.float(), dequant_kv_q8(kq, ks, qblock),
+                                  dequant_kv_q8(vq, vs, qblock), bt,
+                                  lens).to(q.dtype)
+
+
+def phase_q8(dev):
+    """K5/K6b (dense, S 1024 at qblock 1 and 32, S 1000 at qblock 1) and
+    K4 (paged, qblock 1 and 16) against their plain versions."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged_q8, decode_attention_paged_q8_ref,
+        decode_attention_q8, decode_attention_q8_ref)
+    names = ("decode_attention_q8_lengthaware", "decode_attention_q8_masked",
+             "decode_attention_paged_q8")
+    errs = {name: {} for name in names}
+
+    def check(name, out, ref, tol, what):
+        err = max_err(out, ref)
+        print(f"[K4/K5/K6b] {name} {what}: max_abs_err {err:.3e} "
+              f"(tol {tol})")
+        if not err <= tol:
+            fail(f"{name} {what} disagrees: {err}")
+        if not bool(torch.all(out[0] == 0)):
+            fail(f"{name}: dead lane did not give 0")
+        return err
+
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        worst = {name: 0.0 for name in names}
+        for s, qblock in ((1024, 1), (1024, 32), (1000, 1)):
+            args = q8_dense_inputs(dtype, dev, s, qblock)
+            la = decode_attention_q8(*args, qblock=qblock)
+            masked = decode_attention_q8(*args, qblock=qblock,
+                                         length_aware=False)
+            ref = decode_attention_q8_ref(*args, qblock=qblock)
+            torch.cuda.synchronize()
+            what = f"{dtype} S={s} qblock={qblock}"
+            for name, out in ((names[0], la), (names[1], masked)):
+                worst[name] = max(worst[name],
+                                  check(name, out, ref, tol, what))
+            if not torch.equal(la, masked):
+                fail(f"K5 and K6b differ ({what})")
+            if qblock == 1:
+                route = _route_dense(*args, qblock)
+                torch.cuda.synchronize()
+                err = max_err(la, route)
+                print(f"[K4/K5/K6b] K5 vs dequantize + K3 {what}: "
+                      f"max_abs_err {err:.3e}, bitwise {torch.equal(la, route)}")
+                if not err <= tol:
+                    fail(f"K5 disagrees with the reference's route: {err}")
+        for qblock in (1, 16):
+            args = q8_paged_inputs(dtype, dev, qblock)
+            out = decode_attention_paged_q8(*args, qblock=qblock)
+            ref = decode_attention_paged_q8_ref(*args, qblock=qblock)
+            torch.cuda.synchronize()
+            what = f"{dtype} qblock={qblock}"
+            worst[names[2]] = max(worst[names[2]],
+                                  check(names[2], out, ref, tol, what))
+            if qblock == 1:
+                route = _route_paged(*args, qblock)
+                torch.cuda.synchronize()
+                err = max_err(out, route)
+                print(f"[K4/K5/K6b] K4 vs dequantize + K1 {what}: "
+                      f"max_abs_err {err:.3e}, bitwise "
+                      f"{torch.equal(out, route)}")
+                if not err <= tol:
+                    fail(f"K4 disagrees with the reference's route: {err}")
+        for name in names:
+            errs[name][str(dtype).split(".")[-1]] = (worst[name], tol)
+    return errs
+
+
 def _requests(cfg, n, plen_lo, plen_hi, gen, seed):
     import numpy as np
     from repro_torch.serving import Request
@@ -237,7 +354,7 @@ def _requests(cfg, n, plen_lo, plen_hi, gen, seed):
                     max_new_tokens=gen) for i, p in enumerate(plens)]
 
 
-def phase_smoke_e2e(dev):
+def phase_smoke_e2e(dev, kv_quant=None):
     import copy
     import dataclasses
     import torch
@@ -245,7 +362,8 @@ def phase_smoke_e2e(dev):
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
     cfg = dataclasses.replace(get_config("qwen2.5-1.5b", smoke=True),
-                              dtype="float32")
+                              dtype="float32", kv_quant=kv_quant)
+    tag = f"[smoke e2e{' int8' if kv_quant else ''}]"
     cpu = torch.device("cpu")
     params = build_model(cfg).init(torch.Generator().manual_seed(SEED), cpu)
     on_card = copy.deepcopy(params).to(dev)
@@ -275,12 +393,13 @@ def phase_smoke_e2e(dev):
               "temperature 0.8, fixed-lane vs paged on the card")]
     for a, b, what in pairs:
         same = sum(x == y for x, y in zip(streams[a], streams[b]))
-        print(f"[smoke e2e] float32 SMOKE: {same}/{len(streams[a])} "
+        print(f"{tag} float32 SMOKE: {same}/{len(streams[a])} "
               f"streams identical, {what}")
         if same != len(streams[a]):
-            fail(f"SMOKE streams differ: {what}")
+            fail(f"{tag} SMOKE streams differ: {what}")
     if streams["cuda", False, 0.0] == streams["cuda", False, 0.8]:
-        fail("temperature 0.8 gave the greedy streams: nothing was sampled")
+        fail(f"{tag} temperature 0.8 gave the greedy streams: nothing was "
+             "sampled")
 
 
 def init_full(dev):
@@ -385,12 +504,39 @@ def phase_full_fixed(dev, cfg, params):
     return counts, summary
 
 
+def phase_full_int8(dev, cfg, params):
+    """The same traffic with ``kv_quant="int8"`` on both layouts: K5
+    (fixed-lane) and K4 (paged) launch 28 times per decode step, the fp
+    decode kernels never."""
+    import dataclasses
+    cfg_q = dataclasses.replace(cfg, kv_quant="int8")
+    out = {}
+    for tag, kernel, fp_kernel, kw in (
+            ("full e2e fixed-lane int8", "decode_attention_q8_lengthaware",
+             "decode_attention_lengthaware", {}),
+            ("full e2e paged int8", "decode_attention_paged_q8",
+             "decode_attention_paged",
+             dict(paged=True, page_size=16, n_pages=256))):
+        counts, summary = serve_full(dev, cfg_q, params, tag,
+                                     (kernel, "flash_attention"), **kw)
+        per_step = counts[kernel] / summary["decode_steps"]
+        print(f"[{tag}] {kernel} launches per decode step: {per_step}")
+        if per_step != cfg.n_layers:
+            fail(f"{kernel} launched {per_step} times per decode step, not "
+                 f"{cfg.n_layers}")
+        if counts[fp_kernel] or counts["decode_attention_q8_masked"]:
+            fail(f"{tag}: another decode kernel ran: {counts}")
+        out[tag] = (counts, summary)
+    return out
+
+
 def phase_timings(dev):
     import torch
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import (
-        decode_attention, decode_attention_paged, decode_attention_paged_ref,
-        decode_attention_ref)
+        decode_attention, decode_attention_paged, decode_attention_paged_q8,
+        decode_attention_paged_q8_ref, decode_attention_paged_ref,
+        decode_attention_q8, decode_attention_q8_ref, decode_attention_ref)
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     rows = {}
@@ -442,15 +588,55 @@ def phase_timings(dev):
             library_ms=sdpa_ms,
             bytes=2 * n_pos * hkv * d * 2 + io_bytes,
             flops=4 * n_pos * h * d)
+    # K5 / K6b / K4: bf16 q over int8 caches with the model's per-token
+    # scales (qblock 1), the serves' layout; no single PyTorch call
+    # computes int8 attention, so beside each stands the reference
+    # model's route (dequantize to float32, then K3 or K1) instead
+    q, kq, ks, vq, vs, lens = q8_dense_inputs(torch.bfloat16, dev, 1024, 1)
+    b, hkv, s, d = kq.shape
+    h = q.shape[1]
+    n_live = int(lens.to(torch.int64).sum().item())
+    row_bytes = hkv * (2 * d + 2 * 4)       # int8 k and v, f32 k/v scales
+    route_ms = time_ms(lambda: _route_dense(q, kq, ks, vq, vs, lens, 1))
+    for name, la, n_pos in (("decode_attention_q8_lengthaware", True,
+                             n_live),
+                            ("decode_attention_q8_masked", False, b * s)):
+        rows[name] = dict(
+            ms=time_ms(lambda: decode_attention_q8(q, kq, ks, vq, vs, lens,
+                                                   qblock=1,
+                                                   length_aware=la)),
+            plain_ms=time_ms(lambda: decode_attention_q8_ref(
+                q, kq, ks, vq, vs, lens, qblock=1)),
+            library_ms=None, route_ms=route_ms,
+            bytes=n_pos * row_bytes + io_bytes,
+            flops=4 * n_pos * h * d + 2 * n_pos * hkv * d)
+    q, kq, ks, vq, vs, bt, lens = q8_paged_inputs(torch.bfloat16, dev, 1)
+    ps, t = kq.shape[2], bt.shape[1]
+    live = lens.clamp(max=t * ps).to(torch.int64)
+    n_live = int(live.sum().item())
+    pages_live = int(((live + ps - 1) // ps).sum().item())
+    rows["decode_attention_paged_q8"] = dict(
+        ms=time_ms(lambda: decode_attention_paged_q8(q, kq, ks, vq, vs, bt,
+                                                     lens, qblock=1)),
+        plain_ms=time_ms(lambda: decode_attention_paged_q8_ref(
+            q, kq, ks, vq, vs, bt, lens, qblock=1)),
+        library_ms=None,
+        route_ms=time_ms(lambda: _route_paged(q, kq, ks, vq, vs, bt, lens,
+                                              1)),
+        bytes=(n_live * row_bytes + 2 * q.numel() * 2 + 4 * pages_live
+               + 4 * lens.numel()),
+        flops=4 * n_live * h * d + 2 * n_live * hkv * d)
     for name, r in rows.items():
         t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
         t_ops = 1e3 * r["flops"] / BF16_FLOPS_PER_S
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         lib = r["library_ms"]
+        route = (f", dequantize + fp kernel {r['route_ms']:.4f} ms"
+                 if "route_ms" in r else "")
         print(f"[time] {name}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}{route}, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B, "
               f"{r['flops']} flop)")
     return rows
@@ -475,10 +661,13 @@ def main() -> int:
     errs = {"decode_attention_paged": phase_k1(dev),
             "flash_attention": phase_k2(dev)}
     errs.update(phase_dense(dev))
+    errs.update(phase_q8(dev))
     phase_smoke_e2e(dev)
+    phase_smoke_e2e(dev, kv_quant="int8")
     cfg, params = init_full(dev)
     paged_counts, paged_e2e = phase_full_paged(dev, cfg, params)
     fixed_counts, fixed_e2e = phase_full_fixed(dev, cfg, params)
+    int8 = phase_full_int8(dev, cfg, params)
     del params
     rows = phase_timings(dev)
 
@@ -490,17 +679,38 @@ def main() -> int:
             "src/repro/kernels/decode_attention/kernel.py:205",
         "decode_attention_masked":
             "src/repro/kernels/decode_attention/kernel.py:98",
+        "decode_attention_paged_q8":
+            "src/repro/kernels/decode_attention/kernel.py:406",
+        "decode_attention_q8_lengthaware":
+            "src/repro/kernels/decode_attention/kernel.py:545",
+        "decode_attention_q8_masked":
+            "src/repro/kernels/decode_attention/kernel.py:456",
     }
     sources = {"decode_attention_lengthaware": "decode_attention_dense",
-               "decode_attention_masked": "decode_attention_dense"}
+               "decode_attention_masked": "decode_attention_dense",
+               "decode_attention_q8_lengthaware": "decode_attention_dense",
+               "decode_attention_q8_masked": "decode_attention_dense",
+               "decode_attention_paged_q8": "decode_attention_paged"}
     # each kernel's launches come from the main-path run that drives it:
     # K1 from the paged serve, K2 and K3 from the fixed-lane (default)
-    # serve; K6a is on no serving path and reports that run's count, 0
+    # serve, K5 from the fixed-lane int8 serve, K4 from the paged int8
+    # serve; K6a and K6b are on no serving path and report the count of
+    # the fixed-lane serve of their cache type, 0
+    int8_fixed = int8["full e2e fixed-lane int8"][0]
+    int8_paged = int8["full e2e paged int8"][0]
     launches = dict(fixed_counts)
     launches["decode_attention_paged"] = paged_counts["decode_attention_paged"]
+    for name in ("decode_attention_q8_lengthaware",
+                 "decode_attention_q8_masked"):
+        launches[name] = int8_fixed[name]
+    launches["decode_attention_paged_q8"] = \
+        int8_paged["decode_attention_paged_q8"]
     kernels = []
     for name in ("decode_attention_paged", "flash_attention",
-                 "decode_attention_lengthaware", "decode_attention_masked"):
+                 "decode_attention_lengthaware", "decode_attention_masked",
+                 "decode_attention_paged_q8",
+                 "decode_attention_q8_lengthaware",
+                 "decode_attention_q8_masked"):
         r = rows[name]
         err_bf16, tol_bf16 = errs[name]["bfloat16"]
         err_f32, tol_f32 = errs[name]["float32"]
@@ -513,7 +723,14 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bytes": r["bytes"]})
-    e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e}
+        if "route_ms" in r:
+            kernels[-1]["route_ms"] = r["route_ms"]
+    e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e,
+           "paged_int8": int8["full e2e paged int8"][1],
+           "fixed_lane_int8": int8["full e2e fixed-lane int8"][1]}
+    for name, r in e2e.items():
+        print(f"[e2e] {name}: {r['tok_s']:.1f} tok/s, decode "
+              f"{r['decode_ms_per_dispatch']:.2f} ms per dispatch")
     print(f"[e2e] {json.dumps(e2e)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())

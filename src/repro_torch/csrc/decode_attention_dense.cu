@@ -1,20 +1,26 @@
 // Dense-cache decode attention for Hopper (sm_90a): K3 (length-aware)
-// and K6a (masked), one template.
+// and K6a (masked) over a cache in q's dtype, K5 (length-aware) and K6b
+// (masked) over an int8 cache with f32 scales, one template.
 //
 // Replaces, in src/repro/kernels/decode_attention/kernel.py:
 //   * decode_attention_lengthaware_pallas (K3): grid (B, H, S/bk), the
 //     key-block index clamped to the lane's last live block by a
 //     scalar-prefetched length, dead-block compute skipped;
 //   * decode_attention_pallas (K6a): the same grid streaming all S/bk
-//     blocks of every lane and masking dead positions in the softmax.
-//   Both fold each (bk, D) tile into an f32 online softmax kept in VMEM
+//     blocks of every lane and masking dead positions in the softmax;
+//   * decode_attention_q8_lengthaware_pallas (K5) and
+//     decode_attention_q8_pallas (K6b): the same two over int8 K/V
+//     tiles and (bk/qblock, 1) f32 scale tiles, dequantized on the VPU
+//     after the VMEM load (_dequant_tile).
+//   All fold each (bk, D) tile into an f32 online softmax kept in VMEM
 //   (_flash_block) and write 0 for a lane whose softmax sum is 0.
 //
 // What bounds it on the H100: bytes.  One query token per lane meets
 // every key once: ~2 flops per KV byte, far below the ~295 flop/byte at
 // which the tensor cores would be the limit.  The least time is the K/V
-// bytes the variant must read (K3: live positions; K6a: all S of every
-// lane) over 3.35 TB/s.
+// bytes the variant must read (K3/K5: live positions; K6a/K6b: all S of
+// every lane; int8 values plus their f32 scales for K5/K6b) over
+// 3.35 TB/s.
 //
 // What the design does about it (the design of K1,
 // decode_attention_paged.cu, with the cache addressed by position):
@@ -30,7 +36,13 @@
 //     p = 0 leave the running state bit-for-bit as K3 leaves it, so the
 //     two variants give the same output for finite caches;
 //   * any S works: the walk is by position (the Pallas kernels need
-//     S % bk == 0).
+//     S % bk == 0);
+//   * int8 (K5/K6b): each loaded element becomes (float)kq * ks[pos /
+//     qblock], one f32 multiply -- the product the reference's
+//     dequantize makes -- so the cache is read as int8 and no f32 copy
+//     of it is ever written.  qblock = 1 is the model's per-(token,
+//     head) scale layout (B, Hkv, S, 1); the reference kernels' own is
+//     qblock = 32.  Scales of dead positions are read only by K6b.
 //   Left for later: splitting long contexts across CTAs (FlashDecoding
 //   reduce) to fill 132 SMs at small batch, and 16-byte vector loads.
 //
@@ -41,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -56,6 +70,12 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// one K/V element in f32: the int8 overload dequantizes with its scale
+template <typename T>
+__device__ __forceinline__ float kv_f32(T x, float) { return to_f32(x); }
+__device__ __forceinline__ float kv_f32(int8_t x, float s) {
+  return (float)x * s;
+}
 __device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
@@ -68,12 +88,17 @@ size_t smem_bytes(int group, int d) {
          (size_t)(group * d + NW * group * d + 2 * NW * group);
 }
 
-template <typename T, bool MASKED>
+// KV is T (K3/K6a; ks/vs unused) or int8_t (K5/K6b; ks/vs are the
+// (B, Hkv, S/qblock) f32 scales)
+template <typename T, typename KV, bool MASKED>
 __global__ void __launch_bounds__(THREADS)
-dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
+dense_decode_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                    const float* __restrict__ ks,
+                    const KV* __restrict__ v,
+                    const float* __restrict__ vs,
                     const int32_t* __restrict__ lens, T* __restrict__ out,
-                    int H, int Hkv, int S, int D, float scale) {
+                    int H, int Hkv, int S, int D, int qblock, float scale) {
+  constexpr bool Q8 = std::is_same<KV, int8_t>::value;
   extern __shared__ float smem[];
   const int group = H / Hkv;
   float* qs = smem;                        // group * D
@@ -98,8 +123,9 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const size_t head = ((size_t)b * Hkv + kvh) * (size_t)S * D;
-  const T* kh = k + head;
-  const T* vh = v + head;
+  const KV* kh = k + head;
+  const KV* vh = v + head;
+  const size_t shead = ((size_t)b * Hkv + kvh) * (size_t)(S / qblock);
   float* acc = accs + (size_t)warp * group * D;
   // running max / sum of head g sit in lane g % 32 (m0/l0: g < 32)
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
@@ -111,12 +137,19 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int pos = base + u;
       const bool in = pos < walk;
       const size_t row = (size_t)(in ? pos : 0) * D;
+      float ksc = 1.f, vsc = 1.f;
+      if constexpr (Q8) {
+        if (in) {
+          ksc = ks[shead + pos / qblock];
+          vsc = vs[shead + pos / qblock];
+        }
+      }
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
         const int d = lane + 32 * j;
         const bool ok = in && d < D;
-        kr[u][j] = ok ? to_f32(kh[row + d]) : 0.f;
-        vr[u][j] = ok ? to_f32(vh[row + d]) : 0.f;
+        kr[u][j] = ok ? kv_f32(kh[row + d], ksc) : 0.f;
+        vr[u][j] = ok ? kv_f32(vh[row + d], vsc) : 0.f;
       }
     }
 #pragma unroll
@@ -134,7 +167,7 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(FULL, s, o);
-        // dead (K6a only): at most -1e30, and still a function of the
+        // dead (K6a/K6b only): at most -1e30, and still a function of the
         // loaded key, so the compiler cannot drop the dead rows' loads
         if (!live) s = fminf(s, NEG_INF);
         const int src = g & 31;
@@ -181,53 +214,79 @@ dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, bool MASKED>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int32_t* lens, void* out, int B, int H, int Hkv,
-                   int S, int D, float scale, cudaStream_t stream) {
+template <typename T, typename KV, bool MASKED>
+cudaError_t launch(const void* q, const void* k, const float* ks,
+                   const void* v, const float* vs, const int32_t* lens,
+                   void* out, int B, int H, int Hkv, int S, int D,
+                   int qblock, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(H / Hkv, D);
   cudaError_t err = cudaFuncSetAttribute(
-      dense_decode_kernel<T, MASKED>,
+      dense_decode_kernel<T, KV, MASKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(B, Hkv);
-  dense_decode_kernel<T, MASKED><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), lens, static_cast<T*>(out), H, Hkv, S, D,
-      scale);
+  dense_decode_kernel<T, KV, MASKED><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), ks,
+      static_cast<const KV*>(v), vs, lens, static_cast<T*>(out), H, Hkv, S,
+      D, qblock, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const int32_t* lens, void* out, int B, int H, int Hkv,
-                     int S, int D, float scale, int masked,
+template <typename T, typename KV>
+cudaError_t dispatch(const void* q, const void* k, const float* ks,
+                     const void* v, const float* vs, const int32_t* lens,
+                     void* out, int B, int H, int Hkv, int S, int D,
+                     int qblock, float scale, int masked,
                      cudaStream_t stream) {
   if (masked)
-    return launch<T, true>(q, k, v, lens, out, B, H, Hkv, S, D, scale,
-                           stream);
-  return launch<T, false>(q, k, v, lens, out, B, H, Hkv, S, D, scale,
-                          stream);
+    return launch<T, KV, true>(q, k, ks, v, vs, lens, out, B, H, Hkv, S, D,
+                               qblock, scale, stream);
+  return launch<T, KV, false>(q, k, ks, v, vs, lens, out, B, H, Hkv, S, D,
+                              qblock, scale, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_kv(const void* q, const void* k, const float* ks,
+                        const void* v, const float* vs, const int32_t* lens,
+                        void* out, int B, int H, int Hkv, int S, int D,
+                        int qblock, float scale, int masked, int kv_int8,
+                        cudaStream_t stream) {
+  if (kv_int8)
+    return dispatch<T, int8_t>(q, k, ks, v, vs, lens, out, B, H, Hkv, S, D,
+                               qblock, scale, masked, stream);
+  return dispatch<T, T>(q, k, ks, v, vs, lens, out, B, H, Hkv, S, D, qblock,
+                        scale, masked, stream);
 }
 
 }  // namespace
 
+// k_scale/v_scale and qblock are read only when kv_int8 is 1: k/v are
+// then int8 (B, Hkv, S, D) and the scales f32 (B, Hkv, S/qblock, 1);
+// otherwise k/v have q's dtype.
 extern "C" int decode_attention_dense_fwd(const void* q, const void* k,
-                                          const void* v,
+                                          const void* k_scale, const void* v,
+                                          const void* v_scale,
                                           const void* kv_lengths, void* out,
                                           int B, int H, int Hkv, int S,
-                                          int D, float scale, int masked,
-                                          int dtype, void* stream) {
+                                          int D, int qblock, float scale,
+                                          int masked, int kv_int8, int dtype,
+                                          void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAX_GROUP || D <= 0 ||
       D > 32 * NJ || S <= 0)
     return (int)cudaErrorInvalidValue;
+  if (kv_int8 && (qblock <= 0 || S % qblock != 0 || !k_scale || !v_scale))
+    return (int)cudaErrorInvalidValue;
+  if (!kv_int8) qblock = 1;
   const int32_t* lens = static_cast<const int32_t*>(kv_lengths);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, lens, out, B, H, Hkv, S, D, scale,
-                                masked, s);
+    return (int)dispatch_kv<float>(q, k, ks, v, vs, lens, out, B, H, Hkv, S,
+                                   D, qblock, scale, masked, kv_int8, s);
   if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, lens, out, B, H, Hkv, S, D,
-                                        scale, masked, s);
+    return (int)dispatch_kv<__nv_bfloat16>(q, k, ks, v, vs, lens, out, B, H,
+                                           Hkv, S, D, qblock, scale, masked,
+                                           kv_int8, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -17,6 +17,9 @@ __all__ = ["COUNTERS", "launch_counts", "reset_launch_counts"]
 COUNTERS = {c.name: c for c in (_decode_ops.COUNTER,
                                 _decode_ops.COUNTER_LENGTHAWARE,
                                 _decode_ops.COUNTER_MASKED,
+                                _decode_ops.COUNTER_PAGED_Q8,
+                                _decode_ops.COUNTER_Q8_LENGTHAWARE,
+                                _decode_ops.COUNTER_Q8_MASKED,
                                 _flash_ops.COUNTER)}
 
 

@@ -1,11 +1,17 @@
-"""Decode attention: paged (K1) and dense length-aware (K3) / masked
-(K6a) CUDA kernel wrappers + plain versions."""
+"""Decode attention: paged (K1; K4 over int8 pools) and dense
+length-aware (K3; K5 int8) / masked (K6a; K6b int8) CUDA kernel
+wrappers + plain versions."""
 
-from repro_torch.kernels.decode_attention.ops import (decode_attention,
-                                                      decode_attention_paged)
+from repro_torch.kernels.decode_attention.ops import (
+    decode_attention, decode_attention_paged, decode_attention_paged_q8,
+    decode_attention_q8)
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_paged_ref, decode_attention_ref, gather_pages)
+    decode_attention_paged_q8_ref, decode_attention_paged_ref,
+    decode_attention_q8_ref, decode_attention_ref, dequant_kv_q8,
+    gather_pages, quantize_kv_q8)
 
 __all__ = ["decode_attention", "decode_attention_paged",
-           "decode_attention_paged_ref", "decode_attention_ref",
-           "gather_pages"]
+           "decode_attention_paged_q8", "decode_attention_q8",
+           "decode_attention_paged_q8_ref", "decode_attention_paged_ref",
+           "decode_attention_q8_ref", "decode_attention_ref",
+           "dequant_kv_q8", "gather_pages", "quantize_kv_q8"]

@@ -1,10 +1,13 @@
-"""Wrappers for the decode attention kernels: paged (K1) and dense
-length-aware (K3) / masked (K6a).
+"""Wrappers for the decode attention kernels: paged (K1; K4 over int8
+pools) and dense length-aware (K3; K5 over an int8 cache) / masked
+(K6a; K6b over an int8 cache).
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches ``csrc/decode_attention_paged.cu`` or
 ``csrc/decode_attention_dense.cu`` or raises -- there is no fallback on
-the card.
+the card.  Each source holds one template per layout, instantiated for
+a cache in q's dtype and for an int8 cache with f32 scales along the
+key axis (``qblock`` keys per scale).
 """
 
 from __future__ import annotations
@@ -16,14 +19,20 @@ import torch
 from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
                                         load)
 from repro_torch.kernels.decode_attention.ref import (
-    decode_attention_paged_ref, decode_attention_ref)
+    decode_attention_paged_q8_ref, decode_attention_paged_ref,
+    decode_attention_q8_ref, decode_attention_ref)
 
-__all__ = ["decode_attention", "decode_attention_paged", "COUNTER",
-           "COUNTER_LENGTHAWARE", "COUNTER_MASKED"]
+__all__ = ["decode_attention", "decode_attention_paged",
+           "decode_attention_q8", "decode_attention_paged_q8", "COUNTER",
+           "COUNTER_LENGTHAWARE", "COUNTER_MASKED", "COUNTER_PAGED_Q8",
+           "COUNTER_Q8_LENGTHAWARE", "COUNTER_Q8_MASKED"]
 
 COUNTER = LaunchCounter("decode_attention_paged")
 COUNTER_LENGTHAWARE = LaunchCounter("decode_attention_lengthaware")
 COUNTER_MASKED = LaunchCounter("decode_attention_masked")
+COUNTER_PAGED_Q8 = LaunchCounter("decode_attention_paged_q8")
+COUNTER_Q8_LENGTHAWARE = LaunchCounter("decode_attention_q8_lengthaware")
+COUNTER_Q8_MASKED = LaunchCounter("decode_attention_q8_masked")
 #: dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 _WARPS = 8                         # csrc: NW
@@ -32,15 +41,26 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _smem_bytes(group: int, d: int) -> int:
-    """Mirror of ``smem_bytes`` in the CUDA source."""
+    """Mirror of ``smem_bytes`` in the CUDA sources."""
     return 4 * (group * d + _WARPS * group * d + 2 * _WARPS * group)
 
 
-def _check(q, k, v, ints, layout: str):
-    """What both kernels need: q (B,H,D) and k/v 4-d caches (paged pools
-    or dense rows, ``layout`` names them) of q's dtype with D in the
-    last axis and Hkv in the second; ``ints`` the int32 (B, ...) index
-    tensors (lengths, tables) by name; all contiguous, on q's device."""
+def _on_cpu(q) -> bool:
+    """True for a CPU tensor (plain version); False for a CUDA one
+    (kernel); anything else is refused."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return False
+
+
+def _check(q, k, v, ints, layout: str, kv_dtype=None):
+    """What every kernel needs: q (B,H,D) and k/v 4-d caches (paged pools
+    or dense rows, ``layout`` names them) of ``kv_dtype`` (default q's)
+    with D in the last axis and Hkv in the second; ``ints`` the int32
+    (B, ...) index tensors (lengths, tables) by name; all contiguous, on
+    q's device."""
     dev = q.device
     named = (("k", k), ("v", v)) + tuple(ints.items())
     for name, t in named:
@@ -48,8 +68,9 @@ def _check(q, k, v, ints, layout: str):
             raise ValueError(f"{name} on {t.device}, q on {dev}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q dtype {q.dtype}: kernel takes float32/bfloat16")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("k/v must have q's dtype")
+    kv_dtype = kv_dtype or q.dtype
+    if k.dtype != kv_dtype or v.dtype != kv_dtype:
+        raise TypeError(f"k/v must be {kv_dtype}")
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"want q (B,H,D) and k/v {layout}")
     b, h, d = q.shape
@@ -70,9 +91,86 @@ def _check(q, k, v, ints, layout: str):
                          "kernel's shared memory")
 
 
+def _check_q8(q, k_q, k_scale, v_q, v_scale, ints, layout: str,
+              qblock: int):
+    """:func:`_check` for int8 k/v, plus their f32 scales: shape
+    ``(k.shape[0], Hkv, rows/qblock, 1)`` where ``rows`` is the key
+    axis the scales run along (S dense, ps paged), ``rows % qblock ==
+    0``, contiguous, on q's device."""
+    _check(q, k_q, v_q, ints, layout, kv_dtype=torch.int8)
+    rows = k_q.shape[2]
+    if qblock < 1 or rows % qblock:
+        raise ValueError(f"qblock {qblock} must divide the key axis "
+                         f"({rows})")
+    want = (k_q.shape[0], k_q.shape[1], rows // qblock, 1)
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} shape {tuple(t.shape)}, want {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _launch_paged(name, q, kp, ksp, vp, vsp, bt, lens, scale, qblock):
+    """One launch of ``paged_decode_kernel``; ``ksp is None`` selects the
+    instantiation over pools in q's dtype (K1), else int8 (K4)."""
+    if bt.dim() != 2 or lens.dim() != 1:
+        raise ValueError("want block_tables (B,T) and kv_lengths (B,)")
+    b, h, d = q.shape
+    p, hkv, ps, _ = kp.shape
+    out = torch.empty_like(q)
+    fn = load("decode_attention_paged").decode_attention_paged_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), kp.data_ptr(), _ptr(ksp), vp.data_ptr(),
+                _ptr(vsp), bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
+                b, h, hkv, p, ps, d, bt.shape[1], qblock, scale,
+                int(ksp is not None), _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise KernelLaunchError(f"{name}: CUDA error {rc}")
+    return out
+
+
+def _launch_dense(name, q, k, ks, v, vs, lens, scale, qblock, length_aware):
+    """One launch of ``dense_decode_kernel``; ``ks is None`` selects the
+    instantiation over a cache in q's dtype (K3/K6a), else int8
+    (K5/K6b)."""
+    if k.shape[0] != q.shape[0] or k.shape[2] < 1 or lens.dim() != 1:
+        raise ValueError("want k/v (B,Hkv,S,D) with S >= 1 and "
+                         "kv_lengths (B,)")
+    b, h, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    fn = load("decode_attention_dense").decode_attention_dense_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(),
+                _ptr(vs), lens.data_ptr(), out.data_ptr(), b, h, hkv, s, d,
+                qblock, scale, 0 if length_aware else 1,
+                int(ks is not None), _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise KernelLaunchError(f"{name} (length_aware={length_aware}): "
+                                f"CUDA error {rc}")
+    return out
+
+
 def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_lengths,
                            *, scale=None):
-    """Block-table decode attention over a global page pool.
+    """Block-table decode attention over a global page pool (K1).
 
     q: (B, H, D); k_pages/v_pages: (P, Hkv, ps, D); block_tables: (B, T)
     int32 physical page ids in logical order; kv_lengths: (B,) int32.
@@ -80,34 +178,41 @@ def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_lengths,
     length (clamped to T*ps) are never read; a lane of length 0 gives 0.
     """
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return decode_attention_paged_ref(q, k_pages, v_pages, block_tables,
                                           kv_lengths, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     _check(q, k_pages, v_pages, {"block_tables": block_tables,
                                  "kv_lengths": kv_lengths},
            "pools (P,Hkv,ps,D)")
-    if block_tables.dim() != 2 or kv_lengths.dim() != 1:
-        raise ValueError("want block_tables (B,T) and kv_lengths (B,)")
-    b, h, d = q.shape
-    p, hkv, ps, _ = k_pages.shape
-    t = block_tables.shape[1]
-    out = torch.empty_like(q)
-    lib = load("decode_attention_paged")
-    fn = lib.decode_attention_paged_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                block_tables.data_ptr(), kv_lengths.data_ptr(),
-                out.data_ptr(), b, h, hkv, p, ps, d, t, scale,
-                _DTYPE_CODE[q.dtype], stream)
-    if rc != 0:
-        raise KernelLaunchError(f"decode_attention_paged: CUDA error {rc}")
+    out = _launch_paged("decode_attention_paged", q, k_pages, None, v_pages,
+                        None, block_tables, kv_lengths, scale, 1)
     COUNTER.n += 1
+    return out
+
+
+def decode_attention_paged_q8(q, k_pages, k_scale_pages, v_pages,
+                              v_scale_pages, block_tables, kv_lengths, *,
+                              scale=None, qblock: int = 32):
+    """Block-table decode attention over int8 page pools (K4).
+
+    k_pages/v_pages: (P, Hkv, ps, D) int8; k_scale_pages/v_scale_pages:
+    (P, Hkv, ps/qblock, 1) f32, one scale per ``qblock`` consecutive
+    positions of a page, found through the same block-table entry as
+    the values.  Otherwise as :func:`decode_attention_paged`.  The
+    model's per-(token, head) scale pools are ``qblock=1``.
+    """
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if _on_cpu(q):
+        return decode_attention_paged_q8_ref(
+            q, k_pages, k_scale_pages, v_pages, v_scale_pages, block_tables,
+            kv_lengths, scale=scale, qblock=qblock)
+    _check_q8(q, k_pages, k_scale_pages, v_pages, v_scale_pages,
+              {"block_tables": block_tables, "kv_lengths": kv_lengths},
+              "pools (P,Hkv,ps,D)", qblock)
+    out = _launch_paged("decode_attention_paged_q8", q, k_pages,
+                        k_scale_pages, v_pages, v_scale_pages, block_tables,
+                        kv_lengths, scale, qblock)
+    COUNTER_PAGED_Q8.n += 1
     return out
 
 
@@ -127,30 +232,34 @@ def decode_attention(q, k, v, kv_lengths, *, scale=None,
     kernel walks the cache by position and takes any S.
     """
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
-    if q.device.type == "cpu":
+    if _on_cpu(q):
         return decode_attention_ref(q, k, v, kv_lengths, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, {"kv_lengths": kv_lengths}, "(B,Hkv,S,D)")
-    if k.shape[0] != q.shape[0] or k.shape[2] < 1 or kv_lengths.dim() != 1:
-        raise ValueError("want k/v (B,Hkv,S,D) with S >= 1 and "
-                         "kv_lengths (B,)")
-    b, h, d = q.shape
-    hkv, s = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
-    lib = load("decode_attention_dense")
-    fn = lib.decode_attention_dense_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                kv_lengths.data_ptr(), out.data_ptr(), b, h, hkv, s, d,
-                scale, 0 if length_aware else 1, _DTYPE_CODE[q.dtype],
-                stream)
-    if rc != 0:
-        raise KernelLaunchError(f"decode_attention (length_aware="
-                                f"{length_aware}): CUDA error {rc}")
+    out = _launch_dense("decode_attention", q, k, None, v, None, kv_lengths,
+                        scale, 1, length_aware)
     (COUNTER_LENGTHAWARE if length_aware else COUNTER_MASKED).n += 1
+    return out
+
+
+def decode_attention_q8(q, k_q, k_scale, v_q, v_scale, kv_lengths, *,
+                        scale=None, qblock: int = 32,
+                        length_aware: bool = True):
+    """Decode attention over a dense int8 cache (K5; K6b with
+    ``length_aware=False``).
+
+    k_q/v_q: (B, Hkv, S, D) int8; k_scale/v_scale: (B, Hkv, S/qblock, 1)
+    f32, one scale per ``qblock`` consecutive positions.  Otherwise as
+    :func:`decode_attention`; K5 reads values and scales of live
+    positions only, K6b streams all S and gives the same values.  The
+    model's per-(token, head) scales are ``qblock=1``.
+    """
+    scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if _on_cpu(q):
+        return decode_attention_q8_ref(q, k_q, k_scale, v_q, v_scale,
+                                       kv_lengths, scale=scale, qblock=qblock)
+    _check_q8(q, k_q, k_scale, v_q, v_scale, {"kv_lengths": kv_lengths},
+              "(B,Hkv,S,D)", qblock)
+    out = _launch_dense("decode_attention_q8", q, k_q, k_scale, v_q, v_scale,
+                        kv_lengths, scale, qblock, length_aware)
+    (COUNTER_Q8_LENGTHAWARE if length_aware else COUNTER_Q8_MASKED).n += 1
     return out

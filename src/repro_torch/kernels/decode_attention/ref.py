@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of dense and paged decode attention (the
-reference's ``kernels/decode_attention/ref.py`` oracles)."""
+"""Plain PyTorch versions of dense and paged decode attention, over a
+cache in q's dtype or an int8 cache with f32 scales (the reference's
+``kernels/decode_attention/ref.py`` oracles)."""
 
 from __future__ import annotations
 
@@ -30,6 +31,35 @@ def decode_attention_ref(q, k, v, kv_lengths, *, scale=None):
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def dequant_kv_q8(k_q, k_scale, qblock: int = 32):
+    """(B, Hkv, S, D) int8 + (B, Hkv, S/qblock, 1) f32 -> f32 KV."""
+    if qblock != 1:
+        k_scale = torch.repeat_interleave(k_scale, qblock, dim=2)
+    return k_q.float() * k_scale
+
+
+def quantize_kv_q8(k, qblock: int = 32):
+    """Per-(head, qblock-key-block) symmetric int8 KV quantization.
+    k: (B, Hkv, S, D) -> (int8 values, f32 scales (B, Hkv, S/qblock, 1))."""
+    b, hkv, s, d = k.shape
+    kb = k.float().reshape(b, hkv, s // qblock, qblock, d)
+    amax = torch.amax(kb.abs(), dim=(3, 4), keepdim=True)
+    scale = (amax / 127.0).reshape(b, hkv, s // qblock, 1)
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    kq = torch.clamp(torch.round(kb / scale[..., None, :]), -127, 127
+                     ).to(torch.int8)
+    return kq.reshape(b, hkv, s, d), scale
+
+
+def decode_attention_q8_ref(q, k_q, k_scale, v_q, v_scale, kv_lengths, *,
+                            scale=None, qblock: int = 32):
+    """Dense int8 decode: dequantize, then :func:`decode_attention_ref`.
+    The plain version of both K5 and K6b."""
+    k = dequant_kv_q8(k_q, k_scale, qblock)
+    v = dequant_kv_q8(v_q, v_scale, qblock)
+    return decode_attention_ref(q, k, v, kv_lengths, scale=scale)
+
+
 def gather_pages(pages: torch.Tensor, block_tables: torch.Tensor
                  ) -> torch.Tensor:
     """pages: (P, Hkv, ps, D); block_tables: (B, T) physical page ids in
@@ -44,4 +74,16 @@ def decode_attention_paged_ref(q, k_pages, v_pages, block_tables,
     """q: (B, H, D); pools (P, Hkv, ps, D); block_tables (B, T)."""
     k = gather_pages(k_pages, block_tables)
     v = gather_pages(v_pages, block_tables)
+    return decode_attention_ref(q, k, v, kv_lengths, scale=scale)
+
+
+def decode_attention_paged_q8_ref(q, k_pages, k_scale_pages, v_pages,
+                                  v_scale_pages, block_tables, kv_lengths,
+                                  *, scale=None, qblock: int = 32):
+    """Paged int8 decode (the plain version of K4); scale pools are
+    (P, Hkv, ps/qblock, 1)."""
+    k = dequant_kv_q8(gather_pages(k_pages, block_tables),
+                      gather_pages(k_scale_pages, block_tables), qblock)
+    v = dequant_kv_q8(gather_pages(v_pages, block_tables),
+                      gather_pages(v_scale_pages, block_tables), qblock)
     return decode_attention_ref(q, k, v, kv_lengths, scale=scale)

@@ -1,18 +1,20 @@
 """Serving launcher: continuous batching on synthetic prompts.
 
 ``python -m repro_torch.launch.serve --arch qwen2.5-1.5b [--paged
---page-size 16] --requests N --prompt-len P --gen G --lanes B [--smoke]
-[--device cuda|cpu]`` builds seeded random weights, serves N requests of
-P prompt tokens and G generated tokens each through the fixed-lane
-engine (the default) or, with ``--paged``, the page-pool engine, and
-prints tokens/s with the prefill/decode split.  Runs on ``cuda`` unless
-``--device cpu``.
+--page-size 16] [--kv-quant int8] --requests N --prompt-len P --gen G
+--lanes B [--smoke] [--device cuda|cpu]`` builds seeded random weights,
+serves N requests of P prompt tokens and G generated tokens each through
+the fixed-lane engine (the default) or, with ``--paged``, the page-pool
+engine, over a KV cache in the compute dtype or, with ``--kv-quant
+int8``, in int8 with per-token scales, and prints tokens/s with the
+prefill/decode split.  Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -33,6 +35,8 @@ def main(argv=None):
     ap.add_argument("--paged", action="store_true",
                     help="serve over the page-pool KV cache")
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--kv-quant", default=None, choices=[None, "int8"],
+                    help="int8 KV cache with per-token f32 scales")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -46,7 +50,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
+                              kv_quant=args.kv_quant)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = build_model(cfg).init(gen, device)
 

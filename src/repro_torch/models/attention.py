@@ -1,14 +1,18 @@
 """GQA attention with RoPE: prompt forward (flash, K2), dense decode step
-(length-aware decode, K3) and paged decode step (block-table decode,
-K1).  Port of the reference's ``models/attention.py`` dense paths."""
+(length-aware decode, K3; K5 over an int8 cache) and paged decode step
+(block-table decode, K1; K4 over int8 pools).  Port of the reference's
+``models/attention.py`` dense paths."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
-from repro_torch.kernels.decode_attention import (decode_attention,
-                                                  decode_attention_paged)
+from repro_torch.kernels.decode_attention import (
+    decode_attention, decode_attention_paged, decode_attention_paged_q8,
+    decode_attention_q8)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.common import (ModelConfig, apply_rope, frozen,
                                        rope_angles)
@@ -72,16 +76,29 @@ def attention_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     return out
 
 
-def check_fp_kv(cfg: ModelConfig) -> None:
-    """The port's caches hold the compute dtype; int8 KV is M6."""
-    if cfg.kv_quant is not None:
-        raise ValueError(f"{cfg.name}: kv_quant={cfg.kv_quant!r} is not "
-                         "ported yet, it comes with M6 (int8 KV cache)")
+def quantize_kv_token(k: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization of KV vectors.
+    k: (..., D) -> (int8 values, f32 scale (..., 1)).  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    kf = k.float()
+    scale = torch.amax(kf.abs(), dim=-1, keepdim=True) / 127.0
+    scale = torch.where(scale == 0, torch.ones_like(scale), scale)
+    q = torch.clamp(torch.round(kf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _quantize_kv(k: torch.Tensor, v: torch.Tensor):
+    """:func:`quantize_kv_token` of k and v in one pass (stacked), so a
+    decode step pays its elementwise launches once."""
+    vals, scales = quantize_kv_token(torch.stack([k, v]))
+    return vals[0], vals[1], scales[0], scales[1]
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: torch.Tensor):
+                     cache_len: torch.Tensor,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None):
     """Single-token decode against a dense per-lane cache.
 
     x: (B, 1, d); k_cache/v_cache: (B, Hkv, Smax, D), one layer's slice
@@ -90,8 +107,12 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     returns updated caches; the port saves the copy and returns the same
     tensors).  A full-context cache never wraps (the engine caps the
     length below Smax); a sliding-window cache rotates in it.
+
+    With ``cfg.kv_quant == "int8"`` the caches are int8 with per-token
+    f32 scales k_scale/v_scale (B, Hkv, Smax, 1): the new row and its
+    scale are written at the slot, and K5 dequantizes in its read
+    (``qblock=1``); the result also carries the scale tensors.
     """
-    check_fp_kv(cfg)
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
     cos, sin = rope_angles(cache_len[:, None], cfg.hd, cfg.rope_theta)
@@ -101,18 +122,31 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     smax = k_cache.shape[2]
     slot = (cache_len % smax).long()
     lanes = torch.arange(b, device=x.device)
-    k_cache[lanes, :, slot] = k.to(k_cache.dtype)
-    v_cache[lanes, :, slot] = v.to(v_cache.dtype)
     eff_len = torch.clamp(cache_len + 1, max=smax).to(torch.int32)
-    out = decode_attention(q, k_cache, v_cache, eff_len)
+    if cfg.kv_quant == "int8":
+        kq, vq, ks, vs = _quantize_kv(k, v)
+        k_cache[lanes, :, slot] = kq
+        v_cache[lanes, :, slot] = vq
+        k_scale[lanes, :, slot] = ks
+        v_scale[lanes, :, slot] = vs
+        out = decode_attention_q8(q, k_cache, k_scale, v_cache, v_scale,
+                                  eff_len, qblock=1)
+        caches = (k_cache, v_cache, k_scale, v_scale)
+    else:
+        k_cache[lanes, :, slot] = k.to(k_cache.dtype)
+        v_cache[lanes, :, slot] = v.to(v_cache.dtype)
+        out = decode_attention(q, k_cache, v_cache, eff_len)
+        caches = (k_cache, v_cache)
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
-    return torch.matmul(out, p.wo), k_cache, v_cache
+    return (torch.matmul(out, p.wo),) + caches
 
 
 def attention_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                            k_pages: torch.Tensor, v_pages: torch.Tensor,
                            block_tables: torch.Tensor,
-                           cache_len: torch.Tensor):
+                           cache_len: torch.Tensor,
+                           k_scale_pages: Optional[torch.Tensor] = None,
+                           v_scale_pages: Optional[torch.Tensor] = None):
     """Single-token decode against a paged KV cache.
 
     x: (B, 1, d); k_pages/v_pages: (P, Hkv, ps, D), one layer's slice of
@@ -122,6 +156,11 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     returns updated pools; the port saves the copy and returns the same
     tensors).  Distinct live lanes own distinct pages, so the batched
     write never collides on a page a live lane reads.
+
+    With ``cfg.kv_quant == "int8"`` the pools are int8 with per-token
+    f32 scale pools (P, Hkv, ps, 1), written at the same slot, and K4
+    dequantizes in its read (``qblock=1``); the result also carries the
+    scale pools.
     """
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
@@ -136,9 +175,22 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     page = torch.gather(block_tables, 1,
                         (slot // ps)[:, None].long())[:, 0].long()
     off = (slot % ps).long()
-    k_pages[page, :, off] = k.to(k_pages.dtype)
-    v_pages[page, :, off] = v.to(v_pages.dtype)
     eff_len = torch.clamp(cache_len + 1, max=cap).to(torch.int32)
-    out = decode_attention_paged(q, k_pages, v_pages, block_tables, eff_len)
+    if cfg.kv_quant == "int8":
+        kq, vq, ks, vs = _quantize_kv(k, v)
+        k_pages[page, :, off] = kq
+        v_pages[page, :, off] = vq
+        k_scale_pages[page, :, off] = ks
+        v_scale_pages[page, :, off] = vs
+        out = decode_attention_paged_q8(q, k_pages, k_scale_pages, v_pages,
+                                        v_scale_pages, block_tables, eff_len,
+                                        qblock=1)
+        caches = (k_pages, v_pages, k_scale_pages, v_scale_pages)
+    else:
+        k_pages[page, :, off] = k.to(k_pages.dtype)
+        v_pages[page, :, off] = v.to(v_pages.dtype)
+        out = decode_attention_paged(q, k_pages, v_pages, block_tables,
+                                     eff_len)
+        caches = (k_pages, v_pages)
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
-    return torch.matmul(out, p.wo), k_pages, v_pages
+    return (torch.matmul(out, p.wo),) + caches

@@ -46,7 +46,7 @@ class ModelConfig:
     max_seq_len: int = 131072
     sliding_window: Optional[int] = None
     dtype: str = "bfloat16"
-    kv_quant: Optional[str] = None  # "int8" comes with M6; fp only here
+    kv_quant: Optional[str] = None  # "int8": int8 KV cache, f32 scales
 
     @property
     def hd(self) -> int:

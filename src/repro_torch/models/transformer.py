@@ -5,8 +5,9 @@ the reference's ``models/transformer.py`` for the dense family.
 The reference stacks layers along a leading axis and runs them with
 ``lax.scan``; here each layer is its own module in a ``ModuleList`` and
 a Python loop walks them.  Both caches keep the reference layouts --
-dense ``(L, B, Hkv, S, D)``, paged pool ``(L, P, Hkv, ps, D)`` -- and are
-updated in place.
+dense ``(L, B, Hkv, S, D)``, paged pool ``(L, P, Hkv, ps, D)``, in the
+compute dtype or, with ``kv_quant="int8"``, in int8 beside f32
+per-token scales with a trailing 1 -- and are updated in place.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from repro_torch import rng as trng
 from repro_torch.analysis.invariants import invariant
 from repro_torch.models.attention import (Attention, attention_decode,
                                           attention_decode_paged,
-                                          attention_forward, check_fp_kv)
+                                          attention_forward)
 from repro_torch.models.common import (Embedding, ModelConfig, RMSNorm,
                                        apply_norm, dense_init, embed,
                                        lm_logits)
@@ -35,7 +36,6 @@ def check_dense(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with norm "
                          f"{cfg.norm!r} is not ported yet (dense rmsnorm "
                          "decoders only)")
-    check_fp_kv(cfg)
 
 
 # ----------------------------------------------------------------------
@@ -137,18 +137,31 @@ def paged_capacity(max_len: int, cfg: ModelConfig) -> int:
     return min(max_len, win) if win else max_len
 
 
+def _kv_entries(cfg: ModelConfig, shape, names, device) -> Cache:
+    """Zeroed K/V tensors of ``shape`` named ``names`` (k, v, k scale, v
+    scale): in the compute dtype, or with ``kv_quant="int8"`` int8 plus
+    f32 per-token scales of ``shape[:-1] + (1,)`` initialised to ones."""
+    if cfg.kv_quant != "int8":
+        return {n: torch.zeros(shape, dtype=cfg.compute_dtype, device=device)
+                for n in names[:2]}
+    out = {n: torch.zeros(shape, dtype=torch.int8, device=device)
+           for n in names[:2]}
+    out.update({n: torch.ones(shape[:-1] + (1,), dtype=torch.float32,
+                              device=device) for n in names[2:]})
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device) -> Cache:
-    """Dense per-lane decode cache: ``k``/``v`` (L, B, Hkv, S, D) in the
-    compute dtype with ``S = min(max_len, window)``, and ``len`` (B,)
-    int32."""
+    """Dense per-lane decode cache: ``k``/``v`` (L, B, Hkv, S, D) with
+    ``S = min(max_len, window)``, and ``len`` (B,) int32; int8 adds
+    ``k_scale``/``v_scale`` (L, B, Hkv, S, 1)."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads,
              paged_capacity(max_len, cfg), cfg.hd)
-    return {
-        "len": torch.zeros(batch, dtype=torch.int32, device=device),
-        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-    }
+    cache = {"len": torch.zeros(batch, dtype=torch.int32, device=device)}
+    cache.update(_kv_entries(cfg, shape, ("k", "v", "k_scale", "v_scale"),
+                             device))
+    return cache
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -157,7 +170,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """Paged decode cache: ``k_pages``/``v_pages`` (L, P, Hkv, ps, D)
     shared by all lanes, ``block_tables`` (B, T) int32 page ids in
     logical order (T = capacity / ps, all page 0 until the caller maps
-    pages), and ``len`` (B,) int32.  ``n_pages`` defaults to
+    pages), and ``len`` (B,) int32; int8 adds ``k_scale_pages``/
+    ``v_scale_pages`` (L, P, Hkv, ps, 1).  ``n_pages`` defaults to
     ``batch * T``."""
     s = paged_capacity(max_len, cfg)
     invariant(s % page_size == 0,
@@ -167,34 +181,37 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     if n_pages is None:
         n_pages = batch * bt_width
     shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.hd)
-    return {
+    cache = {
         "len": torch.zeros(batch, dtype=torch.int32, device=device),
         "block_tables": torch.zeros(batch, bt_width, dtype=torch.int32,
                                     device=device),
-        "k_pages": torch.zeros(shape, dtype=cfg.compute_dtype,
-                               device=device),
-        "v_pages": torch.zeros(shape, dtype=cfg.compute_dtype,
-                               device=device),
     }
+    cache.update(_kv_entries(cfg, shape, ("k_pages", "v_pages",
+                                          "k_scale_pages", "v_scale_pages"),
+                             device))
+    return cache
 
 
 def block_decode(p: Block, x: torch.Tensor, cfg: ModelConfig,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
                  cache_len: torch.Tensor,
-                 block_tables: Optional[torch.Tensor] = None
-                 ) -> torch.Tensor:
+                 block_tables: Optional[torch.Tensor] = None,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token decode through one block. x: (B, 1, d).
 
     ``block_tables`` (B, T) selects the paged path (``k_cache``/
     ``v_cache`` are this layer's pools); without it they are this
-    layer's dense per-lane caches."""
+    layer's dense per-lane caches.  ``k_scale``/``v_scale`` are this
+    layer's scales when the cache is int8."""
     h = apply_norm(p.norm1, x)
     if block_tables is None:
-        att, _, _ = attention_decode(p.attn, h, cfg, k_cache, v_cache,
-                                     cache_len)
+        att = attention_decode(p.attn, h, cfg, k_cache, v_cache, cache_len,
+                               k_scale, v_scale)[0]
     else:
-        att, _, _ = attention_decode_paged(p.attn, h, cfg, k_cache, v_cache,
-                                           block_tables, cache_len)
+        att = attention_decode_paged(p.attn, h, cfg, k_cache, v_cache,
+                                     block_tables, cache_len, k_scale,
+                                     v_scale)[0]
     x = x + att
     h2 = apply_norm(p.norm2, x)
     return x + swiglu(p.mlp, h2)
@@ -206,16 +223,20 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
     """tokens: (B,) -> (logits (B, V) float32, cache).
 
     A cache with ``block_tables`` is paged, one without is dense (as the
-    reference's ``_attn_decode`` decides).  Each layer writes its new
-    K/V into its slice of the cache in place; the returned cache holds
-    the same tensors and ``len + 1``."""
+    reference's ``_attn_decode`` decides); an int8 cache carries its
+    scales beside the values.  Each layer writes its new K/V into its
+    slice of the cache in place; the returned cache holds the same
+    tensors and ``len + 1``."""
     x = embed(params.embed, tokens[:, None])
     cache_len = cache["len"]
     bt = cache.get("block_tables")
-    k_all, v_all = ((cache["k"], cache["v"]) if bt is None
-                    else (cache["k_pages"], cache["v_pages"]))
+    names = (("k", "v", "k_scale", "v_scale") if bt is None else
+             ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages"))
+    k_all, v_all, ks_all, vs_all = (cache.get(n) for n in names)
     for i, blk in enumerate(params.blocks):
-        x = block_decode(blk, x, cfg, k_all[i], v_all[i], cache_len, bt)
+        x = block_decode(blk, x, cfg, k_all[i], v_all[i], cache_len, bt,
+                         None if ks_all is None else ks_all[i],
+                         None if vs_all is None else vs_all[i])
     x = apply_norm(params.final_norm, x)
     logits = lm_logits(params.embed, x[:, 0], cfg)
     new_cache = dict(cache)

@@ -25,8 +25,14 @@ On both:
   ``fold_in(fold_in(rng_decode, lane_seed), tok_idx)``, so a stream
   does not depend on dispatch size, neighbours or layout.
 
-Prefix sharing, int8 KV, evict/restore and the telemetry hooks come in
-later slices.
+With ``cfg.kv_quant == "int8"`` both layouts hold int8 K/V with f32
+per-(token, head) scales: the prompt KV is quantized on its way into
+the cache, each decode step quantizes its new row, and the decode
+kernels dequantize in their reads.  The first token still comes from
+the full-precision prefill logits, as in the reference.
+
+Prefix sharing, evict/restore and the telemetry hooks come in later
+slices.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import torch
 from repro_torch import rng as trng
 from repro_torch.analysis.invariants import invariant
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import quantize_kv_token
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import paged_capacity, sample_tokens
@@ -151,6 +158,10 @@ def _bucket_len(n: int, floor: int = 8) -> int:
         b <<= 1
     return b
 
+
+#: paged pool holding each dense cache entry
+_POOL_KEY = {"k": "k_pages", "v": "v_pages", "k_scale": "k_scale_pages",
+             "v_scale": "v_scale_pages"}
 
 #: the reference's STATS_SCHEMA keys this slice moves
 STATS_KEYS = ("decode_dispatches", "decode_steps", "generated_tokens",
@@ -358,44 +369,51 @@ class ServeEngine:
             self._sync()
             self.timings["prefill"][bucket].append(time.perf_counter() - t0)
 
-    @staticmethod
-    def _prompt_kv_views(kv, plen: int, smax: int):
+    def _prompt_kv_views(self, kv, plen: int, smax: int):
         """Last ``take = min(plen, smax)`` prompt positions of the
-        prefill KV (each (L, Hkv, take, D)), placed at their ring slots
-        (``slot = position mod smax``), so the decode step's ring write
-        (same formula) evicts the true oldest position.  fp only: int8
-        KV is M6."""
+        prefill KV, placed at their ring slots (``slot = position mod
+        smax``), so the decode step's ring write (same formula) evicts
+        the true oldest position, and quantized when the cache is int8
+        (:func:`quantize_kv_token`, the scales the decode write uses).
+
+        Returns (entries, take): ``entries`` maps the dense cache key
+        (k, v[, k_scale, v_scale]) to an (L, Hkv, take, D or 1) tensor.
+        """
         k, v = kv                       # (L, 1, Hkv, S_bucket, D)
         take = min(plen, smax)
-        k = k[:, 0, :, plen - take:plen]
-        v = v[:, 0, :, plen - take:plen]
+        kv = torch.stack([k[:, 0, :, plen - take:plen],
+                          v[:, 0, :, plen - take:plen]])
         if take == smax:
             shift = plen % smax
             if shift:
-                k = torch.roll(k, shift, dims=2)
-                v = torch.roll(v, shift, dims=2)
-        return k, v, take
+                kv = torch.roll(kv, shift, dims=3)
+        if self.cfg.kv_quant == "int8":
+            vals, scales = quantize_kv_token(kv)
+            return {"k": vals[0], "v": vals[1], "k_scale": scales[0],
+                    "v_scale": scales[1]}, take
+        return {"k": kv[0], "v": kv[1]}, take
 
     def _scatter_prompt_dense(self, kv, lane: int, plen: int) -> None:
         """Write the prompt KV into slots ``[0, take)`` of the lane's row
         of the dense cache (positions past ``take`` keep stale values
         that no read reaches)."""
-        k, v, take = self._prompt_kv_views(kv, plen, self.cache["k"].shape[3])
-        for src, key in ((k, "k"), (v, "v")):
+        entries, take = self._prompt_kv_views(kv, plen,
+                                              self.cache["k"].shape[3])
+        for key, src in entries.items():
             dst = self.cache[key]
             dst[:, lane, :, :take] = src.to(dst.dtype)
 
     def _scatter_prompt_paged(self, kv, lane: int, plen: int) -> None:
-        """Write the prompt KV into the lane's mapped pages, in one
-        indexed copy per pool."""
+        """Write the prompt KV (and its scales when int8) into the lane's
+        mapped pages, in one indexed copy per pool."""
         ps = self.page_size
-        k, v, take = self._prompt_kv_views(kv, plen, ps * self._bt_width)
+        entries, take = self._prompt_kv_views(kv, plen, ps * self._bt_width)
         n_pg = -(-take // ps)
         pad = n_pg * ps - take
         pages = torch.tensor(self._lane_pages[lane][:n_pg],
                              dtype=torch.long).to(self.device)
-        for src, key in ((k, "k_pages"), (v, "v_pages")):
-            pool = self.cache[key]
+        for key, src in entries.items():
+            pool = self.cache[_POOL_KEY[key]]
             if pad:
                 src = torch.nn.functional.pad(src, (0, 0, 0, pad))
             n_l, hkv, _, d = src.shape

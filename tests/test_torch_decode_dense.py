@@ -118,13 +118,31 @@ def test_attention_decode_step_matches_reference():
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-5, rtol=0)
 
 
-def test_int8_kv_config_names_m6():
+def test_int8_kv_cache_layouts_match_reference():
+    """``build_model`` takes ``kv_quant="int8"``, and both cache layouts
+    have the reference's keys, dtypes and shapes (scales initialised to
+    ones, as the reference's)."""
     import dataclasses
+    from repro.models.transformer import init_cache as jax_init_cache
+    from repro.models.transformer import \
+        init_paged_cache as jax_init_paged_cache
+    from repro_torch.models import build_model
+    jcfg = dataclasses.replace(jax_get_config("qwen2.5-1.5b", smoke=True),
+                               kv_quant="int8")
     cfg = dataclasses.replace(get_config("qwen2.5-1.5b", smoke=True),
                               kv_quant="int8")
-    from repro_torch.models import build_model
-    with pytest.raises(ValueError, match="M6"):
-        build_model(cfg)
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    pairs = [(model.init_cache(3, 40, device=cpu), jax_init_cache(jcfg, 3, 40)),
+             (model.init_paged_cache(3, 48, page_size=16, n_pages=7,
+                                     device=cpu),
+              jax_init_paged_cache(jcfg, 3, 48, page_size=16, n_pages=7))]
+    for mine, ref in pairs:
+        assert sorted(mine) == sorted(ref)
+        for key, val in ref.items():
+            assert str(mine[key].dtype).split(".")[-1] == str(val.dtype), key
+            assert tuple(mine[key].shape) == val.shape, key
+            assert np.array_equal(mine[key].numpy(), np.asarray(val)), key
 
 
 def test_dense_wrapper_rejects_unsupported_device():

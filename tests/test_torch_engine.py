@@ -140,9 +140,26 @@ def test_engine_guards(setup):
     eng = ServeEngine(cfg, params, device="cpu")
     assert not eng.paged and eng.pool is None and "k" in eng.cache
     assert eng.temperature == 0.0
-    with pytest.raises(ValueError, match="M6"):
-        ServeEngine(dataclasses.replace(cfg, kv_quant="int8"), params,
-                    device="cpu")
+    # int8 KV: int8 values plus f32 per-token scales with the trailing 1,
+    # on both layouts (the scratch page included in the pools)
+    cfg_q = dataclasses.replace(cfg, kv_quant="int8")
+    dense = ServeEngine(cfg_q, params, n_lanes=2, max_len=MAX_LEN,
+                        device="cpu").cache
+    paged = ServeEngine(cfg_q, params, n_lanes=2, max_len=MAX_LEN,
+                        paged=True, page_size=PAGE, n_pages=N_PAGES,
+                        device="cpu").cache
+    for cache, names in ((dense, ("k", "v", "k_scale", "v_scale")),
+                         (paged, ("k_pages", "v_pages", "k_scale_pages",
+                                  "v_scale_pages"))):
+        kv_shape = cache[names[0]].shape
+        assert kv_shape[1] == (2 if cache is dense else N_PAGES + 1)
+        for name in names[:2]:
+            assert cache[name].dtype == torch.int8
+            assert cache[name].shape == kv_shape
+        for name in names[2:]:
+            assert cache[name].dtype == torch.float32
+            assert cache[name].shape == kv_shape[:-1] + (1,)
+            assert bool((cache[name] == 1).all())
     with pytest.raises(AssertionError, match="page_size"):
         ServeEngine(cfg, params, max_len=60, paged=True, page_size=16,
                     device="cpu")

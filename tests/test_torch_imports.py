@@ -2,6 +2,7 @@
 runtime, the CUDA default without a silent CPU fallback, and no kernel
 launch from a CPU call."""
 
+import dataclasses
 import re
 import subprocess
 import sys
@@ -75,8 +76,10 @@ def test_cpu_serving_launches_no_kernel():
     cpu = torch.device("cpu")
     params = build_model(cfg).init(torch.Generator().manual_seed(0), cpu)
     reset_launch_counts()
-    for paged in (False, True):
-        eng = ServeEngine(cfg, params, n_lanes=2, max_len=32, paged=paged,
+    for paged, kv_quant in ((False, None), (True, None), (False, "int8"),
+                            (True, "int8")):
+        eng = ServeEngine(dataclasses.replace(cfg, kv_quant=kv_quant),
+                          params, n_lanes=2, max_len=32, paged=paged,
                           page_size=8, temperature=0.5 * paged,
                           device="cpu")
         rng = np.random.default_rng(0)
@@ -88,4 +91,7 @@ def test_cpu_serving_launches_no_kernel():
     assert launch_counts() == {"decode_attention_paged": 0,
                                "decode_attention_lengthaware": 0,
                                "decode_attention_masked": 0,
+                               "decode_attention_paged_q8": 0,
+                               "decode_attention_q8_lengthaware": 0,
+                               "decode_attention_q8_masked": 0,
                                "flash_attention": 0}
