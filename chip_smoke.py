@@ -43,7 +43,29 @@ order (any failure raises and the script exits non-zero):
 10. timings at the main-path shapes: each kernel, its plain version and
    PyTorch's own attention call where one computes the same function,
    beside the card's bound; for the int8 kernels also the reference
-   model's route (dequantize to float32, then K3 or K1).
+   model's route (dequantize to float32, then K3 or K1);
+11. the paper's compute path, checked: K8 (mixbench) in float32 and
+   bfloat16, both arms, at 1, 16 and 128 steps (f32 mul_add bitwise,
+   f32 fma within 1e-6, bf16 within 2e-2); K9 (fma_matmul) both
+   variants in float32 and bfloat16 at (128, 1024, 512) and the
+   qwen2.5-1.5b MLP shapes (128, 1536, 8960) and (128, 8960, 1536)
+   against one f32 matmul; K7 (qmatmul) on those weights quantized on
+   the card in all four formats, dequant_dot and q8_0 dot_i8 at M 8
+   and 128, within 1e-5;
+12. the instructions (``cuobjdump -sass``): no FFMA/HFMA2 in any
+   mul_add kernel of K8 and K9, FFMA/HFMA2 in K8's fma kernels, HMMA
+   only in K9's mxu kernels -- the paper's ``-fmad=false``;
+13. the compute path through its entry points, launch counts zeroed
+   before and read after: the K8 intensity sweep (2^26 float32
+   elements, 1 to 1024 steps, both arms: GFLOP/s and GB/s per point,
+   the fused/unfused peak ratio and the stream rate), ``matmul(x, w,
+   policy=PathPolicy(p))`` for the four profiles (each must launch the
+   variant the reference's policy picks) and ``qmatmul(x, qt,
+   profile=CMP_170HX)`` for the four formats (dot_i8 for q8_0,
+   dequant_dot otherwise);
+14. timings of K8, K9 and K7 at full width beside their bounds, plain
+   versions and ``torch.matmul`` (K9) or the dequantize-then-matmul
+   route (K7).
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -52,7 +74,9 @@ no CUDA device is present or the port's sources are not beside it.
 
 from __future__ import annotations
 
+import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -642,6 +666,445 @@ def phase_timings(dev):
     return rows
 
 
+# ----------------------------------------------------------------------
+# the paper's compute path: K8 (mixbench), K9 (fma_matmul), K7 (qmatmul)
+# ----------------------------------------------------------------------
+
+#: further published H100 SXM peaks (NVIDIA data sheet) for the bounds:
+#: FP32 outside the tensor cores (an unfused multiply and add issue two
+#: instructions per multiply-accumulate: half of it), TF32 and int8
+#: tensor cores
+FP32_FLOPS_PER_S = 66.9e12
+TF32_FLOPS_PER_S = 495e12
+INT8_OPS_PER_S = 1979e12
+SWEEP_N = 1 << 26                     # 256 MB of float32, beyond the L2
+SWEEP_ITERS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
+MLP_SHAPES = ((128, 1536, 8960), (128, 8960, 1536))   # qwen2.5-1.5b
+#: the reference's choice for f32 activations at the MLP shape
+#: (tests/test_torch_compute_path.py holds the port's policy to it)
+POLICY_VARIANT = {"cmp-170hx": "mul_add", "cmp-170hx-nofma": "mul_add",
+                  "a100-40g": "mxu", "tpu-v5e": "mxu"}
+QFMTS = ("q8_0", "q6_k", "q4_k", "q2_k")
+
+
+def rel_err(a, b) -> float:
+    return max_err(a, b) / (float(b.float().abs().max().item()) + 1e-9)
+
+
+def mlp_weights(k, n, dev):
+    """A qwen2.5-1.5b-shaped MLP weight (k, n) from the seed, on the card."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED + k)
+    return torch.randn(k, n, device=dev, generator=g)
+
+
+def activations(m, k, dev):
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED + 7 * m + k)
+    return torch.randn(m, k, device=dev, generator=g)
+
+
+def phase_k8_check(dev):
+    """K8 against its plain version: f32 mul_add bitwise, f32 fma <=
+    1e-6, bf16 <= 2e-2 (the reference test's bf16 tolerance); on 2^20
+    elements (whole vectors), on 1000003 (vectors and a scalar tail) and
+    on an unaligned view of as many (all scalar)."""
+    import torch
+    from repro_torch.kernels.mixbench import mixbench, mixbench_ref
+    worst = {(v, d): 0.0 for v in ("fma", "mul_add")
+             for d in (torch.float32, torch.bfloat16)}
+    n_odd = 1000003
+    for dtype in (torch.float32, torch.bfloat16):
+        base = torch.linspace(0, 1, (1 << 20) + 8, device=dev).to(dtype)
+        cases = (("aligned", base[:1 << 20], 1024),
+                 ("tail", base[:n_odd], 1),
+                 ("unaligned", base[1:n_odd + 1], 1))
+        for (what, x, block), variant, iters in itertools.product(
+                cases, ("fma", "mul_add"), (1, 16, 128)):
+            out = mixbench(x, iters=iters, variant=variant, block=block)
+            ref = mixbench_ref(x, iters, variant)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            tol = 1e-6 if dtype == torch.float32 else 2e-2
+            same = torch.equal(out, ref)
+            print(f"[K8] {variant} {dtype} {what} n={x.numel()} "
+                  f"iters={iters}: max_abs_err {err:.3e} (tol {tol}), "
+                  f"bitwise {same}")
+            if not err <= tol:
+                fail(f"K8 {variant} {dtype} {what} iters={iters}: {err}")
+            if dtype == torch.float32 and variant == "mul_add" and \
+                    not same:
+                fail("K8 f32 mul_add is not bitwise equal to the "
+                     "separate multiply and add")
+            worst[variant, dtype] = max(worst[variant, dtype], err)
+    return {f"mixbench_{v}": dict(
+        max_abs_err=worst[v, torch.bfloat16], tol=2e-2,
+        max_abs_err_f32=worst[v, torch.float32],
+        tol_f32=1e-6 if v == "fma" else 0.0) for v in ("fma", "mul_add")}
+
+
+def phase_k9_check(dev):
+    """K9 both variants, f32 and bf16, at the reference bench's shape
+    and the MLP shapes, against one f32 matmul (TF32 off): relative max
+    error <= 1e-5 (mul_add f32), 2e-3 (mxu f32, TF32 by design), 2e-2
+    (bf16 inputs)."""
+    import torch
+    from repro_torch.kernels.fma_matmul import matmul_ref, matmul_variant
+    errs = {"mxu": (0.0, 0.0), "mul_add": (0.0, 0.0)}
+    for m, k, n in ((128, 1024, 512),) + MLP_SHAPES:
+        x, w = activations(m, k, dev), mlp_weights(k, n, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, wd = x.to(dtype), w.to(dtype)
+            ref = matmul_ref(xd, wd)
+            for variant in ("mxu", "mul_add"):
+                out = matmul_variant(xd, wd, variant=variant)
+                torch.cuda.synchronize()
+                rel = rel_err(out, ref)
+                tol = (2e-2 if dtype == torch.bfloat16 else
+                       {"mxu": 2e-3, "mul_add": 1e-5}[variant])
+                print(f"[K9] {variant} {dtype} ({m},{k},{n}): rel max err "
+                      f"{rel:.3e} (tol {tol})")
+                if not rel <= tol:
+                    fail(f"K9 {variant} {dtype} ({m},{k},{n}): {rel}")
+                if dtype == torch.float32:
+                    errs[variant] = max(errs[variant],
+                                        (max_err(out, ref), rel))
+    return {f"fma_matmul_{v}": dict(max_abs_err=a, max_rel_err=r,
+                                    tol={"mxu": 2e-3, "mul_add": 1e-5}[v])
+            for v, (a, r) in errs.items()}
+
+
+def phase_k7_check(dev):
+    """K7: the MLP weights quantized on the card in all four formats;
+    dequant_dot (every format) and dot_i8 (q8_0) at M 8 and 128 against
+    their plain versions, relative max error <= 1e-5."""
+    import torch
+    from repro_torch.kernels.qmatmul import (qmatmul_i8_ref, qmatmul_ref,
+                                             qmatmul_variant)
+    from repro_torch.quant import quantize
+    errs = {"dequant_dot": (0.0, 0.0), "dot_i8": (0.0, 0.0)}
+    for _, k, n in MLP_SHAPES:
+        w = mlp_weights(k, n, dev)
+        bk = 512 if k % 512 == 0 else 256     # the contract: bk | k
+        for fmt in QFMTS:
+            qt = quantize(w, fmt)
+            for m in (8, 128):
+                x = activations(m, k, dev)
+                runs = [("dequant_dot", qmatmul_ref)]
+                if fmt == "q8_0":
+                    runs.append(("dot_i8", qmatmul_i8_ref))
+                for variant, plain in runs:
+                    out = qmatmul_variant(x, qt, variant=variant, bk=bk)
+                    ref = plain(x, qt)
+                    torch.cuda.synchronize()
+                    rel = rel_err(out, ref)
+                    print(f"[K7] {variant} {fmt} ({m},{k},{n}): rel max "
+                          f"err {rel:.3e} (tol 1e-05)")
+                    if not rel <= 1e-5:
+                        fail(f"K7 {variant} {fmt} ({m},{k},{n}): {rel}")
+                    errs[variant] = max(errs[variant],
+                                        (max_err(out, ref), rel))
+        del w
+    return {f"qmatmul_{v}": dict(max_abs_err=a, max_rel_err=r, tol=1e-5)
+            for v, (a, r) in errs.items()}
+
+
+def _cuobjdump() -> str:
+    import importlib.util
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = [Path("/usr/local/cuda/bin/cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        for loc in spec.submodule_search_locations:
+            cands.append(Path(loc) / "backends" / "nvidia" / "bin" /
+                         "cuobjdump")
+    for c in cands:
+        if c.exists():
+            return str(c)
+    raise FileNotFoundError("cuobjdump not found: the instruction check "
+                            "cannot run")
+
+
+def sass_counts(lib) -> dict:
+    """{kernel symbol: Counter of instruction classes} from the SASS of
+    one built library.  ``fma`` counts FFMA and HFMA2 except the
+    ``HFMA2.MMA Rd, -RZ, RZ, c`` form, which computes -0 * 0 + c: a
+    constant move ptxas issues on that pipe, counted as ``mov``."""
+    import collections
+    text = subprocess.run([_cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    counts, func = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            counts[func] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if not (m and func):
+            continue
+        op, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+        c = counts[func]
+        if op.startswith(("FFMA", "HFMA2")):
+            if op.startswith("HFMA2") and args[1:3] == ["-RZ", "RZ"]:
+                c["mov"] += 1
+            else:
+                c["fma"] += 1
+        elif op.startswith(("FMUL", "HMUL2")):
+            c["mul"] += 1
+        elif op.startswith(("FADD", "HADD2")):
+            c["add"] += 1
+        elif op.startswith("HMMA"):
+            c["hmma"] += 1
+    return counts
+
+
+SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
+                "mixbench_f32_mul_add", "mixbench_bf16_mul_add",
+                "fma_matmul_mxu_f32", "fma_matmul_mxu_bf16",
+                "fma_matmul_mul_add_f32", "fma_matmul_mul_add_bf16")
+
+
+def sass_report():
+    """The paper's -fmad=false, checked on the instructions of the built
+    mixbench and fma_matmul libraries: ({kernel: counts}, [problems]).
+    No FFMA or HFMA2 in a mul_add kernel and its multiplies and adds
+    present; FFMA (HFMA2) in K8's fma kernels; HMMA in K9's mxu kernels
+    only."""
+    from repro_torch.kernels import _build
+    found = {}
+    for lib in ("mixbench", "fma_matmul"):
+        for sym, c in sass_counts(_build._lib_path(lib)).items():
+            for kern in SASS_KERNELS:
+                if re.search(rf"\d{kern}E", sym):
+                    found[kern] = dict(c)
+    problems = [f"{k}: not found" for k in SASS_KERNELS if k not in found]
+    for kern, c in found.items():
+        if "mul_add" in kern:
+            if c.get("fma", 0) or c.get("hmma", 0) or not (
+                    c.get("mul", 0) and c.get("add", 0)):
+                problems.append(f"{kern} is not a separate multiply and "
+                                f"add: {c}")
+        elif kern.startswith("mixbench") and not c.get("fma", 0):
+            problems.append(f"{kern} has no fused multiply-add: {c}")
+        elif kern.startswith("fma_matmul") and not c.get("hmma", 0):
+            problems.append(f"{kern} does not use the tensor cores: {c}")
+    return found, problems
+
+
+def phase_sass():
+    try:
+        found, problems = sass_report()
+    except FileNotFoundError as e:
+        fail(str(e))
+    print(f"[sass] {json.dumps(found, sort_keys=True)}")
+    if problems:
+        fail("SASS: " + "; ".join(problems))
+    return found
+
+
+def sweep(dev, reps: int = 10):
+    """The measured form of the reference's ``sweep_points``: mixbench
+    over SWEEP_N float32 elements, both arms in turn at each count of
+    steps, timed with CUDA events (median of ``reps`` after two
+    warm-ups).  Then each arm's top point runs for about a second while
+    ``nvidia-smi`` reads the SM clock and the power under that load."""
+    import torch
+    from repro_torch.kernels.mixbench import mixbench
+    x = torch.rand(SWEEP_N, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    points, load = {}, {}
+    for iters in SWEEP_ITERS:
+        for variant in ("fma", "mul_add"):
+            ms = time_ms(lambda: mixbench(x, iters=iters, variant=variant),
+                         warmup=2, iters=reps)
+            flops = 2.0 * iters * SWEEP_N
+            points[variant, iters] = dict(
+                ms=ms, gflops=flops / ms / 1e6,
+                gbps=8.0 * SWEEP_N / ms / 1e6)      # 4 B read + 4 B written
+    top = SWEEP_ITERS[-1]
+    for variant in ("fma", "mul_add"):
+        n_runs = int(1000 / points[variant, top]["ms"]) + 1
+        for _ in range(n_runs):
+            mixbench(x, iters=top, variant=variant)
+        time.sleep(0.5)
+        load[variant] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip()
+        torch.cuda.synchronize()
+    return points, load
+
+
+def phase_compute_main(dev):
+    """The compute path through its entry points, with the launch counts
+    zeroed just before and read just after: the K8 sweep, ``matmul(x, w,
+    policy=PathPolicy(p))`` for the four profiles and ``qmatmul(x, qt,
+    profile=CMP_170HX)`` for the four formats, at the MLP width."""
+    import torch
+    from repro_torch.core import PROFILES, PathPolicy
+    from repro_torch.core.device_profile import CMP_170HX
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.fma_matmul import matmul, matmul_ref
+    from repro_torch.kernels.mixbench import sweep_points
+    from repro_torch.kernels.qmatmul import (qmatmul, qmatmul_i8_ref,
+                                             qmatmul_ref)
+    from repro_torch.core.device_profile import Path as CPath
+    from repro_torch.quant import quantize
+    m, k, n = MLP_SHAPES[0]
+    x, w = activations(m, k, dev), mlp_weights(k, n, dev)
+    qts = {fmt: quantize(w, fmt) for fmt in QFMTS}
+    ref = matmul_ref(x, w)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    points, load = sweep(dev)
+    for name in sorted(PROFILES):
+        before = launch_counts()
+        out = matmul(x, w, policy=PathPolicy(PROFILES[name]))
+        torch.cuda.synchronize()
+        ran = [kk for kk, v in launch_counts().items() if v != before[kk]]
+        want = f"fma_matmul_{POLICY_VARIANT[name]}"
+        tol = {"fma_matmul_mxu": 2e-3, "fma_matmul_mul_add": 1e-5}[want]
+        rel = rel_err(out, ref)
+        print(f"[policy] matmul on {name}: launched {ran} (reference: "
+              f"{want}), rel max err {rel:.3e}")
+        if ran != [want] or not rel <= tol:
+            fail(f"matmul(policy={name}) launched {ran}, want {want}")
+    for fmt, qt in qts.items():
+        before = launch_counts()
+        out = qmatmul(x, qt, profile=CMP_170HX)
+        torch.cuda.synchronize()
+        ran = [kk for kk, v in launch_counts().items() if v != before[kk]]
+        want = "qmatmul_dot_i8" if fmt == "q8_0" else "qmatmul_dequant_dot"
+        plain = qmatmul_i8_ref if fmt == "q8_0" else qmatmul_ref
+        rel = rel_err(out, plain(x, qt))
+        print(f"[policy] qmatmul {fmt} on cmp-170hx: launched {ran}, rel "
+              f"max err {rel:.3e}")
+        if ran != [want] or not rel <= 1e-5:
+            fail(f"qmatmul({fmt}, cmp-170hx) launched {ran}, want {want}")
+    counts = launch_counts()
+    print(f"[compute path] launches: {counts}")
+    compute = ("mixbench_fma", "mixbench_mul_add", "fma_matmul_mxu",
+               "fma_matmul_mul_add", "qmatmul_dequant_dot", "qmatmul_dot_i8")
+    if min(counts[kk] for kk in compute) <= 0:
+        fail(f"a kernel of the compute path never launched: {counts}")
+
+    print("[sweep] iters  fma GFLOP/s  fma GB/s  mul_add GFLOP/s  "
+          "mul_add GB/s   (f32, n = 2^26, GB/s counts read + write)")
+    for iters in SWEEP_ITERS:
+        f, u = points["fma", iters], points["mul_add", iters]
+        print(f"[sweep] {iters:5d}  {f['gflops']:11.1f}  {f['gbps']:8.1f}  "
+              f"{u['gflops']:15.1f}  {u['gbps']:12.1f}")
+    peak = {v: max(points[v, i]["gflops"] for i in SWEEP_ITERS) / 1e3
+            for v in ("fma", "mul_add")}
+    stream = max(points[v, 1]["gbps"] for v in ("fma", "mul_add")) / 1e3
+    cmp = {v: max(p["gflops"] for p in sweep_points(
+        CMP_170HX, "f32", CPath(v))) / 1e3 for v in ("fma", "mul_add")}
+    summary = {"under_load_clock_power": load,
+               "peak_fma_tflops": peak["fma"],
+               "peak_mul_add_tflops": peak["mul_add"],
+               "fused_over_unfused": peak["fma"] / peak["mul_add"],
+               "stream_tbps_iters1": stream,
+               "stream_share_of_3.35": stream * 1e12 / HBM_BYTES_PER_S,
+               "cmp_170hx_modeled_unfused_over_fused":
+                   cmp["mul_add"] / cmp["fma"]}
+    print(f"[sweep] peak f32: fma {peak['fma']:.2f} TFLOP/s, mul_add "
+          f"{peak['mul_add']:.2f} TFLOP/s; fused/unfused "
+          f"{summary['fused_over_unfused']:.3f} (CMP 170HX, modeled from "
+          f"the paper: unfused/fused "
+          f"{summary['cmp_170hx_modeled_unfused_over_fused']:.1f}); "
+          f"iters=1 stream {stream:.3f} TB/s = "
+          f"{100 * summary['stream_share_of_3.35']:.1f}% of 3.35; SM "
+          f"clock, power at {SWEEP_ITERS[-1]} steps: {load}")
+    print(f"[sweep] {json.dumps({'points': {f'{v}/{i}': p for (v, i), p in points.items()}, **summary})}")
+    return counts, summary
+
+
+def phase_compute_timings(dev):
+    """Each compute-path kernel and variant at full width: kernel ms,
+    plain ms, library (or route) ms, and the bound: bytes over 3.35 TB/s
+    against operations over the peak of the path the variant names."""
+    import torch
+    from repro_torch.kernels.fma_matmul import matmul_ref, matmul_variant
+    from repro_torch.kernels.mixbench import mixbench, mixbench_ref
+    from repro_torch.kernels.qmatmul import (qmatmul_i8_ref, qmatmul_ref,
+                                             qmatmul_variant)
+    from repro_torch.quant import dequantize, quantize
+    rows = {}
+    # K8: f32, n = 2^26, the reference wrapper's default 64 steps
+    x = torch.rand(SWEEP_N, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(SEED))
+    for variant, peak in (("fma", FP32_FLOPS_PER_S),
+                          ("mul_add", FP32_FLOPS_PER_S / 2)):
+        rows[f"mixbench_{variant}"] = dict(
+            ms=time_ms(lambda: mixbench(x, iters=64, variant=variant)),
+            plain_ms=time_ms(lambda: mixbench_ref(x, 64, variant),
+                             warmup=1, iters=5),
+            library_ms=None, bytes=8 * SWEEP_N, flops=2 * 64 * SWEEP_N,
+            peak=peak, shape="f32 n=2^26 iters=64")
+    del x
+    # K9: f32 at the first MLP shape; the library call is torch.matmul,
+    # TF32 on beside mxu and off beside mul_add
+    m, k, n = MLP_SHAPES[0]
+    a, w = activations(m, k, dev), mlp_weights(k, n, dev)
+    k9_bytes = 4 * (m * k + k * n + m * n)
+    for variant, peak, tf32 in (("mxu", TF32_FLOPS_PER_S, True),
+                                ("mul_add", FP32_FLOPS_PER_S / 2, False)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        lib_ms = time_ms(lambda: torch.matmul(a, w))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        rows[f"fma_matmul_{variant}"] = dict(
+            ms=time_ms(lambda: matmul_variant(a, w, variant=variant)),
+            plain_ms=time_ms(lambda: matmul_ref(a, w)), library_ms=lib_ms,
+            bytes=k9_bytes, flops=2 * m * k * n, peak=peak,
+            shape=f"f32 ({m},{k},{n})")
+    # K7: f32 activations, the same shape; dequant_dot's row is q4_k (the
+    # paper's Q4_K_M), every format is printed; no single PyTorch call
+    # computes a block-quantized product, so the route (dequantize, then
+    # torch.matmul in f32) stands beside each as route_ms
+    per_fmt = {}
+    for fmt in QFMTS:
+        qt = quantize(w, fmt)
+        variants = [("dequant_dot", qmatmul_ref, TF32_FLOPS_PER_S)]
+        if fmt == "q8_0":
+            variants.append(("dot_i8", qmatmul_i8_ref, INT8_OPS_PER_S))
+        route_ms = time_ms(lambda: a @ dequantize(qt))
+        for variant, plain, peak in variants:
+            r = dict(ms=time_ms(lambda: qmatmul_variant(a, qt,
+                                                        variant=variant)),
+                     plain_ms=time_ms(lambda: plain(a, qt)),
+                     library_ms=None, route_ms=route_ms,
+                     bytes=4 * (m * k + m * n) + qt.nbytes(),
+                     flops=2 * m * k * n, peak=peak,
+                     shape=f"f32 x ({m},{k}) {fmt} ({k},{n})")
+            per_fmt[f"{variant}/{fmt}"] = r
+    for name, r in list(rows.items()) + [
+            (f"qmatmul {key}", r) for key, r in per_fmt.items()]:
+        t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
+        t_ops = 1e3 * r["flops"] / r["peak"]
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        lib = r["library_ms"]
+        route = (f", dequantize + torch.matmul {r['route_ms']:.4f} ms"
+                 if "route_ms" in r else "")
+        print(f"[time] {name} ({r['shape']}): kernel {r['ms']:.4f} ms "
+              f"({r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s), plain "
+              f"{r['plain_ms']:.4f} ms, library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}{route}, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B, "
+              f"{r['flops']} flop at {r['peak'] / 1e12:.2f} T/s)")
+    rows["qmatmul_dequant_dot"] = dict(per_fmt["dequant_dot/q4_k"])
+    rows["qmatmul_dequant_dot"]["ms_by_format"] = {
+        f: per_fmt[f"dequant_dot/{f}"]["ms"] for f in QFMTS}
+    rows["qmatmul_dot_i8"] = per_fmt["dot_i8/q8_0"]
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -670,6 +1133,11 @@ def main() -> int:
     int8 = phase_full_int8(dev, cfg, params)
     del params
     rows = phase_timings(dev)
+    compute_errs = {**phase_k8_check(dev), **phase_k9_check(dev),
+                    **phase_k7_check(dev)}
+    phase_sass()
+    compute_counts, sweep_summary = phase_compute_main(dev)
+    compute_rows = phase_compute_timings(dev)
 
     replaces = {
         "decode_attention_paged":
@@ -725,6 +1193,28 @@ def main() -> int:
             "library_ms": r["library_ms"], "bytes": r["bytes"]})
         if "route_ms" in r:
             kernels[-1]["route_ms"] = r["route_ms"]
+    compute_replaces = {
+        "mixbench_fma": "src/repro/kernels/mixbench/kernel.py:56",
+        "mixbench_mul_add": "src/repro/kernels/mixbench/kernel.py:56",
+        "fma_matmul_mxu": "src/repro/kernels/fma_matmul/kernel.py:69",
+        "fma_matmul_mul_add": "src/repro/kernels/fma_matmul/kernel.py:69",
+        "qmatmul_dequant_dot": "src/repro/kernels/qmatmul/kernel.py:197",
+        "qmatmul_dot_i8": "src/repro/kernels/qmatmul/kernel.py:149"}
+    for name, replaced in compute_replaces.items():
+        r = compute_rows[name]
+        src = next(f for f in ("mixbench", "fma_matmul", "qmatmul")
+                   if name.startswith(f))
+        entry = {"name": name, "route": "cuda",
+                 "source": f"src/repro_torch/csrc/{src}.cu",
+                 "replaces": replaced, "launches": compute_counts[name],
+                 **compute_errs[name], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "bytes": r["bytes"], "shape": r["shape"]}
+        for extra in ("route_ms", "ms_by_format"):
+            if extra in r:
+                entry[extra] = r[extra]
+        kernels.append(entry)
     e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e,
            "paged_int8": int8["full e2e paged int8"][1],
            "fixed_lane_int8": int8["full e2e fixed-lane int8"][1]}
@@ -732,6 +1222,7 @@ def main() -> int:
         print(f"[e2e] {name}: {r['tok_s']:.1f} tok/s, decode "
               f"{r['decode_ms_per_dispatch']:.2f} ms per dispatch")
     print(f"[e2e] {json.dumps(e2e)}")
+    print(f"[sweep] {json.dumps(sweep_summary)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

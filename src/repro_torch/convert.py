@@ -1,23 +1,28 @@
-"""Reference parameters -> port modules.
+"""Reference parameters and quantized tensors -> the port's objects.
 
-The input is the nested dict the reference's ``init_lm`` returns, brought
+:func:`params_from_jax`: the input is the nested dict the reference's ``init_lm`` returns, brought
 to the host as numpy arrays (``jax.device_get(params)``): ``embed``
 (``tok``, and ``head`` when untied), ``blocks`` with every leaf stacked
 ``(L, ...)`` along the layer axis, and ``final_norm``.  Taking numpy only
 keeps JAX out of the port.
+
+:func:`qtensor_from_numpy`: the planes of a reference ``QTensor``
+(``jax.device_get`` of each) become a port :class:`QTensor` with the
+same bytes, so a test can quantize once and feed both packages.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import LM
+from repro_torch.quant import PLANES, QTensor, plane_layout
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "qtensor_from_numpy"]
 
 
 def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
@@ -55,3 +60,35 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
     _copy(lm.final_norm.scale, np_params["final_norm"]["scale"],
           "final_norm.scale")
     return lm.to(device)
+
+
+def qtensor_from_numpy(fmt: str, shape, values: Any, super_scales: Any,
+                       sub_scales: Any = None, sub_mins: Any = None,
+                       super_mins: Any = None,
+                       device: Union[str, torch.device] = "cpu"
+                       ) -> QTensor:
+    """A port :class:`QTensor` holding the given planes bit for bit.
+
+    Each plane must already have the dtype and shape the format gives
+    it (values int8, or packed uint8 for q4_k/q2_k; sub-scales and
+    sub-mins int8; super scales and mins float32); nothing is cast, so
+    a plane of another type is refused rather than rounded."""
+    k, n = (int(d) for d in shape)
+    want = plane_layout(fmt, (k, n))
+    given = dict(zip(PLANES, (values, super_scales, sub_scales, sub_mins,
+                              super_mins)))
+    planes = {}
+    for name, arr in given.items():
+        if name not in want:
+            if arr is not None:
+                raise ValueError(f"{fmt} has no {name} plane")
+            continue
+        if arr is None:
+            raise ValueError(f"{fmt} needs its {name} plane")
+        t = torch.from_numpy(np.array(arr))       # a copy, never a cast
+        w_shape, w_dtype = want[name]
+        if t.dtype != w_dtype or tuple(t.shape) != w_shape:
+            raise ValueError(f"{fmt} {name}: {t.dtype}{tuple(t.shape)}, "
+                             f"want {w_dtype}{w_shape}")
+        planes[name] = t.to(device)
+    return QTensor(fmt=fmt, shape=(k, n), **planes)

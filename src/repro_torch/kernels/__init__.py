@@ -11,6 +11,9 @@ from typing import Dict
 
 from repro_torch.kernels.decode_attention import ops as _decode_ops
 from repro_torch.kernels.flash_attention import ops as _flash_ops
+from repro_torch.kernels.fma_matmul import ops as _matmul_ops
+from repro_torch.kernels.mixbench import ops as _mixbench_ops
+from repro_torch.kernels.qmatmul import ops as _qmatmul_ops
 
 __all__ = ["COUNTERS", "launch_counts", "reset_launch_counts"]
 
@@ -20,7 +23,13 @@ COUNTERS = {c.name: c for c in (_decode_ops.COUNTER,
                                 _decode_ops.COUNTER_PAGED_Q8,
                                 _decode_ops.COUNTER_Q8_LENGTHAWARE,
                                 _decode_ops.COUNTER_Q8_MASKED,
-                                _flash_ops.COUNTER)}
+                                _flash_ops.COUNTER,
+                                _mixbench_ops.COUNTER_FMA,
+                                _mixbench_ops.COUNTER_MUL_ADD,
+                                _matmul_ops.COUNTER_MXU,
+                                _matmul_ops.COUNTER_MUL_ADD,
+                                _qmatmul_ops.COUNTER_DEQUANT_DOT,
+                                _qmatmul_ops.COUNTER_DOT_I8)}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -5,7 +5,9 @@ own shared library with a plain C interface, loaded through ``ctypes``
 (no PyTorch headers, so a build takes seconds).  Libraries go to
 ``<repo>/build/torch_kernels/`` (override: ``REPRO_TORCH_BUILD_DIR``),
 named by a hash of the source and the flags, so a changed source
-rebuilds and an unchanged one loads what is there.  :func:`build_all`
+rebuilds and an unchanged one loads what is there.  The flags never
+include ``--use_fast_math``: the compute-path kernels (mixbench,
+fma_matmul) rely on the exact instruction each intrinsic names.  :func:`build_all`
 starts one ``nvcc`` per source, all together, and waits for them.
 
 Nothing here runs at import: the CPU tests import every module, and
@@ -28,7 +30,7 @@ __all__ = ["KernelBuildError", "KernelLaunchError", "LaunchCounter",
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 CSRC = _PKG / "csrc"
 SOURCES = ("decode_attention_paged", "decode_attention_dense",
-           "flash_attention")
+           "flash_attention", "mixbench", "fma_matmul", "qmatmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -39,7 +39,10 @@ def test_every_module_imports_with_jax_blocked():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "for m in ('serving.engine', 'rng', 'kernels.decode_attention.ops'):\n"
+        "for m in ('serving.engine', 'rng', 'kernels.decode_attention.ops',\n"
+        "          'core.device_profile', 'core.compute_path',\n"
+        "          'quant.formats', 'quant.quantize', 'kernels.mixbench.ops',\n"
+        "          'kernels.fma_matmul.ops', 'kernels.qmatmul.ops'):\n"
         "    assert 'repro_torch.' + m in names, names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -47,7 +50,7 @@ def test_every_module_imports_with_jax_blocked():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    assert int(res.stdout.strip()) >= 29
 
 
 def test_no_source_names_jax_or_the_reference():
@@ -94,4 +97,10 @@ def test_cpu_serving_launches_no_kernel():
                                "decode_attention_paged_q8": 0,
                                "decode_attention_q8_lengthaware": 0,
                                "decode_attention_q8_masked": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0,
+                               "mixbench_fma": 0,
+                               "mixbench_mul_add": 0,
+                               "fma_matmul_mxu": 0,
+                               "fma_matmul_mul_add": 0,
+                               "qmatmul_dequant_dot": 0,
+                               "qmatmul_dot_i8": 0}
