@@ -1,0 +1,121 @@
+"""The paper's ``-fmad=false``, checked on the instructions.
+
+``cuobjdump -sass`` of the built mixbench (K8) and fma_matmul (K9)
+libraries is read kernel by kernel and the floating-point instructions
+counted by class.  :func:`sass_report` applies the rules: no FFMA or
+HFMA2 in a ``mul_add`` kernel and its multiplies and adds present;
+FFMA (HFMA2) in K8's ``fma`` kernels; HMMA in K9's ``mxu`` kernels and
+in no ``mul_add`` kernel.  ``chip_smoke.py`` and the cuda-marked test
+both call it.  Nothing runs at import.
+"""
+
+from __future__ import annotations
+
+import collections
+import importlib.util
+import re
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+from repro_torch.kernels import _build
+
+__all__ = ["SASS_KERNELS", "check_counts", "cuobjdump", "kernel_counts",
+           "parse_sass", "sass_counts", "sass_report"]
+
+SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
+                "mixbench_f32_mul_add", "mixbench_bf16_mul_add",
+                "fma_matmul_mxu_f32", "fma_matmul_mxu_bf16",
+                "fma_matmul_mul_add_f32", "fma_matmul_mul_add_bf16")
+
+
+def cuobjdump() -> str:
+    """The toolkit's ``cuobjdump``, else Triton's copy."""
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cands = [Path("/usr/local/cuda/bin/cuobjdump")]
+    spec = importlib.util.find_spec("triton")
+    if spec is not None and spec.submodule_search_locations:
+        for loc in spec.submodule_search_locations:
+            cands.append(Path(loc) / "backends" / "nvidia" / "bin" /
+                         "cuobjdump")
+    for c in cands:
+        if c.exists():
+            return str(c)
+    raise FileNotFoundError("cuobjdump not found: the instruction check "
+                            "cannot run")
+
+
+def parse_sass(text: str) -> Dict[str, collections.Counter]:
+    """{kernel symbol: Counter of instruction classes} from the text of
+    ``cuobjdump -sass``.  ``fma`` counts FFMA and HFMA2 except the
+    ``HFMA2.MMA Rd, -RZ, RZ, c`` form, which computes -0 * 0 + c: a
+    constant move ptxas issues on that pipe, counted as ``mov``."""
+    counts, func = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            counts[func] = collections.Counter()
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)\s*([^;]*);", line)
+        if not (m and func):
+            continue
+        op, args = m.group(1), [a.strip() for a in m.group(2).split(",")]
+        c = counts[func]
+        if op.startswith(("FFMA", "HFMA2")):
+            if op.startswith("HFMA2") and args[1:3] == ["-RZ", "RZ"]:
+                c["mov"] += 1
+            else:
+                c["fma"] += 1
+        elif op.startswith(("FMUL", "HMUL2")):
+            c["mul"] += 1
+        elif op.startswith(("FADD", "HADD2")):
+            c["add"] += 1
+        elif op.startswith("HMMA"):
+            c["hmma"] += 1
+    return counts
+
+
+def sass_counts(lib) -> Dict[str, collections.Counter]:
+    """:func:`parse_sass` of one built library."""
+    text = subprocess.run([cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    return parse_sass(text)
+
+
+def check_counts(found: Dict[str, dict]) -> List[str]:
+    """The rules above applied to {kernel: counts}; one line per
+    breach, and one per kernel of SASS_KERNELS that is missing."""
+    problems = [f"{k}: not found" for k in SASS_KERNELS if k not in found]
+    for kern, c in found.items():
+        if "mul_add" in kern:
+            if c.get("fma", 0) or c.get("hmma", 0) or not (
+                    c.get("mul", 0) and c.get("add", 0)):
+                problems.append(f"{kern} is not a separate multiply and "
+                                f"add: {c}")
+        elif kern.startswith("mixbench") and not c.get("fma", 0):
+            problems.append(f"{kern} has no fused multiply-add: {c}")
+        elif kern.startswith("fma_matmul") and not c.get("hmma", 0):
+            problems.append(f"{kern} does not use the tensor cores: {c}")
+    return problems
+
+
+def kernel_counts(by_symbol: Dict[str, collections.Counter]
+                  ) -> Dict[str, dict]:
+    """{kernel of SASS_KERNELS: counts} from {mangled symbol: counts}."""
+    return {kern: dict(c) for sym, c in by_symbol.items()
+            for kern in SASS_KERNELS if re.search(rf"\d{kern}E", sym)}
+
+
+def sass_report() -> Tuple[Dict[str, dict], List[str]]:
+    """({kernel: counts}, [problems]) for the built mixbench and
+    fma_matmul libraries (build them first)."""
+    found = {}
+    for lib in ("mixbench", "fma_matmul"):
+        found.update(kernel_counts(sass_counts(_build._lib_path(lib))))
+    return found, check_counts(found)

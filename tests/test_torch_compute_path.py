@@ -12,9 +12,7 @@ where there is no card.
 """
 
 import dataclasses
-import importlib.util
 import itertools
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,11 +34,17 @@ from repro_torch.convert import qtensor_from_numpy  # noqa: E402
 from repro_torch.core import compute_path as cp  # noqa: E402
 from repro_torch.core import device_profile as dp  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
+from repro_torch.kernels._sass import (SASS_KERNELS,  # noqa: E402
+                                       check_counts, kernel_counts,
+                                       parse_sass, sass_report)
 from repro_torch.kernels.fma_matmul import (matmul, matmul_ref,  # noqa: E402
                                             matmul_variant, policy_variant)
 from repro_torch.kernels.mixbench import (arithmetic_intensity,  # noqa: E402
                                           mixbench, mixbench_ref,
                                           sweep_points)
+from repro_torch.kernels.mixbench.check import (card_cases,  # noqa: E402
+                                                check_on_card, compare,
+                                                tolerance)
 from repro_torch.kernels.qmatmul import (qmatmul, qmatmul_i8_ref,  # noqa: E402
                                          qmatmul_ref, qmatmul_variant,
                                          select_variant)
@@ -233,13 +237,15 @@ def test_mixbench_plain_matches_pallas(variant, iters, dtype):
                                         block=512, interpret=True
                                         ).astype(jnp.float32))
     fused = mixbench_ref(tx, iters, "fma").float().numpy()
-    tol = 1e-6 if dtype == "float32" else 2e-2
-    assert np.max(np.abs(fused - pallas)) < tol
     if dtype == "float32":
+        assert np.max(np.abs(fused - pallas)) < 1e-6
         np.testing.assert_array_equal(out.numpy(),
                                       _chain(x, iters, variant == "fma"))
     else:
-        assert np.max(np.abs(out.float().numpy() - pallas)) < tol
+        # a bf16 product is exact in f32: both arms round as the
+        # reference's chain does, bit for bit
+        np.testing.assert_array_equal(fused, pallas)
+        np.testing.assert_array_equal(out.float().numpy(), pallas)
 
 
 def test_mixbench_reference_mul_add_is_fused_on_cpu():
@@ -276,6 +282,49 @@ def test_mixbench_contract():
                        mixbench_ref(x[:100], 2, "fma"))
 
 
+@pytest.mark.parametrize("variant", ["fma", "mul_add"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mixbench_card_rule(variant, dtype):
+    """The rule the card check applies (``mixbench.check.compare``):
+    f32 mul_add and both bf16 arms bit for bit, f32 fma within 1e-6;
+    one unit in the last place is refused wherever bits must match."""
+    dt = getattr(torch, dtype)
+    ref = mixbench_ref(torch.linspace(0, 1, 4096).to(dt), 16, variant)
+    assert compare(ref.clone(), ref, variant)["ok"]
+    bits = ref.clone().view(torch.int32 if dtype == "float32"
+                            else torch.int16)
+    bits[1234] += 1                                 # one ulp up
+    off = bits.view(dt)
+    bitwise = not (dtype == "float32" and variant == "fma")
+    assert tolerance(dt, variant) == (0.0 if bitwise else 1e-6)
+    assert compare(off, ref, variant)["ok"] == (not bitwise)
+    far = ref.clone()
+    far[4000] += 1e-2
+    assert not compare(far, ref, variant)["ok"]
+    assert not compare(ref.to(torch.float16), ref, variant)["ok"]
+
+
+def test_mixbench_card_cases_reach_every_path():
+    """The card cases run one grid-stride pass and several over whole
+    vectors, a scalar tail, and unaligned views: the kernel's grid is
+    at most 8 blocks of 256 threads per SM (132 SMs on the H100), four
+    elements per vector."""
+    threads = 132 * 8 * 256
+    cases = {what: (x, block) for what, x, block in
+             card_cases(torch.float32, "cpu")}
+    assert set(cases) == {"one pass", "passes", "tail", "unaligned"}
+    for what, (x, block) in cases.items():
+        assert x.numel() % block == 0
+        assert x.min() >= 0 and x.max() <= 1
+        aligned = x.data_ptr() % 16 == 0
+        assert aligned == ("unaligned" not in what), what
+        # aligned: vectors grid-stride; unaligned: every element does
+        work = x.numel() // 4 if aligned else x.numel()
+        assert (work > threads) == (what in ("passes", "unaligned")), what
+    assert cases["tail"][0].numel() % 4 and cases["passes"][0].numel() % 4
+    assert cases["one pass"][0].numel() % 4 == 0
+
+
 # ----------------------------------------------------------------------
 # K9 path-selectable matmul
 # ----------------------------------------------------------------------
@@ -296,8 +345,7 @@ def test_matmul_plain_matches_pallas(variant, m, k, n, dtype):
     assert out.dtype == torch.float32 and tuple(out.shape) == (m, n)
     pallas = fma_matmul_pallas(jx, jw, variant=variant, bm=16, bk=128,
                                bn=128, interpret=True)
-    tol = 1e-4 if dtype == "float32" else 2e-2
-    assert _rel(out.numpy(), pallas) < tol
+    assert _rel(out.numpy(), pallas) < 1e-4
     assert torch.equal(out, matmul_ref(tx, tw))
 
 
@@ -421,6 +469,39 @@ def test_wrappers_refuse_other_devices():
         qmatmul_variant(torch.zeros((8, 256), device="meta"), tqt)
 
 
+_SASS = """
+        Function : _ZN12_GLOBAL__N_120mixbench_f32_mul_addEPKfPflifb
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   FMUL R5, R4, R2 ;
+        /*0020*/                   FADD R5, R5, R3 ;
+        /*0030*/              @!P0 HFMA2.MMA R3, -RZ, RZ, 0, 0 ;
+        Function : _ZN12_GLOBAL__N_116mixbench_f32_fmaEPKfPflifb
+        /*0000*/                   FFMA R5, R4, R2, R3 ;
+        /*0010*/                   HFMA2.BF16 R6, R4, R2, R3 ;
+        Function : _ZN12_GLOBAL__N_118fma_matmul_mxu_f32EPKfS1_Pfiii
+        /*0000*/                   HMMA.1684.F32.TF32 R4, R8, R12, R4 ;
+"""
+
+
+def test_sass_parse_and_rules():
+    """The instruction counts the SASS check reads: the HFMA2.MMA move
+    form is no multiply-add; a mul_add kernel with one FFMA, or an mxu
+    kernel without HMMA, is a breach; missing kernels are named."""
+    found = kernel_counts(parse_sass(_SASS))
+    assert found == {"mixbench_f32_mul_add": {"mul": 1, "add": 1, "mov": 1},
+                     "mixbench_f32_fma": {"fma": 2},
+                     "fma_matmul_mxu_f32": {"hmma": 1}}
+    problems = check_counts(found)
+    assert sorted(problems) == sorted(f"{k}: not found" for k in SASS_KERNELS
+                                      if k not in found)
+    fused = _SASS.replace("FADD R5, R5, R3", "FFMA R5, R5, R2, R3")
+    assert any("mixbench_f32_mul_add is not" in p for p in
+               check_counts(kernel_counts(parse_sass(fused))))
+    no_mma = _SASS.replace("HMMA.1684.F32.TF32", "FFMA")
+    assert any("fma_matmul_mxu_f32 does not" in p for p in
+               check_counts(kernel_counts(parse_sass(no_mma))))
+
+
 # ----------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -434,19 +515,13 @@ def _need_cuda():
 @pytest.mark.parametrize("variant", ["fma", "mul_add"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mixbench_kernel_on_card(variant, dtype):
+    """The rule and the cases of ``mixbench.check``, as chip_smoke.py
+    applies them: one grid-stride pass and several, aligned and not."""
     _need_cuda()
-    base = torch.linspace(0, 1, (1 << 20) + 8, device="cuda").to(
-        getattr(torch, dtype))
-    # whole vectors, vectors and a scalar tail, an unaligned (scalar) view
-    for x, iters in itertools.product(
-            (base[:1 << 20], base[:1000003], base[1:1000004]), (1, 16, 128)):
-        out = mixbench(x, iters=iters, variant=variant, block=1)
-        ref = mixbench_ref(x, iters, variant)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        if dtype == "float32" and variant == "mul_add":
-            assert torch.equal(out, ref)
-        assert err <= (1e-6 if dtype == "float32" else 2e-2)
+    for (what, x, block), iters in itertools.product(
+            card_cases(getattr(torch, dtype), "cuda"), (1, 16, 128)):
+        r = check_on_card(x, iters, variant, block)
+        assert r["ok"], (what, iters, r)
 
 
 @pytest.mark.cuda
@@ -455,8 +530,8 @@ def test_mixbench_kernel_on_card(variant, dtype):
 def test_matmul_kernel_on_card(variant, dtype):
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
-    tol = {("mxu", "float32"): 2e-3, ("mul_add", "float32"): 1e-5}.get(
-        (variant, dtype), 2e-2)
+    tol = {("mxu", "float32"): 2e-3, ("mxu", "bfloat16"): 1e-4}.get(
+        (variant, dtype), 1e-5)
     for m, k, n in ((128, 1024, 512), (128, 1536, 8960), (37, 100, 77)):
         x = torch.from_numpy(_normal((m, k), 0)).cuda().to(getattr(torch,
                                                                    dtype))
@@ -476,8 +551,9 @@ def test_qmatmul_kernel_on_card(variant, fmt):
     torch.backends.cuda.matmul.allow_tf32 = False
     for k, n, bk in ((1536, 8960, 512), (8960, 1536, 256)):
         qt = quantize(torch.from_numpy(_normal((k, n), 1)).cuda(), fmt)
-        for m in (8, 128):
-            x = torch.from_numpy(_normal((m, k), 0)).cuda()
+        for m, dtype in itertools.product((8, 128),
+                                          (torch.float32, torch.bfloat16)):
+            x = torch.from_numpy(_normal((m, k), 0)).cuda().to(dtype)
             out = qmatmul_variant(x, qt, variant=variant, bk=bk)
             ref = (qmatmul_i8_ref(x, qt) if variant == "dot_i8"
                    else qmatmul_ref(x, qt))
@@ -494,11 +570,7 @@ def test_mul_add_kernels_hold_no_fused_multiply_add_on_card():
     applies)."""
     _need_cuda()
     from repro_torch.kernels import _build
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
     _build.build_all(("mixbench", "fma_matmul"))
-    found, problems = chip_smoke.sass_report()
-    assert sorted(found) == sorted(chip_smoke.SASS_KERNELS)
+    found, problems = sass_report()
+    assert sorted(found) == sorted(SASS_KERNELS)
     assert problems == []
