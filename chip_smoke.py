@@ -67,7 +67,25 @@ order (any failure raises and the script exits non-zero):
    dequant_dot otherwise);
 14. timings of K8, K9 and K7 at full width beside their bounds, plain
    versions and ``torch.matmul`` (K9) or the dequantize-then-matmul
-   route (K7).
+   route (K7);
+15. K10 (the SSD chunk scan) against its plain version at mamba2-780m's
+   widths (H 48, P 64, N 128, chunk 256): S 64, 256 and 1024, B 1 and
+   2, x/b/c in float32 and bfloat16, A over the model's range and from
+   ``-exp(0.3 randn)``, relative max error <= K10_TOL on all three
+   outputs; the full SSD on K10 against ``ssd_chunked`` at S 2048;
+16. end to end at SMOKE width in float32, mamba2: CPU and card streams
+   identical, fixed-lane and paged, greedy and at temperature 0.8, with
+   lanes reused; K10 launched on every layer of every card prefill;
+17. end to end at full width, mamba2-780m in bfloat16 with seeded
+   random weights: 3 requests fixed-lane and 2 of them paged, K10
+   launched 48 times per prompt; the prefill's logits at the last
+   prompt position (K10's path) beside the streamed ones (the recurrent
+   path);
+18. ``build_model(cfg).forward`` at full width: bfloat16 at S 2048 (48
+   K10 launches, finite logits), and in float32 every position of a
+   512-token prompt against the logits of streaming it through
+   ``lm_decode_step`` (which never runs K10), max |diff| <= SSM_FWD_TOL;
+   then K10's timing row beside its bound.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -379,16 +397,18 @@ def _requests(cfg, n, plen_lo, plen_hi, gen, seed):
                     max_new_tokens=gen) for i, p in enumerate(plens)]
 
 
-def phase_smoke_e2e(dev, kv_quant=None):
+def phase_smoke_e2e(dev, kv_quant=None, arch="qwen2.5-1.5b"):
     import copy
     import dataclasses
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     from repro_torch.serving import ServeEngine
-    cfg = dataclasses.replace(get_config("qwen2.5-1.5b", smoke=True),
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype="float32", kv_quant=kv_quant)
-    tag = f"[smoke e2e{' int8' if kv_quant else ''}]"
+    tag = (f"[smoke e2e{' ' + arch if cfg.attn_free else ''}"
+           f"{' int8' if kv_quant else ''}]")
     cpu = torch.device("cpu")
     params = build_model(cfg).init(torch.Generator().manual_seed(SEED), cpu)
     on_card = copy.deepcopy(params).to(dev)
@@ -402,7 +422,13 @@ def phase_smoke_e2e(dev, kv_quant=None):
                           rng_seed=SEED + 3, paged=paged, page_size=16,
                           n_pages=24, device=where)
         reqs = _requests(cfg, 10, 3, 140, 16, SEED + 1)
+        reset_launch_counts()
         eng.run(reqs)
+        k10 = launch_counts()["ssd_chunk"]
+        if cfg.attn_free and where == "cuda" and \
+                k10 != cfg.n_layers * len(reqs):
+            fail(f"{tag} K10 launched {k10} times, not {cfg.n_layers} per "
+                 f"prompt ({where}, paged={paged}, t={temperature})")
         if paged:
             eng.pool.check()
         streams[where, paged, temperature] = [r.generated for r in reqs]
@@ -1035,6 +1061,314 @@ def phase_compute_timings(dev):
     return rows
 
 
+# ----------------------------------------------------------------------
+# the SSM family: K10 (the SSD chunk scan), mamba2 served and forward
+# ----------------------------------------------------------------------
+
+#: mamba2-780m's SSD widths: heads (d_inner / head_dim), head dim, state
+#: width, chunk
+SSD_H, SSD_P, SSD_N, SSD_Q = 48, 64, 128, 256
+#: K10 against its plain version, relative max error (max |diff| / max
+#: |plain|) on each output: the two cumsums add in other orders, and
+#: exp carries the f32 rounding of segment sums up to ~100 into y
+#: (measured <= 3.2e-6 on an H100 80GB HBM3 at 700 W)
+K10_TOL = 1e-5
+#: float32 forward (chunked dual form on K10) against streaming the same
+#: tokens through the decode recurrence, max |diff| of the logits: the
+#: two forms of one function sum in other orders through 48 layers;
+#: measured 3.97e-5 against logits up to 3.9 on an H100 80GB HBM3 at
+#: 700 W, so 2.5x headroom
+SSM_FWD_TOL = 1e-4
+
+
+def k10_inputs(bsz, s, dtype, a_kind, dev, seed=SEED):
+    """x (B,S,48,64), dt = softplus(randn + dt_bias), A (48,), b/c
+    (B,S,128) from the seed on the card; x/b/c in ``dtype``."""
+    import math
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed + 31 * s + bsz)
+    x = torch.randn(bsz, s, SSD_H, SSD_P, device=dev, generator=g)
+    dt_bias = math.log(math.expm1(0.01))
+    dt = torch.logaddexp(torch.randn(bsz, s, SSD_H, device=dev, generator=g)
+                         + dt_bias, torch.zeros((), device=dev))
+    if a_kind == "model":
+        a = -torch.linspace(1.0, 16.0, SSD_H, device=dev)
+    else:
+        a = -torch.exp(0.3 * torch.randn(SSD_H, device=dev, generator=g))
+    b = torch.randn(bsz, s, SSD_N, device=dev, generator=g)
+    c = torch.randn(bsz, s, SSD_N, device=dev, generator=g)
+    return x.to(dtype), dt, a, b.to(dtype), c.to(dtype)
+
+
+def phase_k10(dev):
+    import torch
+    from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_ref,
+                                              ssd_chunked)
+    worst = {}
+    for dtype, s, bsz, a_kind in itertools.product(
+            (torch.float32, torch.bfloat16), (64, 256, 1024), (1, 2),
+            ("model", "exp")):
+        args = k10_inputs(bsz, s, dtype, a_kind, dev)
+        out = ssd_chunk(*args, chunk=SSD_Q)
+        ref = ssd_chunk_ref(*args, SSD_Q)
+        torch.cuda.synchronize()
+        rels = [rel_err(o, r) for o, r in zip(out, ref)]
+        ok = all(bool(torch.isfinite(o).all()) for o in out)
+        print(f"[K10] {dtype} S={s} B={bsz} A={a_kind}: rel max err "
+              f"y {rels[0]:.3e} states {rels[1]:.3e} decay {rels[2]:.3e} "
+              f"(tol {K10_TOL})")
+        if not ok or not max(rels) <= K10_TOL:
+            fail(f"K10 {dtype} S={s} B={bsz} A={a_kind}: {rels}")
+        key = str(dtype).split(".")[-1]
+        abs_err = max(max_err(o, r) for o, r in zip(out, ref))
+        prev = worst.get(key, (0.0, 0.0))
+        worst[key] = (max(prev[0], abs_err), max(prev[1], max(rels)))
+    args = k10_inputs(1, 2048, torch.float32, "model", dev)
+    y = ssd(*args, chunk=SSD_Q)
+    rel = rel_err(y, ssd_chunked(*args, chunk=SSD_Q))
+    torch.cuda.synchronize()
+    print(f"[K10] full SSD on K10 vs ssd_chunked, float32 S=2048: rel max "
+          f"err {rel:.3e} (tol {K10_TOL})")
+    if not rel <= K10_TOL:
+        fail(f"ssd on K10 disagrees with ssd_chunked: {rel}")
+    return dict(max_abs_err=worst["bfloat16"][0],
+                max_rel_err=worst["bfloat16"][1], tol=K10_TOL,
+                max_abs_err_f32=worst["float32"][0],
+                max_rel_err_f32=worst["float32"][1], tol_f32=K10_TOL,
+                ssd_rel_err=rel)
+
+
+def init_mamba(dev):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("mamba2-780m")
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[mamba2] {cfg.name} bf16, {n_params / 1e9:.3f}B params "
+          f"initialised in {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
+    """Serve the full-width ssm requests numbered ``which`` (prompts
+    64-512 from seed 2: 440, 181 and 113 tokens; 32 new tokens, 4 lanes,
+    max_len 1024) with the launch counts zeroed just before and read
+    just after; K10 must launch 48 times per prompt.  Prompt streaming
+    costs ~29 ms per token at this depth on an H100 (eager decode steps,
+    host-bound), so the serve is cut to 3 requests to keep these phases
+    near a minute.  Also holds, for each prompt, the prefill's logits at
+    ``plen - 1`` (the chunked scan on K10) beside the streamed logits
+    that give the first token (the recurrent path)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServeEngine
+    gen = 32
+    eng = ServeEngine(cfg, params, n_lanes=4, max_len=1024, device=dev,
+                      timed=True, **engine_kw)
+    reqs = _requests(cfg, 3, 64, 512, gen, SEED + 2)
+    reqs = [reqs[i] for i in which]
+    pairs = {"prefill": [], "stream": [], "prefill_s": []}
+    prefill, first = eng.model.prefill, eng._set_first_token
+
+    def keep_prefill(*a, **kw):           # K10's logits at plen - 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, kv = prefill(*a, **kw)
+        torch.cuda.synchronize()
+        pairs["prefill_s"].append(time.perf_counter() - t0)
+        pairs["prefill"].append(logits.float().clone())
+        return logits, kv
+
+    def keep_stream(logits, lane):        # the streamed logits
+        pairs["stream"].append(logits.float().clone())
+        return first(logits, lane)
+
+    eng.model.prefill, eng._set_first_token = keep_prefill, keep_stream
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_gen = sum(len(r.generated) for r in reqs)
+    if not all(r.done and len(r.generated) == gen for r in reqs):
+        fail(f"{tag}: did not finish every request's budget")
+    toks = np.concatenate([r.generated for r in reqs])
+    if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"{tag}: generated token outside the vocabulary")
+    if counts["ssd_chunk"] != cfg.n_layers * len(reqs):
+        fail(f"{tag}: K10 launched {counts['ssd_chunk']} times, not "
+             f"{cfg.n_layers} x {len(reqs)} prompts")
+    if eng.paged:
+        eng.pool.check()
+        if eng.pool.n_pages != 0 or "block_tables" in eng.cache:
+            fail(f"{tag}: an attention-free paged engine holds pages")
+    v = cfg.vocab_size
+    diffs = [max_err(a[:, :v], b[:, :v])
+             for a, b in zip(pairs["prefill"], pairs["stream"])]
+    agree = sum(int(a[:, :v].argmax()) == int(b[:, :v].argmax())
+                for a, b in zip(pairs["prefill"], pairs["stream"]))
+    pre, dec = eng.timings["prefill"], eng.timings["decode"]
+    stream = eng.timings["ssm_stream"]
+    plens = [len(r.prompt) for r in reqs]
+    print(f"[{tag}] {len(reqs)} requests (prompts {plens}), {n_gen} tokens "
+          f"in {wall:.3f}s = {n_gen / wall:.1f} tok/s end to end; stats "
+          f"{eng.stats}")
+    for bucket in sorted(pre):
+        print(f"[{tag}] prefill bucket {bucket}: {len(pre[bucket])} "
+              f"prompts, median {1e3 * statistics.median(pre[bucket]):.2f} "
+              f"ms (chunked scan + prompt streaming)")
+    print(f"[{tag}] chunked prefill (K10's path) ms per prompt: "
+          f"{[round(1e3 * t, 2) for t in pairs['prefill_s']]}")
+    print(f"[{tag}] prompt streaming ms per prompt: "
+          f"{[round(1e3 * t, 2) for t in stream]} "
+          f"({1e3 * sum(stream) / sum(plens):.3f} ms per prompt token)")
+    print(f"[{tag}] decode: {len(dec)} dispatches, median "
+          f"{1e3 * statistics.median(dec):.2f} ms per dispatch "
+          f"({eng.dispatch_n} steps x {eng.n_lanes} lanes max)")
+    print(f"[{tag}] K10 launches {counts['ssd_chunk']} = {cfg.n_layers} x "
+          f"{len(reqs)} prompts; launches: {counts}")
+    print(f"[{tag}] prefill (K10) vs streamed logits at plen - 1, bf16: "
+          f"max |diff| per prompt {[round(d, 4) for d in diffs]}, argmax "
+          f"agrees {agree}/{len(diffs)} (no gate in bf16: the prefill conv "
+          f"rounds in bf16, the decode conv in f32)")
+    summary = {"tok_s": n_gen / wall, "wall_s": wall,
+               "prefill_ms": {b: 1e3 * statistics.median(t)
+                              for b, t in pre.items()},
+               "chunked_prefill_ms_per_prompt": [1e3 * t for t in
+                                                 pairs["prefill_s"]],
+               "stream_ms_per_prompt": [1e3 * t for t in stream],
+               "stream_ms_per_token": 1e3 * sum(stream) / sum(plens),
+               "decode_ms_per_dispatch": 1e3 * statistics.median(dec),
+               "n_dispatches": len(dec), "plens": plens,
+               "prefill_vs_stream_max_abs": diffs,
+               "prefill_vs_stream_argmax_agree": agree}
+    del eng
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def phase_ssm_forward(dev, cfg, params):
+    """``build_model(cfg).forward`` at full width: bf16 at B 1, S 2048
+    (timed, 48 K10 launches, finite logits); then in float32 (the same
+    weights, upcast) every position of a 512-token prompt against the
+    logits of streaming it through ``lm_decode_step`` from a fresh
+    cache, which never runs K10."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import LM
+    model = build_model(cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048), device=dev,
+                           generator=g, dtype=torch.int32)
+    model.forward(params, tokens)                     # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = model.forward(params, tokens)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        k10 = launch_counts()["ssd_chunk"]
+        if k10 != cfg.n_layers:
+            fail(f"forward launched K10 {k10} times, not {cfg.n_layers}")
+    v = cfg.vocab_size
+    if logits.shape != (1, 2048, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits[..., :v]).all()):
+        fail("full-width forward logits are not finite of the right shape")
+    fwd_ms = 1e3 * statistics.median(times)
+    print(f"[mamba2 forward] bf16 B=1 S=2048: median {fwd_ms:.2f} ms over "
+          f"3 runs ({[round(1e3 * t, 2) for t in times]}), K10 launches "
+          f"{k10}, logits finite")
+    del logits
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = LM(cfg32, dev)
+    p32.load_state_dict(params.state_dict())          # upcast copies
+    model32 = build_model(cfg32)
+    prompt = tokens[:, :512]
+    reset_launch_counts()
+    full = model32.forward(p32, prompt)[0, :, :v]
+    torch.cuda.synchronize()
+    k10_32 = launch_counts()["ssd_chunk"]
+    cache = model32.init_cache(1, 1024, device=dev)
+    t0 = time.perf_counter()
+    streamed = []
+    for t in range(prompt.shape[1]):
+        step_logits, cache = model32.decode_step(p32, cache, prompt[:, t])
+        streamed.append(step_logits[0, :v])
+    streamed = torch.stack(streamed)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    diff = max_err(full, streamed)
+    scale = float(streamed.abs().max().item())
+    agree = int((full.argmax(-1) == streamed.argmax(-1)).sum().item())
+    print(f"[mamba2 forward] float32, 512 tokens (2 chunks), K10 launches "
+          f"{k10_32}: forward vs streamed logits at every position: max "
+          f"|diff| {diff:.3e} (max |logit| {scale:.3f}; tol "
+          f"{SSM_FWD_TOL}), argmax agrees {agree}/512; streaming took "
+          f"{stream_s:.2f}s")
+    if k10_32 != cfg.n_layers:
+        fail(f"float32 forward launched K10 {k10_32} times")
+    if not diff <= SSM_FWD_TOL:
+        fail(f"forward (chunked, K10) and streamed (recurrent) logits "
+             f"differ by {diff}")
+    del p32, model32, cache
+    torch.cuda.empty_cache()
+    return {"forward_bf16_s2048_ms": fwd_ms,
+            "forward_bf16_s2048_runs_ms": [1e3 * t for t in times],
+            "fp32_forward_vs_stream_max_abs": diff,
+            "fp32_max_abs_logit": scale,
+            "fp32_argmax_agree_of_512": agree,
+            "fp32_stream_512_s": stream_s}
+
+
+def k10_timing(dev):
+    """K10 at (1, 1024, 48, 64), N 128, chunk 256, bf16 x/b/c: kernel and
+    plain ms beside the bound.  Operations: the multiply-adds the
+    function needs -- C.B over each chunk's lower triangle once per
+    (b, z) (B and C are shared by the heads), per head the triangle's
+    products with dt*x and the N x P boundary state -- over the 66.9
+    TFLOP/s FP32 peak (f32 products); bytes: every input read once and
+    every output written once."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
+    bsz, s = 1, 1024
+    args = k10_inputs(bsz, s, torch.bfloat16, "model", dev)
+    x, dt, a, b, c = args
+    nc, tri = s // SSD_Q, SSD_Q * (SSD_Q + 1) // 2
+    flops = (2 * bsz * nc * tri * SSD_N
+             + 2 * bsz * nc * SSD_H * (tri * SSD_P + SSD_Q * SSD_N * SSD_P))
+    out_bytes = 4 * (x.numel() + bsz * nc * SSD_H * (SSD_N * SSD_P + 1))
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    r = dict(ms=time_ms(lambda: ssd_chunk(*args, chunk=SSD_Q)),
+             plain_ms=time_ms(lambda: ssd_chunk_ref(*args, SSD_Q)),
+             library_ms=None, bytes=in_bytes + out_bytes, flops=flops,
+             shape="bf16 x/b/c (1,1024,48,64) N 128 chunk 256")
+    t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / FP32_FLOPS_PER_S
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    # the forward phase's length, 8 chunks: K10's share of that forward
+    long_args = k10_inputs(1, 2048, torch.bfloat16, "model", dev)
+    r["ms_s2048"] = time_ms(lambda: ssd_chunk(*long_args, chunk=SSD_Q))
+    print(f"[time] ssd_chunk at S=2048: kernel {r['ms_s2048']:.4f} ms")
+    print(f"[time] ssd_chunk ({r['shape']}): kernel {r['ms']:.4f} ms "
+          f"({flops / r['ms'] / 1e9:.2f} TFLOP/s of the needed work), "
+          f"plain {r['plain_ms']:.4f} ms, library n/a (no single call), "
+          f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B "
+          f"= {t_bytes:.5f} ms, {flops} flop at 66.9 T/s = {t_ops:.5f} ms)")
+    return r
+
+
 def main() -> int:
     try:
         import torch
@@ -1071,6 +1405,20 @@ def main() -> int:
         e = compute_errs["mixbench_" + key.split("/")[0]]
         e["max_abs_err_f32"] = max(e["max_abs_err_f32"], err)
     compute_rows = phase_compute_timings(dev)
+    t_ssm = time.perf_counter()
+    k10_errs = phase_k10(dev)
+    phase_smoke_e2e(dev, arch="mamba2-780m")
+    m_cfg, m_params = init_mamba(dev)
+    m_fixed_counts, m_fixed = serve_mamba(dev, m_cfg, m_params,
+                                          "mamba2 fixed-lane", (0, 1, 2))
+    m_paged_counts, m_paged = serve_mamba(dev, m_cfg, m_params,
+                                          "mamba2 paged", (1, 2),
+                                          paged=True)
+    m_forward = phase_ssm_forward(dev, m_cfg, m_params)
+    del m_params
+    torch.cuda.empty_cache()
+    k10_row = k10_timing(dev)
+    print(f"[mamba2] the SSM phases took {time.perf_counter() - t_ssm:.1f}s")
 
     replaces = {
         "decode_attention_paged":
@@ -1148,6 +1496,18 @@ def main() -> int:
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)
+    # K10's launches: the fixed-lane (default) mamba2 serve, 48 per prompt
+    kernels.append({
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/kernel.py:68",
+        "launches": m_fixed_counts["ssd_chunk"],
+        "launches_paged_serve": m_paged_counts["ssd_chunk"], **k10_errs,
+        "ms": k10_row["ms"], "plain_ms": k10_row["plain_ms"],
+        "bound_ms": k10_row["bound_ms"], "bound_by": k10_row["bound_by"],
+        "library_ms": None, "bytes": k10_row["bytes"],
+        "flops": k10_row["flops"], "shape": k10_row["shape"],
+        "ms_s2048": k10_row["ms_s2048"]})
     e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e,
            "paged_int8": int8["full e2e paged int8"][1],
            "fixed_lane_int8": int8["full e2e fixed-lane int8"][1]}
@@ -1155,6 +1515,9 @@ def main() -> int:
         print(f"[e2e] {name}: {r['tok_s']:.1f} tok/s, decode "
               f"{r['decode_ms_per_dispatch']:.2f} ms per dispatch")
     print(f"[e2e] {json.dumps(e2e)}")
+    ssm_e2e = {"fixed_lane": m_fixed, "paged": m_paged,
+               "forward": m_forward}
+    print(f"[mamba2] {json.dumps(ssm_e2e)}")
     print(f"[sweep] {json.dumps(sweep_summary)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())

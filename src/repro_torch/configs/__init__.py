@@ -15,6 +15,8 @@ from repro_torch.models.common import ModelConfig
 _MODULES: Dict[str, str] = {
     # the paper's evaluation model (section 4.1)
     "qwen2.5-1.5b": "repro_torch.configs.qwen2_5_1_5b",
+    # the SSM family: Mamba-2's SSD, the path of the chunk scan (K10)
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
 }
 
 

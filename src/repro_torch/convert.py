@@ -3,7 +3,8 @@
 :func:`params_from_jax`: the input is the nested dict the reference's ``init_lm`` returns, brought
 to the host as numpy arrays (``jax.device_get(params)``): ``embed``
 (``tok``, and ``head`` when untied), ``blocks`` with every leaf stacked
-``(L, ...)`` along the layer axis, and ``final_norm``.  Taking numpy only
+``(L, ...)`` along the layer axis (``norm1``, ``attn``, ``norm2``,
+``mlp``; an ssm model's ``norm1`` and ``ssm``), and ``final_norm``.  Taking numpy only
 keeps JAX out of the port.
 
 :func:`qtensor_from_numpy`: the planes of a reference ``QTensor``
@@ -52,6 +53,10 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
     blocks = np_params["blocks"]
     for i, blk in enumerate(lm.blocks):
         _copy(blk.norm1.scale, blocks["norm1"]["scale"][i], "norm1.scale")
+        if cfg.attn_free:          # an ssm block: norm1 and ssm only
+            for name, w in blk.ssm.named_parameters():
+                _copy(w, blocks["ssm"][name][i], f"ssm.{name}")
+            continue
         _copy(blk.norm2.scale, blocks["norm2"]["scale"][i], "norm2.scale")
         for name, w in blk.attn.named_parameters():
             _copy(w, blocks["attn"][name][i], f"attn.{name}")

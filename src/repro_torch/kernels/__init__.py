@@ -14,6 +14,7 @@ from repro_torch.kernels.flash_attention import ops as _flash_ops
 from repro_torch.kernels.fma_matmul import ops as _matmul_ops
 from repro_torch.kernels.mixbench import ops as _mixbench_ops
 from repro_torch.kernels.qmatmul import ops as _qmatmul_ops
+from repro_torch.kernels.ssd_scan import ops as _ssd_ops
 
 __all__ = ["COUNTERS", "launch_counts", "reset_launch_counts"]
 
@@ -29,7 +30,8 @@ COUNTERS = {c.name: c for c in (_decode_ops.COUNTER,
                                 _matmul_ops.COUNTER_MXU,
                                 _matmul_ops.COUNTER_MUL_ADD,
                                 _qmatmul_ops.COUNTER_DEQUANT_DOT,
-                                _qmatmul_ops.COUNTER_DOT_I8)}
+                                _qmatmul_ops.COUNTER_DOT_I8,
+                                _ssd_ops.COUNTER)}
 
 
 def launch_counts() -> Dict[str, int]:

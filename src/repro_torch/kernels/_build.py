@@ -30,7 +30,8 @@ __all__ = ["KernelBuildError", "KernelLaunchError", "LaunchCounter",
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 CSRC = _PKG / "csrc"
 SOURCES = ("decode_attention_paged", "decode_attention_dense",
-           "flash_attention", "mixbench", "fma_matmul", "qmatmul")
+           "flash_attention", "mixbench", "fma_matmul", "qmatmul",
+           "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,4 +1,5 @@
-"""Dense decoder of the port (config, layers, prefill, paged decode)."""
+"""Decoders of the port, dense and ssm (config, layers, forward, prefill,
+decode)."""
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import Model, build_model

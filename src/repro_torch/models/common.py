@@ -1,6 +1,7 @@
 """Shared model substrate: config, RMSNorm, RoPE, embedding, LM head, init.
 
-Port of the dense-family part of the reference's ``models/common.py``.
+Port of the dense- and ssm-family parts of the reference's
+``models/common.py``.
 Parameters live in ``nn.Module``s (one module per layer, no stacked
 ``(L, ...)`` leaves); weight matrices keep the reference layout
 ``(d_in, d_out)``.  Matrices, biases and the embedding are stored in the
@@ -27,11 +28,24 @@ def pad_vocab(v: int, align: int = VOCAB_ALIGN) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block widths, as the reference's ``SSMConfig``."""
+
+    state_dim: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 256
+    # fraction of d_model given to the SSM branch in hybrid blocks
+    d_inner_override: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense-decoder fields of the reference ``ModelConfig``."""
+    """The dense-decoder and ssm fields of the reference ``ModelConfig``."""
 
     name: str
-    family: str                    # this slice serves "dense" only
+    family: str                    # the port serves "dense" and "ssm"
     n_layers: int
     d_model: int
     n_heads: int
@@ -45,6 +59,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     max_seq_len: int = 131072
     sliding_window: Optional[int] = None
+    ssm: Optional[SSMConfig] = None
     dtype: str = "bfloat16"
     kv_quant: Optional[str] = None  # "int8": int8 KV cache, f32 scales
 
@@ -59,6 +74,10 @@ class ModelConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    @property
+    def attn_free(self) -> bool:
+        return self.family == "ssm"
 
 
 # ----------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Model registry: the dense decoder's serving entry points, bound to a
-config (the reference's ``models/registry.py``, decoder-only, dense)."""
+"""Model registry: the decoders' forward and serving entry points, bound
+to a config (the reference's ``models/registry.py``, decoder-only, for
+the families the port serves: dense and ssm)."""
 
 from __future__ import annotations
 
@@ -15,12 +16,16 @@ class Model:
     """Thin dispatcher binding a ModelConfig to its family's functions."""
 
     def __init__(self, cfg: ModelConfig):
-        transformer.check_dense(cfg)
+        transformer.check_family(cfg)
         self.cfg = cfg
 
     def init(self, generator: torch.Generator,
              device: torch.device) -> transformer.LM:
         return transformer.init_lm(self.cfg, generator, device)
+
+    def forward(self, params, tokens):
+        """tokens (B, S) -> logits (B, S, V) float32 at every position."""
+        return transformer.lm_forward(params, tokens, self.cfg)
 
     def prefill(self, params, tokens, last_pos=None):
         return transformer.lm_prefill_batched(params, tokens, self.cfg,

@@ -1,13 +1,18 @@
-"""Dense decoder-only LM: prompt prefill, dense and paged caches, decode
-step, on-device sampling and the multi-step decode dispatch.  Port of
-the reference's ``models/transformer.py`` for the dense family.
+"""Decoder-only LM, dense and ssm families: full-sequence forward,
+prompt prefill, dense and paged caches, decode step, on-device sampling
+and the multi-step decode dispatch.  Port of the reference's
+``models/transformer.py`` for those two families.
 
 The reference stacks layers along a leading axis and runs them with
 ``lax.scan``; here each layer is its own module in a ``ModuleList`` and
 a Python loop walks them.  Both caches keep the reference layouts --
 dense ``(L, B, Hkv, S, D)``, paged pool ``(L, P, Hkv, ps, D)``, in the
 compute dtype or, with ``kv_quant="int8"``, in int8 beside f32
-per-token scales with a trailing 1 -- and are updated in place.
+per-token scales with a trailing 1 -- and are updated in place.  An ssm
+(Mamba-2) model has no K/V: its caches hold the recurrent state
+``ssm_h`` (L, B, nh, N, P) and conv window ``ssm_conv`` (L, B, W-1,
+conv_ch), float32, on either layout (a paged ssm cache has no pages and
+no block tables).
 """
 
 from __future__ import annotations
@@ -26,16 +31,22 @@ from repro_torch.models.common import (Embedding, ModelConfig, RMSNorm,
                                        apply_norm, dense_init, embed,
                                        lm_logits)
 from repro_torch.models.mlp import SwiGLU, swiglu
+from repro_torch.models.ssm import (Mamba2, init_mamba2, init_mamba2_state,
+                                    mamba2_decode, mamba2_forward)
 
 Cache = Dict[str, torch.Tensor]
 
+#: families the port serves
+FAMILIES = ("dense", "ssm")
 
-def check_dense(cfg: ModelConfig) -> None:
-    """This slice serves the dense RMSNorm decoder only."""
-    if cfg.family != "dense" or cfg.norm != "rmsnorm":
+
+def check_family(cfg: ModelConfig) -> None:
+    """The port serves the dense and ssm RMSNorm decoders; every other
+    family is refused by name."""
+    if cfg.family not in FAMILIES or cfg.norm != "rmsnorm":
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with norm "
-                         f"{cfg.norm!r} is not ported yet (dense rmsnorm "
-                         "decoders only)")
+                         f"{cfg.norm!r} is not ported yet (rmsnorm "
+                         f"decoders of the families {FAMILIES} only)")
 
 
 # ----------------------------------------------------------------------
@@ -43,21 +54,27 @@ def check_dense(cfg: ModelConfig) -> None:
 # ----------------------------------------------------------------------
 
 class Block(nn.Module):
+    """Dense: ``norm1``, ``attn``, ``norm2``, ``mlp``; ssm: ``norm1`` and
+    ``ssm`` only, as the reference's ``init_block``."""
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, device)
+        if cfg.family == "ssm":
+            self.ssm = Mamba2(cfg, device)
+            return
         self.attn = Attention(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, device)
         self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, cfg.compute_dtype, device)
 
 
 class LM(nn.Module):
-    """Parameters of a dense decoder: ``embed``, ``blocks``,
-    ``final_norm`` -- the reference's param tree, one module per layer."""
+    """Parameters of a decoder: ``embed``, ``blocks``, ``final_norm`` --
+    the reference's param tree, one module per layer."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_dense(cfg)
+        check_family(cfg)
         self.embed = Embedding(cfg, device)
         self.blocks = nn.ModuleList(Block(cfg, device)
                                     for _ in range(cfg.n_layers))
@@ -68,9 +85,10 @@ class LM(nn.Module):
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
             device: torch.device) -> LM:
     """Random weights with the reference's init scheme (fan-in truncated
-    normal, 0.02 embedding, zero biases, unit norms), drawn in float32 on
-    ``device`` from ``generator`` and stored in the compute dtype.  The
-    values differ from ``jax.random``'s for the same seed."""
+    normal, 0.02 embedding, zero biases, unit norms; ``init_mamba2``'s
+    for an ssm block), drawn in float32 on ``device`` from ``generator``
+    and stored in the compute dtype.  The values differ from
+    ``jax.random``'s for the same seed."""
     lm = LM(cfg, device)
     dt = cfg.compute_dtype
     lm.embed.tok.copy_(dense_init(tuple(lm.embed.tok.shape), generator,
@@ -79,6 +97,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
         lm.embed.head.copy_(dense_init(tuple(lm.embed.head.shape),
                                        generator, device).to(dt))
     for blk in lm.blocks:
+        if cfg.family == "ssm":
+            init_mamba2(blk.ssm, generator)
+            continue
         for mod in (blk.attn, blk.mlp):
             for w in mod.parameters():
                 if w.dim() == 2:                 # matrices; biases stay 0
@@ -92,8 +113,10 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 # ----------------------------------------------------------------------
 
 def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig):
-    """Full-sequence block; returns (x, (k, v))."""
+    """Full-sequence block; returns (x, (k, v)), or (x, None) for ssm."""
     h = apply_norm(p.norm1, x)
+    if cfg.family == "ssm":
+        return x + mamba2_forward(p.ssm, h, cfg), None
     att, kv = attention_forward(p.attn, h, cfg, return_kv=True)
     x = x + att
     h2 = apply_norm(p.norm2, x)
@@ -101,20 +124,37 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig):
 
 
 @torch.no_grad()
+def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V) float32 at every position (the
+    reference's ``lm_forward`` for the port's families, without the aux
+    loss, which is zero for them)."""
+    x = embed(params.embed, tokens)
+    for blk in params.blocks:
+        x, _ = block_forward(blk, x, cfg)
+    x = apply_norm(params.final_norm, x)
+    return lm_logits(params.embed, x, cfg)
+
+
+@torch.no_grad()
 def lm_prefill_batched(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
                        last_pos: Optional[torch.Tensor] = None):
     """Serving prefill: full-sequence pass returning the last-position
-    logits and the KV cache ``(k, v)``, each (L, B, Hkv, S, D).
+    logits and the KV cache ``(k, v)``, each (L, B, Hkv, S, D) -- or
+    ``None`` for an attention-free (ssm) model, whose state the engine
+    rebuilds by streaming the prompt.
 
     ``last_pos`` (B,) selects which position's logits to return, so the
-    engine can right-pad prompts to a shape bucket (causal attention
-    keeps positions < last_pos untouched by the padding)."""
+    engine can right-pad prompts to a shape bucket (causal attention and
+    the causal scan keep positions < last_pos untouched by the
+    padding)."""
     x = embed(params.embed, tokens)
     ks, vs = [], []
     for blk in params.blocks:
-        x, (k, v) = block_forward(blk, x, cfg)
-        ks.append(k)
-        vs.append(v)
+        x, kv = block_forward(blk, x, cfg)
+        if kv is not None:
+            ks.append(kv[0])
+            vs.append(kv[1])
     x = apply_norm(params.final_norm, x)
     if last_pos is None:
         x_last = x[:, -1]
@@ -123,6 +163,8 @@ def lm_prefill_batched(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
             -1, 1, x.shape[-1])
         x_last = torch.gather(x, 1, idx)[:, 0]
     logits = lm_logits(params.embed, x_last, cfg)
+    if cfg.attn_free:
+        return logits, None
     return logits, (torch.stack(ks), torch.stack(vs))
 
 
@@ -155,10 +197,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device) -> Cache:
     """Dense per-lane decode cache: ``k``/``v`` (L, B, Hkv, S, D) with
     ``S = min(max_len, window)``, and ``len`` (B,) int32; int8 adds
-    ``k_scale``/``v_scale`` (L, B, Hkv, S, 1)."""
+    ``k_scale``/``v_scale`` (L, B, Hkv, S, 1).  An ssm model holds the
+    zeroed float32 state of every layer instead: ``ssm_h`` (L, B, nh, N,
+    P) and ``ssm_conv`` (L, B, W-1, conv_ch)."""
+    cache = {"len": torch.zeros(batch, dtype=torch.int32, device=device)}
+    if cfg.attn_free:
+        for k, v in init_mamba2_state(cfg, batch, device).items():
+            cache[f"ssm_{k}"] = v[None].repeat((cfg.n_layers,)
+                                               + (1,) * v.dim())
+        return cache
     shape = (cfg.n_layers, batch, cfg.n_kv_heads,
              paged_capacity(max_len, cfg), cfg.hd)
-    cache = {"len": torch.zeros(batch, dtype=torch.int32, device=device)}
     cache.update(_kv_entries(cfg, shape, ("k", "v", "k_scale", "v_scale"),
                              device))
     return cache
@@ -172,7 +221,11 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     logical order (T = capacity / ps, all page 0 until the caller maps
     pages), and ``len`` (B,) int32; int8 adds ``k_scale_pages``/
     ``v_scale_pages`` (L, P, Hkv, ps, 1).  ``n_pages`` defaults to
-    ``batch * T``."""
+    ``batch * T``.  An ssm model's recurrent state is O(1) per lane and
+    stays dense: ``ssm_h``/``ssm_conv`` and ``len``, no pool and no
+    tables."""
+    if cfg.attn_free:
+        return init_cache(cfg, batch, max_len, device=device)
     s = paged_capacity(max_len, cfg)
     invariant(s % page_size == 0,
               f"page_size {page_size} must divide cache capacity {s}",
@@ -224,19 +277,24 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
 
     A cache with ``block_tables`` is paged, one without is dense (as the
     reference's ``_attn_decode`` decides); an int8 cache carries its
-    scales beside the values.  Each layer writes its new K/V into its
-    slice of the cache in place; the returned cache holds the same
-    tensors and ``len + 1``."""
+    scales beside the values; an ssm cache holds ``ssm_h``/``ssm_conv``.
+    Each layer writes its new K/V (or state) into its slice of the cache
+    in place; the returned cache holds the same tensors and ``len + 1``."""
     x = embed(params.embed, tokens[:, None])
     cache_len = cache["len"]
-    bt = cache.get("block_tables")
-    names = (("k", "v", "k_scale", "v_scale") if bt is None else
-             ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages"))
-    k_all, v_all, ks_all, vs_all = (cache.get(n) for n in names)
-    for i, blk in enumerate(params.blocks):
-        x = block_decode(blk, x, cfg, k_all[i], v_all[i], cache_len, bt,
-                         None if ks_all is None else ks_all[i],
-                         None if vs_all is None else vs_all[i])
+    if cfg.attn_free:
+        for i, blk in enumerate(params.blocks):    # state updated in place
+            x = x + mamba2_decode(blk.ssm, apply_norm(blk.norm1, x), cfg,
+                                  cache["ssm_h"][i], cache["ssm_conv"][i])
+    else:
+        bt = cache.get("block_tables")
+        names = (("k", "v", "k_scale", "v_scale") if bt is None else
+                 ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages"))
+        k_all, v_all, ks_all, vs_all = (cache.get(n) for n in names)
+        for i, blk in enumerate(params.blocks):
+            x = block_decode(blk, x, cfg, k_all[i], v_all[i], cache_len, bt,
+                             None if ks_all is None else ks_all[i],
+                             None if vs_all is None else vs_all[i])
     x = apply_norm(params.final_norm, x)
     logits = lm_logits(params.embed, x[:, 0], cfg)
     new_cache = dict(cache)
@@ -283,7 +341,8 @@ def lm_decode_n_steps(params: LM, cfg: ModelConfig, cache: Cache,
     none.
 
     ``remaining`` (B,) int32 is each lane's generation budget; exhausted
-    lanes keep stepping (their writes land where no live lane reads) but
+    lanes keep stepping (their writes land where no live lane reads, and
+    an ssm lane's state keeps advancing until re-admission zeroes it) but
     their samples are flagged invalid, their token index stops advancing
     and their cache length is frozen.  ``len_cap`` > 0 zeroes the budget
     once the length reaches it (the engine passes ``max_len - 1``).

@@ -31,6 +31,13 @@ the cache, each decode step quantizes its new row, and the decode
 kernels dequantize in their reads.  The first token still comes from
 the full-precision prefill logits, as in the reference.
 
+An attention-free (ssm) model keeps O(1) recurrent state per lane
+(``ssm_h``/``ssm_conv``) on both layouts; paged, it holds no pages (a
+pool of 0, admission needing 0).  As in the reference, its prefill runs
+the chunked scan (K10 on the card) and discards the logits; the lane's
+state is zeroed and rebuilt by streaming the prompt through the decode
+step, and the first token comes from the streamed logits.
+
 Prefix sharing, evict/restore and the telemetry hooks come in later
 slices.
 """
@@ -165,12 +172,12 @@ _POOL_KEY = {"k": "k_pages", "v": "v_pages", "k_scale": "k_scale_pages",
 
 #: the reference's STATS_SCHEMA keys this slice moves
 STATS_KEYS = ("decode_dispatches", "decode_steps", "generated_tokens",
-              "prefill_compiles", "kv_pages_hwm", "kv_admit_blocked",
-              "admit_rejected")
+              "prefill_compiles", "ssm_prefill_compiles", "kv_pages_hwm",
+              "kv_admit_blocked", "admit_rejected")
 
 
 class ServeEngine:
-    """Continuous batcher around the dense decoder.
+    """Continuous batcher around a decoder (dense or ssm).
 
     ``n_lanes`` bounds the decode batch width; with ``paged=True``,
     ``n_pages`` bounds KV bytes (default: ``n_lanes`` full contexts).
@@ -179,12 +186,15 @@ class ServeEngine:
     ``prefill_bucketing=False`` prefills each prompt at its own length.
     ``stats`` holds the counters named in :data:`STATS_KEYS`;
     ``prefill_compiles`` counts distinct prefill shapes (the reference
-    compiles once per shape).
+    compiles once per shape), ``ssm_prefill_compiles`` the distinct
+    prompt-streaming buckets of an ssm model (the reference compiles its
+    streaming scan once per bucket).
 
     ``timed=True`` synchronises the device around each prefill and each
     decode dispatch and records host-clock seconds in ``timings``
-    (``prefill`` per bucket, ``decode`` per dispatch); off by default,
-    since the syncs cost throughput.
+    (``prefill`` per bucket, ``decode`` per dispatch, and for an ssm
+    model ``ssm_stream`` per prompt: the state rebuild, inside the
+    prefill's time); off by default, since the syncs cost throughput.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_lanes: int = 4,
@@ -209,7 +219,9 @@ class ServeEngine:
         self.paged = bool(paged)
         self.page_size = int(page_size)
         if self.paged:
-            self._bt_width = paged_capacity(max_len, cfg) // page_size
+            # O(1) recurrent state of an ssm model needs no pages
+            self._bt_width = (0 if cfg.attn_free else
+                              paged_capacity(max_len, cfg) // page_size)
             if n_pages is None:
                 n_pages = n_lanes * self._bt_width
             invariant(n_pages >= self._bt_width, (
@@ -226,7 +238,8 @@ class ServeEngine:
             self.cache = self.model.init_paged_cache(
                 n_lanes, max_len, page_size=page_size, n_pages=n_pages + 1,
                 device=self.device)
-            self.cache["block_tables"].fill_(self._scratch_page)
+            if "block_tables" in self.cache:
+                self.cache["block_tables"].fill_(self._scratch_page)
         else:
             self._bt_width = 0
             self.pool = None
@@ -253,7 +266,7 @@ class ServeEngine:
         self.stats: Dict[str, int] = {k: 0 for k in STATS_KEYS}
         self.timed = timed
         self.timings: Dict[str, Any] = {"prefill": defaultdict(list),
-                                        "decode": []}
+                                        "decode": [], "ssm_stream": []}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -269,7 +282,7 @@ class ServeEngine:
     def _pages_needed(self, positions: int) -> int:
         """Pages backing ``positions`` cache slots (capped at the table
         width: a sliding-window lane rotates within its page set; 0 on
-        the fixed-lane layout, whose width is 0)."""
+        the fixed-lane layout and for an ssm model, whose width is 0)."""
         ps = self.page_size
         return min(-(-int(positions) // ps), self._bt_width)
 
@@ -359,12 +372,18 @@ class ServeEngine:
         logits, kv = self.model.prefill(
             self.params, torch.from_numpy(padded).to(self.device),
             last_pos=torch.tensor([plen - 1], device=self.device))
-        if self.paged:
-            self._scatter_prompt_paged(kv, lane, plen)
+        if kv is not None:
+            if self.paged:
+                self._scatter_prompt_paged(kv, lane, plen)
+            else:
+                self._scatter_prompt_dense(kv, lane, plen)
+        if "ssm_h" in self.cache:
+            # the recurrent state is rebuilt by streaming the prompt
+            # through the decode step; its logits give the first token
+            self._stream_ssm_prompt(prompt, lane)
         else:
-            self._scatter_prompt_dense(kv, lane, plen)
-        self.cache["len"][lane] = plen
-        self._set_first_token(logits, lane)
+            self.cache["len"][lane] = plen
+            self._set_first_token(logits, lane)
         if self.timed:
             self._sync()
             self.timings["prefill"][bucket].append(time.perf_counter() - t0)
@@ -419,6 +438,46 @@ class ServeEngine:
             n_l, hkv, _, d = src.shape
             seg = src.reshape(n_l, hkv, n_pg, ps, d).permute(0, 2, 1, 3, 4)
             pool[:, pages] = seg.to(pool.dtype)
+
+    def _slice_lane_cache(self, lane: int) -> Dict[str, torch.Tensor]:
+        """One lane's batch-1 view of the recurrent state, with a length
+        of its own.  The state entries are views: the decode step's
+        in-place writes through them land in the cache, so nothing needs
+        merging back but the length."""
+        out = {k: self.cache[k][:, lane:lane + 1]
+               for k in ("ssm_h", "ssm_conv")}
+        out["len"] = torch.zeros(1, dtype=torch.int32, device=self.device)
+        return out
+
+    def _stream_ssm_prompt(self, prompt: np.ndarray, lane: int) -> None:
+        """Rebuild ``lane``'s recurrent state from zeros by streaming the
+        prompt through the decode step on the lane's batch-1 view, and
+        sample the first token from the logits at ``plen - 1``.
+
+        The reference scans the whole shape bucket with the pad steps'
+        state masked off, one compile per bucket
+        (``ssm_prefill_compiles``); eager steps stop at ``plen``, which
+        leaves the same state and logits.  Its buckets are the prefill's
+        (``_prefill_into_lane`` counted this one)."""
+        plen = int(prompt.shape[0])
+        self.stats["ssm_prefill_compiles"] = len(self._buckets)
+        if self.timed:
+            self._sync()
+            t0 = time.perf_counter()
+        lane_cache = self._slice_lane_cache(lane)
+        # a re-admitted lane must NOT inherit the previous request's
+        # state: zero it (through the view, in the cache)
+        for key in ("ssm_h", "ssm_conv"):
+            lane_cache[key].zero_()
+        toks = torch.from_numpy(prompt.astype(np.int32)).to(self.device)
+        for t in range(plen):
+            logits, lane_cache = self.model.decode_step(
+                self.params, lane_cache, toks[t:t + 1])
+        self.cache["len"][lane] = plen
+        self._set_first_token(logits, lane)
+        if self.timed:
+            self._sync()
+            self.timings["ssm_stream"].append(time.perf_counter() - t0)
 
     def _set_first_token(self, logits: torch.Tensor, lane: int) -> None:
         key = (trng.fold_in(self._rng_prefill, self._admit_count)
@@ -499,7 +558,8 @@ class ServeEngine:
             self.pool.unreserve(self._lane_reserved[lane])
             self._lane_pages[lane] = []
             self._lane_reserved[lane] = 0
-            self.cache["block_tables"][lane] = self._scratch_page
+            if "block_tables" in self.cache:
+                self.cache["block_tables"][lane] = self._scratch_page
 
     def lane_pages(self, lane: int) -> List[int]:
         """Page ids mapped by ``lane``'s block table, in logical order."""
