@@ -13,14 +13,14 @@
 //   states      = sum_j exp(cum_{Q-1} - cum_j) B_j (dt_j x_j)^T        (N x P)
 //   chunk_decay = exp(cum_{Q-1})
 //
-// What bounds it on the H100: operations.  At mamba2-780m's widths (H 48,
-// P 64, N 128, Q 256) and S = 1024, B = 1, the function needs C.B over the
-// lower triangle once per (b, z) (B and C are shared by the heads), and per
-// head the triangle's products with dt*x plus the boundary state: 1.65
-// GFLOP, 24.7 us at 66.9 TFLOP/s FP32 (the gate's precision needs f32
-// products), against ~26 MB of bytes (7.7 us at 3.35 TB/s).  Computed per
-// head and over the full square, as the Pallas kernel does, it is 5.64
-// GFLOP.
+// What bounds it on the H100: bytes.  At mamba2-780m's widths (H 48, P 64,
+// N 128, Q 256) and S = 1024, B = 1, the function needs C.B over the lower
+// triangle once per (b, z) (B and C are shared by the heads), and per head
+// the triangle's products with dt*x plus the boundary state: 1.65 GFLOP,
+// 3.3 us at 495 TFLOP/s TF32, against ~26 MB of bytes (7.7 us at 3.35
+// TB/s).  On the CUDA cores in f32, as this kernel computes them, the same
+// products take 24.7 us at 66.9 TFLOP/s.  Computed per head and over the
+// full square, as the Pallas kernel does, it is 5.64 GFLOP.
 //
 // What the design does about it (a first, simple kernel):
 //   * one CTA per (b, h, z): 192 CTAs at S = 1024 on 132 SMs, two CTAs per

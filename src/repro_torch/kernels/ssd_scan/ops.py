@@ -14,13 +14,10 @@ from __future__ import annotations
 import ctypes
 
 import torch
-from torch.nn import functional as F
 
 from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
                                         load)
-from repro_torch.kernels.ssd_scan.ref import (inter_chunk_output,
-                                              inter_chunk_starts,
-                                              ssd_chunk_ref)
+from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_from_intra
 
 __all__ = ["ssd", "ssd_chunk", "COUNTER", "MAX_N", "MAX_P", "MAX_Q"]
 
@@ -101,24 +98,6 @@ def ssd(x, dt, a, b, c, *, chunk: int):
     ``ssd_chunked``'s padding: x (B,S,H,P), dt (B,S,H), ``a`` (H,)
     negative, b/c (B,S,N) -> y (B,S,H,P) in x's dtype.  Any S: it is
     zero-padded to a multiple of ``Q = min(chunk, S)`` (padded steps
-    get dt = 0: decay 1, no input) and cropped back."""
-    bsz, s0, h, p = x.shape
-    n = b.shape[-1]
-    q = min(chunk, s0)
-    pad = (-s0) % q
-    dt, a = dt.float(), a.float()
-    if pad:
-        x, dt, b, c = (F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
-                       for t in (x, dt, b, c))
-    x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
-    s = s0 + pad
-    nc = s // q
-    y_intra, states, chunk_decay = ssd_chunk(x, dt, a, b, c, chunk=q)
-    # inter-chunk recurrence and output, plain PyTorch as in the reference
-    h_starts = inter_chunk_starts(states, chunk_decay)
-    la = (dt.reshape(bsz, nc, q, h) * a[None, None, None, :]
-          ).permute(0, 1, 3, 2)
-    cum = torch.cumsum(la, dim=-1)
-    cc = c.reshape(bsz, nc, q, n).float()
-    y_inter = inter_chunk_output(cum, cc, h_starts).reshape(bsz, s, h, p)
-    return (y_intra + y_inter)[:, :s0].to(x.dtype)
+    get dt = 0: decay 1, no input) and cropped back; the inter-chunk
+    recurrence is plain PyTorch, as in the reference."""
+    return ssd_from_intra(ssd_chunk, x, dt, a, b, c, chunk)

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["inter_chunk_output", "inter_chunk_starts", "ssd_chunk_ref",
-           "ssd_chunked", "ssd_naive"]
+           "ssd_chunked", "ssd_from_intra", "ssd_naive"]
 
 F32 = torch.float32
 
@@ -29,14 +29,23 @@ def _chunks(x, dt, a, b, c, q: int):
     bc/cc (B,NC,Q,N), cum (B,NC,H,Q) -- the within-chunk inclusive
     cumsum of ``dt * a``."""
     bsz, s, h, p = x.shape
-    n = b.shape[-1]
     nc = s // q
     xc = x.reshape(bsz, nc, q, h, p).to(F32)
+    dtc = dt.reshape(bsz, nc, q, h).to(F32)
+    bc, cc, cum = _b_c_cum(dt, a, b, c, q)
+    return xc, dtc, bc, cc, cum
+
+
+def _b_c_cum(dt, a, b, c, q: int):
+    """bc/cc (B,NC,Q,N) and cum (B,NC,H,Q) of :func:`_chunks`."""
+    bsz, s, h = dt.shape
+    n = b.shape[-1]
+    nc = s // q
     dtc = dt.reshape(bsz, nc, q, h).to(F32)
     bc = b.reshape(bsz, nc, q, n).to(F32)
     cc = c.reshape(bsz, nc, q, n).to(F32)
     la = (dtc * a.to(F32)[None, None, None, :]).permute(0, 1, 3, 2)
-    return xc, dtc, bc, cc, torch.cumsum(la, dim=-1)
+    return bc, cc, torch.cumsum(la, dim=-1)
 
 
 def _intra(xc, dtc, bc, cc, cum):
@@ -97,19 +106,29 @@ def ssd_chunked(x, dt, a, b, c, chunk: int = 256):
     returning ``x.dtype``.  A length that is not a multiple of the chunk
     is zero-padded: padded steps carry dt = 0, so decay 1 and no input,
     and the recurrence is unchanged."""
+    return ssd_from_intra(ssd_chunk_ref, x, dt, a, b, c, chunk)
+
+
+def ssd_from_intra(intra, x, dt, a, b, c, chunk: int):
+    """The full SSD with ``intra(x, dt, a, b, c, chunk=q)`` as its
+    intra-chunk pass (:func:`ssd_chunk_ref` here, the kernel in
+    ``ops.ssd``): zero-pads S to a multiple of ``q = min(chunk, S)``,
+    adds the inter-chunk recurrence's output, crops and casts to
+    ``x.dtype``."""
     bsz, s0, h, p = x.shape
-    n = b.shape[-1]
     q = min(chunk, s0)
     pad = (-s0) % q
+    dt, a = dt.to(F32), a.to(F32)
     if pad:
         x, dt, b, c = (torch.nn.functional.pad(
             t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in (x, dt, b, c))
+    x, dt, b, c = (t.contiguous() for t in (x, dt, b, c))
     s = s0 + pad
-    xc, dtc, bc, cc, cum = _chunks(x, dt, a, b, c, q)
-    y_intra, sz, chunk_decay = _intra(xc, dtc, bc, cc, cum)
-    h_starts = inter_chunk_starts(sz, chunk_decay)
-    y = y_intra + inter_chunk_output(cum, cc, h_starts)
-    return y.reshape(bsz, s, h, p)[:, :s0].to(x.dtype)
+    y_intra, states, chunk_decay = intra(x, dt, a, b, c, chunk=q)
+    _, cc, cum = _b_c_cum(dt, a, b, c, q)
+    h_starts = inter_chunk_starts(states, chunk_decay)
+    y_inter = inter_chunk_output(cum, cc, h_starts).reshape(bsz, s, h, p)
+    return (y_intra + y_inter)[:, :s0].to(x.dtype)
 
 
 def inter_chunk_starts(states, chunk_decay):
