@@ -50,9 +50,13 @@ order (any failure raises and the script exits non-zero):
    bitwise, f32 fma within 1e-6); K9 (fma_matmul) both variants in
    float32 and bfloat16 at (128, 1024, 512) and the qwen2.5-1.5b MLP
    shapes (128, 1536, 8960) and (128, 8960, 1536) against one f32
-   matmul (K9_TOL); K7 (qmatmul) on those weights quantized on the
-   card in all four formats, dequant_dot and q8_0 dot_i8 at M 8 and
-   128 with float32 and bfloat16 activations, within 1e-5;
+   matmul (K9_TOL), mxu also at M = 1 and a ragged shape, every call
+   run twice and required to repeat bit for bit, the launch counters
+   showing the weight stream there and the WMMA kernel on rows that
+   are not whole 16-byte chunks; K7 (qmatmul) on those weights
+   quantized on the card in all four formats, dequant_dot and q8_0
+   dot_i8 at M 8 and 128 with float32 and bfloat16 activations, within
+   1e-5;
 12. the instructions (``cuobjdump -sass``): no FFMA/HFMA2 in any
    mul_add kernel of K8 and K9, FFMA/HFMA2 in K8's fma kernels, HMMA
    only in K9's mxu kernels -- the paper's ``-fmad=false``;
@@ -67,7 +71,9 @@ order (any failure raises and the script exits non-zero):
    dequant_dot otherwise);
 14. timings of K8, K9 and K7 at full width beside their bounds, plain
    versions and ``torch.matmul`` (K9) or the dequantize-then-matmul
-   route (K7);
+   route (K7); K9's as device time per call (launches queued behind a
+   busy-wait), mxu at both MLP shapes in float32 and bfloat16 with its
+   TB/s and share of the bound;
 15. K10 (the SSD chunk scan) against its plain version at mamba2-780m's
    widths (H 48, P 64, N 128, chunk 256): S 64, 256 and 1024, B 1 and
    2, x/b/c in float32 and bfloat16, A over the model's range and from
@@ -142,6 +148,31 @@ def time_ms(fn, warmup: int = 5, iters: int = 30) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_ms_queued(fn, warmup: int = 5, reps: int = 30,
+                   launches: int = 20) -> float:
+    """Device time of one ``fn``: median over ``reps`` of CUDA events
+    around ``launches`` calls queued behind a busy-wait kernel, over
+    ``launches``.  The wait lets the host enqueue every call before the
+    first one starts, so the host's launch cost (which exceeds a short
+    kernel's time) stays out of the reading."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(4_000_000)          # ~2 ms at 1.98 GHz
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -770,34 +801,73 @@ def phase_k8_check(dev):
         tol_f32=tolerance(torch.float32, v)) for v in ("fma", "mul_add")}
 
 
+#: shapes of K9's mxu check beyond the MLP ones: the reference bench's,
+#: one decode row, and a ragged one the contract lets through (blocks
+#: given), all on the weight stream; then rows that are not whole
+#: 16-byte chunks (N = 130 in f32, not a multiple of 8 in bf16 either),
+#: which go to the WMMA kernel
+K9_MXU_SHAPES = (((128, 1024, 512), {}), ((1, 1536, 8960), {}),
+                 ((100, 1000, 520), dict(bk=8, bn=8)))
+K9_WMMA_SHAPE = ((128, 1536, 130), dict(bn=2))
+
+
 def phase_k9_check(dev):
-    """K9 both variants, f32 and bf16, at the reference bench's shape
-    and the MLP shapes, against one f32 matmul (TF32 off), at the
-    relative max errors of K9_TOL."""
+    """K9 against one f32 matmul (TF32 off) at the relative max errors
+    of K9_TOL, f32 and bf16: mul_add at the reference bench's shape and
+    the MLP shapes; mxu also at one decode row and a ragged shape, each
+    run twice and required to give the same bits (the split-K pieces
+    are added in a fixed order), with the launch counters showing the
+    weight stream at every one of those shapes and the WMMA kernel at a
+    shape whose rows are not whole 16-byte chunks."""
     import torch
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.fma_matmul import matmul_ref, matmul_variant
     errs = {}
-    for m, k, n in ((128, 1024, 512),) + MLP_SHAPES:
+    shapes = [(s, {}) for s in ((128, 1024, 512),) + MLP_SHAPES]
+    shapes += [sk for sk in K9_MXU_SHAPES if sk[0] != (128, 1024, 512)]
+    shapes.append(K9_WMMA_SHAPE)
+    for (m, k, n), blocks in shapes:
         x, w = activations(m, k, dev), mlp_weights(k, n, dev)
         for dtype in ("float32", "bfloat16"):
             xd, wd = x.to(getattr(torch, dtype)), w.to(getattr(torch, dtype))
             ref = matmul_ref(xd, wd)
-            for variant in ("mxu", "mul_add"):
-                out = matmul_variant(xd, wd, variant=variant)
+            variants = ("mxu", "mul_add") if not blocks and m == 128 else (
+                "mxu",)
+            for variant in variants:
+                before = launch_counts()
+                out = matmul_variant(xd, wd, variant=variant, **blocks)
+                again = matmul_variant(xd, wd, variant=variant, **blocks)
                 torch.cuda.synchronize()
+                ran = sorted(kk for kk, v in launch_counts().items()
+                             if v != before[kk])
                 rel = rel_err(out, ref)
+                same = bool(torch.equal(out, again))
                 tol = K9_TOL[variant, dtype]
+                want = ["fma_matmul_mul_add"] if variant == "mul_add" else (
+                    ["fma_matmul_mxu_wmma"] if (m, k, n) == K9_WMMA_SHAPE[0]
+                    else ["fma_matmul_mxu"])
                 print(f"[K9] {variant} {dtype} ({m},{k},{n}): rel max err "
-                      f"{rel:.3e} (tol {tol})")
+                      f"{rel:.3e} (tol {tol}), repeat bitwise {same}, "
+                      f"launched {ran}")
                 if not rel <= tol:
                     fail(f"K9 {variant} {dtype} ({m},{k},{n}): {rel}")
-                errs[variant, dtype] = max(errs.get((variant, dtype),
+                if not same:
+                    fail(f"K9 {variant} {dtype} ({m},{k},{n}): two runs "
+                         "differ")
+                if ran != want:
+                    fail(f"K9 {variant} {dtype} ({m},{k},{n}) launched "
+                         f"{ran}, want {want}")
+                errs[want[0], dtype] = max(errs.get((want[0], dtype),
                                                     (0.0, 0.0)),
                                            (max_err(out, ref), rel))
-    return {f"fma_matmul_{v}": dict(
-        max_abs_err=errs[v, "float32"][0], max_rel_err=errs[v, "float32"][1],
-        tol=K9_TOL[v, "float32"], max_rel_err_bf16=errs[v, "bfloat16"][1],
-        tol_bf16=K9_TOL[v, "bfloat16"]) for v in ("mxu", "mul_add")}
+    return {name: dict(
+        max_abs_err=errs[name, "float32"][0],
+        max_rel_err=errs[name, "float32"][1], tol=K9_TOL[v, "float32"],
+        max_rel_err_bf16=errs[name, "bfloat16"][1],
+        tol_bf16=K9_TOL[v, "bfloat16"])
+        for name, v in (("fma_matmul_mxu", "mxu"),
+                        ("fma_matmul_mxu_wmma", "mxu"),
+                        ("fma_matmul_mul_add", "mul_add"))}
 
 
 def phase_k7_check(dev):
@@ -984,12 +1054,43 @@ def phase_compute_main(dev):
     return counts, summary
 
 
+def with_bound(r):
+    """r with its bound: bytes over 3.35 TB/s against operations over
+    the peak of the variant's path, whichever is longer."""
+    t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
+    t_ops = 1e3 * r["flops"] / r["peak"]
+    r["bound_ms"] = max(t_bytes, t_ops)
+    r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return r
+
+
+def k9_row(x, w, variant, peak, tf32, **blocks):
+    """K9's timing row on (x, w): the kernel, the plain version and
+    torch.matmul (TF32 as ``tf32`` says), each as device time per call;
+    bytes count x and w read once and the f32 output written once."""
+    import torch
+    from repro_torch.kernels.fma_matmul import matmul_ref, matmul_variant
+    m, k = x.shape
+    n = w.shape[1]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    lib_ms = time_ms_queued(lambda: torch.matmul(x, w))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name = {torch.float32: "f32", torch.bfloat16: "bf16"}[x.dtype]
+    return dict(
+        ms=time_ms_queued(lambda: matmul_variant(x, w, variant=variant,
+                                                 **blocks)),
+        plain_ms=time_ms_queued(lambda: matmul_ref(x, w)),
+        library_ms=lib_ms,
+        bytes=x.element_size() * (m * k + k * n) + 4 * m * n,
+        flops=2 * m * k * n, peak=peak, shape=f"{name} ({m},{k},{n})")
+
+
 def phase_compute_timings(dev):
     """Each compute-path kernel and variant at full width: kernel ms,
     plain ms, library (or route) ms, and the bound: bytes over 3.35 TB/s
     against operations over the peak of the path the variant names."""
     import torch
-    from repro_torch.kernels.fma_matmul import matmul_ref, matmul_variant
+    from repro_torch.kernels.fma_matmul import matmul_variant
     from repro_torch.kernels.mixbench import mixbench, mixbench_ref
     from repro_torch.kernels.qmatmul import (qmatmul_i8_ref, qmatmul_ref,
                                              qmatmul_variant)
@@ -1008,21 +1109,31 @@ def phase_compute_timings(dev):
             library_ms=None, bytes=8 * SWEEP_N, flops=2 * 64 * SWEEP_N,
             peak=peak, shape="f32 n=2^26 iters=64")
     del x
-    # K9: f32 at the first MLP shape; the library call is torch.matmul,
-    # TF32 on beside mxu and off beside mul_add
+    # K9, as device time per launch (time_ms_queued: through ctypes the
+    # host takes ~0.04 ms to launch a call, longer than the mxu kernel
+    # runs): mul_add at the first MLP shape in f32 beside torch.matmul
+    # with TF32 off; mxu at both MLP shapes in f32 and bf16 beside
+    # torch.matmul (TF32 on), the first f32 shape its row; the WMMA
+    # kernel on rows that are not whole 16-byte chunks (N - 2 columns)
     m, k, n = MLP_SHAPES[0]
     a, w = activations(m, k, dev), mlp_weights(k, n, dev)
-    k9_bytes = 4 * (m * k + k * n + m * n)
-    for variant, peak, tf32 in (("mxu", TF32_FLOPS_PER_S, True),
-                                ("mul_add", FP32_FLOPS_PER_S / 2, False)):
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        lib_ms = time_ms(lambda: torch.matmul(a, w))
-        torch.backends.cuda.matmul.allow_tf32 = False
-        rows[f"fma_matmul_{variant}"] = dict(
-            ms=time_ms(lambda: matmul_variant(a, w, variant=variant)),
-            plain_ms=time_ms(lambda: matmul_ref(a, w)), library_ms=lib_ms,
-            bytes=k9_bytes, flops=2 * m * k * n, peak=peak,
-            shape=f"f32 ({m},{k},{n})")
+    rows["fma_matmul_mul_add"] = k9_row(a, w, "mul_add",
+                                        FP32_FLOPS_PER_S / 2, tf32=False)
+    by_shape = {}
+    for (mm, kk, nn), dtype in itertools.product(
+            MLP_SHAPES, (torch.float32, torch.bfloat16)):
+        r = k9_row(activations(mm, kk, dev).to(dtype),
+                   mlp_weights(kk, nn, dev).to(dtype), "mxu",
+                   TF32_FLOPS_PER_S if dtype == torch.float32
+                   else BF16_FLOPS_PER_S, tf32=True)
+        by_shape[r["shape"]] = with_bound(r)
+    rows["fma_matmul_mxu"] = dict(by_shape[f"f32 ({m},{k},{n})"])
+    rows["fma_matmul_mxu"]["single_call_ms"] = time_ms(
+        lambda: matmul_variant(a, w, variant="mxu"))
+    rows["fma_matmul_mxu"]["by_shape"] = by_shape
+    rows["fma_matmul_mxu_wmma"] = k9_row(
+        a, mlp_weights(k, n - 2, dev), "mxu", TF32_FLOPS_PER_S, tf32=True,
+        bn=2)
     # K7: f32 activations, the same shape; dequant_dot's row is q4_k (the
     # paper's Q4_K_M), every format is printed; no single PyTorch call
     # computes a block-quantized product, so the route (dequantize, then
@@ -1045,10 +1156,7 @@ def phase_compute_timings(dev):
             per_fmt[f"{variant}/{fmt}"] = r
     for name, r in list(rows.items()) + [
             (f"qmatmul {key}", r) for key, r in per_fmt.items()]:
-        t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
-        t_ops = 1e3 * r["flops"] / r["peak"]
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        with_bound(r)
         lib = r["library_ms"]
         route = (f", dequantize + torch.matmul {r['route_ms']:.4f} ms"
                  if "route_ms" in r else "")
@@ -1058,6 +1166,15 @@ def phase_compute_timings(dev):
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}{route}, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B, "
               f"{r['flops']} flop at {r['peak'] / 1e12:.2f} T/s)")
+    for shape, r in by_shape.items():
+        print(f"[time] fma_matmul_mxu {shape}: kernel {r['ms']:.4f} ms = "
+              f"{r['bytes'] / r['ms'] / 1e9:.3f} TB/s, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}); torch.matmul "
+              f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms")
+    print(f"[time] fma_matmul_mxu f32 ({m},{k},{n}) one call at a time "
+          "(host launch included): "
+          f"{rows['fma_matmul_mxu']['single_call_ms']:.4f} ms")
     rows["qmatmul_dequant_dot"] = dict(per_fmt["dequant_dot/q4_k"])
     rows["qmatmul_dequant_dot"]["ms_by_format"] = {
         f: per_fmt[f"dequant_dot/{f}"]["ms"] for f in QFMTS}
@@ -1483,6 +1600,7 @@ def main() -> int:
         "mixbench_fma": "src/repro/kernels/mixbench/kernel.py:56",
         "mixbench_mul_add": "src/repro/kernels/mixbench/kernel.py:56",
         "fma_matmul_mxu": "src/repro/kernels/fma_matmul/kernel.py:69",
+        "fma_matmul_mxu_wmma": "src/repro/kernels/fma_matmul/kernel.py:69",
         "fma_matmul_mul_add": "src/repro/kernels/fma_matmul/kernel.py:69",
         "qmatmul_dequant_dot": "src/repro/kernels/qmatmul/kernel.py:197",
         "qmatmul_dot_i8": "src/repro/kernels/qmatmul/kernel.py:149"}
@@ -1497,7 +1615,8 @@ def main() -> int:
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                  "bytes": r["bytes"], "shape": r["shape"]}
-        for extra in ("route_ms", "ms_by_format"):
+        for extra in ("route_ms", "ms_by_format", "single_call_ms",
+                      "by_shape"):
             if extra in r:
                 entry[extra] = r[extra]
         kernels.append(entry)

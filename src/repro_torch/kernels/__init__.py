@@ -28,6 +28,7 @@ COUNTERS = {c.name: c for c in (_decode_ops.COUNTER,
                                 _mixbench_ops.COUNTER_FMA,
                                 _mixbench_ops.COUNTER_MUL_ADD,
                                 _matmul_ops.COUNTER_MXU,
+                                _matmul_ops.COUNTER_MXU_WMMA,
                                 _matmul_ops.COUNTER_MUL_ADD,
                                 _qmatmul_ops.COUNTER_DEQUANT_DOT,
                                 _qmatmul_ops.COUNTER_DOT_I8,

@@ -4,8 +4,9 @@
 libraries is read kernel by kernel and the floating-point instructions
 counted by class.  :func:`sass_report` applies the rules: no FFMA or
 HFMA2 in a ``mul_add`` kernel and its multiplies and adds present;
-FFMA (HFMA2) in K8's ``fma`` kernels; HMMA in K9's ``mxu`` kernels and
-in no ``mul_add`` kernel.  ``chip_smoke.py`` and the cuda-marked test
+FFMA (HFMA2) in K8's ``fma`` kernels; HMMA in every one of K9's ``mxu``
+kernels (the weight stream's ``mma.sync`` and the WMMA kernel's) and in
+no ``mul_add`` kernel.  ``chip_smoke.py`` and the cuda-marked test
 both call it.  Nothing runs at import.
 """
 
@@ -27,6 +28,7 @@ __all__ = ["SASS_KERNELS", "check_counts", "cuobjdump", "kernel_counts",
 SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
                 "mixbench_f32_mul_add", "mixbench_bf16_mul_add",
                 "fma_matmul_mxu_f32", "fma_matmul_mxu_bf16",
+                "fma_matmul_mxu_wmma_f32", "fma_matmul_mxu_wmma_bf16",
                 "fma_matmul_mul_add_f32", "fma_matmul_mul_add_bf16")
 
 

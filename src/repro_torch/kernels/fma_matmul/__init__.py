@@ -3,8 +3,9 @@ and plain version."""
 
 from repro_torch.kernels.fma_matmul.ops import (VARIANTS, matmul,
                                                 matmul_variant,
-                                                policy_variant)
+                                                policy_variant, stream_plan,
+                                                stream_rows)
 from repro_torch.kernels.fma_matmul.ref import matmul_ref
 
 __all__ = ["VARIANTS", "matmul", "matmul_variant", "policy_variant",
-           "matmul_ref"]
+           "stream_plan", "stream_rows", "matmul_ref"]

@@ -6,14 +6,23 @@
 and runs the variant it picks -- the framework-level equivalent of the
 paper's "recompile with -fmad=false".  ``matmul_variant`` runs one
 variant: a CPU tensor takes the plain version (``ref.py``); a CUDA
-tensor launches ``csrc/fma_matmul.cu`` (``mxu``: tensor cores;
-``mul_add``: a separate multiply and add per term on the CUDA cores)
-or raises -- there is no fallback on the card.
+tensor launches ``csrc/fma_matmul.cu`` or raises -- there is no
+fallback on the card.  ``mul_add`` is a separate multiply and add per
+term on the CUDA cores.  ``mxu`` runs on the tensor cores, through one
+of two kernels chosen by shape:
+
+* the weight stream (counter ``fma_matmul_mxu``) where TMA can read x
+  and w (:func:`stream_rows`): a TMA-fed ring, ``mma.sync``, the K
+  blocks of all tiles cut into one equal run per SM
+  (:func:`stream_plan`), pieces of tiles added from an f32 workspace
+  that this wrapper allocates;
+* else the WMMA kernel (counter ``fma_matmul_mxu_wmma``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -23,17 +32,63 @@ from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
                                         load)
 from repro_torch.kernels.fma_matmul.ref import matmul_ref
 
-__all__ = ["matmul", "matmul_variant", "policy_variant", "VARIANTS",
-           "COUNTER_MXU", "COUNTER_MUL_ADD"]
+__all__ = ["matmul", "matmul_variant", "policy_variant", "stream_plan",
+           "stream_rows", "VARIANTS", "COUNTER_MXU", "COUNTER_MXU_WMMA",
+           "COUNTER_MUL_ADD"]
 
 VARIANTS = ("mxu", "mul_add")
 COUNTER_MXU = LaunchCounter("fma_matmul_mxu")
+COUNTER_MXU_WMMA = LaunchCounter("fma_matmul_mxu_wmma")
 COUNTER_MUL_ADD = LaunchCounter("fma_matmul_mul_add")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: the C entry's kernel codes
+_MXU_STREAM, _MUL_ADD, _MXU_WMMA = 0, 1, 2
+#: the weight stream's tile (``SBM``, ``SBN``) and K per stage
+#: (``Stream<T>::kBK``) in ``csrc/fma_matmul.cu``
+STREAM_BM, STREAM_BN = 128, 256
+STREAM_BK = {torch.float32: 32, torch.bfloat16: 64}
 #: the precision names the profiles use; the reference maps
 #: ``str(x.dtype)`` ("float32", ...) the same way, anything else to "f32"
 _PRECISION = {torch.float32: "f32", torch.bfloat16: "bf16",
               torch.float16: "f16"}
+
+
+def stream_plan(m: int, k: int, n: int, dtype: torch.dtype,
+                sms: int) -> tuple:
+    """(runs, workspace slots) of the weight stream for (m, k, n): the
+    K blocks of all 128 x 256 tiles are cut into ``runs`` equal runs,
+    one CTA each, one per SM (fewer if there are fewer blocks); a run
+    that holds a piece of a tile, not all of it, writes the piece to
+    slot run + tile of an f32 workspace of ``slots`` x min(m, 128) x
+    256."""
+    tiles = -(-m // STREAM_BM) * -(-n // STREAM_BN)
+    iters = tiles * -(-k // STREAM_BK[dtype])
+    runs = min(sms, iters)
+    return runs, runs + tiles - 1
+
+
+def stream_rows(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether TMA can read x and w: every row whole 16-byte chunks (K
+    and N multiples of 4 in float32, of 8 in bfloat16: the tensor maps'
+    row strides) and both bases 16-byte aligned."""
+    per = 16 // x.element_size()
+    return (x.shape[1] % per == 0 and w.shape[1] % per == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd():
+    """``fma_matmul_fwd`` of the built library, its argument types set."""
+    fn = load("fma_matmul").fma_matmul_fwd
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def matmul_variant(x: torch.Tensor, w: torch.Tensor, *,
@@ -65,17 +120,25 @@ def matmul_variant(x: torch.Tensor, w: torch.Tensor, *,
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    fn = load("fma_matmul").fma_matmul_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    runs, ws = 1, None
+    if variant == "mul_add":
+        code, counter = _MUL_ADD, COUNTER_MUL_ADD
+    elif stream_rows(x, w):
+        code, counter = _MXU_STREAM, COUNTER_MXU
+        runs, slots = stream_plan(m, k, n, x.dtype,
+                                  _sm_count(x.device.index))
+        ws = torch.empty((slots, min(m, STREAM_BM), STREAM_BN),
+                         dtype=torch.float32, device=x.device)
+    else:
+        code, counter = _MXU_WMMA, COUNTER_MXU_WMMA
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n,
-                VARIANTS.index(variant), _DTYPE_CODE[x.dtype], stream)
+        rc = _fwd()(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                    None if ws is None else ws.data_ptr(), m, k, n, code,
+                    _DTYPE_CODE[x.dtype], runs, stream)
     if rc != 0:
         raise KernelLaunchError(f"fma_matmul ({variant}): CUDA error {rc}")
-    (COUNTER_MXU if variant == "mxu" else COUNTER_MUL_ADD).n += 1
+    counter.n += 1
     return out
 
 

@@ -2,12 +2,16 @@
 
 ``python -m repro_torch.launch.serve --arch qwen2.5-1.5b [--paged
 --page-size 16] [--kv-quant int8] --requests N --prompt-len P --gen G
---lanes B [--smoke] [--device cuda|cpu]`` builds seeded random weights,
-serves N requests of P prompt tokens and G generated tokens each through
-the fixed-lane engine (the default) or, with ``--paged``, the page-pool
-engine, over a KV cache in the compute dtype or, with ``--kv-quant
-int8``, in int8 with per-token scales, and prints tokens/s with the
-prefill/decode split.  Runs on ``cuda`` unless ``--device cpu``.
+--lanes B [--smoke] [--device cuda|cpu] [--profile tpu-v5e] [--trace
+TRACE.json]`` builds seeded random weights, serves N requests of P
+prompt tokens and G generated tokens each through the fixed-lane engine
+(the default) or, with ``--paged``, the page-pool engine, over a KV
+cache in the compute dtype or, with ``--kv-quant int8``, in int8 with
+per-token scales, and prints tokens/s with the prefill/decode split,
+then, as the reference does, the capability-model prediction for the
+device profile ``--profile`` names.  ``--trace`` records the run with
+``torch.profiler``, writes a Chrome trace and prints device time by
+kernel.  Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
+from repro_torch.core.device_profile import get_profile
+from repro_torch.core.perf_model import InferencePerfModel, LLMSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.serving import Request, ServeEngine
@@ -43,7 +49,9 @@ def main(argv=None):
     ap.add_argument("--lanes", type=int, default=4)
     ap.add_argument("--device", default=None, choices=[None, "cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile", default=None, metavar="TRACE.json",
+    ap.add_argument("--profile", default="tpu-v5e",
+                    help="device profile for the analytic prediction")
+    ap.add_argument("--trace", default=None, metavar="TRACE.json",
                     help="trace the run with torch.profiler, write a "
                          "Chrome trace here and print device time by "
                          "kernel")
@@ -67,27 +75,27 @@ def main(argv=None):
     def make_engine():
         return ServeEngine(cfg, params, n_lanes=args.lanes, max_len=max_len,
                            paged=args.paged, page_size=args.page_size,
-                           device=device, timed=args.profile is None)
+                           device=device, timed=args.trace is None)
 
     # one untimed request first: kernel build/load and library set-up
     # stay out of the numbers
     make_engine().run([Request(uid=-1, prompt=reqs[0].prompt,
                                max_new_tokens=2)])
     engine = make_engine()
-    prof = contextlib.nullcontext()
-    if args.profile:
+    tracer = contextlib.nullcontext()
+    if args.trace:
         acts = [ProfilerActivity.CPU]
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        prof = profile(activities=acts)
-    with prof:
+        tracer = profile(activities=acts)
+    with tracer:
         t0 = time.perf_counter()
         engine.run(reqs)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
-    if args.profile:
-        _report_profile(prof, dt, args.profile)
+    if args.trace:
+        _report_profile(tracer, dt, args.trace)
     n_gen = sum(len(r.generated) for r in reqs)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
@@ -102,6 +110,17 @@ def main(argv=None):
               f"{engine.stats['decode_dispatches']} dispatches "
               f"({n_gen / max(t_decode, 1e-9):.1f} tok/s)")
     print(f"stats: {engine.stats}")
+
+    prof = get_profile(args.profile)
+    spec = LLMSpec(name=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                   n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                   d_ff=cfg.d_ff, vocab_size=cfg.vocab_size,
+                   tied_embeddings=cfg.tie_embeddings)
+    m = InferencePerfModel(prof, spec)
+    fmt = "f16"                    # the port serves no quantized weights
+    print(f"capability-model prediction on {prof.name}: "
+          f"prefill {m.prefill(fmt).tokens_per_s:,.0f} tok/s, "
+          f"decode {m.decode(fmt).tokens_per_s:,.0f} tok/s ({fmt})")
 
 
 def _report_profile(prof, wall_s: float, path: str) -> None:

@@ -38,7 +38,8 @@ from repro_torch.kernels._sass import (SASS_KERNELS,  # noqa: E402
                                        check_counts, kernel_counts,
                                        parse_sass, sass_report)
 from repro_torch.kernels.fma_matmul import (matmul, matmul_ref,  # noqa: E402
-                                            matmul_variant, policy_variant)
+                                            matmul_variant, policy_variant,
+                                            stream_plan, stream_rows)
 from repro_torch.kernels.mixbench import (arithmetic_intensity,  # noqa: E402
                                           mixbench, mixbench_ref,
                                           sweep_points)
@@ -361,6 +362,52 @@ def test_matmul_policy_entry_on_cpu():
                policy=cp.PathPolicy(dp.CMP_170HX))
 
 
+@pytest.mark.parametrize("m,k,n,dtype,runs,slots", [
+    (128, 1536, 8960, "float32", 132, 166),     # 35 tiles of 48 K blocks
+    (128, 8960, 1536, "float32", 132, 137),     # 6 tiles of 280
+    (128, 1536, 8960, "bfloat16", 132, 166),    # 35 tiles of 24
+    (1, 1536, 8960, "float32", 132, 166),
+    (300, 512, 256, "float32", 48, 50),         # 3 tiles of 16 blocks
+    (8, 64, 256, "bfloat16", 1, 1),             # one block in all
+])
+def test_matmul_stream_plan(m, k, n, dtype, runs, slots):
+    """The weight stream cuts the K blocks of its 128 x 256 tiles into
+    one run per SM (132 on the H100), fewer when there are fewer
+    blocks; a run may hold a piece of a tile, so the workspace has a
+    slot for each (run, tile) pair that can meet: runs + tiles - 1."""
+    assert stream_plan(m, k, n, getattr(torch, dtype), 132) == (runs, slots)
+
+
+def test_matmul_stream_rows():
+    """The weight stream takes x and w whose rows TMA can read: whole
+    16-byte chunks on 16-byte-aligned bases; other operands go to the
+    WMMA kernel."""
+    assert stream_rows(torch.zeros((4, 1028)), torch.zeros((1028, 8)))
+    assert not stream_rows(torch.zeros((4, 130)), torch.zeros((130, 8)))
+    assert not stream_rows(torch.zeros((4, 128)), torch.zeros((128, 130)))
+    shifted = torch.zeros(132)[1:129].view(1, 128)     # base 4 bytes off
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    assert not stream_rows(shifted, torch.zeros((128, 8)))
+    bf16 = dict(dtype=torch.bfloat16)
+    assert not stream_rows(torch.zeros((4, 132), **bf16),
+                           torch.zeros((132, 8), **bf16))
+    assert stream_rows(torch.zeros((4, 128), **bf16),
+                       torch.zeros((128, 16), **bf16))
+
+
+def test_matmul_breakdown_cuts_match_the_source():
+    """The card-side breakdown of K9's weight stream cuts parts out of
+    ``csrc/fma_matmul.cu`` by text: each cut must still match exactly
+    once, and each variant must apply cuts that exist."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fma_matmul import breakdown
+    text = (_build.CSRC / "fma_matmul.cu").read_text()
+    assert {old: text.count(old) for old, _ in breakdown._CUTS.values()} \
+        == {old: 1 for old, _ in breakdown._CUTS.values()}
+    assert all(c in breakdown._CUTS for cuts in breakdown.VARIANTS.values()
+               for c in cuts)
+
+
 @pytest.mark.parametrize("bad", ["m", "k", "n", "variant"])
 def test_matmul_contract(bad):
     x, w = torch.zeros((48, 256)), torch.zeros((256, 192))
@@ -480,6 +527,11 @@ _SASS = """
         /*0010*/                   HFMA2.BF16 R6, R4, R2, R3 ;
         Function : _ZN12_GLOBAL__N_118fma_matmul_mxu_f32EPKfS1_Pfiii
         /*0000*/                   HMMA.1684.F32.TF32 R4, R8, R12, R4 ;
+        Function : _ZN12_GLOBAL__N_119fma_matmul_mxu_bf16EPK13__nv_bfloat16S2_PfS3_iiiiil
+        /*0000*/                   LDSM.16.MT88.4 R20, [R2+UR4] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        Function : _ZN12_GLOBAL__N_123fma_matmul_mxu_wmma_f32EPKfS1_Pfiii
+        /*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
 """
 
 
@@ -490,7 +542,9 @@ def test_sass_parse_and_rules():
     found = kernel_counts(parse_sass(_SASS))
     assert found == {"mixbench_f32_mul_add": {"mul": 1, "add": 1, "mov": 1},
                      "mixbench_f32_fma": {"fma": 2},
-                     "fma_matmul_mxu_f32": {"hmma": 1}}
+                     "fma_matmul_mxu_f32": {"hmma": 1},
+                     "fma_matmul_mxu_bf16": {"hmma": 1},
+                     "fma_matmul_mxu_wmma_f32": {"hmma": 1}}
     problems = check_counts(found)
     assert sorted(problems) == sorted(f"{k}: not found" for k in SASS_KERNELS
                                       if k not in found)
@@ -500,6 +554,14 @@ def test_sass_parse_and_rules():
     no_mma = _SASS.replace("HMMA.1684.F32.TF32", "FFMA")
     assert any("fma_matmul_mxu_f32 does not" in p for p in
                check_counts(kernel_counts(parse_sass(no_mma))))
+    # the WMMA kernel is one of the mxu kernels, held to the same rule,
+    # and the stream's name does not match it (nor it the stream's)
+    no_wmma_mma = _SASS.replace("HMMA.1688.F32.TF32", "FMUL")
+    problems = check_counts(kernel_counts(parse_sass(no_wmma_mma)))
+    assert any("fma_matmul_mxu_wmma_f32 does not" in p for p in problems)
+    assert not any(p.startswith("fma_matmul_mxu_f32 ") for p in problems)
+    assert {"fma_matmul_mxu_wmma_f32", "fma_matmul_mxu_wmma_bf16",
+            "fma_matmul_mxu_f32", "fma_matmul_mxu_bf16"} <= set(SASS_KERNELS)
 
 
 # ----------------------------------------------------------------------
@@ -541,6 +603,39 @@ def test_matmul_kernel_on_card(variant, dtype):
         ref = matmul_ref(x, w)
         torch.cuda.synchronize()
         assert _rel(out.cpu(), ref.cpu()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_mxu_kernels_on_card(dtype):
+    """The mxu arm's two kernels: the weight stream at the MLP shapes,
+    the reference bench's, one decode row and a ragged shape, the WMMA
+    kernel on rows that are not whole 16-byte chunks; each within the
+    arm's tolerance of one f32 matmul, and each call repeated bit for
+    bit (the split-K pieces are added in one fixed order)."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = {"float32": 2e-3, "bfloat16": 1e-4}[dtype]
+    cases = [((128, 1536, 8960), {}, "fma_matmul_mxu"),
+             ((128, 8960, 1536), {}, "fma_matmul_mxu"),
+             ((128, 1024, 512), {}, "fma_matmul_mxu"),
+             ((1, 1536, 8960), {}, "fma_matmul_mxu"),
+             ((100, 1000, 520), dict(bk=8, bn=8), "fma_matmul_mxu"),
+             ((128, 1536, 130), dict(bn=2), "fma_matmul_mxu_wmma")]
+    for (m, k, n), blocks, kernel in cases:
+        x = torch.from_numpy(_normal((m, k), 0)).cuda().to(getattr(torch,
+                                                                   dtype))
+        w = torch.from_numpy(_normal((k, n), 1)).cuda().to(getattr(torch,
+                                                                   dtype))
+        before = launch_counts()
+        out = matmul_variant(x, w, variant="mxu", **blocks)
+        again = matmul_variant(x, w, variant="mxu", **blocks)
+        torch.cuda.synchronize()
+        ran = {kk: v - before[kk] for kk, v in launch_counts().items()
+               if v != before[kk]}
+        assert ran == {kernel: 2}, ((m, k, n), ran)
+        assert torch.equal(out, again), (m, k, n)
+        assert _rel(out.cpu(), matmul_ref(x, w).cpu()) <= tol, (m, k, n)
 
 
 @pytest.mark.cuda

@@ -41,6 +41,7 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(n)\n"
         "for m in ('serving.engine', 'rng', 'kernels.decode_attention.ops',\n"
         "          'core.device_profile', 'core.compute_path',\n"
+        "          'core.perf_model', 'launch.serve',\n"
         "          'quant.formats', 'quant.quantize', 'kernels.mixbench.ops',\n"
         "          'kernels.fma_matmul.ops', 'kernels.qmatmul.ops',\n"
         "          'kernels.mixbench.check', 'kernels._sass',\n"
@@ -115,6 +116,7 @@ def test_cpu_serving_launches_no_kernel():
                                "mixbench_fma": 0,
                                "mixbench_mul_add": 0,
                                "fma_matmul_mxu": 0,
+                               "fma_matmul_mxu_wmma": 0,
                                "fma_matmul_mul_add": 0,
                                "qmatmul_dequant_dot": 0,
                                "qmatmul_dot_i8": 0,
