@@ -48,18 +48,21 @@ order (any failure raises and the script exits non-zero):
    bfloat16, both arms, at 1, 16 and 128 steps, in one grid-stride
    pass and in several, aligned and not (f32 mul_add and bf16
    bitwise, f32 fma within 1e-6); K9 (fma_matmul) both variants in
-   float32 and bfloat16 at (128, 1024, 512) and the qwen2.5-1.5b MLP
-   shapes (128, 1536, 8960) and (128, 8960, 1536) against one f32
-   matmul (K9_TOL), mxu also at M = 1 and a ragged shape, every call
-   run twice and required to repeat bit for bit, the launch counters
-   showing the weight stream there and the WMMA kernel on rows that
-   are not whole 16-byte chunks; K7 (qmatmul) on those weights
-   quantized on the card in all four formats, dequant_dot and q8_0
-   dot_i8 at M 8 and 128 with float32 and bfloat16 activations, within
-   1e-5;
-12. the instructions (``cuobjdump -sass``): no FFMA/HFMA2 in any
-   mul_add kernel of K8 and K9, FFMA/HFMA2 in K8's fma kernels, HMMA
-   only in K9's mxu kernels -- the paper's ``-fmad=false``;
+   float32 and bfloat16 at (128, 1024, 512), the qwen2.5-1.5b MLP
+   shapes (128, 1536, 8960) and (128, 8960, 1536), one decode row
+   (1, 1536, 8960) and a ragged shape (100, 1000, 520) against one f32
+   matmul (K9_TOL), every call run twice and required to repeat bit
+   for bit, the launch counters showing each arm's weight stream
+   there and its staged kernel (WMMA, or FMUL/FADD on 64 x 64 tiles)
+   at (128, 1536, 130), whose rows are not whole 16-byte chunks; K7
+   (qmatmul) on those weights quantized on the card in all four
+   formats, dequant_dot and q8_0 dot_i8 at M 8 and 128 with float32
+   and bfloat16 activations, within 1e-5;
+12. the instructions (``cuobjdump -sass``): no FFMA/HFMA2/HMMA in any
+   mul_add kernel of K8 and K9 (K9's stream and staged kernels) and
+   FMUL and FADD present, none in the split-K reduce either (adds
+   alone), FFMA/HFMA2 in K8's fma kernels, HMMA in K9's mxu kernels --
+   the paper's ``-fmad=false``;
 13. the compute path through its entry points, launch counts zeroed
    before and read after: the K8 intensity sweep (2^26 float32
    elements, 1 to 1024 steps, both arms: GFLOP/s and GB/s per point,
@@ -72,8 +75,10 @@ order (any failure raises and the script exits non-zero):
 14. timings of K8, K9 and K7 at full width beside their bounds, plain
    versions and ``torch.matmul`` (K9) or the dequantize-then-matmul
    route (K7); K9's as device time per call (launches queued behind a
-   busy-wait), mxu at both MLP shapes in float32 and bfloat16 with its
-   TB/s and share of the bound;
+   busy-wait), each arm at both MLP shapes in float32 and bfloat16
+   (mxu beside TF32 or bf16 ``torch.matmul``, mul_add beside one f32
+   ``torch.matmul`` with TF32 off) with its TB/s, TFLOP/s and share of
+   the bound, and each arm's staged kernel at (128, 1536, 8958);
 15. K10 (the SSD chunk scan) against its plain version at mamba2-780m's
    widths (H 48, P 64, N 128, chunk 256): S 64, 256 and 1024, B 1 and
    2, x/b/c in float32 and bfloat16, A over the model's range and from
@@ -801,73 +806,73 @@ def phase_k8_check(dev):
         tol_f32=tolerance(torch.float32, v)) for v in ("fma", "mul_add")}
 
 
-#: shapes of K9's mxu check beyond the MLP ones: the reference bench's,
-#: one decode row, and a ragged one the contract lets through (blocks
+#: shapes of K9's check beyond the MLP ones: the reference bench's, one
+#: decode row, and a ragged one the contract lets through (blocks
 #: given), all on the weight stream; then rows that are not whole
 #: 16-byte chunks (N = 130 in f32, not a multiple of 8 in bf16 either),
-#: which go to the WMMA kernel
-K9_MXU_SHAPES = (((128, 1024, 512), {}), ((1, 1536, 8960), {}),
-                 ((100, 1000, 520), dict(bk=8, bn=8)))
-K9_WMMA_SHAPE = ((128, 1536, 130), dict(bn=2))
+#: which go to each arm's staged kernel
+K9_SHAPES = (((128, 1024, 512), {}), ((1, 1536, 8960), {}),
+             ((100, 1000, 520), dict(bk=8, bn=8)))
+K9_STAGED_SHAPE = ((128, 1536, 130), dict(bn=2))
+#: (variant, staged) -> the counter of the kernel K9 must launch
+K9_KERNEL = {("mxu", False): "fma_matmul_mxu",
+             ("mxu", True): "fma_matmul_mxu_wmma",
+             ("mul_add", False): "fma_matmul_mul_add",
+             ("mul_add", True): "fma_matmul_mul_add_staged"}
 
 
 def phase_k9_check(dev):
     """K9 against one f32 matmul (TF32 off) at the relative max errors
-    of K9_TOL, f32 and bf16: mul_add at the reference bench's shape and
-    the MLP shapes; mxu also at one decode row and a ragged shape, each
-    run twice and required to give the same bits (the split-K pieces
-    are added in a fixed order), with the launch counters showing the
-    weight stream at every one of those shapes and the WMMA kernel at a
-    shape whose rows are not whole 16-byte chunks."""
+    of K9_TOL, f32 and bf16, both variants at the reference bench's
+    shape, the MLP shapes, one decode row, a ragged shape and a shape
+    whose rows are not whole 16-byte chunks; each call run twice and
+    required to give the same bits (the split-K pieces are added in a
+    fixed order), with the launch counters showing each arm's weight
+    stream at the first five shapes and its staged kernel at the
+    last."""
     import torch
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.fma_matmul import matmul_ref, matmul_variant
     errs = {}
     shapes = [(s, {}) for s in ((128, 1024, 512),) + MLP_SHAPES]
-    shapes += [sk for sk in K9_MXU_SHAPES if sk[0] != (128, 1024, 512)]
-    shapes.append(K9_WMMA_SHAPE)
+    shapes += [sk for sk in K9_SHAPES if sk[0] != (128, 1024, 512)]
+    shapes.append(K9_STAGED_SHAPE)
     for (m, k, n), blocks in shapes:
         x, w = activations(m, k, dev), mlp_weights(k, n, dev)
-        for dtype in ("float32", "bfloat16"):
+        for dtype, variant in itertools.product(("float32", "bfloat16"),
+                                                ("mxu", "mul_add")):
             xd, wd = x.to(getattr(torch, dtype)), w.to(getattr(torch, dtype))
             ref = matmul_ref(xd, wd)
-            variants = ("mxu", "mul_add") if not blocks and m == 128 else (
-                "mxu",)
-            for variant in variants:
-                before = launch_counts()
-                out = matmul_variant(xd, wd, variant=variant, **blocks)
-                again = matmul_variant(xd, wd, variant=variant, **blocks)
-                torch.cuda.synchronize()
-                ran = sorted(kk for kk, v in launch_counts().items()
-                             if v != before[kk])
-                rel = rel_err(out, ref)
-                same = bool(torch.equal(out, again))
-                tol = K9_TOL[variant, dtype]
-                want = ["fma_matmul_mul_add"] if variant == "mul_add" else (
-                    ["fma_matmul_mxu_wmma"] if (m, k, n) == K9_WMMA_SHAPE[0]
-                    else ["fma_matmul_mxu"])
-                print(f"[K9] {variant} {dtype} ({m},{k},{n}): rel max err "
-                      f"{rel:.3e} (tol {tol}), repeat bitwise {same}, "
-                      f"launched {ran}")
-                if not rel <= tol:
-                    fail(f"K9 {variant} {dtype} ({m},{k},{n}): {rel}")
-                if not same:
-                    fail(f"K9 {variant} {dtype} ({m},{k},{n}): two runs "
-                         "differ")
-                if ran != want:
-                    fail(f"K9 {variant} {dtype} ({m},{k},{n}) launched "
-                         f"{ran}, want {want}")
-                errs[want[0], dtype] = max(errs.get((want[0], dtype),
-                                                    (0.0, 0.0)),
-                                           (max_err(out, ref), rel))
+            before = launch_counts()
+            out = matmul_variant(xd, wd, variant=variant, **blocks)
+            again = matmul_variant(xd, wd, variant=variant, **blocks)
+            torch.cuda.synchronize()
+            ran = sorted(kk for kk, v in launch_counts().items()
+                         if v != before[kk])
+            rel = rel_err(out, ref)
+            same = bool(torch.equal(out, again))
+            tol = K9_TOL[variant, dtype]
+            want = [K9_KERNEL[variant, (m, k, n) == K9_STAGED_SHAPE[0]]]
+            print(f"[K9] {variant} {dtype} ({m},{k},{n}): rel max err "
+                  f"{rel:.3e} (tol {tol}), repeat bitwise {same}, "
+                  f"launched {ran}")
+            if not rel <= tol:
+                fail(f"K9 {variant} {dtype} ({m},{k},{n}): {rel}")
+            if not same:
+                fail(f"K9 {variant} {dtype} ({m},{k},{n}): two runs "
+                     "differ")
+            if ran != want:
+                fail(f"K9 {variant} {dtype} ({m},{k},{n}) launched "
+                     f"{ran}, want {want}")
+            errs[want[0], dtype] = max(errs.get((want[0], dtype),
+                                                (0.0, 0.0)),
+                                       (max_err(out, ref), rel))
     return {name: dict(
         max_abs_err=errs[name, "float32"][0],
         max_rel_err=errs[name, "float32"][1], tol=K9_TOL[v, "float32"],
         max_rel_err_bf16=errs[name, "bfloat16"][1],
         tol_bf16=K9_TOL[v, "bfloat16"])
-        for name, v in (("fma_matmul_mxu", "mxu"),
-                        ("fma_matmul_mxu_wmma", "mxu"),
-                        ("fma_matmul_mul_add", "mul_add"))}
+        for (v, _), name in K9_KERNEL.items()}
 
 
 def phase_k7_check(dev):
@@ -1064,16 +1069,20 @@ def with_bound(r):
     return r
 
 
-def k9_row(x, w, variant, peak, tf32, **blocks):
+def k9_row(x, w, variant, peak, **blocks):
     """K9's timing row on (x, w): the kernel, the plain version and
-    torch.matmul (TF32 as ``tf32`` says), each as device time per call;
-    bytes count x and w read once and the f32 output written once."""
+    torch.matmul, each as device time per call; beside mxu torch.matmul
+    on x and w with TF32 on, beside mul_add one float32 product with
+    TF32 off (on float32 copies of bf16 inputs: the function the arm
+    computes).  Bytes count x and w read once and the f32 output
+    written once."""
     import torch
     from repro_torch.kernels.fma_matmul import matmul_ref, matmul_variant
     m, k = x.shape
     n = w.shape[1]
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    lib_ms = time_ms_queued(lambda: torch.matmul(x, w))
+    torch.backends.cuda.matmul.allow_tf32 = variant == "mxu"
+    xl, wl = (x, w) if variant == "mxu" else (x.float(), w.float())
+    lib_ms = time_ms_queued(lambda: torch.matmul(xl, wl))
     torch.backends.cuda.matmul.allow_tf32 = False
     name = {torch.float32: "f32", torch.bfloat16: "bf16"}[x.dtype]
     return dict(
@@ -1111,29 +1120,35 @@ def phase_compute_timings(dev):
     del x
     # K9, as device time per launch (time_ms_queued: through ctypes the
     # host takes ~0.04 ms to launch a call, longer than the mxu kernel
-    # runs): mul_add at the first MLP shape in f32 beside torch.matmul
-    # with TF32 off; mxu at both MLP shapes in f32 and bf16 beside
-    # torch.matmul (TF32 on), the first f32 shape its row; the WMMA
-    # kernel on rows that are not whole 16-byte chunks (N - 2 columns)
+    # runs): each arm at both MLP shapes in f32 and bf16, the first f32
+    # shape its row; each arm's staged kernel on rows that are not
+    # whole 16-byte chunks (N - 2 columns)
     m, k, n = MLP_SHAPES[0]
     a, w = activations(m, k, dev), mlp_weights(k, n, dev)
-    rows["fma_matmul_mul_add"] = k9_row(a, w, "mul_add",
-                                        FP32_FLOPS_PER_S / 2, tf32=False)
-    by_shape = {}
-    for (mm, kk, nn), dtype in itertools.product(
-            MLP_SHAPES, (torch.float32, torch.bfloat16)):
-        r = k9_row(activations(mm, kk, dev).to(dtype),
-                   mlp_weights(kk, nn, dev).to(dtype), "mxu",
-                   TF32_FLOPS_PER_S if dtype == torch.float32
-                   else BF16_FLOPS_PER_S, tf32=True)
-        by_shape[r["shape"]] = with_bound(r)
-    rows["fma_matmul_mxu"] = dict(by_shape[f"f32 ({m},{k},{n})"])
-    rows["fma_matmul_mxu"]["single_call_ms"] = time_ms(
-        lambda: matmul_variant(a, w, variant="mxu"))
-    rows["fma_matmul_mxu"]["by_shape"] = by_shape
-    rows["fma_matmul_mxu_wmma"] = k9_row(
-        a, mlp_weights(k, n - 2, dev), "mxu", TF32_FLOPS_PER_S, tf32=True,
-        bn=2)
+    k9_peak = {("mxu", torch.float32): TF32_FLOPS_PER_S,
+               ("mxu", torch.bfloat16): BF16_FLOPS_PER_S,
+               ("mul_add", torch.float32): FP32_FLOPS_PER_S / 2,
+               ("mul_add", torch.bfloat16): FP32_FLOPS_PER_S / 2}
+    k9_shapes = {}
+    for variant in ("mxu", "mul_add"):
+        by_shape = k9_shapes[variant] = {}
+        for (mm, kk, nn), dtype in itertools.product(
+                MLP_SHAPES, (torch.float32, torch.bfloat16)):
+            r = k9_row(activations(mm, kk, dev).to(dtype),
+                       mlp_weights(kk, nn, dev).to(dtype), variant,
+                       k9_peak[variant, dtype])
+            by_shape[r["shape"]] = with_bound(r)
+        name = f"fma_matmul_{variant}"
+        rows[name] = dict(by_shape[f"f32 ({m},{k},{n})"])
+        rows[name]["single_call_ms"] = time_ms(
+            lambda: matmul_variant(a, w, variant=variant))
+        rows[name]["by_shape"] = by_shape
+    w2 = mlp_weights(k, n - 2, dev)
+    rows["fma_matmul_mxu_wmma"] = k9_row(a, w2, "mxu", TF32_FLOPS_PER_S,
+                                         bn=2)
+    rows["fma_matmul_mul_add_staged"] = k9_row(
+        a, w2, "mul_add", FP32_FLOPS_PER_S / 2, bn=2)
+    del w2
     # K7: f32 activations, the same shape; dequant_dot's row is q4_k (the
     # paper's Q4_K_M), every format is printed; no single PyTorch call
     # computes a block-quantized product, so the route (dequantize, then
@@ -1166,15 +1181,17 @@ def phase_compute_timings(dev):
               f"{'n/a' if lib is None else f'{lib:.4f} ms'}{route}, bound "
               f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B, "
               f"{r['flops']} flop at {r['peak'] / 1e12:.2f} T/s)")
-    for shape, r in by_shape.items():
-        print(f"[time] fma_matmul_mxu {shape}: kernel {r['ms']:.4f} ms = "
-              f"{r['bytes'] / r['ms'] / 1e9:.3f} TB/s, "
-              f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}); torch.matmul "
-              f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms")
-    print(f"[time] fma_matmul_mxu f32 ({m},{k},{n}) one call at a time "
-          "(host launch included): "
-          f"{rows['fma_matmul_mxu']['single_call_ms']:.4f} ms")
+    for variant, by_shape in k9_shapes.items():
+        for shape, r in by_shape.items():
+            print(f"[time] fma_matmul_{variant} {shape}: kernel "
+                  f"{r['ms']:.4f} ms = {r['bytes'] / r['ms'] / 1e9:.3f} "
+                  f"TB/s, {r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s, "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}); torch.matmul "
+                  f"{r['library_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms")
+        print(f"[time] fma_matmul_{variant} f32 ({m},{k},{n}) one call at "
+              "a time (host launch included): "
+              f"{rows[f'fma_matmul_{variant}']['single_call_ms']:.4f} ms")
     rows["qmatmul_dequant_dot"] = dict(per_fmt["dequant_dot/q4_k"])
     rows["qmatmul_dequant_dot"]["ms_by_format"] = {
         f: per_fmt[f"dequant_dot/{f}"]["ms"] for f in QFMTS}
@@ -1602,6 +1619,8 @@ def main() -> int:
         "fma_matmul_mxu": "src/repro/kernels/fma_matmul/kernel.py:69",
         "fma_matmul_mxu_wmma": "src/repro/kernels/fma_matmul/kernel.py:69",
         "fma_matmul_mul_add": "src/repro/kernels/fma_matmul/kernel.py:69",
+        "fma_matmul_mul_add_staged":
+            "src/repro/kernels/fma_matmul/kernel.py:69",
         "qmatmul_dequant_dot": "src/repro/kernels/qmatmul/kernel.py:197",
         "qmatmul_dot_i8": "src/repro/kernels/qmatmul/kernel.py:149"}
     for name, replaced in compute_replaces.items():

@@ -49,12 +49,40 @@
 //     64 x 64 of the tile in registers; the result leaves from registers
 //     as 16-byte stores (neighbouring lanes swap halves so each holds
 //     four columns).
+// What bounds mul_add on the H100: the same product is 1.76 G
+// multiply-accumulates, each a separate FMUL and FADD -- two issued
+// instructions where FFMA needs one -- so the CUDA cores' issue rate
+// binds (half the 66.9 TFLOP/s FP32 peak: 105 us), against 18.0 us of
+// bytes in f32 and 9.7 us in bf16.  So the mul_add stream kernel
+// (fma_matmul_mul_add_f32/_bf16) spends almost every issue slot on FMUL
+// and FADD and keeps every SM equally busy:
+//   * the weight stream's feed, plan and reduce as they are (the body
+//     is one template over the arm): 128 x 256 tiles, the K blocks of all
+//     tiles cut into one equal run per SM, the TMA ring, the workspace
+//     for pieces of tiles and fma_matmul_splitk_reduce.  K is 32 a stage
+//     in both types: at mxu's 64 for bf16, the MLP shapes would cut into
+//     runs of 6 or 7 stages, the longest 10% over the mean (at 32, 12 or
+//     13: 2%).  The boxes are unswizzled (x whole, w 256 columns wide):
+//     every read below is a broadcast or a quarter-warp on one 128-byte
+//     row, which hits 32 banks as it is;
+//   * 512 threads, 16 warps of 8 rows x 256 columns; each thread holds
+//     8 rows x 8 columns (4 at c and 4 at c + 128) of accumulators in
+//     registers.  Per K step a thread issues 64 __fmul_rn and 64
+//     __fadd_rn against two 16-byte loads of w (its 8 columns) and, once
+//     per 4 K steps, eight 16-byte loads of x (4 K of each of its rows,
+//     the same address in every lane): ~97% of the loop is FMUL/FADD,
+//     and 4 warps per scheduler hide the loads' latency;
+//   * bf16 inputs are converted once per stage: after a stage lands,
+//     the CTA writes it as f32 (the same layout, bit-exact) into one of
+//     two buffers, and the product reads those -- the inner loop is the
+//     f32 one.
 // The weight stream needs rows that are whole 16-byte chunks on
 // 16-byte-aligned bases (K and N multiples of 4 in f32, of 8 in bf16).
-// Other shapes go to the WMMA kernel (fma_matmul_mxu_wmma_f32/_bf16):
-// one CTA per 64x64 tile, K staged through shared memory 32 deep
-// element by element (zero-filled past the edges, so any M, K, N works).
-// mul_add keeps that staging: 256 threads, each a 4x4 register block.
+// Other shapes go to each arm's staged kernel: one CTA per 64x64 tile,
+// K staged through shared memory 32 deep element by element
+// (zero-filled past the edges, so any M, K, N works) -- WMMA for mxu
+// (fma_matmul_mxu_wmma_f32/_bf16), 256 threads of 4x4 register blocks
+// of FMUL and FADD for mul_add (fma_matmul_mul_add_staged_f32/_bf16).
 //
 // C interface (loaded with ctypes): fma_matmul_fwd returns the
 // cudaError_t of the launches; it allocates nothing (the split-K
@@ -218,10 +246,10 @@ fma_matmul_mxu_wmma_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
 }
 
 // ---------------------------------------------------------------------
-// mxu: the weight stream (TMA ring, mma.sync, split-K)
+// the weight stream (TMA ring, split-K), and mxu's product (mma.sync)
 // ---------------------------------------------------------------------
 
-constexpr int kStreamThreads = 256;   // 8 warps: 2 along M x 4 along N
+constexpr int kStreamThreads = 256;   // mxu: 8 warps, 2 along M x 4 along N
 constexpr int kWarps = kStreamThreads / 32;
 constexpr int SBM = 128;              // rows of x per CTA
 constexpr int SBN = 256;              // columns of w per CTA
@@ -232,7 +260,7 @@ constexpr int MI = WM / 16;           // 16 x 8 mma blocks per warp column
 constexpr int NJ = WN / 8;            // 16 x 8 mma blocks per warp row
 constexpr int kStages = 3;            // ring depth in shared memory
 
-// Per input type: K per stage, kBK (128 bytes: one row of an x box),
+// mxu per input type: K per stage, kBK (128 bytes: one row of an x box),
 // the weight's box width kBoxN (128 bytes: kBoxN columns by kBK rows)
 // and the mma shape: m16n8k8 (tf32) or m16n8k16 (bf16).  Every box is
 // stored with TMA's 128-byte swizzle: 16-byte chunk c of its 128-byte
@@ -250,25 +278,20 @@ template <> struct Stream<__nv_bfloat16> {
   static constexpr int kMmaK = 16;
 };
 
-// A stage: the w boxes (SBN / kBoxN of them), then the x box (SBM rows
-// of kBK); each box starts 1024-byte aligned, as the swizzle wants.
-template <typename T>
-__host__ __device__ constexpr int w_stage_elems() {
-  return Stream<T>::kBK * SBN;
-}
-template <typename T>
+// A stage of an arm: the w boxes (SBN / kBoxN of them, kBK rows each),
+// then the x box (SBM rows of kBK); each box starts 1024-byte aligned,
+// as the swizzle wants.
+template <class Arm>
 __host__ __device__ constexpr int stage_elems() {
-  return w_stage_elems<T>() + SBM * Stream<T>::kBK;
+  return Arm::kBK * (SBN + SBM);
 }
-// The ring, one mbarrier per stage, and room to align the ring to 1024.
-template <typename T>
+// The ring, the arm's f32 copies of stages, one mbarrier per stage, and
+// room to align the ring to 1024.
+template <typename T, class Arm>
 __host__ __device__ constexpr int stream_smem_bytes() {
-  return kStages * (stage_elems<T>() * (int)sizeof(T) + 8) + 1024;
+  return kStages * (stage_elems<Arm>() * (int)sizeof(T) + 8) +
+         Arm::kConvBytes + 1024;
 }
-static_assert(stage_elems<float>() * 4 % 1024 == 0, "stage alignment");
-static_assert(stage_elems<__nv_bfloat16>() * 2 % 1024 == 0, "alignment");
-static_assert(stream_smem_bytes<float>() <= 232448, "one CTA per SM");
-static_assert(stream_smem_bytes<__nv_bfloat16>() <= 232448, "one CTA per SM");
 
 // f32 rounded to TF32 (round to nearest, ties away), as the tensor
 // cores take it.
@@ -479,6 +502,205 @@ __device__ __forceinline__ void store_block(float (&acc)[MI][NJ][4],
     }
 }
 
+// An arm of the weight stream: its geometry (threads, K per stage, the
+// weight's box width, whether the boxes are swizzled, bytes of f32
+// copies of stages), the type of a thread's accumulators, and the hooks
+// the stream body calls on each stage st (w's boxes, then x's): prepare
+// (before the stage's barrier), product and store.  The accumulators
+// are the body's own local array, as in a plain kernel: held in a
+// member array of an arm object instead, they slowed the mxu kernel
+// on the H100 (ptxas scheduled its loop worse).
+//
+// mxu: the tensor cores through mma.sync, 8 warps as 2 x 4, each 64 x 64
+// of the tile in registers.
+template <typename T>
+struct MxuArm {
+  static constexpr int kThreads = kStreamThreads;
+  static constexpr int kBK = Stream<T>::kBK, kBoxN = Stream<T>::kBoxN;
+  static constexpr bool kSwizzle = true;
+  static constexpr int kConvBytes = 0;
+  using Acc = float[MI][NJ][4];
+
+  // the warp's block: rows wm .. wm + 63, columns wn .. wn + WN - 1
+  static __device__ __forceinline__ int wm() {
+    return (threadIdx.x / 32 / (kWarps / WARPS_M)) * WM;
+  }
+  static __device__ __forceinline__ int wn() {
+    return (threadIdx.x / 32 % (kWarps / WARPS_M)) * WN;
+  }
+  static __device__ __forceinline__ void zero(Acc& acc) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+  }
+  static __device__ __forceinline__ void prepare(T* st, float*, int) {
+    round_x<T>(st + kBK * SBN);
+  }
+  // a warp whose 64 rows are all past the tile's rows (M <= 64) has no
+  // products
+  static __device__ __forceinline__ bool has_rows(int rows) {
+    return wm() < rows;
+  }
+  static __device__ __forceinline__ void product(Acc& acc, const T* st,
+                                                 const float*, int) {
+    const int lane = threadIdx.x % 32;
+    const T* Bs = st;
+    const T* As = st + kBK * SBN;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += Stream<T>::kMmaK) {
+      uint32_t a[MI][4], b[NJ][2];
+      load_frags(As, Bs, kk, wm(), wn(), lane / 4, lane % 4, lane / 8,
+                 lane % 8, a, b);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_16x8(acc[i][j], a[i], b[j], T());
+    }
+  }
+  static __device__ __forceinline__ void store(Acc& acc, float* p,
+                                               int64_t ld, int r_lim,
+                                               int c_lim) {
+    const int lane = threadIdx.x % 32;
+    store_block(acc, p, ld, wm(), wn(), lane / 4, lane % 4, r_lim, c_lim);
+  }
+};
+
+// mul_add: FMUL and FADD on the CUDA cores (see the note at the top).
+// Warp v holds rows 8v .. 8v + 7 of the tile; lane l columns 4l .. 4l + 3
+// and 128 + 4l .. 128 + 4l + 3.  The stage's boxes are unswizzled: w is
+// (kBK, SBN) row-major, x (SBM, kBK).
+constexpr int kMulAddThreads = 512;
+constexpr int kRows = SBM / (kMulAddThreads / 32);   // rows per thread
+constexpr int kCols = 8;                             // columns per thread
+
+template <typename T>
+struct MulAddArm {
+  static constexpr int kThreads = kMulAddThreads;
+  static constexpr int kBK = 32, kBoxN = SBN;
+  static constexpr bool kSwizzle = false;
+  // bf16: two f32 copies of a stage (the one in use and the next)
+  static constexpr int kConvBytes =
+      sizeof(T) == 4 ? 0 : 2 * kBK * (SBN + SBM) * (int)sizeof(float);
+  using Acc = float[kRows][kCols];
+
+  // the thread's block: rows r0() .. r0() + kRows - 1, columns c0() ..
+  // c0() + 3 and c0() + 128 .. c0() + 131
+  static __device__ __forceinline__ int r0() {
+    return (threadIdx.x / 32) * kRows;
+  }
+  static __device__ __forceinline__ int c0() {
+    return (threadIdx.x % 32) * 4;
+  }
+  static __device__ __forceinline__ void zero(Acc& acc) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) acc[r][j] = 0.0f;
+  }
+  // stage i as f32: the ring slot itself, or (bf16) its copy
+  static __device__ __forceinline__ const float* f32_stage(const T* st,
+                                                           const float* conv,
+                                                           int i) {
+    if constexpr (sizeof(T) == 4)
+      return reinterpret_cast<const float*>(st);
+    else
+      return conv + (i & 1) * kBK * (SBN + SBM);
+  }
+  // bf16: the landed stage converted to f32 once, 8 elements a thread
+  // at a time (exact: a bf16 is the top half of its f32); the copy
+  // it overwrites was last read in stage i - 2, before the barrier of
+  // stage i - 1
+  static __device__ __forceinline__ void prepare(T* st, float* conv, int i) {
+    if constexpr (sizeof(T) == 2) {
+      constexpr int kChunks = kBK * (SBN + SBM) / 8;
+      static_assert(kChunks % kThreads == 0, "conversion block");
+      float4* dst = reinterpret_cast<float4*>(conv + (i & 1) * kBK *
+                                                         (SBN + SBM));
+#pragma unroll
+      for (int u = 0; u < kChunks / kThreads; ++u) {
+        const int e = threadIdx.x + u * kThreads;
+        const uint4 v = reinterpret_cast<const uint4*>(st)[e];
+        dst[2 * e] = make_float4(
+            __uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+            __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+        dst[2 * e + 1] = make_float4(
+            __uint_as_float(v.z << 16), __uint_as_float(v.z & 0xffff0000u),
+            __uint_as_float(v.w << 16), __uint_as_float(v.w & 0xffff0000u));
+      }
+    }
+  }
+  static __device__ __forceinline__ bool has_rows(int rows) {
+    return r0() < rows;
+  }
+  // 4 K steps a round: each row's 4 K in one 16-byte load (the same
+  // address across the warp), then per K step the thread's 8 columns of
+  // w in two, and 64 separate multiplies and adds
+  static __device__ __forceinline__ void product(Acc& acc, const T* st,
+                                                 const float* conv, int i) {
+    const float* W = f32_stage(st, conv, i) + c0();
+    const float* X = f32_stage(st, conv, i) + kBK * SBN + r0() * kBK;
+#pragma unroll 2
+    for (int kq = 0; kq < kBK; kq += 4) {
+      float a[kRows][4];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 v = *reinterpret_cast<const float4*>(X + r * kBK + kq);
+        a[r][0] = v.x, a[r][1] = v.y, a[r][2] = v.z, a[r][3] = v.w;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* wk = W + (kq + kk) * SBN;
+        const float4 lo = *reinterpret_cast<const float4*>(wk);
+        const float4 hi = *reinterpret_cast<const float4*>(wk + SBN / 2);
+        const float b[kCols] = {lo.x, lo.y, lo.z, lo.w,
+                                hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+#pragma unroll
+          for (int j = 0; j < kCols; ++j)
+            acc[r][j] = __fadd_rn(acc[r][j], __fmul_rn(a[r][kk], b[j]));
+      }
+    }
+  }
+  // rows [r_lim) and columns [c_lim) of the thread's block to p (row
+  // stride ld) as 16-byte stores, then acc zeroed
+  static __device__ __forceinline__ void store(Acc& acc, float* p,
+                                               int64_t ld, int r_lim,
+                                               int c_lim) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0() + r, col = c0() + h * (SBN / 2);
+        if (row < r_lim && col < c_lim)
+          *reinterpret_cast<float4*>(p + row * ld + col) =
+              make_float4(acc[r][4 * h], acc[r][4 * h + 1],
+                          acc[r][4 * h + 2], acc[r][4 * h + 3]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][4 * h + e] = 0.0f;
+      }
+  }
+};
+
+static_assert(kRows * (kMulAddThreads / 32) == SBM, "mul_add rows");
+static_assert(kCols * 32 == SBN, "mul_add columns");
+static_assert(stage_elems<MxuArm<float>>() * 4 % 1024 == 0, "alignment");
+static_assert(stage_elems<MxuArm<__nv_bfloat16>>() * 2 % 1024 == 0, "");
+static_assert(stage_elems<MulAddArm<float>>() * 4 % 1024 == 0, "");
+static_assert(stage_elems<MulAddArm<__nv_bfloat16>>() * 2 % 1024 == 0, "");
+static_assert(stream_smem_bytes<float, MxuArm<float>>() <= 232448,
+              "one CTA per SM");
+static_assert(stream_smem_bytes<__nv_bfloat16, MxuArm<__nv_bfloat16>>() <=
+                  232448, "one CTA per SM");
+static_assert(stream_smem_bytes<float, MulAddArm<float>>() <= 232448,
+              "one CTA per SM");
+static_assert(stream_smem_bytes<__nv_bfloat16,
+                                MulAddArm<__nv_bfloat16>>() <= 232448,
+              "one CTA per SM");
+
 // The CTA of slice c (of gridDim.x) takes the K blocks it = c * I / G
 // .. (c + 1) * I / G - 1 of the I = tiles * nkb blocks, tile-major
 // (tile t = m tile * n_tiles + n tile), so every CTA streams the same
@@ -499,8 +721,8 @@ __device__ __forceinline__ int64_t slice_of(int64_t it, int64_t iters,
 // slot c + t is distinct for each (slice, tile) a slice touches, since
 // slices take the blocks in order.  The ring runs across tile
 // boundaries: the next tile's stages are in flight while a piece is
-// stored.
-template <typename T>
+// stored.  The arm supplies the product.
+template <typename T, class Arm>
 __device__ __forceinline__ void stream_body(const T* __restrict__ x,
                                             const T* __restrict__ w,
                                             float* __restrict__ out,
@@ -509,20 +731,18 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ x,
                                             const CUtensorMap* wmap, int M,
                                             int K, int N, int nkb,
                                             int n_tiles, int64_t iters) {
-  constexpr int BK = Stream<T>::kBK, BOX = Stream<T>::kBoxN;
-  constexpr int STAGE = stage_elems<T>(), WSTAGE = w_stage_elems<T>();
+  constexpr int BK = Arm::kBK, BOX = Arm::kBoxN;
+  constexpr int STAGE = stage_elems<Arm>(), WSTAGE = BK * SBN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kStages * STAGE);
+  float* conv = reinterpret_cast<float*>(smem + kStages * STAGE);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<unsigned char*>(conv) + Arm::kConvBytes);
 
   const int64_t c = blockIdx.x, slices = gridDim.x;
   const int64_t it0 = slice_start(c, iters, slices);
   const int n = (int)(slice_start(c + 1, iters, slices) - it0);
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, t = lane % 4, q = lane / 8, rr = lane % 8;
-  const int wm = (warp / (kWarps / WARPS_M)) * WM;
-  const int wn = (warp % (kWarps / WARPS_M)) * WN;
   const int slot_rows = M < SBM ? M : SBM;
 
   if (threadIdx.x == 0) {
@@ -546,70 +766,46 @@ __device__ __forceinline__ void stream_body(const T* __restrict__ x,
     tma_load(st + WSTAGE, xmap, k0, (tile / n_tiles) * SBM, bar, keep);
   };
 
-  float acc[MI][NJ][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
+  typename Arm::Acc acc;
+  Arm::zero(acc);
   for (int i = 0; i < kStages - 1 && i < n; ++i) load(i);
   for (int i = 0; i < n; ++i) {
     // stage i has landed; every warp is done with stage i - 1, whose
     // slot the next copies take
+    T* st = smem + (i % kStages) * STAGE;
     mbar_wait(&bars[i % kStages], (i / kStages) & 1);
-    round_x<T>(smem + (i % kStages) * STAGE + WSTAGE);
+    Arm::prepare(st, conv, i);
     __syncthreads();
     if (i + kStages - 1 < n) load(i + kStages - 1);
-    const T* Bs = smem + (i % kStages) * STAGE;
-    const T* As = Bs + WSTAGE;
     const int64_t it = it0 + i;
-    // a warp whose 64 rows are all past M (M <= 64) has no products
-    if (wm < M - (int)(it / nkb / n_tiles) * SBM) {
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += Stream<T>::kMmaK) {
-        uint32_t a[MI][4], b[NJ][2];
-        load_frags(As, Bs, kk, wm, wn, g, t, q, rr, a, b);
-#pragma unroll
-        for (int i2 = 0; i2 < MI; ++i2)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j)
-            mma_16x8(acc[i2][j], a[i2], b[j], T());
-      }
-    }
+    if (Arm::has_rows(M - (int)(it / nkb / n_tiles) * SBM))
+      Arm::product(acc, st, conv, i);
     if ((it + 1) % nkb == 0 || i + 1 == n) {      // the piece ends here
       const int tile = (int)(it / nkb);
       const int m0 = (tile / n_tiles) * SBM, n0 = (tile % n_tiles) * SBN;
       const bool whole = it0 <= (int64_t)tile * nkb && (it + 1) % nkb == 0;
-      if (whole)
-        store_block(acc, out + (int64_t)m0 * N + n0, N, wm, wn, g, t,
-                    M - m0, N - n0);
-      else
-        store_block(acc, ws + (c + tile) * slot_rows * SBN, SBN, wm, wn, g,
-                    t, M - m0, N - n0);
+      float* p = whole ? out + (int64_t)m0 * N + n0
+                       : ws + (c + tile) * slot_rows * SBN;
+      Arm::store(acc, p, whole ? N : SBN, M - m0, N - n0);
     }
   }
 }
 
-__global__ void __launch_bounds__(kStreamThreads, 1)
-fma_matmul_mxu_f32(const float* x, const float* w, float* out, float* ws,
-                   const __grid_constant__ CUtensorMap xmap,
-                   const __grid_constant__ CUtensorMap wmap, int M, int K,
-                   int N, int nkb, int n_tiles, int64_t iters) {
-  stream_body<float>(x, w, out, ws, &xmap, &wmap, M, K, N, nkb, n_tiles,
-                     iters);
-}
-
-__global__ void __launch_bounds__(kStreamThreads, 1)
-fma_matmul_mxu_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                    float* out, float* ws,
-                    const __grid_constant__ CUtensorMap xmap,
-                    const __grid_constant__ CUtensorMap wmap, int M, int K,
-                    int N, int nkb, int n_tiles, int64_t iters) {
-  stream_body<__nv_bfloat16>(x, w, out, ws, &xmap, &wmap, M, K, N, nkb,
-                             n_tiles, iters);
-}
+#define STREAM_KERNEL(name, T, Arm)                                        \
+  __global__ void __launch_bounds__(Arm::kThreads, 1)                     \
+      name(const T* x, const T* w, float* out, float* ws,                 \
+           const __grid_constant__ CUtensorMap xmap,                       \
+           const __grid_constant__ CUtensorMap wmap, int M, int K, int N,  \
+           int nkb, int n_tiles, int64_t iters) {                          \
+    stream_body<T, Arm>(x, w, out, ws, &xmap, &wmap, M, K, N, nkb,         \
+                        n_tiles, iters);                                   \
+  }
+STREAM_KERNEL(fma_matmul_mxu_f32, float, MxuArm<float>)
+STREAM_KERNEL(fma_matmul_mxu_bf16, __nv_bfloat16, MxuArm<__nv_bfloat16>)
+STREAM_KERNEL(fma_matmul_mul_add_f32, float, MulAddArm<float>)
+STREAM_KERNEL(fma_matmul_mul_add_bf16, __nv_bfloat16,
+              MulAddArm<__nv_bfloat16>)
+#undef STREAM_KERNEL
 
 // out at the tiles no slice holds whole: the partials of the slices
 // that hold a piece of the tile, added in slice order (the same bits on
@@ -671,10 +867,10 @@ EncodeTiled encode_tiled() {
 }
 
 // The tensor map of a row-major (rows, cols) matrix at p, read in boxes
-// of box_cols x box_rows with the 128-byte swizzle.
+// of box_cols x box_rows, with the 128-byte swizzle or none.
 template <typename T>
 bool tensor_map(CUtensorMap* map, const void* p, int cols, int rows,
-                int box_cols, int box_rows) {
+                int box_cols, int box_rows, bool swizzle) {
   const EncodeTiled encode = encode_tiled();
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t stride[1] = {(cuuint64_t)cols * sizeof(T)};
@@ -685,24 +881,26 @@ bool tensor_map(CUtensorMap* map, const void* p, int cols, int rows,
                 sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
                 2, const_cast<void*>(p), dims, stride, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename T, typename F>
+template <typename T, class Arm, typename F>
 int launch_stream(F kernel, const void* x, const void* w, float* out,
                   float* ws, int M, int K, int N, int slices,
                   cudaStream_t s) {
   constexpr int V = 16 / (int)sizeof(T);
-  constexpr int smem = stream_smem_bytes<T>();
-  const int nkb = (K + Stream<T>::kBK - 1) / Stream<T>::kBK;
+  constexpr int smem = stream_smem_bytes<T, Arm>();
+  const int nkb = (K + Arm::kBK - 1) / Arm::kBK;
   const int n_tiles = (N + SBN - 1) / SBN;
   const int64_t iters = (int64_t)((M + SBM - 1) / SBM) * n_tiles * nkb;
   if (K % V || N % V || slices < 1 || slices > iters ||
       ((uintptr_t)x | (uintptr_t)w | (uintptr_t)out | (uintptr_t)ws) % 16)
     return (int)cudaErrorInvalidValue;
-  // the attributes once per device (this function is one per kernel)
+  // the attributes once per device (this function is one per arm)
   static bool ready[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -719,14 +917,15 @@ int launch_stream(F kernel, const void* x, const void* w, float* out,
     ready[dev] = true;
   }
   // x and w as TMA sees them: (M, K) in boxes of kBK x SBM, (K, N) in
-  // boxes of kBoxN x kBK, 128-byte swizzle, zeros past the edges
+  // boxes of kBoxN x kBK, swizzled as the arm reads them, zeros past the
+  // edges
   CUtensorMap xmap, wmap;
-  if (!tensor_map<T>(&xmap, x, K, M, Stream<T>::kBK, SBM) ||
-      !tensor_map<T>(&wmap, w, N, K, Stream<T>::kBoxN, Stream<T>::kBK))
+  if (!tensor_map<T>(&xmap, x, K, M, Arm::kBK, SBM, Arm::kSwizzle) ||
+      !tensor_map<T>(&wmap, w, N, K, Arm::kBoxN, Arm::kBK, Arm::kSwizzle))
     return (int)cudaErrorInvalidValue;
-  kernel<<<slices, kStreamThreads, smem, s>>>((const T*)x, (const T*)w, out,
-                                              ws, xmap, wmap, M, K, N, nkb,
-                                              n_tiles, iters);
+  kernel<<<slices, Arm::kThreads, smem, s>>>((const T*)x, (const T*)w, out,
+                                             ws, xmap, wmap, M, K, N, nkb,
+                                             n_tiles, iters);
   e = cudaGetLastError();
   // every slice whole tiles: nothing to add
   if (e != cudaSuccess || (iters % slices == 0 && (iters / slices) % nkb == 0))
@@ -740,16 +939,16 @@ int launch_stream(F kernel, const void* x, const void* w, float* out,
 }
 
 // ---------------------------------------------------------------------
-// mul_add: CUDA cores, separate multiply and add
+// mul_add, rows that are not whole 16-byte chunks: staged 64 x 64 tiles
 // ---------------------------------------------------------------------
 
-constexpr int kMulAddThreads = 256;
+constexpr int kStagedThreads = 256;
 
 template <typename T>
-__device__ __forceinline__ void mul_add_body(const T* __restrict__ x,
-                                             const T* __restrict__ w,
-                                             float* __restrict__ out, int M,
-                                             int K, int N) {
+__device__ __forceinline__ void mul_add_staged_body(const T* __restrict__ x,
+                                                    const T* __restrict__ w,
+                                                    float* __restrict__ out,
+                                                    int M, int K, int N) {
   constexpr int LDA = BK + 1;
   constexpr int LDB = BN;
   __shared__ float As[BM * LDA];
@@ -764,7 +963,7 @@ __device__ __forceinline__ void mul_add_body(const T* __restrict__ x,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    stage<T, float, LDA, LDB, kMulAddThreads>(x, w, As, Bs, M, K, N, m0, k0,
+    stage<T, float, LDA, LDB, kStagedThreads>(x, w, As, Bs, M, K, N, m0, k0,
                                               n0);
     __syncthreads();
 #pragma unroll 8
@@ -791,25 +990,27 @@ __device__ __forceinline__ void mul_add_body(const T* __restrict__ x,
     }
 }
 
-__global__ void __launch_bounds__(kMulAddThreads)
-fma_matmul_mul_add_f32(const float* x, const float* w, float* out, int M,
-                       int K, int N) {
-  mul_add_body<float>(x, w, out, M, K, N);
+__global__ void __launch_bounds__(kStagedThreads)
+fma_matmul_mul_add_staged_f32(const float* x, const float* w, float* out,
+                              int M, int K, int N) {
+  mul_add_staged_body<float>(x, w, out, M, K, N);
 }
 
-__global__ void __launch_bounds__(kMulAddThreads)
-fma_matmul_mul_add_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                        float* out, int M, int K, int N) {
-  mul_add_body<__nv_bfloat16>(x, w, out, M, K, N);
+__global__ void __launch_bounds__(kStagedThreads)
+fma_matmul_mul_add_staged_bf16(const __nv_bfloat16* x,
+                               const __nv_bfloat16* w, float* out, int M,
+                               int K, int N) {
+  mul_add_staged_body<__nv_bfloat16>(x, w, out, M, K, N);
 }
 
 }  // namespace
 
-// variant: 0 mxu (the weight stream), 1 mul_add, 2 mxu on WMMA; dtype: 0
-// float32, 1 bfloat16 (x and w).  ws and slices serve variant 0 alone:
-// the K blocks of all tiles are cut into `slices` equal runs, one CTA
-// each; the pieces of tiles no run holds whole go to ws (slices + tiles
-// - 1 slots of min(M, 128) x 128 floats) and are then added into out.
+// variant: 0 mxu (the weight stream), 1 mul_add (the weight stream), 2
+// mxu on WMMA, 3 mul_add staged; dtype: 0 float32, 1 bfloat16 (x and
+// w).  ws and slices serve the weight streams alone: the K blocks of all
+// tiles are cut into `slices` equal runs, one CTA each; the pieces of
+// tiles no run holds whole go to ws (slices + tiles - 1 slots of min(M,
+// 128) x 256 floats) and are then added into out.
 extern "C" int fma_matmul_fwd(const void* x, const void* w, void* out,
                               void* ws, int M, int K, int N, int variant,
                               int dtype, int slices, void* stream) {
@@ -817,32 +1018,40 @@ extern "C" int fma_matmul_fwd(const void* x, const void* w, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   float* o = (float*)out;
+  float* wsf = (float*)ws;
   if (dtype == 0) {
     const float* xf = (const float*)x;
     const float* wf = (const float*)w;
     if (variant == 0)
-      return launch_stream<float>(fma_matmul_mxu_f32, x, w, o, (float*)ws, M,
-                                  K, N, slices, s);
+      return launch_stream<float, MxuArm<float>>(fma_matmul_mxu_f32, x, w, o,
+                                                 wsf, M, K, N, slices, s);
     else if (variant == 1)
-      fma_matmul_mul_add_f32<<<grid, kMulAddThreads, 0, s>>>(xf, wf, o, M, K,
-                                                             N);
+      return launch_stream<float, MulAddArm<float>>(
+          fma_matmul_mul_add_f32, x, w, o, wsf, M, K, N, slices, s);
     else if (variant == 2)
       fma_matmul_mxu_wmma_f32<<<grid, kMxuThreads, 0, s>>>(xf, wf, o, M, K,
                                                            N);
+    else if (variant == 3)
+      fma_matmul_mul_add_staged_f32<<<grid, kStagedThreads, 0, s>>>(
+          xf, wf, o, M, K, N);
     else
       return (int)cudaErrorInvalidValue;
   } else if (dtype == 1) {
-    const __nv_bfloat16* xb = (const __nv_bfloat16*)x;
-    const __nv_bfloat16* wb = (const __nv_bfloat16*)w;
+    using bf16 = __nv_bfloat16;
+    const bf16* xb = (const bf16*)x;
+    const bf16* wb = (const bf16*)w;
     if (variant == 0)
-      return launch_stream<__nv_bfloat16>(fma_matmul_mxu_bf16, x, w, o,
-                                          (float*)ws, M, K, N, slices, s);
+      return launch_stream<bf16, MxuArm<bf16>>(fma_matmul_mxu_bf16, x, w, o,
+                                               wsf, M, K, N, slices, s);
     else if (variant == 1)
-      fma_matmul_mul_add_bf16<<<grid, kMulAddThreads, 0, s>>>(xb, wb, o, M,
-                                                              K, N);
+      return launch_stream<bf16, MulAddArm<bf16>>(
+          fma_matmul_mul_add_bf16, x, w, o, wsf, M, K, N, slices, s);
     else if (variant == 2)
       fma_matmul_mxu_wmma_bf16<<<grid, kMxuThreads, 0, s>>>(xb, wb, o, M, K,
                                                             N);
+    else if (variant == 3)
+      fma_matmul_mul_add_staged_bf16<<<grid, kStagedThreads, 0, s>>>(
+          xb, wb, o, M, K, N);
     else
       return (int)cudaErrorInvalidValue;
   } else {

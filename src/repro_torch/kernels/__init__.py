@@ -30,6 +30,7 @@ COUNTERS = {c.name: c for c in (_decode_ops.COUNTER,
                                 _matmul_ops.COUNTER_MXU,
                                 _matmul_ops.COUNTER_MXU_WMMA,
                                 _matmul_ops.COUNTER_MUL_ADD,
+                                _matmul_ops.COUNTER_MUL_ADD_STAGED,
                                 _qmatmul_ops.COUNTER_DEQUANT_DOT,
                                 _qmatmul_ops.COUNTER_DOT_I8,
                                 _ssd_ops.COUNTER)}

@@ -2,11 +2,13 @@
 
 ``cuobjdump -sass`` of the built mixbench (K8) and fma_matmul (K9)
 libraries is read kernel by kernel and the floating-point instructions
-counted by class.  :func:`sass_report` applies the rules: no FFMA or
-HFMA2 in a ``mul_add`` kernel and its multiplies and adds present;
-FFMA (HFMA2) in K8's ``fma`` kernels; HMMA in every one of K9's ``mxu``
-kernels (the weight stream's ``mma.sync`` and the WMMA kernel's) and in
-no ``mul_add`` kernel.  ``chip_smoke.py`` and the cuda-marked test
+counted by class.  :func:`sass_report` applies the rules: no FFMA,
+HFMA2 or HMMA in a ``mul_add`` kernel (K8's, and K9's weight stream and
+staged kernel) and its multiplies and adds present; the same in K9's
+split-K reduce, which the ``mul_add`` stream launches too and which has
+adds alone; FFMA (HFMA2) in K8's ``fma`` kernels; HMMA in every one of
+K9's ``mxu`` kernels (the weight stream's ``mma.sync`` and the WMMA
+kernel's).  ``chip_smoke.py`` and the cuda-marked test
 both call it.  Nothing runs at import.
 """
 
@@ -29,7 +31,10 @@ SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
                 "mixbench_f32_mul_add", "mixbench_bf16_mul_add",
                 "fma_matmul_mxu_f32", "fma_matmul_mxu_bf16",
                 "fma_matmul_mxu_wmma_f32", "fma_matmul_mxu_wmma_bf16",
-                "fma_matmul_mul_add_f32", "fma_matmul_mul_add_bf16")
+                "fma_matmul_mul_add_f32", "fma_matmul_mul_add_bf16",
+                "fma_matmul_mul_add_staged_f32",
+                "fma_matmul_mul_add_staged_bf16",
+                "fma_matmul_splitk_reduce")
 
 
 def cuobjdump() -> str:
@@ -100,6 +105,9 @@ def check_counts(found: Dict[str, dict]) -> List[str]:
                     c.get("mul", 0) and c.get("add", 0)):
                 problems.append(f"{kern} is not a separate multiply and "
                                 f"add: {c}")
+        elif kern == "fma_matmul_splitk_reduce":
+            if c.get("fma", 0) or c.get("hmma", 0) or not c.get("add", 0):
+                problems.append(f"{kern} is not plain adds: {c}")
         elif kern.startswith("mixbench") and not c.get("fma", 0):
             problems.append(f"{kern} has no fused multiply-add: {c}")
         elif kern.startswith("fma_matmul") and not c.get("hmma", 0):

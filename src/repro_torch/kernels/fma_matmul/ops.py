@@ -7,16 +7,19 @@ and runs the variant it picks -- the framework-level equivalent of the
 paper's "recompile with -fmad=false".  ``matmul_variant`` runs one
 variant: a CPU tensor takes the plain version (``ref.py``); a CUDA
 tensor launches ``csrc/fma_matmul.cu`` or raises -- there is no
-fallback on the card.  ``mul_add`` is a separate multiply and add per
-term on the CUDA cores.  ``mxu`` runs on the tensor cores, through one
-of two kernels chosen by shape:
+fallback on the card.  ``mxu`` runs on the tensor cores; ``mul_add`` is
+a separate multiply and add per term on the CUDA cores.  Each variant
+runs one of two kernels, chosen by shape:
 
-* the weight stream (counter ``fma_matmul_mxu``) where TMA can read x
-  and w (:func:`stream_rows`): a TMA-fed ring, ``mma.sync``, the K
-  blocks of all tiles cut into one equal run per SM
-  (:func:`stream_plan`), pieces of tiles added from an f32 workspace
-  that this wrapper allocates;
-* else the WMMA kernel (counter ``fma_matmul_mxu_wmma``).
+* the weight stream where TMA can read x and w (:func:`stream_rows`):
+  a TMA-fed ring, the K blocks of all tiles cut into one equal run per
+  SM (:func:`stream_plan`), pieces of tiles added from an f32
+  workspace that this wrapper allocates; the product is ``mma.sync``
+  (counter ``fma_matmul_mxu``) or register-tiled FMUL and FADD
+  (counter ``fma_matmul_mul_add``);
+* else a kernel that stages 64 x 64 tiles element by element: WMMA
+  (counter ``fma_matmul_mxu_wmma``) or FMUL and FADD (counter
+  ``fma_matmul_mul_add_staged``).
 """
 
 from __future__ import annotations
@@ -34,19 +37,23 @@ from repro_torch.kernels.fma_matmul.ref import matmul_ref
 
 __all__ = ["matmul", "matmul_variant", "policy_variant", "stream_plan",
            "stream_rows", "VARIANTS", "COUNTER_MXU", "COUNTER_MXU_WMMA",
-           "COUNTER_MUL_ADD"]
+           "COUNTER_MUL_ADD", "COUNTER_MUL_ADD_STAGED"]
 
 VARIANTS = ("mxu", "mul_add")
 COUNTER_MXU = LaunchCounter("fma_matmul_mxu")
 COUNTER_MXU_WMMA = LaunchCounter("fma_matmul_mxu_wmma")
 COUNTER_MUL_ADD = LaunchCounter("fma_matmul_mul_add")
+COUNTER_MUL_ADD_STAGED = LaunchCounter("fma_matmul_mul_add_staged")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the C entry's kernel codes
-_MXU_STREAM, _MUL_ADD, _MXU_WMMA = 0, 1, 2
-#: the weight stream's tile (``SBM``, ``SBN``) and K per stage
-#: (``Stream<T>::kBK``) in ``csrc/fma_matmul.cu``
+#: the C entry's kernel codes and the counters of its launches:
+#: variant -> (weight stream, staged kernel)
+_KERNELS = {"mxu": ((0, COUNTER_MXU), (2, COUNTER_MXU_WMMA)),
+            "mul_add": ((1, COUNTER_MUL_ADD), (3, COUNTER_MUL_ADD_STAGED))}
+#: the weight stream's tile (``SBM``, ``SBN``) and each arm's K per
+#: stage (``Arm::kBK``) in ``csrc/fma_matmul.cu``
 STREAM_BM, STREAM_BN = 128, 256
-STREAM_BK = {torch.float32: 32, torch.bfloat16: 64}
+STREAM_BK = {"mxu": {torch.float32: 32, torch.bfloat16: 64},
+             "mul_add": {torch.float32: 32, torch.bfloat16: 32}}
 #: the precision names the profiles use; the reference maps
 #: ``str(x.dtype)`` ("float32", ...) the same way, anything else to "f32"
 _PRECISION = {torch.float32: "f32", torch.bfloat16: "bf16",
@@ -54,15 +61,15 @@ _PRECISION = {torch.float32: "f32", torch.bfloat16: "bf16",
 
 
 def stream_plan(m: int, k: int, n: int, dtype: torch.dtype,
-                sms: int) -> tuple:
+                sms: int, variant: str = "mxu") -> tuple:
     """(runs, workspace slots) of the weight stream for (m, k, n): the
-    K blocks of all 128 x 256 tiles are cut into ``runs`` equal runs,
-    one CTA each, one per SM (fewer if there are fewer blocks); a run
-    that holds a piece of a tile, not all of it, writes the piece to
-    slot run + tile of an f32 workspace of ``slots`` x min(m, 128) x
-    256."""
+    K blocks (the arm's K per stage) of all 128 x 256 tiles are cut
+    into ``runs`` equal runs, one CTA each, one per SM (fewer if there
+    are fewer blocks); a run that holds a piece of a tile, not all of
+    it, writes the piece to slot run + tile of an f32 workspace of
+    ``slots`` x min(m, 128) x 256."""
     tiles = -(-m // STREAM_BM) * -(-n // STREAM_BN)
-    iters = tiles * -(-k // STREAM_BK[dtype])
+    iters = tiles * -(-k // STREAM_BK[variant][dtype])
     runs = min(sms, iters)
     return runs, runs + tiles - 1
 
@@ -121,21 +128,20 @@ def matmul_variant(x: torch.Tensor, w: torch.Tensor, *,
         raise ValueError("x and w must be contiguous")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     runs, ws = 1, None
-    if variant == "mul_add":
-        code, counter = _MUL_ADD, COUNTER_MUL_ADD
-    elif stream_rows(x, w):
-        code, counter = _MXU_STREAM, COUNTER_MXU
+    stream, staged = _KERNELS[variant]
+    if stream_rows(x, w):
+        code, counter = stream
         runs, slots = stream_plan(m, k, n, x.dtype,
-                                  _sm_count(x.device.index))
+                                  _sm_count(x.device.index), variant)
         ws = torch.empty((slots, min(m, STREAM_BM), STREAM_BN),
                          dtype=torch.float32, device=x.device)
     else:
-        code, counter = _MXU_WMMA, COUNTER_MXU_WMMA
+        code, counter = staged
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _fwd()(x.data_ptr(), w.data_ptr(), out.data_ptr(),
                     None if ws is None else ws.data_ptr(), m, k, n, code,
-                    _DTYPE_CODE[x.dtype], runs, stream)
+                    _DTYPE_CODE[x.dtype], runs,
+                    torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise KernelLaunchError(f"fma_matmul ({variant}): CUDA error {rc}")
     counter.n += 1

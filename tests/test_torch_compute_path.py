@@ -378,6 +378,20 @@ def test_matmul_stream_plan(m, k, n, dtype, runs, slots):
     assert stream_plan(m, k, n, getattr(torch, dtype), 132) == (runs, slots)
 
 
+@pytest.mark.parametrize("m,k,n,dtype,runs,slots", [
+    (128, 1536, 8960, "float32", 132, 166),     # 35 tiles of 48 K blocks
+    (128, 1536, 8960, "bfloat16", 132, 166),    # 35 tiles of 48, not 24
+    (128, 8960, 1536, "bfloat16", 132, 137),    # 6 tiles of 280
+    (300, 512, 256, "bfloat16", 48, 50),        # 3 tiles of 16 (mxu: 8)
+    (8, 64, 256, "bfloat16", 2, 2),             # two blocks (mxu: one)
+])
+def test_matmul_stream_plan_mul_add(m, k, n, dtype, runs, slots):
+    """The mul_add arm stages 32 K a block in both types (mxu stages 64
+    in bfloat16), so its plan cuts bfloat16 into twice the blocks."""
+    assert stream_plan(m, k, n, getattr(torch, dtype), 132,
+                       "mul_add") == (runs, slots)
+
+
 def test_matmul_stream_rows():
     """The weight stream takes x and w whose rows TMA can read: whole
     16-byte chunks on 16-byte-aligned bases; other operands go to the
@@ -397,15 +411,18 @@ def test_matmul_stream_rows():
 
 def test_matmul_breakdown_cuts_match_the_source():
     """The card-side breakdown of K9's weight stream cuts parts out of
-    ``csrc/fma_matmul.cu`` by text: each cut must still match exactly
-    once, and each variant must apply cuts that exist."""
+    ``csrc/fma_matmul.cu`` by text: each cut of either arm must still
+    match exactly once, and each variant must apply cuts that exist."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.fma_matmul import breakdown
     text = (_build.CSRC / "fma_matmul.cu").read_text()
     assert {old: text.count(old) for old, _ in breakdown._CUTS.values()} \
         == {old: 1 for old, _ in breakdown._CUTS.values()}
-    assert all(c in breakdown._CUTS for cuts in breakdown.VARIANTS.values()
-               for c in cuts)
+    assert set(breakdown.VARIANTS) == {"mxu", "mul_add"}
+    assert all(c in breakdown._CUTS for arm in breakdown.VARIANTS.values()
+               for cuts in arm.values() for c in cuts)
+    assert {c for arm in breakdown.VARIANTS.values()
+            for cuts in arm.values() for c in cuts} == set(breakdown._CUTS)
 
 
 @pytest.mark.parametrize("bad", ["m", "k", "n", "variant"])
@@ -564,6 +581,49 @@ def test_sass_parse_and_rules():
             "fma_matmul_mxu_f32", "fma_matmul_mxu_bf16"} <= set(SASS_KERNELS)
 
 
+_SASS_MUL_ADD = """
+        Function : _ZN12_GLOBAL__N_129fma_matmul_mul_add_staged_f32EPKfS1_Pfiii
+        /*0000*/                   FMUL R5, R4, R2 ;
+        /*0010*/                   FADD R5, R5, R3 ;
+        Function : _ZN12_GLOBAL__N_122fma_matmul_mul_add_f32EPKfS1_PfS2_14CUtensorMap_stS3_iiiiil
+        /*0000*/                   LDS.128 R8, [R2] ;
+        /*0010*/                   FMUL R5, R4, R2 ;
+        /*0020*/                   FADD R5, R5, R3 ;
+        Function : _ZN12_GLOBAL__N_124fma_matmul_splitk_reduceEPKfPfiiiill
+        /*0000*/                   LDG.E.128 R4, [R2.64] ;
+        /*0010*/                   FADD R5, R5, R9 ;
+"""
+
+
+@pytest.mark.parametrize("edit,breach", [
+    (None, None),
+    (("FADD R5, R5, R9", "FFMA R5, R5, R2, R9"), "fma_matmul_splitk_reduce"),
+    (("FADD R5, R5, R9", "HMMA.1684.F32.TF32 R4, R8, R12, R4"),
+     "fma_matmul_splitk_reduce"),
+    (("FADD R5, R5, R9", "MOV R5, R9"), "fma_matmul_splitk_reduce"),
+    (("FADD R5, R5, R3 ;\n        Function : _ZN12_GLOBAL__N_122",
+      "FFMA R5, R5, R2, R3 ;\n        Function : _ZN12_GLOBAL__N_122"),
+     "fma_matmul_mul_add_staged_f32"),
+    (("LDS.128 R8, [R2]", "HFMA2 R8, R4, R2, R3"), "fma_matmul_mul_add_f32"),
+])
+def test_sass_rules_cover_the_mul_add_arm(edit, breach):
+    """Every kernel the mul_add arm launches is held by the SASS rule:
+    the stream and the staged kernel need FMUL and FADD and no fused or
+    matrix instruction; the split-K reduce, which has no multiply, needs
+    its adds and no FFMA, HFMA2 or HMMA.  The stream's name does not
+    match the staged kernel (nor it the stream's)."""
+    text = _SASS_MUL_ADD if edit is None else _SASS_MUL_ADD.replace(*edit)
+    assert text.count(edit[1]) == 1 if edit else True
+    found = kernel_counts(parse_sass(text))
+    assert set(found) == {"fma_matmul_mul_add_staged_f32",
+                          "fma_matmul_mul_add_f32",
+                          "fma_matmul_splitk_reduce"}
+    problems = [p for p in check_counts(found) if "not found" not in p]
+    assert [p.split()[0] for p in problems] == ([breach] if breach else [])
+    assert {"fma_matmul_mul_add_staged_f32", "fma_matmul_mul_add_staged_bf16",
+            "fma_matmul_splitk_reduce"} <= set(SASS_KERNELS)
+
+
 # ----------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -594,7 +654,8 @@ def test_matmul_kernel_on_card(variant, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     tol = {("mxu", "float32"): 2e-3, ("mxu", "bfloat16"): 1e-4}.get(
         (variant, dtype), 1e-5)
-    for m, k, n in ((128, 1024, 512), (128, 1536, 8960), (37, 100, 77)):
+    for m, k, n in ((128, 1024, 512), (128, 1536, 8960), (128, 8960, 1536),
+                    (1, 1536, 8960), (100, 1000, 520), (37, 100, 77)):
         x = torch.from_numpy(_normal((m, k), 0)).cuda().to(getattr(torch,
                                                                    dtype))
         w = torch.from_numpy(_normal((k, n), 1)).cuda().to(getattr(torch,
@@ -605,37 +666,56 @@ def test_matmul_kernel_on_card(variant, dtype):
         assert _rel(out.cpu(), ref.cpu()) <= tol
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_matmul_mxu_kernels_on_card(dtype):
-    """The mxu arm's two kernels: the weight stream at the MLP shapes,
-    the reference bench's, one decode row and a ragged shape, the WMMA
-    kernel on rows that are not whole 16-byte chunks; each within the
-    arm's tolerance of one f32 matmul, and each call repeated bit for
-    bit (the split-K pieces are added in one fixed order)."""
-    _need_cuda()
+def _check_stream_and_staged(variant, tol, dtype):
+    """One arm's two kernels: the weight stream at the MLP shapes, the
+    reference bench's, one decode row and a ragged shape, the staged
+    kernel on rows that are not whole 16-byte chunks; each within
+    ``tol`` of one f32 matmul, and each call repeated bit for bit (the
+    split-K pieces are added in one fixed order)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    tol = {"float32": 2e-3, "bfloat16": 1e-4}[dtype]
-    cases = [((128, 1536, 8960), {}, "fma_matmul_mxu"),
-             ((128, 8960, 1536), {}, "fma_matmul_mxu"),
-             ((128, 1024, 512), {}, "fma_matmul_mxu"),
-             ((1, 1536, 8960), {}, "fma_matmul_mxu"),
-             ((100, 1000, 520), dict(bk=8, bn=8), "fma_matmul_mxu"),
-             ((128, 1536, 130), dict(bn=2), "fma_matmul_mxu_wmma")]
+    stream, staged = {"mxu": ("fma_matmul_mxu", "fma_matmul_mxu_wmma"),
+                      "mul_add": ("fma_matmul_mul_add",
+                                  "fma_matmul_mul_add_staged")}[variant]
+    cases = [((128, 1536, 8960), {}, stream),
+             ((128, 8960, 1536), {}, stream),
+             ((128, 1024, 512), {}, stream),
+             ((1, 1536, 8960), {}, stream),
+             ((100, 1000, 520), dict(bk=8, bn=8), stream),
+             ((128, 1536, 130), dict(bn=2), staged)]
     for (m, k, n), blocks, kernel in cases:
         x = torch.from_numpy(_normal((m, k), 0)).cuda().to(getattr(torch,
                                                                    dtype))
         w = torch.from_numpy(_normal((k, n), 1)).cuda().to(getattr(torch,
                                                                    dtype))
         before = launch_counts()
-        out = matmul_variant(x, w, variant="mxu", **blocks)
-        again = matmul_variant(x, w, variant="mxu", **blocks)
+        out = matmul_variant(x, w, variant=variant, **blocks)
+        again = matmul_variant(x, w, variant=variant, **blocks)
         torch.cuda.synchronize()
         ran = {kk: v - before[kk] for kk, v in launch_counts().items()
                if v != before[kk]}
         assert ran == {kernel: 2}, ((m, k, n), ran)
         assert torch.equal(out, again), (m, k, n)
         assert _rel(out.cpu(), matmul_ref(x, w).cpu()) <= tol, (m, k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_mxu_kernels_on_card(dtype):
+    """The mxu arm: the weight stream and the WMMA kernel, TF32 (f32)
+    and bf16 products within their tolerances."""
+    _need_cuda()
+    _check_stream_and_staged("mxu", {"float32": 2e-3,
+                                     "bfloat16": 1e-4}[dtype], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_mul_add_kernels_on_card(dtype):
+    """The mul_add arm: the weight stream's register-tiled FMUL/FADD
+    product and the staged kernel, exact f32 products summed in f32,
+    within 1e-5."""
+    _need_cuda()
+    _check_stream_and_staged("mul_add", 1e-5, dtype)
 
 
 @pytest.mark.cuda

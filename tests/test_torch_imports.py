@@ -118,6 +118,7 @@ def test_cpu_serving_launches_no_kernel():
                                "fma_matmul_mxu": 0,
                                "fma_matmul_mxu_wmma": 0,
                                "fma_matmul_mul_add": 0,
+                               "fma_matmul_mul_add_staged": 0,
                                "qmatmul_dequant_dot": 0,
                                "qmatmul_dot_i8": 0,
                                "ssd_chunk": 0}
