@@ -8,42 +8,54 @@ order (any failure raises and the script exits non-zero):
    (one process per source, started together) and print the card;
 2. K1 (paged decode attention) against its plain version at the main
    path's shapes, float32 (TF32 off, tol 1e-4) and bfloat16 (tol 2e-2);
-3. K2 (flash prefill) against its plain version, causal at Sq 64 and
-   512 plus a sliding-window case, same tolerances;
-4. K3 (length-aware dense decode) and K6a (masked dense decode) against
-   their plain version at the fixed-lane path's shapes (S = 1024) and
-   at S = 1000, same tolerances; a dead lane gives exactly 0 and K3
-   equals K6a;
+3. K2 (flash prefill) against its plain version at ``K2_CASES``: causal
+   at Sq 64, 100, 512 and 1024, a sliding window, no mask, a window
+   without causality, D 64; float32 on the CUDA-core kernel
+   (``flash_attention_cc``, tol 1e-4) and bfloat16 on the tensor-core
+   kernel (``flash_attention_mma``, tol 2e-2), each call's launch
+   counters naming that kernel;
+4. K3 (length-aware dense decode) and K6a (masked dense decode), one
+   split-KV launch each, against their plain version at the fixed-lane
+   path's shapes (S = 1024) and at S = 1000, same tolerances; a dead
+   lane gives exactly 0, K3 equals K6a, and a second call of each gives
+   the same bits;
 5. K5 (length-aware int8 dense decode), K6b (masked int8 dense decode)
    and K4 (paged int8 decode) against their plain versions at the same
    shapes, q in float32 and bfloat16, at the model's ``qblock=1``
    (per-token scales) and the reference kernels' own (32 dense, 16
-   paged); a dead lane gives exactly 0, K5 equals K6b, and at
-   ``qblock=1`` each agrees with the reference model's route
-   (dequantize to float32, then K3 or K1);
+   paged); a dead lane gives exactly 0, K5 equals K6b and repeats its
+   bits, and at ``qblock=1`` each agrees with the reference model's
+   route (dequantize to float32, then K3 or K1);
 6. end to end at SMOKE width in float32: the same requests through
    ``ServeEngine()`` (fixed-lane) and ``ServeEngine(paged=True)``,
    greedy and at temperature 0.8, on the CPU (plain versions) and on
    the card (kernels): CPU and card streams, and fixed-lane and paged
    streams on the card, must be identical; once with the cache in the
-   compute dtype and once with ``kv_quant="int8"``;
+   compute dtype and once with ``kv_quant="int8"``; the card's float32
+   prefill must run K2's CUDA-core kernel;
 7. end to end at full width, paged: qwen2.5-1.5b in bfloat16 with
    seeded random weights, 16 requests through ``ServeEngine(paged=
-   True)``; every request must finish its budget and K1 and K2 must
-   have launched;
+   True)``; every request must finish its budget and K1 and K2's
+   tensor-core kernel must have launched;
 8. end to end at full width, fixed-lane (the engine's default): the
    same 16 requests through ``ServeEngine()``; every request must
-   finish, K2 and K3 must have launched, K3 28 times per decode step;
-   then a short run at temperature 0.8 whose tokens must all finish
-   inside the vocabulary;
+   finish, K2's tensor-core kernel and K3 must have launched, K3 28
+   times per decode step; then a short run at temperature 0.8 whose
+   tokens must all finish inside the vocabulary;
 9. end to end at full width with ``kv_quant="int8"``: the same 16
    requests fixed-lane and paged; every request must finish, K5 (resp.
    K4) must launch 28 times per decode step and the fp decode kernels
    not at all;
-10. timings at the main-path shapes: each kernel, its plain version and
-   PyTorch's own attention call where one computes the same function,
-   beside the card's bound; for the int8 kernels also the reference
-   model's route (dequantize to float32, then K3 or K1);
+10. timings at the main-path shapes, as device time per call (CUDA
+   events around 20 calls queued behind a busy-wait, so the host's
+   launch cost stays out): each kernel, its plain version and
+   ``F.scaled_dot_product_attention`` where one call computes the same
+   function, beside the card's bound; K2 in bf16 at Sq 512 and 1024 and
+   in float32 at Sq 512; for the int8 kernels also the reference
+   model's route (dequantize to float32, then K3 or K1).  ``python3
+   chip_smoke.py --timings-of SRC`` runs this phase alone on the
+   package under SRC (an earlier tree), to compare two trees in one
+   call;
 11. the paper's compute path, checked: K8 (mixbench) in float32 and
    bfloat16, both arms, at 1, 16 and 128 steps, in one grid-stride
    pass and in several, aligned and not (f32 mul_add and bf16
@@ -62,7 +74,8 @@ order (any failure raises and the script exits non-zero):
    mul_add kernel of K8 and K9 (K9's stream and staged kernels) and
    FMUL and FADD present, none in the split-K reduce either (adds
    alone), FFMA/HFMA2 in K8's fma kernels, HMMA in K9's mxu kernels --
-   the paper's ``-fmad=false``;
+   the paper's ``-fmad=false``; HMMA in K2's bf16 kernels and no HMMA
+   or HGMMA in K2's CUDA-core kernels and the dense decode kernels;
 13. the compute path through its entry points, launch counts zeroed
    before and read after: the K8 intensity sweep (2^26 float32
    elements, 1 to 1024 steps, both arms: GFLOP/s and GB/s per point,
@@ -156,6 +169,25 @@ def time_ms(fn, warmup: int = 5, iters: int = 30) -> float:
     return statistics.median(times)
 
 
+def host_ms(fn, warmup: int = 5, reps: int = 10, calls: int = 50) -> float:
+    """Host time to issue one ``fn``: median over ``reps`` of the wall
+    time of ``calls`` calls issued back to back from an idle card, not
+    waiting for it, over ``calls``.  A host-bound serve pays this for
+    every launch, whatever the device time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append(1e3 * (time.perf_counter() - t0) / calls)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def time_ms_queued(fn, warmup: int = 5, reps: int = 30,
                    launches: int = 20) -> float:
     """Device time of one ``fn``: median over ``reps`` of CUDA events
@@ -244,35 +276,54 @@ def phase_k1(dev):
     return errs
 
 
-def k2_inputs(sq, dtype, dev):
+def k2_inputs(sq, dtype, dev, d=128):
     import numpy as np
     import torch
-    rng = np.random.default_rng(SEED + sq)
-    shapes = ((1, 12, sq, 128), (1, 2, sq, 128), (1, 2, sq, 128))
+    rng = np.random.default_rng(SEED + sq + d)
+    shapes = ((1, 12, sq, d), (1, 2, sq, d), (1, 2, sq, d))
     return [torch.from_numpy(rng.standard_normal(s, np.float32)
                              ).to(dev, dtype) for s in shapes]
 
 
+#: K2's check cases (Sq, causal, window, D): the serve's buckets 64, 512
+#: and 1024, a ragged length, a sliding window, no mask (whisper's
+#: cross-attention later), a window without causality, and D 64
+K2_CASES = ((64, True, None, 128), (100, True, None, 128),
+            (512, True, None, 128), (512, True, 128, 128),
+            (1024, True, None, 128), (200, False, None, 128),
+            (512, False, 96, 128), (512, True, None, 64))
+
+
 def phase_k2(dev):
+    """K2 against its plain version at K2_CASES, float32 (the CUDA-core
+    kernel, tol 1e-4) and bfloat16 (the tensor-core kernel, tol 2e-2);
+    the launch counters must name the kernel the dtype selects."""
     import torch
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
     errs = {}
-    cases = ((64, True, None), (512, True, None), (512, True, 128))
-    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    for dtype, tol, kernel in ((torch.float32, 1e-4, "flash_attention_cc"),
+                               (torch.bfloat16, 2e-2,
+                                "flash_attention_mma")):
         worst = 0.0
-        for sq, causal, window in cases:
-            q, k, v = k2_inputs(sq, dtype, dev)
+        for sq, causal, window, d in K2_CASES:
+            q, k, v = k2_inputs(sq, dtype, dev, d)
+            before = launch_counts()
             out = flash_attention(q, k, v, causal=causal, window=window)
+            ran = {n: c - before[n] for n, c in launch_counts().items()
+                   if c != before[n]}
             ref = attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             err = max_err(out, ref)
-            print(f"[K2] {dtype} Sq={sq} causal={causal} window={window}: "
-                  f"max_abs_err {err:.3e} (tol {tol})")
+            print(f"[K2] {dtype} Sq={sq} causal={causal} window={window} "
+                  f"D={d}: {kernel}, max_abs_err {err:.3e} (tol {tol})")
+            if ran != {kernel: 1}:
+                fail(f"K2 {dtype} D={d} launched {ran}, not {kernel}")
             if not err <= tol:
                 fail(f"K2 {dtype} Sq={sq} window={window} disagrees: {err}")
             worst = max(worst, err)
-        errs[str(dtype).split(".")[-1]] = (worst, tol)
+        errs[kernel] = {str(dtype).split(".")[-1]: (worst, tol)}
     return errs
 
 
@@ -293,6 +344,10 @@ def dense_inputs(dtype, dev, s=1024):
 
 
 def phase_dense(dev):
+    """K3 and K6a against their plain version at S 1024 and 1000, f32
+    (tol 1e-4) and bf16 (tol 2e-2): a dead lane gives exactly 0, K3
+    equals K6a, and a second call of each repeats the bits (the merge
+    adds the chunks in a fixed order)."""
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
@@ -303,6 +358,8 @@ def phase_dense(dev):
             args = dense_inputs(dtype, dev, s)
             la = decode_attention(*args)
             masked = decode_attention(*args, length_aware=False)
+            again = (decode_attention(*args),
+                     decode_attention(*args, length_aware=False))
             ref = decode_attention_ref(*args)
             torch.cuda.synchronize()
             for name, out in (("decode_attention_lengthaware", la),
@@ -318,6 +375,9 @@ def phase_dense(dev):
                 worst[name] = max(worst[name], err)
             if not torch.equal(la, masked):
                 fail(f"K3 and K6a differ ({dtype}, S={s})")
+            if not (torch.equal(la, again[0]) and
+                    torch.equal(masked, again[1])):
+                fail(f"K3/K6a did not repeat their bits ({dtype}, S={s})")
         for name in errs:
             errs[name][str(dtype).split(".")[-1]] = (worst[name], tol)
     return errs
@@ -389,6 +449,7 @@ def phase_q8(dev):
             la = decode_attention_q8(*args, qblock=qblock)
             masked = decode_attention_q8(*args, qblock=qblock,
                                          length_aware=False)
+            again = decode_attention_q8(*args, qblock=qblock)
             ref = decode_attention_q8_ref(*args, qblock=qblock)
             torch.cuda.synchronize()
             what = f"{dtype} S={s} qblock={qblock}"
@@ -397,6 +458,8 @@ def phase_q8(dev):
                                   check(name, out, ref, tol, what))
             if not torch.equal(la, masked):
                 fail(f"K5 and K6b differ ({what})")
+            if not torch.equal(la, again):
+                fail(f"K5 did not repeat its bits ({what})")
             if qblock == 1:
                 route = _route_dense(*args, qblock)
                 torch.cuda.synchronize()
@@ -452,7 +515,7 @@ def phase_smoke_e2e(dev, kv_quant=None, arch="qwen2.5-1.5b"):
     cpu = torch.device("cpu")
     params = build_model(cfg).init(torch.Generator().manual_seed(SEED), cpu)
     on_card = copy.deepcopy(params).to(dev)
-    streams = {}
+    streams, counts = {}, {}
     runs = [("cpu", False, 0.0), ("cuda", False, 0.0), ("cuda", True, 0.0),
             ("cpu", False, 0.8), ("cuda", False, 0.8), ("cuda", True, 0.8),
             ("cpu", True, 0.0)]
@@ -464,7 +527,8 @@ def phase_smoke_e2e(dev, kv_quant=None, arch="qwen2.5-1.5b"):
         reqs = _requests(cfg, 10, 3, 140, 16, SEED + 1)
         reset_launch_counts()
         eng.run(reqs)
-        k10 = launch_counts()["ssd_chunk"]
+        counts[where, paged, temperature] = launch_counts()
+        k10 = counts[where, paged, temperature]["ssd_chunk"]
         if cfg.attn_free and where == "cuda" and \
                 k10 != cfg.n_layers * len(reqs):
             fail(f"{tag} K10 launched {k10} times, not {cfg.n_layers} per "
@@ -491,6 +555,7 @@ def phase_smoke_e2e(dev, kv_quant=None, arch="qwen2.5-1.5b"):
     if streams["cuda", False, 0.0] == streams["cuda", False, 0.8]:
         fail(f"{tag} temperature 0.8 gave the greedy streams: nothing was "
              "sampled")
+    return counts["cuda", False, 0.0]
 
 
 def init_full(dev):
@@ -563,7 +628,7 @@ def serve_full(dev, cfg, params, tag, need, **engine_kw):
 def phase_full_paged(dev, cfg, params):
     counts, summary = serve_full(dev, cfg, params, "full e2e paged",
                                  ("decode_attention_paged",
-                                  "flash_attention"),
+                                  "flash_attention_mma"),
                                  paged=True, page_size=16, n_pages=256)
     # outputs: finite last-position logits with the padded vocab masked
     import torch
@@ -579,7 +644,7 @@ def phase_full_paged(dev, cfg, params):
 
 
 def phase_full_fixed(dev, cfg, params):
-    need = ("decode_attention_lengthaware", "flash_attention")
+    need = ("decode_attention_lengthaware", "flash_attention_mma")
     counts, summary = serve_full(dev, cfg, params, "full e2e fixed-lane",
                                  need)
     per_step = counts["decode_attention_lengthaware"] / summary["decode_steps"]
@@ -609,7 +674,7 @@ def phase_full_int8(dev, cfg, params):
              "decode_attention_paged",
              dict(paged=True, page_size=16, n_pages=256))):
         counts, summary = serve_full(dev, cfg_q, params, tag,
-                                     (kernel, "flash_attention"), **kw)
+                                     (kernel, "flash_attention_mma"), **kw)
         per_step = counts[kernel] / summary["decode_steps"]
         print(f"[{tag}] {kernel} launches per decode step: {per_step}")
         if per_step != cfg.n_layers:
@@ -621,15 +686,37 @@ def phase_full_int8(dev, cfg, params):
     return out
 
 
+def _k2_row(q, k, v, bytes_per_elem):
+    """K2's timing row at one causal shape: the kernel (through the
+    wrapper, which picks the kernel by dtype and head dim), its plain
+    version, and SDPA on the same inputs."""
+    from torch.nn import functional as F
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    sq = q.shape[2]
+    pairs = sq * (sq + 1) // 2
+    return dict(
+        ms=time_ms_queued(lambda: flash_attention(q, k, v, causal=True)),
+        host_ms=host_ms(lambda: flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms_queued(lambda: attention_ref(q, k, v, causal=True)),
+        library_ms=time_ms_queued(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        bytes=bytes_per_elem * (2 * q.numel() + k.numel() + v.numel()),
+        flops=4 * q.shape[0] * q.shape[1] * pairs * q.shape[3])
+
+
 def phase_timings(dev):
+    """Every attention kernel at the serves' shapes as device time per
+    call (``time_ms_queued``), beside its plain version, SDPA where one
+    call computes the same function, and the dequantize route of the
+    int8 kernels.  Only the wrappers' public calls are used, so
+    ``--timings-of`` can time an earlier tree's kernels the same way."""
     import torch
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_paged, decode_attention_paged_q8,
         decode_attention_paged_q8_ref, decode_attention_paged_ref,
         decode_attention_q8, decode_attention_q8_ref, decode_attention_ref)
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
     rows = {}
     # K1: bf16, main-path shapes
     q, kp, vp, bt, lens = k1_inputs(torch.bfloat16, dev)
@@ -642,22 +729,21 @@ def phase_timings(dev):
                 + 4 * pages_live + 4 * lens.numel())
     k1_flops = 4 * n_live * h * d
     rows["decode_attention_paged"] = dict(
-        ms=time_ms(lambda: decode_attention_paged(q, kp, vp, bt, lens)),
-        plain_ms=time_ms(lambda: decode_attention_paged_ref(q, kp, vp, bt,
-                                                            lens)),
+        ms=time_ms_queued(lambda: decode_attention_paged(q, kp, vp, bt,
+                                                         lens)),
+        host_ms=host_ms(lambda: decode_attention_paged(q, kp, vp, bt, lens)),
+        plain_ms=time_ms_queued(lambda: decode_attention_paged_ref(
+            q, kp, vp, bt, lens)),
         library_ms=None, bytes=k1_bytes, flops=k1_flops)
-    # K2: bf16, B=1, Sq=Sk=512, causal
+    # K2: B=1, H 12, Hkv 2, D 128, causal; bf16 (the serves' dtype: the
+    # tensor-core kernel) at Sq 512 and the serve's largest bucket, 1024;
+    # float32 (the CUDA-core kernel) at Sq 512 beside f32 SDPA
     q, k, v = k2_inputs(512, torch.bfloat16, dev)
-    sq = q.shape[2]
-    pairs = sq * (sq + 1) // 2
-    k2_flops = 4 * q.shape[0] * q.shape[1] * pairs * q.shape[3]
-    k2_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    rows["flash_attention"] = dict(
-        ms=time_ms(lambda: flash_attention(q, k, v, causal=True)),
-        plain_ms=time_ms(lambda: attention_ref(q, k, v, causal=True)),
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
-        bytes=k2_bytes, flops=k2_flops)
+    rows["flash_attention_mma"] = _k2_row(q, k, v, 2)
+    q, k, v = k2_inputs(1024, torch.bfloat16, dev)
+    rows["flash_attention_mma"]["s1024"] = _k2_row(q, k, v, 2)
+    q, k, v = k2_inputs(512, torch.float32, dev)
+    rows["flash_attention_cc"] = _k2_row(q, k, v, 4)
     # K3 / K6a: bf16, fixed-lane path shapes (S = 1024)
     q, k, v, lens = dense_inputs(torch.bfloat16, dev)
     b, hkv, s, d = k.shape
@@ -668,14 +754,17 @@ def phase_timings(dev):
     mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[live]
     mask = mask[:, None, None, :].contiguous()
     ql, kl, vl = q[live][:, :, None].contiguous(), k[live], v[live]
-    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+    sdpa_ms = time_ms_queued(lambda: F.scaled_dot_product_attention(
         ql, kl, vl, attn_mask=mask, enable_gqa=True))
     for name, la, n_pos in (("decode_attention_lengthaware", True, n_live),
                             ("decode_attention_masked", False, b * s)):
         rows[name] = dict(
-            ms=time_ms(lambda: decode_attention(q, k, v, lens,
-                                                length_aware=la)),
-            plain_ms=time_ms(lambda: decode_attention_ref(q, k, v, lens)),
+            ms=time_ms_queued(lambda: decode_attention(q, k, v, lens,
+                                                       length_aware=la)),
+            host_ms=host_ms(lambda: decode_attention(q, k, v, lens,
+                                                     length_aware=la)),
+            plain_ms=time_ms_queued(lambda: decode_attention_ref(q, k, v,
+                                                                 lens)),
             library_ms=sdpa_ms,
             bytes=2 * n_pos * hkv * d * 2 + io_bytes,
             flops=4 * n_pos * h * d)
@@ -688,15 +777,17 @@ def phase_timings(dev):
     h = q.shape[1]
     n_live = int(lens.to(torch.int64).sum().item())
     row_bytes = hkv * (2 * d + 2 * 4)       # int8 k and v, f32 k/v scales
-    route_ms = time_ms(lambda: _route_dense(q, kq, ks, vq, vs, lens, 1))
+    route_ms = time_ms_queued(lambda: _route_dense(q, kq, ks, vq, vs, lens,
+                                                   1))
     for name, la, n_pos in (("decode_attention_q8_lengthaware", True,
                              n_live),
                             ("decode_attention_q8_masked", False, b * s)):
         rows[name] = dict(
-            ms=time_ms(lambda: decode_attention_q8(q, kq, ks, vq, vs, lens,
-                                                   qblock=1,
-                                                   length_aware=la)),
-            plain_ms=time_ms(lambda: decode_attention_q8_ref(
+            ms=time_ms_queued(lambda: decode_attention_q8(
+                q, kq, ks, vq, vs, lens, qblock=1, length_aware=la)),
+            host_ms=host_ms(lambda: decode_attention_q8(
+                q, kq, ks, vq, vs, lens, qblock=1, length_aware=la)),
+            plain_ms=time_ms_queued(lambda: decode_attention_q8_ref(
                 q, kq, ks, vq, vs, lens, qblock=1)),
             library_ms=None, route_ms=route_ms,
             bytes=n_pos * row_bytes + io_bytes,
@@ -707,29 +798,38 @@ def phase_timings(dev):
     n_live = int(live.sum().item())
     pages_live = int(((live + ps - 1) // ps).sum().item())
     rows["decode_attention_paged_q8"] = dict(
-        ms=time_ms(lambda: decode_attention_paged_q8(q, kq, ks, vq, vs, bt,
-                                                     lens, qblock=1)),
-        plain_ms=time_ms(lambda: decode_attention_paged_q8_ref(
+        ms=time_ms_queued(lambda: decode_attention_paged_q8(
+            q, kq, ks, vq, vs, bt, lens, qblock=1)),
+        host_ms=host_ms(lambda: decode_attention_paged_q8(
+            q, kq, ks, vq, vs, bt, lens, qblock=1)),
+        plain_ms=time_ms_queued(lambda: decode_attention_paged_q8_ref(
             q, kq, ks, vq, vs, bt, lens, qblock=1)),
         library_ms=None,
-        route_ms=time_ms(lambda: _route_paged(q, kq, ks, vq, vs, bt, lens,
-                                              1)),
+        route_ms=time_ms_queued(lambda: _route_paged(q, kq, ks, vq, vs, bt,
+                                                     lens, 1)),
         bytes=(n_live * row_bytes + 2 * q.numel() * 2 + 4 * pages_live
                + 4 * lens.numel()),
         flops=4 * n_live * h * d + 2 * n_live * hkv * d)
     for name, r in rows.items():
-        t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
-        t_ops = 1e3 * r["flops"] / BF16_FLOPS_PER_S
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        lib = r["library_ms"]
-        route = (f", dequantize + fp kernel {r['route_ms']:.4f} ms"
-                 if "route_ms" in r else "")
-        print(f"[time] {name}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}{route}, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['bytes']} B, "
-              f"{r['flops']} flop)")
+        for tag, rr in (("", r), (" Sq 1024", r.get("s1024"))):
+            if rr is None:
+                continue
+            # f32 products: the TF32 rule, as for K7 and K10
+            peak = TF32_FLOPS_PER_S if name.endswith("_cc") else \
+                BF16_FLOPS_PER_S
+            t_bytes = 1e3 * rr["bytes"] / HBM_BYTES_PER_S
+            t_ops = 1e3 * rr["flops"] / peak
+            rr["bound_ms"] = max(t_bytes, t_ops)
+            rr["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            lib = rr["library_ms"]
+            route = (f", dequantize + fp kernel {rr['route_ms']:.4f} ms"
+                     if "route_ms" in rr else "")
+            print(f"[time] {name}{tag}: kernel {rr['ms']:.4f} ms (host "
+                  f"{rr['host_ms']:.4f} ms a call), plain "
+                  f"{rr['plain_ms']:.4f} ms, library "
+                  f"{'n/a' if lib is None else f'{lib:.4f} ms'}{route}, "
+                  f"bound {rr['bound_ms']:.5f} ms ({rr['bound_by']}: "
+                  f"{rr['bytes']} B, {rr['flops']} flop)")
     return rows
 
 
@@ -1509,26 +1609,42 @@ def k10_timing(dev):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--timings-of", metavar="SRC", type=Path, default=None,
+                    help="only phase 10, on the repro_torch package under "
+                    "SRC (e.g. an earlier tree unpacked under build/), "
+                    "printed as one JSON line; run it on two trees in "
+                    "turns to compare them on one card")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        fail(f"the port's sources are not beside this script ({SRC})")
-    sys.path.insert(0, str(SRC))
+    src = (args.timings_of or SRC).resolve()
+    if not (src / "repro_torch" / "csrc").is_dir():
+        fail(f"the port's sources are not beside this script ({src})")
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.timings_of is not None:
+        print(gpu_line())
+        print(json.dumps({"src": str(src), "rows": phase_timings(dev)}))
+        return 0
     t_start = time.perf_counter()
 
     phase_build()
-    errs = {"decode_attention_paged": phase_k1(dev),
-            "flash_attention": phase_k2(dev)}
+    errs = {"decode_attention_paged": phase_k1(dev)}
+    errs.update(phase_k2(dev))
     errs.update(phase_dense(dev))
     errs.update(phase_q8(dev))
-    phase_smoke_e2e(dev)
+    smoke_counts = phase_smoke_e2e(dev)
+    if not smoke_counts["flash_attention_cc"]:
+        fail(f"the float32 SMOKE serve never ran K2's CUDA-core kernel: "
+             f"{smoke_counts}")
     phase_smoke_e2e(dev, kv_quant="int8")
     cfg, params = init_full(dev)
     paged_counts, paged_e2e = phase_full_paged(dev, cfg, params)
@@ -1562,7 +1678,10 @@ def main() -> int:
     replaces = {
         "decode_attention_paged":
             "src/repro/kernels/decode_attention/kernel.py:322",
-        "flash_attention": "src/repro/kernels/flash_attention/kernel.py:85",
+        "flash_attention_mma":
+            "src/repro/kernels/flash_attention/kernel.py:85",
+        "flash_attention_cc":
+            "src/repro/kernels/flash_attention/kernel.py:85",
         "decode_attention_lengthaware":
             "src/repro/kernels/decode_attention/kernel.py:205",
         "decode_attention_masked":
@@ -1574,45 +1693,57 @@ def main() -> int:
         "decode_attention_q8_masked":
             "src/repro/kernels/decode_attention/kernel.py:456",
     }
-    sources = {"decode_attention_lengthaware": "decode_attention_dense",
+    sources = {"flash_attention_mma": "flash_attention",
+               "flash_attention_cc": "flash_attention",
+               "decode_attention_lengthaware": "decode_attention_dense",
                "decode_attention_masked": "decode_attention_dense",
                "decode_attention_q8_lengthaware": "decode_attention_dense",
                "decode_attention_q8_masked": "decode_attention_dense",
                "decode_attention_paged_q8": "decode_attention_paged"}
     # each kernel's launches come from the main-path run that drives it:
-    # K1 from the paged serve, K2 and K3 from the fixed-lane (default)
-    # serve, K5 from the fixed-lane int8 serve, K4 from the paged int8
-    # serve; K6a and K6b are on no serving path and report the count of
-    # the fixed-lane serve of their cache type, 0
+    # K1 from the paged serve, K2's tensor-core kernel and K3 from the
+    # fixed-lane (default) serve, K5 from the fixed-lane int8 serve, K4
+    # from the paged int8 serve, K2's CUDA-core kernel from the float32
+    # SMOKE serve on the card (fixed-lane, greedy); K6a and K6b are on no
+    # serving path and report the count of the fixed-lane serve of their
+    # cache type, 0
     int8_fixed = int8["full e2e fixed-lane int8"][0]
     int8_paged = int8["full e2e paged int8"][0]
     launches = dict(fixed_counts)
     launches["decode_attention_paged"] = paged_counts["decode_attention_paged"]
+    launches["flash_attention_cc"] = smoke_counts["flash_attention_cc"]
     for name in ("decode_attention_q8_lengthaware",
                  "decode_attention_q8_masked"):
         launches[name] = int8_fixed[name]
     launches["decode_attention_paged_q8"] = \
         int8_paged["decode_attention_paged_q8"]
     kernels = []
-    for name in ("decode_attention_paged", "flash_attention",
-                 "decode_attention_lengthaware", "decode_attention_masked",
-                 "decode_attention_paged_q8",
+    for name in ("decode_attention_paged", "flash_attention_mma",
+                 "flash_attention_cc", "decode_attention_lengthaware",
+                 "decode_attention_masked", "decode_attention_paged_q8",
                  "decode_attention_q8_lengthaware",
                  "decode_attention_q8_masked"):
         r = rows[name]
-        err_bf16, tol_bf16 = errs[name]["bfloat16"]
-        err_f32, tol_f32 = errs[name]["float32"]
-        kernels.append({
+        # K2's two kernels each run one dtype: its error is max_abs_err
+        err, tol = errs[name].get("bfloat16", errs[name].get("float32"))
+        entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{sources.get(name, name)}.cu",
             "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": err_bf16, "tol": tol_bf16,
-            "max_abs_err_f32": err_f32, "tol_f32": tol_f32,
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": err, "tol": tol,
+            "ms": r["ms"], "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "bytes": r["bytes"]})
+            "library_ms": r["library_ms"], "bytes": r["bytes"]}
+        if "float32" in errs[name] and "bfloat16" in errs[name]:
+            entry["max_abs_err_f32"], entry["tol_f32"] = \
+                errs[name]["float32"]
         if "route_ms" in r:
-            kernels[-1]["route_ms"] = r["route_ms"]
+            entry["route_ms"] = r["route_ms"]
+        if "s1024" in r:
+            entry["s1024"] = {key: r["s1024"][key] for key in (
+                "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")}
+        kernels.append(entry)
     compute_replaces = {
         "mixbench_fma": "src/repro/kernels/mixbench/kernel.py:56",
         "mixbench_mul_add": "src/repro/kernels/mixbench/kernel.py:56",

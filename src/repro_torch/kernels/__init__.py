@@ -24,7 +24,8 @@ COUNTERS = {c.name: c for c in (_decode_ops.COUNTER,
                                 _decode_ops.COUNTER_PAGED_Q8,
                                 _decode_ops.COUNTER_Q8_LENGTHAWARE,
                                 _decode_ops.COUNTER_Q8_MASKED,
-                                _flash_ops.COUNTER,
+                                _flash_ops.COUNTER_MMA,
+                                _flash_ops.COUNTER_CC,
                                 _mixbench_ops.COUNTER_FMA,
                                 _mixbench_ops.COUNTER_MUL_ADD,
                                 _matmul_ops.COUNTER_MXU,

@@ -25,7 +25,7 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 __all__ = ["KernelBuildError", "KernelLaunchError", "LaunchCounter",
-           "build_all", "load", "SOURCES"]
+           "bind", "build_all", "load", "SOURCES"]
 
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 CSRC = _PKG / "csrc"
@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -121,3 +122,18 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def bind(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of ``csrc/<name>.cu``'s library with its argument types
+    set and an int result (the launch's ``cudaError_t``), bound once:
+    a wrapper that sets ``argtypes`` on every call pays for it on every
+    launch."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[name, symbol] = fn
+    return fn
+

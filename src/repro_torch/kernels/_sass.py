@@ -1,6 +1,8 @@
-"""The paper's ``-fmad=false``, checked on the instructions.
+"""The paper's ``-fmad=false``, and which kernels use the tensor cores,
+checked on the instructions.
 
-``cuobjdump -sass`` of the built mixbench (K8) and fma_matmul (K9)
+``cuobjdump -sass`` of the built mixbench (K8), fma_matmul (K9),
+flash_attention (K2) and decode_attention_dense (K3/K5/K6a/K6b)
 libraries is read kernel by kernel and the floating-point instructions
 counted by class.  :func:`sass_report` applies the rules: no FFMA,
 HFMA2 or HMMA in a ``mul_add`` kernel (K8's, and K9's weight stream and
@@ -8,8 +10,10 @@ staged kernel) and its multiplies and adds present; the same in K9's
 split-K reduce, which the ``mul_add`` stream launches too and which has
 adds alone; FFMA (HFMA2) in K8's ``fma`` kernels; HMMA in every one of
 K9's ``mxu`` kernels (the weight stream's ``mma.sync`` and the WMMA
-kernel's).  ``chip_smoke.py`` and the cuda-marked test
-both call it.  Nothing runs at import.
+kernel's) and in K2's bf16 tensor-core kernels; no HMMA and no HGMMA in
+K2's CUDA-core kernels and in the dense decode kernels, whose f32
+arithmetic stays off the tensor cores.  ``chip_smoke.py`` and the
+cuda-marked test both call it.  Nothing runs at import.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Dict, List, Tuple
 
 from repro_torch.kernels import _build
 
-__all__ = ["SASS_KERNELS", "check_counts", "cuobjdump", "kernel_counts",
+__all__ = ["SASS_KERNELS", "SASS_LIBS", "check_counts", "cuobjdump", "kernel_counts",
            "parse_sass", "sass_counts", "sass_report"]
 
 SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
@@ -34,7 +38,19 @@ SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
                 "fma_matmul_mul_add_f32", "fma_matmul_mul_add_bf16",
                 "fma_matmul_mul_add_staged_f32",
                 "fma_matmul_mul_add_staged_bf16",
-                "fma_matmul_splitk_reduce")
+                "fma_matmul_splitk_reduce",
+                "flash_attention_mma_bf16_d64",
+                "flash_attention_mma_bf16_d128",
+                "flash_attention_cc_f32_d32", "flash_attention_cc_f32_d64",
+                "flash_attention_cc_f32_d128", "flash_attention_cc_f32_d256",
+                "flash_attention_cc_bf16_d32", "flash_attention_cc_bf16_d256",
+                "decode_dense_f32", "decode_dense_bf16",
+                "decode_dense_masked_f32", "decode_dense_masked_bf16",
+                "decode_dense_q8_f32", "decode_dense_q8_bf16",
+                "decode_dense_q8_masked_f32", "decode_dense_q8_masked_bf16")
+#: the libraries whose kernels SASS_KERNELS names
+SASS_LIBS = ("mixbench", "fma_matmul", "flash_attention",
+             "decode_attention_dense")
 
 
 def cuobjdump() -> str:
@@ -57,7 +73,8 @@ def cuobjdump() -> str:
 
 def parse_sass(text: str) -> Dict[str, collections.Counter]:
     """{kernel symbol: Counter of instruction classes} from the text of
-    ``cuobjdump -sass``.  ``fma`` counts FFMA and HFMA2 except the
+    ``cuobjdump -sass``.  ``hmma`` counts ``mma.sync`` (HMMA), ``hgmma``
+    ``wgmma`` (HGMMA).  ``fma`` counts FFMA and HFMA2 except the
     ``HFMA2.MMA Rd, -RZ, RZ, c`` form, which computes -0 * 0 + c: a
     constant move ptxas issues on that pipe, counted as ``mov``."""
     counts, func = {}, None
@@ -84,6 +101,8 @@ def parse_sass(text: str) -> Dict[str, collections.Counter]:
             c["add"] += 1
         elif op.startswith("HMMA"):
             c["hmma"] += 1
+        elif op.startswith("HGMMA"):
+            c["hgmma"] += 1
     return counts
 
 
@@ -108,6 +127,11 @@ def check_counts(found: Dict[str, dict]) -> List[str]:
         elif kern == "fma_matmul_splitk_reduce":
             if c.get("fma", 0) or c.get("hmma", 0) or not c.get("add", 0):
                 problems.append(f"{kern} is not plain adds: {c}")
+        elif kern.startswith(("flash_attention_cc", "decode_dense")):
+            if c.get("hmma", 0) or c.get("hgmma", 0):
+                problems.append(f"{kern} runs on the tensor cores: {c}")
+        elif kern.startswith("flash_attention_mma") and not c.get("hmma", 0):
+            problems.append(f"{kern} does not use the tensor cores: {c}")
         elif kern.startswith("mixbench") and not c.get("fma", 0):
             problems.append(f"{kern} has no fused multiply-add: {c}")
         elif kern.startswith("fma_matmul") and not c.get("hmma", 0):
@@ -123,9 +147,9 @@ def kernel_counts(by_symbol: Dict[str, collections.Counter]
 
 
 def sass_report() -> Tuple[Dict[str, dict], List[str]]:
-    """({kernel: counts}, [problems]) for the built mixbench and
-    fma_matmul libraries (build them first)."""
+    """({kernel: counts}, [problems]) for the built libraries of
+    SASS_LIBS (build them first)."""
     found = {}
-    for lib in ("mixbench", "fma_matmul"):
+    for lib in SASS_LIBS:
         found.update(kernel_counts(sass_counts(_build._lib_path(lib))))
     return found, check_counts(found)

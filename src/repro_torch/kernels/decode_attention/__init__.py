@@ -4,14 +4,17 @@ wrappers + plain versions."""
 
 from repro_torch.kernels.decode_attention.ops import (
     decode_attention, decode_attention_paged, decode_attention_paged_q8,
-    decode_attention_q8)
+    decode_attention_q8, split_plan)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_paged_q8_ref, decode_attention_paged_ref,
-    decode_attention_q8_ref, decode_attention_ref, dequant_kv_q8,
-    gather_pages, quantize_kv_q8)
+    decode_attention_q8_ref, decode_attention_ref,
+    decode_attention_split_ref, dequant_kv_q8, gather_pages, merge_partials,
+    quantize_kv_q8, split_partials)
 
 __all__ = ["decode_attention", "decode_attention_paged",
            "decode_attention_paged_q8", "decode_attention_q8",
            "decode_attention_paged_q8_ref", "decode_attention_paged_ref",
            "decode_attention_q8_ref", "decode_attention_ref",
-           "dequant_kv_q8", "gather_pages", "quantize_kv_q8"]
+           "decode_attention_split_ref", "dequant_kv_q8", "gather_pages",
+           "merge_partials", "quantize_kv_q8", "split_partials",
+           "split_plan"]

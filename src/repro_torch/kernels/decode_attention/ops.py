@@ -7,7 +7,11 @@ launches ``csrc/decode_attention_paged.cu`` or
 ``csrc/decode_attention_dense.cu`` or raises -- there is no fallback on
 the card.  Each source holds one template per layout, instantiated for
 a cache in q's dtype and for an int8 cache with f32 scales along the
-key axis (``qblock`` keys per scale).
+key axis (``qblock`` keys per scale).  The dense kernels split the
+cache into chunks of positions (:func:`split_plan`), one CTA each, and
+merge the chunks' partials in the same launch; the wrapper gives them a
+workspace (``torch.empty`` per call) and per-head counters (zeroed
+once, cached per device and stream, left at 0 by every launch).
 """
 
 from __future__ import annotations
@@ -17,15 +21,15 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
-                                        load)
+                                        bind)
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_paged_q8_ref, decode_attention_paged_ref,
     decode_attention_q8_ref, decode_attention_ref)
 
 __all__ = ["decode_attention", "decode_attention_paged",
-           "decode_attention_q8", "decode_attention_paged_q8", "COUNTER",
-           "COUNTER_LENGTHAWARE", "COUNTER_MASKED", "COUNTER_PAGED_Q8",
-           "COUNTER_Q8_LENGTHAWARE", "COUNTER_Q8_MASKED"]
+           "decode_attention_q8", "decode_attention_paged_q8", "split_plan",
+           "COUNTER", "COUNTER_LENGTHAWARE", "COUNTER_MASKED",
+           "COUNTER_PAGED_Q8", "COUNTER_Q8_LENGTHAWARE", "COUNTER_Q8_MASKED"]
 
 COUNTER = LaunchCounter("decode_attention_paged")
 COUNTER_LENGTHAWARE = LaunchCounter("decode_attention_lengthaware")
@@ -38,11 +42,45 @@ MAX_SMEM_BYTES = 232448
 _WARPS = 8                         # csrc: NW
 _MAX_GROUP = 64                    # csrc: MAX_GROUP
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: SMs of an H100 SXM: the dense split aims to give each at least one CTA
+SMS = 132
+#: chunk lengths the dense kernels take (csrc: ch)
+CHUNKS = (32, 64)
+_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_DENSE_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
+#: {(device index, stream handle): int32 counters, one per (lane, kv head)}
+_COUNTERS = {}
 
 
 def _smem_bytes(group: int, d: int) -> int:
-    """Mirror of ``smem_bytes`` in the CUDA sources."""
+    """Mirror of ``smem_bytes`` in ``decode_attention_paged.cu``."""
     return 4 * (group * d + _WARPS * group * d + 2 * _WARPS * group)
+
+
+def split_plan(s: int, b: int, hkv: int) -> tuple:
+    """(CH, n_chunks) of the dense kernels' grid (B * Hkv, n_chunks): a
+    CTA per chunk of CH consecutive positions, chunk c holding positions
+    [c CH, min((c + 1) CH, S)).  A function of the shapes alone, so the
+    launch needs no length from the device: CH is 64 where that still
+    gives every SM a CTA, else 32 (short caches, few lanes)."""
+    if s < 1 or b < 1 or hkv < 1:
+        raise ValueError(f"need S, B, Hkv >= 1 (got {s}, {b}, {hkv})")
+    ch = CHUNKS[1] if b * hkv * -(-s // CHUNKS[1]) >= SMS else CHUNKS[0]
+    return ch, -(-s // ch)
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` int32 counters at 0 for launches on ``stream``;
+    the kernels leave them at 0, so they are zeroed only when made."""
+    key = (device.index, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = c
+    return c
 
 
 def _on_cpu(q) -> bool:
@@ -126,10 +164,8 @@ def _launch_paged(name, q, kp, ksp, vp, vsp, bt, lens, scale, qblock):
     b, h, d = q.shape
     p, hkv, ps, _ = kp.shape
     out = torch.empty_like(q)
-    fn = load("decode_attention_paged").decode_attention_paged_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = bind("decode_attention_paged", "decode_attention_paged_fwd",
+              _PAGED_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), kp.data_ptr(), _ptr(ksp), vp.data_ptr(),
@@ -142,7 +178,7 @@ def _launch_paged(name, q, kp, ksp, vp, vsp, bt, lens, scale, qblock):
 
 
 def _launch_dense(name, q, k, ks, v, vs, lens, scale, qblock, length_aware):
-    """One launch of ``dense_decode_kernel``; ``ks is None`` selects the
+    """One launch of the dense split kernel; ``ks is None`` selects the
     instantiation over a cache in q's dtype (K3/K6a), else int8
     (K5/K6b)."""
     if k.shape[0] != q.shape[0] or k.shape[2] < 1 or lens.dim() != 1:
@@ -150,18 +186,27 @@ def _launch_dense(name, q, k, ks, v, vs, lens, scale, qblock, length_aware):
                          "kv_lengths (B,)")
     b, h, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
+    if d % 16:
+        raise ValueError(f"head dim {d}: the dense kernels copy rows in "
+                         "16-byte pieces and need D % 16 == 0")
+    for nm, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{nm} must start on a 16-byte boundary")
+    ch, n_chunks = split_plan(s, b, hkv)
     out = torch.empty_like(q)
-    fn = load("decode_attention_dense").decode_attention_dense_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    slots = b * hkv * n_chunks * (h // hkv)
+    ws = torch.empty(slots * (d + 2), dtype=torch.float32, device=q.device)
+    fn = bind("decode_attention_dense", "decode_attention_dense_fwd",
+              _DENSE_ARGS)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counters(q.device, stream, b * hkv)
         rc = fn(q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(),
-                _ptr(vs), lens.data_ptr(), out.data_ptr(), b, h, hkv, s, d,
-                qblock, scale, 0 if length_aware else 1,
-                int(ks is not None), _DTYPE_CODE[q.dtype], stream)
+                _ptr(vs), lens.data_ptr(), out.data_ptr(),
+                ws.data_ptr() + 4 * slots * d, ws.data_ptr(),
+                counters.data_ptr(), b, h, hkv, s, d, qblock, ch, scale,
+                0 if length_aware else 1, int(ks is not None),
+                _DTYPE_CODE[q.dtype], stream)
     if rc != 0:
         raise KernelLaunchError(f"{name} (length_aware={length_aware}): "
                                 f"CUDA error {rc}")
@@ -227,9 +272,10 @@ def decode_attention(q, k, v, kv_lengths, *, scale=None,
     ``length_aware=True`` (K3) reads only the live positions;
     ``length_aware=False`` (K6a) streams all S positions of every lane
     and masks the dead ones -- the reference's parity and traffic
-    baseline; both give the same values.  The reference's key-block
-    size ``bk`` is a TPU tiling knob and has no counterpart here: the
-    kernel walks the cache by position and takes any S.
+    baseline; both give the same bits.  The reference's key-block size
+    ``bk`` is a TPU tiling knob and has no counterpart here: the kernel
+    cuts the cache into chunks of its own (:func:`split_plan`) and takes
+    any S; D must be a multiple of 16.
     """
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if _on_cpu(q):

@@ -31,6 +31,57 @@ def decode_attention_ref(q, k, v, kv_lengths, *, scale=None):
     return out.reshape(b, h, d).to(q.dtype)
 
 
+def split_partials(q, k, v, kv_lengths, *, ch: int, scale=None):
+    """The dense kernels' first step in plain PyTorch: the cache cut into
+    chunks of ``ch`` positions, and per (lane, kv head, chunk, head of
+    the group) a block softmax over the chunk's live positions.
+
+    Returns (m, l, acc): (B, Hkv, n_chunks, G) running max and sum and
+    (B, Hkv, n_chunks, G, D) weighted values, all float32.  A chunk with
+    no live position gives m = -1e30 and l = acc = 0 exactly.
+    """
+    b, h, d = q.shape
+    _, hkv, s, _ = k.shape
+    group = h // hkv
+    scale = float(scale if scale is not None else d ** -0.5)
+    n = -(-s // ch)
+    pad = (0, 0, 0, n * ch - s)
+    kc = torch.nn.functional.pad(k.float(), pad).reshape(b, hkv, n, ch, d)
+    vc = torch.nn.functional.pad(v.float(), pad).reshape(b, hkv, n, ch, d)
+    qg = q.reshape(b, hkv, group, d).float() * scale
+    sc = torch.einsum("bkgd,bkncd->bkngc", qg, kc)
+    pos = torch.arange(n * ch, device=q.device).reshape(n, ch)
+    live = pos[None] < kv_lengths.clamp(0, s)[:, None, None]   # (B, n, ch)
+    live = live[:, None, :, None, :]
+    sc = torch.where(live, sc, torch.full_like(sc, -1e30))
+    m = torch.amax(sc, dim=-1)
+    p = torch.where(live, torch.exp(sc - m[..., None]), torch.zeros_like(sc))
+    return m, p.sum(dim=-1), torch.einsum("bkngc,bkncd->bkngd", p, vc)
+
+
+def merge_partials(m, l, acc, dtype):
+    """The dense kernels' merge: the chunks' partials folded in chunk
+    order into (B, H, D) of ``dtype``; a lane with no live key gives 0."""
+    b, hkv, n, group, d = acc.shape
+    mx = torch.amax(m, dim=2)
+    lsum = torch.zeros_like(mx)
+    out = torch.zeros_like(acc[:, :, 0])
+    for c in range(n):
+        f = torch.exp(m[:, :, c] - mx)
+        lsum = lsum + l[:, :, c] * f
+        out = out + acc[:, :, c] * f[..., None]
+    denom = torch.where(lsum == 0.0, torch.ones_like(lsum), lsum)
+    return (out / denom[..., None]).reshape(b, hkv * group, d).to(dtype)
+
+
+def decode_attention_split_ref(q, k, v, kv_lengths, *, ch: int,
+                               scale=None):
+    """:func:`decode_attention_ref` computed as the dense kernels compute
+    it: :func:`split_partials`, then :func:`merge_partials`."""
+    return merge_partials(*split_partials(q, k, v, kv_lengths, ch=ch,
+                                          scale=scale), q.dtype)
+
+
 def dequant_kv_q8(k_q, k_scale, qblock: int = 32):
     """(B, Hkv, S, D) int8 + (B, Hkv, S/qblock, 1) f32 -> f32 KV."""
     if qblock != 1:

@@ -1,8 +1,12 @@
-"""Wrapper for the flash attention prefill kernel (K2).
+"""Wrapper for the flash attention prefill kernels (K2).
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
-launches ``csrc/flash_attention.cu`` or raises -- there is no fallback
-on the card.
+launches one of the two kernels of ``csrc/flash_attention.cu`` or
+raises -- there is no fallback on the card.  :func:`kernel_for` picks
+the kernel from the dtype and head dim alone: bf16 at
+``MMA_HEAD_DIMS`` runs on the tensor cores (``flash_attention_mma``),
+everything else (float32, and bf16 at D 32 and 256) on the CUDA cores
+in f32 (``flash_attention_cc``); each has its own launch counter.
 """
 
 from __future__ import annotations
@@ -12,15 +16,33 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
-                                        load)
+                                        bind)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["flash_attention", "COUNTER", "HEAD_DIMS"]
+__all__ = ["flash_attention", "kernel_for", "COUNTER_MMA", "COUNTER_CC",
+           "HEAD_DIMS", "MMA_HEAD_DIMS"]
 
-COUNTER = LaunchCounter("flash_attention")
-#: head dims the kernel is instantiated for (csrc: dispatch_d)
+COUNTER_MMA = LaunchCounter("flash_attention_mma")
+COUNTER_CC = LaunchCounter("flash_attention_cc")
+#: head dims a kernel is instantiated for (csrc: flash_attention_fwd)
 HEAD_DIMS = (32, 64, 128, 256)
+#: head dims of the bf16 tensor-core kernel; at 256 its f32 accumulators
+#: would not fit in registers and at 32 a row is shorter than its TMA
+#: box, so bf16 D 32 and 256 stay on the CUDA cores
+MMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_CODE = {"cc": 0, "mma": 1}
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> str:
+    """``"mma"`` (tensor cores) for bf16 at ``MMA_HEAD_DIMS``, else
+    ``"cc"`` (CUDA cores, f32): float32 keeps full f32 products, which
+    the float32 tolerance and the token-exact float32 serve need."""
+    if dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS:
+        return "mma"
+    return "cc"
 
 
 def _check(q, k, v, window):
@@ -45,6 +67,9 @@ def _check(q, k, v, window):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if kernel_for(q.dtype, d) == "mma" and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             "(the tensor-core kernel reads it by TMA)")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window=None,
@@ -63,18 +88,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     _check(q, k, v, window)
     b, h, sq, d = q.shape
     _, hkv, sk, _ = k.shape
+    kernel = kernel_for(q.dtype, d)
     out = torch.empty_like(q)
-    fn = load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = bind("flash_attention", "flash_attention_fwd", _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b, h, hkv, sq, sk, d, int(bool(causal)),
                 -1 if window is None else int(window), scale,
-                _DTYPE_CODE[q.dtype], stream)
+                _DTYPE_CODE[q.dtype], _KERNEL_CODE[kernel], stream)
     if rc != 0:
-        raise KernelLaunchError(f"flash_attention: CUDA error {rc}")
-    COUNTER.n += 1
+        raise KernelLaunchError(f"flash_attention ({kernel}): CUDA error "
+                                f"{rc}")
+    (COUNTER_MMA if kernel == "mma" else COUNTER_CC).n += 1
     return out

@@ -34,7 +34,7 @@ from repro_torch.convert import qtensor_from_numpy  # noqa: E402
 from repro_torch.core import compute_path as cp  # noqa: E402
 from repro_torch.core import device_profile as dp  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
-from repro_torch.kernels._sass import (SASS_KERNELS,  # noqa: E402
+from repro_torch.kernels._sass import (SASS_KERNELS, SASS_LIBS,  # noqa: E402
                                        check_counts, kernel_counts,
                                        parse_sass, sass_report)
 from repro_torch.kernels.fma_matmul import (matmul, matmul_ref,  # noqa: E402
@@ -739,13 +739,13 @@ def test_qmatmul_kernel_on_card(variant, fmt):
 @pytest.mark.cuda
 def test_mul_add_kernels_hold_no_fused_multiply_add_on_card():
     """The paper's -fmad=false, on the instructions: ``cuobjdump -sass``
-    of the built mixbench and fma_matmul libraries shows no FFMA/HFMA2
-    in any mul_add kernel, FFMA/HFMA2 in mixbench's fma kernels and
-    HMMA only in fma_matmul's mxu kernels (the rules chip_smoke.py
-    applies)."""
+    of the built libraries of SASS_LIBS shows no FFMA/HFMA2 in any
+    mul_add kernel, FFMA/HFMA2 in mixbench's fma kernels, HMMA in
+    fma_matmul's mxu kernels and K2's bf16 kernels, and none in the
+    f32 attention kernels (the rules chip_smoke.py applies)."""
     _need_cuda()
     from repro_torch.kernels import _build
-    _build.build_all(("mixbench", "fma_matmul"))
+    _build.build_all(SASS_LIBS)
     found, problems = sass_report()
     assert sorted(found) == sorted(SASS_KERNELS)
     assert problems == []

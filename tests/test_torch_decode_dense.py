@@ -31,7 +31,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention, decode_attention_ref)
+    decode_attention, decode_attention_ref, decode_attention_split_ref,
+    merge_partials, split_partials, split_plan)
 from repro_torch.models.attention import attention_decode  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
@@ -177,6 +178,84 @@ def test_kernel_input_checks(bad):
 
 
 # ----------------------------------------------------------------------
+# the split-KV plan and its plain version (the card's algorithm)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("s,b,hkv", [(1, 1, 1), (64, 6, 4), (100, 3, 2),
+                                     (1000, 8, 2), (1024, 8, 2),
+                                     (1024, 1, 2), (4097, 3, 2),
+                                     (32768, 8, 2)])
+def test_split_plan_covers_every_position_once(s, b, hkv):
+    """The dense kernels' grid is a function of S, B and Hkv alone: CH is
+    64 where that still gives each of the 132 SMs a CTA, else 32, and the
+    chunks [c CH, (c + 1) CH) cut at S hold every position exactly once,
+    in order."""
+    ch, n = split_plan(s, b, hkv)
+    assert ch in (32, 64) and n == -(-s // ch)
+    assert (ch == 64) == (b * hkv * -(-s // 64) >= 132)
+    pos = np.concatenate([np.arange(c * ch, min((c + 1) * ch, s))
+                          for c in range(n)])
+    assert np.array_equal(pos, np.arange(s))
+    assert all(c * ch < s for c in range(n))      # no chunk starts past S
+
+
+def test_split_plan_at_the_serve_shape():
+    """The fixed-lane serve (8 lanes, 2 kv heads, a cache of 1024): 64
+    positions a chunk, 16 chunks a head, 256 CTAs."""
+    ch, n = split_plan(1024, 8, 2)
+    assert (ch, n, 8 * 2 * n) == (64, 16, 256)
+    with pytest.raises(ValueError):
+        split_plan(0, 8, 2)
+
+
+@pytest.mark.parametrize("s", [128, 1000])
+@pytest.mark.parametrize("ch", [32, 64])
+def test_split_plain_matches_reference(ch, s):
+    """The chunked block softmax and its merge in chunk order (the dense
+    kernels' algorithm, in plain PyTorch) equal the reference's
+    ``decode_attention_ref`` within 1e-6 at SMOKE widths (H 4, Hkv 2,
+    D 32), on lengths that end inside, at the edge of and past a chunk,
+    and give exactly 0 for a lane of length 0."""
+    q, k, v, lens = _inputs(4, 2, s)
+    lens = np.array([0, 7, ch, ch + 1, s - 3, s], np.int32)
+    out = decode_attention_split_ref(*map(torch.from_numpy, (q, k, v, lens)),
+                                     ch=ch).numpy()
+    ref = np.asarray(jax_decode_ref(*map(jnp.asarray, (q, k, v, lens))))
+    assert np.max(np.abs(out - ref)) <= 1e-6
+    assert np.all(out[0] == 0.0)
+
+
+def test_split_empty_chunks_are_exact_zeros():
+    """A chunk with no live position leaves m = -1e30 and l = acc = 0
+    exactly, so whether the merge reads it (K6a's chunks past the length)
+    or not (K3's) changes no bit; a partly live chunk's dead slots add
+    nothing either."""
+    q, k, v, lens = map(torch.from_numpy, _inputs(12, 2, 256))
+    lens = torch.tensor([0, 7, 64, 65, 200, 256], dtype=torch.int32)
+    m, l, acc = split_partials(q, k, v, lens, ch=64)
+    n_live = (lens + 63) // 64
+    for lane in range(6):
+        dead = slice(int(n_live[lane]), None)
+        assert torch.all(m[lane, :, dead] == -1e30)
+        assert torch.all(l[lane, :, dead] == 0)
+        assert torch.all(acc[lane, :, dead] == 0)
+    # the merge over the live chunks alone gives the same bits
+    for lane in range(1, 6):
+        c = int(n_live[lane])
+        sl = slice(lane, lane + 1)
+        whole = merge_partials(m[sl], l[sl], acc[sl], torch.float32)
+        live = merge_partials(m[sl, :, :c], l[sl, :, :c], acc[sl, :, :c],
+                              torch.float32)
+        assert torch.equal(whole, live)
+    # a partly live chunk: the dead keys' values change nothing
+    k2, v2 = k.clone(), v.clone()
+    k2[1, :, 7:64] = 5.0
+    v2[1, :, 7:64] = -3.0
+    m2, l2, acc2 = split_partials(q, k2, v2, lens, ch=64)
+    assert torch.equal(acc2[1], acc[1]) and torch.equal(l2[1], l[1])
+
+
+# ----------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain version
 # ----------------------------------------------------------------------
 
@@ -199,3 +278,36 @@ def test_dense_decode_kernels_on_card(dtype, tol, s):
     assert (la.float() - ref.float()).abs().max().item() <= tol
     assert torch.equal(la, masked)
     assert torch.all(la[0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1024, 1000])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+def test_dense_split_repeats_bitwise_on_card(dtype, tol, s):
+    """K3 and K6a at the serve's widths (B 8 lanes, H 12, Hkv 2, D 128):
+    one launch each, every call the same bits, K3 equal to K6a, both
+    within ``tol`` of the plain chunked version and 0 on a dead lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(s)
+    q = rng.standard_normal((8, 12, 128)).astype(np.float32)
+    k = rng.standard_normal((8, 2, s, 128)).astype(np.float32)
+    v = rng.standard_normal((8, 2, s, 128)).astype(np.float32)
+    lens = np.minimum([0, 1, 15, 16, 17, 300, 777, 1024], s).astype(np.int32)
+    args = [torch.from_numpy(a).cuda() for a in (q, k, v, lens)]
+    args[:3] = [a.to(dt) for a in args[:3]]
+    before = launch_counts()
+    outs = [decode_attention(*args, length_aware=la)
+            for la in (True, True, False, False)]
+    after = launch_counts()
+    assert after["decode_attention_lengthaware"] - \
+        before["decode_attention_lengthaware"] == 2
+    assert after["decode_attention_masked"] - \
+        before["decode_attention_masked"] == 2
+    plain = decode_attention_split_ref(*args, ch=split_plan(s, 8, 2)[0])
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert (outs[0].float() - plain.float()).abs().max().item() <= tol
+    assert torch.all(outs[0][0] == 0)

@@ -112,7 +112,8 @@ def test_cpu_serving_launches_no_kernel():
                                "decode_attention_paged_q8": 0,
                                "decode_attention_q8_lengthaware": 0,
                                "decode_attention_q8_masked": 0,
-                               "flash_attention": 0,
+                               "flash_attention_mma": 0,
+                               "flash_attention_cc": 0,
                                "mixbench_fma": 0,
                                "mixbench_mul_add": 0,
                                "fma_matmul_mxu": 0,

@@ -24,8 +24,14 @@ from repro.kernels.flash_attention.ref import \
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_paged, decode_attention_paged_ref)
+from repro_torch.kernels import attention_breakdown  # noqa: E402
+from repro_torch.kernels._sass import (SASS_KERNELS,  # noqa: E402
+                                       check_counts, kernel_counts,
+                                       parse_sass)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    HEAD_DIMS, MMA_HEAD_DIMS, kernel_for)
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(2)
@@ -92,6 +98,93 @@ def test_wrappers_reject_unsupported_device():
                                bt.to("meta"), lens.to("meta"))
 
 
+@pytest.mark.parametrize("dtype,d,kernel", [
+    ("float32", 32, "cc"), ("float32", 64, "cc"), ("float32", 128, "cc"),
+    ("float32", 256, "cc"), ("bfloat16", 32, "cc"), ("bfloat16", 64, "mma"),
+    ("bfloat16", 128, "mma"), ("bfloat16", 256, "cc")])
+def test_flash_kernel_dispatch(dtype, d, kernel):
+    """K2's dispatch rule, by dtype and head dim alone: bf16 at D 64 and
+    128 runs the tensor-core kernel; float32 (full f32 products, which
+    the float32 tolerance and token-exact serve need), bf16 at D 256
+    (accumulators too large for registers) and at D 32 (rows shorter
+    than a TMA box) the CUDA-core kernel.  Each choice names a kernel
+    the source instantiates, held by the SASS rule."""
+    dt = getattr(torch, dtype)
+    assert kernel_for(dt, d) == kernel
+    assert d in HEAD_DIMS and (kernel == "mma") == (
+        dt == torch.bfloat16 and d in MMA_HEAD_DIMS)
+    tag = "f32" if dt == torch.float32 else "bf16"
+    assert f"flash_attention_{kernel}_{tag}_d{d}" in SASS_KERNELS
+
+
+def test_flash_cpu_launches_no_kernel():
+    """On the CPU both dtypes take the plain version: no counter moves."""
+    q, k, v = map(torch.from_numpy, _flash_inputs(4, 2, 16))
+    before = launch_counts()
+    flash_attention(q, k, v)
+    flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    assert launch_counts() == before
+
+
+_SASS_ATTN = """
+        Function : _ZN12_GLOBAL__N_129flash_attention_mma_bf16_d128EPK13__nv_bfloat16S2_S2_PS0_iiiiiif
+        /*0000*/                   LDSM.16.M88.4 R20, [R2+UR4] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/                   MUFU.EX2 R5, R5 ;
+        Function : _ZN12_GLOBAL__N_127flash_attention_cc_f32_d128EPKfS1_S1_Pfiiiiiif
+        /*0000*/                   FFMA R5, R4, R2, R3 ;
+        Function : _ZN12_GLOBAL__N_117decode_dense_bf16EPK13__nv_bfloat16S2_PKfS2_S4_PKiPS0_PfS8_Piiiiiiif
+        /*0000*/                   LDS.64 R8, [R2] ;
+        /*0010*/                   FFMA R5, R4, R2, R3 ;
+        Function : _ZN12_GLOBAL__N_126decode_dense_q8_masked_f32EPKfPKaS1_S3_S1_PKiPfS6_S6_Piiiiiiif
+        /*0000*/                   FMUL R5, R4, R2 ;
+        /*0010*/                   FFMA R5, R4, R2, R3 ;
+"""
+
+
+@pytest.mark.parametrize("edit,breach", [
+    (None, None),
+    (("HMMA.16816.F32.BF16 R4, R8, R12, R4", "FFMA R4, R8, R12, R4"),
+     "flash_attention_mma_bf16_d128"),
+    (("FFMA R5, R4, R2, R3 ;\n        Function : _ZN12_GLOBAL__N_117",
+      "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n        Function : "
+      "_ZN12_GLOBAL__N_117"), "flash_attention_cc_f32_d128"),
+    (("LDS.64 R8, [R2]", "HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24"),
+     "decode_dense_bf16"),
+    (("FMUL R5, R4, R2", "HMMA.1684.F32.TF32 R4, R8, R12, R4"),
+     "decode_dense_q8_masked_f32"),
+])
+def test_sass_rules_cover_the_attention_kernels(edit, breach):
+    """K2's bf16 kernel must run HMMA (mma.sync); its CUDA-core kernel
+    and every dense decode kernel must hold no HMMA and no HGMMA (wgmma):
+    their f32 arithmetic stays off the tensor cores."""
+    text = _SASS_ATTN if edit is None else _SASS_ATTN.replace(*edit)
+    assert text.count(edit[1]) == 1 if edit else True
+    found = kernel_counts(parse_sass(text))
+    assert set(found) == {"flash_attention_mma_bf16_d128",
+                          "flash_attention_cc_f32_d128",
+                          "decode_dense_bf16", "decode_dense_q8_masked_f32"}
+    problems = [p for p in check_counts(found) if "not found" not in p]
+    assert [p.split()[0] for p in problems] == ([breach] if breach else [])
+    for name in ("decode_dense_f32", "decode_dense_masked_bf16",
+                 "decode_dense_q8_bf16", "flash_attention_mma_bf16_d64",
+                 "flash_attention_cc_bf16_d256"):
+        assert name in SASS_KERNELS
+
+
+@pytest.mark.parametrize("kernel,variant", [
+    (k, v) for k, (_, variants) in sorted(attention_breakdown.VARIANTS.items())
+    for v in variants])
+def test_attention_breakdown_cuts_match_the_source(kernel, variant):
+    """Every cut of the K2/K3 breakdown still finds its text exactly once
+    in the source, and changes it (``full`` leaves it as it is)."""
+    name, variants = attention_breakdown.VARIANTS[kernel]
+    from repro_torch.kernels import _build
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    cut = attention_breakdown.source_with(name, variants[variant])
+    assert (cut == text) == (variant == "full")
+
+
 # ----------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -132,3 +225,26 @@ def test_flash_kernel_on_card(sq, causal, window):
     ref = attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 96),
+                                           (False, None)])
+@pytest.mark.parametrize("sq", [64, 100, 512, 1024])
+def test_flash_mma_kernel_on_card(sq, causal, window, d):
+    """The bf16 tensor-core kernel against the plain version within 2e-2
+    (P is rounded to bf16 before the P V product; the output to bf16):
+    the serve's buckets, a ragged length, a window, no mask, D 64 and
+    128; the counter shows that kernel ran, once."""
+    _need_cuda()
+    q, k, v = (torch.from_numpy(a).cuda().bfloat16() for a in
+               _flash_inputs(12, 2, sq, d=d, seed=sq + d))
+    before = launch_counts()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    after = launch_counts()
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert after["flash_attention_mma"] - before["flash_attention_mma"] == 1
+    assert after["flash_attention_cc"] == before["flash_attention_cc"]
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
