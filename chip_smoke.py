@@ -10,10 +10,12 @@ order (any failure raises and the script exits non-zero):
    path's shapes, float32 (TF32 off, tol 1e-4) and bfloat16 (tol 2e-2);
 3. K2 (flash prefill) against its plain version at ``K2_CASES``: causal
    at Sq 64, 100, 512 and 1024, a sliding window, no mask, a window
-   without causality, D 64; float32 on the CUDA-core kernel
-   (``flash_attention_cc``, tol 1e-4) and bfloat16 on the tensor-core
-   kernel (``flash_attention_mma``, tol 2e-2), each call's launch
-   counters naming that kernel;
+   without causality, D 64 and 256, and the float32 SMOKE serve's own
+   shape (H 4, Hkv 2, D 32) at its prompt buckets 8 to 128; float32
+   on the CUDA-core kernel (``flash_attention_cc``, tol 1e-4) and
+   bfloat16 on the tensor-core kernel (``flash_attention_mma``, tol
+   2e-2) at D 64 and 128, on the CUDA-core one at D 32 and 256, each
+   call's launch counters naming the kernel its dtype and D select;
 4. K3 (length-aware dense decode) and K6a (masked dense decode), one
    split-KV launch each, against their plain version at the fixed-lane
    path's shapes (S = 1024) and at S = 1000, same tolerances; a dead
@@ -52,10 +54,7 @@ order (any failure raises and the script exits non-zero):
    ``F.scaled_dot_product_attention`` where one call computes the same
    function, beside the card's bound; K2 in bf16 at Sq 512 and 1024 and
    in float32 at Sq 512; for the int8 kernels also the reference
-   model's route (dequantize to float32, then K3 or K1).  ``python3
-   chip_smoke.py --timings-of SRC`` runs this phase alone on the
-   package under SRC (an earlier tree), to compare two trees in one
-   call;
+   model's route (dequantize to float32, then K3 or K1);
 11. the paper's compute path, checked: K8 (mixbench) in float32 and
    bfloat16, both arms, at 1, 16 and 128 steps, in one grid-stride
    pass and in several, aligned and not (f32 mul_add and bf16
@@ -276,39 +275,49 @@ def phase_k1(dev):
     return errs
 
 
-def k2_inputs(sq, dtype, dev, d=128):
+def k2_inputs(sq, dtype, dev, d=128, h=12):
     import numpy as np
     import torch
-    rng = np.random.default_rng(SEED + sq + d)
-    shapes = ((1, 12, sq, d), (1, 2, sq, d), (1, 2, sq, d))
+    rng = np.random.default_rng(SEED + sq + (0 if d == 128 else d))
+    shapes = ((1, h, sq, d), (1, 2, sq, d), (1, 2, sq, d))
     return [torch.from_numpy(rng.standard_normal(s, np.float32)
                              ).to(dev, dtype) for s in shapes]
 
 
-#: K2's check cases (Sq, causal, window, D): the serve's buckets 64, 512
-#: and 1024, a ragged length, a sliding window, no mask (whisper's
-#: cross-attention later), a window without causality, and D 64
-K2_CASES = ((64, True, None, 128), (100, True, None, 128),
-            (512, True, None, 128), (512, True, 128, 128),
-            (1024, True, None, 128), (200, False, None, 128),
-            (512, False, 96, 128), (512, True, None, 64))
+#: K2's check cases (Sq, causal, window, D, H; Hkv 2): the full-width
+#: serve's buckets 64, 512 and 1024, a ragged length, a sliding window,
+#: no mask (whisper's cross-attention later), a window without
+#: causality, D 64 and 256, and the float32 SMOKE serve's shape (D 32,
+#: H 4) at its prompt buckets (prompts of 3 to 127 tokens)
+K2_CASES = ((64, True, None, 128, 12), (100, True, None, 128, 12),
+            (512, True, None, 128, 12), (512, True, 128, 128, 12),
+            (1024, True, None, 128, 12), (200, False, None, 128, 12),
+            (512, False, 96, 128, 12), (512, True, None, 64, 12),
+            (256, True, None, 256, 12),
+            *((sq, True, None, 32, 4) for sq in (8, 16, 32, 64, 128)))
+#: (D, H) of the float32 SMOKE serve's prefill, which runs K2's CUDA-core
+#: kernel on the main path
+SMOKE_K2_SHAPE = (32, 4)
 
 
 def phase_k2(dev):
-    """K2 against its plain version at K2_CASES, float32 (the CUDA-core
-    kernel, tol 1e-4) and bfloat16 (the tensor-core kernel, tol 2e-2);
-    the launch counters must name the kernel the dtype selects."""
+    """K2 against its plain version at K2_CASES, float32 (tol 1e-4) and
+    bfloat16 (tol 2e-2); the launch counters must name the kernel that
+    ``kernel_for`` picks from the dtype and D: the tensor-core kernel
+    for bf16 at D 64 and 128, the CUDA-core kernel otherwise.  Returns
+    {kernel: {dtype: (worst error over its cases, tol)}}, and under
+    ``"smoke"`` the worst float32 error at ``SMOKE_K2_SHAPE``."""
     import torch
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.ops import kernel_for
     errs = {}
-    for dtype, tol, kernel in ((torch.float32, 1e-4, "flash_attention_cc"),
-                               (torch.bfloat16, 2e-2,
-                                "flash_attention_mma")):
-        worst = 0.0
-        for sq, causal, window, d in K2_CASES:
-            q, k, v = k2_inputs(sq, dtype, dev, d)
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        key = str(dtype).split(".")[-1]
+        for sq, causal, window, d, h in K2_CASES:
+            kernel = f"flash_attention_{kernel_for(dtype, d)}"
+            q, k, v = k2_inputs(sq, dtype, dev, d, h)
             before = launch_counts()
             out = flash_attention(q, k, v, causal=causal, window=window)
             ran = {n: c - before[n] for n, c in launch_counts().items()
@@ -317,13 +326,18 @@ def phase_k2(dev):
             torch.cuda.synchronize()
             err = max_err(out, ref)
             print(f"[K2] {dtype} Sq={sq} causal={causal} window={window} "
-                  f"D={d}: {kernel}, max_abs_err {err:.3e} (tol {tol})")
+                  f"D={d} H={h}: {kernel}, max_abs_err {err:.3e} "
+                  f"(tol {tol})")
             if ran != {kernel: 1}:
                 fail(f"K2 {dtype} D={d} launched {ran}, not {kernel}")
             if not err <= tol:
-                fail(f"K2 {dtype} Sq={sq} window={window} disagrees: {err}")
-            worst = max(worst, err)
-        errs[kernel] = {str(dtype).split(".")[-1]: (worst, tol)}
+                fail(f"K2 {dtype} Sq={sq} D={d} window={window} "
+                     f"disagrees: {err}")
+            worst = errs.setdefault(kernel, {}).get(key, (0.0, tol))[0]
+            errs[kernel][key] = (max(worst, err), tol)
+            if dtype == torch.float32 and (d, h) == SMOKE_K2_SHAPE:
+                worst = errs[kernel].get("smoke", (0.0, tol))[0]
+                errs[kernel]["smoke"] = (max(worst, err), tol)
     return errs
 
 
@@ -709,8 +723,7 @@ def phase_timings(dev):
     """Every attention kernel at the serves' shapes as device time per
     call (``time_ms_queued``), beside its plain version, SDPA where one
     call computes the same function, and the dequantize route of the
-    int8 kernels.  Only the wrappers' public calls are used, so
-    ``--timings-of`` can time an earlier tree's kernels the same way."""
+    int8 kernels."""
     import torch
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import (
@@ -1609,31 +1622,18 @@ def k10_timing(dev):
 
 
 def main() -> int:
-    import argparse
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--timings-of", metavar="SRC", type=Path, default=None,
-                    help="only phase 10, on the repro_torch package under "
-                    "SRC (e.g. an earlier tree unpacked under build/), "
-                    "printed as one JSON line; run it on two trees in "
-                    "turns to compare them on one card")
-    args = ap.parse_args()
     try:
         import torch
     except ImportError:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
-    src = (args.timings_of or SRC).resolve()
-    if not (src / "repro_torch" / "csrc").is_dir():
-        fail(f"the port's sources are not beside this script ({src})")
-    sys.path.insert(0, str(src))
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        fail(f"the port's sources are not beside this script ({SRC})")
+    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    if args.timings_of is not None:
-        print(gpu_line())
-        print(json.dumps({"src": str(src), "rows": phase_timings(dev)}))
-        return 0
     t_start = time.perf_counter()
 
     phase_build()
@@ -1724,8 +1724,13 @@ def main() -> int:
                  "decode_attention_q8_lengthaware",
                  "decode_attention_q8_masked"):
         r = rows[name]
-        # K2's two kernels each run one dtype: its error is max_abs_err
-        err, tol = errs[name].get("bfloat16", errs[name].get("float32"))
+        # max_abs_err is that of the dtype the main path launches: float32
+        # for K2's CUDA-core kernel (the SMOKE serve; its own shape's
+        # error stands beside, as max_abs_err_smoke_shape), bf16 for the
+        # rest; the other dtype's stands beside it
+        main_dtype = ("float32" if name == "flash_attention_cc"
+                      else "bfloat16")
+        err, tol = errs[name][main_dtype]
         entry = {
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{sources.get(name, name)}.cu",
@@ -1734,9 +1739,12 @@ def main() -> int:
             "ms": r["ms"], "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "bytes": r["bytes"]}
-        if "float32" in errs[name] and "bfloat16" in errs[name]:
-            entry["max_abs_err_f32"], entry["tol_f32"] = \
-                errs[name]["float32"]
+        for other, tag in (("float32", "f32"), ("bfloat16", "bf16")):
+            if other != main_dtype and other in errs[name]:
+                entry[f"max_abs_err_{tag}"], entry[f"tol_{tag}"] = \
+                    errs[name][other]
+        if "smoke" in errs[name]:
+            entry["max_abs_err_smoke_shape"] = errs[name]["smoke"][0]
         if "route_ms" in r:
             entry["route_ms"] = r["route_ms"]
         if "s1024" in r:

@@ -69,6 +69,8 @@
 
 #include <type_traits>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -397,9 +399,8 @@ using Kernel = void (*)(const T*, const KV*, const float*, const KV*,
                         const float*, const int32_t*, T*, float*, float*,
                         int*, int, int, int, int, int, int, float);
 
-// one launch; a kernel's shared-memory limit is raised only when a
-// launch needs more than the limit already set for it on this device
-// (at the serve's shapes it needs less than the default 48 KB: never)
+// one launch (at the serve's shapes it needs less shared memory than
+// the default 48 KB, so allow_smem never raises the limit)
 template <typename T, typename KV>
 cudaError_t launch(Kernel<T, KV> kernel, int* allowed, const void* q,
                    const void* k, const float* ks, const void* v,
@@ -407,17 +408,9 @@ cudaError_t launch(Kernel<T, KV> kernel, int* allowed, const void* q,
                    float* ws_ml, float* ws_acc, int* counters, int B, int H,
                    int Hkv, int S, int D, int qblock, int ch, float scale,
                    cudaStream_t stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
   const int smem = (int)smem_bytes<KV>(H / Hkv, D, ch);
-  if (smem > (allowed[dev] ? allowed[dev] : 48 * 1024)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    allowed[dev] = smem;
-  }
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
   dim3 grid(B * Hkv, (S + ch - 1) / ch);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), ks,

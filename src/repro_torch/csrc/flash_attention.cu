@@ -11,7 +11,7 @@
 // bf16 tensor-core peak; at Sq 512 the bytes over 3.35 TB/s bind, just.
 // Both are a few microseconds: in practice the heaviest CTA's walk is
 // the time, one key block after another, and what each block costs is
-// what python -m repro_torch.kernels.attention_breakdown reads.
+// what python -m repro_torch.kernels.breakdown --target k2 reads.
 //
 // flash_attention_mma_bf16_d{64,128} (bf16, the serves' dtype: every
 // prefill of a bf16 model at these head dims):
@@ -68,6 +68,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -78,23 +80,6 @@ __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void from_f32(bf16* p, float x) {
   *p = __float2bfloat16(x);
-}
-
-// Raise a kernel's dynamic shared-memory limit once per device: each
-// caller holds its own ready flags (one set per kernel).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool* ready) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    ready[dev] = true;
-  }
-  return cudaSuccess;
 }
 
 // ----------------------------------------------------------------------
@@ -499,12 +484,12 @@ bool tensor_map(CUtensorMap* map, const void* p, int d, int rows,
 }
 
 template <int D>
-cudaError_t launch_mma(MmaKernel kernel, bool* ready, const void* q,
+cudaError_t launch_mma(MmaKernel kernel, int* allowed, const void* q,
                        const void* k, const void* v, void* o, int B, int H,
                        int Hkv, int Sq, int Sk, int causal, int window,
                        float scale, cudaStream_t stream) {
   constexpr int smem = mma_smem_bytes<D>();
-  cudaError_t err = allow_smem(kernel, smem, ready);
+  cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   CUtensorMap qmap, kmap, vmap;
   if (!tensor_map(&qmap, q, D, Sq, B * H) ||
@@ -699,12 +684,12 @@ CC_KERNEL(flash_attention_cc_bf16_d256, 256, bf16)
 template <int D, typename T>
 cudaError_t launch_cc(void (*kernel)(const T*, const T*, const T*, T*, int,
                                      int, int, int, int, int, float),
-                      bool* ready, const void* q, const void* k,
+                      int* allowed, const void* q, const void* k,
                       const void* v, void* o, int B, int H, int Hkv, int Sq,
                       int Sk, int causal, int window, float scale,
                       cudaStream_t stream) {
   constexpr int smem = (int)smem_bytes<D>();
-  cudaError_t err = allow_smem(kernel, smem, ready);
+  cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
   dim3 grid(B * H, (Sq + BQ - 1) / BQ);
   kernel<<<grid, THREADS, smem, stream>>>(
@@ -730,8 +715,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define GO(kind, DD, T, name)                                              \
   {                                                                        \
-    static bool ready[64] = {};                                            \
-    return (int)launch_##kind<DD>(name, ready, q, k, v, out, B, H, Hkv,     \
+    static int allowed[64] = {};                                           \
+    return (int)launch_##kind<DD>(name, allowed, q, k, v, out, B, H, Hkv,   \
                                   Sq, Sk, causal, window, scale, s);        \
   }
   if (kernel == 1 && dtype == 1) {

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, loaded through ``ctypes``
 (no PyTorch headers, so a build takes seconds).  Libraries go to
 ``<repo>/build/torch_kernels/`` (override: ``REPRO_TORCH_BUILD_DIR``),
-named by a hash of the source and the flags, so a changed source
-rebuilds and an unchanged one loads what is there.  The flags never
+named by a hash of the source, the headers beside it (``*.cuh``) and
+the flags, so a changed source rebuilds and an unchanged one loads what
+is there.  The flags never
 include ``--use_fast_math``: the compute-path kernels (mixbench,
 fma_matmul) rely on the exact instruction each intrinsic names.  :func:`build_all`
 starts one ``nvcc`` per source, all together, and waits for them.
@@ -76,6 +77,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # what a source includes
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -413,16 +413,18 @@ def test_matmul_breakdown_cuts_match_the_source():
     """The card-side breakdown of K9's weight stream cuts parts out of
     ``csrc/fma_matmul.cu`` by text: each cut of either arm must still
     match exactly once, and each variant must apply cuts that exist."""
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.fma_matmul import breakdown
+    from repro_torch.kernels import _build, breakdown
     text = (_build.CSRC / "fma_matmul.cu").read_text()
-    assert {old: text.count(old) for old, _ in breakdown._CUTS.values()} \
-        == {old: 1 for old, _ in breakdown._CUTS.values()}
-    assert set(breakdown.VARIANTS) == {"mxu", "mul_add"}
-    assert all(c in breakdown._CUTS for arm in breakdown.VARIANTS.values()
-               for cuts in arm.values() for c in cuts)
-    assert {c for arm in breakdown.VARIANTS.values()
-            for cuts in arm.values() for c in cuts} == set(breakdown._CUTS)
+    cuts = breakdown.CUTS["fma_matmul"]
+    assert {old: text.count(old) for old, _ in cuts.values()} \
+        == {old: 1 for old, _ in cuts.values()}
+    arms = {target: variants for target, (source, variants)
+            in breakdown.TARGETS.items() if source == "fma_matmul"}
+    assert set(arms) == {"mxu", "mul_add"}
+    assert all(c in cuts for arm in arms.values()
+               for variant in arm.values() for c in variant)
+    assert {c for arm in arms.values()
+            for variant in arm.values() for c in variant} == set(cuts)
 
 
 @pytest.mark.parametrize("bad", ["m", "k", "n", "variant"])

@@ -24,7 +24,7 @@ from repro.kernels.flash_attention.ref import \
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_paged, decode_attention_paged_ref)
-from repro_torch.kernels import attention_breakdown  # noqa: E402
+from repro_torch.kernels import breakdown  # noqa: E402
 from repro_torch.kernels._sass import (SASS_KERNELS,  # noqa: E402
                                        check_counts, kernel_counts,
                                        parse_sass)
@@ -173,16 +173,18 @@ def test_sass_rules_cover_the_attention_kernels(edit, breach):
 
 
 @pytest.mark.parametrize("kernel,variant", [
-    (k, v) for k, (_, variants) in sorted(attention_breakdown.VARIANTS.items())
-    for v in variants])
+    (k, v) for k in ("k2", "k3") for v in breakdown.TARGETS[k][1]])
 def test_attention_breakdown_cuts_match_the_source(kernel, variant):
     """Every cut of the K2/K3 breakdown still finds its text exactly once
-    in the source, and changes it (``full`` leaves it as it is)."""
-    name, variants = attention_breakdown.VARIANTS[kernel]
+    in the source, and changes it (``full`` leaves it as it is); every
+    cut of the source's table is used by some variant."""
+    name, variants = breakdown.TARGETS[kernel]
     from repro_torch.kernels import _build
     text = (_build.CSRC / f"{name}.cu").read_text()
-    cut = attention_breakdown.source_with(name, variants[variant])
+    cut = breakdown.source_with(name, variants[variant])
     assert (cut == text) == (variant == "full")
+    assert {c for cuts in variants.values() for c in cuts} \
+        == set(breakdown.CUTS[name])
 
 
 # ----------------------------------------------------------------------
@@ -248,3 +250,27 @@ def test_flash_mma_kernel_on_card(sq, causal, window, d):
     assert after["flash_attention_mma"] - before["flash_attention_mma"] == 1
     assert after["flash_attention_cc"] == before["flash_attention_cc"]
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("h,sq,d", [(4, 8, 32), (4, 128, 32),
+                                    (12, 256, 256)])
+def test_flash_cc_kernel_on_card(h, sq, d, dtype, tol):
+    """The CUDA-core kernel at the head dims the tensor-core kernel
+    leaves to it, in both dtypes: D 32 at the float32 SMOKE serve's
+    shape (H 4, Hkv 2) and its smallest and largest prompt buckets, and
+    D 256; the counter shows that kernel ran, once."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in
+               _flash_inputs(h, 2, sq, d=d, seed=sq + d))
+    before = launch_counts()
+    out = flash_attention(q, k, v, causal=True)
+    after = launch_counts()
+    ref = attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert after["flash_attention_cc"] - before["flash_attention_cc"] == 1
+    assert after["flash_attention_mma"] == before["flash_attention_mma"]
+    assert (out.float() - ref.float()).abs().max().item() <= tol
