@@ -6,8 +6,14 @@ order (any failure raises and the script exits non-zero):
 
 1. build every kernel from ``src/repro_torch/csrc`` with ``nvcc``
    (one process per source, started together) and print the card;
-2. K1 (paged decode attention) against its plain version at the main
-   path's shapes, float32 (TF32 off, tol 1e-4) and bfloat16 (tol 2e-2);
+2. K1 (paged decode attention, one split-KV launch through the block
+   table) against its plain version at the main path's shapes (pages
+   of 16), and over pages of 8 and 32 and a lane of 1000 positions (so
+   chunks straddle pages and the last chunk is short), float32 (TF32
+   off, tol 1e-4) and bfloat16 (tol 2e-2): a dead lane gives exactly
+   0, table slots past the length (page ids far outside the pools) are
+   never read, a second call repeats the bits, and K1 equals K3 on the
+   gathered pools bit for bit;
 3. K2 (flash prefill) against its plain version at ``K2_CASES``: causal
    at Sq 64, 100, 512 and 1024, a sliding window, no mask, a window
    without causality, D 64 and 256, and the float32 SMOKE serve's own
@@ -25,8 +31,10 @@ order (any failure raises and the script exits non-zero):
    and K4 (paged int8 decode) against their plain versions at the same
    shapes, q in float32 and bfloat16, at the model's ``qblock=1``
    (per-token scales) and the reference kernels' own (32 dense, 16
-   paged); a dead lane gives exactly 0, K5 equals K6b and repeats its
-   bits, and at ``qblock=1`` each agrees with the reference model's
+   paged; K4 also over pages of 8 at qblock 1 and of 32 at qblock 16);
+   a dead lane gives exactly 0, K5 equals K6b and repeats its bits, K4
+   repeats its bits and equals K5 on the gathered pools at the same
+   qblock, and at ``qblock=1`` each agrees with the reference model's
    route (dequantize to float32, then K3 or K1);
 6. end to end at SMOKE width in float32: the same requests through
    ``ServeEngine()`` (fixed-lane) and ``ServeEngine(paged=True)``,
@@ -37,8 +45,8 @@ order (any failure raises and the script exits non-zero):
    prefill must run K2's CUDA-core kernel;
 7. end to end at full width, paged: qwen2.5-1.5b in bfloat16 with
    seeded random weights, 16 requests through ``ServeEngine(paged=
-   True)``; every request must finish its budget and K1 and K2's
-   tensor-core kernel must have launched;
+   True)``; every request must finish its budget, K2's tensor-core
+   kernel must have launched and K1 28 times per decode step;
 8. end to end at full width, fixed-lane (the engine's default): the
    same 16 requests through ``ServeEngine()``; every request must
    finish, K2's tensor-core kernel and K3 must have launched, K3 28
@@ -53,8 +61,9 @@ order (any failure raises and the script exits non-zero):
    launch cost stays out): each kernel, its plain version and
    ``F.scaled_dot_product_attention`` where one call computes the same
    function, beside the card's bound; K2 in bf16 at Sq 512 and 1024 and
-   in float32 at Sq 512; for the int8 kernels also the reference
-   model's route (dequantize to float32, then K3 or K1);
+   in float32 at Sq 512; for K1 also its pages gathered and then SDPA
+   (no single call reads a block table); for the int8 kernels also the
+   reference model's route (dequantize to float32, then K3 or K1);
 11. the paper's compute path, checked: K8 (mixbench) in float32 and
    bfloat16, both arms, at 1, 16 and 128 steps, in one grid-stride
    pass and in several, aligned and not (f32 mul_add and bf16
@@ -74,7 +83,8 @@ order (any failure raises and the script exits non-zero):
    FMUL and FADD present, none in the split-K reduce either (adds
    alone), FFMA/HFMA2 in K8's fma kernels, HMMA in K9's mxu kernels --
    the paper's ``-fmad=false``; HMMA in K2's bf16 kernels and no HMMA
-   or HGMMA in K2's CUDA-core kernels and the dense decode kernels;
+   or HGMMA in K2's CUDA-core kernels and the dense and paged decode
+   kernels;
 13. the compute path through its entry points, launch counts zeroed
    before and read after: the K8 intensity sweep (2^26 float32
    elements, 1 to 1024 steps, both arms: GFLOP/s and GB/s per point,
@@ -233,15 +243,16 @@ def phase_build():
     print(f"[build] card: {gpu_line()}")
 
 
-def k1_inputs(dtype, dev):
+def k1_inputs(dtype, dev, ps=16, t=64):
     """Main-path shapes: B=8 lanes, H=12, Hkv=2, D=128, ps=16, T=64
     (max_len 1024), shuffled disjoint tables, ragged lengths incl. a
-    dead lane and a full table."""
+    dead lane and a full table (clamped to T*ps)."""
     import numpy as np
     import torch
-    b, h, hkv, d, ps, t = 8, 12, 2, 128, 16, 64
+    b, h, hkv, d = 8, 12, 2, 128
     n_pages = b * t + 1
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(SEED if (ps, t) == (16, 64) else
+                                (SEED, ps, t))
     q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32))
     kp = torch.from_numpy(rng.standard_normal((n_pages, hkv, ps, d),
                                               np.float32))
@@ -249,29 +260,62 @@ def k1_inputs(dtype, dev):
                                               np.float32))
     bt = torch.from_numpy(rng.permutation(n_pages)[:b * t].reshape(b, t)
                           .astype(np.int32))
-    lens = torch.tensor([0, 1, 15, 16, 17, 300, 777, t * ps],
+    lens = torch.tensor([0, 1, 15, 16, 17, 300, 777, 1024],
                         dtype=torch.int32)
     return ([x.to(dev, dtype) for x in (q, kp, vp)]
             + [bt.to(dev), lens.to(dev)])
 
 
+#: (page size, pages a lane) of K1's and K4's checks: the serve's pages
+#: of 16, pages of 8 and 32, and a lane of 1000 positions (T*ps not a
+#: multiple of the chunk)
+PAGED_CASES = ((16, 64), (8, 128), (32, 32), (8, 125))
+
+
+def wild_table(bt, lens, ps):
+    """``bt`` with every slot past a lane's length set to a page id far
+    outside the pools: a kernel that read one would fault."""
+    wild = bt.clone()
+    for lane, n in enumerate(lens.tolist()):
+        wild[lane, -(-min(n, bt.shape[1] * ps) // ps):] = 1 << 30
+    return wild
+
+
 def phase_k1(dev):
+    """K1 against its plain version at PAGED_CASES, f32 (tol 1e-4) and
+    bf16 (tol 2e-2), through a table whose slots past each length point
+    far outside the pools; a dead lane gives 0, a second call repeats
+    the bits, and K1 gives the bits of K3 on the gathered pools."""
     import torch
     from repro_torch.kernels.decode_attention import (
-        decode_attention_paged, decode_attention_paged_ref)
+        decode_attention, decode_attention_paged, decode_attention_paged_ref,
+        gather_pages)
     errs = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        args = k1_inputs(dtype, dev)
-        out = decode_attention_paged(*args)
-        ref = decode_attention_paged_ref(*args)
-        torch.cuda.synchronize()
-        err = max_err(out, ref)
-        print(f"[K1] {dtype}: max_abs_err {err:.3e} (tol {tol})")
-        if not err <= tol:
-            fail(f"K1 {dtype} disagrees with its plain version: {err}")
-        if not bool(torch.all(out[0] == 0)):
-            fail("K1: dead lane did not give 0")
-        errs[str(dtype).split(".")[-1]] = (err, tol)
+        worst = 0.0
+        for ps, t in PAGED_CASES:
+            q, kp, vp, bt, lens = k1_inputs(dtype, dev, ps, t)
+            wild = wild_table(bt, lens, ps)
+            out = decode_attention_paged(q, kp, vp, wild, lens)
+            again = decode_attention_paged(q, kp, vp, wild, lens)
+            ref = decode_attention_paged_ref(q, kp, vp, bt, lens)
+            k3 = decode_attention(q, gather_pages(kp, bt),
+                                  gather_pages(vp, bt), lens)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            what = f"{dtype} ps={ps} T={t}"
+            print(f"[K1] {what}: max_abs_err {err:.3e} (tol {tol}), "
+                  f"bitwise K3 {torch.equal(out, k3)}")
+            if not err <= tol:
+                fail(f"K1 {what} disagrees with its plain version: {err}")
+            if not bool(torch.all(out[0] == 0)):
+                fail("K1: dead lane did not give 0")
+            if not torch.equal(out, again):
+                fail(f"K1 did not repeat its bits ({what})")
+            if not torch.equal(out, k3):
+                fail(f"K1 differs from K3 on the gathered pools ({what})")
+            worst = max(worst, err)
+        errs[str(dtype).split(".")[-1]] = (worst, tol)
     return errs
 
 
@@ -407,11 +451,11 @@ def q8_dense_inputs(dtype, dev, s, qblock):
     return [q, kq, ks, vq, vs, lens]
 
 
-def q8_paged_inputs(dtype, dev, qblock):
+def q8_paged_inputs(dtype, dev, qblock, ps=16, t=64):
     """``k1_inputs`` with the pools quantized to int8 with one f32 scale
     per ``qblock`` positions of a page."""
     from repro_torch.kernels.decode_attention import quantize_kv_q8
-    q, kp, vp, bt, lens = k1_inputs(dtype, dev)
+    q, kp, vp, bt, lens = k1_inputs(dtype, dev, ps, t)
     kq, ks = quantize_kv_q8(kp.float(), qblock)
     vq, vs = quantize_kv_q8(vp.float(), qblock)
     return [q, kq, ks, vq, vs, bt, lens]
@@ -437,11 +481,14 @@ def _route_paged(q, kq, ks, vq, vs, bt, lens, qblock):
 
 def phase_q8(dev):
     """K5/K6b (dense, S 1024 at qblock 1 and 32, S 1000 at qblock 1) and
-    K4 (paged, qblock 1 and 16) against their plain versions."""
+    K4 (paged: pages of 16 at qblock 1 and 16, of 8 at qblock 1, of 32
+    at qblock 16, through a table whose dead slots point outside the
+    pools) against their plain versions; K4 repeats its bits and gives
+    those of K5 on the gathered pools."""
     import torch
     from repro_torch.kernels.decode_attention import (
         decode_attention_paged_q8, decode_attention_paged_q8_ref,
-        decode_attention_q8, decode_attention_q8_ref)
+        decode_attention_q8, decode_attention_q8_ref, gather_pages)
     names = ("decode_attention_q8_lengthaware", "decode_attention_q8_masked",
              "decode_attention_paged_q8")
     errs = {name: {} for name in names}
@@ -482,15 +529,31 @@ def phase_q8(dev):
                       f"max_abs_err {err:.3e}, bitwise {torch.equal(la, route)}")
                 if not err <= tol:
                     fail(f"K5 disagrees with the reference's route: {err}")
-        for qblock in (1, 16):
-            args = q8_paged_inputs(dtype, dev, qblock)
-            out = decode_attention_paged_q8(*args, qblock=qblock)
+        for ps, t, qblock in ((16, 64, 1), (16, 64, 16), (8, 128, 1),
+                              (32, 32, 16)):
+            args = q8_paged_inputs(dtype, dev, qblock, ps, t)
+            q, kq, ks, vq, vs, bt, lens = args
+            wild = wild_table(bt, lens, ps)
+            out = decode_attention_paged_q8(q, kq, ks, vq, vs, wild, lens,
+                                            qblock=qblock)
+            again = decode_attention_paged_q8(q, kq, ks, vq, vs, wild,
+                                              lens, qblock=qblock)
             ref = decode_attention_paged_q8_ref(*args, qblock=qblock)
+            k5 = decode_attention_q8(
+                q, gather_pages(kq, bt), gather_pages(ks, bt),
+                gather_pages(vq, bt), gather_pages(vs, bt), lens,
+                qblock=qblock)
             torch.cuda.synchronize()
-            what = f"{dtype} qblock={qblock}"
+            what = f"{dtype} ps={ps} qblock={qblock}"
             worst[names[2]] = max(worst[names[2]],
                                   check(names[2], out, ref, tol, what))
-            if qblock == 1:
+            print(f"[K4/K5/K6b] K4 vs K5 on the gathered pools {what}: "
+                  f"bitwise {torch.equal(out, k5)}")
+            if not torch.equal(out, again):
+                fail(f"K4 did not repeat its bits ({what})")
+            if not torch.equal(out, k5):
+                fail(f"K4 differs from K5 on the gathered pools ({what})")
+            if qblock == 1 and ps == 16:
                 route = _route_paged(*args, qblock)
                 torch.cuda.synchronize()
                 err = max_err(out, route)
@@ -644,6 +707,11 @@ def phase_full_paged(dev, cfg, params):
                                  ("decode_attention_paged",
                                   "flash_attention_mma"),
                                  paged=True, page_size=16, n_pages=256)
+    per_step = counts["decode_attention_paged"] / summary["decode_steps"]
+    print(f"[full e2e paged] K1 launches per decode step: {per_step}")
+    if per_step != cfg.n_layers:
+        fail(f"K1 launched {per_step} times per decode step, not "
+             f"{cfg.n_layers}")
     # outputs: finite last-position logits with the padded vocab masked
     import torch
     from repro_torch.models.transformer import lm_prefill_batched
@@ -722,14 +790,15 @@ def _k2_row(q, k, v, bytes_per_elem):
 def phase_timings(dev):
     """Every attention kernel at the serves' shapes as device time per
     call (``time_ms_queued``), beside its plain version, SDPA where one
-    call computes the same function, and the dequantize route of the
-    int8 kernels."""
+    call computes the same function, K1's pages gathered and then SDPA,
+    and the dequantize route of the int8 kernels."""
     import torch
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_paged, decode_attention_paged_q8,
         decode_attention_paged_q8_ref, decode_attention_paged_ref,
-        decode_attention_q8, decode_attention_q8_ref, decode_attention_ref)
+        decode_attention_q8, decode_attention_q8_ref, decode_attention_ref,
+        gather_pages)
     rows = {}
     # K1: bf16, main-path shapes
     q, kp, vp, bt, lens = k1_inputs(torch.bfloat16, dev)
@@ -741,13 +810,25 @@ def phase_timings(dev):
     k1_bytes = (2 * n_live * hkv * d * 2 + 2 * q.numel() * 2
                 + 4 * pages_live + 4 * lens.numel())
     k1_flops = 4 * n_live * h * d
+    # the closest library yardstick: no single call reads a block table,
+    # so gather the live lanes' pages, then SDPA with the length mask
+    alive = lens >= 1
+    mask = (torch.arange(t * ps, device=dev)[None, :] < lens[:, None])[alive]
+    mask = mask[:, None, None, :].contiguous()
+    ql = q[alive][:, :, None].contiguous()
+
+    def gather_sdpa():
+        return F.scaled_dot_product_attention(
+            ql, gather_pages(kp, bt)[alive], gather_pages(vp, bt)[alive],
+            attn_mask=mask, enable_gqa=True)
     rows["decode_attention_paged"] = dict(
         ms=time_ms_queued(lambda: decode_attention_paged(q, kp, vp, bt,
                                                          lens)),
         host_ms=host_ms(lambda: decode_attention_paged(q, kp, vp, bt, lens)),
         plain_ms=time_ms_queued(lambda: decode_attention_paged_ref(
             q, kp, vp, bt, lens)),
-        library_ms=None, bytes=k1_bytes, flops=k1_flops)
+        library_ms=None, gather_sdpa_ms=time_ms_queued(gather_sdpa),
+        bytes=k1_bytes, flops=k1_flops)
     # K2: B=1, H 12, Hkv 2, D 128, causal; bf16 (the serves' dtype: the
     # tensor-core kernel) at Sq 512 and the serve's largest bucket, 1024;
     # float32 (the CUDA-core kernel) at Sq 512 beside f32 SDPA
@@ -837,6 +918,9 @@ def phase_timings(dev):
             lib = rr["library_ms"]
             route = (f", dequantize + fp kernel {rr['route_ms']:.4f} ms"
                      if "route_ms" in rr else "")
+            if "gather_sdpa_ms" in rr:
+                route += (f", gather pages + SDPA "
+                          f"{rr['gather_sdpa_ms']:.4f} ms")
             print(f"[time] {name}{tag}: kernel {rr['ms']:.4f} ms (host "
                   f"{rr['host_ms']:.4f} ms a call), plain "
                   f"{rr['plain_ms']:.4f} ms, library "
@@ -1745,8 +1829,9 @@ def main() -> int:
                     errs[name][other]
         if "smoke" in errs[name]:
             entry["max_abs_err_smoke_shape"] = errs[name]["smoke"][0]
-        if "route_ms" in r:
-            entry["route_ms"] = r["route_ms"]
+        for extra in ("route_ms", "gather_sdpa_ms"):
+            if extra in r:
+                entry[extra] = r[extra]
         if "s1024" in r:
             entry["s1024"] = {key: r["s1024"][key] for key in (
                 "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",

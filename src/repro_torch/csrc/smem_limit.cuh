@@ -1,5 +1,6 @@
 // Raising a kernel's dynamic shared-memory limit, for the attention
-// sources (flash_attention.cu, decode_attention_dense.cu).
+// sources (flash_attention.cu, and the decode sources through
+// decode_split.cuh).
 #pragma once
 
 #include <cuda_runtime.h>

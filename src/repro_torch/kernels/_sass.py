@@ -2,8 +2,8 @@
 checked on the instructions.
 
 ``cuobjdump -sass`` of the built mixbench (K8), fma_matmul (K9),
-flash_attention (K2) and decode_attention_dense (K3/K5/K6a/K6b)
-libraries is read kernel by kernel and the floating-point instructions
+flash_attention (K2), decode_attention_dense (K3/K5/K6a/K6b) and
+decode_attention_paged (K1/K4) libraries is read kernel by kernel and the floating-point instructions
 counted by class.  :func:`sass_report` applies the rules: no FFMA,
 HFMA2 or HMMA in a ``mul_add`` kernel (K8's, and K9's weight stream and
 staged kernel) and its multiplies and adds present; the same in K9's
@@ -11,8 +11,8 @@ split-K reduce, which the ``mul_add`` stream launches too and which has
 adds alone; FFMA (HFMA2) in K8's ``fma`` kernels; HMMA in every one of
 K9's ``mxu`` kernels (the weight stream's ``mma.sync`` and the WMMA
 kernel's) and in K2's bf16 tensor-core kernels; no HMMA and no HGMMA in
-K2's CUDA-core kernels and in the dense decode kernels, whose f32
-arithmetic stays off the tensor cores.  ``chip_smoke.py`` and the
+K2's CUDA-core kernels and in the dense and paged decode kernels
+(one split-KV body), whose f32 arithmetic stays off the tensor cores.  ``chip_smoke.py`` and the
 cuda-marked test both call it.  Nothing runs at import.
 """
 
@@ -47,10 +47,12 @@ SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
                 "decode_dense_f32", "decode_dense_bf16",
                 "decode_dense_masked_f32", "decode_dense_masked_bf16",
                 "decode_dense_q8_f32", "decode_dense_q8_bf16",
-                "decode_dense_q8_masked_f32", "decode_dense_q8_masked_bf16")
+                "decode_dense_q8_masked_f32", "decode_dense_q8_masked_bf16",
+                "decode_paged_f32", "decode_paged_bf16",
+                "decode_paged_q8_f32", "decode_paged_q8_bf16")
 #: the libraries whose kernels SASS_KERNELS names
 SASS_LIBS = ("mixbench", "fma_matmul", "flash_attention",
-             "decode_attention_dense")
+             "decode_attention_dense", "decode_attention_paged")
 
 
 def cuobjdump() -> str:
@@ -127,7 +129,8 @@ def check_counts(found: Dict[str, dict]) -> List[str]:
         elif kern == "fma_matmul_splitk_reduce":
             if c.get("fma", 0) or c.get("hmma", 0) or not c.get("add", 0):
                 problems.append(f"{kern} is not plain adds: {c}")
-        elif kern.startswith(("flash_attention_cc", "decode_dense")):
+        elif kern.startswith(("flash_attention_cc", "decode_dense",
+                              "decode_paged")):
             if c.get("hmma", 0) or c.get("hgmma", 0):
                 problems.append(f"{kern} runs on the tensor cores: {c}")
         elif kern.startswith("flash_attention_mma") and not c.get("hmma", 0):

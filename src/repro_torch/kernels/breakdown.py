@@ -47,6 +47,19 @@ over an int8 cache at ``qblock`` 1:
   landed in shared memory); ``no merge`` (the last CTA of a head returns
   instead of merging).
 
+K1 and K4 (``csrc/decode_attention_paged.cu``, the same split body,
+``csrc/decode_split.cuh``, read through the block table; the paged
+serve's B 8, H 12, Hkv 2, D 128, pages of 16, T 64, bf16 q, the same
+lengths): K1 over bf16 pools beside its pages gathered and then SDPA
+(no single call reads a block table), K4 over int8 pools at ``qblock``
+1:
+
+* ``k1``: the cuts of ``k3``, in the shared body.
+
+A cut in a header applies to the copy of the source that includes it:
+each copy is the source with the ``csrc`` headers it includes written
+in (:func:`source_text`).
+
 ``--before TREE`` also times the package under ``TREE`` (the ``src`` of
 an earlier tree, e.g. unpacked with ``git archive`` under the
 git-ignored ``build/``) as it is, as ``before``, on the same inputs, in
@@ -71,7 +84,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-#: source -> cut -> (text of ``csrc/<source>.cu``, its replacement)
+#: the split-KV body's cuts (``csrc/decode_split.cuh``), for K3 and K1
+_SPLIT_CUTS = {
+    "empty": ("  __shared__ bool last;\n",
+              "  __shared__ bool last;\n  if (S > 0) return;\n"),
+    "loads": ("    // scores: key j's 4 threads",
+              "    if (S > 0) return;\n    // scores: key j's 4 threads"),
+    "merge": ("  if (!last) return;\n  __threadfence();", "  return;"),
+}
+#: source -> cut -> (text of ``csrc/<source>.cu`` with its headers, its
+#: replacement)
 CUTS = {
     "fma_matmul": {
         "products": ("for (int kk = 0; kk < kBK; kk += Stream<T>::kMmaK) {",
@@ -107,14 +129,11 @@ CUTS = {
                     "      o[i][2] *= alpha[1]; o[i][3] *= alpha[1];\n",
                     ""),
     },
-    "decode_attention_dense": {
-        "empty": ("  __shared__ bool last;\n",
-                  "  __shared__ bool last;\n  if (S > 0) return;\n"),
-        "loads": ("    // scores: key j's 4 threads",
-                  "    if (S > 0) return;\n    // scores: key j's 4 threads"),
-        "merge": ("  if (!last) return;\n  __threadfence();", "  return;"),
-    },
+    "decode_attention_dense": _SPLIT_CUTS,
+    "decode_attention_paged": _SPLIT_CUTS,
 }
+_SPLIT_VARIANTS = {"full": (), "empty": ("empty",),
+                   "loads only": ("loads",), "no merge": ("merge",)}
 #: target -> (source, {variant: the cuts it applies})
 TARGETS = {
     "mxu": ("fma_matmul",
@@ -129,9 +148,8 @@ TARGETS = {
            {"full": (), "empty": ("empty",), "no products": ("qk", "pv"),
             "no exp": ("exp",), "no exp, no rescale": ("exp", "rescale"),
             "softmax only": ("qk", "pv", "exp", "rescale")}),
-    "k3": ("decode_attention_dense",
-           {"full": (), "empty": ("empty",), "loads only": ("loads",),
-            "no merge": ("merge",)}),
+    "k3": ("decode_attention_dense", _SPLIT_VARIANTS),
+    "k1": ("decode_attention_paged", _SPLIT_VARIANTS),
 }
 MLP_SHAPES = ((128, 1536, 8960), (128, 8960, 1536))
 #: ``fma_matmul_fwd``'s argument types
@@ -140,10 +158,28 @@ _K9_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _OWN = {}
 
 
+def source_text(source: str) -> str:
+    """The text of ``csrc/<source>.cu`` with each ``csrc`` header it
+    includes (``#include "<name>.cuh"``) written in where it is first
+    included, once, without its ``#pragma once``."""
+    seen = set()
+
+    def expand(text):
+        def header(m):
+            if m.group(1) in seen:
+                return ""
+            seen.add(m.group(1))
+            body = (_build.CSRC / m.group(1)).read_text()
+            return expand(body.replace("#pragma once\n", ""))
+        return re.sub(r'^#include "(\w+\.cuh)"$', header, text,
+                      flags=re.M)
+    return expand((_build.CSRC / f"{source}.cu").read_text())
+
+
 def source_with(source: str, cuts) -> str:
-    """The text of ``csrc/<source>.cu`` with ``cuts`` applied; each cut
-    must match the source exactly once."""
-    text = (_build.CSRC / f"{source}.cu").read_text()
+    """:func:`source_text` of ``source`` with ``cuts`` applied; each cut
+    must match it exactly once."""
+    text = source_text(source)
     for cut in cuts:
         old, new = CUTS[source][cut]
         if text.count(old) != 1:
@@ -342,12 +378,54 @@ def _k3_rows(dev, libs):
     return rows
 
 
+def _k1_rows(dev, libs):
+    from torch.nn import functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_paged, decode_attention_paged_q8, gather_pages)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, h, hkv, d, ps, t = 8, 12, 2, 128, 16, 64
+    n_pages = b * t + 1
+    q = torch.randn(b, h, d, device=dev, generator=gen, dtype=torch.bfloat16)
+    kp, vp = (torch.randn(n_pages, hkv, ps, d, device=dev, generator=gen,
+                          dtype=torch.bfloat16) for _ in range(2))
+    kq, vq = (torch.randint(-127, 128, (n_pages, hkv, ps, d), device=dev,
+                            generator=gen, dtype=torch.int8)
+              for _ in range(2))
+    ks, vs = (torch.rand(n_pages, hkv, ps, 1, device=dev, generator=gen) / 64
+              for _ in range(2))
+    bt = torch.randperm(n_pages, device=dev, generator=gen)[:b * t]
+    bt = bt.reshape(b, t).to(torch.int32)
+    lens = torch.tensor([0, 1, 15, 16, 17, 300, 777, 1024],
+                        dtype=torch.int32, device=dev)
+    calls = {
+        "K1": lambda: decode_attention_paged(q, kp, vp, bt, lens),
+        "K4": lambda: decode_attention_paged_q8(q, kq, ks, vq, vs, bt, lens,
+                                                qblock=1)}
+    rows = {case: {} for case in calls}
+    for name, lib in libs.items():
+        _use("decode_attention_paged", lib)
+        for case, call in calls.items():
+            rows[case][name] = queued_ms(call)
+    live = lens >= 1                        # SDPA: no dead lane
+    mask = (torch.arange(t * ps, device=dev)[None, :] < lens[:, None])[live]
+    mask = mask[:, None, None, :].contiguous()
+    ql = q[live][:, :, None].contiguous()
+
+    def gather_sdpa():
+        return F.scaled_dot_product_attention(
+            ql, gather_pages(kp, bt)[live], gather_pages(vp, bt)[live],
+            attn_mask=mask, enable_gqa=True)
+    rows["K1"]["gather+sdpa"] = queued_ms(gather_sdpa)
+    return rows
+
+
 def rows_of(target: str, dev, libs) -> dict:
     """{case: {variant or yardstick: ms}} of ``target``; ``libs`` maps
     each variant to its library, None for the library as built."""
     if target in ("mxu", "mul_add"):
         return _k9_rows(target, dev, libs)
-    return (_k2_rows if target == "k2" else _k3_rows)(dev, libs)
+    return {"k1": _k1_rows, "k2": _k2_rows, "k3": _k3_rows}[target](dev,
+                                                                   libs)
 
 
 def before_rows(target: str, tree: Path) -> dict:

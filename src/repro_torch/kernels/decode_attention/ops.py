@@ -5,13 +5,15 @@ pools) and dense length-aware (K3; K5 over an int8 cache) / masked
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches ``csrc/decode_attention_paged.cu`` or
 ``csrc/decode_attention_dense.cu`` or raises -- there is no fallback on
-the card.  Each source holds one template per layout, instantiated for
-a cache in q's dtype and for an int8 cache with f32 scales along the
-key axis (``qblock`` keys per scale).  The dense kernels split the
-cache into chunks of positions (:func:`split_plan`), one CTA each, and
-merge the chunks' partials in the same launch; the wrapper gives them a
-workspace (``torch.empty`` per call) and per-head counters (zeroed
-once, cached per device and stream, left at 0 by every launch).
+the card.  Both sources instantiate one split-KV body
+(``csrc/decode_split.cuh``) for a cache in q's dtype and for an int8
+cache with f32 scales along the key axis (``qblock`` keys per scale);
+they differ only in where a lane's row ``pos`` lives (a dense row, or
+row ``pos % ps`` of page ``block_tables[b, pos // ps]``).  The kernels
+cut a lane's positions into chunks (:func:`split_plan`), one CTA each,
+and merge the chunks' partials in the same launch; the wrapper gives
+them a workspace (``torch.empty`` per call) and per-head counters
+(zeroed once, cached per device and stream, left at 0 by every launch).
 """
 
 from __future__ import annotations
@@ -37,16 +39,13 @@ COUNTER_MASKED = LaunchCounter("decode_attention_masked")
 COUNTER_PAGED_Q8 = LaunchCounter("decode_attention_paged_q8")
 COUNTER_Q8_LENGTHAWARE = LaunchCounter("decode_attention_q8_lengthaware")
 COUNTER_Q8_MASKED = LaunchCounter("decode_attention_q8_masked")
-#: dynamic shared memory one block may use on Hopper (227 KB)
-MAX_SMEM_BYTES = 232448
-_WARPS = 8                         # csrc: NW
 _MAX_GROUP = 64                    # csrc: MAX_GROUP
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: SMs of an H100 SXM: the dense split aims to give each at least one CTA
+#: SMs of an H100 SXM: the split aims to give each at least one CTA
 SMS = 132
-#: chunk lengths the dense kernels take (csrc: ch)
+#: chunk lengths the kernels take (csrc: ch)
 CHUNKS = (32, 64)
-_PAGED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+_PAGED_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _DENSE_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -55,17 +54,13 @@ _DENSE_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
 _COUNTERS = {}
 
 
-def _smem_bytes(group: int, d: int) -> int:
-    """Mirror of ``smem_bytes`` in ``decode_attention_paged.cu``."""
-    return 4 * (group * d + _WARPS * group * d + 2 * _WARPS * group)
-
-
 def split_plan(s: int, b: int, hkv: int) -> tuple:
-    """(CH, n_chunks) of the dense kernels' grid (B * Hkv, n_chunks): a
+    """(CH, n_chunks) of the split kernels' grid (B * Hkv, n_chunks): a
     CTA per chunk of CH consecutive positions, chunk c holding positions
-    [c CH, min((c + 1) CH, S)).  A function of the shapes alone, so the
-    launch needs no length from the device: CH is 64 where that still
-    gives every SM a CTA, else 32 (short caches, few lanes)."""
+    [c CH, min((c + 1) CH, S)); S is a lane's positions (paged: T ps).
+    A function of the shapes alone, so the launch needs no length from
+    the device: CH is 64 where that still gives every SM a CTA, else 32
+    (short caches, few lanes)."""
     if s < 1 or b < 1 or hkv < 1:
         raise ValueError(f"need S, B, Hkv >= 1 (got {s}, {b}, {hkv})")
     ch = CHUNKS[1] if b * hkv * -(-s // CHUNKS[1]) >= SMS else CHUNKS[0]
@@ -124,9 +119,6 @@ def _check(q, k, v, ints, layout: str, kv_dtype=None):
     for name, t in (("q", q),) + named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if _smem_bytes(h // hkv, d) > MAX_SMEM_BYTES:
-        raise ValueError(f"query group {h // hkv} x D {d} exceeds the "
-                         "kernel's shared memory")
 
 
 def _check_q8(q, k_q, k_scale, v_q, v_scale, ints, layout: str,
@@ -156,25 +148,52 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _launch_paged(name, q, kp, ksp, vp, vsp, bt, lens, scale, qblock):
-    """One launch of ``paged_decode_kernel``; ``ksp is None`` selects the
-    instantiation over pools in q's dtype (K1), else int8 (K4)."""
-    if bt.dim() != 2 or lens.dim() != 1:
-        raise ValueError("want block_tables (B,T) and kv_lengths (B,)")
+def _split_launch(name, source, symbol, argtypes, q, k, v, s, args):
+    """One launch of a split kernel over S = ``s`` positions a lane:
+    refuses what it cannot read (D % 16, pools or caches off a 16-byte
+    boundary), plans the chunks, allocates the output and the workspace,
+    and calls ``symbol`` of ``source`` with ``args(out, ws_ml, ws_acc,
+    counters, ch)`` and the stream."""
     b, h, d = q.shape
-    p, hkv, ps, _ = kp.shape
+    hkv = k.shape[1]
+    if d % 16:
+        raise ValueError(f"head dim {d}: the split kernels copy rows in "
+                         "16-byte pieces and need D % 16 == 0")
+    for nm, t in (("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{nm} must start on a 16-byte boundary")
+    ch, n_chunks = split_plan(s, b, hkv)
     out = torch.empty_like(q)
-    fn = bind("decode_attention_paged", "decode_attention_paged_fwd",
-              _PAGED_ARGS)
+    slots = b * hkv * n_chunks * (h // hkv)
+    ws = torch.empty(slots * (d + 2), dtype=torch.float32, device=q.device)
+    fn = bind(source, symbol, argtypes)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), kp.data_ptr(), _ptr(ksp), vp.data_ptr(),
-                _ptr(vsp), bt.data_ptr(), lens.data_ptr(), out.data_ptr(),
-                b, h, hkv, p, ps, d, bt.shape[1], qblock, scale,
-                int(ksp is not None), _DTYPE_CODE[q.dtype], stream)
+        counters = _counters(q.device, stream, b * hkv)
+        rc = fn(*args(out, ws.data_ptr() + 4 * slots * d, ws.data_ptr(),
+                      counters.data_ptr(), ch), stream)
     if rc != 0:
         raise KernelLaunchError(f"{name}: CUDA error {rc}")
     return out
+
+
+def _launch_paged(name, q, kp, ksp, vp, vsp, bt, lens, scale, qblock):
+    """One launch of the paged split kernel; ``ksp is None`` selects the
+    instantiation over pools in q's dtype (K1), else int8 (K4)."""
+    if bt.dim() != 2 or bt.shape[1] < 1 or lens.dim() != 1:
+        raise ValueError("want block_tables (B,T) with T >= 1 and "
+                         "kv_lengths (B,)")
+    b, h, d = q.shape
+    hkv, ps = kp.shape[1], kp.shape[2]
+    t = bt.shape[1]
+    return _split_launch(
+        name, "decode_attention_paged", "decode_attention_paged_fwd",
+        _PAGED_ARGS, q, kp, vp, t * ps,
+        lambda out, ws_ml, ws_acc, counters, ch: (
+            q.data_ptr(), kp.data_ptr(), _ptr(ksp), vp.data_ptr(), _ptr(vsp),
+            bt.data_ptr(), lens.data_ptr(), out.data_ptr(), ws_ml, ws_acc,
+            counters, b, h, hkv, ps, d, t, qblock, ch, scale,
+            int(ksp is not None), _DTYPE_CODE[q.dtype]))
 
 
 def _launch_dense(name, q, k, ks, v, vs, lens, scale, qblock, length_aware):
@@ -186,31 +205,14 @@ def _launch_dense(name, q, k, ks, v, vs, lens, scale, qblock, length_aware):
                          "kv_lengths (B,)")
     b, h, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    if d % 16:
-        raise ValueError(f"head dim {d}: the dense kernels copy rows in "
-                         "16-byte pieces and need D % 16 == 0")
-    for nm, t in (("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{nm} must start on a 16-byte boundary")
-    ch, n_chunks = split_plan(s, b, hkv)
-    out = torch.empty_like(q)
-    slots = b * hkv * n_chunks * (h // hkv)
-    ws = torch.empty(slots * (d + 2), dtype=torch.float32, device=q.device)
-    fn = bind("decode_attention_dense", "decode_attention_dense_fwd",
-              _DENSE_ARGS)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        counters = _counters(q.device, stream, b * hkv)
-        rc = fn(q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(),
-                _ptr(vs), lens.data_ptr(), out.data_ptr(),
-                ws.data_ptr() + 4 * slots * d, ws.data_ptr(),
-                counters.data_ptr(), b, h, hkv, s, d, qblock, ch, scale,
-                0 if length_aware else 1, int(ks is not None),
-                _DTYPE_CODE[q.dtype], stream)
-    if rc != 0:
-        raise KernelLaunchError(f"{name} (length_aware={length_aware}): "
-                                f"CUDA error {rc}")
-    return out
+    return _split_launch(
+        f"{name} (length_aware={length_aware})", "decode_attention_dense",
+        "decode_attention_dense_fwd", _DENSE_ARGS, q, k, v, s,
+        lambda out, ws_ml, ws_acc, counters, ch: (
+            q.data_ptr(), k.data_ptr(), _ptr(ks), v.data_ptr(), _ptr(vs),
+            lens.data_ptr(), out.data_ptr(), ws_ml, ws_acc, counters, b, h,
+            hkv, s, d, qblock, ch, scale, 0 if length_aware else 1,
+            int(ks is not None), _DTYPE_CODE[q.dtype]))
 
 
 def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_lengths,
@@ -220,7 +222,10 @@ def decode_attention_paged(q, k_pages, v_pages, block_tables, kv_lengths,
     q: (B, H, D); k_pages/v_pages: (P, Hkv, ps, D); block_tables: (B, T)
     int32 physical page ids in logical order; kv_lengths: (B,) int32.
     Returns (B, H, D) in q's dtype.  Positions at or past a lane's
-    length (clamped to T*ps) are never read; a lane of length 0 gives 0.
+    length (clamped to T*ps), and their table slots, are never read; a
+    lane of length 0 gives 0.  The kernel cuts the lane's T*ps positions
+    into chunks (:func:`split_plan`) whatever the page size; D must be a
+    multiple of 16.
     """
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
     if _on_cpu(q):

@@ -7,7 +7,9 @@ against the reference's jnp oracles and its Pallas kernels
 ``decode_attention_paged_q8_pallas``) in interpret mode, on the same
 numpy inputs, at the model's ``qblock=1`` and at the kernels' own (32
 dense, 16 for 16-token pages), with tolerance 1e-5 (float32, sums in
-another order).  Quantization is held bitwise: int8 values and f32
+another order); K4's chunked plain version (the split kernel's
+algorithm, ``decode_attention_paged_q8_split_ref``) the same way, over
+pages of 8, 16 and 32.  Quantization is held bitwise: int8 values and f32
 scales equal the reference's on the same input.  The CUDA kernels are
 held against the plain versions by the ``cuda`` tests, which skip where
 there is no card.
@@ -44,8 +46,10 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import launch_counts  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_paged, decode_attention_paged_q8,
-    decode_attention_paged_q8_ref, decode_attention_q8,
-    decode_attention_q8_ref, dequant_kv_q8, quantize_kv_q8)
+    decode_attention_paged_q8_ref, decode_attention_paged_q8_split_ref,
+    decode_attention_q8, decode_attention_q8_ref, dequant_kv_q8,
+    gather_pages, quantize_kv_q8, split_plan)
+from repro_torch.kernels.decode_attention.ops import CHUNKS  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     attention_decode, attention_decode_paged, quantize_kv_token)
 
@@ -173,6 +177,58 @@ def test_paged_q8_plain_matches_pallas(h, hkv, qblock):
     assert np.max(np.abs(out - ref)) < TOL
     assert np.max(np.abs(out - pallas)) < TOL
     assert np.all(out[0] == 0.0)
+
+
+#: pages per lane for each page size: T*ps (104, 112, 160) is not a
+#: multiple of the 64-position chunk
+SPLIT_T = {8: 13, 16: 7, 32: 5}
+
+
+def _split_paged_inputs(h, hkv, ps, qblock, d=32, seed=1):
+    """int8 pools with a scratch page 0 (values 127, scales 1) that the
+    table slots past each lane's length point at; lengths: a dead lane,
+    inside the first page, three past a page edge, across a 32-position
+    chunk edge, one short of full, past T*ps (clamped)."""
+    rng = np.random.default_rng(seed)
+    t = SPLIT_T[ps]
+    b = 6
+    n_pages = b * t + 1
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp, ksp = _q8_cache(rng, (n_pages, hkv, ps, d), qblock)
+    vp, vsp = _q8_cache(rng, (n_pages, hkv, ps, d), qblock)
+    for a in (kp, vp):
+        a[0] = 127
+    for a in (ksp, vsp):
+        a[0] = 1.0
+    bt = (1 + rng.permutation(n_pages - 1)).reshape(b, t).astype(np.int32)
+    lens = np.array([0, 5, ps + 3, 40, t * ps - 1, t * ps + 7], np.int32)
+    for lane, n in enumerate(lens):
+        bt[lane, -(-min(int(n), t * ps) // ps):] = 0
+    return q, kp, ksp, vp, vsp, bt, lens
+
+
+@pytest.mark.parametrize("ps,qblock", [(8, 1), (16, 1), (16, 16),
+                                       (32, 16)])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2), (12, 2)])
+def test_paged_q8_split_plain_matches_pallas(h, hkv, ps, qblock):
+    """K4 as the split kernel computes it (chunks of 32 and of 64 over
+    the lane's T*ps positions, each element times its scale in f32)
+    against the reference's interpret-mode Pallas kernel and its jnp
+    oracle, at the model's qblock 1 and the reference kernel's 16; the
+    dead lane gives exactly 0."""
+    args = _split_paged_inputs(h, hkv, ps, qblock)
+    jargs = [jnp.asarray(a) for a in args]
+    pallas = np.asarray(decode_attention_paged_q8_pallas(
+        *jargs, qblock=qblock, interpret=True))
+    ref = np.asarray(jax_paged_q8_ref(*jargs, qblock=qblock))
+    targs = [torch.from_numpy(a) for a in args]
+    assert SPLIT_T[ps] * ps % CHUNKS[1]
+    for ch in CHUNKS:
+        out = decode_attention_paged_q8_split_ref(*targs, ch=ch,
+                                                  qblock=qblock)
+        assert np.max(np.abs(out.numpy() - ref)) < TOL
+        assert np.max(np.abs(out.numpy() - pallas)) < TOL
+        assert torch.all(out[0] == 0.0)
 
 
 def test_qblock1_is_the_models_route():
@@ -352,7 +408,49 @@ def test_paged_q8_kernel_on_card(dtype, tol, qblock):
                                    n_pages=5 * 64 + 1)]
     args[0] = args[0].to(getattr(torch, dtype))
     out = decode_attention_paged_q8(*args, qblock=qblock)
+    again = decode_attention_paged_q8(*args, qblock=qblock)
     ref = decode_attention_paged_q8_ref(*args, qblock=qblock)
+    q, kp, ksp, vp, vsp, bt, lens = args
+    k5 = decode_attention_q8(q, gather_pages(kp, bt), gather_pages(ksp, bt),
+                             gather_pages(vp, bt), gather_pages(vsp, bt),
+                             lens, qblock=qblock)
     torch.cuda.synchronize()
     assert (out.float() - ref.float()).abs().max().item() <= tol
     assert torch.all(out[0] == 0)
+    assert torch.equal(out, again)          # repeats bit for bit
+    assert torch.equal(out, k5)             # K5 on the gathered pools
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps,qblock", [(8, 1), (16, 1), (16, 16),
+                                       (32, 16)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+def test_paged_q8_split_kernel_on_card(dtype, tol, ps, qblock):
+    """K4 at the serve's widths (H 12, Hkv 2, D 128) over pages of 8, 16
+    and 32: within ``tol`` of its chunked plain version, the bits of K5
+    at the same qblock on the gathered pools and of its own second
+    call, 0 on the dead lane, and table slots past the length -- page
+    ids far outside the pools -- never read."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    q, kp, ksp, vp, vsp, bt, lens = (
+        torch.from_numpy(a).cuda()
+        for a in _split_paged_inputs(12, 2, ps, qblock, d=128))
+    q = q.to(getattr(torch, dtype))
+    wild = bt.clone()
+    for lane, n in enumerate(lens.tolist()):
+        wild[lane, -(-min(n, bt.shape[1] * ps) // ps):] = 1 << 30
+    outs = [decode_attention_paged_q8(q, kp, ksp, vp, vsp, wild, lens,
+                                      qblock=qblock) for _ in range(2)]
+    ch = split_plan(bt.shape[1] * ps, 6, 2)[0]
+    plain = decode_attention_paged_q8_split_ref(q, kp, ksp, vp, vsp, bt,
+                                                lens, ch=ch, qblock=qblock)
+    k5 = decode_attention_q8(q, gather_pages(kp, bt), gather_pages(ksp, bt),
+                             gather_pages(vp, bt), gather_pages(vsp, bt),
+                             lens, qblock=qblock)
+    torch.cuda.synchronize()
+    assert (outs[0].float() - plain.float()).abs().max().item() <= tol
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(outs[0], k5)
+    assert torch.all(outs[0][0] == 0)
