@@ -16,12 +16,13 @@ order (any failure raises and the script exits non-zero):
    gathered pools bit for bit;
 3. K2 (flash prefill) against its plain version at ``K2_CASES``: causal
    at Sq 64, 100, 512 and 1024, a sliding window, no mask, a window
-   without causality, D 64 and 256, and the float32 SMOKE serve's own
-   shape (H 4, Hkv 2, D 32) at its prompt buckets 8 to 128; float32
-   on the CUDA-core kernel (``flash_attention_cc``, tol 1e-4) and
-   bfloat16 on the tensor-core kernel (``flash_attention_mma``, tol
-   2e-2) at D 64 and 128, on the CUDA-core one at D 32 and 256, each
-   call's launch counters naming the kernel its dtype and D select;
+   without causality, D 64, 96 (phi-3-vision's, causal and windowed)
+   and 256, and the float32 SMOKE serve's own shape (H 4, Hkv 2, D 32)
+   at its prompt buckets 8 to 128; float32 on the CUDA-core kernel
+   (``flash_attention_cc``, tol 1e-4) and bfloat16 on the tensor-core
+   kernel (``flash_attention_mma``, tol 2e-2) at D 64 and 128, on the
+   CUDA-core one at D 32, 96 and 256, each call's launch counters
+   naming the kernel its dtype and D select;
 4. K3 (length-aware dense decode) and K6a (masked dense decode), one
    split-KV launch each, against their plain version at the fixed-lane
    path's shapes (S = 1024) and at S = 1000, same tolerances; a dead
@@ -61,7 +62,8 @@ order (any failure raises and the script exits non-zero):
    launch cost stays out): each kernel, its plain version and
    ``F.scaled_dot_product_attention`` where one call computes the same
    function, beside the card's bound; K2 in bf16 at Sq 512 and 1024 and
-   in float32 at Sq 512; for K1 also its pages gathered and then SDPA
+   in float32 at Sq 512, and in bf16 at D 96 (the CUDA-core kernel);
+   for K1 also its pages gathered and then SDPA
    (no single call reads a block table); for the int8 kernels also the
    reference model's route (dequantize to float32, then K3 or K1);
 11. the paper's compute path, checked: K8 (mixbench) in float32 and
@@ -82,9 +84,9 @@ order (any failure raises and the script exits non-zero):
    mul_add kernel of K8 and K9 (K9's stream and staged kernels) and
    FMUL and FADD present, none in the split-K reduce either (adds
    alone), FFMA/HFMA2 in K8's fma kernels, HMMA in K9's mxu kernels --
-   the paper's ``-fmad=false``; HMMA in K2's bf16 kernels and no HMMA
-   or HGMMA in K2's CUDA-core kernels and the dense and paged decode
-   kernels;
+   the paper's ``-fmad=false``; HMMA in K2's bf16 kernels and in K10's
+   four kernels, and no HMMA or HGMMA in K2's CUDA-core kernels and
+   the dense and paged decode kernels;
 13. the compute path through its entry points, launch counts zeroed
    before and read after: the K8 intensity sweep (2^26 float32
    elements, 1 to 1024 steps, both arms: GFLOP/s and GB/s per point,
@@ -101,10 +103,14 @@ order (any failure raises and the script exits non-zero):
    (mxu beside TF32 or bf16 ``torch.matmul``, mul_add beside one f32
    ``torch.matmul`` with TF32 off) with its TB/s, TFLOP/s and share of
    the bound, and each arm's staged kernel at (128, 1536, 8958);
-15. K10 (the SSD chunk scan) against its plain version at mamba2-780m's
-   widths (H 48, P 64, N 128, chunk 256): S 64, 256 and 1024, B 1 and
-   2, x/b/c in float32 and bfloat16, A over the model's range and from
-   ``-exp(0.3 randn)``, relative max error <= K10_TOL on all three
+15. K10 (the SSD chunk scan: C.B^T once per chunk, then the per-head
+   products on the tensor cores) against its plain version at
+   mamba2-780m's widths (H 48, P 64, N 128, chunk 256): S 64, 256, 1024
+   and 2048, B 1 and 2, x/b/c in float32 and bfloat16, A over the
+   model's range and from ``-exp(0.3 randn)``; at every serve bucket
+   (one chunk of Q 8 to 256), at SMOKE's widths (H 8, P 32, N 16,
+   chunk 32), at odd widths (H 3, P 30, N 20) with chunk 50, and at the
+   longest chunk (1024); relative max error <= K10_TOL on all three
    outputs; the full SSD on K10 against ``ssd_chunked`` at S 2048;
 16. end to end at SMOKE width in float32, mamba2: CPU and card streams
    identical, fixed-lane and paged, greedy and at temperature 0.8, with
@@ -118,11 +124,14 @@ order (any failure raises and the script exits non-zero):
    line's ``launches``) are counted but their output is only printed,
    not gated;
 18. ``build_model(cfg).forward`` at full width: bfloat16 at S 2048 (48
-   K10 launches, finite logits), and in float32 every position of a
+   K10 launches, finite logits; timed on the host clock, and the
+   device's busy time by kernel from ``torch.profiler``, K10's share
+   apart), and in float32 every position of a
    512-token prompt against the logits of streaming it through
    ``lm_decode_step`` (which never runs K10), max |diff| <= SSM_FWD_TOL:
    these 48 launches (``launches_forward_checked``) are the ones whose
-   output is checked; then K10's timing row beside its bound.
+   output is checked; then K10's timing row beside its bound, as
+   device time per call (launches queued behind a busy-wait).
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -331,12 +340,14 @@ def k2_inputs(sq, dtype, dev, d=128, h=12):
 #: K2's check cases (Sq, causal, window, D, H; Hkv 2): the full-width
 #: serve's buckets 64, 512 and 1024, a ragged length, a sliding window,
 #: no mask (whisper's cross-attention later), a window without
-#: causality, D 64 and 256, and the float32 SMOKE serve's shape (D 32,
-#: H 4) at its prompt buckets (prompts of 3 to 127 tokens)
+#: causality, D 64, 96 (phi-3-vision's; causal, and a ragged windowed
+#: prompt) and 256, and the float32 SMOKE serve's shape (D 32, H 4) at
+#: its prompt buckets (prompts of 3 to 127 tokens)
 K2_CASES = ((64, True, None, 128, 12), (100, True, None, 128, 12),
             (512, True, None, 128, 12), (512, True, 128, 128, 12),
             (1024, True, None, 128, 12), (200, False, None, 128, 12),
             (512, False, 96, 128, 12), (512, True, None, 64, 12),
+            (256, True, None, 96, 12), (300, True, 128, 96, 12),
             (256, True, None, 256, 12),
             *((sq, True, None, 32, 4) for sq in (8, 16, 32, 64, 128)))
 #: (D, H) of the float32 SMOKE serve's prefill, which runs K2's CUDA-core
@@ -831,13 +842,16 @@ def phase_timings(dev):
         bytes=k1_bytes, flops=k1_flops)
     # K2: B=1, H 12, Hkv 2, D 128, causal; bf16 (the serves' dtype: the
     # tensor-core kernel) at Sq 512 and the serve's largest bucket, 1024;
-    # float32 (the CUDA-core kernel) at Sq 512 beside f32 SDPA
+    # float32 (the CUDA-core kernel) at Sq 512 beside f32 SDPA, and bf16
+    # at phi-3-vision's D 96 (the CUDA-core kernel too) beside bf16 SDPA
     q, k, v = k2_inputs(512, torch.bfloat16, dev)
     rows["flash_attention_mma"] = _k2_row(q, k, v, 2)
     q, k, v = k2_inputs(1024, torch.bfloat16, dev)
     rows["flash_attention_mma"]["s1024"] = _k2_row(q, k, v, 2)
     q, k, v = k2_inputs(512, torch.float32, dev)
     rows["flash_attention_cc"] = _k2_row(q, k, v, 4)
+    q, k, v = k2_inputs(512, torch.bfloat16, dev, d=96)
+    rows["flash_attention_cc"]["d96"] = _k2_row(q, k, v, 2)
     # K3 / K6a: bf16, fixed-lane path shapes (S = 1024)
     q, k, v, lens = dense_inputs(torch.bfloat16, dev)
     b, hkv, s, d = k.shape
@@ -905,7 +919,8 @@ def phase_timings(dev):
                + 4 * lens.numel()),
         flops=4 * n_live * h * d + 2 * n_live * hkv * d)
     for name, r in rows.items():
-        for tag, rr in (("", r), (" Sq 1024", r.get("s1024"))):
+        for tag, rr in (("", r), (" Sq 1024", r.get("s1024")),
+                        (" bf16 D 96", r.get("d96"))):
             if rr is None:
                 continue
             # f32 products: the TF32 rule, as for K7 and K10
@@ -1416,23 +1431,57 @@ K10_TOL = 1e-5
 SSM_FWD_TOL = 1e-4
 
 
-def k10_inputs(bsz, s, dtype, a_kind, dev, seed=SEED):
-    """x (B,S,48,64), dt = softplus(randn + dt_bias), A (48,), b/c
-    (B,S,128) from the seed on the card; x/b/c in ``dtype``."""
+#: SMOKE mamba2's SSD widths (d_inner 256 / head_dim 32): heads, head
+#: dim, state width, chunk
+SMOKE_SSD = (8, 32, 16, 32)
+#: (H, P, N) whose rows are no whole 16-byte chunks in either dtype
+ODD_SSD = (3, 30, 20)
+
+
+def k10_inputs(bsz, s, dtype, a_kind, dev, seed=SEED,
+               widths=(SSD_H, SSD_P, SSD_N)):
+    """x (B,S,H,P), dt = softplus(randn + dt_bias), A (H,), b/c (B,S,N)
+    from the seed on the card, at ``widths`` (H, P, N), mamba2-780m's by
+    default; x/b/c in ``dtype``."""
     import math
     import torch
+    h, p, n = widths
     g = torch.Generator(device=dev).manual_seed(seed + 31 * s + bsz)
-    x = torch.randn(bsz, s, SSD_H, SSD_P, device=dev, generator=g)
+    x = torch.randn(bsz, s, h, p, device=dev, generator=g)
     dt_bias = math.log(math.expm1(0.01))
-    dt = torch.logaddexp(torch.randn(bsz, s, SSD_H, device=dev, generator=g)
+    dt = torch.logaddexp(torch.randn(bsz, s, h, device=dev, generator=g)
                          + dt_bias, torch.zeros((), device=dev))
     if a_kind == "model":
-        a = -torch.linspace(1.0, 16.0, SSD_H, device=dev)
+        a = -torch.linspace(1.0, 16.0, h, device=dev)
     else:
-        a = -torch.exp(0.3 * torch.randn(SSD_H, device=dev, generator=g))
-    b = torch.randn(bsz, s, SSD_N, device=dev, generator=g)
-    c = torch.randn(bsz, s, SSD_N, device=dev, generator=g)
+        a = -torch.exp(0.3 * torch.randn(h, device=dev, generator=g))
+    b = torch.randn(bsz, s, n, device=dev, generator=g)
+    c = torch.randn(bsz, s, n, device=dev, generator=g)
     return x.to(dtype), dt, a, b.to(dtype), c.to(dtype)
+
+
+def k10_cases():
+    """(dtype name, S, B, A kind, chunk, widths) of K10's checks: the
+    forward's and the serve's lengths at mamba2-780m's widths, each serve
+    bucket as the one chunk of a prompt, SMOKE's widths, odd widths at a
+    ragged chunk, and the longest chunk (1024)."""
+    full = (SSD_H, SSD_P, SSD_N)
+    cases = [(d, s, bsz, a_kind, SSD_Q, full) for d, s, bsz, a_kind in
+             itertools.product(("float32", "bfloat16"), (64, 256, 1024, 2048),
+                               (1, 2), ("model", "exp"))]
+    cases += [(d, q, 1, "model", SSD_Q, full)
+              for d in ("float32", "bfloat16") for q in (8, 16, 32, 128)]
+    h, p, n, q = SMOKE_SSD
+    cases += [(d, s, 2, a_kind, q, (h, p, n))
+              for d in ("float32", "bfloat16") for s in (8, 32, 128)
+              for a_kind in ("model", "exp")]
+    # rows of no whole 16-byte chunk (the kernel's plain-copy staging) at
+    # a ragged chunk, and the longest chunk
+    cases += [(d, s, bsz, "model", q, widths)
+              for d in ("float32", "bfloat16")
+              for s, bsz, q, widths in ((100, 2, 50, ODD_SSD),
+                                        (2048, 1, 1024, full))]
+    return cases
 
 
 def phase_k10(dev):
@@ -1440,20 +1489,20 @@ def phase_k10(dev):
     from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk, ssd_chunk_ref,
                                               ssd_chunked)
     worst = {}
-    for dtype, s, bsz, a_kind in itertools.product(
-            (torch.float32, torch.bfloat16), (64, 256, 1024), (1, 2),
-            ("model", "exp")):
-        args = k10_inputs(bsz, s, dtype, a_kind, dev)
-        out = ssd_chunk(*args, chunk=SSD_Q)
-        ref = ssd_chunk_ref(*args, SSD_Q)
+    for dname, s, bsz, a_kind, chunk, widths in k10_cases():
+        dtype = getattr(torch, dname)
+        args = k10_inputs(bsz, s, dtype, a_kind, dev, widths=widths)
+        out = ssd_chunk(*args, chunk=chunk)
+        ref = ssd_chunk_ref(*args, chunk)
         torch.cuda.synchronize()
         rels = [rel_err(o, r) for o, r in zip(out, ref)]
         ok = all(bool(torch.isfinite(o).all()) for o in out)
-        print(f"[K10] {dtype} S={s} B={bsz} A={a_kind}: rel max err "
-              f"y {rels[0]:.3e} states {rels[1]:.3e} decay {rels[2]:.3e} "
-              f"(tol {K10_TOL})")
+        tag = (f"{dtype} S={s} B={bsz} A={a_kind} Q={min(chunk, s)} "
+               f"(H, P, N)={widths}")
+        print(f"[K10] {tag}: rel max err y {rels[0]:.3e} states "
+              f"{rels[1]:.3e} decay {rels[2]:.3e} (tol {K10_TOL})")
         if not ok or not max(rels) <= K10_TOL:
-            fail(f"K10 {dtype} S={s} B={bsz} A={a_kind}: {rels}")
+            fail(f"K10 {tag}: {rels}")
         key = str(dtype).split(".")[-1]
         abs_err = max(max_err(o, r) for o, r in zip(out, ref))
         prev = worst.get(key, (0.0, 0.0))
@@ -1620,10 +1669,19 @@ def phase_ssm_forward(dev, cfg, params):
             not bool(torch.isfinite(logits[..., :v]).all()):
         fail("full-width forward logits are not finite of the right shape")
     fwd_ms = 1e3 * statistics.median(times)
-    print(f"[mamba2 forward] bf16 B=1 S=2048: median {fwd_ms:.2f} ms over "
-          f"3 runs ({[round(1e3 * t, 2) for t in times]}), K10 launches "
-          f"{k10}, logits finite")
     del logits
+    # the device's busy time in the same call, by kernel (torch.profiler):
+    # the call issues thousands of eager launches, more than a stream
+    # queues behind a busy-wait, so CUDA events around it would count
+    # the host's gaps
+    from repro_torch.kernels.breakdown import kernel_ms
+    by_kernel = kernel_ms(lambda: model.forward(params, tokens), reps=3)
+    busy_ms = sum(by_kernel.values())
+    k10_ms = sum(v for name, v in by_kernel.items() if "ssd_c" in name)
+    print(f"[mamba2 forward] bf16 B=1 S=2048: median {fwd_ms:.2f} ms over "
+          f"3 runs ({[round(1e3 * t, 2) for t in times]}) on the host "
+          f"clock; device busy {busy_ms:.2f} ms a call, {k10_ms:.2f} of "
+          f"it in K10's kernels; K10 launches {k10}, logits finite")
 
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     p32 = LM(cfg32, dev)
@@ -1660,6 +1718,8 @@ def phase_ssm_forward(dev, cfg, params):
     torch.cuda.empty_cache()
     return {"forward_bf16_s2048_ms": fwd_ms,
             "forward_bf16_s2048_runs_ms": [1e3 * t for t in times],
+            "forward_bf16_s2048_busy_ms": busy_ms,
+            "forward_bf16_s2048_k10_busy_ms": k10_ms,
             "fp32_forward_vs_stream_max_abs": diff,
             "fp32_max_abs_logit": scale,
             "fp32_argmax_agree_of_512": agree,
@@ -1669,7 +1729,8 @@ def phase_ssm_forward(dev, cfg, params):
 
 def k10_timing(dev):
     """K10 at (1, 1024, 48, 64), N 128, chunk 256, bf16 x/b/c: kernel and
-    plain ms beside the bound.  Operations: the multiply-adds the
+    plain ms as device time per call (``time_ms_queued``) beside the
+    bound.  Operations: the multiply-adds the
     function needs -- C.B over each chunk's lower triangle once per
     (b, z) (B and C are shared by the heads), per head the triangle's
     products with dt*x and the N x P boundary state -- over the 495
@@ -1685,8 +1746,8 @@ def k10_timing(dev):
              + 2 * bsz * nc * SSD_H * (tri * SSD_P + SSD_Q * SSD_N * SSD_P))
     out_bytes = 4 * (x.numel() + bsz * nc * SSD_H * (SSD_N * SSD_P + 1))
     in_bytes = sum(t.numel() * t.element_size() for t in args)
-    r = dict(ms=time_ms(lambda: ssd_chunk(*args, chunk=SSD_Q)),
-             plain_ms=time_ms(lambda: ssd_chunk_ref(*args, SSD_Q)),
+    r = dict(ms=time_ms_queued(lambda: ssd_chunk(*args, chunk=SSD_Q)),
+             plain_ms=time_ms_queued(lambda: ssd_chunk_ref(*args, SSD_Q)),
              library_ms=None, bytes=in_bytes + out_bytes, flops=flops,
              shape="bf16 x/b/c (1,1024,48,64) N 128 chunk 256")
     t_bytes = 1e3 * r["bytes"] / HBM_BYTES_PER_S
@@ -1695,7 +1756,8 @@ def k10_timing(dev):
     r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     # the forward phase's length, 8 chunks: K10's share of that forward
     long_args = k10_inputs(1, 2048, torch.bfloat16, "model", dev)
-    r["ms_s2048"] = time_ms(lambda: ssd_chunk(*long_args, chunk=SSD_Q))
+    r["ms_s2048"] = time_ms_queued(
+        lambda: ssd_chunk(*long_args, chunk=SSD_Q))
     print(f"[time] ssd_chunk at S=2048: kernel {r['ms_s2048']:.4f} ms")
     print(f"[time] ssd_chunk ({r['shape']}): kernel {r['ms']:.4f} ms "
           f"({flops / r['ms'] / 1e9:.2f} TFLOP/s of the needed work), "
@@ -1832,10 +1894,11 @@ def main() -> int:
         for extra in ("route_ms", "gather_sdpa_ms"):
             if extra in r:
                 entry[extra] = r[extra]
-        if "s1024" in r:
-            entry["s1024"] = {key: r["s1024"][key] for key in (
-                "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by")}
+        for sub in ("s1024", "d96"):
+            if sub in r:
+                entry[sub] = {key: r[sub][key] for key in (
+                    "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by")}
         kernels.append(entry)
     compute_replaces = {
         "mixbench_fma": "src/repro/kernels/mixbench/kernel.py:56",

@@ -46,8 +46,9 @@
 //     masked score is -1e30 and its weight 0); a row with no live key
 //     writes 0.
 // flash_attention_cc_* (float32 at every head dim; bf16 at D 256, where
-// the tensor-core kernel's accumulators would not fit in registers, and
-// at D 32, whose 64-byte rows the 128-byte swizzle does not take): the
+// the tensor-core kernel's accumulators would not fit in registers, at
+// D 32, whose 64-byte rows the 128-byte swizzle does not take, and at
+// D 96, phi-3-vision's, until the tensor-core kernel takes it): the
 // first design, on the CUDA cores in f32:
 //   * grid (B*H, ceil(Sq/64)); one CTA owns 64 query rows of one head and
 //     walks the key axis in 64-key blocks staged through shared memory
@@ -675,9 +676,11 @@ __device__ __forceinline__ void cc_body(const T* __restrict__ q,
   }
 CC_KERNEL(flash_attention_cc_f32_d32, 32, float)
 CC_KERNEL(flash_attention_cc_f32_d64, 64, float)
+CC_KERNEL(flash_attention_cc_f32_d96, 96, float)
 CC_KERNEL(flash_attention_cc_f32_d128, 128, float)
 CC_KERNEL(flash_attention_cc_f32_d256, 256, float)
 CC_KERNEL(flash_attention_cc_bf16_d32, 32, bf16)
+CC_KERNEL(flash_attention_cc_bf16_d96, 96, bf16)
 CC_KERNEL(flash_attention_cc_bf16_d256, 256, bf16)
 #undef CC_KERNEL
 
@@ -703,7 +706,7 @@ cudaError_t launch_cc(void (*kernel)(const T*, const T*, const T*, T*, int,
 
 // window <= 0 means no sliding window.  kernel 1 is the tensor-core
 // kernel (bf16, D 64/128, 16-byte aligned q/k/v/out), kernel 0 the
-// CUDA-core one (float32 at D 32/64/128/256, bf16 at D 32/256).
+// CUDA-core one (float32 at D 32/64/96/128/256, bf16 at D 32/96/256).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int H,
                                    int Hkv, int Sq, int Sk, int D, int causal,
@@ -732,6 +735,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     switch (D) {
       case 32: GO(cc, 32, float, flash_attention_cc_f32_d32)
       case 64: GO(cc, 64, float, flash_attention_cc_f32_d64)
+      case 96: GO(cc, 96, float, flash_attention_cc_f32_d96)
       case 128: GO(cc, 128, float, flash_attention_cc_f32_d128)
       case 256: GO(cc, 256, float, flash_attention_cc_f32_d256)
       default: return (int)cudaErrorInvalidValue;
@@ -740,6 +744,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (kernel == 0 && dtype == 1) {
     switch (D) {
       case 32: GO(cc, 32, bf16, flash_attention_cc_bf16_d32)
+      case 96: GO(cc, 96, bf16, flash_attention_cc_bf16_d96)
       case 256: GO(cc, 256, bf16, flash_attention_cc_bf16_d256)
       default: return (int)cudaErrorInvalidValue;
     }

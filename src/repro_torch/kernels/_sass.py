@@ -2,15 +2,17 @@
 checked on the instructions.
 
 ``cuobjdump -sass`` of the built mixbench (K8), fma_matmul (K9),
-flash_attention (K2), decode_attention_dense (K3/K5/K6a/K6b) and
-decode_attention_paged (K1/K4) libraries is read kernel by kernel and the floating-point instructions
-counted by class.  :func:`sass_report` applies the rules: no FFMA,
+flash_attention (K2), decode_attention_dense (K3/K5/K6a/K6b),
+decode_attention_paged (K1/K4) and ssd_scan (K10) libraries is read
+kernel by kernel and the floating-point instructions counted by
+class.  :func:`sass_report` applies the rules: no FFMA,
 HFMA2 or HMMA in a ``mul_add`` kernel (K8's, and K9's weight stream and
 staged kernel) and its multiplies and adds present; the same in K9's
 split-K reduce, which the ``mul_add`` stream launches too and which has
 adds alone; FFMA (HFMA2) in K8's ``fma`` kernels; HMMA in every one of
 K9's ``mxu`` kernels (the weight stream's ``mma.sync`` and the WMMA
-kernel's) and in K2's bf16 tensor-core kernels; no HMMA and no HGMMA in
+kernel's), in K2's bf16 tensor-core kernels and in both of K10's
+kernels (C.B^T and the per-head products); no HMMA and no HGMMA in
 K2's CUDA-core kernels and in the dense and paged decode kernels
 (one split-KV body), whose f32 arithmetic stays off the tensor cores.  ``chip_smoke.py`` and the
 cuda-marked test both call it.  Nothing runs at import.
@@ -42,17 +44,21 @@ SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
                 "flash_attention_mma_bf16_d64",
                 "flash_attention_mma_bf16_d128",
                 "flash_attention_cc_f32_d32", "flash_attention_cc_f32_d64",
-                "flash_attention_cc_f32_d128", "flash_attention_cc_f32_d256",
-                "flash_attention_cc_bf16_d32", "flash_attention_cc_bf16_d256",
+                "flash_attention_cc_f32_d96", "flash_attention_cc_f32_d128",
+                "flash_attention_cc_f32_d256", "flash_attention_cc_bf16_d32",
+                "flash_attention_cc_bf16_d96", "flash_attention_cc_bf16_d256",
                 "decode_dense_f32", "decode_dense_bf16",
                 "decode_dense_masked_f32", "decode_dense_masked_bf16",
                 "decode_dense_q8_f32", "decode_dense_q8_bf16",
                 "decode_dense_q8_masked_f32", "decode_dense_q8_masked_bf16",
                 "decode_paged_f32", "decode_paged_bf16",
-                "decode_paged_q8_f32", "decode_paged_q8_bf16")
+                "decode_paged_q8_f32", "decode_paged_q8_bf16",
+                "ssd_cb_f32", "ssd_cb_bf16", "ssd_chunk_f32",
+                "ssd_chunk_bf16")
 #: the libraries whose kernels SASS_KERNELS names
 SASS_LIBS = ("mixbench", "fma_matmul", "flash_attention",
-             "decode_attention_dense", "decode_attention_paged")
+             "decode_attention_dense", "decode_attention_paged",
+             "ssd_scan")
 
 
 def cuobjdump() -> str:
@@ -133,7 +139,8 @@ def check_counts(found: Dict[str, dict]) -> List[str]:
                               "decode_paged")):
             if c.get("hmma", 0) or c.get("hgmma", 0):
                 problems.append(f"{kern} runs on the tensor cores: {c}")
-        elif kern.startswith("flash_attention_mma") and not c.get("hmma", 0):
+        elif kern.startswith(("flash_attention_mma", "ssd_")) and \
+                not c.get("hmma", 0):
             problems.append(f"{kern} does not use the tensor cores: {c}")
         elif kern.startswith("mixbench") and not c.get("fma", 0):
             problems.append(f"{kern} has no fused multiply-add: {c}")

@@ -7,8 +7,8 @@ library in the place of the built one, and times it at the main path's
 shapes as device time per call (CUDA events around 20 calls queued
 behind a busy-wait, so the host's launch cost stays out), beside one
 PyTorch call that computes the same function.  Only ``full`` (the
-library as built) and ``before`` compute the function; every cut gives
-wrong numbers by design.  The targets and their cuts:
+library as built), ``before`` and k10's ``no PDL`` compute the
+function; every other cut gives wrong numbers by design.  The targets and their cuts:
 
 K9's weight stream (``csrc/fma_matmul.cu``), at the qwen2.5-1.5b MLP
 shapes in float32 and bfloat16, also as device time per kernel from
@@ -55,6 +55,20 @@ lengths): K1 over bf16 pools beside its pages gathered and then SDPA
 1:
 
 * ``k1``: the cuts of ``k3``, in the shared body.
+
+K10 (``csrc/ssd_scan.cu``; mamba2-780m's H 48, P 64, N 128, chunk 256,
+B 1: bf16 x/b/c at S 1024 and 2048, float32 at S 1024; no single
+PyTorch call computes it, so no yardstick):
+
+* ``k10``: ``empty`` (every CTA of both launches returns at once);
+  ``no C.B`` (the C.B^T launch is left out: the per-head launch reads
+  the workspace as it lies); ``no products`` (no per-head ``mma.sync``,
+  in either dtype's path: the compiler then drops the A fragments that
+  fed them, leaving the copies, the cumsum and the stores); ``no exp``
+  (the per-element exp of the diagonal tiles); ``no states`` (the grid
+  has no state CTAs); ``no PDL`` (launch 2 goes out as a plain launch,
+  after launch 1's end: its prologue no longer overlaps launch 1; the
+  only cut that computes the function).
 
 A cut in a header applies to the copy of the source that includes it:
 each copy is the source with the ``csrc`` headers it includes written
@@ -131,6 +145,26 @@ CUTS = {
     },
     "decode_attention_dense": _SPLIT_CUTS,
     "decode_attention_paged": _SPLIT_CUTS,
+    "ssd_scan": {
+        "empty_cb": ("  T* bs = cs + TILE * stride;\n",
+                     "  T* bs = cs + TILE * stride;\n  if (Q > 0) return;\n"),
+        "empty_chunk": ("  stage(0);\n",
+                        "  if (Q > 0) return;\n  stage(0);\n"),
+        "cb": ("  cb<<<dim3(RB * (RB + 1) / 2, chunks), THREADS, cb_bytes, "
+               "stream>>>(\n      bm, static_cast<const T*>(c), wsf, N, Q, "
+               "vec);\n", ""),
+        "products": ("  for (int nb = 0; nb < MAX_P / 8; ++nb) {\n"
+                     "    const int o = (k0 + t) * XS + nb * 8 + g;",
+                     "  for (int nb = 0; nb < 0; ++nb) {\n"
+                     "    const int o = (k0 + t) * XS + nb * 8 + g;"),
+        "products_bf16": ("  for (int nb = 0; nb < MAX_P / 8; nb += 2) {",
+                          "  for (int nb = 0; nb < 0; nb += 2) {"),
+        "exp": ("? cb * expf((float)(cum_r[ro >> 3] - cum[j])) * dts[j]",
+                "? cb * (float)(cum_r[ro >> 3] - cum[j]) * dts[j]"),
+        "states": ("  cfg.gridDim = dim3(RB + NB, H, chunks);",
+                   "  cfg.gridDim = dim3(RB, H, chunks);"),
+        "pdl": ("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;"),
+    },
 }
 _SPLIT_VARIANTS = {"full": (), "empty": ("empty",),
                    "loads only": ("loads",), "no merge": ("merge",)}
@@ -150,6 +184,11 @@ TARGETS = {
             "softmax only": ("qk", "pv", "exp", "rescale")}),
     "k3": ("decode_attention_dense", _SPLIT_VARIANTS),
     "k1": ("decode_attention_paged", _SPLIT_VARIANTS),
+    "k10": ("ssd_scan",
+            {"full": (), "empty": ("empty_cb", "empty_chunk"),
+             "no C.B": ("cb",), "no products": ("products", "products_bf16"),
+             "no exp": ("exp",), "no states": ("states",),
+             "no PDL": ("pdl",)}),
 }
 MLP_SHAPES = ((128, 1536, 8960), (128, 8960, 1536))
 #: ``fma_matmul_fwd``'s argument types
@@ -419,13 +458,36 @@ def _k1_rows(dev, libs):
     return rows
 
 
+def _k10_rows(dev, libs):
+    import math
+    from repro_torch.kernels.ssd_scan import ssd_chunk
+    rows = {}
+    for dtype, s in ((torch.bfloat16, 1024), (torch.bfloat16, 2048),
+                     (torch.float32, 1024)):
+        gen = torch.Generator(device=dev).manual_seed(s)
+        x = torch.randn(1, s, 48, 64, device=dev, generator=gen)
+        dt = torch.nn.functional.softplus(
+            torch.randn(1, s, 48, device=dev, generator=gen)
+            + math.log(math.expm1(0.01)))
+        a = -torch.linspace(1.0, 16.0, 48, device=dev)
+        b, c = (torch.randn(1, s, 128, device=dev, generator=gen)
+                for _ in range(2))
+        args = (x.to(dtype), dt, a, b.to(dtype), c.to(dtype))
+        row = rows[f"{'f32' if dtype == torch.float32 else 'bf16'} "
+                   f"S {s}"] = {}
+        for name, lib in libs.items():
+            _use("ssd_scan", lib)
+            row[name] = queued_ms(lambda: ssd_chunk(*args, chunk=256))
+    return rows
+
+
 def rows_of(target: str, dev, libs) -> dict:
     """{case: {variant or yardstick: ms}} of ``target``; ``libs`` maps
     each variant to its library, None for the library as built."""
     if target in ("mxu", "mul_add"):
         return _k9_rows(target, dev, libs)
-    return {"k1": _k1_rows, "k2": _k2_rows, "k3": _k3_rows}[target](dev,
-                                                                   libs)
+    return {"k1": _k1_rows, "k2": _k2_rows, "k3": _k3_rows,
+            "k10": _k10_rows}[target](dev, libs)
 
 
 def before_rows(target: str, tree: Path) -> dict:

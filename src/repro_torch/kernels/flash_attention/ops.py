@@ -5,7 +5,7 @@ launches one of the two kernels of ``csrc/flash_attention.cu`` or
 raises -- there is no fallback on the card.  :func:`kernel_for` picks
 the kernel from the dtype and head dim alone: bf16 at
 ``MMA_HEAD_DIMS`` runs on the tensor cores (``flash_attention_mma``),
-everything else (float32, and bf16 at D 32 and 256) on the CUDA cores
+everything else (float32, and bf16 at D 32, 96 and 256) on the CUDA cores
 in f32 (``flash_attention_cc``); each has its own launch counter.
 """
 
@@ -25,10 +25,11 @@ __all__ = ["flash_attention", "kernel_for", "COUNTER_MMA", "COUNTER_CC",
 COUNTER_MMA = LaunchCounter("flash_attention_mma")
 COUNTER_CC = LaunchCounter("flash_attention_cc")
 #: head dims a kernel is instantiated for (csrc: flash_attention_fwd)
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 #: head dims of the bf16 tensor-core kernel; at 256 its f32 accumulators
-#: would not fit in registers and at 32 a row is shorter than its TMA
-#: box, so bf16 D 32 and 256 stay on the CUDA cores
+#: would not fit in registers, at 32 a row is shorter than its TMA box,
+#: and 96 (phi-3-vision) is not instantiated there yet, so bf16 D 32, 96
+#: and 256 stay on the CUDA cores
 MMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_CODE = {"cc": 0, "mma": 1}

@@ -3,10 +3,15 @@ full SSD built on it.
 
 :func:`ssd_chunk`: a CPU tensor takes the plain version (``ref.py``); a
 CUDA tensor launches ``csrc/ssd_scan.cu`` or raises -- there is no
-fallback on the card.  :func:`ssd` is the port's ``ssd_pallas``: zero-
-pads S to a multiple of the chunk, runs :func:`ssd_chunk`, then the
-inter-chunk recurrence and its output term in plain PyTorch (about
-0.1% of the operations, outside any kernel in the reference too).
+fallback on the card.  The kernel takes every shape the wrapper admits
+(Q 1 to 1024, N <= 128, P <= 64, x/b/c float32 or bfloat16): C.B^T once
+per (b, chunk) into a workspace the wrapper allocates
+(:func:`workspace_floats`), then the per-head products on the tensor
+cores, split so that the float32 tolerance holds.  :func:`ssd` is the
+port's ``ssd_pallas``: zero-pads S to a multiple of the chunk, runs
+:func:`ssd_chunk`, then the inter-chunk recurrence and its output term
+in plain PyTorch (about 0.1% of the operations, outside any kernel in
+the reference too).
 """
 
 from __future__ import annotations
@@ -16,16 +21,29 @@ import ctypes
 import torch
 
 from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
-                                        load)
+                                        bind)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_from_intra
 
-__all__ = ["ssd", "ssd_chunk", "COUNTER", "MAX_N", "MAX_P", "MAX_Q"]
+__all__ = ["ssd", "ssd_chunk", "workspace_floats", "COUNTER", "MAX_N",
+           "MAX_P", "MAX_Q"]
 
 COUNTER = LaunchCounter("ssd_chunk")
-#: widths the kernel's register tiles cover (csrc: MAX_N, MAX_P) and the
-#: longest chunk its shared memory holds (csrc: MAX_Q)
-MAX_N, MAX_P, MAX_Q = 128, 64, 1024
+#: the widest state and head the kernel's tiles cover and the longest
+#: chunk (csrc: MAX_N, MAX_P, MAX_Q); TILE its rows and keys per tile
+MAX_N, MAX_P, MAX_Q, TILE = 128, 64, 1024, 64
+#: the grid's chunk axis (B * S / Q) is a CUDA grid dimension
+MAX_CHUNKS = 65535
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 7 \
+    + [ctypes.c_void_p]
+
+
+def workspace_floats(bsz: int, s: int, q: int) -> int:
+    """Floats of C.B^T scratch one call needs: a ``QP x QP`` block per
+    (b, chunk), ``QP`` the chunk rounded up to the kernel's 64-row tile
+    (256 KB a chunk at Q 256)."""
+    qp = -(-q // TILE) * TILE
+    return bsz * (s // q) * qp * qp
 
 
 def _check(x, dt, a, b, c, q):
@@ -51,6 +69,8 @@ def _check(x, dt, a, b, c, q):
     if not (1 <= p <= MAX_P and 1 <= n <= MAX_N and 1 <= q <= MAX_Q):
         raise ValueError(f"need P <= {MAX_P}, N <= {MAX_N} and chunk <= "
                          f"{MAX_Q} (P={p}, N={n}, chunk={q})")
+    if bsz * (s // q) > MAX_CHUNKS:
+        raise ValueError(f"{bsz * (s // q)} chunks: at most {MAX_CHUNKS}")
     for name, t in (("x", x), ("dt", dt), ("a", a), ("b", b), ("c", c)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -77,16 +97,15 @@ def ssd_chunk(x, dt, a, b, c, *, chunk: int):
     states = torch.empty((bsz, nc, h, n, p), dtype=torch.float32,
                          device=x.device)
     decay = torch.empty((bsz, nc, h), dtype=torch.float32, device=x.device)
-    fn = load("ssd_scan").ssd_chunk_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    ws = torch.empty(workspace_floats(bsz, s, q), dtype=torch.float32,
+                     device=x.device)
+    fn = bind("ssd_scan", "ssd_chunk_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
                 c.data_ptr(), y.data_ptr(), states.data_ptr(),
-                decay.data_ptr(), bsz, s, h, p, n, q, _DTYPE_CODE[x.dtype],
-                stream)
+                decay.data_ptr(), ws.data_ptr(), ws.numel(), bsz, s, h, p,
+                n, q, _DTYPE_CODE[x.dtype], stream)
     if rc != 0:
         raise KernelLaunchError(f"ssd_chunk: CUDA error {rc}")
     COUNTER.n += 1

@@ -242,15 +242,17 @@ def test_wrappers_reject_unsupported_device():
 
 
 @pytest.mark.parametrize("dtype,d,kernel", [
-    ("float32", 32, "cc"), ("float32", 64, "cc"), ("float32", 128, "cc"),
-    ("float32", 256, "cc"), ("bfloat16", 32, "cc"), ("bfloat16", 64, "mma"),
-    ("bfloat16", 128, "mma"), ("bfloat16", 256, "cc")])
+    ("float32", 32, "cc"), ("float32", 64, "cc"), ("float32", 96, "cc"),
+    ("float32", 128, "cc"), ("float32", 256, "cc"), ("bfloat16", 32, "cc"),
+    ("bfloat16", 64, "mma"), ("bfloat16", 96, "cc"), ("bfloat16", 128, "mma"),
+    ("bfloat16", 256, "cc")])
 def test_flash_kernel_dispatch(dtype, d, kernel):
     """K2's dispatch rule, by dtype and head dim alone: bf16 at D 64 and
     128 runs the tensor-core kernel; float32 (full f32 products, which
     the float32 tolerance and token-exact serve need), bf16 at D 256
-    (accumulators too large for registers) and at D 32 (rows shorter
-    than a TMA box) the CUDA-core kernel.  Each choice names a kernel
+    (accumulators too large for registers), at D 32 (rows shorter
+    than a TMA box) and at D 96 (phi-3-vision's; not instantiated on the
+    tensor cores yet) the CUDA-core kernel.  Each choice names a kernel
     the source instantiates, held by the SASS rule."""
     dt = getattr(torch, dtype)
     assert kernel_for(dt, d) == kernel
@@ -258,6 +260,32 @@ def test_flash_kernel_dispatch(dtype, d, kernel):
         dt == torch.bfloat16 and d in MMA_HEAD_DIMS)
     tag = "f32" if dt == torch.float32 else "bf16"
     assert f"flash_attention_{kernel}_{tag}_d{d}" in SASS_KERNELS
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 32),
+                                           (False, None)])
+def test_flash_head_dim_96_plain_matches_pallas(causal, window):
+    """D 96 (phi-3-vision-4.2b: d 3072 over 32 heads), which the
+    reference's blocks take since they span the whole head dim: the port
+    admits it on the card (``HEAD_DIMS``, the CUDA-core kernel in both
+    dtypes), and its CPU path at D 96 matches the Pallas kernel in
+    interpret mode and the jnp oracle."""
+    assert 96 in HEAD_DIMS and 96 not in MMA_HEAD_DIMS
+    assert kernel_for(torch.bfloat16, 96) == "cc"
+    assert kernel_for(torch.float32, 96) == "cc"
+    q, k, v = _flash_inputs(4, 2, 64, d=96, seed=96)
+    before = launch_counts()
+    out = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                          window=window).numpy()
+    assert launch_counts() == before
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    pallas = np.asarray(flash_attention_pallas(
+        jq, jk, jv, causal=causal, window=window, interpret=True))
+    ref = np.asarray(jax_attention_ref(jq, jk, jv, causal=causal,
+                                       window=window))
+    assert out.shape == (1, 4, 64, 96)
+    assert np.max(np.abs(out - pallas)) < TOL
+    assert np.max(np.abs(out - ref)) < TOL
 
 
 def test_flash_cpu_launches_no_kernel():
@@ -454,6 +482,31 @@ def test_flash_mma_kernel_on_card(sq, causal, window, d):
     assert after["flash_attention_mma"] - before["flash_attention_mma"] == 1
     assert after["flash_attention_cc"] == before["flash_attention_cc"]
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 128)])
+@pytest.mark.parametrize("sq", [100, 512])
+def test_flash_d96_kernel_on_card(sq, causal, window, dtype, tol):
+    """K2 at D 96 (phi-3-vision's head dim, which the reference takes) on
+    the CUDA-core kernel in both dtypes, causal and windowed, against
+    ``attention_ref``: float32 within 1e-4, bf16 within 2e-2; the counter
+    shows that kernel ran, once."""
+    _need_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).cuda().to(dt) for a in
+               _flash_inputs(12, 2, sq, d=96, seed=sq + 96))
+    before = launch_counts()
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    after = launch_counts()
+    ref = attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert after["flash_attention_cc"] - before["flash_attention_cc"] == 1
+    assert after["flash_attention_mma"] == before["flash_attention_mma"]
+    assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
 @pytest.mark.cuda
