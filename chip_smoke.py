@@ -77,16 +77,21 @@ order (any failure raises and the script exits non-zero):
    for bit, the launch counters showing each arm's weight stream
    there and its staged kernel (WMMA, or FMUL/FADD on 64 x 64 tiles)
    at (128, 1536, 130), whose rows are not whole 16-byte chunks; K7
-   (qmatmul) on those weights quantized on the card in all four
-   formats, dequant_dot and q8_0 dot_i8 at M 8 and 128 with float32
-   and bfloat16 activations, within 1e-5;
+   (qmatmul: dequant_dot on the bf16 tensor cores, dot_i8 on the int8
+   ones) on those weights quantized on the card in all four formats
+   and on a (512, 100) weight (rows that are not whole 16-byte chunks:
+   the _plain kernels), dequant_dot and q8_0 dot_i8 at M 1, 8, 24, 128
+   and 256 with float32 and bfloat16 activations, within 1e-5, every
+   call run twice and required to repeat bit for bit, the launch
+   counters naming the variant;
 12. the instructions (``cuobjdump -sass``): no FFMA/HFMA2/HMMA in any
    mul_add kernel of K8 and K9 (K9's stream and staged kernels) and
    FMUL and FADD present, none in the split-K reduce either (adds
    alone), FFMA/HFMA2 in K8's fma kernels, HMMA in K9's mxu kernels --
    the paper's ``-fmad=false``; HMMA in K2's bf16 kernels and in K10's
    four kernels, and no HMMA or HGMMA in K2's CUDA-core kernels and
-   the dense and paged decode kernels;
+   the dense and paged decode kernels; HMMA in every K7 dequant_dot
+   kernel, IMMA and no IDP.4A in every dot_i8 kernel;
 13. the compute path through its entry points, launch counts zeroed
    before and read after: the K8 intensity sweep (2^26 float32
    elements, 1 to 1024 steps, both arms: GFLOP/s and GB/s per point,
@@ -98,11 +103,14 @@ order (any failure raises and the script exits non-zero):
    dequant_dot otherwise);
 14. timings of K8, K9 and K7 at full width beside their bounds, plain
    versions and ``torch.matmul`` (K9) or the dequantize-then-matmul
-   route (K7); K9's as device time per call (launches queued behind a
-   busy-wait), each arm at both MLP shapes in float32 and bfloat16
-   (mxu beside TF32 or bf16 ``torch.matmul``, mul_add beside one f32
-   ``torch.matmul`` with TF32 off) with its TB/s, TFLOP/s and share of
-   the bound, and each arm's staged kernel at (128, 1536, 8958);
+   route (K7); K9's and K7's as device time per call (launches queued
+   behind a busy-wait): each K9 arm at both MLP shapes in float32 and
+   bfloat16 (mxu beside TF32 or bf16 ``torch.matmul``, mul_add beside
+   one f32 ``torch.matmul`` with TF32 off) with its TB/s, TFLOP/s and
+   share of the bound, and each arm's staged kernel at (128, 1536,
+   8958); K7's dequant_dot q4_k and dot_i8 q8_0 at both MLP shapes, M
+   128 and 8, float32 and bfloat16 x (``by_shape``), and dequant_dot in
+   every format at float32 (128, 1536, 8960);
 15. K10 (the SSD chunk scan: C.B^T once per chunk, then the per-head
    products on the tensor cores) against its plain version at
    mamba2-780m's widths (H 48, P 64, N 128, chunk 256): S 64, 256, 1024
@@ -1087,36 +1095,59 @@ def phase_k9_check(dev):
         for (v, _), name in K9_KERNEL.items()}
 
 
+#: K7's check shapes (K, N, bk) beyond the MLP ones: rows of 100
+#: columns are not whole 16-byte chunks (the _plain kernels); and its rows
+#: M (16-row tiles up to 16, 128-row tiles beyond, two bands at 256)
+K7_ODD_SHAPE = (512, 100, 512)
+K7_ROWS = (1, 8, 24, 128, 256)
+
+
 def phase_k7_check(dev):
-    """K7: the MLP weights quantized on the card in all four formats;
-    dequant_dot (every format) and dot_i8 (q8_0) at M 8 and 128, with
-    float32 and bfloat16 activations, against their plain versions,
-    relative max error <= 1e-5."""
+    """K7: the MLP weights quantized on the card in all four formats, and
+    a (512, 100) weight; dequant_dot (every format) and dot_i8 (q8_0) at
+    M 1, 8, 24, 128 and 256 with float32 and bfloat16 activations,
+    against their plain versions, relative max error <= 1e-5; every call
+    run twice and required to give the same bits (the split-K pieces are
+    added in run order), the launch counters showing the variant's
+    kernel."""
     import torch
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.qmatmul import (qmatmul_i8_ref, qmatmul_ref,
                                              qmatmul_variant)
     from repro_torch.quant import quantize
     errs = {}
-    for _, k, n in MLP_SHAPES:
+    shapes = [(k, n, 512 if k % 512 == 0 else 256)     # the contract: bk | k
+              for _, k, n in MLP_SHAPES] + [K7_ODD_SHAPE]
+    for k, n, bk in shapes:
         w = mlp_weights(k, n, dev)
-        bk = 512 if k % 512 == 0 else 256     # the contract: bk | k
         for fmt in QFMTS:
             qt = quantize(w, fmt)
             runs = [("dequant_dot", qmatmul_ref)]
             if fmt == "q8_0":
                 runs.append(("dot_i8", qmatmul_i8_ref))
             for m, dtype, (variant, plain) in itertools.product(
-                    (8, 128), ("float32", "bfloat16"), runs):
+                    K7_ROWS, ("float32", "bfloat16"), runs):
                 x = activations(m, k, dev).to(getattr(torch, dtype))
+                before = launch_counts()
                 out = qmatmul_variant(x, qt, variant=variant, bk=bk)
+                again = qmatmul_variant(x, qt, variant=variant, bk=bk)
                 ref = plain(x, qt)
                 torch.cuda.synchronize()
+                ran = {kk: v - before[kk] for kk, v in launch_counts().items()
+                       if v != before[kk]}
                 rel = rel_err(out, ref)
+                same = bool(torch.equal(out, again))
                 print(f"[K7] {variant} {fmt} x {dtype} ({m},{k},{n}): rel "
-                      f"max err {rel:.3e} (tol 1e-05)")
+                      f"max err {rel:.3e} (tol 1e-05), repeat bitwise "
+                      f"{same}, launched {ran}")
                 if not rel <= 1e-5:
                     fail(f"K7 {variant} {fmt} x {dtype} ({m},{k},{n}): "
                          f"{rel}")
+                if not same:
+                    fail(f"K7 {variant} {fmt} x {dtype} ({m},{k},{n}): two "
+                         "runs differ")
+                if ran != {f"qmatmul_{variant}": 2}:
+                    fail(f"K7 {variant} {fmt} ({m},{k},{n}) launched {ran}")
                 errs[variant, dtype] = max(errs.get((variant, dtype),
                                                     (0.0, 0.0)),
                                            (max_err(out, ref), rel))
@@ -1361,28 +1392,55 @@ def phase_compute_timings(dev):
     rows["fma_matmul_mul_add_staged"] = k9_row(
         a, w2, "mul_add", FP32_FLOPS_PER_S / 2, bn=2)
     del w2
-    # K7: f32 activations, the same shape; dequant_dot's row is q4_k (the
-    # paper's Q4_K_M), every format is printed; no single PyTorch call
-    # computes a block-quantized product, so the route (dequantize, then
-    # torch.matmul in f32) stands beside each as route_ms
+    # K7, as device time per call: dequant_dot q4_k (the paper's Q4_K_M)
+    # and dot_i8 q8_0 at both MLP shapes, M 128 and 8, f32 and bf16 x,
+    # the first f32 shape each variant's row; there every format's
+    # dequant_dot too.  No single PyTorch call computes a block-quantized
+    # product, so the route (dequantize, then torch.matmul with TF32 off)
+    # stands beside each as route_ms.  Bound: f32 products at the TF32
+    # rule (as K10's), one bf16 pass at the bf16 rate, int8 at the int8
+    # rate.
+    k7_shapes = {}
+    k7_peak = {("dequant_dot", torch.float32): TF32_FLOPS_PER_S,
+               ("dequant_dot", torch.bfloat16): BF16_FLOPS_PER_S,
+               ("dot_i8", torch.float32): INT8_OPS_PER_S,
+               ("dot_i8", torch.bfloat16): INT8_OPS_PER_S}
     per_fmt = {}
-    for fmt in QFMTS:
-        qt = quantize(w, fmt)
-        variants = [("dequant_dot", qmatmul_ref, TF32_FLOPS_PER_S)]
-        if fmt == "q8_0":
-            variants.append(("dot_i8", qmatmul_i8_ref, INT8_OPS_PER_S))
-        route_ms = time_ms(lambda: a @ dequantize(qt))
-        for variant, plain, peak in variants:
-            r = dict(ms=time_ms(lambda: qmatmul_variant(a, qt,
-                                                        variant=variant)),
-                     plain_ms=time_ms(lambda: plain(a, qt)),
-                     library_ms=None, route_ms=route_ms,
-                     bytes=4 * (m * k + m * n) + qt.nbytes(),
-                     flops=2 * m * k * n, peak=peak,
-                     shape=f"f32 x ({m},{k}) {fmt} ({k},{n})")
-            per_fmt[f"{variant}/{fmt}"] = r
-    for name, r in list(rows.items()) + [
-            (f"qmatmul {key}", r) for key, r in per_fmt.items()]:
+    for (_, kk, nn), mm in itertools.product(MLP_SHAPES, (128, 8)):
+        wq = mlp_weights(kk, nn, dev)
+        bk = 512 if kk % 512 == 0 else 256     # the contract: bk | k
+        qts = {fmt: quantize(wq, fmt) for fmt in QFMTS}
+        for dtype in (torch.float32, torch.bfloat16):
+            xq = activations(mm, kk, dev).to(dtype)
+            tag = (f"{'f32' if dtype == torch.float32 else 'bf16'} "
+                   f"({mm},{kk},{nn})")
+            main = tag == f"f32 ({m},{k},{n})"
+            for variant, fmt, plain in (
+                    ("dequant_dot", "q4_k", qmatmul_ref),
+                    ("dot_i8", "q8_0", qmatmul_i8_ref)):
+                qt = qts[fmt]
+                r = dict(
+                    ms=time_ms_queued(lambda: qmatmul_variant(
+                        xq, qt, variant=variant, bk=bk)),
+                    plain_ms=time_ms_queued(lambda: plain(xq, qt)),
+                    library_ms=None,
+                    route_ms=time_ms_queued(lambda: xq.float() @
+                                            dequantize(qt)),
+                    bytes=xq.element_size() * mm * kk + 4 * mm * nn
+                    + qt.nbytes(),
+                    flops=2 * mm * kk * nn, peak=k7_peak[variant, dtype],
+                    shape=f"{tag} {fmt}")
+                k7_shapes.setdefault(variant, {})[tag] = with_bound(r)
+            if main:
+                for fmt in QFMTS:
+                    per_fmt[fmt] = time_ms_queued(lambda: qmatmul_variant(
+                        xq, qts[fmt], variant="dequant_dot", bk=bk))
+        del wq, qts
+    for variant, by_shape in k7_shapes.items():
+        rows[f"qmatmul_{variant}"] = dict(by_shape[f"f32 ({m},{k},{n})"])
+        rows[f"qmatmul_{variant}"]["by_shape"] = by_shape
+    rows["qmatmul_dequant_dot"]["ms_by_format"] = per_fmt
+    for name, r in rows.items():
         with_bound(r)
         lib = r["library_ms"]
         route = (f", dequantize + torch.matmul {r['route_ms']:.4f} ms"
@@ -1404,10 +1462,16 @@ def phase_compute_timings(dev):
         print(f"[time] fma_matmul_{variant} f32 ({m},{k},{n}) one call at "
               "a time (host launch included): "
               f"{rows[f'fma_matmul_{variant}']['single_call_ms']:.4f} ms")
-    rows["qmatmul_dequant_dot"] = dict(per_fmt["dequant_dot/q4_k"])
-    rows["qmatmul_dequant_dot"]["ms_by_format"] = {
-        f: per_fmt[f"dequant_dot/{f}"]["ms"] for f in QFMTS}
-    rows["qmatmul_dot_i8"] = per_fmt["dot_i8/q8_0"]
+    for variant, by_shape in k7_shapes.items():
+        for shape, r in by_shape.items():
+            print(f"[time] qmatmul_{variant} {r['shape']}: kernel "
+                  f"{r['ms']:.4f} ms = {r['bytes'] / r['ms'] / 1e9:.3f} TB/s,"
+                  f" {r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s, "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}); route "
+                  f"{r['route_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms")
+    print("[time] qmatmul_dequant_dot f32 ({},{},{}) by format: {}".format(
+        m, k, n, ", ".join(f"{f} {v:.4f} ms" for f, v in per_fmt.items())))
     return rows
 
 

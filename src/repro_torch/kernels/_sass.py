@@ -14,7 +14,10 @@ K9's ``mxu`` kernels (the weight stream's ``mma.sync`` and the WMMA
 kernel's), in K2's bf16 tensor-core kernels and in both of K10's
 kernels (C.B^T and the per-head products); no HMMA and no HGMMA in
 K2's CUDA-core kernels and in the dense and paged decode kernels
-(one split-KV body), whose f32 arithmetic stays off the tensor cores.  ``chip_smoke.py`` and the
+(one split-KV body), whose f32 arithmetic stays off the tensor cores;
+in qmatmul (K7) HMMA in every ``dequant_dot`` kernel (bf16 products of
+integer weights), IMMA in every ``dot_i8`` kernel (int8 products) and
+no IDP.4A (``__dp4a``) left in one.  ``chip_smoke.py`` and the
 cuda-marked test both call it.  Nothing runs at import.
 """
 
@@ -54,11 +57,17 @@ SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
                 "decode_paged_f32", "decode_paged_bf16",
                 "decode_paged_q8_f32", "decode_paged_q8_bf16",
                 "ssd_cb_f32", "ssd_cb_bf16", "ssd_chunk_f32",
-                "ssd_chunk_bf16")
+                "ssd_chunk_bf16") + tuple(
+    f"qmatmul_dequant_dot_{fmt}_{dtype}_m{rows}{copy}"
+    for fmt in ("q8_0", "q6_k", "q4_k", "q2_k")
+    for dtype in ("f32", "bf16") for rows in (16, 128)
+    for copy in ("", "_plain")) + tuple(
+    f"qmatmul_dot_i8_m{rows}{copy}" for rows in (16, 128)
+    for copy in ("", "_plain"))
 #: the libraries whose kernels SASS_KERNELS names
 SASS_LIBS = ("mixbench", "fma_matmul", "flash_attention",
              "decode_attention_dense", "decode_attention_paged",
-             "ssd_scan")
+             "ssd_scan", "qmatmul")
 
 
 def cuobjdump() -> str:
@@ -82,7 +91,8 @@ def cuobjdump() -> str:
 def parse_sass(text: str) -> Dict[str, collections.Counter]:
     """{kernel symbol: Counter of instruction classes} from the text of
     ``cuobjdump -sass``.  ``hmma`` counts ``mma.sync`` (HMMA), ``hgmma``
-    ``wgmma`` (HGMMA).  ``fma`` counts FFMA and HFMA2 except the
+    ``wgmma`` (HGMMA), ``imma`` integer ``mma.sync`` (IMMA), ``idp``
+    ``__dp4a`` (IDP.4A).  ``fma`` counts FFMA and HFMA2 except the
     ``HFMA2.MMA Rd, -RZ, RZ, c`` form, which computes -0 * 0 + c: a
     constant move ptxas issues on that pipe, counted as ``mov``."""
     counts, func = {}, None
@@ -111,6 +121,10 @@ def parse_sass(text: str) -> Dict[str, collections.Counter]:
             c["hmma"] += 1
         elif op.startswith("HGMMA"):
             c["hgmma"] += 1
+        elif op.startswith("IMMA"):
+            c["imma"] += 1
+        elif op.startswith("IDP"):
+            c["idp"] += 1
     return counts
 
 
@@ -142,6 +156,12 @@ def check_counts(found: Dict[str, dict]) -> List[str]:
         elif kern.startswith(("flash_attention_mma", "ssd_")) and \
                 not c.get("hmma", 0):
             problems.append(f"{kern} does not use the tensor cores: {c}")
+        elif kern.startswith("qmatmul_dequant_dot") and \
+                not c.get("hmma", 0):
+            problems.append(f"{kern} does not use the tensor cores: {c}")
+        elif kern.startswith("qmatmul_dot_i8") and (
+                not c.get("imma", 0) or c.get("idp", 0)):
+            problems.append(f"{kern} is not on the int8 tensor cores: {c}")
         elif kern.startswith("mixbench") and not c.get("fma", 0):
             problems.append(f"{kern} has no fused multiply-add: {c}")
         elif kern.startswith("fma_matmul") and not c.get("hmma", 0):

@@ -70,6 +70,23 @@ PyTorch call computes it, so no yardstick):
   after launch 1's end: its prologue no longer overlaps launch 1; the
   only cut that computes the function).
 
+K7 (``csrc/qmatmul.cu``; both qwen2.5-1.5b MLP shapes at M 128 and
+M 8, f32 and bf16 x; ``dequant_dot`` in all four formats and ``dot_i8``
+in q8_0 for ``full`` and ``before``, the cuts at q4_k and ``dot_i8``),
+beside the route, dequantize then ``torch.matmul`` with TF32 off (no
+single PyTorch call computes a block-quantized product):
+
+* ``k7``: ``empty`` (every CTA of x's and the products' launches
+  returns at once; the fold then adds what the workspace holds); ``no
+  products`` (no ``mma.sync``, nor the fragment loads that feed them);
+  ``no dequant/quantize`` (``dequant_dot``: stages after the first are
+  not unpacked, the products read the integer tile as it lies;
+  ``dot_i8``: x is not quantized, the products read the scratch as it
+  lies); ``no epilogue`` (each sub-block's or block's sums are added
+  unscaled, no mins); ``no split-K fold`` (the fold launch is left
+  out: the tiles no run holds whole are never added up); ``no copies`` (no
+  16-byte copy into the ring: the products run on what it holds).
+
 A cut in a header applies to the copy of the source that includes it:
 each copy is the source with the ``csrc`` headers it includes written
 in (:func:`source_text`).
@@ -165,6 +182,49 @@ CUTS = {
                    "  cfg.gridDim = dim3(RB, H, chunks);"),
         "pdl": ("  cfg.numAttrs = 1;", "  cfg.numAttrs = 0;"),
     },
+    "qmatmul": {
+        "empty_prep": ("  griddep_launch();\n",
+                       "  griddep_launch();\n"
+                       "  if (K > 0) asm volatile(\"exit;\");\n"),
+        "empty_dq": ("  float* eff = reinterpret_cast<float*>(Wt + 2 * "
+                     "L::W_ELEMS);\n",
+                     "  float* eff = reinterpret_cast<float*>(Wt + 2 * "
+                     "L::W_ELEMS);\n  if (M > 0) return;\n"),
+        "empty_i8": ("  using L = I8<C>;\n  extern __shared__ __align__(16) "
+                     "unsigned char smem[];\n",
+                     "  using L = I8<C>;\n  extern __shared__ __align__(16) "
+                     "unsigned char smem[];\n  if (M > 0) return;\n"),
+        "products_dq": ("      for (int p = 0; p < L::P; ++p) {",
+                        "      for (int p = 0; p < 0; ++p) {"),
+        "products_i8": ("      for (int j = 0; j < C::NT; ++j) "
+                        "mma_s8(d[i][j], a, b[j][0], b[j][1]);",
+                        "      for (int j = 0; j < 0; ++j) "
+                        "mma_s8(d[i][j], a, b[j][0], b[j][1]);"),
+        "dequant": ("    if (i + 1 < n)\n      unpack<F, T, C>(",
+                    "    if (i + 1 < 0)\n      unpack<F, T, C>("),
+        "quantize": ("  if (variant == 1) {\n    if (x_dtype == 0)\n",
+                     "  if (variant == 1) {\n    if (x_dtype < 0)\n"),
+        "quantize_bf16": ("    else\n      qmatmul_prep_quant_bf16",
+                          "    else if (x_dtype < 0)\n"
+                          "      qmatmul_prep_quant_bf16"),
+        "epilogue_dq": ("    dq_epilogue<F, C>(acc, d, eff + sb * C::BN, "
+                        "eff + L::NE + sb * C::BN,\n                      "
+                        "xsum + sb * C::BM, wm, wn);",
+                        "    for (int i = 0; i < C::MT; ++i)\n"
+                        "      for (int j = 0; j < C::NT; ++j)\n"
+                        "        for (int e = 0; e < 4; ++e) "
+                        "acc[i][j][e] += d[i][j][e];"),
+        "epilogue_i8": ("    i8_epilogue<C>(acc, d, wsc + qb * C::BN, "
+                        "xs + qb * C::BM, wm, wn);",
+                        "    for (int i = 0; i < C::MT; ++i)\n"
+                        "      for (int j = 0; j < C::NT; ++j)\n"
+                        "        for (int e = 0; e < 4; ++e) "
+                        "acc[i][j][e] += (float)d[i][j][e];"),
+        "fold": ("  if (iters % runs == 0 && (iters / runs) % nkb == 0) return 0;",
+                 "  return 0;"),
+        "copies": ("      cp16(dst + r * dld + pc * 16, in ? src + r * ld + "
+                   "c * 16 : src, in);", "      ;"),
+    },
 }
 _SPLIT_VARIANTS = {"full": (), "empty": ("empty",),
                    "loads only": ("loads",), "no merge": ("merge",)}
@@ -189,6 +249,13 @@ TARGETS = {
              "no C.B": ("cb",), "no products": ("products", "products_bf16"),
              "no exp": ("exp",), "no states": ("states",),
              "no PDL": ("pdl",)}),
+    "k7": ("qmatmul",
+           {"full": (), "empty": ("empty_prep", "empty_dq", "empty_i8"),
+            "no products": ("products_dq", "products_i8"),
+            "no dequant/quantize": ("dequant", "quantize", "quantize_bf16"),
+            "no epilogue": ("epilogue_dq", "epilogue_i8"),
+            "no split-K fold": ("fold",),
+            "no copies": ("copies",)}),
 }
 MLP_SHAPES = ((128, 1536, 8960), (128, 8960, 1536))
 #: ``fma_matmul_fwd``'s argument types
@@ -481,13 +548,51 @@ def _k10_rows(dev, libs):
     return rows
 
 
+def _k7_rows(dev, libs):
+    """K7 at both MLP shapes, M 128 and 8, f32 and bf16 x: ``full`` and
+    ``before`` in every format and ``dot_i8``, the cuts at q4_k and
+    ``dot_i8``; the route beside them."""
+    from repro_torch.kernels.qmatmul import qmatmul_variant
+    from repro_torch.quant import dequantize, quantize
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    for (_, k, n), m, dtype in ((s, m, d) for s in MLP_SHAPES
+                                for m in (128, 8)
+                                for d in (torch.float32, torch.bfloat16)):
+        gen = torch.Generator(device=dev).manual_seed(k + m)
+        w = torch.randn(k, n, device=dev, generator=gen)
+        x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
+        qts = {fmt: quantize(w, fmt) for fmt in ("q8_0", "q6_k", "q4_k",
+                                                  "q2_k")}
+        bk = 512 if k % 512 == 0 else 256       # the contract: bk | k
+        calls = {f"dequant_dot {fmt}": (lambda qt=qt: qmatmul_variant(
+            x, qt, variant="dequant_dot", bk=bk)) for fmt, qt in qts.items()}
+        calls["dot_i8 q8_0"] = lambda: qmatmul_variant(
+            x, qts["q8_0"], variant="dot_i8", bk=bk)
+        tag = f"{'f32' if dtype == torch.float32 else 'bf16'} ({m},{k},{n})"
+        for name, lib in libs.items():
+            _use("qmatmul", lib)
+            for case, call in calls.items():
+                if lib is None or case in ("dequant_dot q4_k",
+                                           "dot_i8 q8_0"):
+                    rows.setdefault(f"{case} {tag}", {})[name] = \
+                        queued_ms(call)
+        for fmt, qt in qts.items():
+            rows[f"dequant_dot {fmt} {tag}"]["route"] = queued_ms(
+                lambda qt=qt: x.float() @ dequantize(qt))
+        rows[f"dot_i8 q8_0 {tag}"]["route"] = \
+            rows[f"dequant_dot q8_0 {tag}"]["route"]
+        del w, qts
+    return rows
+
+
 def rows_of(target: str, dev, libs) -> dict:
     """{case: {variant or yardstick: ms}} of ``target``; ``libs`` maps
     each variant to its library, None for the library as built."""
     if target in ("mxu", "mul_add"):
         return _k9_rows(target, dev, libs)
     return {"k1": _k1_rows, "k2": _k2_rows, "k3": _k3_rows,
-            "k10": _k10_rows}[target](dev, libs)
+            "k7": _k7_rows, "k10": _k10_rows}[target](dev, libs)
 
 
 def before_rows(target: str, tree: Path) -> dict:

@@ -626,6 +626,60 @@ def test_sass_rules_cover_the_mul_add_arm(edit, breach):
             "fma_matmul_splitk_reduce"} <= set(SASS_KERNELS)
 
 
+def _sym(name: str) -> str:
+    """The mangled symbol of a kernel of the anonymous namespace."""
+    return (f"_ZN43_GLOBAL__N__f7884295_10_qmatmul_cu_0be9709f{len(name)}"
+            f"{name}EPKhS1_S1_S1_S1_S1_PKfPfS4_iiiiiix")
+
+
+_SASS_K7 = f"""
+        Function : {_sym("qmatmul_dequant_dot_q4_k_f32_m128")}
+        /*0000*/                   LDSM.16.MT88.4 R20, [R2+UR4] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0020*/                   FFMA R5, R4, R2, R3 ;
+        Function : {_sym("qmatmul_dequant_dot_q4_k_f32_m128_plain")}
+        /*0000*/                   HMMA.16816.F32.BF16 R24, R8, R12, R24 ;
+        Function : {_sym("qmatmul_dot_i8_m16")}
+        /*0000*/                   PRMT R5, R4, 0x5140, R6 ;
+        /*0010*/                   IMMA.16832.S8.S8 R4, R8.ROW, R12.COL, R4 ;
+        /*0020*/                   FMUL R5, R4, R2 ;
+        Function : {_sym("qmatmul_dot_i8_m16_plain")}
+        /*0000*/                   IMMA.16832.S8.S8 R20, R8.ROW, R12.COL, R20 ;
+"""
+
+
+@pytest.mark.parametrize("edit,breach", [
+    (None, None),
+    (("HMMA.16816.F32.BF16 R4, R8, R12, R4", "FFMA R4, R8, R12, R4"),
+     "qmatmul_dequant_dot_q4_k_f32_m128"),
+    (("HMMA.16816.F32.BF16 R24, R8, R12, R24", "FMUL R24, R8, R12"),
+     "qmatmul_dequant_dot_q4_k_f32_m128_plain"),
+    (("IMMA.16832.S8.S8 R4, R8.ROW, R12.COL, R4",
+      "IDP.4A.S8.S8 R4, R8, R12, R4"), "qmatmul_dot_i8_m16"),
+    (("PRMT R5, R4, 0x5140, R6", "IDP.4A.S8.S8 R5, R4, R6, R5"),
+     "qmatmul_dot_i8_m16"),
+    (("IMMA.16832.S8.S8 R20, R8.ROW, R12.COL, R20",
+      "HMMA.16816.F32.BF16 R20, R8, R12, R20"), "qmatmul_dot_i8_m16_plain"),
+])
+def test_sass_rules_hold_k7(edit, breach):
+    """K7's SASS rules: HMMA in every dequant_dot kernel, IMMA and no
+    IDP.4A (``__dp4a``) in every dot_i8 kernel; a kernel's name does not
+    match its ``_plain`` twin (nor the twin its)."""
+    text = _SASS_K7 if edit is None else _SASS_K7.replace(*edit)
+    assert text.count(edit[1]) == 1 if edit else True
+    found = kernel_counts(parse_sass(text))
+    assert set(found) == {"qmatmul_dequant_dot_q4_k_f32_m128",
+                          "qmatmul_dequant_dot_q4_k_f32_m128_plain",
+                          "qmatmul_dot_i8_m16", "qmatmul_dot_i8_m16_plain"}
+    if edit is None:
+        assert found["qmatmul_dot_i8_m16"] == {"imma": 1, "mul": 1}
+        assert found["qmatmul_dequant_dot_q4_k_f32_m128"] == {"hmma": 1,
+                                                              "fma": 1}
+    problems = [p for p in check_counts(found) if "not found" not in p]
+    assert [p.split()[0] for p in problems] == ([breach] if breach else [])
+    assert set(found) <= set(SASS_KERNELS) and "qmatmul" in SASS_LIBS
+
+
 # ----------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ----------------------------------------------------------------------
@@ -724,18 +778,24 @@ def test_matmul_mul_add_kernels_on_card(dtype):
 @pytest.mark.parametrize("variant,fmt", [("dequant_dot", f) for f in FMTS]
                          + [("dot_i8", "q8_0")])
 def test_qmatmul_kernel_on_card(variant, fmt):
+    """Both MLP shapes and (K 512, N 100), whose rows are not whole
+    16-byte chunks (the ``_plain`` kernels); M 1, 8, 24, 128 and 256, f32
+    and bf16 x; within 1e-5 of the plain version, each call repeated bit
+    for bit (the split-K pieces are added in run order)."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
-    for k, n, bk in ((1536, 8960, 512), (8960, 1536, 256)):
+    for k, n, bk in ((1536, 8960, 512), (8960, 1536, 256), (512, 100, 512)):
         qt = quantize(torch.from_numpy(_normal((k, n), 1)).cuda(), fmt)
-        for m, dtype in itertools.product((8, 128),
+        for m, dtype in itertools.product((1, 8, 24, 128, 256),
                                           (torch.float32, torch.bfloat16)):
             x = torch.from_numpy(_normal((m, k), 0)).cuda().to(dtype)
             out = qmatmul_variant(x, qt, variant=variant, bk=bk)
+            again = qmatmul_variant(x, qt, variant=variant, bk=bk)
             ref = (qmatmul_i8_ref(x, qt) if variant == "dot_i8"
                    else qmatmul_ref(x, qt))
             torch.cuda.synchronize()
-            assert _rel(out.cpu(), ref.cpu()) <= 1e-5
+            assert _rel(out.cpu(), ref.cpu()) <= 1e-5, (m, k, n, dtype)
+            assert torch.equal(out, again), (m, k, n, dtype)
 
 
 @pytest.mark.cuda
