@@ -43,11 +43,24 @@ order (any failure raises and the script exits non-zero):
    the card (kernels): CPU and card streams, and fixed-lane and paged
    streams on the card, must be identical; once with the cache in the
    compute dtype and once with ``kv_quant="int8"``; the card's float32
-   prefill must run K2's CUDA-core kernel;
+   prefill must run K2's CUDA-core kernel.  On the card every decode
+   dispatch after the first of its size is a CUDA graph replay (one
+   graph per ``n_steps``): each serve must count replays ==
+   ``decode_dispatches - decode_compiles`` > 0, and once in each serve,
+   after the ``dispatch_n`` graph is captured and with lanes live, one
+   replayed dispatch is held bit for bit against the eager
+   ``model.decode_n_steps`` on the same saved state (tokens, valid
+   flags, budgets, lengths, next tokens, token indices and every cache
+   tensor, i.e. the KV rows or ssm state written), and both are timed
+   (host clock, synced; the check's own launches and replays are taken
+   back out of the serve's counts);
 7. end to end at full width, paged: qwen2.5-1.5b in bfloat16 with
    seeded random weights, 16 requests through ``ServeEngine(paged=
    True)``; every request must finish its budget, K2's tensor-core
-   kernel must have launched and K1 28 times per decode step;
+   kernel must have launched and K1 28 times per decode step (counted
+   through the graphs' replay accounting); the replay gate and check
+   of phase 6, with each graph's capture seconds, the graph pool's
+   size, and decode ms per dispatch eager and replayed;
 8. end to end at full width, fixed-lane (the engine's default): the
    same 16 requests through ``ServeEngine()``; every request must
    finish, K2's tensor-core kernel and K3 must have launched, K3 28
@@ -123,11 +136,17 @@ order (any failure raises and the script exits non-zero):
 16. end to end at SMOKE width in float32, mamba2: CPU and card streams
    identical, fixed-lane and paged, greedy and at temperature 0.8, with
    lanes reused; K10 launched on every layer of every card prefill;
+   the replay gate and check of phase 6, and every prompt token but
+   the engine's first streamed by a replay of the captured batch-1
+   decode step;
 17. end to end at full width, mamba2-780m in bfloat16 with seeded
    random weights: 3 requests fixed-lane and 2 of them paged, K10
    launched 48 times per prompt; the prefill's logits at the last
    prompt position (K10's path) beside the streamed ones (the recurrent
-   path).  The serve discards the prefill's logits for the streamed
+   path); the graph gates and check of phase 16, and 64 prompt tokens
+   streamed into a free lane by replays and eagerly (``decode_step`` on
+   a fresh batch-1 state), logits and state bitwise equal, ms per
+   token of each.  The serve discards the prefill's logits for the streamed
    ones, as the reference does, so these K10 launches (the kernels
    line's ``launches``) are counted but their output is only printed,
    not gated;
@@ -148,6 +167,7 @@ no CUDA device is present or the port's sources are not beside it.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import statistics
@@ -241,6 +261,170 @@ def time_ms_queued(fn, warmup: int = 5, reps: int = 30,
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max().item())
+
+
+# ----------------------------------------------------------------------
+# the decode dispatch's CUDA graphs
+# ----------------------------------------------------------------------
+
+def _dispatch_state(eng):
+    """Clones of every tensor a decode dispatch reads or writes."""
+    out = {f"cache.{k}": t.clone() for k, t in eng.cache.items()}
+    for name in ("_next_token", "_remaining", "_tok_idx"):
+        out[name] = getattr(eng, name).clone()
+    return out
+
+
+def _restore_dispatch_state(eng, state):
+    for key, t in state.items():
+        dst = (eng.cache[key[len("cache."):]] if key.startswith("cache.")
+               else getattr(eng, key))
+        dst.copy_(t)
+
+
+def check_replay(eng, tag, reps: int = 3):
+    """One replayed dispatch of ``eng.dispatch_n`` steps against the eager
+    ``model.decode_n_steps`` on the same saved state (lengths, next
+    tokens, budgets, token indices, the cache): tokens, valid flags,
+    budgets, lengths, next tokens, token indices and every cache tensor
+    (the KV rows or ssm state written) must be equal bit for bit.  Then
+    ``reps`` of each, timed on the host clock with the device synced,
+    the state restored before each.  The engine is left as it was, its
+    launch counts too; returns the timings and the replays it made."""
+    import torch
+    from repro_torch.kernels import add_launches, launch_counts, launch_delta
+    n = eng.dispatch_n
+    counts = launch_counts()
+    eng.map_dispatch_pages(n)             # as decode_n does before it
+    saved = _dispatch_state(eng)
+
+    def replay():
+        block, first = eng.graphs.run(n, lambda: eng._decode_block(n))
+        if first:
+            fail(f"{tag}: the n_steps={n} graph was not captured yet")
+        return {"toks": block[:n], "valid": block[n:2 * n],
+                "remaining": block[2 * n], "len": eng.cache["len"],
+                "next": eng._next_token, "tok_idx": eng._tok_idx}
+
+    def eager():
+        toks, valid, nxt, cache, rem, idx = eng.model.decode_n_steps(
+            eng.params, eng.cache, eng._next_token, eng._rng_decode,
+            eng._remaining, eng._lane_seed, eng._tok_idx, n_steps=n,
+            temperature=eng.temperature, len_cap=eng.max_len - 1)
+        return {"toks": toks, "valid": valid.to(torch.int32),
+                "remaining": rem, "len": cache["len"], "next": nxt,
+                "tok_idx": idx}
+
+    def timed(fn):
+        _restore_dispatch_state(eng, saved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        out["toks"].cpu()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def written():
+        """The cache tensors a live lane may read: on the paged layout
+        every page but the scratch page, which dead lanes write at once
+        (their values race there, and no live lane reads it)."""
+        return {k: (v[:, :eng._scratch_page] if k.endswith("_pages")
+                    else v) for k, v in eng.cache.items() if k != "len"}
+
+    got, _ = timed(replay)
+    got = {k: v.clone() for k, v in got.items()}
+    got.update({k: v.clone() for k, v in written().items()})
+    want, _ = timed(eager)
+    want.update(written())
+    differ = [k for k in sorted(want) if not torch.equal(got[k], want[k])]
+    if differ:
+        fail(f"{tag}: a replayed dispatch differs from eager "
+             f"decode_n_steps on the same state in {differ}")
+    graph_s = [timed(replay)[1] for _ in range(reps)]
+    eager_s = [timed(eager)[1] for _ in range(reps)]
+    _restore_dispatch_state(eng, saved)
+    add_launches(launch_delta(launch_counts(), counts))
+    torch.cuda.synchronize()
+    print(f"[{tag}] replayed dispatch == eager decode_n_steps bitwise "
+          f"(n_steps {n}, {len(eng.live_lanes())} live lanes: tokens, "
+          f"valid, budgets, lengths, next tokens, token indices, "
+          f"{len(eng.cache) - 1} cache tensors); host ms a dispatch, "
+          f"synced: eager {[round(1e3 * t, 3) for t in eager_s]}, graph "
+          f"{[round(1e3 * t, 3) for t in graph_s]}")
+    return {"n_steps": n, "check_replays": 1 + reps,
+            "decode_ms_eager": 1e3 * statistics.median(eager_s),
+            "decode_ms_graph": 1e3 * statistics.median(graph_s)}
+
+
+def check_replay_midway(eng, tag, out):
+    """Wrap ``eng.decode_n`` so that :func:`check_replay` runs once,
+    after the first dispatch that captured ``dispatch_n`` with lanes
+    still live; its result goes to ``out["check"]``."""
+    decode_n = eng.decode_n
+
+    def wrapped(n=None):
+        res = decode_n(n)
+        if "check" not in out and eng.live_lanes() and \
+                eng.dispatch_n in eng.timings["capture"]:
+            out["check"] = check_replay(eng, tag)
+        return res
+
+    eng.decode_n = wrapped
+
+
+def graph_summary(eng, tag, check):
+    """Fail unless the serve replayed a graph for every dispatch but the
+    first of each size (replays == decode_dispatches - decode_compiles
+    > 0, ``check``'s own replays left out) and ``check`` ran; returns
+    the serve's graph figures."""
+    if check is None:
+        fail(f"{tag}: the replay-vs-eager check never ran")
+    sizes = sorted(k for k in eng.timings["capture"] if isinstance(k, int))
+    replays = (sum(eng.graphs.replays(k) for k in sizes)
+               - check["check_replays"])
+    st = eng.stats
+    if st["decode_compiles"] != len(sizes):
+        fail(f"{tag}: decode_compiles {st['decode_compiles']} but graphs "
+             f"captured for sizes {sizes}")
+    if replays != st["decode_dispatches"] - st["decode_compiles"] or \
+            replays <= 0:
+        fail(f"{tag}: {replays} graph replays for "
+             f"{st['decode_dispatches']} dispatches and "
+             f"{st['decode_compiles']} compiles: the serve ran eagerly")
+    dec = eng.timings["decode"]          # empty unless the engine is timed
+    replayed = [t for t, r in zip(dec, eng.timings["decode_replayed"]) if r]
+    first = [t for t, r in zip(dec, eng.timings["decode_replayed"]) if not r]
+    return {"decode_compiles": st["decode_compiles"], "replays": replays,
+            "capture_s": {str(k): eng.timings["capture"][k]
+                          for k in sorted(eng.timings["capture"], key=str)},
+            "pool_bytes": eng.graphs.pool_bytes(),
+            "replayed_ms_median": (1e3 * statistics.median(replayed)
+                                   if replayed else None),
+            "first_dispatch_ms": [1e3 * t for t in first], **check}
+
+
+def stream_gate(eng, tag, reqs):
+    """Fail unless every prompt token but the engine's first streamed
+    through the ssm step's graph (one replay a token)."""
+    want = sum(min(len(r.prompt), eng.max_len - 1) for r in reqs) - 1
+    got = eng.graphs.replays("ssm_step")
+    if got != want:
+        fail(f"{tag}: {got} replays of the prompt stream's step for "
+             f"{want + 1} prompt tokens")
+    return got
+
+
+def print_graphs(tag, g):
+    pool = g["pool_bytes"]
+    print(f"[{tag}] graphs: decode_compiles {g['decode_compiles']}, "
+          f"replays {g['replays']}; capture s "
+          f"{ {k: round(v, 3) for k, v in g['capture_s'].items()} }; pool "
+          f"{'not measured' if pool is None else f'{pool / 2**20:.1f} MiB'};"
+          f" decode ms a dispatch (n_steps {g['n_steps']}, host, synced): "
+          f"eager {g['decode_ms_eager']:.3f}, graph "
+          f"{g['decode_ms_graph']:.3f}; the serve's replayed dispatches "
+          f"median {g['replayed_ms_median']:.3f}, first (eager; capture "
+          f"excluded) {[round(t, 3) for t in g['first_dispatch_ms']]}")
 
 
 # ----------------------------------------------------------------------
@@ -621,9 +805,21 @@ def phase_smoke_e2e(dev, kv_quant=None, arch="qwen2.5-1.5b"):
                           rng_seed=SEED + 3, paged=paged, page_size=16,
                           n_pages=24, device=where)
         reqs = _requests(cfg, 10, 3, 140, 16, SEED + 1)
+        checked = {}
+        if where == "cuda":
+            check_replay_midway(
+                eng, f"{tag} paged={paged} t={temperature}", checked)
         reset_launch_counts()
         eng.run(reqs)
         counts[where, paged, temperature] = launch_counts()
+        if where == "cuda":
+            g = graph_summary(eng, f"{tag} paged={paged} t={temperature}",
+                              checked.get("check"))
+            streamed = (f", {stream_gate(eng, tag, reqs)} prompt-stream "
+                        f"replays" if cfg.attn_free else "")
+            print(f"{tag} paged={paged} t={temperature}: "
+                  f"{g['replays']} replays, decode_compiles "
+                  f"{g['decode_compiles']}{streamed}")
         k10 = counts[where, paged, temperature]["ssd_chunk"]
         if cfg.attn_free and where == "cuda" and \
                 k10 != cfg.n_layers * len(reqs):
@@ -682,6 +878,8 @@ def serve_full(dev, cfg, params, tag, need, **engine_kw):
     eng = ServeEngine(cfg, params, n_lanes=8, max_len=1024, device=dev,
                       timed=True, **engine_kw)
     reqs = _requests(cfg, 16, 64, 700, gen, SEED + 2)
+    checked = {}
+    check_replay_midway(eng, tag, checked)
     reset_launch_counts()
     t0 = time.perf_counter()
     eng.run(reqs)
@@ -698,10 +896,12 @@ def serve_full(dev, cfg, params, tag, need, **engine_kw):
         fail(f"{tag}: generated token outside the vocabulary")
     if min(counts[k] for k in need) <= 0:
         fail(f"{tag}: a kernel of the path never launched: {counts}")
+    graphs = graph_summary(eng, tag, checked.get("check"))
     pre = eng.timings["prefill"]
     dec = eng.timings["decode"]
     print(f"[{tag}] {len(reqs)} requests, {n_gen} tokens in {wall:.3f}s "
           f"= {n_gen / wall:.1f} tok/s end to end; stats {eng.stats}")
+    print_graphs(tag, graphs)
     for bucket in sorted(pre):
         print(f"[{tag}] prefill bucket {bucket}: {len(pre[bucket])} "
               f"prompts, median {1e3 * statistics.median(pre[bucket]):.2f} "
@@ -715,8 +915,9 @@ def serve_full(dev, cfg, params, tag, need, **engine_kw):
                               for b, v in pre.items()},
                "decode_ms_per_dispatch": 1e3 * statistics.median(dec),
                "n_dispatches": len(dec),
-               "decode_steps": eng.stats["decode_steps"]}
-    del eng
+               "decode_steps": eng.stats["decode_steps"], "graphs": graphs}
+    del eng                     # the check's wrapper holds a cycle to it
+    gc.collect()
     torch.cuda.empty_cache()
     return counts, summary
 
@@ -1601,16 +1802,64 @@ def init_mamba(dev):
     return cfg, params
 
 
+def check_stream(eng, tag, prompt, streamed):
+    """Stream ``prompt`` into a free lane through the engine (replays of
+    its captured batch-1 step) and eagerly (``model.decode_step`` on a
+    fresh batch-1 state, token by token, as the engine streamed before
+    its step was captured): the logits at the last token and the state
+    must be equal bit for bit.  ``streamed`` is the list the engine's
+    first-token logits are appended to.  Leaves the lane dead; returns
+    host ms per token, synced, of each."""
+    import numpy as np
+    import torch
+    lane = eng.free_lanes()[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._stream_ssm_prompt(prompt, lane)
+    torch.cuda.synchronize()
+    t_graph = time.perf_counter() - t0
+    got = {k: eng.cache[k][:, lane] for k in ("ssm_h", "ssm_conv")}
+    got["logits"] = streamed[-1]
+    state = {k: torch.zeros_like(eng._ssm_lane[k])
+             for k in ("ssm_h", "ssm_conv")}
+    state["len"] = torch.zeros(1, dtype=torch.int32, device=eng.device)
+    toks = torch.from_numpy(prompt.astype(np.int32)).to(eng.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(len(prompt)):
+        logits, state = eng.model.decode_step(eng.params, state,
+                                              toks[t:t + 1])
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    want = {k: state[k][:, 0] for k in ("ssm_h", "ssm_conv")}
+    want["logits"] = logits.float()
+    differ = [k for k in sorted(want) if not torch.equal(got[k], want[k])]
+    if differ:
+        fail(f"{tag}: the replayed prompt stream differs from the eager "
+             f"one in {differ}")
+    eng.cache["len"][lane] = 0
+    per_tok = {"stream_ms_per_token_eager": 1e3 * t_eager / len(prompt),
+               "stream_ms_per_token_graph": 1e3 * t_graph / len(prompt),
+               "stream_check_tokens": len(prompt)}
+    print(f"[{tag}] {len(prompt)} prompt tokens streamed into lane {lane}:"
+          f" replayed step == eager decode_step bitwise (logits, ssm_h, "
+          f"ssm_conv); host ms per token, synced: eager "
+          f"{per_tok['stream_ms_per_token_eager']:.3f}, replayed "
+          f"{per_tok['stream_ms_per_token_graph']:.3f}")
+    return per_tok
+
+
 def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
     """Serve the full-width ssm requests numbered ``which`` (prompts
     64-512 from seed 2: 440, 181 and 113 tokens; 32 new tokens, 4 lanes,
     max_len 1024) with the launch counts zeroed just before and read
     just after; K10 must launch 48 times per prompt.  Prompt streaming
-    costs ~29 ms per token at this depth on an H100 (eager decode steps,
-    host-bound), so the serve is cut to 3 requests to keep these phases
-    near a minute.  Also holds, for each prompt, the prefill's logits at
-    ``plen - 1`` (the chunked scan on K10) beside the streamed logits
-    that give the first token (the recurrent path)."""
+    cost ~29-50 ms per token at this depth on an H100 as eager decode
+    steps (host-bound), so the serve was cut to 3 requests to keep these
+    phases near a minute; it now replays a captured step.  Also holds,
+    for each prompt, the prefill's logits at ``plen - 1`` (the chunked
+    scan on K10) beside the streamed logits that give the first token
+    (the recurrent path)."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1637,6 +1886,8 @@ def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
         return first(logits, lane)
 
     eng.model.prefill, eng._set_first_token = keep_prefill, keep_stream
+    checked = {}
+    check_replay_midway(eng, tag, checked)
     reset_launch_counts()
     t0 = time.perf_counter()
     eng.run(reqs)
@@ -1656,13 +1907,17 @@ def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
         eng.pool.check()
         if eng.pool.n_pages != 0 or "block_tables" in eng.cache:
             fail(f"{tag}: an attention-free paged engine holds pages")
+    stream = list(eng.timings["ssm_stream"])   # the serve's prompts
+    graphs = graph_summary(eng, tag, checked.get("check"))
+    graphs["stream_replays"] = stream_gate(eng, tag, reqs)
+    graphs.update(check_stream(eng, tag, reqs[-1].prompt[:64],
+                               pairs["stream"]))
     v = cfg.vocab_size
     diffs = [max_err(a[:, :v], b[:, :v])
              for a, b in zip(pairs["prefill"], pairs["stream"])]
     agree = sum(int(a[:, :v].argmax()) == int(b[:, :v].argmax())
                 for a, b in zip(pairs["prefill"], pairs["stream"]))
     pre, dec = eng.timings["prefill"], eng.timings["decode"]
-    stream = eng.timings["ssm_stream"]
     plens = [len(r.prompt) for r in reqs]
     print(f"[{tag}] {len(reqs)} requests (prompts {plens}), {n_gen} tokens "
           f"in {wall:.3f}s = {n_gen / wall:.1f} tok/s end to end; stats "
@@ -1681,6 +1936,7 @@ def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
           f"({eng.dispatch_n} steps x {eng.n_lanes} lanes max)")
     print(f"[{tag}] K10 launches {counts['ssd_chunk']} = {cfg.n_layers} x "
           f"{len(reqs)} prompts; launches: {counts}")
+    print_graphs(tag, graphs)
     print(f"[{tag}] prefill (K10) vs streamed logits at plen - 1, bf16: "
           f"max |diff| per prompt {[round(d, 4) for d in diffs]}, argmax "
           f"agrees {agree}/{len(diffs)} (no gate in bf16: the prefill conv "
@@ -1693,10 +1949,11 @@ def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
                "stream_ms_per_prompt": [1e3 * t for t in stream],
                "stream_ms_per_token": 1e3 * sum(stream) / sum(plens),
                "decode_ms_per_dispatch": 1e3 * statistics.median(dec),
-               "n_dispatches": len(dec), "plens": plens,
+               "n_dispatches": len(dec), "plens": plens, "graphs": graphs,
                "prefill_vs_stream_max_abs": diffs,
                "prefill_vs_stream_argmax_agree": agree}
-    del eng
+    del eng                     # the check's wrapper holds a cycle to it
+    gc.collect()
     torch.cuda.empty_cache()
     return counts, summary
 
@@ -2009,9 +2266,22 @@ def main() -> int:
     e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e,
            "paged_int8": int8["full e2e paged int8"][1],
            "fixed_lane_int8": int8["full e2e fixed-lane int8"][1]}
+    e2e["fixed_lane_t0.8"] = fixed_e2e.pop("temperature_0.8")
     for name, r in e2e.items():
+        g = r["graphs"]
         print(f"[e2e] {name}: {r['tok_s']:.1f} tok/s, decode "
-              f"{r['decode_ms_per_dispatch']:.2f} ms per dispatch")
+              f"{r['decode_ms_per_dispatch']:.2f} ms per dispatch (eager "
+              f"{g['decode_ms_eager']:.2f}, graph {g['decode_ms_graph']:.2f}"
+              f" at n_steps {g['n_steps']}), capture s {g['capture_s']}")
+    for name, r in (("mamba2 fixed_lane", m_fixed), ("mamba2 paged",
+                                                      m_paged)):
+        g = r["graphs"]
+        print(f"[e2e] {name}: {r['tok_s']:.1f} tok/s, prompt streaming "
+              f"{r['stream_ms_per_token']:.3f} ms per token in the serve "
+              f"(check: eager {g['stream_ms_per_token_eager']:.3f}, "
+              f"replayed {g['stream_ms_per_token_graph']:.3f}), decode "
+              f"eager {g['decode_ms_eager']:.2f}, graph "
+              f"{g['decode_ms_graph']:.2f} ms per dispatch")
     print(f"[e2e] {json.dumps(e2e)}")
     ssm_e2e = {"fixed_lane": m_fixed, "paged": m_paged,
                "forward": m_forward}

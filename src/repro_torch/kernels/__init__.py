@@ -2,7 +2,11 @@
 
 ``launch_counts()`` / ``reset_launch_counts()`` read and zero the
 wrappers' launch counters, so a run can show which kernels its main
-path went through.
+path went through.  A wrapper counts where its Python code launches, so
+under a CUDA graph it counts only while the graph is captured: the
+capturer takes the capture's :func:`launch_delta` back out and adds it
+once per replay (:func:`add_launches`), and the counts stay launches
+executed, eager or replayed.
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ from repro_torch.kernels.mixbench import ops as _mixbench_ops
 from repro_torch.kernels.qmatmul import ops as _qmatmul_ops
 from repro_torch.kernels.ssd_scan import ops as _ssd_ops
 
-__all__ = ["COUNTERS", "launch_counts", "reset_launch_counts"]
+__all__ = ["COUNTERS", "add_launches", "launch_counts", "launch_delta",
+           "reset_launch_counts"]
 
 COUNTERS = {c.name: c for c in (_decode_ops.COUNTER,
                                 _decode_ops.COUNTER_LENGTHAWARE,
@@ -44,3 +49,18 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for c in COUNTERS.values():
         c.reset()
+
+
+def launch_delta(before: Dict[str, int], after: Dict[str, int]
+                 ) -> Dict[str, int]:
+    """The counters that moved from ``before`` to ``after`` (two
+    :func:`launch_counts` readings), by how much."""
+    return {name: after[name] - before[name] for name in sorted(after)
+            if after[name] != before[name]}
+
+
+def add_launches(delta: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``delta`` to the counters: a graph's replays
+    (``times`` > 0), or a capture taken back out (``times=-1``)."""
+    for name in sorted(delta):
+        COUNTERS[name].n += times * delta[name]

@@ -13,7 +13,8 @@ row ``pos % ps`` of page ``block_tables[b, pos // ps]``).  The kernels
 cut a lane's positions into chunks (:func:`split_plan`), one CTA each,
 and merge the chunks' partials in the same launch; the wrapper gives
 them a workspace (``torch.empty`` per call) and per-head counters
-(zeroed once, cached per device and stream, left at 0 by every launch).
+(zeroed once, cached per device and stream, left at 0 by every launch,
+never freed).
 """
 
 from __future__ import annotations
@@ -52,6 +53,9 @@ _DENSE_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
     ctypes.c_void_p]
 #: {(device index, stream handle): int32 counters, one per (lane, kv head)}
 _COUNTERS = {}
+#: counters outgrown by a wider launch: a CUDA graph captured with them
+#: still points there, so they are kept, never freed
+_OUTGROWN = []
 
 
 def split_plan(s: int, b: int, hkv: int) -> tuple:
@@ -69,10 +73,16 @@ def split_plan(s: int, b: int, hkv: int) -> tuple:
 
 def _counters(device, stream: int, n: int) -> torch.Tensor:
     """At least ``n`` int32 counters at 0 for launches on ``stream``;
-    the kernels leave them at 0, so they are zeroed only when made."""
+    the kernels leave them at 0, so they are zeroed only when made.  A
+    CUDA graph's launches keep the address they were captured with, so
+    the counters of its capture stream must exist before the capture
+    (the serving engine's first dispatch of a size runs eagerly on that
+    stream) and are never freed."""
     key = (device.index, stream)
     c = _COUNTERS.get(key)
     if c is None or c.numel() < n:
+        if c is not None:
+            _OUTGROWN.append(c)
         c = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _COUNTERS[key] = c
     return c

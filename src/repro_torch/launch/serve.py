@@ -8,8 +8,10 @@ prompt tokens and G generated tokens each through the fixed-lane engine
 (the default) or, with ``--paged``, the page-pool engine, over a KV
 cache in the compute dtype or, with ``--kv-quant int8``, in int8 with
 per-token scales, and prints tokens/s with the prefill/decode split,
-then, as the reference does, the capability-model prediction for the
-device profile ``--profile`` names.  ``--trace`` records the run with
+the decode compiles (on the card, one CUDA graph captured per
+``n_steps``; with the seconds each capture took), then, as the
+reference does, the capability-model prediction for the device profile
+``--profile`` names.  ``--trace`` records the run with
 ``torch.profiler``, writes a Chrome trace and prints device time by
 kernel.  Runs on ``cuda`` unless ``--device cpu``.
 """
@@ -110,6 +112,16 @@ def main(argv=None):
               f"{engine.stats['decode_dispatches']} dispatches "
               f"({n_gen / max(t_decode, 1e-9):.1f} tok/s)")
     print(f"stats: {engine.stats}")
+    graphs = "CUDA graphs captured" if device.type == "cuda" else \
+        "sizes served eagerly on the CPU"
+    print(f"compiles: prefill {engine.stats['prefill_compiles']}, "
+          f"decode {engine.stats['decode_compiles']} (decode: {graphs}, "
+          f"one per n_steps; later dispatches replay them)")
+    if engine.timed and engine.timings["capture"]:
+        caps = engine.timings["capture"]
+        print("capture: " + ", ".join(
+            f"{k if isinstance(k, str) else f'n_steps {k}'} "
+            f"{caps[k]:.3f}s" for k in sorted(caps, key=str)))
 
     prof = get_profile(args.profile)
     spec = LLMSpec(name=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,

@@ -132,8 +132,9 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    # a fill, not a host tensor copied over: capturable in a CUDA graph
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=positions.device), exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

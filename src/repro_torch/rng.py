@@ -13,7 +13,9 @@ shape ``shape`` hashes the counter pair ``(i >> 32, i & 0xFFFFFFFF)``
 and returns ``bits1 ^ bits2``, so a draw of shape ``(1, V)`` gives the
 same bits as one of shape ``(V,)``.
 
-Everything runs on the device of the key; nothing syncs with the host.
+Everything runs on the device of the key; nothing syncs with the host,
+and no Python number becomes a host tensor copied to the device (the
+decode dispatch runs inside a CUDA graph on the card).
 """
 
 from __future__ import annotations
@@ -65,7 +67,10 @@ def fold_in(key: torch.Tensor,
     """``jax.random.fold_in``: hash the counter pair ``(0, data)`` under
     ``key``.  ``key`` (..., 2) and ``data`` (...) broadcast, so a tensor
     of per-lane data folds every lane at once."""
-    data = torch.as_tensor(data, device=key.device).to(torch.int64) & MASK
+    if not isinstance(data, torch.Tensor):    # a fill, not a host copy
+        data = torch.full((), int(data), dtype=torch.int64,
+                          device=key.device)
+    data = data.to(torch.int64) & MASK
     b0, b1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
                           data)
     return torch.stack((b0, b1), dim=-1)
@@ -100,8 +105,8 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     float64, so the sum is taken there and rounded once to float32."""
     bits = random_bits(key, shape)
     f = ((bits >> 9) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     scaled = (f.double() * (hi - lo).double() + lo.double()).float()
     return torch.maximum(lo, scaled)
 

@@ -18,7 +18,16 @@ On both:
   prompts longer than ``max_len - 1`` and scatters the prompt KV into
   the lane's row or pages;
 * ``decode_n`` advances every lane ``dispatch_n`` tokens per dispatch
-  with no host sync inside; one host transfer drains the block;
+  with no host sync inside; one host transfer drains the block.  On
+  the card a dispatch is one CUDA graph per ``n_steps``
+  (:mod:`repro_torch.serving.cuda_graphs`): the first dispatch of a
+  size runs eagerly and is then captured, later ones replay it, and
+  ``stats["decode_compiles"]`` counts the captures, as the reference
+  counts its jit compiles of the decode scan.  The dispatch reads and
+  writes only tensors that keep their address for the engine's life
+  (the cache, next tokens, budgets, token indices); the host's writes
+  between dispatches (admission, release, block-table rows) are in
+  place.  On the CPU the same function runs eagerly every time;
 * greedy or temperature sampling on the device, keyed as the reference
   keys it (threefry, :mod:`repro_torch.rng`): the first token by
   ``fold_in(rng_prefill, admission index)``, later ones by
@@ -36,7 +45,10 @@ An attention-free (ssm) model keeps O(1) recurrent state per lane
 pool of 0, admission needing 0).  As in the reference, its prefill runs
 the chunked scan (K10 on the card) and discards the logits; the lane's
 state is zeroed and rebuilt by streaming the prompt through the decode
-step, and the first token comes from the streamed logits.
+step, and the first token comes from the streamed logits.  The stream
+steps a batch-1 state of its own, at fixed addresses, and copies it
+into the lane at the end; on the card each step after the engine's
+first is a replay of one captured decode step.
 
 Prefix sharing, evict/restore and the telemetry hooks come in later
 slices.
@@ -59,6 +71,7 @@ from repro_torch.models.attention import quantize_kv_token
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import paged_capacity, sample_tokens
+from repro_torch.serving.cuda_graphs import StepGraphs
 from repro_torch.serving.resilience import AdmissionRejected
 
 __all__ = ["PagePool", "Request", "ServeEngine", "STATS_KEYS"]
@@ -171,9 +184,9 @@ _POOL_KEY = {"k": "k_pages", "v": "v_pages", "k_scale": "k_scale_pages",
              "v_scale": "v_scale_pages"}
 
 #: the reference's STATS_SCHEMA keys this slice moves
-STATS_KEYS = ("decode_dispatches", "decode_steps", "generated_tokens",
-              "prefill_compiles", "ssm_prefill_compiles", "kv_pages_hwm",
-              "kv_admit_blocked", "admit_rejected")
+STATS_KEYS = ("decode_dispatches", "decode_steps", "decode_compiles",
+              "generated_tokens", "prefill_compiles", "ssm_prefill_compiles",
+              "kv_pages_hwm", "kv_admit_blocked", "admit_rejected")
 
 
 class ServeEngine:
@@ -186,15 +199,21 @@ class ServeEngine:
     ``prefill_bucketing=False`` prefills each prompt at its own length.
     ``stats`` holds the counters named in :data:`STATS_KEYS`;
     ``prefill_compiles`` counts distinct prefill shapes (the reference
-    compiles once per shape), ``ssm_prefill_compiles`` the distinct
-    prompt-streaming buckets of an ssm model (the reference compiles its
-    streaming scan once per bucket).
+    compiles once per shape), ``decode_compiles`` the distinct dispatch
+    sizes (a CUDA graph captured for each on the card; the reference
+    compiles its decode scan once per size), ``ssm_prefill_compiles``
+    the distinct prompt-streaming buckets of an ssm model (the
+    reference compiles its streaming scan once per bucket).
 
     ``timed=True`` synchronises the device around each prefill and each
     decode dispatch and records host-clock seconds in ``timings``
-    (``prefill`` per bucket, ``decode`` per dispatch, and for an ssm
-    model ``ssm_stream`` per prompt: the state rebuild, inside the
-    prefill's time); off by default, since the syncs cost throughput.
+    (``prefill`` per bucket, ``decode`` per dispatch with
+    ``decode_replayed`` beside it, True where the dispatch was a graph
+    replay, and for an ssm model ``ssm_stream`` per prompt: the state
+    rebuild, inside the prefill's time); off by default, since the syncs
+    cost throughput.  A capture's own seconds stay out of those and go
+    to ``timings["capture"]``, by graph (``n_steps``, or ``"ssm_step"``
+    for the stream's step), whether timed or not.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_lanes: int = 4,
@@ -263,10 +282,23 @@ class ServeEngine:
         self._tok_idx = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         self._admit_count = 0
         self._buckets: set = set()
+        if "ssm_h" in self.cache:
+            # the prompt stream's batch-1 state, length and input token,
+            # at addresses a captured decode step replays
+            self._ssm_lane = {k: torch.zeros(self.cache[k][:, :1].shape,
+                                             dtype=self.cache[k].dtype,
+                                             device=dev)
+                              for k in ("ssm_h", "ssm_conv")}
+            self._ssm_lane["len"] = torch.zeros(1, dtype=torch.int32,
+                                                device=dev)
+            self._ssm_tok = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.graphs = StepGraphs(dev)
         self.stats: Dict[str, int] = {k: 0 for k in STATS_KEYS}
         self.timed = timed
         self.timings: Dict[str, Any] = {"prefill": defaultdict(list),
-                                        "decode": [], "ssm_stream": []}
+                                        "decode": [], "decode_replayed": [],
+                                        "ssm_stream": [],
+                                        "capture": self.graphs.capture_s}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -439,24 +471,26 @@ class ServeEngine:
             seg = src.reshape(n_l, hkv, n_pg, ps, d).permute(0, 2, 1, 3, 4)
             pool[:, pages] = seg.to(pool.dtype)
 
-    def _slice_lane_cache(self, lane: int) -> Dict[str, torch.Tensor]:
-        """One lane's batch-1 view of the recurrent state, with a length
-        of its own.  The state entries are views: the decode step's
-        in-place writes through them land in the cache, so nothing needs
-        merging back but the length."""
-        out = {k: self.cache[k][:, lane:lane + 1]
-               for k in ("ssm_h", "ssm_conv")}
-        out["len"] = torch.zeros(1, dtype=torch.int32, device=self.device)
-        return out
+    def _ssm_step(self) -> torch.Tensor:
+        """One batch-1 decode step of the prompt stream over its own
+        buffers: the token in ``_ssm_tok`` advances ``_ssm_lane``'s state
+        (in place) and length; returns the logits."""
+        logits, cache = self.model.decode_step(self.params, self._ssm_lane,
+                                               self._ssm_tok)
+        self._ssm_lane["len"].copy_(cache["len"])
+        return logits
 
     def _stream_ssm_prompt(self, prompt: np.ndarray, lane: int) -> None:
         """Rebuild ``lane``'s recurrent state from zeros by streaming the
-        prompt through the decode step on the lane's batch-1 view, and
-        sample the first token from the logits at ``plen - 1``.
+        prompt through the decode step on the stream's batch-1 buffers,
+        copy the state into the lane, and sample the first token from
+        the logits at ``plen - 1``.  On the card every step after the
+        engine's first replays one captured step; that graph is not a
+        decode compile.
 
         The reference scans the whole shape bucket with the pad steps'
         state masked off, one compile per bucket
-        (``ssm_prefill_compiles``); eager steps stop at ``plen``, which
+        (``ssm_prefill_compiles``); these steps stop at ``plen``, which
         leaves the same state and logits.  Its buckets are the prefill's
         (``_prefill_into_lane`` counted this one)."""
         plen = int(prompt.shape[0])
@@ -464,20 +498,25 @@ class ServeEngine:
         if self.timed:
             self._sync()
             t0 = time.perf_counter()
-        lane_cache = self._slice_lane_cache(lane)
-        # a re-admitted lane must NOT inherit the previous request's
-        # state: zero it (through the view, in the cache)
-        for key in ("ssm_h", "ssm_conv"):
-            lane_cache[key].zero_()
+        captured = "ssm_step" in self.graphs.capture_s
+        # the stream starts from zero state: a re-admitted lane must NOT
+        # inherit the previous request's
+        for buf in self._ssm_lane.values():
+            buf.zero_()
         toks = torch.from_numpy(prompt.astype(np.int32)).to(self.device)
         for t in range(plen):
-            logits, lane_cache = self.model.decode_step(
-                self.params, lane_cache, toks[t:t + 1])
+            self._ssm_tok.copy_(toks[t:t + 1])
+            logits, _ = self.graphs.run("ssm_step", self._ssm_step)
+        for key in ("ssm_h", "ssm_conv"):
+            self.cache[key][:, lane].copy_(self._ssm_lane[key][:, 0])
         self.cache["len"][lane] = plen
         self._set_first_token(logits, lane)
         if self.timed:
             self._sync()
-            self.timings["ssm_stream"].append(time.perf_counter() - t0)
+            capture = (0.0 if captured else
+                       self.graphs.capture_s.get("ssm_step", 0.0))
+            self.timings["ssm_stream"].append(time.perf_counter() - t0
+                                              - capture)
 
     def _set_first_token(self, logits: torch.Tensor, lane: int) -> None:
         key = (trng.fold_in(self._rng_prefill, self._admit_count)
@@ -495,6 +534,35 @@ class ServeEngine:
         max_rem = int(self._remaining_host[live].max()) if live else 0
         return min(n, _bucket_len(max(max_rem, 1), floor=1))
 
+    def map_dispatch_pages(self, n: int) -> None:
+        """Paged: map the pages an ``n``-step dispatch can write into
+        BEFORE it runs (a live lane's slots past its mapped pages would
+        go to the shared scratch page); the admission-time reservation
+        makes this infallible.  A no-op on the fixed-lane layout."""
+        if not self.paged:
+            return
+        for lane in self.live_lanes():
+            steps = min(n, int(self._remaining_host[lane]))
+            self._map_pages(lane, self._pages_needed(
+                int(self._len_host[lane]) + steps + 1))
+
+    def _decode_block(self, n: int) -> torch.Tensor:
+        """The dispatch, over the engine's own tensors: ``n`` decode steps
+        of every lane (``decode_n_steps``, the reference's semantics),
+        then the new lengths, next tokens, budgets and token indices
+        copied into the tensors they were read from, so no address moves
+        (a CUDA graph replays them).  Returns the (2n + 1, B) int32 block
+        of tokens, valid flags and budgets that the host drains."""
+        toks, valid, nxt, cache, rem, idx = self.model.decode_n_steps(
+            self.params, self.cache, self._next_token, self._rng_decode,
+            self._remaining, self._lane_seed, self._tok_idx, n_steps=n,
+            temperature=self.temperature, len_cap=self.max_len - 1)
+        self.cache["len"].copy_(cache["len"])
+        self._next_token.copy_(nxt)
+        self._remaining.copy_(rem)
+        self._tok_idx.copy_(idx)
+        return torch.cat([toks, valid.to(torch.int32), rem[None]])
+
     def decode_n(self, n: Optional[int] = None) -> Dict[int, List[int]]:
         """Advance all live lanes up to ``n`` tokens in ONE dispatch.
 
@@ -504,29 +572,22 @@ class ServeEngine:
         if not live:
             return {}
         n = self._dispatch_size(n)
-        if self.paged:
-            # map the pages this block can write into BEFORE the
-            # dispatch; the admission-time reservation makes this
-            # infallible
-            for lane in live:
-                steps = min(n, int(self._remaining_host[lane]))
-                self._map_pages(lane, self._pages_needed(
-                    int(self._len_host[lane]) + steps + 1))
+        self.map_dispatch_pages(n)
         if self.timed:
             self._sync()
             t0 = time.perf_counter()
-        (toks, valid, self._next_token, self.cache, self._remaining,
-         self._tok_idx) = self.model.decode_n_steps(
-            self.params, self.cache, self._next_token, self._rng_decode,
-            self._remaining, self._lane_seed, self._tok_idx, n_steps=n,
-            temperature=self.temperature, len_cap=self.max_len - 1)
+        block, first = self.graphs.run(n, lambda: self._decode_block(n))
+        if first:
+            self.stats["decode_compiles"] += 1
         self.stats["decode_dispatches"] += 1
         self.stats["decode_steps"] += n
         # one host transfer drains the whole block
-        block = torch.cat([toks, valid.to(torch.int32),
-                           self._remaining[None]]).cpu().numpy()
+        block = block.cpu().numpy()
         if self.timed:
-            self.timings["decode"].append(time.perf_counter() - t0)
+            capture = self.graphs.capture_s.get(n, 0.0) if first else 0.0
+            self.timings["decode"].append(time.perf_counter() - t0 - capture)
+            self.timings["decode_replayed"].append(self.graphs.on_card
+                                                   and not first)
         toks_h = block[:n]
         valid_h = block[n:2 * n].astype(bool)
         self._remaining_host = block[2 * n].astype(np.int64)
