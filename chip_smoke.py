@@ -17,8 +17,10 @@ order (any failure raises and the script exits non-zero):
 3. K2 (flash prefill) against its plain version at ``K2_CASES``: causal
    at Sq 64, 100, 512 and 1024, a sliding window, no mask, a window
    without causality, D 64, 96 (phi-3-vision's, causal and windowed)
-   and 256, and the float32 SMOKE serve's own shape (H 4, Hkv 2, D 32)
-   at its prompt buckets 8 to 128; float32 on the CUDA-core kernel
+   and 256, the float32 SMOKE serve's own shape (H 4, Hkv 2, D 32)
+   at its prompt buckets 8 to 128, and hymba-1.5b's (H 25 over Hkv 5, D
+   64, window 1024, Sq 2048 and 512; SMOKE's window 32 at D 32); float32
+   on the CUDA-core kernel
    (``flash_attention_cc``, tol 1e-4) and bfloat16 on the tensor-core
    kernel (``flash_attention_mma``, tol 2e-2) at D 64 and 128, on the
    CUDA-core one at D 32, 96 and 256, each call's launch counters
@@ -36,7 +38,12 @@ order (any failure raises and the script exits non-zero):
    a dead lane gives exactly 0, K5 equals K6b and repeats its bits, K4
    repeats its bits and equals K5 on the gathered pools at the same
    qblock, and at ``qblock=1`` each agrees with the reference model's
-   route (dequantize to float32, then K3 or K1);
+   route (dequantize to float32, then K3 or K1); then K3, K1, K5 and K4
+   at hymba-1.5b's decode shapes (GQA group 5, D 64, a ring of 1024
+   slots, four lanes at lengths 96, 1000, 1024 and 1500, so two rings
+   have wrapped, paged through a shuffled table), each against its
+   plain version, K1 giving K3's bits on the gathered rings and K4
+   K5's;
 6. end to end at SMOKE width in float32: the same requests through
    ``ServeEngine()`` (fixed-lane) and ``ServeEngine(paged=True)``,
    greedy and at temperature 0.8, on the CPU (plain versions) and on
@@ -130,8 +137,10 @@ order (any failure raises and the script exits non-zero):
    and 2048, B 1 and 2, x/b/c in float32 and bfloat16, A over the
    model's range and from ``-exp(0.3 randn)``; at every serve bucket
    (one chunk of Q 8 to 256), at SMOKE's widths (H 8, P 32, N 16,
-   chunk 32), at odd widths (H 3, P 30, N 20) with chunk 50, and at the
-   longest chunk (1024); relative max error <= K10_TOL on all three
+   chunk 32), at odd widths (H 3, P 30, N 20) with chunk 50, at the
+   longest chunk (1024), and at hymba-1.5b's widths (H 50, P 64, N 16:
+   a quarter of the kernel's state tile) at S 256, 1024 and 2048;
+   relative max error <= K10_TOL on all three
    outputs; the full SSD on K10 against ``ssd_chunked`` at S 2048;
 16. end to end at SMOKE width in float32, mamba2: CPU and card streams
    identical, fixed-lane and paged, greedy and at temperature 0.8, with
@@ -158,7 +167,26 @@ order (any failure raises and the script exits non-zero):
    ``lm_decode_step`` (which never runs K10), max |diff| <= SSM_FWD_TOL:
    these 48 launches (``launches_forward_checked``) are the ones whose
    output is checked; then K10's timing row beside its bound, as
-   device time per call (launches queued behind a busy-wait).
+   device time per call (launches queued behind a busy-wait);
+19. end to end at SMOKE width in float32, hymba (the hybrid family:
+   attention with a window of 32 beside Mamba-2 heads in every block),
+   with the KV in float32 and in int8: the checks of phase 6 (CPU and
+   card streams identical, fixed-lane and paged, greedy and at t=0.8,
+   prompts that wrap the window), the prompt-stream gate of phase 16,
+   K2's CUDA-core kernel and K10 on every layer of every card prefill,
+   K3 and K1 (K5 and K4 in int8) in the decode;
+20. end to end at full width, hymba-1.5b in bfloat16 with seeded random
+   weights: prompts of 96, 700, 1000 and 1100 tokens (one wraps the
+   window of 1024, one decode crosses it), 64 new tokens, 4 lanes,
+   ``max_len`` 2048, fixed-lane and paged (pages of 16); K2's
+   tensor-core kernel and K10 launched 32 times a prompt, K3 (resp. K1)
+   32 times a decode step beside 32 times a streamed prompt token
+   (replay accounting); the graph gates and checks of phase 17, the
+   stream check holding the K/V the stream wrote too; tok/s, decode
+   and stream ms eager and replayed, prefill ms per bucket, capture s;
+21. timings at hymba-1.5b's shapes, as in phase 10: K2 bf16 at Sq 2048
+   and 1024 with the window (beside SDPA with the window as a mask),
+   K3, K1, K5 and K4 at the wrapped ring, K10 at N 16.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -520,28 +548,34 @@ def phase_k1(dev):
     return errs
 
 
-def k2_inputs(sq, dtype, dev, d=128, h=12):
+def k2_inputs(sq, dtype, dev, d=128, h=12, hkv=2):
     import numpy as np
     import torch
-    rng = np.random.default_rng(SEED + sq + (0 if d == 128 else d))
-    shapes = ((1, h, sq, d), (1, 2, sq, d), (1, 2, sq, d))
+    rng = np.random.default_rng(SEED + sq + (0 if d == 128 else d)
+                                + (0 if hkv == 2 else 1000 * hkv))
+    shapes = ((1, h, sq, d), (1, hkv, sq, d), (1, hkv, sq, d))
     return [torch.from_numpy(rng.standard_normal(s, np.float32)
                              ).to(dev, dtype) for s in shapes]
 
 
-#: K2's check cases (Sq, causal, window, D, H; Hkv 2): the full-width
+#: K2's check cases (Sq, causal, window, D, H, Hkv): the full-width
 #: serve's buckets 64, 512 and 1024, a ragged length, a sliding window,
 #: no mask (whisper's cross-attention later), a window without
 #: causality, D 64, 96 (phi-3-vision's; causal, and a ragged windowed
 #: prompt) and 256, and the float32 SMOKE serve's shape (D 32, H 4) at
-#: its prompt buckets (prompts of 3 to 127 tokens)
-K2_CASES = ((64, True, None, 128, 12), (100, True, None, 128, 12),
-            (512, True, None, 128, 12), (512, True, 128, 128, 12),
-            (1024, True, None, 128, 12), (200, False, None, 128, 12),
-            (512, False, 96, 128, 12), (512, True, None, 64, 12),
-            (256, True, None, 96, 12), (300, True, 128, 96, 12),
-            (256, True, None, 256, 12),
-            *((sq, True, None, 32, 4) for sq in (8, 16, 32, 64, 128)))
+#: its prompt buckets (prompts of 3 to 127 tokens); then hymba-1.5b's
+#: (H 25 over Hkv 5, D 64, window 1024) at its serve's largest bucket,
+#: 2048, where most query tiles start past key 0, and at 512, and its
+#: SMOKE serve's (window 32, D 32, H 4 over 2)
+K2_CASES = ((64, True, None, 128, 12, 2), (100, True, None, 128, 12, 2),
+            (512, True, None, 128, 12, 2), (512, True, 128, 128, 12, 2),
+            (1024, True, None, 128, 12, 2), (200, False, None, 128, 12, 2),
+            (512, False, 96, 128, 12, 2), (512, True, None, 64, 12, 2),
+            (256, True, None, 96, 12, 2), (300, True, 128, 96, 12, 2),
+            (256, True, None, 256, 12, 2),
+            *((sq, True, None, 32, 4, 2) for sq in (8, 16, 32, 64, 128)),
+            (2048, True, 1024, 64, 25, 5), (512, True, 1024, 64, 25, 5),
+            (64, True, 32, 32, 4, 2))
 #: (D, H) of the float32 SMOKE serve's prefill, which runs K2's CUDA-core
 #: kernel on the main path
 SMOKE_K2_SHAPE = (32, 4)
@@ -552,8 +586,9 @@ def phase_k2(dev):
     bfloat16 (tol 2e-2); the launch counters must name the kernel that
     ``kernel_for`` picks from the dtype and D: the tensor-core kernel
     for bf16 at D 64 and 128, the CUDA-core kernel otherwise.  Returns
-    {kernel: {dtype: (worst error over its cases, tol)}}, and under
-    ``"smoke"`` the worst float32 error at ``SMOKE_K2_SHAPE``."""
+    {kernel: {dtype: (worst error over its cases, tol)}}, under
+    ``"smoke"`` the worst float32 error at ``SMOKE_K2_SHAPE``, and under
+    ``"hymba"`` the worst at hymba-1.5b's shapes (Hkv 5)."""
     import torch
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import (attention_ref,
@@ -562,9 +597,9 @@ def phase_k2(dev):
     errs = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         key = str(dtype).split(".")[-1]
-        for sq, causal, window, d, h in K2_CASES:
+        for sq, causal, window, d, h, hkv in K2_CASES:
             kernel = f"flash_attention_{kernel_for(dtype, d)}"
-            q, k, v = k2_inputs(sq, dtype, dev, d, h)
+            q, k, v = k2_inputs(sq, dtype, dev, d, h, hkv)
             before = launch_counts()
             out = flash_attention(q, k, v, causal=causal, window=window)
             ran = {n: c - before[n] for n, c in launch_counts().items()
@@ -573,8 +608,8 @@ def phase_k2(dev):
             torch.cuda.synchronize()
             err = max_err(out, ref)
             print(f"[K2] {dtype} Sq={sq} causal={causal} window={window} "
-                  f"D={d} H={h}: {kernel}, max_abs_err {err:.3e} "
-                  f"(tol {tol})")
+                  f"D={d} H={h} Hkv={hkv}: {kernel}, max_abs_err "
+                  f"{err:.3e} (tol {tol})")
             if ran != {kernel: 1}:
                 fail(f"K2 {dtype} D={d} launched {ran}, not {kernel}")
             if not err <= tol:
@@ -585,6 +620,9 @@ def phase_k2(dev):
             if dtype == torch.float32 and (d, h) == SMOKE_K2_SHAPE:
                 worst = errs[kernel].get("smoke", (0.0, tol))[0]
                 errs[kernel]["smoke"] = (max(worst, err), tol)
+            if hkv == 5:
+                worst = errs[kernel].get("hymba", (0.0, tol))[0]
+                errs[kernel]["hymba"] = (max(worst, err), tol)
     return errs
 
 
@@ -770,6 +808,100 @@ def phase_q8(dev):
     return errs
 
 
+#: hymba-1.5b's decode attention: H 25 over Hkv 5 (GQA group 5), D 64, a
+#: ring of the window's 1024 slots (paged: 64 pages of 16), four lanes
+#: at cache lengths 1000, 1024, 1500 and 96 -- the first three past the
+#: window's last slot or wrapped, so every slot is read, the newest
+#: mid-ring -- read with the model's lengths ``min(len + 1, 1024)``
+HYMBA_DECODE = dict(h=25, hkv=5, d=64, s=1024, ps=16,
+                    lens=(1000, 1024, 1500, 96))
+
+
+def hymba_decode_inputs(dtype, dev):
+    """q (B, 25, 64), pools (B * 64 + 1, 5, 16, 64) and a shuffled table
+    (B, 64) of disjoint pages, the lengths the model passes, and the
+    lanes' rings gathered from the pools (B, 5, 1024, 64)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.decode_attention import gather_pages
+    c = HYMBA_DECODE
+    b, t = len(c["lens"]), c["s"] // c["ps"]
+    rng = np.random.default_rng(SEED + 5)
+    q = torch.from_numpy(rng.standard_normal((b, c["h"], c["d"]),
+                                             np.float32))
+    pools = [torch.from_numpy(rng.standard_normal(
+        (b * t + 1, c["hkv"], c["ps"], c["d"]), np.float32))
+        for _ in range(2)]
+    bt = torch.from_numpy(rng.permutation(b * t + 1)[:b * t]
+                          .reshape(b, t).astype(np.int32)).to(dev)
+    lens = torch.tensor([min(n + 1, c["s"]) for n in c["lens"]],
+                        dtype=torch.int32, device=dev)
+    q, kp, vp = (x.to(dev, dtype) for x in [q] + pools)
+    return q, kp, vp, bt, lens, gather_pages(kp, bt), gather_pages(vp, bt)
+
+
+def phase_hymba_decode(dev):
+    """K3 and K1 (and, over int8 with per-token scales, K5 and K4) at
+    hymba-1.5b's decode shapes (``HYMBA_DECODE``: GQA group 5, a wrapped
+    ring of 1024 slots, paged through a shuffled table) against their
+    plain versions, f32 (tol 1e-4) and bf16 (tol 2e-2): K1 gives K3's
+    bits on the gathered rings (K4 K5's), and each repeats its bits.
+    Returns {kernel: {dtype: (max_abs_err, tol)}}."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_paged, decode_attention_paged_q8,
+        decode_attention_paged_q8_ref, decode_attention_paged_ref,
+        decode_attention_q8, decode_attention_q8_ref, decode_attention_ref,
+        gather_pages, quantize_kv_q8)
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q, kp, vp, bt, lens, k, v = hymba_decode_inputs(dtype, dev)
+        kq, ks = quantize_kv_q8(kp.float(), 1)
+        vq, vs = quantize_kv_q8(vp.float(), 1)
+        gq = [gather_pages(x, bt) for x in (kq, ks, vq, vs)]
+        runs = {
+            "decode_attention_lengthaware": (
+                lambda: decode_attention(q, k, v, lens),
+                decode_attention_ref(q, k, v, lens)),
+            "decode_attention_paged": (
+                lambda: decode_attention_paged(q, kp, vp, bt, lens),
+                decode_attention_paged_ref(q, kp, vp, bt, lens)),
+            "decode_attention_q8_lengthaware": (
+                lambda: decode_attention_q8(q, *gq, lens, qblock=1),
+                decode_attention_q8_ref(q, *gq, lens, qblock=1)),
+            "decode_attention_paged_q8": (
+                lambda: decode_attention_paged_q8(q, kq, ks, vq, vs, bt,
+                                                  lens, qblock=1),
+                decode_attention_paged_q8_ref(q, kq, ks, vq, vs, bt, lens,
+                                              qblock=1))}
+        outs = {}
+        for name, (run, ref) in runs.items():
+            out, again = run(), run()
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            print(f"[hymba decode] {name} {dtype} H=25 Hkv=5 D=64 S=1024 "
+                  f"lengths {lens.tolist()}: max_abs_err {err:.3e} (tol "
+                  f"{tol})")
+            if not err <= tol:
+                fail(f"{name} at hymba's shapes ({dtype}) disagrees with "
+                     f"its plain version: {err}")
+            if not torch.equal(out, again):
+                fail(f"{name} did not repeat its bits at hymba's shapes")
+            errs.setdefault(name, {})[str(dtype).split(".")[-1]] = (err,
+                                                                    tol)
+            outs[name] = out
+        for paged, dense in (("decode_attention_paged",
+                              "decode_attention_lengthaware"),
+                             ("decode_attention_paged_q8",
+                              "decode_attention_q8_lengthaware")):
+            if not torch.equal(outs[paged], outs[dense]):
+                fail(f"{paged} differs from {dense} on the gathered rings "
+                     f"at hymba's shapes ({dtype})")
+        print(f"[hymba decode] {dtype}: K1 == K3 and K4 == K5 bitwise on "
+              f"the wrapped rings through the shuffled table")
+    return errs
+
+
 def _requests(cfg, n, plen_lo, plen_hi, gen, seed):
     import numpy as np
     from repro_torch.serving import Request
@@ -790,7 +922,7 @@ def phase_smoke_e2e(dev, kv_quant=None, arch="qwen2.5-1.5b"):
     from repro_torch.serving import ServeEngine
     cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype="float32", kv_quant=kv_quant)
-    tag = (f"[smoke e2e{' ' + arch if cfg.attn_free else ''}"
+    tag = (f"[smoke e2e{' ' + arch if cfg.has_ssm else ''}"
            f"{' int8' if kv_quant else ''}]")
     cpu = torch.device("cpu")
     params = build_model(cfg).init(torch.Generator().manual_seed(SEED), cpu)
@@ -816,12 +948,12 @@ def phase_smoke_e2e(dev, kv_quant=None, arch="qwen2.5-1.5b"):
             g = graph_summary(eng, f"{tag} paged={paged} t={temperature}",
                               checked.get("check"))
             streamed = (f", {stream_gate(eng, tag, reqs)} prompt-stream "
-                        f"replays" if cfg.attn_free else "")
+                        f"replays" if cfg.has_ssm else "")
             print(f"{tag} paged={paged} t={temperature}: "
                   f"{g['replays']} replays, decode_compiles "
                   f"{g['decode_compiles']}{streamed}")
         k10 = counts[where, paged, temperature]["ssd_chunk"]
-        if cfg.attn_free and where == "cuda" and \
+        if cfg.has_ssm and where == "cuda" and \
                 k10 != cfg.n_layers * len(reqs):
             fail(f"{tag} K10 launched {k10} times, not {cfg.n_layers} per "
                  f"prompt ({where}, paged={paged}, t={temperature})")
@@ -847,7 +979,7 @@ def phase_smoke_e2e(dev, kv_quant=None, arch="qwen2.5-1.5b"):
     if streams["cuda", False, 0.0] == streams["cuda", False, 0.8]:
         fail(f"{tag} temperature 0.8 gave the greedy streams: nothing was "
              "sampled")
-    return counts["cuda", False, 0.0]
+    return counts["cuda", False, 0.0], counts["cuda", True, 0.0]
 
 
 def init_full(dev):
@@ -1701,6 +1833,9 @@ SSM_FWD_TOL = 1e-4
 SMOKE_SSD = (8, 32, 16, 32)
 #: (H, P, N) whose rows are no whole 16-byte chunks in either dtype
 ODD_SSD = (3, 30, 20)
+#: hymba-1.5b's SSD widths (d_inner 3200 / head_dim 64): heads, head
+#: dim, state width -- N 16, a quarter of the kernel's 64-row state tile
+HYMBA_SSD = (50, 64, 16)
 
 
 def k10_inputs(bsz, s, dtype, a_kind, dev, seed=SEED,
@@ -1729,7 +1864,8 @@ def k10_cases():
     """(dtype name, S, B, A kind, chunk, widths) of K10's checks: the
     forward's and the serve's lengths at mamba2-780m's widths, each serve
     bucket as the one chunk of a prompt, SMOKE's widths, odd widths at a
-    ragged chunk, and the longest chunk (1024)."""
+    ragged chunk, the longest chunk (1024), and hymba-1.5b's widths at
+    its serve's buckets 256, 1024 and 2048."""
     full = (SSD_H, SSD_P, SSD_N)
     cases = [(d, s, bsz, a_kind, SSD_Q, full) for d, s, bsz, a_kind in
              itertools.product(("float32", "bfloat16"), (64, 256, 1024, 2048),
@@ -1746,6 +1882,8 @@ def k10_cases():
               for d in ("float32", "bfloat16")
               for s, bsz, q, widths in ((100, 2, 50, ODD_SSD),
                                         (2048, 1, 1024, full))]
+    cases += [(d, s, 1, "model", SSD_Q, HYMBA_SSD)
+              for d in ("float32", "bfloat16") for s in (256, 1024, 2048)]
     return cases
 
 
@@ -1770,8 +1908,9 @@ def phase_k10(dev):
             fail(f"K10 {tag}: {rels}")
         key = str(dtype).split(".")[-1]
         abs_err = max(max_err(o, r) for o, r in zip(out, ref))
-        prev = worst.get(key, (0.0, 0.0))
-        worst[key] = (max(prev[0], abs_err), max(prev[1], max(rels)))
+        for k in (key, key + " hymba") if widths == HYMBA_SSD else (key,):
+            prev = worst.get(k, (0.0, 0.0))
+            worst[k] = (max(prev[0], abs_err), max(prev[1], max(rels)))
     args = k10_inputs(1, 2048, torch.float32, "model", dev)
     y = ssd(*args, chunk=SSD_Q)
     rel = rel_err(y, ssd_chunked(*args, chunk=SSD_Q))
@@ -1784,6 +1923,8 @@ def phase_k10(dev):
                 max_rel_err=worst["bfloat16"][1], tol=K10_TOL,
                 max_abs_err_f32=worst["float32"][0],
                 max_rel_err_f32=worst["float32"][1], tol_f32=K10_TOL,
+                max_rel_err_hymba=worst["bfloat16 hymba"][1],
+                max_rel_err_hymba_f32=worst["float32 hymba"][1],
                 ssd_rel_err=rel)
 
 
@@ -1802,73 +1943,115 @@ def init_mamba(dev):
     return cfg, params
 
 
+def lane_kv(eng, lane, n):
+    """Clones of the K/V in ring slots ``[0, n)`` of a lane (a hybrid's;
+    empty for ssm): dense, of its row; paged, of its mapped pages in
+    table order."""
+    import torch
+    if not eng.paged:
+        return {k: eng.cache[k][:, lane, :, :n].clone() for k in eng.cache
+                if k in ("k", "v", "k_scale", "v_scale")}
+    if not eng.lane_pages(lane):
+        return {}
+    pages = torch.tensor(eng.lane_pages(lane), device=eng.device)
+    out = {}
+    for k in eng.cache:
+        if k.endswith("_pages"):
+            g = eng.cache[k][:, pages]            # (L, T', Hkv, ps, D)
+            g = g.permute(0, 2, 1, 3, 4).flatten(2, 3)
+            out[k] = g[:, :, :n].clone()
+    return out
+
+
 def check_stream(eng, tag, prompt, streamed):
     """Stream ``prompt`` into a free lane through the engine (replays of
     its captured batch-1 step) and eagerly (``model.decode_step`` on a
-    fresh batch-1 state, token by token, as the engine streamed before
-    its step was captured): the logits at the last token and the state
-    must be equal bit for bit.  ``streamed`` is the list the engine's
-    first-token logits are appended to.  Leaves the lane dead; returns
-    host ms per token, synced, of each."""
+    fresh batch-1 cache, token by token, as the engine streamed before
+    its step was captured): the logits at the last token, the state and
+    a hybrid's K/V must be equal bit for bit.  A paged hybrid lane maps
+    its pages first (and they are zeroed before the eager stream, which
+    writes them through the same table row).  ``streamed`` is the list
+    the engine's first-token logits are appended to.  Leaves the lane
+    dead; returns host ms per token, synced, of each."""
     import numpy as np
     import torch
     lane = eng.free_lanes()[0]
+    n = len(prompt)
+    if eng.paged and eng._bt_width:
+        need = eng._pages_needed(n + 1)
+        if not eng.pool.reserve(need):
+            fail(f"{tag}: no pages free for the stream check")
+        eng._lane_reserved[lane] = need
+        eng._map_pages(lane, need)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng._stream_ssm_prompt(prompt, lane)
     torch.cuda.synchronize()
     t_graph = time.perf_counter() - t0
-    got = {k: eng.cache[k][:, lane] for k in ("ssm_h", "ssm_conv")}
-    got["logits"] = streamed[-1]
-    state = {k: torch.zeros_like(eng._ssm_lane[k])
-             for k in ("ssm_h", "ssm_conv")}
-    state["len"] = torch.zeros(1, dtype=torch.int32, device=eng.device)
+    take = min(n, eng.cache["k"].shape[3]) if "k" in eng.cache else n
+    got = {k: eng.cache[k][:, lane].clone() for k in ("ssm_h", "ssm_conv")}
+    got.update(lane_kv(eng, lane, take), logits=streamed[-1])
+    state = {}
+    for key, t in eng._ssm_lane.items():
+        if key.endswith("_pages"):
+            state[key] = t                          # the shared pools
+        elif key == "block_tables":
+            state[key] = eng.cache[key][lane:lane + 1].clone()
+        else:
+            state[key] = torch.zeros_like(t)
+    if "block_tables" in state:
+        pages = torch.tensor(eng.lane_pages(lane), device=eng.device)
+        for key in state:
+            if key.endswith("_pages"):
+                state[key][:, pages] = 0
     toks = torch.from_numpy(prompt.astype(np.int32)).to(eng.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for t in range(len(prompt)):
+    for t in range(n):
         logits, state = eng.model.decode_step(eng.params, state,
                                               toks[t:t + 1])
     torch.cuda.synchronize()
     t_eager = time.perf_counter() - t0
     want = {k: state[k][:, 0] for k in ("ssm_h", "ssm_conv")}
+    if eng.paged:
+        want.update(lane_kv(eng, lane, take))
+    else:
+        want.update({k: state[k][:, 0, :, :take] for k in state
+                     if k in ("k", "v", "k_scale", "v_scale")})
     want["logits"] = logits.float()
     differ = [k for k in sorted(want) if not torch.equal(got[k], want[k])]
-    if differ:
+    if differ or sorted(got) != sorted(want):
         fail(f"{tag}: the replayed prompt stream differs from the eager "
-             f"one in {differ}")
-    eng.cache["len"][lane] = 0
-    per_tok = {"stream_ms_per_token_eager": 1e3 * t_eager / len(prompt),
-               "stream_ms_per_token_graph": 1e3 * t_graph / len(prompt),
-               "stream_check_tokens": len(prompt)}
-    print(f"[{tag}] {len(prompt)} prompt tokens streamed into lane {lane}:"
-          f" replayed step == eager decode_step bitwise (logits, ssm_h, "
-          f"ssm_conv); host ms per token, synced: eager "
+             f"one in {differ or sorted(set(got) ^ set(want))}")
+    eng._release_lane(lane)
+    per_tok = {"stream_ms_per_token_eager": 1e3 * t_eager / n,
+               "stream_ms_per_token_graph": 1e3 * t_graph / n,
+               "stream_check_tokens": n}
+    print(f"[{tag}] {n} prompt tokens streamed into lane {lane}: replayed "
+          f"step == eager decode_step bitwise ({', '.join(sorted(want))}); "
+          f"host ms per token, synced: eager "
           f"{per_tok['stream_ms_per_token_eager']:.3f}, replayed "
           f"{per_tok['stream_ms_per_token_graph']:.3f}")
     return per_tok
 
 
-def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
-    """Serve the full-width ssm requests numbered ``which`` (prompts
-    64-512 from seed 2: 440, 181 and 113 tokens; 32 new tokens, 4 lanes,
-    max_len 1024) with the launch counts zeroed just before and read
-    just after; K10 must launch 48 times per prompt.  Prompt streaming
-    cost ~29-50 ms per token at this depth on an H100 as eager decode
-    steps (host-bound), so the serve was cut to 3 requests to keep these
-    phases near a minute; it now replays a captured step.  Also holds,
-    for each prompt, the prefill's logits at ``plen - 1`` (the chunked
-    scan on K10) beside the streamed logits that give the first token
-    (the recurrent path)."""
+def serve_streamed(dev, cfg, params, tag, reqs, gen, max_len, **engine_kw):
+    """Serve ``reqs`` (``gen`` new tokens each, 4 lanes) through an engine
+    whose prompts are streamed (ssm or hybrid), with the launch counts
+    zeroed just before and read just after; K10 must launch once a layer
+    a prompt, and for a hybrid K2's tensor-core kernel too, and K3
+    (fixed-lane) or K1 (paged) once a layer a decode step beside once a
+    layer a streamed prompt token (replay accounting).  Also holds, for
+    each prompt, the prefill's logits at ``plen - 1`` (the chunked scan
+    on K10) beside the streamed logits that give the first token (the
+    recurrent path), and streams 64 prompt tokens by replays and
+    eagerly (:func:`check_stream`)."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import ServeEngine
-    gen = 32
-    eng = ServeEngine(cfg, params, n_lanes=4, max_len=1024, device=dev,
+    eng = ServeEngine(cfg, params, n_lanes=4, max_len=max_len, device=dev,
                       timed=True, **engine_kw)
-    reqs = _requests(cfg, 3, 64, 512, gen, SEED + 2)
-    reqs = [reqs[i] for i in which]
     pairs = {"prefill": [], "stream": [], "prefill_s": []}
     prefill, first = eng.model.prefill, eng._set_first_token
 
@@ -1900,12 +2083,31 @@ def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
     toks = np.concatenate([r.generated for r in reqs])
     if toks.min() < 0 or toks.max() >= cfg.vocab_size:
         fail(f"{tag}: generated token outside the vocabulary")
-    if counts["ssd_chunk"] != cfg.n_layers * len(reqs):
-        fail(f"{tag}: K10 launched {counts['ssd_chunk']} times, not "
-             f"{cfg.n_layers} x {len(reqs)} prompts")
+    per_prompt = {"ssd_chunk": cfg.n_layers}
+    if not cfg.attn_free:
+        per_prompt["flash_attention_mma"] = cfg.n_layers
+    for name, per in per_prompt.items():
+        if counts[name] != per * len(reqs):
+            fail(f"{tag}: {name} launched {counts[name]} times, not {per} x "
+                 f"{len(reqs)} prompts")
+    plens = [len(r.prompt) for r in reqs]
+    streamed = sum(min(p, max_len - 1) for p in plens)
+    per_step = None
+    if not cfg.attn_free:
+        kernel = ("decode_attention_paged" if eng.paged else
+                  "decode_attention_lengthaware")
+        per_step = ((counts[kernel] - cfg.n_layers * streamed)
+                    / eng.stats["decode_steps"])
+        print(f"[{tag}] {kernel} launches {counts[kernel]} = {per_step} a "
+              f"decode step x {eng.stats['decode_steps']} + "
+              f"{cfg.n_layers} a streamed token x {streamed}")
+        if per_step != cfg.n_layers:
+            fail(f"{tag}: {kernel} launched {per_step} times a decode "
+                 f"step, not {cfg.n_layers}")
     if eng.paged:
         eng.pool.check()
-        if eng.pool.n_pages != 0 or "block_tables" in eng.cache:
+        if cfg.attn_free and (eng.pool.n_pages != 0 or
+                              "block_tables" in eng.cache):
             fail(f"{tag}: an attention-free paged engine holds pages")
     stream = list(eng.timings["ssm_stream"])   # the serve's prompts
     graphs = graph_summary(eng, tag, checked.get("check"))
@@ -1918,7 +2120,6 @@ def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
     agree = sum(int(a[:, :v].argmax()) == int(b[:, :v].argmax())
                 for a, b in zip(pairs["prefill"], pairs["stream"]))
     pre, dec = eng.timings["prefill"], eng.timings["decode"]
-    plens = [len(r.prompt) for r in reqs]
     print(f"[{tag}] {len(reqs)} requests (prompts {plens}), {n_gen} tokens "
           f"in {wall:.3f}s = {n_gen / wall:.1f} tok/s end to end; stats "
           f"{eng.stats}")
@@ -1930,7 +2131,7 @@ def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
           f"{[round(1e3 * t, 2) for t in pairs['prefill_s']]}")
     print(f"[{tag}] prompt streaming ms per prompt: "
           f"{[round(1e3 * t, 2) for t in stream]} "
-          f"({1e3 * sum(stream) / sum(plens):.3f} ms per prompt token)")
+          f"({1e3 * sum(stream) / streamed:.3f} ms per prompt token)")
     print(f"[{tag}] decode: {len(dec)} dispatches, median "
           f"{1e3 * statistics.median(dec):.2f} ms per dispatch "
           f"({eng.dispatch_n} steps x {eng.n_lanes} lanes max)")
@@ -1947,15 +2148,66 @@ def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
                "chunked_prefill_ms_per_prompt": [1e3 * t for t in
                                                  pairs["prefill_s"]],
                "stream_ms_per_prompt": [1e3 * t for t in stream],
-               "stream_ms_per_token": 1e3 * sum(stream) / sum(plens),
+               "stream_ms_per_token": 1e3 * sum(stream) / streamed,
                "decode_ms_per_dispatch": 1e3 * statistics.median(dec),
                "n_dispatches": len(dec), "plens": plens, "graphs": graphs,
+               "decode_launches_per_step": per_step,
                "prefill_vs_stream_max_abs": diffs,
                "prefill_vs_stream_argmax_agree": agree}
     del eng                     # the check's wrapper holds a cycle to it
     gc.collect()
     torch.cuda.empty_cache()
     return counts, summary
+
+
+def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
+    """Serve the full-width ssm requests numbered ``which`` (prompts
+    64-512 from seed 2: 440, 181 and 113 tokens; 32 new tokens, 4 lanes,
+    max_len 1024) through :func:`serve_streamed`; K10 must launch 48
+    times per prompt.  Prompt streaming cost ~29-50 ms per token at this
+    depth on an H100 as eager decode steps (host-bound), so the serve
+    was cut to 3 requests to keep these phases near a minute; it now
+    replays a captured step."""
+    reqs = _requests(cfg, 3, 64, 512, 32, SEED + 2)
+    return serve_streamed(dev, cfg, params, tag, [reqs[i] for i in which],
+                          32, 1024, **engine_kw)
+
+
+#: the full-width hymba serve's prompt lengths: one in the 128 bucket,
+#: two in the 1024 bucket (1000 + 64 new tokens decodes across position
+#: 1024, the window's last slot), and one past the window (1100: the
+#: ring has wrapped before the first decode step)
+HYMBA_PLENS = (96, 700, 1000, 1100)
+
+
+def init_hymba(dev):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("hymba-1.5b")
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[hymba] {cfg.name} bf16, {n_params / 1e9:.3f}B params "
+          f"initialised in {time.perf_counter() - t0:.1f}s")
+    return cfg, params
+
+
+def serve_hymba(dev, cfg, params, tag, **engine_kw):
+    """Serve hymba-1.5b at full width (``HYMBA_PLENS`` prompts from the
+    seed, 64 new tokens, 4 lanes, max_len 2048: a ring of the window's
+    1024 slots, or its 64 pages of 16) through :func:`serve_streamed`,
+    which gates K2, K10 and K3/K1's launches, the replayed dispatch and
+    the replayed stream."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(SEED + 6)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size, n
+                                               ).astype(np.int32),
+                    max_new_tokens=64) for i, n in enumerate(HYMBA_PLENS)]
+    return serve_streamed(dev, cfg, params, tag, reqs, 64, 2048, **engine_kw)
 
 
 def phase_ssm_forward(dev, cfg, params):
@@ -2048,6 +2300,139 @@ def phase_ssm_forward(dev, cfg, params):
             "fp32_stream_512_s": stream_s}
 
 
+def phase_hymba_timings(dev):
+    """The kernels of hymba-1.5b's path at its shapes, as device time per
+    call (``time_ms_queued``) beside their plain versions, one PyTorch
+    call where one computes the function, and the bound: K2 bf16 at B 1,
+    H 25 over Hkv 5, D 64, window 1024, Sq 2048 (the 1100-token prompt's
+    bucket; beside SDPA with the window as a boolean mask) and Sq 1024;
+    K3, K1, K5 and K4 at ``HYMBA_DECODE`` (bf16 q; int8 with per-token
+    scales; K1 beside its pages gathered then SDPA, the int8 kernels
+    beside the dequantize route); K10 bf16 at (1, 2048, 50, 64), N 16,
+    chunk 256, and at S 1024."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_paged, decode_attention_paged_q8,
+        decode_attention_paged_q8_ref, decode_attention_paged_ref,
+        decode_attention_q8, decode_attention_q8_ref, decode_attention_ref,
+        gather_pages, quantize_kv_q8)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
+    rows = {}
+    win = 1024
+
+    def k2(sq):
+        q, k, v = k2_inputs(sq, torch.bfloat16, dev, 64, 25, 5)
+        i = torch.arange(sq, device=dev)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - win)
+        pairs = int(mask.sum().item())
+        return with_bound(dict(
+            ms=time_ms_queued(lambda: flash_attention(q, k, v, causal=True,
+                                                      window=win)),
+            plain_ms=time_ms_queued(lambda: attention_ref(
+                q, k, v, causal=True, window=win)),
+            library_ms=time_ms_queued(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)),
+            bytes=2 * (2 * q.numel() + k.numel() + v.numel()),
+            flops=4 * 25 * pairs * 64, peak=BF16_FLOPS_PER_S,
+            shape=f"bf16 B 1 H 25 Hkv 5 Sq {sq} D 64 window {win}"))
+
+    rows["flash_attention_mma"] = k2(2048)
+    rows["flash_attention_mma"]["s1024"] = k2(1024)
+    q, kp, vp, bt, lens, k, v = hymba_decode_inputs(torch.bfloat16, dev)
+    b, hkv, s, d = k.shape
+    h = q.shape[1]
+    n_live = int(lens.to(torch.int64).sum().item())
+    ps = kp.shape[2]
+    pages_live = int(((lens.to(torch.int64) + ps - 1) // ps).sum().item())
+    io_bytes = 2 * q.numel() * 2 + 4 * lens.numel()
+    mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])
+    mask = mask[:, None, None, :].contiguous()
+    ql = q[:, :, None].contiguous()
+    shape = (f"bf16 q, B 4 H 25 Hkv 5 D 64, S 1024 ring, lengths "
+             f"{lens.tolist()}")
+    rows["decode_attention_lengthaware"] = with_bound(dict(
+        ms=time_ms_queued(lambda: decode_attention(q, k, v, lens)),
+        plain_ms=time_ms_queued(lambda: decode_attention_ref(q, k, v,
+                                                             lens)),
+        library_ms=time_ms_queued(lambda: F.scaled_dot_product_attention(
+            ql, k, v, attn_mask=mask, enable_gqa=True)),
+        bytes=2 * n_live * hkv * d * 2 + io_bytes,
+        flops=4 * n_live * h * d, peak=BF16_FLOPS_PER_S, shape=shape))
+    rows["decode_attention_paged"] = with_bound(dict(
+        ms=time_ms_queued(lambda: decode_attention_paged(q, kp, vp, bt,
+                                                         lens)),
+        plain_ms=time_ms_queued(lambda: decode_attention_paged_ref(
+            q, kp, vp, bt, lens)),
+        library_ms=None,
+        gather_sdpa_ms=time_ms_queued(lambda: F.scaled_dot_product_attention(
+            ql, gather_pages(kp, bt), gather_pages(vp, bt), attn_mask=mask,
+            enable_gqa=True)),
+        bytes=2 * n_live * hkv * d * 2 + io_bytes + 4 * pages_live,
+        flops=4 * n_live * h * d, peak=BF16_FLOPS_PER_S,
+        shape=shape + ", pages of 16"))
+    kq, ks = quantize_kv_q8(kp.float(), 1)
+    vq, vs = quantize_kv_q8(vp.float(), 1)
+    gq = [gather_pages(x, bt) for x in (kq, ks, vq, vs)]
+    row_bytes = hkv * (2 * d + 2 * 4)       # int8 k and v, f32 k/v scales
+    rows["decode_attention_q8_lengthaware"] = with_bound(dict(
+        ms=time_ms_queued(lambda: decode_attention_q8(q, *gq, lens,
+                                                      qblock=1)),
+        plain_ms=time_ms_queued(lambda: decode_attention_q8_ref(
+            q, *gq, lens, qblock=1)),
+        library_ms=None,
+        route_ms=time_ms_queued(lambda: _route_dense(q, *gq, lens, 1)),
+        bytes=n_live * row_bytes + io_bytes,
+        flops=4 * n_live * h * d + 2 * n_live * hkv * d,
+        peak=BF16_FLOPS_PER_S, shape=shape + ", int8 per-token scales"))
+    rows["decode_attention_paged_q8"] = with_bound(dict(
+        ms=time_ms_queued(lambda: decode_attention_paged_q8(
+            q, kq, ks, vq, vs, bt, lens, qblock=1)),
+        plain_ms=time_ms_queued(lambda: decode_attention_paged_q8_ref(
+            q, kq, ks, vq, vs, bt, lens, qblock=1)),
+        library_ms=None,
+        route_ms=time_ms_queued(lambda: _route_paged(q, kq, ks, vq, vs, bt,
+                                                     lens, 1)),
+        bytes=n_live * row_bytes + io_bytes + 4 * pages_live,
+        flops=4 * n_live * h * d + 2 * n_live * hkv * d,
+        peak=BF16_FLOPS_PER_S,
+        shape=shape + ", pages of 16, int8 per-token scales"))
+    hh, pp, nn = HYMBA_SSD
+
+    def k10(sq):
+        args = k10_inputs(1, sq, torch.bfloat16, "model", dev,
+                          widths=HYMBA_SSD)
+        nc, tri = sq // SSD_Q, SSD_Q * (SSD_Q + 1) // 2
+        flops = (2 * nc * tri * nn
+                 + 2 * nc * hh * (tri * pp + SSD_Q * nn * pp))
+        out_bytes = 4 * (args[0].numel() + nc * hh * (nn * pp + 1))
+        in_bytes = sum(t.numel() * t.element_size() for t in args)
+        return with_bound(dict(
+            ms=time_ms_queued(lambda: ssd_chunk(*args, chunk=SSD_Q)),
+            plain_ms=time_ms_queued(lambda: ssd_chunk_ref(*args, SSD_Q)),
+            library_ms=None, bytes=in_bytes + out_bytes, flops=flops,
+            peak=TF32_FLOPS_PER_S,
+            shape=f"bf16 x/b/c (1,{sq},50,64) N 16 chunk 256"))
+
+    rows["ssd_chunk"] = k10(2048)
+    rows["ssd_chunk"]["s1024"] = k10(1024)
+    for name, r in rows.items():
+        for rr in (r, r.get("s1024")):
+            if rr is None:
+                continue
+            lib = rr["library_ms"]
+            extra = "".join(f", {k} {rr[k]:.4f} ms" for k in
+                            ("route_ms", "gather_sdpa_ms") if k in rr)
+            print(f"[time hymba] {name} ({rr['shape']}): kernel "
+                  f"{rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} ms, "
+                  f"library {'n/a' if lib is None else f'{lib:.4f} ms'}"
+                  f"{extra}, bound {rr['bound_ms']:.5f} ms "
+                  f"({rr['bound_by']}: {rr['bytes']} B, {rr['flops']} flop)")
+    return rows
+
+
 def k10_timing(dev):
     """K10 at (1, 1024, 48, 64), N 128, chunk 256, bf16 x/b/c: kernel and
     plain ms as device time per call (``time_ms_queued``) beside the
@@ -2108,7 +2493,8 @@ def main() -> int:
     errs.update(phase_k2(dev))
     errs.update(phase_dense(dev))
     errs.update(phase_q8(dev))
-    smoke_counts = phase_smoke_e2e(dev)
+    hymba_errs = phase_hymba_decode(dev)
+    smoke_counts, _ = phase_smoke_e2e(dev)
     if not smoke_counts["flash_attention_cc"]:
         fail(f"the float32 SMOKE serve never ran K2's CUDA-core kernel: "
              f"{smoke_counts}")
@@ -2141,6 +2527,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     k10_row = k10_timing(dev)
     print(f"[mamba2] the SSM phases took {time.perf_counter() - t_ssm:.1f}s")
+    t_hybrid = time.perf_counter()
+    h_smoke = {}
+    for kv_quant in (None, "int8"):
+        fixed, paged = phase_smoke_e2e(dev, kv_quant=kv_quant,
+                                       arch="hymba-1.5b")
+        h_smoke[kv_quant] = fixed, paged
+        need = (("decode_attention_q8_lengthaware",
+                 "decode_attention_paged_q8") if kv_quant else
+                ("decode_attention_lengthaware", "decode_attention_paged"))
+        if not (fixed["flash_attention_cc"] and fixed["ssd_chunk"] and
+                fixed[need[0]] and paged[need[1]]):
+            fail(f"the float32 hymba SMOKE serves (kv {kv_quant}) missed a "
+                 f"kernel of their path: {fixed} {paged}")
+    h_cfg, h_params = init_hymba(dev)
+    h_fixed_counts, h_fixed = serve_hymba(dev, h_cfg, h_params,
+                                          "hymba fixed-lane")
+    h_paged_counts, h_paged = serve_hymba(dev, h_cfg, h_params,
+                                          "hymba paged", paged=True,
+                                          page_size=16)
+    del h_params
+    torch.cuda.empty_cache()
+    hymba_rows = phase_hymba_timings(dev)
+    print(f"[hymba] the hybrid phases took "
+          f"{time.perf_counter() - t_hybrid:.1f}s")
 
     replaces = {
         "decode_attention_paged":
@@ -2174,6 +2584,41 @@ def main() -> int:
     # SMOKE serve on the card (fixed-lane, greedy); K6a and K6b are on no
     # serving path and report the count of the fixed-lane serve of their
     # cache type, 0
+    # hymba-1.5b: K2's tensor-core kernel, K3 and K10 from its fixed-lane
+    # serve, K1 from its paged serve, K5 and K4 from its float32 int8
+    # SMOKE serves (fixed-lane and paged, greedy), K2's CUDA-core kernel
+    # from its float32 SMOKE serve; errors at its shapes (bf16, f32 beside)
+    hymba_launches = {
+        "flash_attention_mma": h_fixed_counts["flash_attention_mma"],
+        "flash_attention_cc": h_smoke[None][0]["flash_attention_cc"],
+        "decode_attention_lengthaware":
+            h_fixed_counts["decode_attention_lengthaware"],
+        "decode_attention_paged": h_paged_counts["decode_attention_paged"],
+        "decode_attention_q8_lengthaware":
+            h_smoke["int8"][0]["decode_attention_q8_lengthaware"],
+        "decode_attention_paged_q8":
+            h_smoke["int8"][1]["decode_attention_paged_q8"],
+        "ssd_chunk": h_fixed_counts["ssd_chunk"]}
+    hymba_errs["flash_attention_mma"] = {
+        "bfloat16": errs["flash_attention_mma"]["hymba"]}
+    hymba_errs["flash_attention_cc"] = {
+        "float32": errs["flash_attention_cc"]["hymba"]}
+
+    def hymba_entry(name):
+        out = {"launches": hymba_launches[name]}
+        r = hymba_rows.get(name)
+        if r is not None:
+            out.update({k: r[k] for k in r if k not in ("peak", "s1024")})
+            if "s1024" in r:
+                out["s1024"] = {k: r["s1024"][k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "shape")}
+        for dtype, tag in (("bfloat16", ""), ("float32", "_f32")):
+            if dtype in hymba_errs.get(name, {}):
+                out[f"max_abs_err{tag}"], out[f"tol{tag}"] = \
+                    hymba_errs[name][dtype]
+        return out
+
     int8_fixed = int8["full e2e fixed-lane int8"][0]
     int8_paged = int8["full e2e paged int8"][0]
     launches = dict(fixed_counts)
@@ -2220,6 +2665,8 @@ def main() -> int:
                 entry[sub] = {key: r[sub][key] for key in (
                     "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by")}
+        if name in hymba_launches:
+            entry["hymba"] = hymba_entry(name)
         kernels.append(entry)
     compute_replaces = {
         "mixbench_fma": "src/repro/kernels/mixbench/kernel.py:56",
@@ -2262,7 +2709,12 @@ def main() -> int:
         "bound_ms": k10_row["bound_ms"], "bound_by": k10_row["bound_by"],
         "library_ms": None, "bytes": k10_row["bytes"],
         "flops": k10_row["flops"], "shape": k10_row["shape"],
-        "ms_s2048": k10_row["ms_s2048"]})
+        "ms_s2048": k10_row["ms_s2048"], "hymba": {
+            **hymba_entry("ssd_chunk"),
+            "max_rel_err": k10_errs["max_rel_err_hymba"],
+            "max_rel_err_f32": k10_errs["max_rel_err_hymba_f32"],
+            "tol": K10_TOL,
+            "launches_paged_serve": h_paged_counts["ssd_chunk"]}})
     e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e,
            "paged_int8": int8["full e2e paged int8"][1],
            "fixed_lane_int8": int8["full e2e fixed-lane int8"][1]}
@@ -2286,6 +2738,20 @@ def main() -> int:
     ssm_e2e = {"fixed_lane": m_fixed, "paged": m_paged,
                "forward": m_forward}
     print(f"[mamba2] {json.dumps(ssm_e2e)}")
+    for name, r in (("hymba fixed_lane", h_fixed), ("hymba paged",
+                                                     h_paged)):
+        g = r["graphs"]
+        print(f"[e2e] {name}: {r['tok_s']:.1f} tok/s, decode "
+              f"{r['decode_ms_per_dispatch']:.2f} ms per dispatch in the "
+              f"serve (check at n_steps {g['n_steps']}: eager "
+              f"{g['decode_ms_eager']:.2f}, replayed "
+              f"{g['decode_ms_graph']:.2f}); prompt streaming "
+              f"{r['stream_ms_per_token']:.3f} ms per token in the serve "
+              f"(check: eager {g['stream_ms_per_token_eager']:.3f}, "
+              f"replayed {g['stream_ms_per_token_graph']:.3f}); prefill ms "
+              f"by bucket {({b: round(t, 2) for b, t in sorted(r['prefill_ms'].items())})}"
+              f"; capture s {g['capture_s']}")
+    print(f"[hymba] {json.dumps({'fixed_lane': h_fixed, 'paged': h_paged})}")
     print(f"[sweep] {json.dumps(sweep_summary)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())

@@ -17,6 +17,8 @@ _MODULES: Dict[str, str] = {
     "qwen2.5-1.5b": "repro_torch.configs.qwen2_5_1_5b",
     # the SSM family: Mamba-2's SSD, the path of the chunk scan (K10)
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    # the hybrid family: attention (sliding window) beside Mamba-2 heads
+    "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
 }
 
 

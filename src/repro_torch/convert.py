@@ -4,7 +4,9 @@
 to the host as numpy arrays (``jax.device_get(params)``): ``embed``
 (``tok``, and ``head`` when untied), ``blocks`` with every leaf stacked
 ``(L, ...)`` along the layer axis (``norm1``, ``attn``, ``norm2``,
-``mlp``; an ssm model's ``norm1`` and ``ssm``), and ``final_norm``.  Taking numpy only
+``mlp``; an ssm model's ``norm1`` and ``ssm``; a hybrid model's
+``norm1``, ``attn``, ``ssm``, ``norm2`` and ``mlp``), and
+``final_norm``.  Taking numpy only
 keeps JAX out of the port.
 
 :func:`qtensor_from_numpy`: the planes of a reference ``QTensor``
@@ -52,16 +54,11 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
         _copy(lm.embed.head, emb["head"], "embed.head")
     blocks = np_params["blocks"]
     for i, blk in enumerate(lm.blocks):
-        _copy(blk.norm1.scale, blocks["norm1"]["scale"][i], "norm1.scale")
-        if cfg.attn_free:          # an ssm block: norm1 and ssm only
-            for name, w in blk.ssm.named_parameters():
-                _copy(w, blocks["ssm"][name][i], f"ssm.{name}")
-            continue
-        _copy(blk.norm2.scale, blocks["norm2"]["scale"][i], "norm2.scale")
-        for name, w in blk.attn.named_parameters():
-            _copy(w, blocks["attn"][name][i], f"attn.{name}")
-        for name, w in blk.mlp.named_parameters():
-            _copy(w, blocks["mlp"][name][i], f"mlp.{name}")
+        # the block's modules are the reference's subtrees, one level
+        # deep: "attn.wq" is blocks["attn"]["wq"][i]
+        for name, w in blk.named_parameters():
+            branch, leaf = name.split(".")
+            _copy(w, blocks[branch][leaf][i], name)
     _copy(lm.final_norm.scale, np_params["final_norm"]["scale"],
           "final_norm.scale")
     return lm.to(device)

@@ -3,7 +3,8 @@
 ``python -m repro_torch.launch.serve --arch qwen2.5-1.5b [--paged
 --page-size 16] [--kv-quant int8] --requests N --prompt-len P --gen G
 --lanes B [--smoke] [--device cuda|cpu] [--profile tpu-v5e] [--trace
-TRACE.json]`` builds seeded random weights, serves N requests of P
+TRACE.json]`` builds seeded random weights of the config ``--arch``
+names (qwen2.5-1.5b, mamba2-780m or hymba-1.5b), serves N requests of P
 prompt tokens and G generated tokens each through the fixed-lane engine
 (the default) or, with ``--paged``, the page-pool engine, over a KV
 cache in the compute dtype or, with ``--kv-quant int8``, in int8 with

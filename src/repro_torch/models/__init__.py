@@ -1,5 +1,5 @@
-"""Decoders of the port, dense and ssm (config, layers, forward, prefill,
-decode)."""
+"""Decoders of the port, dense, ssm and hybrid (config, layers, forward,
+prefill, decode)."""
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import Model, build_model

@@ -1,6 +1,6 @@
 """Shared model substrate: config, RMSNorm, RoPE, embedding, LM head, init.
 
-Port of the dense- and ssm-family parts of the reference's
+Port of the dense-, ssm- and hybrid-family parts of the reference's
 ``models/common.py``.
 Parameters live in ``nn.Module``s (one module per layer, no stacked
 ``(L, ...)`` leaves); weight matrices keep the reference layout
@@ -42,10 +42,11 @@ class SSMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense-decoder and ssm fields of the reference ``ModelConfig``."""
+    """The dense-decoder, ssm and hybrid fields of the reference
+    ``ModelConfig``."""
 
     name: str
-    family: str                    # the port serves "dense" and "ssm"
+    family: str                    # "dense", "ssm" or "hybrid"
     n_layers: int
     d_model: int
     n_heads: int
@@ -77,7 +78,13 @@ class ModelConfig:
 
     @property
     def attn_free(self) -> bool:
+        """No attention, so no KV cache (the ssm family)."""
         return self.family == "ssm"
+
+    @property
+    def has_ssm(self) -> bool:
+        """Mamba-2 layers, so per-lane recurrent state (ssm and hybrid)."""
+        return self.family in ("ssm", "hybrid")
 
 
 # ----------------------------------------------------------------------

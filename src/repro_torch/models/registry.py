@@ -1,6 +1,6 @@
 """Model registry: the decoders' forward and serving entry points, bound
 to a config (the reference's ``models/registry.py``, decoder-only, for
-the families the port serves: dense and ssm)."""
+the families the port serves: dense, ssm and hybrid)."""
 
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""Decoder-only LM, dense and ssm families: full-sequence forward,
-prompt prefill, dense and paged caches, decode step, on-device sampling
-and the multi-step decode dispatch.  Port of the reference's
-``models/transformer.py`` for those two families.
+"""Decoder-only LM, dense, ssm and hybrid families: full-sequence
+forward, prompt prefill, dense and paged caches, decode step, on-device
+sampling and the multi-step decode dispatch.  Port of the reference's
+``models/transformer.py`` for those three families.
 
 The reference stacks layers along a leading axis and runs them with
 ``lax.scan``; here each layer is its own module in a ``ModuleList`` and
@@ -12,7 +12,10 @@ per-token scales with a trailing 1 -- and are updated in place.  An ssm
 (Mamba-2) model has no K/V: its caches hold the recurrent state
 ``ssm_h`` (L, B, nh, N, P) and conv window ``ssm_conv`` (L, B, W-1,
 conv_ch), float32, on either layout (a paged ssm cache has no pages and
-no block tables).
+no block tables).  A hybrid (Hymba) model runs attention and Mamba-2
+side by side in every block, so its caches hold both: the K/V (a ring
+of the sliding window, dense or through the block table) and the dense
+per-lane state.
 """
 
 from __future__ import annotations
@@ -37,12 +40,12 @@ from repro_torch.models.ssm import (Mamba2, init_mamba2, init_mamba2_state,
 Cache = Dict[str, torch.Tensor]
 
 #: families the port serves
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The port serves the dense and ssm RMSNorm decoders; every other
-    family is refused by name."""
+    """The port serves the dense, ssm and hybrid RMSNorm decoders; every
+    other family is refused by name."""
     if cfg.family not in FAMILIES or cfg.norm != "rmsnorm":
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with norm "
                          f"{cfg.norm!r} is not ported yet (rmsnorm "
@@ -55,15 +58,18 @@ def check_family(cfg: ModelConfig) -> None:
 
 class Block(nn.Module):
     """Dense: ``norm1``, ``attn``, ``norm2``, ``mlp``; ssm: ``norm1`` and
-    ``ssm`` only, as the reference's ``init_block``."""
+    ``ssm`` only; hybrid: ``norm1``, ``attn``, ``ssm``, ``norm2``,
+    ``mlp``; as the reference's ``init_block``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, device)
-        if cfg.family == "ssm":
+        if cfg.attn_free:
             self.ssm = Mamba2(cfg, device)
             return
         self.attn = Attention(cfg, device)
+        if cfg.has_ssm:
+            self.ssm = Mamba2(cfg, device)
         self.norm2 = RMSNorm(cfg.d_model, device)
         self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, cfg.compute_dtype, device)
 
@@ -86,9 +92,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
             device: torch.device) -> LM:
     """Random weights with the reference's init scheme (fan-in truncated
     normal, 0.02 embedding, zero biases, unit norms; ``init_mamba2``'s
-    for an ssm block), drawn in float32 on ``device`` from ``generator``
-    and stored in the compute dtype.  The values differ from
-    ``jax.random``'s for the same seed."""
+    for an ssm block and a hybrid block's ``ssm``), drawn in float32 on
+    ``device`` from ``generator`` and stored in the compute dtype.  The
+    values differ from ``jax.random``'s for the same seed."""
     lm = LM(cfg, device)
     dt = cfg.compute_dtype
     lm.embed.tok.copy_(dense_init(tuple(lm.embed.tok.shape), generator,
@@ -97,7 +103,7 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
         lm.embed.head.copy_(dense_init(tuple(lm.embed.head.shape),
                                        generator, device).to(dt))
     for blk in lm.blocks:
-        if cfg.family == "ssm":
+        if cfg.attn_free:
             init_mamba2(blk.ssm, generator)
             continue
         for mod in (blk.attn, blk.mlp):
@@ -105,6 +111,8 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
                 if w.dim() == 2:                 # matrices; biases stay 0
                     w.copy_(dense_init(tuple(w.shape), generator,
                                        device).to(dt))
+        if cfg.has_ssm:
+            init_mamba2(blk.ssm, generator)
     return lm
 
 
@@ -112,12 +120,23 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
 # Prefill
 # ----------------------------------------------------------------------
 
+def _hybrid_mix(att: torch.Tensor, ssm: torch.Tensor) -> torch.Tensor:
+    """Hymba's combiner of the parallel branches, ``0.5 * (att + ssm)``
+    (arXiv:2411.13676, the reference's simplified form): both in the
+    compute dtype, the sum rounded there before the halving."""
+    return 0.5 * (att + ssm)
+
+
 def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig):
-    """Full-sequence block; returns (x, (k, v)), or (x, None) for ssm."""
+    """Full-sequence block; returns (x, (k, v)), or (x, None) for ssm.
+    A hybrid block runs attention (sliding window, K2) and Mamba-2 (K10)
+    on the same normed input and adds their mean."""
     h = apply_norm(p.norm1, x)
-    if cfg.family == "ssm":
+    if cfg.attn_free:
         return x + mamba2_forward(p.ssm, h, cfg), None
     att, kv = attention_forward(p.attn, h, cfg, return_kv=True)
+    if cfg.has_ssm:
+        att = _hybrid_mix(att, mamba2_forward(p.ssm, h, cfg))
     x = x + att
     h2 = apply_norm(p.norm2, x)
     return x + swiglu(p.mlp, h2), kv
@@ -141,8 +160,8 @@ def lm_prefill_batched(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
                        last_pos: Optional[torch.Tensor] = None):
     """Serving prefill: full-sequence pass returning the last-position
     logits and the KV cache ``(k, v)``, each (L, B, Hkv, S, D) -- or
-    ``None`` for an attention-free (ssm) model, whose state the engine
-    rebuilds by streaming the prompt.
+    ``None`` for an attention-free (ssm) model.  The engine rebuilds an
+    ssm or hybrid lane's state by streaming the prompt.
 
     ``last_pos`` (B,) selects which position's logits to return, so the
     engine can right-pad prompts to a shape bucket (causal attention and
@@ -199,18 +218,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``S = min(max_len, window)``, and ``len`` (B,) int32; int8 adds
     ``k_scale``/``v_scale`` (L, B, Hkv, S, 1).  An ssm model holds the
     zeroed float32 state of every layer instead: ``ssm_h`` (L, B, nh, N,
-    P) and ``ssm_conv`` (L, B, W-1, conv_ch)."""
+    P) and ``ssm_conv`` (L, B, W-1, conv_ch); a hybrid model holds both
+    the K/V and that state."""
     cache = {"len": torch.zeros(batch, dtype=torch.int32, device=device)}
-    if cfg.attn_free:
-        for k, v in init_mamba2_state(cfg, batch, device).items():
-            cache[f"ssm_{k}"] = v[None].repeat((cfg.n_layers,)
-                                               + (1,) * v.dim())
-        return cache
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads,
-             paged_capacity(max_len, cfg), cfg.hd)
-    cache.update(_kv_entries(cfg, shape, ("k", "v", "k_scale", "v_scale"),
-                             device))
+    if not cfg.attn_free:
+        shape = (cfg.n_layers, batch, cfg.n_kv_heads,
+                 paged_capacity(max_len, cfg), cfg.hd)
+        cache.update(_kv_entries(cfg, shape,
+                                 ("k", "v", "k_scale", "v_scale"), device))
+    if cfg.has_ssm:
+        cache.update(_ssm_entries(cfg, batch, device))
     return cache
+
+
+def _ssm_entries(cfg: ModelConfig, batch: int, device) -> Cache:
+    """Zeroed per-lane recurrent state of every layer: ``ssm_h`` (L, B,
+    nh, N, P) and ``ssm_conv`` (L, B, W-1, conv_ch), float32."""
+    return {f"ssm_{k}": v[None].repeat((cfg.n_layers,) + (1,) * v.dim())
+            for k, v in init_mamba2_state(cfg, batch, device).items()}
 
 
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -223,7 +248,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``v_scale_pages`` (L, P, Hkv, ps, 1).  ``n_pages`` defaults to
     ``batch * T``.  An ssm model's recurrent state is O(1) per lane and
     stays dense: ``ssm_h``/``ssm_conv`` and ``len``, no pool and no
-    tables."""
+    tables; a hybrid model holds the pool and tables beside that dense
+    state."""
     if cfg.attn_free:
         return init_cache(cfg, batch, max_len, device=device)
     s = paged_capacity(max_len, cfg)
@@ -242,6 +268,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     cache.update(_kv_entries(cfg, shape, ("k_pages", "v_pages",
                                           "k_scale_pages", "v_scale_pages"),
                              device))
+    if cfg.has_ssm:
+        cache.update(_ssm_entries(cfg, batch, device))
     return cache
 
 
@@ -250,13 +278,17 @@ def block_decode(p: Block, x: torch.Tensor, cfg: ModelConfig,
                  cache_len: torch.Tensor,
                  block_tables: Optional[torch.Tensor] = None,
                  k_scale: Optional[torch.Tensor] = None,
-                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 v_scale: Optional[torch.Tensor] = None,
+                 ssm_h: Optional[torch.Tensor] = None,
+                 ssm_conv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One-token decode through one block. x: (B, 1, d).
 
     ``block_tables`` (B, T) selects the paged path (``k_cache``/
     ``v_cache`` are this layer's pools); without it they are this
     layer's dense per-lane caches.  ``k_scale``/``v_scale`` are this
-    layer's scales when the cache is int8."""
+    layer's scales when the cache is int8.  A hybrid block also steps
+    its Mamba-2 branch on this layer's ``ssm_h``/``ssm_conv`` (updated
+    in place) after the attention, and adds the branches' mean."""
     h = apply_norm(p.norm1, x)
     if block_tables is None:
         att = attention_decode(p.attn, h, cfg, k_cache, v_cache, cache_len,
@@ -265,6 +297,8 @@ def block_decode(p: Block, x: torch.Tensor, cfg: ModelConfig,
         att = attention_decode_paged(p.attn, h, cfg, k_cache, v_cache,
                                      block_tables, cache_len, k_scale,
                                      v_scale)[0]
+    if cfg.has_ssm:
+        att = _hybrid_mix(att, mamba2_decode(p.ssm, h, cfg, ssm_h, ssm_conv))
     x = x + att
     h2 = apply_norm(p.norm2, x)
     return x + swiglu(p.mlp, h2)
@@ -277,7 +311,8 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
 
     A cache with ``block_tables`` is paged, one without is dense (as the
     reference's ``_attn_decode`` decides); an int8 cache carries its
-    scales beside the values; an ssm cache holds ``ssm_h``/``ssm_conv``.
+    scales beside the values; an ssm cache holds ``ssm_h``/``ssm_conv``,
+    a hybrid cache both the K/V and those.
     Each layer writes its new K/V (or state) into its slice of the cache
     in place; the returned cache holds the same tensors and ``len + 1``."""
     x = embed(params.embed, tokens[:, None])
@@ -290,11 +325,16 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
         bt = cache.get("block_tables")
         names = (("k", "v", "k_scale", "v_scale") if bt is None else
                  ("k_pages", "v_pages", "k_scale_pages", "v_scale_pages"))
-        k_all, v_all, ks_all, vs_all = (cache.get(n) for n in names)
+        k_all, v_all, ks_all, vs_all, h_all, conv_all = (
+            cache.get(n) for n in names + ("ssm_h", "ssm_conv"))
+
+        def layer(t, i):
+            return None if t is None else t[i]
+
         for i, blk in enumerate(params.blocks):
             x = block_decode(blk, x, cfg, k_all[i], v_all[i], cache_len, bt,
-                             None if ks_all is None else ks_all[i],
-                             None if vs_all is None else vs_all[i])
+                             layer(ks_all, i), layer(vs_all, i),
+                             layer(h_all, i), layer(conv_all, i))
     x = apply_norm(params.final_norm, x)
     logits = lm_logits(params.embed, x[:, 0], cfg)
     new_cache = dict(cache)

@@ -42,12 +42,17 @@ the full-precision prefill logits, as in the reference.
 
 An attention-free (ssm) model keeps O(1) recurrent state per lane
 (``ssm_h``/``ssm_conv``) on both layouts; paged, it holds no pages (a
-pool of 0, admission needing 0).  As in the reference, its prefill runs
-the chunked scan (K10 on the card) and discards the logits; the lane's
-state is zeroed and rebuilt by streaming the prompt through the decode
-step, and the first token comes from the streamed logits.  The stream
-steps a batch-1 state of its own, at fixed addresses, and copies it
-into the lane at the end; on the card each step after the engine's
+pool of 0, admission needing 0).  A hybrid model holds that state
+beside its sliding-window KV (a ring of ``window`` slots, or the
+window's fixed page set).  As in the reference, the prefill of either
+runs the chunked scan (K10 on the card; a hybrid's K2 too, whose KV is
+scattered into the lane) and discards the logits; the lane's state is
+zeroed and rebuilt by streaming the prompt through the decode step from
+length 0, which rewrites every KV slot it reads, and the first token
+comes from the streamed logits.  The stream steps a batch-1 cache of
+its own at fixed addresses (state, length, and a hybrid's dense K/V
+row or block-table row; the page pools pass through whole) and copies
+it into the lane at the end; on the card each step after the engine's
 first is a replay of one captured decode step.
 
 Prefix sharing, evict/restore and the telemetry hooks come in later
@@ -190,7 +195,7 @@ STATS_KEYS = ("decode_dispatches", "decode_steps", "decode_compiles",
 
 
 class ServeEngine:
-    """Continuous batcher around a decoder (dense or ssm).
+    """Continuous batcher around a decoder (dense, ssm or hybrid).
 
     ``n_lanes`` bounds the decode batch width; with ``paged=True``,
     ``n_pages`` bounds KV bytes (default: ``n_lanes`` full contexts).
@@ -282,15 +287,18 @@ class ServeEngine:
         self._tok_idx = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         self._admit_count = 0
         self._buckets: set = set()
-        if "ssm_h" in self.cache:
-            # the prompt stream's batch-1 state, length and input token,
-            # at addresses a captured decode step replays
-            self._ssm_lane = {k: torch.zeros(self.cache[k][:, :1].shape,
-                                             dtype=self.cache[k].dtype,
-                                             device=dev)
-                              for k in ("ssm_h", "ssm_conv")}
-            self._ssm_lane["len"] = torch.zeros(1, dtype=torch.int32,
-                                                device=dev)
+        if cfg.has_ssm:
+            # the prompt stream's batch-1 cache and input token, at
+            # addresses a captured decode step replays: the shared page
+            # pools themselves, a batch-1 row of everything per lane
+            self._ssm_lane = {}
+            for key, t in self.cache.items():
+                if key in _POOL_KEY.values():
+                    self._ssm_lane[key] = t
+                elif key in ("len", "block_tables"):
+                    self._ssm_lane[key] = torch.zeros_like(t[:1])
+                else:
+                    self._ssm_lane[key] = torch.zeros_like(t[:, :1])
             self._ssm_tok = torch.zeros(1, dtype=torch.int32, device=dev)
         self.graphs = StepGraphs(dev)
         self.stats: Dict[str, int] = {k: 0 for k in STATS_KEYS}
@@ -409,7 +417,7 @@ class ServeEngine:
                 self._scatter_prompt_paged(kv, lane, plen)
             else:
                 self._scatter_prompt_dense(kv, lane, plen)
-        if "ssm_h" in self.cache:
+        if self.cfg.has_ssm:
             # the recurrent state is rebuilt by streaming the prompt
             # through the decode step; its logits give the first token
             self._stream_ssm_prompt(prompt, lane)
@@ -474,7 +482,7 @@ class ServeEngine:
     def _ssm_step(self) -> torch.Tensor:
         """One batch-1 decode step of the prompt stream over its own
         buffers: the token in ``_ssm_tok`` advances ``_ssm_lane``'s state
-        (in place) and length; returns the logits."""
+        and K/V (in place) and length; returns the logits."""
         logits, cache = self.model.decode_step(self.params, self._ssm_lane,
                                                self._ssm_tok)
         self._ssm_lane["len"].copy_(cache["len"])
@@ -488,27 +496,45 @@ class ServeEngine:
         engine's first replays one captured step; that graph is not a
         decode compile.
 
+        A hybrid lane's K/V is rebuilt by the same steps from length 0:
+        dense, in the batch-1 row, whose slots ``[0, min(plen, S))`` then
+        replace the lane's (the ones the prefill's scatter wrote); paged,
+        straight into the lane's own pages through a batch-1 copy of its
+        block-table row.  A step reads only the slots it and the steps
+        before it wrote.
+
         The reference scans the whole shape bucket with the pad steps'
         state masked off, one compile per bucket
         (``ssm_prefill_compiles``); these steps stop at ``plen``, which
-        leaves the same state and logits.  Its buckets are the prefill's
-        (``_prefill_into_lane`` counted this one)."""
+        leaves the same state, K/V and logits (a pad step writes only
+        the slot the first decode step writes again before reading it).
+        Its buckets are the prefill's (``_prefill_into_lane`` counted
+        this one)."""
         plen = int(prompt.shape[0])
         self.stats["ssm_prefill_compiles"] = len(self._buckets)
         if self.timed:
             self._sync()
             t0 = time.perf_counter()
         captured = "ssm_step" in self.graphs.capture_s
+        buf = self._ssm_lane
         # the stream starts from zero state: a re-admitted lane must NOT
         # inherit the previous request's
-        for buf in self._ssm_lane.values():
-            buf.zero_()
+        for key in ("ssm_h", "ssm_conv", "len"):
+            buf[key].zero_()
+        if "block_tables" in buf:
+            buf["block_tables"].copy_(self.cache["block_tables"][lane:lane + 1])
         toks = torch.from_numpy(prompt.astype(np.int32)).to(self.device)
         for t in range(plen):
             self._ssm_tok.copy_(toks[t:t + 1])
             logits, _ = self.graphs.run("ssm_step", self._ssm_step)
         for key in ("ssm_h", "ssm_conv"):
-            self.cache[key][:, lane].copy_(self._ssm_lane[key][:, 0])
+            self.cache[key][:, lane].copy_(buf[key][:, 0])
+        if "k" in buf:
+            take = min(plen, buf["k"].shape[3])
+            for key in _POOL_KEY:
+                if key in buf:
+                    self.cache[key][:, lane, :, :take].copy_(
+                        buf[key][:, 0, :, :take])
         self.cache["len"][lane] = plen
         self._set_first_token(logits, lane)
         if self.timed:

@@ -46,7 +46,8 @@ def test_every_module_imports_with_jax_blocked():
         "          'kernels.fma_matmul.ops', 'kernels.qmatmul.ops',\n"
         "          'kernels.mixbench.check', 'kernels._sass',\n"
         "          'kernels.ssd_scan.ops', 'kernels.ssd_scan.ref',\n"
-        "          'models.ssm', 'configs.mamba2_780m'):\n"
+        "          'models.ssm', 'configs.mamba2_780m',\n"
+        "          'configs.hymba_1_5b'):\n"
         "    assert 'repro_torch.' + m in names, names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -95,17 +96,19 @@ def test_cpu_serving_launches_no_kernel():
                         max_new_tokens=4) for i in range(3)]
         eng.run(reqs)
         assert all(len(r.generated) == 4 for r in reqs)
-    ssm = get_config("mamba2-780m", smoke=True)
-    ssm_params = build_model(ssm).init(torch.Generator().manual_seed(0), cpu)
-    for paged in (False, True):
-        eng = ServeEngine(ssm, ssm_params, n_lanes=2, max_len=32,
-                          paged=paged, page_size=8, device="cpu")
-        reqs = [Request(uid=i, prompt=np.arange(5 + i, dtype=np.int32),
-                        max_new_tokens=4) for i in range(3)]
-        eng.run(reqs)
-        assert all(len(r.generated) == 4 for r in reqs)
-    build_model(ssm).forward(ssm_params,
-                             torch.zeros((1, 40), dtype=torch.int32))
+    for arch in ("mamba2-780m", "hymba-1.5b"):
+        ssm = get_config(arch, smoke=True)
+        ssm_params = build_model(ssm).init(torch.Generator().manual_seed(0),
+                                           cpu)
+        for paged in (False, True):
+            eng = ServeEngine(ssm, ssm_params, n_lanes=2, max_len=32,
+                              paged=paged, page_size=8, device="cpu")
+            reqs = [Request(uid=i, prompt=np.arange(5 + i, dtype=np.int32),
+                            max_new_tokens=4) for i in range(3)]
+            eng.run(reqs)
+            assert all(len(r.generated) == 4 for r in reqs)
+        build_model(ssm).forward(ssm_params,
+                                 torch.zeros((1, 40), dtype=torch.int32))
     assert launch_counts() == {"decode_attention_paged": 0,
                                "decode_attention_lengthaware": 0,
                                "decode_attention_masked": 0,

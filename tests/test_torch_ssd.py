@@ -449,7 +449,7 @@ def test_forward_and_prefill_match_reference(smoke):
 def test_family_guard_refuses_unported_families():
     from repro_torch.models.common import ModelConfig
     from repro_torch.models.transformer import LM
-    for family in ("moe", "hybrid", "vlm", "audio"):
+    for family in ("moe", "vlm", "audio"):
         cfg = ModelConfig(name=f"x-{family}", family=family, n_layers=1,
                           d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
                           vocab_size=64)
@@ -457,6 +457,12 @@ def test_family_guard_refuses_unported_families():
             build_model(cfg)
         with pytest.raises(ValueError, match=family):
             LM(cfg)
+    # the hybrid family is ported; a hybrid with another norm is not
+    hybrid = get_config("hymba-1.5b", smoke=True)
+    assert build_model(hybrid).cfg is hybrid
+    layernorm = dataclasses.replace(hybrid, norm="layernorm")
+    with pytest.raises(ValueError, match="layernorm"):
+        build_model(layernorm)
 
 
 # ----------------------------------------------------------------------
