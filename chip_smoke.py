@@ -186,7 +186,44 @@ order (any failure raises and the script exits non-zero):
    and stream ms eager and replayed, prefill ms per bucket, capture s;
 21. timings at hymba-1.5b's shapes, as in phase 10: K2 bf16 at Sq 2048
    and 1024 with the window (beside SDPA with the window as a mask),
-   K3, K1, K5 and K4 at the wrapped ring, K10 at N 16.
+   K3, K1, K5 and K4 at the wrapped ring, K10 at N 16;
+22. (between phases 9 and 10, while qwen2.5-1.5b's weights are loaded)
+   prefix sharing: at SMOKE width in float32, KV in float32 and in int8,
+   greedy and at t=0.8, the sharing engine on the CPU and on the card
+   and the unshared engine on the card give identical streams (a
+   partial page copied on write among them), the sharing stats equal
+   CPU vs card; at full width (paged, 256 pages of 16, 8 lanes) 16
+   requests opening with one 520-token head (32 full pages and 8
+   tokens) and a tail of their own (16-80 tokens), and one repeating
+   the first prompt that ends mid-page with 5 more tokens, 64 new
+   tokens: served twice with sharing (identical streams, every stat
+   equal to what the port's rules give for these prompts on a one-layer
+   CPU mirror of the same geometry and vocabulary), and once without
+   (a higher page high-water mark; the share of equal streams printed,
+   not gated in bf16); K1 28 times a decode step plus 28 a streamed
+   tail token, every tail token but the first a replay of the batch-1
+   step; tail ms per token;
+23. (there too) evict/restore at full width, paged, KV in bf16 and int8:
+   after the second dispatch two live lanes are evicted, one restored
+   into the same engine and one into a fresh one with the same
+   ``n_lanes``, seed and temperature; every stream equals the
+   uninterrupted serve's bit for bit; evict and restore ms;
+24. the rest of the dense family at SMOKE width in float32: olmo (MHA,
+   non-parametric LN), KV in float32 and int8, through the checks of
+   phase 6 (K2's CUDA-core kernel, K3/K1, K5/K4 in int8);
+25. K2, K3, K1, K5 and K4 at olmo-1b's, mistral-nemo-12b's and
+   qwen2.5-32b's shapes (D 128, GQA group 1, 4 and 5; the serves'
+   lanes) against their plain versions, K1 == K3 and K4 == K5 bitwise;
+26. full width in bf16 with seeded random weights, each loaded after
+   every earlier model is dropped and the cache emptied: olmo-1b (16
+   requests, 8 lanes) and mistral-nemo-12b (8 requests, 8 lanes;
+   ``head_dim`` 128 against d_model / n_heads = 160) on both layouts,
+   qwen2.5-32b (~65.5 GB; 4 requests, 32 new tokens, 4 lanes) paged;
+   prompts 64-700, max_len 1024, pages of 16; K2 28 (or the config's
+   layer count) times a prompt and K3/K1 a decode step, the replay gates
+   and check, tok/s, prefill ms per bucket, decode ms per dispatch, the
+   phase's peak device memory;
+27. timings at those three configs' shapes, as in phase 21.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -435,7 +472,7 @@ def stream_gate(eng, tag, reqs):
     """Fail unless every prompt token but the engine's first streamed
     through the ssm step's graph (one replay a token)."""
     want = sum(min(len(r.prompt), eng.max_len - 1) for r in reqs) - 1
-    got = eng.graphs.replays("ssm_step")
+    got = eng.graphs.replays("stream_step")
     if got != want:
         fail(f"{tag}: {got} replays of the prompt stream's step for "
              f"{want + 1} prompt tokens")
@@ -922,7 +959,7 @@ def phase_smoke_e2e(dev, kv_quant=None, arch="qwen2.5-1.5b"):
     from repro_torch.serving import ServeEngine
     cfg = dataclasses.replace(get_config(arch, smoke=True),
                               dtype="float32", kv_quant=kv_quant)
-    tag = (f"[smoke e2e{' ' + arch if cfg.has_ssm else ''}"
+    tag = (f"[smoke e2e{'' if arch == 'qwen2.5-1.5b' else ' ' + arch}"
            f"{' int8' if kv_quant else ''}]")
     cpu = torch.device("cpu")
     params = build_model(cfg).init(torch.Generator().manual_seed(SEED), cpu)
@@ -997,19 +1034,23 @@ def init_full(dev):
     return cfg, params
 
 
-def serve_full(dev, cfg, params, tag, need, **engine_kw):
-    """Serve the full-width traffic (16 requests, prompts 64-700 from the
-    seed, 64 new tokens, 8 lanes, max_len 1024) through one engine with
-    the launch counts zeroed just before and read just after; fail
-    unless every budget finishes and every kernel in ``need`` ran."""
+def serve_full(dev, cfg, params, tag, need, reqs=None, n_lanes=8,
+               **engine_kw):
+    """Serve the full-width traffic (``reqs``; by default 16 requests,
+    prompts 64-700 from the seed, 64 new tokens; 8 lanes, max_len 1024)
+    through one engine with the launch counts zeroed just before and
+    read just after; fail unless every budget finishes and every kernel
+    in ``need`` ran.  The summary carries the engine's stats and
+    timings."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import ServeEngine
-    gen = 64
-    eng = ServeEngine(cfg, params, n_lanes=8, max_len=1024, device=dev,
+    if reqs is None:
+        reqs = _requests(cfg, 16, 64, 700, 64, SEED + 2)
+    gen = reqs[0].max_new_tokens
+    eng = ServeEngine(cfg, params, n_lanes=n_lanes, max_len=1024, device=dev,
                       timed=True, **engine_kw)
-    reqs = _requests(cfg, 16, 64, 700, gen, SEED + 2)
     checked = {}
     check_replay_midway(eng, tag, checked)
     reset_launch_counts()
@@ -1047,7 +1088,17 @@ def serve_full(dev, cfg, params, tag, need, **engine_kw):
                               for b, v in pre.items()},
                "decode_ms_per_dispatch": 1e3 * statistics.median(dec),
                "n_dispatches": len(dec),
-               "decode_steps": eng.stats["decode_steps"], "graphs": graphs}
+               "decode_steps": eng.stats["decode_steps"], "graphs": graphs,
+               "stats": dict(eng.stats),
+               "prefix_stream_s": list(eng.timings["prefix_stream"]),
+               "prefix_tail_tokens": list(eng.timings["prefix_tail_tokens"]),
+               "stream_replays": eng.graphs.replays("stream_step")}
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.flush()
+        eng.pool.check()
+        if eng.pool.n_in_use:
+            fail(f"{tag}: {eng.pool.n_in_use} pages left in use after the "
+                 f"cache was flushed")
     del eng                     # the check's wrapper holds a cycle to it
     gc.collect()
     torch.cuda.empty_cache()
@@ -1992,7 +2043,7 @@ def check_stream(eng, tag, prompt, streamed):
     got = {k: eng.cache[k][:, lane].clone() for k in ("ssm_h", "ssm_conv")}
     got.update(lane_kv(eng, lane, take), logits=streamed[-1])
     state = {}
-    for key, t in eng._ssm_lane.items():
+    for key, t in eng._stream_lane.items():
         if key.endswith("_pages"):
             state[key] = t                          # the shared pools
         elif key == "block_tables":
@@ -2473,6 +2524,637 @@ def k10_timing(dev):
     return r
 
 
+# ----------------------------------------------------------------------
+# the rest of the dense family: olmo-1b, mistral-nemo-12b, qwen2.5-32b
+# ----------------------------------------------------------------------
+
+#: full-width serves of the dense family's new configs: GQA group 1
+#: (olmo-1b, MHA), 4 (mistral-nemo-12b) and 5 (qwen2.5-32b), D 128 each;
+#: (requests, new tokens, lanes, layouts) per config, prompts 64-700
+FAMILY_SERVES = {"olmo-1b": (16, 64, 8, ("fixed-lane", "paged")),
+                 "mistral-nemo-12b": (8, 64, 8, ("fixed-lane", "paged")),
+                 "qwen2.5-32b": (4, 32, 4, ("paged",))}
+#: decode lengths of the kernel checks and timings at each config's
+#: shapes: a dead lane, lengths across page and chunk edges, a full lane
+FAMILY_LENS = {8: (0, 1, 15, 16, 17, 300, 777, 1024), 4: (0, 64, 700, 1024)}
+
+
+def family_decode_inputs(arch, dtype, dev, ps=16, s=1024):
+    """q (B, H, 128), pools (B * T + 1, Hkv, ps, 128) through a shuffled
+    table (B, T) of disjoint pages, the lengths, and the lanes' caches
+    gathered from the pools (B, Hkv, S, 128), at ``arch``'s heads and
+    serve's lanes."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import gather_pages
+    cfg = get_config(arch)
+    b = FAMILY_SERVES[arch][2]
+    t = s // ps
+    rng = np.random.default_rng(SEED + 11 + cfg.n_heads)
+    q = torch.from_numpy(rng.standard_normal((b, cfg.n_heads, cfg.hd),
+                                             np.float32))
+    pools = [torch.from_numpy(rng.standard_normal(
+        (b * t + 1, cfg.n_kv_heads, ps, cfg.hd), np.float32))
+        for _ in range(2)]
+    bt = torch.from_numpy(rng.permutation(b * t + 1)[:b * t]
+                          .reshape(b, t).astype(np.int32)).to(dev)
+    lens = torch.tensor(FAMILY_LENS[b], dtype=torch.int32, device=dev)
+    q, kp, vp = (x.to(dev, dtype) for x in [q] + pools)
+    return q, kp, vp, bt, lens, gather_pages(kp, bt), gather_pages(vp, bt)
+
+
+def k2_scaled_check(errs, arch, out, q, k, v):
+    """Hold the tensor-core K2's bf16 output to an error bound scaled by
+    the reference, element by element, so that late causal rows (|out|
+    a few hundredths) are held as tightly as early ones (|out| a few
+    units).  The reference is float32 attention of the same bf16
+    inputs.  The kernel rounds each weight to bf16 (relative 2^-9) and
+    normalises by the rounded weights, which moves an element by at
+    most 2^-9 * sum_j w_j |v_j - ref| <= 2^-9 * (ref_abs + |ref|), where
+    ref_abs is the same attention over |V|; the bf16 output adds
+    2^-9 * |ref|.  So |out - ref| <= 2^-8 * (|ref| + ref_abs) + 1e-5
+    (float32 summation order) holds for a sound kernel; the ratio of the
+    error to that bound must stay at or below 1."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    ref = attention_ref(qf, kf, vf, causal=True)
+    ref_abs = attention_ref(qf, kf, vf.abs(), causal=True)
+    err = (out.float() - ref).abs()
+    ratio = float((err / (2.0 ** -8 * (ref.abs() + ref_abs) + 1e-5))
+                  .max().item())
+    sq = q.shape[2]
+    late = slice(3 * sq // 4, sq)
+    print(f"[{arch} kernels] flash_attention_mma bf16 Sq={sq} against a "
+          f"float32 reference: error over the scaled bound {ratio:.3f} "
+          f"(limit 1); last quarter of rows: max_abs_err "
+          f"{float(err[:, :, late].max()):.3e}, median |ref| "
+          f"{float(ref[:, :, late].abs().median()):.3e}, bound there "
+          f"{float((2.0 ** -8 * (ref.abs() + ref_abs))[:, :, late].median()):.3e}"
+          f" at the median")
+    if not ratio <= 1.0:
+        fail(f"flash_attention_mma at {arch}'s shapes (Sq {sq}) passes its "
+             f"reference-scaled bound: error/bound {ratio}")
+    worst = errs.setdefault("flash_attention_mma", {}).get(
+        "scaled", (0.0, 1.0))[0]
+    errs["flash_attention_mma"]["scaled"] = (max(worst, ratio), 1.0)
+
+
+def phase_family_kernels(dev, arch):
+    """The attention kernels at ``arch``'s shapes against their plain
+    versions, f32 (tol 1e-4) and bf16 (tol 2e-2): K2 causal at Sq 1024
+    (bf16 on the tensor cores, f32 on the CUDA cores) and at a ragged
+    Sq 700, the bf16 one also within ``k2_scaled_check``'s bound; K3, K1, K5 and K4 (per-token int8 scales) at the serve's
+    lanes over ``FAMILY_LENS``; K1 gives K3's bits on the gathered pools
+    and K4 K5's, and each repeats its bits.  Returns {kernel: {dtype:
+    (max_abs_err, tol)}}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_paged, decode_attention_paged_q8,
+        decode_attention_paged_q8_ref, decode_attention_paged_ref,
+        decode_attention_q8, decode_attention_q8_ref, decode_attention_ref,
+        gather_pages, quantize_kv_q8)
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    cfg = get_config(arch)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    errs = {}
+
+    def record(name, dtype, err, tol, what):
+        print(f"[{arch} kernels] {name} {dtype} {what}: max_abs_err "
+              f"{err:.3e} (tol {tol})")
+        if not err <= tol:
+            fail(f"{name} at {arch}'s shapes ({dtype}, {what}) disagrees "
+                 f"with its plain version: {err}")
+        key = str(dtype).split(".")[-1]
+        worst = errs.setdefault(name, {}).get(key, (0.0, tol))[0]
+        errs[name][key] = (max(worst, err), tol)
+
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        kernel = ("flash_attention_mma" if dtype == torch.bfloat16 else
+                  "flash_attention_cc")
+        for sq in (1024, 700):
+            q, k, v = k2_inputs(sq, dtype, dev, d, h, hkv)
+            before = launch_counts()
+            out = flash_attention(q, k, v, causal=True)
+            ran = {n: c - before[n] for n, c in launch_counts().items()
+                   if c != before[n]}
+            if ran != {kernel: 1}:
+                fail(f"K2 {dtype} at {arch}'s shapes launched {ran}")
+            torch.cuda.synchronize()
+            record(kernel, dtype, max_err(out, attention_ref(q, k, v,
+                                                             causal=True)),
+                   tol, f"Sq={sq} H={h} Hkv={hkv} D={d}")
+            if dtype == torch.bfloat16:
+                k2_scaled_check(errs, arch, out, q, k, v)
+        q, kp, vp, bt, lens, kd, vd = family_decode_inputs(arch, dtype, dev)
+        kq, ks = quantize_kv_q8(kp.float(), 1)
+        vq, vs = quantize_kv_q8(vp.float(), 1)
+        gq = [gather_pages(x, bt) for x in (kq, ks, vq, vs)]
+        runs = {
+            "decode_attention_lengthaware": (
+                lambda: decode_attention(q, kd, vd, lens),
+                decode_attention_ref(q, kd, vd, lens)),
+            "decode_attention_paged": (
+                lambda: decode_attention_paged(q, kp, vp, bt, lens),
+                decode_attention_paged_ref(q, kp, vp, bt, lens)),
+            "decode_attention_q8_lengthaware": (
+                lambda: decode_attention_q8(q, *gq, lens, qblock=1),
+                decode_attention_q8_ref(q, *gq, lens, qblock=1)),
+            "decode_attention_paged_q8": (
+                lambda: decode_attention_paged_q8(q, kq, ks, vq, vs, bt,
+                                                  lens, qblock=1),
+                decode_attention_paged_q8_ref(q, kq, ks, vq, vs, bt, lens,
+                                              qblock=1))}
+        outs = {}
+        for name, (run, ref) in runs.items():
+            out, again = run(), run()
+            torch.cuda.synchronize()
+            record(name, dtype, max_err(out, ref), tol,
+                   f"B={len(lens)} H={h} Hkv={hkv} D={d} lengths "
+                   f"{lens.tolist()}")
+            if not torch.equal(out, again):
+                fail(f"{name} did not repeat its bits at {arch}'s shapes")
+            if not bool(torch.all(out[0] == 0)):
+                fail(f"{name}: the dead lane did not give 0 at {arch}'s "
+                     f"shapes")
+            outs[name] = out
+        for paged, dense in (("decode_attention_paged",
+                              "decode_attention_lengthaware"),
+                             ("decode_attention_paged_q8",
+                              "decode_attention_q8_lengthaware")):
+            if not torch.equal(outs[paged], outs[dense]):
+                fail(f"{paged} differs from {dense} on the gathered pools "
+                     f"at {arch}'s shapes ({dtype})")
+    print(f"[{arch} kernels] K1 == K3 and K4 == K5 bitwise on the gathered "
+          f"pools, every kernel repeats its bits")
+    return errs
+
+
+def phase_family_timings(dev, arch):
+    """The attention kernels of ``arch``'s path at its shapes, as device
+    time per call (``time_ms_queued``) beside their plain versions, one
+    PyTorch call where one computes the function, and the bound: K2 bf16
+    causal at B 1, Sq 1024 (beside SDPA); K3 (beside SDPA with the length
+    mask), K1 (beside its pages gathered then SDPA), K5 and K4 (beside
+    the dequantize route) with bf16 q at the serve's lanes and
+    ``FAMILY_LENS``."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_paged, decode_attention_paged_q8,
+        decode_attention_paged_q8_ref, decode_attention_paged_ref,
+        decode_attention_q8, decode_attention_q8_ref, decode_attention_ref,
+        gather_pages, quantize_kv_q8)
+    cfg = get_config(arch)
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    rows = {}
+    q, k, v = k2_inputs(1024, torch.bfloat16, dev, d, h, hkv)
+    rows["flash_attention_mma"] = with_bound(dict(
+        _k2_row(q, k, v, 2), peak=BF16_FLOPS_PER_S,
+        shape=f"bf16 B 1 H {h} Hkv {hkv} Sq 1024 D {d} causal"))
+    q, kp, vp, bt, lens, kd, vd = family_decode_inputs(arch, torch.bfloat16,
+                                                       dev)
+    ps = kp.shape[2]
+    live = lens.to(torch.int64)
+    n_live = int(live.sum().item())
+    pages_live = int(((live + ps - 1) // ps).sum().item())
+    io_bytes = 2 * q.numel() * 2 + 4 * lens.numel()
+    alive = lens >= 1
+    mask = (torch.arange(kd.shape[2], device=dev)[None, :]
+            < lens[:, None])[alive][:, None, None, :].contiguous()
+    ql = q[alive][:, :, None].contiguous()
+    shape = (f"bf16 q, B {len(lens)} H {h} Hkv {hkv} D {d}, S 1024, "
+             f"lengths {lens.tolist()}")
+    rows["decode_attention_lengthaware"] = with_bound(dict(
+        ms=time_ms_queued(lambda: decode_attention(q, kd, vd, lens)),
+        plain_ms=time_ms_queued(lambda: decode_attention_ref(q, kd, vd,
+                                                             lens)),
+        library_ms=time_ms_queued(lambda: F.scaled_dot_product_attention(
+            ql, kd[alive], vd[alive], attn_mask=mask, enable_gqa=True)),
+        bytes=2 * n_live * hkv * d * 2 + io_bytes,
+        flops=4 * n_live * h * d, peak=BF16_FLOPS_PER_S, shape=shape))
+    rows["decode_attention_paged"] = with_bound(dict(
+        ms=time_ms_queued(lambda: decode_attention_paged(q, kp, vp, bt,
+                                                         lens)),
+        plain_ms=time_ms_queued(lambda: decode_attention_paged_ref(
+            q, kp, vp, bt, lens)),
+        library_ms=None,
+        gather_sdpa_ms=time_ms_queued(lambda: F.scaled_dot_product_attention(
+            ql, gather_pages(kp, bt)[alive], gather_pages(vp, bt)[alive],
+            attn_mask=mask, enable_gqa=True)),
+        bytes=2 * n_live * hkv * d * 2 + io_bytes + 4 * pages_live,
+        flops=4 * n_live * h * d, peak=BF16_FLOPS_PER_S,
+        shape=shape + ", pages of 16"))
+    kq, ks = quantize_kv_q8(kp.float(), 1)
+    vq, vs = quantize_kv_q8(vp.float(), 1)
+    gq = [gather_pages(x, bt) for x in (kq, ks, vq, vs)]
+    row_bytes = hkv * (2 * d + 2 * 4)       # int8 k and v, f32 k/v scales
+    rows["decode_attention_q8_lengthaware"] = with_bound(dict(
+        ms=time_ms_queued(lambda: decode_attention_q8(q, *gq, lens,
+                                                      qblock=1)),
+        plain_ms=time_ms_queued(lambda: decode_attention_q8_ref(
+            q, *gq, lens, qblock=1)),
+        library_ms=None,
+        route_ms=time_ms_queued(lambda: _route_dense(q, *gq, lens, 1)),
+        bytes=n_live * row_bytes + io_bytes,
+        flops=4 * n_live * h * d + 2 * n_live * hkv * d,
+        peak=BF16_FLOPS_PER_S, shape=shape + ", int8 per-token scales"))
+    rows["decode_attention_paged_q8"] = with_bound(dict(
+        ms=time_ms_queued(lambda: decode_attention_paged_q8(
+            q, kq, ks, vq, vs, bt, lens, qblock=1)),
+        plain_ms=time_ms_queued(lambda: decode_attention_paged_q8_ref(
+            q, kq, ks, vq, vs, bt, lens, qblock=1)),
+        library_ms=None,
+        route_ms=time_ms_queued(lambda: _route_paged(q, kq, ks, vq, vs, bt,
+                                                     lens, 1)),
+        bytes=n_live * row_bytes + io_bytes + 4 * pages_live,
+        flops=4 * n_live * h * d + 2 * n_live * hkv * d,
+        peak=BF16_FLOPS_PER_S,
+        shape=shape + ", pages of 16, int8 per-token scales"))
+    for name, rr in rows.items():
+        lib = rr["library_ms"]
+        extra = "".join(f", {k} {rr[k]:.4f} ms" for k in
+                        ("route_ms", "gather_sdpa_ms") if k in rr)
+        print(f"[time {arch}] {name} ({rr['shape']}): kernel "
+              f"{rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} ms, library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}{extra}, bound "
+              f"{rr['bound_ms']:.5f} ms ({rr['bound_by']}: {rr['bytes']} B, "
+              f"{rr['flops']} flop)")
+    return rows
+
+
+def init_config(dev, arch):
+    """``arch``'s CONFIG in bf16 with random weights from the seed, on
+    the card; prints its size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = build_model(cfg).init(
+        torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[{arch}] bf16, {n_params / 1e9:.3f}B params "
+          f"({2 * n_params / 1e9:.1f} GB) initialised in "
+          f"{time.perf_counter() - t0:.1f}s; device memory allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, params
+
+
+def phase_family_serve(dev, arch):
+    """``arch`` at full width (bf16, random weights from the seed) served
+    with ``FAMILY_SERVES``' traffic on its layouts through
+    :func:`serve_full` (the replay gates and check): K2's tensor-core
+    kernel once a layer a prompt and K3 (fixed-lane) or K1 (paged) once
+    a layer a decode step; the prefill's last-position logits finite
+    with the padded vocab masked.  Loaded after every earlier model is
+    dropped and the cache emptied; reports the phase's peak device
+    memory.  Returns {layout: (counts, summary)}."""
+    import torch
+    from repro_torch.models.transformer import lm_prefill_batched
+    n_req, gen, lanes, layouts = FAMILY_SERVES[arch]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[{arch}] before loading: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"reserved")
+    cfg, params = init_config(dev, arch)
+    out = {}
+    for layout in layouts:
+        kw = dict(paged=True, page_size=16) if layout == "paged" else {}
+        kernel = ("decode_attention_paged" if layout == "paged" else
+                  "decode_attention_lengthaware")
+        tag = f"{arch} {layout}"
+        reqs = _requests(cfg, n_req, 64, 700, gen, SEED + 2)
+        counts, summary = serve_full(dev, cfg, params, tag,
+                                     (kernel, "flash_attention_mma"),
+                                     reqs=reqs, n_lanes=lanes, **kw)
+        per_step = counts[kernel] / summary["decode_steps"]
+        print(f"[{tag}] {kernel} launches per decode step: {per_step}; "
+              f"flash_attention_mma {counts['flash_attention_mma']} for "
+              f"{n_req} prompts")
+        if per_step != cfg.n_layers or \
+                counts["flash_attention_mma"] != cfg.n_layers * n_req:
+            fail(f"{tag}: {kernel} {per_step} a step, K2 "
+                 f"{counts['flash_attention_mma']}, not {cfg.n_layers} a "
+                 f"step and a prompt")
+        out[layout] = (counts, summary)
+    prompt = torch.from_numpy(_requests(cfg, 1, 64, 64, 1, SEED)[0]
+                              .prompt[None]).to(dev)
+    logits, _ = lm_prefill_batched(params, prompt, cfg)
+    if logits.shape != (1, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()) or \
+            not bool((logits[:, cfg.vocab_size:] == -1e30).all()):
+        fail(f"{arch}: prefill logits are not finite/masked as expected")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{arch}] phase peak device memory allocated {peak / 2**30:.2f} "
+          f"GiB ({torch.cuda.get_device_name(0)})")
+    for layout, (_, r) in out.items():
+        r["peak_gib"] = peak / 2**30
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------------
+# prefix sharing and evict/restore
+# ----------------------------------------------------------------------
+
+def share_smoke_prompts(cfg):
+    """The SMOKE sharing traffic (pages of 8): a 20-token head served
+    alone first (2 full pages and a partial one go to the cache), the
+    head plus 2 tokens (a hit on the partial page: a copy-on-write
+    split), members with tails of their own, an unrelated prompt and a
+    member past ``max_len - 1``."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 11)
+    head = rng.integers(0, cfg.vocab_size, 20).astype(np.int32)
+
+    def tail(n):
+        return rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+
+    return [head, np.concatenate([head, tail(2)]),
+            np.concatenate([head, tail(9)]), tail(13),
+            np.concatenate([head, tail(5)]),
+            np.concatenate([head, tail(40)]), head.copy()]
+
+
+def phase_share_smoke(dev):
+    """SMOKE qwen2.5-1.5b in float32, KV in float32 and in int8, greedy
+    and at t=0.8: the sharing engine on the CPU and on the card and the
+    unshared engine on the card give identical streams, the two sharing
+    engines identical stats (hits, a copy-on-write split for float32 KV,
+    pages saved), and on the card K1 (K4) ran and the unmatched tails
+    replayed the captured batch-1 step."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving import STATS_KEYS, Request, ServeEngine
+    base = dataclasses.replace(get_config("qwen2.5-1.5b", smoke=True),
+                               dtype="float32")
+    cpu = torch.device("cpu")
+    params = build_model(base).init(torch.Generator().manual_seed(SEED),
+                                    cpu)
+    on_card = copy.deepcopy(params).to(dev)
+    prompts = share_smoke_prompts(base)
+    gens = [6, 5, 7, 4, 6, 3, 5]
+    for kv_quant in (None, "int8"):
+        cfg = dataclasses.replace(base, kv_quant=kv_quant)
+        kernel = ("decode_attention_paged_q8" if kv_quant else
+                  "decode_attention_paged")
+        for temperature in (0.0, 0.8):
+            tag = (f"[share smoke{' int8' if kv_quant else ''} "
+                   f"t={temperature}]")
+            streams, stats = {}, {}
+            for where, share in (("cpu", True), ("cuda", True),
+                                 ("cuda", False)):
+                eng = ServeEngine(cfg, params if where == "cpu" else on_card,
+                                  n_lanes=2, max_len=48, dispatch_n=4,
+                                  paged=True, page_size=8, rng_seed=7,
+                                  temperature=temperature,
+                                  prefix_sharing=share, device=where)
+                reqs = [Request(uid=i, prompt=p.copy(), max_new_tokens=g)
+                        for i, (p, g) in enumerate(zip(prompts, gens))]
+                reset_launch_counts()
+                eng.run(reqs)
+                counts = launch_counts()
+                streams[where, share] = [r.generated for r in reqs]
+                stats[where, share] = {k: eng.stats[k] for k in STATS_KEYS}
+                if where == "cuda" and counts[kernel] <= 0:
+                    fail(f"{tag} {kernel} never ran: {counts}")
+                if where == "cuda" and share and not kv_quant and \
+                        eng.graphs.replays("stream_step") <= 0:
+                    fail(f"{tag} the tails never replayed the batch-1 step")
+                if share:
+                    eng.prefix_cache.flush()
+                eng.pool.check()
+                if eng.pool.n_in_use:
+                    fail(f"{tag} pages left in use ({where}, share={share})")
+            st = stats["cuda", True]
+            if stats["cpu", True] != st:
+                fail(f"{tag} sharing stats differ CPU vs card: "
+                     f"{stats['cpu', True]} {st}")
+            want_cow = 0 if kv_quant else 1
+            if st["prefix_hits"] < 4 or st["prefix_cow_copies"] < want_cow:
+                fail(f"{tag} too few hits or copy-on-write splits: {st}")
+            same_cpu = streams["cpu", True] == streams["cuda", True]
+            same_unshared = streams["cuda", True] == streams["cuda", False]
+            print(f"{tag} streams identical CPU vs card (shared) "
+                  f"{same_cpu}, shared vs unshared on the card "
+                  f"{same_unshared}; hits {st['prefix_hits']}, tokens "
+                  f"matched {st['prefix_tokens_matched']}, pages saved "
+                  f"{st['prefix_pages_saved']}, cow {st['prefix_cow_copies']}")
+            if not (same_cpu and same_unshared):
+                fail(f"{tag} streams differ")
+
+
+#: full-width sharing traffic: a common head of 32 full pages and 8
+#: tokens, each request's own tail of 16-80 tokens, 64 new tokens
+SHARE_HEAD, SHARE_TAILS, SHARE_REQS = 520, (16, 80), 16
+
+
+def share_full_requests(cfg):
+    """``SHARE_REQS`` requests opening with one ``SHARE_HEAD``-token head
+    and a tail of their own, then one more that repeats the first prompt
+    not ending on a page boundary with 5 more tokens: it matches that
+    prompt's partial last page, which it copies on write."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(SEED + 7)
+    head = rng.integers(0, cfg.vocab_size, SHARE_HEAD).astype(np.int32)
+    prompts = [np.concatenate([head, rng.integers(
+        0, cfg.vocab_size, int(rng.integers(*SHARE_TAILS, endpoint=True))
+        ).astype(np.int32)]) for _ in range(SHARE_REQS)]
+    donor = next(p for p in prompts if len(p) % 16)
+    prompts.append(np.concatenate(
+        [donor, rng.integers(0, cfg.vocab_size, 5).astype(np.int32)]))
+    return [Request(uid=i, prompt=p, max_new_tokens=64)
+            for i, p in enumerate(prompts)]
+
+
+def share_mirror_stats(cfg, reqs):
+    """The stats the port's rules give for ``reqs`` on the sharing
+    engine's geometry (8 lanes, max_len 1024, 256 pages of 16), from a
+    one-layer float32 model of the same vocabulary on the CPU: which
+    prompts hit, what they match and share, and the page counts depend
+    on the prompts' tokens, lengths and budgets only."""
+    import dataclasses
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serving import STATS_KEYS, Request, ServeEngine
+    tiny = dataclasses.replace(cfg, n_layers=1, d_model=64, n_heads=1,
+                               n_kv_heads=1, d_ff=64, dtype="float32")
+    cpu = torch.device("cpu")
+    params = build_model(tiny).init(torch.Generator().manual_seed(SEED), cpu)
+    eng = ServeEngine(tiny, params, n_lanes=8, max_len=1024, paged=True,
+                      page_size=16, n_pages=256, prefix_sharing=True,
+                      device="cpu")
+    eng.run([Request(uid=r.uid, prompt=r.prompt.copy(),
+                     max_new_tokens=r.max_new_tokens) for r in reqs])
+    return {k: eng.stats[k] for k in STATS_KEYS}
+
+
+def phase_share_full(dev, cfg, params):
+    """qwen2.5-1.5b at full width (bf16), paged over 256 pages of 16, 8
+    lanes, with prefix sharing: ``share_full_requests``' traffic served
+    twice with sharing and once without.  Gates: every budget finishes;
+    every stat of both sharing serves equals the port's rules for these
+    prompts (:func:`share_mirror_stats`); the two sharing serves give
+    identical streams; the unshared serve's page high-water mark is
+    above theirs; K1 launches 28 a decode step plus 28 a streamed tail
+    token and K2 28 a missed prompt (replay accounting); every tail
+    token but the engine's first is a replay of the batch-1 step.  The
+    share of streams equal to the unshared serve's is printed, not
+    gated (bf16: K1 over a streamed tail and K2 over the whole prompt
+    may round apart).  Returns the summary."""
+    import torch
+    reqs = share_full_requests(cfg)
+    want = share_mirror_stats(cfg, reqs)
+    print(f"[share full] the port's rules for this traffic (CPU mirror): "
+          f"{want}")
+    need = ("decode_attention_paged", "flash_attention_mma")
+    runs = {}
+    for tag, share in (("share full 1", True), ("share full 2", True),
+                       ("share full unshared", False)):
+        rq = share_full_requests(cfg)
+        counts, summary = serve_full(dev, cfg, params, tag, need, reqs=rq,
+                                     paged=True, page_size=16, n_pages=256,
+                                     prefix_sharing=share)
+        runs[tag] = (counts, summary, [r.generated for r in rq])
+    for tag in ("share full 1", "share full 2"):
+        counts, summary, _ = runs[tag]
+        st = summary["stats"]
+        differ = {k: (st[k], want[k]) for k in want if st[k] != want[k]}
+        if differ:
+            fail(f"[{tag}] stats differ from the port's rules: {differ}")
+        tail = sum(summary["prefix_tail_tokens"])
+        per_step = ((counts["decode_attention_paged"] - cfg.n_layers * tail)
+                    / st["decode_steps"])
+        if per_step != cfg.n_layers or counts["flash_attention_mma"] != \
+                cfg.n_layers * st["prefix_misses"]:
+            fail(f"[{tag}] K1 {counts['decode_attention_paged']} for "
+                 f"{st['decode_steps']} steps and {tail} tail tokens, K2 "
+                 f"{counts['flash_attention_mma']} for "
+                 f"{st['prefix_misses']} misses")
+        if summary["stream_replays"] != tail - 1:
+            fail(f"[{tag}] {summary['stream_replays']} replays of the "
+                 f"batch-1 step for {tail} tail tokens")
+        summary["tail_ms_per_token"] = (1e3 * sum(summary["prefix_stream_s"])
+                                        / tail)
+        print(f"[{tag}] hits {st['prefix_hits']}, misses "
+              f"{st['prefix_misses']}, tokens matched "
+              f"{st['prefix_tokens_matched']}, pages shared "
+              f"{st['prefix_pages_shared']}, saved "
+              f"{st['prefix_pages_saved']}, cow {st['prefix_cow_copies']}, "
+              f"evictions {st['prefix_evictions']}, kv_pages_hwm "
+              f"{st['kv_pages_hwm']}; {tail} tail tokens streamed, "
+              f"{summary['tail_ms_per_token']:.3f} ms a token (host, "
+              f"synced; replays of the batch-1 step, the capture excluded)")
+    s1, s2, plain = (runs[t][2] for t in ("share full 1", "share full 2",
+                                          "share full unshared"))
+    if s1 != s2:
+        fail("[share full] two sharing serves gave different streams")
+    hwm = {t: runs[t][1]["stats"]["kv_pages_hwm"] for t in runs}
+    if not hwm["share full 1"] < hwm["share full unshared"]:
+        fail(f"[share full] sharing did not lower the page high-water "
+             f"mark: {hwm}")
+    same = sum(a == b for a, b in zip(s1, plain))
+    print(f"[share full] {same}/{len(s1)} streams equal to the unshared "
+          f"serve's (not gated in bf16); kv_pages_hwm {hwm}; tok/s shared "
+          f"{runs['share full 1'][1]['tok_s']:.1f} / "
+          f"{runs['share full 2'][1]['tok_s']:.1f}, unshared "
+          f"{runs['share full unshared'][1]['tok_s']:.1f}")
+    out = runs["share full 1"][1]
+    out.update(same_as_unshared=same, n_streams=len(s1), kv_pages_hwm=hwm,
+               tok_s_unshared=runs["share full unshared"][1]["tok_s"],
+               tok_s_second=runs["share full 2"][1]["tok_s"])
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_preempt_full(dev, cfg, params):
+    """qwen2.5-1.5b at full width, paged (256 pages of 16, 8 lanes), KV
+    in bf16 and in int8: the full-width traffic served uninterrupted,
+    then again with two live lanes evicted after the second dispatch,
+    one restored into the same engine and one into a fresh engine with
+    the same ``n_lanes``, seed and temperature.  Every stream equals the
+    uninterrupted serve's bit for bit.  Prints evict and restore ms
+    (host, synced)."""
+    import dataclasses
+    import torch
+    from repro_torch.serving import ServeEngine
+    kw = dict(n_lanes=8, max_len=1024, paged=True, page_size=16,
+              n_pages=256, device=dev)
+    out = {}
+    for kv_quant in (None, "int8"):
+        cfg_q = dataclasses.replace(cfg, kv_quant=kv_quant)
+        tag = f"[preempt full{' int8' if kv_quant else ''}]"
+        base = _requests(cfg, 16, 64, 700, 64, SEED + 2)
+        ServeEngine(cfg_q, params, **kw).run(base)
+        reqs = _requests(cfg, 16, 64, 700, 64, SEED + 2)
+        src = ServeEngine(cfg_q, params, **kw)
+        dst = ServeEngine(cfg_q, params, **kw)
+        pending, dispatches, times = list(reqs), 0, {}
+        while pending or src.live_lanes():
+            while pending and src.free_lanes():
+                if not src.admit(pending[0]):
+                    break
+                pending.pop(0)
+            src.decode_n()
+            dispatches += 1
+            if dispatches != 2:
+                continue
+            live = src.live_lanes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpts = [src.evict(lane) for lane in live[:2]]
+            times["evict_ms"] = 1e3 * (time.perf_counter() - t0) / 2
+            pages = [c.n_pages for c in ckpts]
+            t0 = time.perf_counter()
+            if not (src.restore(ckpts[0]) and dst.restore(ckpts[1])):
+                fail(f"{tag} a restore found no lane or pages")
+            torch.cuda.synchronize()
+            times["restore_ms"] = 1e3 * (time.perf_counter() - t0) / 2
+        while dst.live_lanes():
+            dst.decode_n()
+        moved = [ckpts[0].uid, ckpts[1].uid]
+        same = sum(a.generated == b.generated for a, b in zip(reqs, base))
+        print(f"{tag} lanes {live[:2]} (uids {moved}, {pages} pages) "
+              f"evicted after dispatch 2; one restored here, one into a "
+              f"fresh engine: {same}/{len(reqs)} streams equal to the "
+              f"uninterrupted serve's; evict {times['evict_ms']:.3f} ms, "
+              f"restore {times['restore_ms']:.3f} ms a lane (host, synced)")
+        if same != len(reqs) or not all(r.done for r in reqs):
+            fail(f"{tag} a resumed stream differs from the uninterrupted "
+                 f"one")
+        for eng in (src, dst):
+            eng.pool.check()
+            if eng.pool.n_in_use:
+                fail(f"{tag} pages left in use")
+        if (src.stats["preemptions"], src.stats["restores"],
+                dst.stats["restores"]) != (2, 1, 1) or \
+                dst.stats["pages_migrated"] != pages[1]:
+            fail(f"{tag} preemption stats {src.stats} {dst.stats}")
+        out[kv_quant or "bf16"] = dict(times, pages=pages, uids=moved)
+        del src, dst
+        gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2503,6 +3185,12 @@ def main() -> int:
     paged_counts, paged_e2e = phase_full_paged(dev, cfg, params)
     fixed_counts, fixed_e2e = phase_full_fixed(dev, cfg, params)
     int8 = phase_full_int8(dev, cfg, params)
+    t_share = time.perf_counter()
+    phase_share_smoke(dev)
+    share_full = phase_share_full(dev, cfg, params)
+    preempt = phase_preempt_full(dev, cfg, params)
+    print(f"[share/preempt] the sharing and evict/restore phases took "
+          f"{time.perf_counter() - t_share:.1f}s")
     del params
     rows = phase_timings(dev)
     compute_errs = {**phase_k8_check(dev), **phase_k9_check(dev),
@@ -2551,6 +3239,26 @@ def main() -> int:
     hymba_rows = phase_hymba_timings(dev)
     print(f"[hymba] the hybrid phases took "
           f"{time.perf_counter() - t_hybrid:.1f}s")
+    t_family = time.perf_counter()
+    olmo_smoke = {}
+    for kv_quant in (None, "int8"):
+        fixed, paged = phase_smoke_e2e(dev, kv_quant=kv_quant,
+                                       arch="olmo-1b")
+        olmo_smoke[kv_quant] = fixed, paged
+        need = (("decode_attention_q8_lengthaware",
+                 "decode_attention_paged_q8") if kv_quant else
+                ("decode_attention_lengthaware", "decode_attention_paged"))
+        if not (fixed["flash_attention_cc"] and fixed[need[0]] and
+                paged[need[1]]):
+            fail(f"the float32 olmo SMOKE serves (kv {kv_quant}) missed a "
+                 f"kernel of their path: {fixed} {paged}")
+    family_errs = {arch: phase_family_kernels(dev, arch)
+                   for arch in FAMILY_SERVES}
+    family = {arch: phase_family_serve(dev, arch) for arch in FAMILY_SERVES}
+    family_rows = {arch: phase_family_timings(dev, arch)
+                   for arch in FAMILY_SERVES}
+    print(f"[family] the dense-family phases took "
+          f"{time.perf_counter() - t_family:.1f}s")
 
     replaces = {
         "decode_attention_paged":
@@ -2619,6 +3327,46 @@ def main() -> int:
                     hymba_errs[name][dtype]
         return out
 
+    # the dense family: K2's tensor-core kernel and K3 from each config's
+    # fixed-lane serve (qwen2.5-32b: its paged serve), K1 from the paged
+    # serve; K2's CUDA-core kernel, K5 and K4 from olmo's float32 SMOKE
+    # serves (KV in float32, and in int8: fixed-lane and paged, greedy);
+    # errors and timings at each config's shapes
+    def family_entry(name):
+        out = {}
+        for arch, serves in family.items():
+            counts = {layout: c for layout, (c, _) in serves.items()}
+            first = counts.get("fixed-lane", counts["paged"])
+            launches = {
+                "flash_attention_mma": first["flash_attention_mma"],
+                "decode_attention_lengthaware":
+                    first["decode_attention_lengthaware"],
+                "decode_attention_paged":
+                    counts["paged"]["decode_attention_paged"]}
+            e = {}
+            if arch == "olmo-1b":
+                launches.update({
+                    "flash_attention_cc":
+                        olmo_smoke[None][0]["flash_attention_cc"],
+                    "decode_attention_q8_lengthaware":
+                        olmo_smoke["int8"][0][
+                            "decode_attention_q8_lengthaware"],
+                    "decode_attention_paged_q8":
+                        olmo_smoke["int8"][1]["decode_attention_paged_q8"]})
+            if name in launches:
+                e["launches"] = launches[name]
+            r = family_rows[arch].get(name)
+            if r is not None:
+                e.update({k: r[k] for k in r if k not in ("peak",)})
+            for dtype, tag in (("bfloat16", ""), ("float32", "_f32"),
+                               ("scaled", "_scaled")):
+                if dtype in family_errs[arch].get(name, {}):
+                    e[f"max_abs_err{tag}"], e[f"tol{tag}"] = \
+                        family_errs[arch][name][dtype]
+            if e:
+                out[arch] = e
+        return out
+
     int8_fixed = int8["full e2e fixed-lane int8"][0]
     int8_paged = int8["full e2e paged int8"][0]
     launches = dict(fixed_counts)
@@ -2667,6 +3415,9 @@ def main() -> int:
                     "bound_by")}
         if name in hymba_launches:
             entry["hymba"] = hymba_entry(name)
+        fam = family_entry(name)
+        if fam:
+            entry["dense_family"] = fam
         kernels.append(entry)
     compute_replaces = {
         "mixbench_fma": "src/repro/kernels/mixbench/kernel.py:56",
@@ -2752,6 +3503,27 @@ def main() -> int:
               f"by bucket {({b: round(t, 2) for b, t in sorted(r['prefill_ms'].items())})}"
               f"; capture s {g['capture_s']}")
     print(f"[hymba] {json.dumps({'fixed_lane': h_fixed, 'paged': h_paged})}")
+    for arch, serves in family.items():
+        for layout, (_, r) in serves.items():
+            g = r["graphs"]
+            print(f"[e2e] {arch} {layout}: {r['tok_s']:.1f} tok/s, decode "
+                  f"{r['decode_ms_per_dispatch']:.2f} ms per dispatch in "
+                  f"the serve (replayed median "
+                  f"{g['replayed_ms_median']:.2f}; check at n_steps "
+                  f"{g['n_steps']}: eager {g['decode_ms_eager']:.2f}, "
+                  f"replayed {g['decode_ms_graph']:.2f}); prefill ms by "
+                  f"bucket {({b: round(t, 2) for b, t in sorted(r['prefill_ms'].items())})}"
+                  f"; peak {r['peak_gib']:.2f} GiB")
+    print(f"[family] {json.dumps({a: {l: r for l, (_, r) in v.items()} for a, v in family.items()})}")
+    print(f"[e2e] share full: {share_full['tok_s']:.1f} tok/s shared "
+          f"({share_full['tok_s_second']:.1f} again), "
+          f"{share_full['tok_s_unshared']:.1f} unshared; tail "
+          f"{share_full['tail_ms_per_token']:.3f} ms a streamed token; "
+          f"{share_full['same_as_unshared']}/{share_full['n_streams']} "
+          f"streams equal to the unshared serve's; kv_pages_hwm "
+          f"{share_full['kv_pages_hwm']}")
+    print(f"[share] {json.dumps(share_full)}")
+    print(f"[preempt] {json.dumps(preempt)}")
     print(f"[sweep] {json.dumps(sweep_summary)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())

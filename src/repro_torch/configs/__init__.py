@@ -19,6 +19,13 @@ _MODULES: Dict[str, str] = {
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     # the hybrid family: attention (sliding window) beside Mamba-2 heads
     "hymba-1.5b": "repro_torch.configs.hymba_1_5b",
+    # the rest of the dense family: OLMo's non-parametric LN and MHA,
+    # head_dim != d_model / n_heads (nemo), and the large GQA decoders
+    # (qwen1.5-110b at SMOKE width only: ~222 GB of bf16 weights)
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
+    "qwen1.5-110b": "repro_torch.configs.qwen1_5_110b",
 }
 
 

@@ -59,8 +59,10 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
         for name, w in blk.named_parameters():
             branch, leaf = name.split(".")
             _copy(w, blocks[branch][leaf][i], name)
-    _copy(lm.final_norm.scale, np_params["final_norm"]["scale"],
-          "final_norm.scale")
+    # the norm's leaves: RMSNorm "scale", LayerNorm "scale" and "bias",
+    # OLMo's non-parametric LN none (the reference's ``{}``)
+    for name, w in lm.final_norm.named_parameters():
+        _copy(w, np_params["final_norm"][name], f"final_norm.{name}")
     return lm.to(device)
 
 

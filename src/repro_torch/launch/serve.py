@@ -1,14 +1,18 @@
 """Serving launcher: continuous batching on synthetic prompts.
 
 ``python -m repro_torch.launch.serve --arch qwen2.5-1.5b [--paged
---page-size 16] [--kv-quant int8] --requests N --prompt-len P --gen G
---lanes B [--smoke] [--device cuda|cpu] [--profile tpu-v5e] [--trace
-TRACE.json]`` builds seeded random weights of the config ``--arch``
-names (qwen2.5-1.5b, mamba2-780m or hymba-1.5b), serves N requests of P
-prompt tokens and G generated tokens each through the fixed-lane engine
-(the default) or, with ``--paged``, the page-pool engine, over a KV
-cache in the compute dtype or, with ``--kv-quant int8``, in int8 with
-per-token scales, and prints tokens/s with the prefill/decode split,
+--page-size 16] [--prefix-sharing [--shared-prefix-len H]] [--kv-quant
+int8] --requests N --prompt-len P --gen G --lanes B [--smoke] [--device
+cuda|cpu] [--profile tpu-v5e] [--trace TRACE.json]`` builds seeded
+random weights of the config ``--arch`` names (any id of
+:mod:`repro_torch.configs`), serves N requests of P prompt tokens and G
+generated tokens each through the fixed-lane engine (the default) or,
+with ``--paged``, the page-pool engine, over a KV cache in the compute
+dtype or, with ``--kv-quant int8``, in int8 with per-token scales.
+``--prefix-sharing`` (implies ``--paged``) serves with the radix prompt
+cache and copy-on-write pages, over prompts that open with a common
+head of H tokens (default P / 2), and prints the reference's prefix
+line.  It prints tokens/s with the prefill/decode split,
 the decode compiles (on the card, one CUDA graph captured per
 ``n_steps``; with the seconds each capture took), then, as the
 reference does, the capability-model prediction for the device profile
@@ -44,6 +48,13 @@ def main(argv=None):
     ap.add_argument("--paged", action="store_true",
                     help="serve over the page-pool KV cache")
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="radix prompt cache + copy-on-write page "
+                         "sharing (implies --paged)")
+    ap.add_argument("--shared-prefix-len", type=int, default=None,
+                    help="tokens of common prompt head across the "
+                         "synthetic requests (default: half the "
+                         "prompt when --prefix-sharing is on)")
     ap.add_argument("--kv-quant", default=None, choices=[None, "int8"],
                     help="int8 KV cache with per-token f32 scales")
     ap.add_argument("--requests", type=int, default=6)
@@ -67,17 +78,29 @@ def main(argv=None):
     params = build_model(cfg).init(gen, device)
 
     rng = np.random.default_rng(args.seed)
-    reqs = [Request(uid=i, prompt=rng.integers(
-                0, cfg.vocab_size, args.prompt_len).astype(np.int32),
-                max_new_tokens=args.gen)
+    head_len = 0
+    if args.prefix_sharing:
+        head_len = args.shared_prefix_len \
+            if args.shared_prefix_len is not None else args.prompt_len // 2
+        head_len = max(min(head_len, args.prompt_len - 1), 0)
+    head = rng.integers(0, cfg.vocab_size, head_len).astype(np.int32)
+    reqs = [Request(uid=i,
+                    prompt=np.concatenate(
+                        [head,
+                         rng.integers(0, cfg.vocab_size,
+                                      args.prompt_len - head_len
+                                      ).astype(np.int32)]),
+                    max_new_tokens=args.gen)
             for i in range(args.requests)]
+    paged = args.paged or args.prefix_sharing
     max_len = args.prompt_len + args.gen + 8
-    if args.paged:                 # cache capacity is page granular
+    if paged:                      # cache capacity is page granular
         max_len = -(-max_len // args.page_size) * args.page_size
 
     def make_engine():
         return ServeEngine(cfg, params, n_lanes=args.lanes, max_len=max_len,
-                           paged=args.paged, page_size=args.page_size,
+                           paged=paged, page_size=args.page_size,
+                           prefix_sharing=args.prefix_sharing,
                            device=device, timed=args.trace is None)
 
     # one untimed request first: kernel build/load and library set-up
@@ -105,7 +128,9 @@ def main(argv=None):
     print(f"served {len(reqs)} requests, {n_gen} tokens in {dt:.3f}s "
           f"({n_gen / dt:.1f} tok/s on {where})")
     if engine.timed:
-        t_prefill = sum(sum(v) for v in engine.timings["prefill"].values())
+        # a prefix hit streams its prompt's tail instead of a prefill
+        t_prefill = (sum(sum(v) for v in engine.timings["prefill"].values())
+                     + sum(engine.timings["prefix_stream"]))
         t_decode = sum(engine.timings["decode"])
         print(f"prefill {t_prefill:.3f}s over {len(reqs)} prompts "
               f"({len(reqs) * args.prompt_len / max(t_prefill, 1e-9):.1f} "
@@ -118,6 +143,13 @@ def main(argv=None):
     print(f"compiles: prefill {engine.stats['prefill_compiles']}, "
           f"decode {engine.stats['decode_compiles']} (decode: {graphs}, "
           f"one per n_steps; later dispatches replay them)")
+    if args.prefix_sharing:
+        s = engine.stats
+        print(f"prefix sharing: {s['prefix_hits']} hits, "
+              f"{s['prefix_tokens_matched']} prompt tokens served from "
+              f"cached pages, {s['prefix_pages_saved']} prefill pages "
+              f"saved, {s['prefix_cow_copies']} copy-on-write splits")
+        engine.prefix_cache.flush()
     if engine.timed and engine.timings["capture"]:
         caps = engine.timings["capture"]
         print("capture: " + ", ".join(

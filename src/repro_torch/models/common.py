@@ -1,7 +1,8 @@
-"""Shared model substrate: config, RMSNorm, RoPE, embedding, LM head, init.
+"""Shared model substrate: config, norms, RoPE, embedding, LM head, init.
 
 Port of the dense-, ssm- and hybrid-family parts of the reference's
-``models/common.py``.
+``models/common.py``, with its three norms (RMSNorm, LayerNorm and
+OLMo's LayerNorm without an affine).
 Parameters live in ``nn.Module``s (one module per layer, no stacked
 ``(L, ...)`` leaves); weight matrices keep the reference layout
 ``(d_in, d_out)``.  Matrices, biases and the embedding are stored in the
@@ -55,7 +56,7 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None
     qkv_bias: bool = False
-    norm: str = "rmsnorm"          # this slice serves "rmsnorm" only
+    norm: str = "rmsnorm"          # or "layernorm", "nonparametric_ln"
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
     max_seq_len: int = 131072
@@ -122,11 +123,51 @@ class RMSNorm(nn.Module):
                                        device=device))
 
 
-def apply_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5
+class LayerNorm(nn.Module):
+    """Scale (ones) and bias (zeros), both float32, as the reference's
+    ``init_norm`` for ``"layernorm"``."""
+
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = frozen(torch.ones(d, dtype=torch.float32,
+                                       device=device))
+        self.bias = frozen(torch.zeros(d, dtype=torch.float32,
+                                       device=device))
+
+
+class NonParametricLN(nn.Module):
+    """OLMo's LayerNorm without a learned affine: no parameters (the
+    reference's ``init_norm`` gives ``{}``)."""
+
+
+_NORMS = {"rmsnorm": RMSNorm, "layernorm": LayerNorm,
+          "nonparametric_ln": NonParametricLN}
+
+
+def make_norm(cfg: ModelConfig, device=None) -> nn.Module:
+    """The norm module ``cfg.norm`` names, over ``cfg.d_model``."""
+    if cfg.norm not in _NORMS:
+        raise ValueError(f"unknown norm {cfg.norm!r}")
+    cls = _NORMS[cfg.norm]
+    return cls() if cls is NonParametricLN else cls(cfg.d_model, device)
+
+
+def apply_norm(p: nn.Module, x: torch.Tensor, eps: float = 1e-5
                ) -> torch.Tensor:
+    """The reference's ``apply_norm``, the kind given by ``p``'s type:
+    float32 inside, the result cast back to ``x``'s dtype.  LayerNorm's
+    variance is the mean of ``(x - mean)^2`` (population, two passes),
+    as ``jnp.var``; ``torch.var`` would divide by ``n - 1``."""
     xf = x.float()
-    rms = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-    return (xf / rms * p.scale.float()).to(x.dtype)
+    if isinstance(p, RMSNorm):
+        rms = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+        return (xf / rms * p.scale.float()).to(x.dtype)
+    centered = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(centered * centered, dim=-1, keepdim=True)
+    y = centered * torch.rsqrt(var + eps)
+    if isinstance(p, LayerNorm):
+        y = y * p.scale.float() + p.bias.float()
+    return y.to(x.dtype)
 
 
 # ----------------------------------------------------------------------

@@ -30,9 +30,9 @@ from repro_torch.analysis.invariants import invariant
 from repro_torch.models.attention import (Attention, attention_decode,
                                           attention_decode_paged,
                                           attention_forward)
-from repro_torch.models.common import (Embedding, ModelConfig, RMSNorm,
-                                       apply_norm, dense_init, embed,
-                                       lm_logits)
+from repro_torch.models.common import (Embedding, ModelConfig, apply_norm,
+                                       dense_init, embed, lm_logits,
+                                       make_norm)
 from repro_torch.models.mlp import SwiGLU, swiglu
 from repro_torch.models.ssm import (Mamba2, init_mamba2, init_mamba2_state,
                                     mamba2_decode, mamba2_forward)
@@ -41,15 +41,18 @@ Cache = Dict[str, torch.Tensor]
 
 #: families the port serves
 FAMILIES = ("dense", "ssm", "hybrid")
+#: norms the port serves
+NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The port serves the dense, ssm and hybrid RMSNorm decoders; every
-    other family is refused by name."""
-    if cfg.family not in FAMILIES or cfg.norm != "rmsnorm":
+    """The port serves the dense, ssm and hybrid decoders with any of the
+    reference's three norms; every other family is refused by name."""
+    if cfg.family not in FAMILIES or cfg.norm not in NORMS:
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with norm "
-                         f"{cfg.norm!r} is not ported yet (rmsnorm "
-                         f"decoders of the families {FAMILIES} only)")
+                         f"{cfg.norm!r} is not ported yet (decoders of the "
+                         f"families {FAMILIES} with the norms {NORMS} "
+                         f"only)")
 
 
 # ----------------------------------------------------------------------
@@ -63,14 +66,14 @@ class Block(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        self.norm1 = RMSNorm(cfg.d_model, device)
+        self.norm1 = make_norm(cfg, device)
         if cfg.attn_free:
             self.ssm = Mamba2(cfg, device)
             return
         self.attn = Attention(cfg, device)
         if cfg.has_ssm:
             self.ssm = Mamba2(cfg, device)
-        self.norm2 = RMSNorm(cfg.d_model, device)
+        self.norm2 = make_norm(cfg, device)
         self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, cfg.compute_dtype, device)
 
 
@@ -84,7 +87,7 @@ class LM(nn.Module):
         self.embed = Embedding(cfg, device)
         self.blocks = nn.ModuleList(Block(cfg, device)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.d_model, device)
+        self.final_norm = make_norm(cfg, device)
 
 
 @torch.no_grad()

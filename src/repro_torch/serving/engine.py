@@ -55,8 +55,16 @@ row or block-table row; the page pools pass through whole) and copies
 it into the lane at the end; on the card each step after the engine's
 first is a replay of one captured decode step.
 
-Prefix sharing, evict/restore and the telemetry hooks come in later
-slices.
+A paged engine of the dense family without a window may share prompt
+prefixes (``prefix_sharing=True``): a radix cache of prompt pages
+(:mod:`repro_torch.serving.prefix_cache`) over a refcounted
+:class:`PagePool`, matched pages mapped by refcount, a shared partial
+page copied on write in place, and only the unmatched tail streamed
+through the batch-1 decode step (int8 KV: full pages, and the batched
+prefill replays).  Every paged engine can ``evict`` a live lane to a
+host :class:`LaneCheckpoint` and ``restore`` it, here or on another
+engine, in either framework.  The telemetry hooks, ``shrink``/``grow``
+and the page sanitizer come in later slices.
 """
 
 from __future__ import annotations
@@ -64,7 +72,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import defaultdict
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,9 +85,11 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import paged_capacity, sample_tokens
 from repro_torch.serving.cuda_graphs import StepGraphs
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.resilience import AdmissionRejected
 
-__all__ = ["PagePool", "Request", "ServeEngine", "STATS_KEYS"]
+__all__ = ["LaneCheckpoint", "PagePool", "PrefixHit", "Request",
+           "ServeEngine", "STATS_KEYS", "prefix_sharing_supported"]
 
 
 # ----------------------------------------------------------------------
@@ -87,14 +97,22 @@ __all__ = ["PagePool", "Request", "ServeEngine", "STATS_KEYS"]
 # ----------------------------------------------------------------------
 
 class PagePool:
-    """Host-side free-list allocator over the global KV page pool.
+    """Host-side free-list allocator over the global KV page pool, with
+    a refcount per page (the reference's ``PagePool`` without ``shrink``
+    / ``grow`` and the lifecycle monitor).
 
     Invariants: ``n_free + n_in_use == n_pages``; pages move between two
-    disjoint sets (no double alloc, no double free); ``reserve(n)``
-    promises ``n`` future ``alloc`` pages and ``available()`` (what
-    admission gates on) never counts promised pages, so mid-generation
-    growth cannot fail.  The free list is LIFO, as in the reference, so
+    disjoint sets (no double alloc, no double free); every in-use page
+    has a refcount >= 1, one per holder (each lane mapping it, and the
+    prefix cache when it caches it): ``share`` adds a holder, ``free``
+    drops one, and a page returns to the free list only when its LAST
+    holder lets go; ``reserve(n)`` promises ``n`` future ``alloc`` (or
+    ``cow``) pages and ``available()`` (what admission gates on) never
+    counts promised pages, so mid-generation growth and a copy-on-write
+    split cannot fail.  The free list is LIFO, as in the reference, so
     both hand out the same page ids for the same call sequence.
+    ``holder`` arguments are opaque owner tags, kept for the reference's
+    signatures.
     """
 
     def __init__(self, n_pages: int, page_size: int):
@@ -102,6 +120,7 @@ class PagePool:
         self.page_size = int(page_size)
         self._free: List[int] = list(range(self.n_pages - 1, -1, -1))
         self._in_use: set = set()
+        self._refcount: Dict[int, int] = {}
         self._reserved = 0
         self.hwm = 0                 # high-water mark: in-use + reserved
 
@@ -131,8 +150,9 @@ class PagePool:
                   n=n, reserved=self._reserved)
         self._reserved -= n
 
-    def alloc(self, n: int) -> List[int]:
-        """Take ``n`` previously reserved pages off the free list."""
+    def alloc(self, n: int, holder: Any = None) -> List[int]:
+        """Take ``n`` previously reserved pages off the free list, each
+        with one holder."""
         invariant(n <= self._reserved, "alloc without reservation",
                   n=n, reserved=self._reserved)
         invariant(n <= len(self._free), "free list underflow",
@@ -140,14 +160,65 @@ class PagePool:
         self._reserved -= n
         pages = [self._free.pop() for _ in range(n)]
         self._in_use.update(pages)
+        for p in pages:
+            self._refcount[p] = 1
         return pages
 
-    def free(self, pages: List[int]) -> None:
+    def free(self, pages: List[int], holder: Any = None) -> None:
+        """Drop one reference per page; a page returns to the free list
+        only when its last holder releases it."""
         for p in pages:
             invariant(p in self._in_use, f"double free of page {p}",
                       page=p)
-            self._in_use.remove(p)
-            self._free.append(p)
+            self._refcount[p] -= 1
+            if self._refcount[p] == 0:
+                del self._refcount[p]
+                self._in_use.remove(p)
+                self._free.append(p)
+
+    def share(self, pages: List[int], holder: Any = None) -> None:
+        """Add one reference per page: another holder (a lane's block
+        table, or the prefix cache) now maps the same bytes."""
+        for p in pages:
+            invariant(p in self._in_use,
+                      f"share of unallocated page {p}", page=p)
+            self._refcount[p] += 1
+
+    def cow(self, page: int, holder: Any = None) -> int:
+        """Copy-on-write split: the caller gives up its reference on a
+        SHARED ``page`` and receives a fresh exclusive page drawn from
+        its reservation.  The caller copies the contents and rewrites its
+        block-table entry; the other holders keep the original."""
+        invariant(page in self._in_use,
+                  f"cow of unallocated page {page}", page=page)
+        invariant(self._refcount[page] >= 2,
+                  "cow of an exclusively owned page", page=page,
+                  refcount=self._refcount[page])
+        invariant(self._reserved >= 1, "cow without a reservation",
+                  page=page)
+        self._reserved -= 1
+        new = self._free.pop()
+        self._in_use.add(new)
+        self._refcount[new] = 1
+        self._refcount[page] -= 1
+        return new
+
+    def refcount(self, page: int) -> int:
+        """Holders of ``page`` (0 if free)."""
+        return self._refcount.get(page, 0)
+
+    def is_shared(self, page: int) -> bool:
+        return self._refcount.get(page, 0) >= 2
+
+    @property
+    def n_shared(self) -> int:
+        """In-use pages with more than one holder."""
+        return sum(1 for c in self._refcount.values() if c >= 2)
+
+    @property
+    def n_refs(self) -> int:
+        """Total references across all in-use pages."""
+        return sum(self._refcount.values())
 
     def check(self) -> None:
         """Raise unless the conservation invariants hold (test hook)."""
@@ -161,6 +232,10 @@ class PagePool:
         invariant(0 <= self._reserved <= len(self._free),
                   "reservation exceeds the free list",
                   reserved=self._reserved, n_free=len(self._free))
+        invariant(set(self._refcount) == self._in_use,
+                  "refcounts out of sync with the in-use set")
+        invariant(all(c >= 1 for c in self._refcount.values()),
+                  "in-use page with zero refcount")
 
 
 # ----------------------------------------------------------------------
@@ -176,6 +251,82 @@ class Request:
     done: bool = False
 
 
+#: numpy has no bfloat16: a checkpoint carries a bf16 pool's values as
+#: float32 (exact both ways); int8 values and f32 scales and state as
+#: they are
+_WIRE_DTYPE = {torch.bfloat16: np.float32, torch.float32: np.float32,
+               torch.int8: np.int8}
+
+
+@dataclasses.dataclass
+class LaneCheckpoint:
+    """Host-side snapshot of one live lane at a dispatch boundary: all a
+    request needs to resume bit for bit, on this engine or another built
+    with the same config, ``n_lanes``, ``rng_seed`` and ``temperature``
+    (the reference's ``LaneCheckpoint``, field for field).
+
+    ``lane_seed`` / ``tok_idx`` are the sampling identity, ``next_token``
+    the token already sampled for the next step, ``remaining`` /
+    ``ctx_len`` the budget left and the live length; ``kv_pages`` maps
+    each pool key to the lane's pages gathered through its block table,
+    in logical order, ``(L, n_pages, Hkv, ps, D)`` (scales ``(..., 1)``);
+    ``ssm_state`` holds ``ssm_h`` / ``ssm_conv`` of an ssm or hybrid lane.
+    The payload is numpy in the reference's layout, so a checkpoint
+    crosses engines and frameworks; a bf16 pool's values travel as
+    float32 (numpy has no bfloat16; the values are unchanged)."""
+
+    req: Any
+    lane_seed: int
+    tok_idx: int
+    remaining: int
+    ctx_len: int
+    next_token: int
+    page_size: int
+    kv_pages: Dict[str, np.ndarray]
+    ssm_state: Dict[str, np.ndarray]
+
+    @property
+    def uid(self) -> int:
+        return self.req.uid
+
+    @property
+    def n_pages(self) -> int:
+        for v in self.kv_pages.values():
+            return int(v.shape[1])
+        return 0
+
+    def nbytes(self) -> int:
+        """Bytes a migration moves (KV + state), as carried here."""
+        return sum(int(v.nbytes) for v in self.kv_pages.values()) + sum(
+            int(v.nbytes) for v in self.ssm_state.values())
+
+
+def prefix_sharing_supported(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` can serve with ``prefix_sharing=True``: the whole
+    prompt context must be page-resident and append-only, so no sliding
+    window (its lanes rewrite their page set in place) and no recurrent
+    state (a mapped prefix would skip rebuilding it): the dense family
+    without a window."""
+    return (not cfg.attn_free and not cfg.has_ssm
+            and cfg.sliding_window is None)
+
+
+@dataclasses.dataclass
+class PrefixHit:
+    """One admission's radix-cache match (:class:`PrefixCache`)."""
+
+    pages: List[int]                     # full shared pages, block order
+    matched_len: int                     # prompt tokens covered in total
+    partial: Optional[Tuple[int, int]]   # (page, n_tokens) tail page
+
+    @property
+    def n_full(self) -> int:
+        """Full matched pages: the lane's allocation discount (a partial
+        page is not discounted: its copy-on-write split draws a fresh
+        page from the reservation)."""
+        return len(self.pages)
+
+
 def _bucket_len(n: int, floor: int = 8) -> int:
     """Smallest power-of-two >= n (>= floor) -- the prefill shape bucket."""
     b = floor
@@ -188,10 +339,14 @@ def _bucket_len(n: int, floor: int = 8) -> int:
 _POOL_KEY = {"k": "k_pages", "v": "v_pages", "k_scale": "k_scale_pages",
              "v_scale": "v_scale_pages"}
 
-#: the reference's STATS_SCHEMA keys this slice moves
+#: the reference's STATS_SCHEMA keys the port moves, with its meanings
 STATS_KEYS = ("decode_dispatches", "decode_steps", "decode_compiles",
               "generated_tokens", "prefill_compiles", "ssm_prefill_compiles",
-              "kv_pages_hwm", "kv_admit_blocked", "admit_rejected")
+              "kv_pages_hwm", "kv_admit_blocked", "admit_rejected",
+              "preemptions", "restores", "pages_migrated", "prefix_hits",
+              "prefix_misses", "prefix_tokens_matched",
+              "prefix_pages_shared", "prefix_pages_saved",
+              "prefix_cow_copies", "prefix_evictions")
 
 
 class ServeEngine:
@@ -217,8 +372,20 @@ class ServeEngine:
     replay, and for an ssm model ``ssm_stream`` per prompt: the state
     rebuild, inside the prefill's time); off by default, since the syncs
     cost throughput.  A capture's own seconds stay out of those and go
-    to ``timings["capture"]``, by graph (``n_steps``, or ``"ssm_step"``
+    to ``timings["capture"]``, by graph (``n_steps``, or ``"stream_step"``
     for the stream's step), whether timed or not.
+
+    ``prefix_sharing=True`` (paged, dense family without a window:
+    :func:`prefix_sharing_supported`) keeps a radix cache of prompt
+    pages (:class:`PrefixCache`): an admission maps the longest cached
+    prefix into the lane's block table by refcount, copies a shared
+    partial tail page on write, and streams only the unmatched tail
+    through the batch-1 decode step (int8 KV: full pages only, and the
+    batched prefill replays for the logits).  ``evict`` / ``restore``
+    move a live lane of any paged engine through a host
+    :class:`LaneCheckpoint`.  Timed, a streamed tail's seconds go to
+    ``timings["prefix_stream"]`` and its token count to
+    ``timings["prefix_tail_tokens"]``.
     """
 
     def __init__(self, cfg: ModelConfig, params, n_lanes: int = 4,
@@ -226,7 +393,8 @@ class ServeEngine:
                  rng_seed: int = 0, dispatch_n: int = 8,
                  prefill_bucketing: bool = True, paged: bool = False,
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 device=None, timed: bool = False):
+                 prefix_sharing: bool = False, device=None,
+                 timed: bool = False):
         self.device = resolve_device(device)
         param_dev = next(params.parameters()).device
         if param_dev.type != self.device.type:
@@ -269,6 +437,14 @@ class ServeEngine:
             self.pool = None
             self.cache = self.model.init_cache(n_lanes, max_len,
                                                device=self.device)
+        # as in the reference, a fixed-lane engine ignores the flag
+        self.prefix_cache: Optional[PrefixCache] = None
+        if self.paged and prefix_sharing:
+            invariant(prefix_sharing_supported(cfg), (
+                "prefix sharing needs the whole prompt context "
+                "page-resident and append-only (no sliding window, no "
+                "recurrent state)"), family=cfg.family)
+            self.prefix_cache = PrefixCache(self.pool, page_size)
         self._lane_pages: List[List[int]] = [[] for _ in range(n_lanes)]
         self._lane_reserved = [0] * n_lanes
         self._blocked_uids: set = set()
@@ -287,25 +463,29 @@ class ServeEngine:
         self._tok_idx = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         self._admit_count = 0
         self._buckets: set = set()
-        if cfg.has_ssm:
+        self._tail_buckets: set = set()
+        if cfg.has_ssm or self.prefix_cache is not None:
             # the prompt stream's batch-1 cache and input token, at
             # addresses a captured decode step replays: the shared page
-            # pools themselves, a batch-1 row of everything per lane
-            self._ssm_lane = {}
+            # pools themselves, a batch-1 row of everything per lane (a
+            # sharing engine streams a prompt's unmatched tail on it)
+            self._stream_lane = {}
             for key, t in self.cache.items():
                 if key in _POOL_KEY.values():
-                    self._ssm_lane[key] = t
+                    self._stream_lane[key] = t
                 elif key in ("len", "block_tables"):
-                    self._ssm_lane[key] = torch.zeros_like(t[:1])
+                    self._stream_lane[key] = torch.zeros_like(t[:1])
                 else:
-                    self._ssm_lane[key] = torch.zeros_like(t[:, :1])
-            self._ssm_tok = torch.zeros(1, dtype=torch.int32, device=dev)
+                    self._stream_lane[key] = torch.zeros_like(t[:, :1])
+            self._stream_tok = torch.zeros(1, dtype=torch.int32, device=dev)
         self.graphs = StepGraphs(dev)
         self.stats: Dict[str, int] = {k: 0 for k in STATS_KEYS}
         self.timed = timed
         self.timings: Dict[str, Any] = {"prefill": defaultdict(list),
                                         "decode": [], "decode_replayed": [],
                                         "ssm_stream": [],
+                                        "prefix_stream": [],
+                                        "prefix_tail_tokens": [],
                                         "capture": self.graphs.capture_s}
 
     def _sync(self) -> None:
@@ -357,25 +537,50 @@ class ServeEngine:
         if not lanes:
             return False
         lane = lanes[0]
+        hit: Optional[PrefixHit] = None
         if self.paged:
             need = self.admission_pages(req)
-            if not self.pool.reserve(need):
-                # a lane is free but the KV bytes are not; counted once
-                # per blocked episode, not per retry
-                if req.uid not in self._blocked_uids:
-                    self._blocked_uids.add(req.uid)
-                    self.stats["kv_admit_blocked"] += 1
-                return False
+            reserve = need
+            if self.prefix_cache is not None:
+                # every full matched page is one the request never
+                # allocates: the reservation shrinks by exactly that
+                hit = self._prefix_match(req)
+                reserve = need - hit.n_full
+            if not self.pool.reserve(reserve):
+                if self.prefix_cache is not None \
+                        and self.prefix_cache.n_pages:
+                    # cached-but-unmapped prefix pages go first under
+                    # pressure; eviction may drop matched nodes, so match
+                    # again after
+                    self._trim_prefix_cache(reserve)
+                    hit = self._prefix_match(req)
+                    reserve = need - hit.n_full
+                if not self.pool.reserve(reserve):
+                    # a lane is free but the KV bytes are not; counted
+                    # once per blocked episode, not per retry
+                    if req.uid not in self._blocked_uids:
+                        self._blocked_uids.add(req.uid)
+                        self.stats["kv_admit_blocked"] += 1
+                    return False
             self._blocked_uids.discard(req.uid)
-            self._lane_reserved[lane] = need
+            self._lane_reserved[lane] = reserve
             self._lane_pages[lane] = []
-            # map the prompt's pages plus the first decode write slot;
-            # generation growth maps the rest at dispatch boundaries
-            self._map_pages(lane,
-                            self._pages_needed(self._trunc_plen(req) + 1))
+            if hit is None or hit.matched_len == 0:
+                # map the prompt's pages plus the first decode write
+                # slot; generation growth maps the rest at dispatch
+                # boundaries
+                self._map_pages(lane,
+                                self._pages_needed(self._trunc_plen(req) + 1))
         self._lane_seed[lane] = self._admit_count
         self._tok_idx[lane] = 0
-        self._prefill_into_lane(req, lane)
+        if hit is not None and hit.matched_len > 0:
+            self._prefill_hit(req, lane, hit)
+        else:
+            if self.prefix_cache is not None:
+                self.stats["prefix_misses"] += 1
+            self._prefill_into_lane(req, lane)
+        if self.prefix_cache is not None:
+            self._cache_lane_prefix(req, lane)
         self.lane_req[lane] = req
         self._remaining[lane] = req.max_new_tokens
         self._remaining_host[lane] = req.max_new_tokens
@@ -387,7 +592,7 @@ class ServeEngine:
         have = len(self._lane_pages[lane])
         if target <= have:
             return
-        new = self.pool.alloc(target - have)
+        new = self.pool.alloc(target - have, holder=lane)
         self._lane_reserved[lane] -= len(new)
         self._lane_pages[lane].extend(new)
         self.cache["block_tables"][lane, have:target] = torch.tensor(
@@ -395,11 +600,140 @@ class ServeEngine:
         self.stats["kv_pages_hwm"] = max(self.stats["kv_pages_hwm"],
                                          self.pool.hwm)
 
+    # -- prefix sharing ----------------------------------------------------
+    def _prefix_match(self, req: Request) -> PrefixHit:
+        """Match the (truncated) prompt against the radix cache.  int8
+        caches match full pages only: their hit replays the batched
+        prefill for the logits, so a partial page would save nothing and
+        still cost a copy-on-write split."""
+        pages, matched, partial = self.prefix_cache.match(
+            self._trunc_prompt(req),
+            allow_partial=self.cfg.kv_quant != "int8")
+        return PrefixHit(pages=pages, matched_len=matched, partial=partial)
+
+    def _trim_prefix_cache(self, target_available: int) -> int:
+        """Evict LRU cache leaves until the pool can cover a
+        ``target_available``-page reservation (or the cache is empty).
+        A dropped page refills the free list only once no lane maps it,
+        hence the loop on actual availability."""
+        dropped = 0
+        while (self.pool.available() < target_available
+               and self.prefix_cache.n_pages):
+            if not self.prefix_cache.evict_lru():
+                break
+            dropped += 1
+            self.stats["prefix_evictions"] += 1
+        return dropped
+
+    def _prefill_hit(self, req: Request, lane: int, hit: PrefixHit) -> None:
+        """Admit ``req`` over a cache hit: map the matched pages into the
+        lane's block table (a refcount each, no copy), split a matched
+        partial tail page on write (the lane's first append diverges
+        from its donor's), map the rest of the prompt's pages, then make
+        the first token: in full precision by streaming only the
+        unmatched tail through the batch-1 decode step; with int8 KV by
+        replaying the batched prefill (a streamed tail would attend to
+        the dequantized prefix, the unshared engine's prefill to the
+        full-precision one) and scattering the blocks the match did not
+        cover."""
+        prompt = self._trunc_prompt(req)
+        plen = int(prompt.shape[0])
+        shared = list(hit.pages)
+        if hit.partial is not None:
+            shared.append(hit.partial[0])
+        self.pool.share(shared, holder=lane)
+        self._lane_pages[lane] = list(shared)
+        self.cache["block_tables"][lane, :len(shared)] = torch.tensor(
+            shared, dtype=torch.int32).to(self.device)
+        if hit.partial is not None:
+            self._cow_lane_page(lane, len(hit.pages))
+        self._map_pages(lane, self._pages_needed(plen + 1))
+        self._len_host[lane] = plen
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_tokens_matched"] += hit.matched_len
+        self.stats["prefix_pages_shared"] += len(shared)
+        self.stats["prefix_pages_saved"] += hit.n_full
+        if self.cfg.kv_quant == "int8":
+            # full pages only: the batched prefill gives the exact logits
+            # and scatters the blocks the match did not cover
+            self._prefill_prompt(prompt, lane, first_block=hit.n_full)
+        else:
+            self._prefill_hit_stream(prompt, lane, plen, hit.matched_len)
+
+    def _cow_lane_page(self, lane: int, idx: int) -> None:
+        """Copy-on-write split of the lane's shared block ``idx``: a fresh
+        page from the reservation takes a copy of the shared page's
+        contents (every pool: K/V and int8 scales) and the block-table
+        entry, both in place, since captured graphs read the pools and
+        tables at their addresses.  The copy is queued in stream order,
+        so it snapshots the donor's writes so far."""
+        old = self._lane_pages[lane][idx]
+        new = self.pool.cow(old, holder=lane)
+        self._lane_reserved[lane] -= 1
+        self._lane_pages[lane][idx] = new
+        for key in _POOL_KEY.values():
+            if key in self.cache:
+                self.cache[key][:, new].copy_(self.cache[key][:, old])
+        self.cache["block_tables"][lane, idx] = new
+        self.stats["prefix_cow_copies"] += 1
+        self.stats["kv_pages_hwm"] = max(self.stats["kv_pages_hwm"],
+                                         self.pool.hwm)
+
+    def _prefill_hit_stream(self, prompt: np.ndarray, lane: int,
+                            plen: int, matched_len: int) -> None:
+        """Full-precision hit: stream only the unmatched tail through the
+        batch-1 decode step from ``len = matched_len``, over a copy of
+        the lane's block-table row and the shared pools, attending to the
+        matched span already in the pages.  The reference scans the
+        tail's shape bucket once per compile (``ssm_prefill_compiles``
+        counts the distinct tail buckets); these steps stop at ``plen``,
+        as the ssm stream does."""
+        tail = np.asarray(prompt[matched_len:], np.int32)
+        tlen = int(tail.shape[0])
+        invariant(tlen >= 1, "prefix match must leave a tail token",
+                  plen=plen, matched_len=matched_len)
+        self._tail_buckets.add(_bucket_len(tlen) if self.prefill_bucketing
+                               else tlen)
+        self.stats["ssm_prefill_compiles"] = len(self._tail_buckets)
+        if self.timed:
+            self._sync()
+            t0 = time.perf_counter()
+        captured = "stream_step" in self.graphs.capture_s
+        buf = self._stream_lane
+        buf["len"].fill_(matched_len)
+        buf["block_tables"].copy_(self.cache["block_tables"][lane:lane + 1])
+        logits = self._replay_stream(tail)
+        self.cache["len"][lane] = plen
+        self._set_first_token(logits, lane)
+        if self.timed:
+            self._sync()
+            capture = (0.0 if captured else
+                       self.graphs.capture_s.get("stream_step", 0.0))
+            self.timings["prefix_stream"].append(time.perf_counter() - t0
+                                                 - capture)
+            self.timings["prefix_tail_tokens"].append(tlen)
+
+    def _cache_lane_prefix(self, req: Request, lane: int) -> None:
+        """Offer the freshly prefilled lane's prompt pages to the radix
+        cache (which takes its own reference on each page it keeps)."""
+        prompt = self._trunc_prompt(req)
+        self.prefix_cache.insert(
+            prompt, int(prompt.shape[0]), self._lane_pages[lane],
+            allow_partial=self.cfg.kv_quant != "int8")
+
     # -- prefill ----------------------------------------------------------
     def _prefill_into_lane(self, req: Request, lane: int) -> None:
         prompt = self._trunc_prompt(req)
+        self._len_host[lane] = int(prompt.shape[0])
+        self._prefill_prompt(prompt, lane)
+
+    def _prefill_prompt(self, prompt: np.ndarray, lane: int,
+                        first_block: int = 0) -> None:
+        """The batched prefill of ``prompt`` in its shape bucket, its KV
+        scattered into the lane from block ``first_block`` on (paged;
+        earlier blocks are shared prefix pages), and the first token
+        sampled (an ssm or hybrid lane streams the prompt first)."""
         plen = int(prompt.shape[0])
-        self._len_host[lane] = plen
         bucket = _bucket_len(plen) if self.prefill_bucketing else plen
         if bucket not in self._buckets:
             self._buckets.add(bucket)
@@ -414,7 +748,7 @@ class ServeEngine:
             last_pos=torch.tensor([plen - 1], device=self.device))
         if kv is not None:
             if self.paged:
-                self._scatter_prompt_paged(kv, lane, plen)
+                self._scatter_prompt_paged(kv, lane, plen, first_block)
             else:
                 self._scatter_prompt_dense(kv, lane, plen)
         if self.cfg.has_ssm:
@@ -462,14 +796,20 @@ class ServeEngine:
             dst = self.cache[key]
             dst[:, lane, :, :take] = src.to(dst.dtype)
 
-    def _scatter_prompt_paged(self, kv, lane: int, plen: int) -> None:
+    def _scatter_prompt_paged(self, kv, lane: int, plen: int,
+                              first_block: int = 0) -> None:
         """Write the prompt KV (and its scales when int8) into the lane's
-        mapped pages, in one indexed copy per pool."""
+        mapped pages, in one indexed copy per pool.  ``first_block``
+        skips blocks backed by shared prefix pages: their bytes are the
+        donor's, and writing them would change every lane mapping
+        them."""
         ps = self.page_size
         entries, take = self._prompt_kv_views(kv, plen, ps * self._bt_width)
         n_pg = -(-take // ps)
+        if first_block >= n_pg:
+            return
         pad = n_pg * ps - take
-        pages = torch.tensor(self._lane_pages[lane][:n_pg],
+        pages = torch.tensor(self._lane_pages[lane][first_block:n_pg],
                              dtype=torch.long).to(self.device)
         for key, src in entries.items():
             pool = self.cache[_POOL_KEY[key]]
@@ -477,15 +817,25 @@ class ServeEngine:
                 src = torch.nn.functional.pad(src, (0, 0, 0, pad))
             n_l, hkv, _, d = src.shape
             seg = src.reshape(n_l, hkv, n_pg, ps, d).permute(0, 2, 1, 3, 4)
-            pool[:, pages] = seg.to(pool.dtype)
+            pool[:, pages] = seg[:, first_block:].to(pool.dtype)
 
-    def _ssm_step(self) -> torch.Tensor:
+    def _stream_step(self) -> torch.Tensor:
         """One batch-1 decode step of the prompt stream over its own
-        buffers: the token in ``_ssm_tok`` advances ``_ssm_lane``'s state
+        buffers: the token in ``_stream_tok`` advances ``_stream_lane``'s state
         and K/V (in place) and length; returns the logits."""
-        logits, cache = self.model.decode_step(self.params, self._ssm_lane,
-                                               self._ssm_tok)
-        self._ssm_lane["len"].copy_(cache["len"])
+        logits, cache = self.model.decode_step(self.params, self._stream_lane,
+                                               self._stream_tok)
+        self._stream_lane["len"].copy_(cache["len"])
+        return logits
+
+    def _replay_stream(self, tokens: np.ndarray) -> torch.Tensor:
+        """Step the batch-1 buffers through ``tokens``, one decode step a
+        token (on the card a replay of the captured ``"stream_step"`` graph
+        after the engine's first); returns the last step's logits."""
+        toks = torch.from_numpy(tokens.astype(np.int32)).to(self.device)
+        for t in range(int(toks.shape[0])):
+            self._stream_tok.copy_(toks[t:t + 1])
+            logits, _ = self.graphs.run("stream_step", self._stream_step)
         return logits
 
     def _stream_ssm_prompt(self, prompt: np.ndarray, lane: int) -> None:
@@ -515,18 +865,15 @@ class ServeEngine:
         if self.timed:
             self._sync()
             t0 = time.perf_counter()
-        captured = "ssm_step" in self.graphs.capture_s
-        buf = self._ssm_lane
+        captured = "stream_step" in self.graphs.capture_s
+        buf = self._stream_lane
         # the stream starts from zero state: a re-admitted lane must NOT
         # inherit the previous request's
         for key in ("ssm_h", "ssm_conv", "len"):
             buf[key].zero_()
         if "block_tables" in buf:
             buf["block_tables"].copy_(self.cache["block_tables"][lane:lane + 1])
-        toks = torch.from_numpy(prompt.astype(np.int32)).to(self.device)
-        for t in range(plen):
-            self._ssm_tok.copy_(toks[t:t + 1])
-            logits, _ = self.graphs.run("ssm_step", self._ssm_step)
+        logits = self._replay_stream(prompt)
         for key in ("ssm_h", "ssm_conv"):
             self.cache[key][:, lane].copy_(buf[key][:, 0])
         if "k" in buf:
@@ -540,7 +887,7 @@ class ServeEngine:
         if self.timed:
             self._sync()
             capture = (0.0 if captured else
-                       self.graphs.capture_s.get("ssm_step", 0.0))
+                       self.graphs.capture_s.get("stream_step", 0.0))
             self.timings["ssm_stream"].append(time.perf_counter() - t0
                                               - capture)
 
@@ -632,16 +979,18 @@ class ServeEngine:
         return out
 
     def _release_lane(self, lane: int) -> None:
-        """Return a lane to the DEAD state: zero its length (so the
-        length-aware kernel reads nothing of the stale context); when
-        paged, drop its pages and reservation and point its block-table
-        row at the scratch page (its old page ids may be re-issued while
-        the dead lane keeps stepping)."""
+        """Return a lane to the DEAD state (retirement and eviction both
+        end here): zero its length (so the length-aware kernel reads
+        nothing of the stale context); when paged, drop the lane's
+        reference on its pages (a page another lane or the prefix cache
+        still maps survives) and its reservation, and point its
+        block-table row at the scratch page (its old page ids may be
+        re-issued while the dead lane keeps stepping)."""
         self.lane_req[lane] = None
         self.cache["len"][lane] = 0
         self._len_host[lane] = 0
         if self.paged:
-            self.pool.free(self._lane_pages[lane])
+            self.pool.free(self._lane_pages[lane], holder=lane)
             self.pool.unreserve(self._lane_reserved[lane])
             self._lane_pages[lane] = []
             self._lane_reserved[lane] = 0
@@ -651,6 +1000,144 @@ class ServeEngine:
     def lane_pages(self, lane: int) -> List[int]:
         """Page ids mapped by ``lane``'s block table, in logical order."""
         return list(self._lane_pages[lane])
+
+    # -- preemption: evict and restore ---------------------------------------
+    def evict(self, lane: int) -> LaneCheckpoint:
+        """Checkpoint and release a live lane at a dispatch boundary.
+
+        The checkpoint holds the request, its sampling identity, the
+        token already sampled for the next step, and the lane's pages
+        gathered through its block table (a deep copy: a page shared
+        with the prefix cache or another lane is captured by value, and
+        releasing the lane only drops its reference) and, for an ssm or
+        hybrid lane, its recurrent state.  The lane's pages return to
+        the pool at once; the scratch page is never captured."""
+        invariant(self.paged, "evict/restore: paged engines only")
+        req = self.lane_req[lane]
+        invariant(req is not None, f"evict of idle lane {lane}", lane=lane)
+        pages = list(self._lane_pages[lane])
+        invariant(self._scratch_page not in pages,
+                  "scratch page leaked into a live block table", lane=lane)
+        idx = torch.tensor(pages, dtype=torch.long).to(self.device)
+        kv = {key: self._to_wire(self.cache[key][:, idx])
+              for key in _POOL_KEY.values() if key in self.cache}
+        ssm = {key: self._to_wire(self.cache[key][:, lane])
+               for key in ("ssm_h", "ssm_conv") if key in self.cache}
+        ckpt = LaneCheckpoint(
+            req=req, lane_seed=int(self._lane_seed[lane]),
+            tok_idx=int(self._tok_idx[lane]),
+            remaining=int(self._remaining_host[lane]),
+            ctx_len=int(self._len_host[lane]),
+            next_token=int(self._next_token[lane]),
+            page_size=self.page_size, kv_pages=kv, ssm_state=ssm)
+        # the evicted lane is dead: a dispatch before re-admission samples
+        # only invalid tokens for it
+        self._remaining[lane] = 0
+        self._remaining_host[lane] = 0
+        self._release_lane(lane)
+        self.stats["preemptions"] += 1
+        return ckpt
+
+    @staticmethod
+    def _to_wire(t: torch.Tensor) -> np.ndarray:
+        """A host copy (never a view of the cache, which goes on
+        changing) in the checkpoint's dtype."""
+        wire = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+        return t.to(device="cpu", dtype=wire, copy=True).numpy()
+
+    def _from_wire(self, val: Any, like: torch.Tensor) -> torch.Tensor:
+        arr = np.array(val, dtype=_WIRE_DTYPE[like.dtype])
+        return torch.from_numpy(arr).to(self.device, like.dtype)
+
+    def _check_payload(self, ckpt: LaneCheckpoint) -> None:
+        """Raise unless every array of ``ckpt`` has the shape this engine
+        holds it in (an indexed write would broadcast a smaller one)."""
+        want = {key: (t.shape[0], ckpt.n_pages) + tuple(t.shape[2:])
+                for key, t in self.cache.items() if key in _POOL_KEY.values()}
+        want.update({key: tuple(self.cache[key][:, 0].shape)
+                     for key in ("ssm_h", "ssm_conv") if key in self.cache})
+        got = {key: tuple(np.shape(v)) for key, v in
+               list(ckpt.kv_pages.items()) + list(ckpt.ssm_state.items())}
+        invariant(got == want, "checkpoint payload does not fit this "
+                  "engine's cache", got=got, want=want)
+
+    def restore_pages(self, ckpt: LaneCheckpoint) -> int:
+        """Pages :meth:`restore` reserves for ``ckpt``: its pages plus
+        room for the remaining budget, clamped (as admission is) to what
+        the cache can back."""
+        worst = min(ckpt.ctx_len + ckpt.remaining + 1, self.max_len)
+        return max(self._pages_needed(worst), ckpt.n_pages)
+
+    def can_restore(self, ckpt: LaneCheckpoint) -> bool:
+        if not self.free_lanes():
+            return False
+        return self.restore_pages(ckpt) <= self.pool.available()
+
+    def restore(self, ckpt: LaneCheckpoint) -> bool:
+        """Re-admit a checkpointed request through the reserve/alloc route
+        and write its pages into fresh exclusive pages of its new block
+        table.  Returns False when no lane or pages are free (retry after
+        retirements, as with admission).
+
+        A restore consumes no admission index: the lane takes the
+        checkpoint's ``lane_seed``/``tok_idx``, so its random stream goes
+        on, and its first step consumes the checkpoint's token.  Every
+        write is in place (pools, state, next token, seed, index, budget,
+        length), so the engine's graphs replay over the restored lane;
+        its pages past the checkpoint's are mapped before the next
+        dispatch (:meth:`map_dispatch_pages`)."""
+        invariant(self.paged, "evict/restore: paged engines only")
+        invariant(ckpt.page_size == self.page_size,
+                  "checkpoint page size does not match this engine",
+                  ckpt_page_size=ckpt.page_size, page_size=self.page_size)
+        self._check_payload(ckpt)
+        lanes = self.free_lanes()
+        if not lanes:
+            return False
+        lane = lanes[0]
+        need = self.restore_pages(ckpt)
+        if not self.pool.reserve(need):
+            if ckpt.uid not in self._blocked_uids:
+                self._blocked_uids.add(ckpt.uid)
+                self.stats["kv_admit_blocked"] += 1
+            return False
+        self._blocked_uids.discard(ckpt.uid)
+        self._lane_reserved[lane] = need
+        self._lane_pages[lane] = []
+        try:
+            self._map_pages(lane, ckpt.n_pages)
+            if self._lane_pages[lane]:
+                idx = torch.tensor(self._lane_pages[lane],
+                                   dtype=torch.long).to(self.device)
+                for key, val in ckpt.kv_pages.items():
+                    dst = self.cache[key]
+                    dst[:, idx] = self._from_wire(val, dst)
+            for key, val in ckpt.ssm_state.items():
+                dst = self.cache[key]
+                dst[:, lane] = self._from_wire(val, dst)
+        except Exception:
+            # a payload that does not fit this engine's cache: the
+            # reservation and the pages mapped so far go back, or they
+            # would leak behind a lane that looks free
+            self.pool.free(self._lane_pages[lane], holder=lane)
+            self.pool.unreserve(self._lane_reserved[lane])
+            self._lane_pages[lane] = []
+            self._lane_reserved[lane] = 0
+            self.cache["len"][lane] = 0
+            if "block_tables" in self.cache:
+                self.cache["block_tables"][lane] = self._scratch_page
+            raise
+        self.cache["len"][lane] = ckpt.ctx_len
+        self._len_host[lane] = ckpt.ctx_len
+        self._lane_seed[lane] = ckpt.lane_seed
+        self._tok_idx[lane] = ckpt.tok_idx
+        self._next_token[lane] = ckpt.next_token
+        self._remaining[lane] = ckpt.remaining
+        self._remaining_host[lane] = ckpt.remaining
+        self.lane_req[lane] = ckpt.req
+        self.stats["restores"] += 1
+        self.stats["pages_migrated"] += ckpt.n_pages
+        return True
 
     def decode_step(self) -> Dict[int, int]:
         """Single-token wrapper; returns {uid: token}."""

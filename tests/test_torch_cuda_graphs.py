@@ -122,8 +122,8 @@ def _addresses(eng):
         out[name] = getattr(eng, name).data_ptr()
     if eng.cfg.attn_free:
         out.update({f"ssm_lane.{k}": t.data_ptr()
-                    for k, t in sorted(eng._ssm_lane.items())})
-        out["_ssm_tok"] = eng._ssm_tok.data_ptr()
+                    for k, t in sorted(eng._stream_lane.items())})
+        out["_stream_tok"] = eng._stream_tok.data_ptr()
     return out
 
 

@@ -6,8 +6,11 @@ and paged, KV in float32 and int8, greedy and t=0.8), mamba2-780m SMOKE
 and hymba-1.5b SMOKE (both layouts), in float32 with port-made random
 weights; a hybrid prompt streamed by replays of the captured batch-1
 step equals the same prompt streamed eagerly from the same state
-(logits, SSM state, and the K/V it wrote), on both layouts; and a
-capture is not broken by an earlier engine's graphs being collected.
+(logits, SSM state, and the K/V it wrote), on both layouts; a capture
+is not broken by an earlier engine's graphs being collected; and a
+sharing engine (a partial page copied on write, tails streamed by
+replays) gives the unshared streams, and a lane it evicts continues its
+stream in a fresh engine.
 Marked ``cuda``: skipped where there is no device.  The CPU side of the
 graphs is in ``tests/test_torch_cuda_graphs.py``.
 """
@@ -126,7 +129,7 @@ def test_replayed_hybrid_stream_equals_eager_on_card(paged, kv_quant):
     rng = np.random.default_rng(6)
     assert eng.admit(Request(uid=0, prompt=rng.integers(
         0, cfg.vocab_size, 5).astype(np.int32), max_new_tokens=4))
-    assert "ssm_step" in eng.graphs.capture_s       # later steps replay
+    assert "stream_step" in eng.graphs.capture_s       # later steps replay
     req = Request(uid=1, prompt=rng.integers(
         0, cfg.vocab_size, cfg.sliding_window + 9).astype(np.int32),
         max_new_tokens=4)
@@ -134,16 +137,16 @@ def test_replayed_hybrid_stream_equals_eager_on_card(paged, kv_quant):
     first = eng._set_first_token
     eng._set_first_token = lambda lg, lane: (logits.append(lg.clone()),
                                              first(lg, lane))
-    replays = eng.graphs.replays("ssm_step")
+    replays = eng.graphs.replays("stream_step")
     assert eng.admit(req)
     lane = eng.lane_req.index(req)
-    assert eng.graphs.replays("ssm_step") - replays == len(req.prompt)
+    assert eng.graphs.replays("stream_step") - replays == len(req.prompt)
     take = min(len(req.prompt), cfg.sliding_window)
     got = {k: eng.cache[k][:, lane].clone() for k in ("ssm_h", "ssm_conv")}
     got.update(_lane_kv(eng, lane, take), logits=logits[-1])
 
     cache = {}
-    for key, t in eng._ssm_lane.items():
+    for key, t in eng._stream_lane.items():
         if key.endswith("_pages"):
             cache[key] = t                          # the shared pools
         elif key == "block_tables":
@@ -222,3 +225,55 @@ def test_capture_survives_a_collected_engine():
     assert second.stats["decode_compiles"] == 2
     assert second.graphs.replays(N) + second.graphs.replays(1) == \
         second.stats["decode_dispatches"] - 2
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_sharing_and_evict_restore_on_card(kv_quant):
+    """qwen2.5-1.5b SMOKE in float32 on the card with prefix sharing: a
+    head served alone, then the head plus 2 tokens and the head plus 9
+    (hits on its partial page, each copied on write, their tails
+    streamed by replays of the captured batch-1 step); the streams equal
+    the unshared engine's.  Then the member is evicted mid-decode and
+    restored into a fresh engine: its stream still equals.  (int8 KV
+    matches full pages only: no copy.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs are captured on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("qwen2.5-1.5b", smoke=True),
+                              dtype="float32", kv_quant=kv_quant)
+    dev = torch.device("cuda", 0)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   torch.device("cpu")).to(dev)
+    rng = np.random.default_rng(9)
+    head = rng.integers(0, cfg.vocab_size, 20).astype(np.int32)
+    prompts = [head, np.concatenate([head, rng.integers(
+        0, cfg.vocab_size, 2).astype(np.int32)]),
+        np.concatenate([head, rng.integers(0, cfg.vocab_size, 9)
+                        .astype(np.int32)])]
+    kw = dict(n_lanes=2, max_len=MAX_LEN, dispatch_n=N, paged=True,
+              page_size=PAGE, temperature=0.8, rng_seed=3, device=dev)
+
+    def requests():
+        return [Request(uid=i, prompt=p.copy(), max_new_tokens=12)
+                for i, p in enumerate(prompts)]
+
+    base = ServeEngine(cfg, params, **kw).run(requests())
+    shared = ServeEngine(cfg, params, prefix_sharing=True, **kw)
+    reqs = shared.run(requests())
+    assert [r.generated for r in reqs] == [r.generated for r in base]
+    st = shared.stats
+    assert st["prefix_hits"] == 2
+    assert st["prefix_cow_copies"] == (0 if kv_quant else 2)
+    if kv_quant is None:
+        assert shared.graphs.replays("stream_step") > 0
+    reqs = requests()
+    src = ServeEngine(cfg, params, prefix_sharing=True, **kw)
+    src.run(reqs[:2])
+    assert src.admit(reqs[2])
+    src.decode_n()
+    ckpt = src.evict(src.lane_req.index(reqs[2]))
+    dst = ServeEngine(cfg, params, **kw)
+    assert dst.restore(ckpt)
+    while dst.live_lanes():
+        dst.decode_n()
+    assert reqs[2].generated == base[2].generated

@@ -47,7 +47,9 @@ def test_every_module_imports_with_jax_blocked():
         "          'kernels.mixbench.check', 'kernels._sass',\n"
         "          'kernels.ssd_scan.ops', 'kernels.ssd_scan.ref',\n"
         "          'models.ssm', 'configs.mamba2_780m',\n"
-        "          'configs.hymba_1_5b'):\n"
+        "          'configs.hymba_1_5b', 'serving.prefix_cache',\n"
+        "          'configs.olmo_1b', 'configs.mistral_nemo_12b',\n"
+        "          'configs.qwen2_5_32b', 'configs.qwen1_5_110b'):\n"
         "    assert 'repro_torch.' + m in names, names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -55,7 +57,7 @@ def test_every_module_imports_with_jax_blocked():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 29
+    assert int(res.stdout.strip()) >= 34
 
 
 def test_no_source_names_jax_or_the_reference():

@@ -457,12 +457,15 @@ def test_family_guard_refuses_unported_families():
             build_model(cfg)
         with pytest.raises(ValueError, match=family):
             LM(cfg)
-    # the hybrid family is ported; a hybrid with another norm is not
+    # the hybrid family is ported, and so are the reference's three
+    # norms; a norm the reference does not have is refused by name
     hybrid = get_config("hymba-1.5b", smoke=True)
     assert build_model(hybrid).cfg is hybrid
     layernorm = dataclasses.replace(hybrid, norm="layernorm")
-    with pytest.raises(ValueError, match="layernorm"):
-        build_model(layernorm)
+    assert build_model(layernorm).cfg is layernorm
+    groupnorm = dataclasses.replace(hybrid, norm="groupnorm")
+    with pytest.raises(ValueError, match="groupnorm"):
+        build_model(groupnorm)
 
 
 # ----------------------------------------------------------------------
