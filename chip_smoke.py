@@ -223,7 +223,34 @@ order (any failure raises and the script exits non-zero):
    layer count) times a prompt and K3/K1 a decode step, the replay gates
    and check, tok/s, prefill ms per bucket, decode ms per dispatch, the
    phase's peak device memory;
-27. timings at those three configs' shapes, as in phase 21.
+27. timings at those three configs' shapes, as in phase 21;
+28. (after phase 23, with qwen2.5-1.5b's weights loaded) observability
+   at SMOKE width in float32, paged (pages of 8, a pool that blocks an
+   admission): the full stack (tracer, registry, flight recorder, a
+   lenient SLO controller over a degradation ladder, the page
+   sanitizer) on the CPU port and on the card, and the card's engine
+   with everything off: streams identical across the three; the spans
+   and instants (kind, name, track, args; times left out), the 23
+   ``STATS_SCHEMA`` counters and the sanitizer's page-op log equal CPU
+   vs card; the ladder at level 0; replays == dispatches - compiles >
+   0, the same on and off; every request's timeline complete;
+29. the same on the fixed-lane engine with the tracer and registry
+   (the sanitizer is paged only);
+30. full width, qwen2.5-1.5b bf16 paged, phase 7's traffic, served off,
+   on, on, off (the full stack of phase 28): streams bitwise equal,
+   decode_compiles and replays equal, every timeline complete with a
+   TTFT and a TPOT series, one ``decode.dispatch`` span (and histogram
+   sample) per dispatch, the pool's gauges at 0 in use with allocs ==
+   frees, the sanitizer clean, the flight ring holding dispatch
+   records; wall, tok/s and the on/off ratio printed, not gated;
+31. the ladder at full width: phase 30's traffic with ``priority = i %
+   2`` on 160 pages under ``DegradationLadder(page_pressure=0.75,
+   trip_after=1, cooldown=4)``: it reaches ``evict`` and sheds lanes,
+   restores == preemptions == degrade_sheds, every budget finishes and
+   every stream equals an engine's without a ladder (same ``n_lanes``,
+   ``n_pages`` and seed) bit for bit; decode_compiles equals the
+   number of distinct dispatch sizes (one graph each); transitions,
+   sizes and both walls printed.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -1073,7 +1100,7 @@ def serve_full(dev, cfg, params, tag, need, reqs=None, n_lanes=8,
     pre = eng.timings["prefill"]
     dec = eng.timings["decode"]
     print(f"[{tag}] {len(reqs)} requests, {n_gen} tokens in {wall:.3f}s "
-          f"= {n_gen / wall:.1f} tok/s end to end; stats {eng.stats}")
+          f"= {n_gen / wall:.1f} tok/s end to end; stats {dict(eng.stats)}")
     print_graphs(tag, graphs)
     for bucket in sorted(pre):
         print(f"[{tag}] prefill bucket {bucket}: {len(pre[bucket])} "
@@ -2173,7 +2200,7 @@ def serve_streamed(dev, cfg, params, tag, reqs, gen, max_len, **engine_kw):
     pre, dec = eng.timings["prefill"], eng.timings["decode"]
     print(f"[{tag}] {len(reqs)} requests (prompts {plens}), {n_gen} tokens "
           f"in {wall:.3f}s = {n_gen / wall:.1f} tok/s end to end; stats "
-          f"{eng.stats}")
+          f"{dict(eng.stats)}")
     for bucket in sorted(pre):
         print(f"[{tag}] prefill bucket {bucket}: {len(pre[bucket])} "
               f"prompts, median {1e3 * statistics.median(pre[bucket]):.2f} "
@@ -3155,6 +3182,375 @@ def phase_preempt_full(dev, cfg, params):
     return out
 
 
+# ----------------------------------------------------------------------
+# observability and resilience: registry, tracer, flight recorder, SLO
+# control, degradation ladder, page sanitizer
+# ----------------------------------------------------------------------
+
+def obs_stack():
+    """The full observability stack of one engine, as keyword arguments:
+    an enabled tracer feeding a registry, a flight recorder big enough
+    for the whole serve, an SLO controller with a lenient objective
+    (TTFT 60 s, TPOT 1 s) over a ladder of its own, and the sanitizer."""
+    from repro_torch import obs
+    from repro_torch.serving import DegradationLadder
+    reg = obs.MetricsRegistry()
+    mon = obs.BurnRateMonitor(obs.SLOObjective(ttft_s=60.0, tpot_s=1.0),
+                              registry=reg)
+    return dict(tracer=obs.SpanTracer(enabled=True, registry=reg),
+                registry=reg, flight=obs.FlightRecorder(capacity=1 << 16),
+                slo=obs.SLOController(mon, DegradationLadder()),
+                sanitize=True)
+
+
+def record_seq(eng):
+    """The engine's spans and instants in recording order, as (kind,
+    name, track, args) with times left out (the flight ring's copy)."""
+    return [(r["kind"], r["name"], r["track"], r["args"])
+            for r in eng.flight.records()
+            if r["kind"] in ("span", "instant")]
+
+
+def decode_replays(eng):
+    return sum(eng.graphs.replays(k) for k in eng.graphs.capture_s
+               if isinstance(k, int))
+
+
+def gate_replays(eng, tag):
+    st = eng.stats
+    got = decode_replays(eng)
+    if got != st["decode_dispatches"] - st["decode_compiles"] or got <= 0:
+        fail(f"{tag}: {got} graph replays for {st['decode_dispatches']} "
+             f"dispatches and {st['decode_compiles']} compiles")
+    return got
+
+
+def gate_timelines(eng, reqs, tag):
+    """Every request's timeline complete, with a TTFT and a TPOT series;
+    one ``decode.dispatch`` span (and histogram sample) per dispatch."""
+    from repro_torch import obs
+    tls = obs.request_timelines(eng.tracer)
+    if sorted(tls) != sorted(r.uid for r in reqs):
+        fail(f"{tag}: timelines for uids {sorted(tls)}")
+    for uid, tl in tls.items():
+        if not (tl.complete and tl.ttft_s is not None and tl.ttft_s > 0
+                and tl.tpot_series):
+            fail(f"{tag}: request {uid}'s timeline is not complete: "
+                 f"{tl.gaps()} ttft {tl.ttft_s}")
+    n = eng.stats["decode_dispatches"]
+    spans = len(eng.tracer.spans_named("decode.dispatch"))
+    hist = eng.registry["span.decode.dispatch.seconds"].count
+    if spans != n or hist != n:
+        fail(f"{tag}: {spans} decode.dispatch spans, {hist} samples, for "
+             f"{n} dispatches")
+    return tls
+
+
+def phase_obs_smoke(dev, paged):
+    """Phases 28 (paged) and 29 (fixed-lane): SMOKE qwen2.5 in float32
+    (pages of 8), the full stack on the CPU port and on the card (the
+    fixed-lane engine: tracer and registry only), and the card's engine
+    with everything off.  Streams equal across the three; the spans and
+    instants (kind, name, track, args), every ``STATS_SCHEMA`` counter
+    and, paged, the sanitizer's page-op log equal CPU vs card; the
+    ladder stays at level 0; the card's dispatches replay graphs."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving import STATS_KEYS, ServeEngine
+    tag = f"[obs smoke {'paged' if paged else 'fixed-lane'}]"
+    cfg = dataclasses.replace(get_config("qwen2.5-1.5b", smoke=True),
+                              dtype="float32")
+    cpu = torch.device("cpu")
+    params = build_model(cfg).init(torch.Generator().manual_seed(SEED), cpu)
+    on_card = copy.deepcopy(params).to(dev)
+    kw = dict(n_lanes=4, max_len=128, paged=paged, page_size=8,
+              n_pages=40 if paged else None, rng_seed=SEED + 3)
+    out = {}
+    for run in ("cpu", "cuda", "cuda off"):
+        where = run.split()[0]
+        if run.endswith("off"):
+            stack = {}
+        elif paged:
+            stack = obs_stack()
+        else:
+            reg = obs.MetricsRegistry()
+            stack = dict(registry=reg,
+                         tracer=obs.SpanTracer(enabled=True, registry=reg),
+                         flight=obs.FlightRecorder(capacity=1 << 16))
+        eng = ServeEngine(cfg, params if where == "cpu" else on_card,
+                          device=where, **kw, **stack)
+        if eng._sanitizer is not None:
+            eng._sanitizer.log = obs.EventLog(clock=lambda: 0.0)
+        reqs = _requests(cfg, 10, 3, 140, 16, SEED + 1)
+        reset_launch_counts()
+        eng.run(reqs)
+        counts = launch_counts()
+        out[run] = dict(eng=eng, streams=[r.generated for r in reqs],
+                        stats=dict(eng.stats), counts=counts, reqs=reqs)
+    cpu_r, card, off = out["cpu"], out["cuda"], out["cuda off"]
+    if not (cpu_r["streams"] == card["streams"] == off["streams"]):
+        fail(f"{tag} streams differ: CPU stack vs card stack vs card off")
+    if card["stats"] != cpu_r["stats"] or len(card["stats"]) != \
+            len(STATS_KEYS):
+        fail(f"{tag} counters differ CPU vs card: {cpu_r['stats']} "
+             f"{card['stats']}")
+    ceng, teng = cpu_r["eng"], card["eng"]
+    seq = record_seq(teng)
+    if seq != record_seq(ceng):
+        fail(f"{tag} the span/instant sequence differs CPU vs card")
+    need = ("decode_attention_paged" if paged
+            else "decode_attention_lengthaware", "flash_attention_cc")
+    if min(card["counts"][k] for k in need) <= 0:
+        fail(f"{tag} a kernel of the path never launched: {card['counts']}")
+    replays = gate_replays(teng, tag)
+    if (teng.stats["decode_compiles"], replays) != (
+            off["eng"].stats["decode_compiles"], decode_replays(off["eng"])):
+        fail(f"{tag} compiles or replays differ with the stack on and off")
+    gate_timelines(teng, card["reqs"], tag)
+    n_ops = 0
+    if paged:
+        logs = [[(e.name, e.fields) for e in eng._sanitizer.log.records()]
+                for eng in (ceng, teng)]
+        if logs[0] != logs[1]:
+            fail(f"{tag} the sanitizer's page-op log differs CPU vs card")
+        if not teng._sanitizer.clean:
+            fail(f"{tag} sanitizer violations {teng._sanitizer.violations}")
+        if teng.slo.ladder.level != 0 or teng.slo.escalated:
+            fail(f"{tag} the lenient SLO moved the ladder")
+        n_ops = len(logs[1])
+        if not teng.stats["kv_admit_blocked"]:
+            fail(f"{tag} no admission was blocked for pages")
+    names = sorted({name for _, name, _, _ in seq})
+    print(f"{tag} float32 SMOKE, 10 requests: streams identical CPU stack "
+          f"/ card stack / card off; {len(seq)} spans and instants "
+          f"({names}), {len(STATS_KEYS)} counters"
+          f"{f', {n_ops} page ops' if paged else ''} equal CPU vs card; "
+          f"decode_compiles {teng.stats['decode_compiles']}, replays "
+          f"{replays} on and off; kv_admit_blocked "
+          f"{teng.stats['kv_admit_blocked']}")
+    result = {"spans_and_instants": len(seq), "page_ops": n_ops,
+              "replays": replays, "stats": card["stats"]}
+    del out, ceng, teng
+    gc.collect()
+    return result
+
+
+def serve_timed(eng, reqs):
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, launch_counts()
+
+
+def first_difference(a_reqs, b_reqs):
+    for a, b in zip(a_reqs, b_reqs):
+        if a.generated != b.generated:
+            i = next((i for i, (x, y) in enumerate(zip(a.generated,
+                                                       b.generated))
+                      if x != y), min(len(a.generated), len(b.generated)))
+            return (f"uid {a.uid}: first differing token at index {i} "
+                    f"({a.generated[i:i + 3]} vs {b.generated[i:i + 3]})")
+    return None
+
+
+def phase_obs_full(dev, cfg, params):
+    """Phase 30: qwen2.5-1.5b bf16 paged at full width (phase 7's
+    traffic, 256 pages of 16, 8 lanes), served with everything off and
+    with the full stack, in the order off, on, on, off: streams bitwise
+    equal, the same decode_compiles and replays (replays == dispatches -
+    compiles > 0), every timeline complete, one decode.dispatch span per
+    dispatch, the pool's gauges at 0 in use with allocs == frees, the
+    sanitizer clean and the flight ring holding dispatch records.
+    Prints each serve's wall and tok/s, the wall less the graph's
+    capture, and the on/off ratios: the stack's cost on the card (not
+    gated)."""
+    from repro_torch.serving import ServeEngine
+    tag = "[obs full]"
+    kw = dict(n_lanes=8, max_len=1024, paged=True, page_size=16,
+              n_pages=256, device=dev)
+    res = []
+    for run in ("off", "on", "on", "off"):
+        eng = ServeEngine(cfg, params, **kw,
+                          **(obs_stack() if run == "on" else {}))
+        reqs = _requests(cfg, 16, 64, 700, 64, SEED + 2)
+        wall, counts = serve_timed(eng, reqs)
+        if not all(r.done and len(r.generated) == 64 for r in reqs):
+            fail(f"{tag} {run}: a budget did not finish")
+        if min(counts[k] for k in ("decode_attention_paged",
+                                   "flash_attention_mma")) <= 0:
+            fail(f"{tag} {run}: a kernel of the path never launched")
+        n_gen = sum(len(r.generated) for r in reqs)
+        capture = sum(eng.timings["capture"].values())
+        res.append(dict(run=run, eng=eng, reqs=reqs, wall_s=wall,
+                        tok_s=n_gen / wall, capture_s=capture,
+                        tok_s_less_capture=n_gen / (wall - capture),
+                        replays=gate_replays(eng, f"{tag} {run}"),
+                        decode_compiles=eng.stats["decode_compiles"],
+                        dispatches=eng.stats["decode_dispatches"]))
+        if run == "off":
+            del eng                   # only the stack's engines are read
+            res[-1]["eng"] = None
+            gc.collect()
+    for r in res[1:]:
+        diff = first_difference(r["reqs"], res[0]["reqs"])
+        if diff is not None:
+            fail(f"{tag} the stack changed a bf16 stream: {diff}")
+        if (r["decode_compiles"], r["replays"]) != (
+                res[0]["decode_compiles"], res[0]["replays"]):
+            fail(f"{tag} compiles/replays differ on and off: "
+                 f"{[(x['decode_compiles'], x['replays']) for x in res]}")
+    for r in res:
+        if r["run"] != "on":
+            continue
+        eng = r["eng"]
+        tls = gate_timelines(eng, r["reqs"], tag)
+        reg = eng.registry
+        gauges = {k: reg[f"serve.pool.pages.{k}"].value
+                  for k in ("in_use", "allocs", "frees", "hwm", "reserved")}
+        if gauges["in_use"] or gauges["reserved"] or \
+                gauges["allocs"] != gauges["frees"]:
+            fail(f"{tag} pool gauges at the end {gauges}")
+        if not eng._sanitizer.clean or eng._sanitizer.ops_seen <= 0:
+            fail(f"{tag} sanitizer: {eng._sanitizer.violations}")
+        flight = sum(x["kind"] == "span" and x["name"] == "decode.dispatch"
+                     for x in eng.flight.records())
+        if not flight or eng.flight.n_dumps:
+            fail(f"{tag} flight ring: {flight} dispatch records, "
+                 f"{eng.flight.n_dumps} dumps")
+    ttft = sorted(tl.ttft_s for tl in tls.values())
+    disp = reg["span.decode.dispatch.seconds"]
+    on = [r for r in res if r["run"] == "on"]
+    off = [r for r in res if r["run"] == "off"]
+
+    def mean(rs, key):
+        return sum(r[key] for r in rs) / len(rs)
+    ratio = mean(on, "tok_s") / mean(off, "tok_s")
+    ratio_less = (mean(on, "tok_s_less_capture")
+                  / mean(off, "tok_s_less_capture"))
+    print(f"{tag} qwen2.5-1.5b bf16 paged, 16 requests, served off, on, "
+          f"on, off: streams bitwise equal; decode_compiles "
+          f"{res[0]['decode_compiles']}, replays {res[0]['replays']} of "
+          f"{res[0]['dispatches']} dispatches in each; {len(tls)} timelines"
+          f" complete; sanitizer clean over {eng._sanitizer.ops_seen} page "
+          f"ops; pool gauges {gauges}")
+    for r in res:
+        print(f"{tag} {r['run']}: {r['wall_s']:.3f}s = {r['tok_s']:.1f} "
+              f"tok/s; less the capture ({r['capture_s']:.3f}s) "
+              f"{r['tok_s_less_capture']:.1f} tok/s")
+    print(f"{tag} on/off tok/s {ratio:.4f}, less the captures "
+          f"{ratio_less:.4f}; decode.dispatch span p50 "
+          f"{1e3 * disp.percentile(50):.2f} ms, p99 "
+          f"{1e3 * disp.percentile(99):.2f} ms; TTFT median "
+          f"{1e3 * statistics.median(ttft):.1f} ms, max "
+          f"{1e3 * ttft[-1]:.1f} ms ({gpu_line()})")
+    out = {"serves": [{f: r[f] for f in (
+        "run", "wall_s", "tok_s", "capture_s", "tok_s_less_capture",
+        "replays", "decode_compiles", "dispatches")} for r in res],
+        "ratio_tok_s": ratio, "ratio_tok_s_less_capture": ratio_less,
+        "pool_gauges": gauges, "page_ops": eng._sanitizer.ops_seen,
+        "dispatch_span_ms": {"p50": 1e3 * disp.percentile(50),
+                             "p99": 1e3 * disp.percentile(99)},
+        "ttft_ms": {"median": 1e3 * statistics.median(ttft),
+                    "max": 1e3 * ttft[-1]}}
+    del res, on, off, eng
+    gc.collect()
+    return out
+
+
+def phase_ladder_full(dev, cfg, params):
+    """Phase 31: phase 30's traffic with ``priority = i % 2`` on a pool
+    of 160 pages of 16 (more than one full context, 64 pages, fewer than
+    the 8 lanes need), under ``DegradationLadder(page_pressure=0.75,
+    trip_after=1, cooldown=4)``, against an engine without a ladder with
+    the same ``n_lanes``, ``n_pages`` and seed: the ladder reaches
+    ``evict`` and sheds lanes, every shed lane is restored, every budget
+    finishes and every stream equals the other serve's bit for bit;
+    ``decode_compiles`` is the number of distinct dispatch sizes."""
+    from repro_torch import obs
+    from repro_torch.serving import DegradationLadder, ServeEngine
+    tag = "[ladder full]"
+    kw = dict(n_lanes=8, max_len=1024, paged=True, page_size=16,
+              n_pages=160, device=dev)
+
+    def reqs():
+        out = _requests(cfg, 16, 64, 700, 64, SEED + 2)
+        for r in out:
+            r.priority = r.uid % 2
+        return out
+    plain = ServeEngine(cfg, params, **kw)
+    plain_reqs = reqs()
+    plain_wall, _ = serve_timed(plain, plain_reqs)
+    ladder = DegradationLadder(page_pressure=0.75, trip_after=1, cooldown=4)
+    tracer = obs.SpanTracer(enabled=True)
+    eng = ServeEngine(cfg, params, ladder=ladder, tracer=tracer, **kw)
+    lreqs = reqs()
+    wall, counts = serve_timed(eng, lreqs)
+    st = eng.stats
+    if not all(r.done and len(r.generated) == 64 for r in lreqs + plain_reqs):
+        fail(f"{tag} a budget did not finish")
+    diff = first_difference(lreqs, plain_reqs)
+    if diff is not None:
+        fail(f"{tag} a stream under the ladder differs from the serve "
+             f"without one: {diff}")
+    levels = [to for _, to, _ in ladder.transitions]
+    if 3 not in levels or st["degrade_sheds"] < 1:
+        fail(f"{tag} the ladder never reached evict or shed nothing: "
+             f"{ladder.transitions[:8]} sheds {st['degrade_sheds']}")
+    if not (st["restores"] == st["preemptions"] == st["degrade_sheds"]):
+        fail(f"{tag} restores {st['restores']}, preemptions "
+             f"{st['preemptions']}, sheds {st['degrade_sheds']}")
+    if st["degrade_transitions"] != len(ladder.transitions):
+        fail(f"{tag} degrade_transitions {st['degrade_transitions']}")
+    sizes = sorted({s.args["n_steps"]
+                    for s in tracer.spans_named("decode.dispatch")})
+    if st["decode_compiles"] != len(sizes):
+        fail(f"{tag} decode_compiles {st['decode_compiles']} for dispatch "
+             f"sizes {sizes}")
+    replays = gate_replays(eng, tag)
+    if min(counts[k] for k in ("decode_attention_paged",
+                               "flash_attention_mma")) <= 0:
+        fail(f"{tag} a kernel of the path never launched: {counts}")
+    eng.pool.check()
+    if eng.pool.n_in_use:
+        fail(f"{tag} pages left in use")
+    moves = {}
+    for frm, to, _ in ladder.transitions:
+        moves[f"{frm}->{to}"] = moves.get(f"{frm}->{to}", 0) + 1
+    n_gen = sum(len(r.generated) for r in lreqs)
+    print(f"{tag} qwen2.5-1.5b bf16 paged, 160 pages, 16 requests: "
+          f"{len(ladder.transitions)} transitions {moves} (first "
+          f"{ladder.transitions[:4]}); {st['degrade_sheds']} lanes shed "
+          f"and restored ({st['pages_migrated']} pages); dispatch sizes "
+          f"{sizes}, decode_compiles {st['decode_compiles']}, "
+          f"{st['decode_dispatches']} dispatches ({replays} replays) "
+          f"against {plain.stats['decode_dispatches']} without the ladder;"
+          f" streams bitwise equal to the serve without it")
+    print(f"{tag} wall {wall:.3f}s ({n_gen / wall:.1f} tok/s) under the "
+          f"ladder, {plain_wall:.3f}s ({n_gen / plain_wall:.1f} tok/s) "
+          f"without ({gpu_line()})")
+    out = {"transitions": len(ladder.transitions), "moves": moves,
+           "sheds": st["degrade_sheds"], "pages_migrated":
+           st["pages_migrated"], "dispatch_sizes": sizes,
+           "decode_compiles": st["decode_compiles"],
+           "dispatches": st["decode_dispatches"],
+           "dispatches_plain": plain.stats["decode_dispatches"],
+           "kv_admit_blocked": st["kv_admit_blocked"], "wall_s": wall,
+           "wall_s_plain": plain_wall, "tok_s": n_gen / wall,
+           "tok_s_plain": n_gen / plain_wall}
+    del plain, eng
+    gc.collect()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3191,6 +3587,13 @@ def main() -> int:
     preempt = phase_preempt_full(dev, cfg, params)
     print(f"[share/preempt] the sharing and evict/restore phases took "
           f"{time.perf_counter() - t_share:.1f}s")
+    t_obs = time.perf_counter()
+    obs_smoke = {"paged": phase_obs_smoke(dev, paged=True),
+                 "fixed_lane": phase_obs_smoke(dev, paged=False)}
+    obs_full = phase_obs_full(dev, cfg, params)
+    ladder_full = phase_ladder_full(dev, cfg, params)
+    print(f"[obs] the observability and ladder phases took "
+          f"{time.perf_counter() - t_obs:.1f}s")
     del params
     rows = phase_timings(dev)
     compute_errs = {**phase_k8_check(dev), **phase_k9_check(dev),
@@ -3524,6 +3927,7 @@ def main() -> int:
           f"{share_full['kv_pages_hwm']}")
     print(f"[share] {json.dumps(share_full)}")
     print(f"[preempt] {json.dumps(preempt)}")
+    print(f"[obs] {json.dumps({'smoke': obs_smoke, 'full': obs_full, 'ladder': ladder_full})}")
     print(f"[sweep] {json.dumps(sweep_summary)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())

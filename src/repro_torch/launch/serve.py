@@ -137,7 +137,7 @@ def main(argv=None):
               f"prompt tok/s); decode {t_decode:.3f}s over "
               f"{engine.stats['decode_dispatches']} dispatches "
               f"({n_gen / max(t_decode, 1e-9):.1f} tok/s)")
-    print(f"stats: {engine.stats}")
+    print(f"stats: {dict(engine.stats)}")
     graphs = "CUDA graphs captured" if device.type == "cuda" else \
         "sizes served eagerly on the CPU"
     print(f"compiles: prefill {engine.stats['prefill_compiles']}, "

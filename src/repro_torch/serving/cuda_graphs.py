@@ -64,11 +64,14 @@ class StepGraphs:
     """One engine's graphs, keyed by any hashable (the decode dispatch
     by ``n_steps``), sharing one memory pool and one capture stream.
 
-    ``capture_s`` holds the seconds each capture took (host clock, the
-    eager first call excluded)."""
+    ``capture_s`` holds the seconds each capture took (``clock``, the
+    engine's host clock, default ``time.perf_counter``; the eager first
+    call excluded)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 clock: Optional[Callable[[], float]] = None):
         self.device = device
+        self.clock = clock or time.perf_counter
         self.on_card = device.type == "cuda"
         self._seen: set = set()            # keys used (CPU)
         self._graphs: Dict[Hashable, _Graph] = {}
@@ -101,7 +104,7 @@ class StepGraphs:
             out = fn()
         current.wait_stream(self._stream)
         before = launch_counts()
-        t0 = time.perf_counter()
+        t0 = self.clock()
         graph = torch.cuda.CUDAGraph()
         gc.collect()
         collecting = gc.isenabled()
@@ -116,7 +119,7 @@ class StepGraphs:
         finally:
             if collecting:
                 gc.enable()
-        self.capture_s[key] = time.perf_counter() - t0
+        self.capture_s[key] = self.clock() - t0
         delta = launch_delta(before, launch_counts())
         add_launches(delta, -1)           # the capture launched nothing
         self._graphs[key] = _Graph(graph, static, delta)

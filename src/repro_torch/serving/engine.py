@@ -63,30 +63,38 @@ page copied on write in place, and only the unmatched tail streamed
 through the batch-1 decode step (int8 KV: full pages, and the batched
 prefill replays).  Every paged engine can ``evict`` a live lane to a
 host :class:`LaneCheckpoint` and ``restore`` it, here or on another
-engine, in either framework.  The telemetry hooks, ``shrink``/``grow``
-and the page sanitizer come in later slices.
+engine, in either framework.
+
+The engine carries the reference's observability and resilience stack
+(metrics registry, span tracer, flight recorder, SLO controller,
+degradation ladder, page sanitizer; :class:`ServeEngine` says what each
+measures on the card).  ``shrink``/``grow`` of the page pool come in a
+later slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
-from collections import defaultdict
-from typing import Any, Dict, List, Optional, Tuple
+from collections import defaultdict, deque
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import rng as trng
 from repro_torch.analysis.invariants import invariant
+from repro_torch.analysis.sanitizer import PageSanitizer
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import quantize_kv_token
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.registry import build_model
 from repro_torch.models.transformer import paged_capacity, sample_tokens
+from repro_torch.obs.flight import FlightRecorder, flight_guard
+from repro_torch.obs.metrics import MetricsRegistry, StatsView
+from repro_torch.obs.trace import SpanTracer
 from repro_torch.serving.cuda_graphs import StepGraphs
 from repro_torch.serving.prefix_cache import PrefixCache
-from repro_torch.serving.resilience import AdmissionRejected
+from repro_torch.serving.resilience import AdmissionRejected, DegradationLadder
 
 __all__ = ["LaneCheckpoint", "PagePool", "PrefixHit", "Request",
            "ServeEngine", "STATS_KEYS", "prefix_sharing_supported"]
@@ -99,20 +107,23 @@ __all__ = ["LaneCheckpoint", "PagePool", "PrefixHit", "Request",
 class PagePool:
     """Host-side free-list allocator over the global KV page pool, with
     a refcount per page (the reference's ``PagePool`` without ``shrink``
-    / ``grow`` and the lifecycle monitor).
+    / ``grow``: the disabled set stays empty, and ``pages.disabled``
+    reads 0).
 
-    Invariants: ``n_free + n_in_use == n_pages``; pages move between two
-    disjoint sets (no double alloc, no double free); every in-use page
-    has a refcount >= 1, one per holder (each lane mapping it, and the
-    prefix cache when it caches it): ``share`` adds a holder, ``free``
-    drops one, and a page returns to the free list only when its LAST
-    holder lets go; ``reserve(n)`` promises ``n`` future ``alloc`` (or
-    ``cow``) pages and ``available()`` (what admission gates on) never
-    counts promised pages, so mid-generation growth and a copy-on-write
-    split cannot fail.  The free list is LIFO, as in the reference, so
-    both hand out the same page ids for the same call sequence.
-    ``holder`` arguments are opaque owner tags, kept for the reference's
-    signatures.
+    Invariants: ``n_free + n_in_use + n_disabled == n_pages``; pages move
+    between disjoint sets (no double alloc, no double free); every
+    in-use page has a refcount >= 1, one per holder (each lane mapping
+    it, and the prefix cache when it caches it): ``share`` adds a
+    holder, ``free`` drops one, and a page returns to the free list only
+    when its LAST holder lets go; ``reserve(n)`` promises ``n`` future
+    ``alloc`` (or ``cow``) pages and ``available()`` (what admission
+    gates on) never counts promised pages, so mid-generation growth and
+    a copy-on-write split cannot fail.  The free list is LIFO, as in the
+    reference, so both hand out the same page ids for the same call
+    sequence.  ``holder`` arguments are opaque owner tags, forwarded to
+    the lifecycle ``monitor`` (a :class:`~repro_torch.analysis.sanitizer.
+    PageSanitizer`) when one is attached: every mutator pays one
+    attribute check for it, the whole cost of running unsanitized.
     """
 
     def __init__(self, n_pages: int, page_size: int):
@@ -121,8 +132,14 @@ class PagePool:
         self._free: List[int] = list(range(self.n_pages - 1, -1, -1))
         self._in_use: set = set()
         self._refcount: Dict[int, int] = {}
+        self._disabled: List[int] = []
         self._reserved = 0
         self.hwm = 0                 # high-water mark: in-use + reserved
+        self.alloc_count = 0
+        self.free_count = 0
+        self.share_count = 0
+        self.cow_count = 0
+        self.monitor = None
 
     @property
     def n_free(self) -> int:
@@ -131,6 +148,10 @@ class PagePool:
     @property
     def n_in_use(self) -> int:
         return len(self._in_use)
+
+    @property
+    def n_disabled(self) -> int:
+        return len(self._disabled)
 
     def available(self) -> int:
         """Pages admissible to NEW requests (free minus promised)."""
@@ -142,6 +163,9 @@ class PagePool:
         if ok:
             self._reserved += n
             self.hwm = max(self.hwm, self.n_in_use + self._reserved)
+        m = self.monitor
+        if m is not None:
+            m.record("reserve", n=n, ok=ok)
         return ok
 
     def unreserve(self, n: int) -> None:
@@ -149,6 +173,9 @@ class PagePool:
                   "unreserve exceeds reservation",
                   n=n, reserved=self._reserved)
         self._reserved -= n
+        m = self.monitor
+        if m is not None:
+            m.record("unreserve", n=n)
 
     def alloc(self, n: int, holder: Any = None) -> List[int]:
         """Take ``n`` previously reserved pages off the free list, each
@@ -162,11 +189,16 @@ class PagePool:
         self._in_use.update(pages)
         for p in pages:
             self._refcount[p] = 1
+        self.alloc_count += n
+        m = self.monitor
+        if m is not None:
+            m.record("alloc", pages=list(pages), holder=holder)
         return pages
 
     def free(self, pages: List[int], holder: Any = None) -> None:
         """Drop one reference per page; a page returns to the free list
-        only when its last holder releases it."""
+        only when its last holder releases it (``free_count`` counts
+        those returns, not reference drops)."""
         for p in pages:
             invariant(p in self._in_use, f"double free of page {p}",
                       page=p)
@@ -175,6 +207,10 @@ class PagePool:
                 del self._refcount[p]
                 self._in_use.remove(p)
                 self._free.append(p)
+                self.free_count += 1
+        m = self.monitor
+        if m is not None and pages:
+            m.record("free", pages=list(pages), holder=holder)
 
     def share(self, pages: List[int], holder: Any = None) -> None:
         """Add one reference per page: another holder (a lane's block
@@ -183,6 +219,10 @@ class PagePool:
             invariant(p in self._in_use,
                       f"share of unallocated page {p}", page=p)
             self._refcount[p] += 1
+        self.share_count += len(pages)
+        m = self.monitor
+        if m is not None and pages:
+            m.record("share", pages=list(pages), holder=holder)
 
     def cow(self, page: int, holder: Any = None) -> int:
         """Copy-on-write split: the caller gives up its reference on a
@@ -201,6 +241,11 @@ class PagePool:
         self._in_use.add(new)
         self._refcount[new] = 1
         self._refcount[page] -= 1
+        self.alloc_count += 1
+        self.cow_count += 1
+        m = self.monitor
+        if m is not None:
+            m.record("cow", old=page, new=new, holder=holder)
         return new
 
     def refcount(self, page: int) -> int:
@@ -220,11 +265,42 @@ class PagePool:
         """Total references across all in-use pages."""
         return sum(self._refcount.values())
 
+    def bind_registry(self, registry: MetricsRegistry,
+                      prefix: str = "pool") -> None:
+        """Publish the pool's occupancy as live callback gauges (they
+        read the allocator's own state, so the hot path pays nothing)."""
+        registry.gauge(f"{prefix}.pages.free", fn=lambda: self.n_free,
+                       help="free pages (incl. reserved)")
+        registry.gauge(f"{prefix}.pages.in_use", fn=lambda: self.n_in_use,
+                       help="pages allocated to live lanes")
+        registry.gauge(f"{prefix}.pages.reserved",
+                       fn=lambda: self._reserved,
+                       help="pages promised to admitted requests")
+        registry.gauge(f"{prefix}.pages.disabled",
+                       fn=lambda: self.n_disabled,
+                       help="pages retired for weight residency")
+        registry.gauge(f"{prefix}.pages.hwm", fn=lambda: self.hwm,
+                       help="high-water mark of in-use + reserved pages")
+        registry.gauge(f"{prefix}.pages.allocs",
+                       fn=lambda: self.alloc_count,
+                       help="cumulative page allocations")
+        registry.gauge(f"{prefix}.pages.frees",
+                       fn=lambda: self.free_count,
+                       help="cumulative page frees")
+        registry.gauge(f"{prefix}.pages.shared",
+                       fn=lambda: self.n_shared,
+                       help="in-use pages with more than one holder")
+        registry.gauge(f"{prefix}.pages.cow_splits",
+                       fn=lambda: self.cow_count,
+                       help="cumulative copy-on-write page splits")
+
     def check(self) -> None:
         """Raise unless the conservation invariants hold (test hook)."""
-        invariant(len(self._free) + len(self._in_use) == self.n_pages,
+        invariant(len(self._free) + len(self._in_use)
+                  + len(self._disabled) == self.n_pages,
                   "page conservation broken", n_free=len(self._free),
-                  n_in_use=len(self._in_use), n_pages=self.n_pages)
+                  n_in_use=len(self._in_use),
+                  n_disabled=len(self._disabled), n_pages=self.n_pages)
         invariant(len(set(self._free)) == len(self._free),
                   "duplicate page on the free list")
         invariant(not self._in_use.intersection(self._free),
@@ -249,6 +325,9 @@ class Request:
     max_new_tokens: int
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    #: degradation-ladder victim order: LOWER priority is evicted first
+    #: when the engine sheds load (ties: the longest live context)
+    priority: int = 0
 
 
 #: numpy has no bfloat16: a checkpoint carries a bf16 pool's values as
@@ -339,15 +418,6 @@ def _bucket_len(n: int, floor: int = 8) -> int:
 _POOL_KEY = {"k": "k_pages", "v": "v_pages", "k_scale": "k_scale_pages",
              "v_scale": "v_scale_pages"}
 
-#: the reference's STATS_SCHEMA keys the port moves, with its meanings
-STATS_KEYS = ("decode_dispatches", "decode_steps", "decode_compiles",
-              "generated_tokens", "prefill_compiles", "ssm_prefill_compiles",
-              "kv_pages_hwm", "kv_admit_blocked", "admit_rejected",
-              "preemptions", "restores", "pages_migrated", "prefix_hits",
-              "prefix_misses", "prefix_tokens_matched",
-              "prefix_pages_shared", "prefix_pages_saved",
-              "prefix_cow_copies", "prefix_evictions")
-
 
 class ServeEngine:
     """Continuous batcher around a decoder (dense, ssm or hybrid).
@@ -357,7 +427,7 @@ class ServeEngine:
     ``dispatch_n`` is the number of tokens each lane advances per
     dispatch.  ``temperature`` > 0 samples, keyed from ``rng_seed``;
     ``prefill_bucketing=False`` prefills each prompt at its own length.
-    ``stats`` holds the counters named in :data:`STATS_KEYS`;
+    ``stats`` holds the counters named in :data:`STATS_SCHEMA`;
     ``prefill_compiles`` counts distinct prefill shapes (the reference
     compiles once per shape), ``decode_compiles`` the distinct dispatch
     sizes (a CUDA graph captured for each on the card; the reference
@@ -386,21 +456,98 @@ class ServeEngine:
     :class:`LaneCheckpoint`.  Timed, a streamed tail's seconds go to
     ``timings["prefix_stream"]`` and its token count to
     ``timings["prefix_tail_tokens"]``.
+
+    Observability and resilience (the reference's, name for name;
+    :mod:`repro_torch.obs`): every counter lives in ``registry`` (a
+    fresh :class:`MetricsRegistry` unless one is shared) as
+    ``<name>.<suffix>`` of :data:`STATS_SCHEMA`, and ``stats`` is a
+    :class:`StatsView` over them; a paged engine publishes its pool as
+    ``<name>.pool.pages.*`` callback gauges.  ``tracer`` (a
+    :class:`SpanTracer`, disabled by default) gets the reference's spans
+    and instants on the engine's track (``name``) and its lanes'
+    (:meth:`lane_track`).  All are host-side: none synchronises the
+    device or enters a captured graph, so on the card
+
+    * ``admit`` (with ``prefill.bucket``, ``prefix.cow`` and
+      ``prefix.tail_prefill`` inside it) closes when the host has queued
+      the admission's launches and copies, not when the device has run
+      them (a prefix hit's tail stream reads nothing back either);
+    * ``decode.dispatch`` covers the page mapping, the launch or graph
+      replay, and the token read-back, which waits for the device: it
+      measures the dispatch's latency as the host sees it;
+    * ``preempt.evict`` includes the device-to-host copy of the lane's
+      pages (a sync); ``preempt.restore`` only queues its copies.
+
+    ``clock`` is the engine's one clock (default the tracer's,
+    ``time.perf_counter``): spans, SLO observations, ``timed`` and the
+    graph capture seconds all read it.  ``flight`` (a
+    :class:`FlightRecorder`) taps the tracer and is dumped when an
+    :class:`~repro_torch.analysis.invariants.InvariantError` escapes
+    ``admit``, a dispatch, an evict or the sanitizer's crosscheck.
+    ``slo`` (an :class:`~repro_torch.obs.slo.SLOController`) is fed
+    TTFT and TPOT at each dispatch's drain and stepped once per
+    dispatch.  ``ladder`` (a :class:`DegradationLadder`) makes
+    :meth:`run` shed load under page pressure: smaller dispatches,
+    deferred admissions, and at the top rung the lowest-priority lane
+    evicted to a checkpoint and restored when pressure clears.
+    ``sanitize=True`` (paged) shadows the pool with a strict
+    :class:`PageSanitizer` fed by the pool's mutators and the engine's
+    map/write/capture records, the write pages computed from the host
+    mirrors of lengths and budgets, and cross-checked at every dispatch
+    boundary.
     """
+
+    #: flat stats key -> namespaced metric suffix (the reference's
+    #: telemetry schema; full names prepend the engine's ``name``)
+    STATS_SCHEMA = {
+        "decode_dispatches": "decode.dispatches",
+        "decode_steps": "decode.steps",
+        "decode_compiles": "decode.compiles",
+        "generated_tokens": "tokens.generated",
+        "prefill_compiles": "prefill.compiles",
+        "ssm_prefill_compiles": "prefill.ssm_compiles",
+        "kv_pages_hwm": "kv.pages_hwm",
+        "kv_admit_blocked": "kv.admit_blocked",
+        "preemptions": "preempt.evictions",
+        "restores": "preempt.restores",
+        "pages_migrated": "preempt.pages_migrated",
+        "retry_attempts": "retry.attempts",
+        "retry_hedges": "retry.hedges",
+        "admit_rejected": "admit.rejected",
+        "degrade_transitions": "degrade.transitions",
+        "degrade_sheds": "degrade.sheds",
+        "prefix_hits": "prefix.hits",
+        "prefix_misses": "prefix.misses",
+        "prefix_tokens_matched": "prefix.tokens_matched",
+        "prefix_pages_shared": "prefix.pages_shared",
+        "prefix_pages_saved": "prefix.pages_saved",
+        "prefix_cow_copies": "prefix.cow_copies",
+        "prefix_evictions": "prefix.evictions",
+    }
 
     def __init__(self, cfg: ModelConfig, params, n_lanes: int = 4,
                  max_len: int = 512, temperature: float = 0.0,
                  rng_seed: int = 0, dispatch_n: int = 8,
                  prefill_bucketing: bool = True, paged: bool = False,
                  page_size: int = 16, n_pages: Optional[int] = None,
-                 prefix_sharing: bool = False, device=None,
-                 timed: bool = False):
+                 prefix_sharing: bool = False, sanitize: bool = False,
+                 tracer: Optional[SpanTracer] = None,
+                 registry: Optional[MetricsRegistry] = None,
+                 name: str = "serve",
+                 ladder: Optional[DegradationLadder] = None,
+                 clock: Optional[Callable[[], float]] = None,
+                 flight: Optional[FlightRecorder] = None,
+                 slo=None, device=None, timed: bool = False):
         self.device = resolve_device(device)
         param_dev = next(params.parameters()).device
         if param_dev.type != self.device.type:
             raise ValueError(f"params on {param_dev}, engine on "
                              f"{self.device}")
         self.cfg = cfg
+        # graceful-degradation ladder (None: run() never sheds)
+        self.ladder = ladder
+        if ladder is not None:
+            ladder.name = name
         self.model = build_model(cfg)
         self.params = params
         self.n_lanes = n_lanes
@@ -410,6 +557,7 @@ class ServeEngine:
         self.prefill_bucketing = prefill_bucketing
         self.paged = bool(paged)
         self.page_size = int(page_size)
+        self._sanitizer: Optional[PageSanitizer] = None
         if self.paged:
             # O(1) recurrent state of an ssm model needs no pages
             self._bt_width = (0 if cfg.attn_free else
@@ -427,6 +575,12 @@ class ServeEngine:
             # rows at the scratch page keeps that write off pages
             # re-issued to a live lane
             self._scratch_page = n_pages
+            if sanitize:
+                self._sanitizer = PageSanitizer(strict=True)
+                self.pool.monitor = self._sanitizer
+                self._sanitizer.record(
+                    "init", n_pages=n_pages, page_size=page_size,
+                    scratch=self._scratch_page)
             self.cache = self.model.init_paged_cache(
                 n_lanes, max_len, page_size=page_size, n_pages=n_pages + 1,
                 device=self.device)
@@ -478,8 +632,35 @@ class ServeEngine:
                 else:
                     self._stream_lane[key] = torch.zeros_like(t[:, :1])
             self._stream_tok = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.graphs = StepGraphs(dev)
-        self.stats: Dict[str, int] = {k: 0 for k in STATS_KEYS}
+        # telemetry: every counter lives in the registry under
+        # "<name>.<suffix>"; stats is a MutableMapping view over them
+        self.name = name
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else SpanTracer(
+            enabled=False, clock=clock, registry=self.registry)
+        # one clock per engine: spans, SLO observations, timed seconds
+        # and graph capture seconds all read it
+        self.clock = clock if clock is not None else self.tracer.clock
+        self.flight = flight
+        if flight is not None:
+            flight.attach(tracer=self.tracer)
+        self.slo = slo
+        self._admit_t: Dict[int, float] = {}
+        keymap = {k: f"{name}.{suffix}"
+                  for k, suffix in self.STATS_SCHEMA.items()}
+        for metric_name in keymap.values():
+            # a fresh engine starts its counters at zero even on a
+            # shared registry
+            self.registry.counter(metric_name).set(0)
+        self._stats = StatsView(self.registry, keymap)
+        if self.paged:
+            self.pool.bind_registry(self.registry, prefix=f"{name}.pool")
+        if self.prefix_cache is not None:
+            self.registry.gauge(
+                f"{name}.prefix.cached_pages",
+                fn=lambda: self.prefix_cache.n_pages,
+                help="pool pages the radix prompt cache holds a ref on")
+        self.graphs = StepGraphs(dev, clock=self.clock)
         self.timed = timed
         self.timings: Dict[str, Any] = {"prefill": defaultdict(list),
                                         "decode": [], "decode_replayed": [],
@@ -491,6 +672,23 @@ class ServeEngine:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- telemetry --------------------------------------------------------
+    @property
+    def stats(self) -> StatsView:
+        """The flat stats mapping, backed by the metrics registry."""
+        return self._stats
+
+    @stats.setter
+    def stats(self, values: Dict[str, Any]) -> None:
+        # the bench reset idiom (`eng.stats = {k: 0 for k in eng.stats}`)
+        # writes values through the view; the schema itself is fixed
+        for k, v in values.items():
+            self._stats[k] = v
+
+    def lane_track(self, lane: int) -> str:
+        """Trace track name for one lane of this engine."""
+        return f"{self.name}/lane{lane}"
 
     # -- admission --------------------------------------------------------
     def free_lanes(self) -> List[int]:
@@ -561,29 +759,41 @@ class ServeEngine:
                     if req.uid not in self._blocked_uids:
                         self._blocked_uids.add(req.uid)
                         self.stats["kv_admit_blocked"] += 1
+                        self.tracer.instant("admit.blocked",
+                                            track=self.lane_track(lane),
+                                            uid=req.uid, need_pages=need)
                     return False
             self._blocked_uids.discard(req.uid)
-            self._lane_reserved[lane] = reserve
-            self._lane_pages[lane] = []
-            if hit is None or hit.matched_len == 0:
-                # map the prompt's pages plus the first decode write
-                # slot; generation growth maps the rest at dispatch
-                # boundaries
-                self._map_pages(lane,
-                                self._pages_needed(self._trunc_plen(req) + 1))
-        self._lane_seed[lane] = self._admit_count
-        self._tok_idx[lane] = 0
-        if hit is not None and hit.matched_len > 0:
-            self._prefill_hit(req, lane, hit)
-        else:
+        if self.slo is not None and req.uid not in self._admit_t:
+            # TTFT starts at the first successful admission (a restore
+            # after an evict keeps the original mark)
+            self._admit_t[req.uid] = self.clock()
+        with flight_guard(self.flight, op="admit",
+                          registry=self.registry), \
+                self.tracer.span("admit", track=self.lane_track(lane),
+                                 uid=req.uid):
+            if self.paged:
+                self._lane_reserved[lane] = reserve
+                self._lane_pages[lane] = []
+                if hit is None or hit.matched_len == 0:
+                    # map the prompt's pages plus the first decode write
+                    # slot; generation growth maps the rest at dispatch
+                    # boundaries
+                    self._map_pages(lane, self._pages_needed(
+                        self._trunc_plen(req) + 1))
+            self._lane_seed[lane] = self._admit_count
+            self._tok_idx[lane] = 0
+            if hit is not None and hit.matched_len > 0:
+                self._prefill_hit(req, lane, hit)
+            else:
+                if self.prefix_cache is not None:
+                    self.stats["prefix_misses"] += 1
+                self._prefill_into_lane(req, lane)
             if self.prefix_cache is not None:
-                self.stats["prefix_misses"] += 1
-            self._prefill_into_lane(req, lane)
-        if self.prefix_cache is not None:
-            self._cache_lane_prefix(req, lane)
-        self.lane_req[lane] = req
-        self._remaining[lane] = req.max_new_tokens
-        self._remaining_host[lane] = req.max_new_tokens
+                self._cache_lane_prefix(req, lane)
+            self.lane_req[lane] = req
+            self._remaining[lane] = req.max_new_tokens
+            self._remaining_host[lane] = req.max_new_tokens
         return True
 
     def _map_pages(self, lane: int, target: int) -> None:
@@ -597,6 +807,9 @@ class ServeEngine:
         self._lane_pages[lane].extend(new)
         self.cache["block_tables"][lane, have:target] = torch.tensor(
             new, dtype=torch.int32).to(self.device)
+        s = self._sanitizer
+        if s is not None:
+            s.record("map", lane=lane, pages=list(new))
         self.stats["kv_pages_hwm"] = max(self.stats["kv_pages_hwm"],
                                          self.pool.hwm)
 
@@ -645,6 +858,9 @@ class ServeEngine:
         self._lane_pages[lane] = list(shared)
         self.cache["block_tables"][lane, :len(shared)] = torch.tensor(
             shared, dtype=torch.int32).to(self.device)
+        s = self._sanitizer
+        if s is not None:
+            s.record("map", lane=lane, pages=list(shared))
         if hit.partial is not None:
             self._cow_lane_page(lane, len(hit.pages))
         self._map_pages(lane, self._pages_needed(plen + 1))
@@ -653,6 +869,9 @@ class ServeEngine:
         self.stats["prefix_tokens_matched"] += hit.matched_len
         self.stats["prefix_pages_shared"] += len(shared)
         self.stats["prefix_pages_saved"] += hit.n_full
+        self.tracer.instant("prefix.hit", track=self.lane_track(lane),
+                            uid=req.uid, matched_tokens=hit.matched_len,
+                            shared_pages=len(shared))
         if self.cfg.kv_quant == "int8":
             # full pages only: the batched prefill gives the exact logits
             # and scatters the blocks the match did not cover
@@ -668,13 +887,18 @@ class ServeEngine:
         tables at their addresses.  The copy is queued in stream order,
         so it snapshots the donor's writes so far."""
         old = self._lane_pages[lane][idx]
-        new = self.pool.cow(old, holder=lane)
-        self._lane_reserved[lane] -= 1
-        self._lane_pages[lane][idx] = new
-        for key in _POOL_KEY.values():
-            if key in self.cache:
-                self.cache[key][:, new].copy_(self.cache[key][:, old])
-        self.cache["block_tables"][lane, idx] = new
+        with self.tracer.span("prefix.cow", track=self.lane_track(lane),
+                              page=old):
+            new = self.pool.cow(old, holder=lane)
+            self._lane_reserved[lane] -= 1
+            self._lane_pages[lane][idx] = new
+            for key in _POOL_KEY.values():
+                if key in self.cache:
+                    self.cache[key][:, new].copy_(self.cache[key][:, old])
+            self.cache["block_tables"][lane, idx] = new
+            s = self._sanitizer
+            if s is not None:
+                s.record("write", lane=lane, pages=[new], kind="cow_copy")
         self.stats["prefix_cow_copies"] += 1
         self.stats["kv_pages_hwm"] = max(self.stats["kv_pages_hwm"],
                                          self.pool.hwm)
@@ -692,24 +916,36 @@ class ServeEngine:
         tlen = int(tail.shape[0])
         invariant(tlen >= 1, "prefix match must leave a tail token",
                   plen=plen, matched_len=matched_len)
-        self._tail_buckets.add(_bucket_len(tlen) if self.prefill_bucketing
-                               else tlen)
+        bucket = _bucket_len(tlen) if self.prefill_bucketing else tlen
+        self._tail_buckets.add(bucket)
         self.stats["ssm_prefill_compiles"] = len(self._tail_buckets)
+        s = self._sanitizer
+        if s is not None:
+            # the streamed tail writes positions [matched_len, plen) and
+            # the first decode write slot's page
+            pages = self._lane_pages[lane][matched_len // self.page_size:
+                                           self._pages_needed(plen + 1)]
+            if pages:
+                s.record("write", lane=lane, pages=list(pages),
+                         kind="prefill")
         if self.timed:
             self._sync()
-            t0 = time.perf_counter()
+            t0 = self.clock()
         captured = "stream_step" in self.graphs.capture_s
         buf = self._stream_lane
         buf["len"].fill_(matched_len)
         buf["block_tables"].copy_(self.cache["block_tables"][lane:lane + 1])
-        logits = self._replay_stream(tail)
+        with self.tracer.span("prefix.tail_prefill",
+                              track=self.lane_track(lane),
+                              bucket=bucket, tlen=tlen):
+            logits = self._replay_stream(tail)
         self.cache["len"][lane] = plen
         self._set_first_token(logits, lane)
         if self.timed:
             self._sync()
             capture = (0.0 if captured else
                        self.graphs.capture_s.get("stream_step", 0.0))
-            self.timings["prefix_stream"].append(time.perf_counter() - t0
+            self.timings["prefix_stream"].append(self.clock() - t0
                                                  - capture)
             self.timings["prefix_tail_tokens"].append(tlen)
 
@@ -742,15 +978,17 @@ class ServeEngine:
         padded[0, :plen] = prompt
         if self.timed:
             self._sync()
-            t0 = time.perf_counter()
-        logits, kv = self.model.prefill(
-            self.params, torch.from_numpy(padded).to(self.device),
-            last_pos=torch.tensor([plen - 1], device=self.device))
-        if kv is not None:
-            if self.paged:
-                self._scatter_prompt_paged(kv, lane, plen, first_block)
-            else:
-                self._scatter_prompt_dense(kv, lane, plen)
+            t0 = self.clock()
+        with self.tracer.span("prefill.bucket", track=self.lane_track(lane),
+                              bucket=bucket, plen=plen):
+            logits, kv = self.model.prefill(
+                self.params, torch.from_numpy(padded).to(self.device),
+                last_pos=torch.tensor([plen - 1], device=self.device))
+            if kv is not None:
+                if self.paged:
+                    self._scatter_prompt_paged(kv, lane, plen, first_block)
+                else:
+                    self._scatter_prompt_dense(kv, lane, plen)
         if self.cfg.has_ssm:
             # the recurrent state is rebuilt by streaming the prompt
             # through the decode step; its logits give the first token
@@ -760,7 +998,7 @@ class ServeEngine:
             self._set_first_token(logits, lane)
         if self.timed:
             self._sync()
-            self.timings["prefill"][bucket].append(time.perf_counter() - t0)
+            self.timings["prefill"][bucket].append(self.clock() - t0)
 
     def _prompt_kv_views(self, kv, plen: int, smax: int):
         """Last ``take = min(plen, smax)`` prompt positions of the
@@ -809,8 +1047,8 @@ class ServeEngine:
         if first_block >= n_pg:
             return
         pad = n_pg * ps - take
-        pages = torch.tensor(self._lane_pages[lane][first_block:n_pg],
-                             dtype=torch.long).to(self.device)
+        written = self._lane_pages[lane][first_block:n_pg]
+        pages = torch.tensor(written, dtype=torch.long).to(self.device)
         for key, src in entries.items():
             pool = self.cache[_POOL_KEY[key]]
             if pad:
@@ -818,6 +1056,9 @@ class ServeEngine:
             n_l, hkv, _, d = src.shape
             seg = src.reshape(n_l, hkv, n_pg, ps, d).permute(0, 2, 1, 3, 4)
             pool[:, pages] = seg[:, first_block:].to(pool.dtype)
+        s = self._sanitizer
+        if s is not None and written:
+            s.record("write", lane=lane, pages=list(written), kind="prefill")
 
     def _stream_step(self) -> torch.Tensor:
         """One batch-1 decode step of the prompt stream over its own
@@ -864,7 +1105,7 @@ class ServeEngine:
         self.stats["ssm_prefill_compiles"] = len(self._buckets)
         if self.timed:
             self._sync()
-            t0 = time.perf_counter()
+            t0 = self.clock()
         captured = "stream_step" in self.graphs.capture_s
         buf = self._stream_lane
         # the stream starts from zero state: a re-admitted lane must NOT
@@ -884,11 +1125,17 @@ class ServeEngine:
                         buf[key][:, 0, :, :take])
         self.cache["len"][lane] = plen
         self._set_first_token(logits, lane)
+        s = self._sanitizer
+        if s is not None and self._lane_pages[lane]:
+            # a hybrid lane streams the whole prompt through the decode
+            # step; every mapped page is this lane's alone
+            s.record("write", lane=lane, pages=list(self._lane_pages[lane]),
+                     kind="prefill")
         if self.timed:
             self._sync()
             capture = (0.0 if captured else
                        self.graphs.capture_s.get("stream_step", 0.0))
-            self.timings["ssm_stream"].append(time.perf_counter() - t0
+            self.timings["ssm_stream"].append(self.clock() - t0
                                               - capture)
 
     def _set_first_token(self, logits: torch.Tensor, lane: int) -> None:
@@ -945,38 +1192,89 @@ class ServeEngine:
         if not live:
             return {}
         n = self._dispatch_size(n)
-        self.map_dispatch_pages(n)
-        if self.timed:
-            self._sync()
-            t0 = time.perf_counter()
-        block, first = self.graphs.run(n, lambda: self._decode_block(n))
-        if first:
-            self.stats["decode_compiles"] += 1
-        self.stats["decode_dispatches"] += 1
-        self.stats["decode_steps"] += n
-        # one host transfer drains the whole block
-        block = block.cpu().numpy()
-        if self.timed:
-            capture = self.graphs.capture_s.get(n, 0.0) if first else 0.0
-            self.timings["decode"].append(time.perf_counter() - t0 - capture)
-            self.timings["decode_replayed"].append(self.graphs.on_card
-                                                   and not first)
+        t_disp0 = self.clock() if self.slo is not None else 0.0
+        with flight_guard(self.flight, op="decode.dispatch",
+                          registry=self.registry), \
+                self.tracer.span(
+                    "decode.dispatch", track=self.name, n_steps=n,
+                    n_live=len(live),
+                    uids=tuple(self.lane_req[i].uid for i in live)):
+            self.map_dispatch_pages(n)
+            if self._sanitizer is not None:
+                self._record_dispatch_writes(live, n)
+            if self.timed:
+                self._sync()
+                t0 = self.clock()
+            block, first = self.graphs.run(n, lambda: self._decode_block(n))
+            if first:
+                self.stats["decode_compiles"] += 1
+            self.stats["decode_dispatches"] += 1
+            self.stats["decode_steps"] += n
+            # one host transfer drains the whole block
+            block = block.cpu().numpy()
+            if self.timed:
+                capture = self.graphs.capture_s.get(n, 0.0) if first else 0.0
+                self.timings["decode"].append(self.clock() - t0 - capture)
+                self.timings["decode_replayed"].append(self.graphs.on_card
+                                                       and not first)
         toks_h = block[:n]
         valid_h = block[n:2 * n].astype(bool)
         self._remaining_host = block[2 * n].astype(np.int64)
+        slo = self.slo
+        if slo is not None:
+            now = self.clock()
+            disp_s = now - t_disp0
         out: Dict[int, List[int]] = {}
         for lane in live:
             req = self.lane_req[lane]
             seq = [int(t) for t in toks_h[valid_h[:, lane], lane]]
+            first_tok = not req.generated and bool(seq)
             req.generated.extend(seq)
             out[req.uid] = seq
             self.stats["generated_tokens"] += len(seq)
             # the device length advanced once per valid sample
             self._len_host[lane] += len(seq)
+            if first_tok:
+                self.tracer.instant("first_token",
+                                    track=self.lane_track(lane),
+                                    uid=req.uid)
+                if slo is not None:
+                    t_admit = self._admit_t.pop(req.uid, None)
+                    if t_admit is not None:
+                        slo.monitor.observe_ttft(now - t_admit, t=now)
+            if slo is not None and seq:
+                slo.monitor.observe_tpot(disp_s / len(seq), t=now)
             if self._remaining_host[lane] <= 0:
                 req.done = True
+                self.tracer.instant("retire", track=self.lane_track(lane),
+                                    uid=req.uid, gen=len(req.generated))
                 self._release_lane(lane)
+        if slo is not None:
+            slo.step(now)
+        if self._sanitizer is not None:
+            # dispatch boundary: the shadow state must equal the pool
+            with flight_guard(self.flight, op="sanitizer.crosscheck",
+                              registry=self.registry):
+                self._sanitizer.crosscheck(self.pool)
         return out
+
+    def _record_dispatch_writes(self, live: List[int], n: int) -> None:
+        """Sanitizer records of the pages an ``n``-step dispatch writes,
+        per live lane, from the host mirrors of length and budget (no
+        device read): the slots ``[len, len + steps]``, or a windowed
+        lane's whole page set, which its ring write rotates through."""
+        for lane in live:
+            steps = min(n, int(self._remaining_host[lane]))
+            start = int(self._len_host[lane])
+            if self.cfg.sliding_window is not None:
+                pages = list(self._lane_pages[lane])
+            else:
+                pages = self._lane_pages[lane][
+                    start // self.page_size:
+                    self._pages_needed(start + steps + 1)]
+            if pages:
+                self._sanitizer.record("write", lane=lane, pages=pages,
+                                       kind="decode")
 
     def _release_lane(self, lane: int) -> None:
         """Return a lane to the DEAD state (retirement and eviction both
@@ -1001,6 +1299,10 @@ class ServeEngine:
         """Page ids mapped by ``lane``'s block table, in logical order."""
         return list(self._lane_pages[lane])
 
+    def lane_context(self, lane: int) -> int:
+        """Live context length of ``lane`` (host mirror, no sync)."""
+        return int(self._len_host[lane])
+
     # -- preemption: evict and restore ---------------------------------------
     def evict(self, lane: int) -> LaneCheckpoint:
         """Checkpoint and release a live lane at a dispatch boundary.
@@ -1015,27 +1317,36 @@ class ServeEngine:
         invariant(self.paged, "evict/restore: paged engines only")
         req = self.lane_req[lane]
         invariant(req is not None, f"evict of idle lane {lane}", lane=lane)
-        pages = list(self._lane_pages[lane])
-        invariant(self._scratch_page not in pages,
-                  "scratch page leaked into a live block table", lane=lane)
-        idx = torch.tensor(pages, dtype=torch.long).to(self.device)
-        kv = {key: self._to_wire(self.cache[key][:, idx])
-              for key in _POOL_KEY.values() if key in self.cache}
-        ssm = {key: self._to_wire(self.cache[key][:, lane])
-               for key in ("ssm_h", "ssm_conv") if key in self.cache}
-        ckpt = LaneCheckpoint(
-            req=req, lane_seed=int(self._lane_seed[lane]),
-            tok_idx=int(self._tok_idx[lane]),
-            remaining=int(self._remaining_host[lane]),
-            ctx_len=int(self._len_host[lane]),
-            next_token=int(self._next_token[lane]),
-            page_size=self.page_size, kv_pages=kv, ssm_state=ssm)
-        # the evicted lane is dead: a dispatch before re-admission samples
-        # only invalid tokens for it
-        self._remaining[lane] = 0
-        self._remaining_host[lane] = 0
-        self._release_lane(lane)
-        self.stats["preemptions"] += 1
+        with flight_guard(self.flight, op="preempt.evict",
+                          registry=self.registry), \
+                self.tracer.span("preempt.evict",
+                                 track=self.lane_track(lane), uid=req.uid,
+                                 n_pages=len(self._lane_pages[lane])):
+            pages = list(self._lane_pages[lane])
+            invariant(self._scratch_page not in pages,
+                      "scratch page leaked into a live block table",
+                      lane=lane)
+            s = self._sanitizer
+            if s is not None:
+                s.record("capture", lane=lane, pages=pages)
+            idx = torch.tensor(pages, dtype=torch.long).to(self.device)
+            kv = {key: self._to_wire(self.cache[key][:, idx])
+                  for key in _POOL_KEY.values() if key in self.cache}
+            ssm = {key: self._to_wire(self.cache[key][:, lane])
+                   for key in ("ssm_h", "ssm_conv") if key in self.cache}
+            ckpt = LaneCheckpoint(
+                req=req, lane_seed=int(self._lane_seed[lane]),
+                tok_idx=int(self._tok_idx[lane]),
+                remaining=int(self._remaining_host[lane]),
+                ctx_len=int(self._len_host[lane]),
+                next_token=int(self._next_token[lane]),
+                page_size=self.page_size, kv_pages=kv, ssm_state=ssm)
+            # the evicted lane is dead: a dispatch before re-admission
+            # samples only invalid tokens for it
+            self._remaining[lane] = 0
+            self._remaining_host[lane] = 0
+            self._release_lane(lane)
+            self.stats["preemptions"] += 1
         return ckpt
 
     @staticmethod
@@ -1104,17 +1415,26 @@ class ServeEngine:
         self._blocked_uids.discard(ckpt.uid)
         self._lane_reserved[lane] = need
         self._lane_pages[lane] = []
+        restore_span = self.tracer.span(
+            "preempt.restore", track=self.lane_track(lane),
+            uid=ckpt.uid, n_pages=ckpt.n_pages)
         try:
-            self._map_pages(lane, ckpt.n_pages)
-            if self._lane_pages[lane]:
-                idx = torch.tensor(self._lane_pages[lane],
-                                   dtype=torch.long).to(self.device)
-                for key, val in ckpt.kv_pages.items():
+            with restore_span:
+                self._map_pages(lane, ckpt.n_pages)
+                if self._lane_pages[lane]:
+                    idx = torch.tensor(self._lane_pages[lane],
+                                       dtype=torch.long).to(self.device)
+                    for key, val in ckpt.kv_pages.items():
+                        dst = self.cache[key]
+                        dst[:, idx] = self._from_wire(val, dst)
+                for key, val in ckpt.ssm_state.items():
                     dst = self.cache[key]
-                    dst[:, idx] = self._from_wire(val, dst)
-            for key, val in ckpt.ssm_state.items():
-                dst = self.cache[key]
-                dst[:, lane] = self._from_wire(val, dst)
+                    dst[:, lane] = self._from_wire(val, dst)
+                s = self._sanitizer
+                if s is not None and self._lane_pages[lane]:
+                    s.record("write", lane=lane,
+                             pages=list(self._lane_pages[lane]),
+                             kind="restore")
         except Exception:
             # a payload that does not fit this engine's cache: the
             # reservation and the pages mapped so far go back, or they
@@ -1153,20 +1473,94 @@ class ServeEngine:
             pool_pages=(self.pool.n_pages if self.paged else None),
             n_lanes=self.n_lanes)
 
+    def _shed_victim(self) -> Optional[int]:
+        """Lane the degradation ladder evicts next: lowest request
+        priority first, then the longest live context (most pages back);
+        never the last live lane."""
+        live = self.live_lanes()
+        if len(live) < 2:
+            return None
+        return min(live, key=lambda i: (self.lane_req[i].priority,
+                                        -self.lane_context(i), i))
+
     def run(self, requests: List[Request],
             dispatch_n: Optional[int] = None) -> List[Request]:
         """Serve a workload to completion with continuous admission.
 
+        With a :class:`DegradationLadder` attached, sustained page
+        pressure or repeated page-blocked admissions escalate load
+        shedding: the dispatch size shrinks (each new size is a new CUDA
+        graph on the card, counted by ``decode_compiles``), new
+        admissions are deferred (backpressure), and at the top rung the
+        lowest-priority lane is evicted to a checkpoint and restored once
+        pressure clears.
+
         Raises :class:`AdmissionRejected` when the head request can never
         be admitted and nothing is in flight."""
+        ladder = self.ladder
         pending = list(requests)
-        while pending or self.live_lanes():
+        shed: deque = deque()        # checkpoints the ladder evicted
+        while pending or shed or self.live_lanes():
+            # shed checkpoints re-enter first (their tokens are paid
+            # for), but not while the ladder still sits at the evict
+            # rung with live work, or restore and evict would thrash
+            while shed and self.free_lanes():
+                if ladder is not None and ladder.should_evict \
+                        and self.live_lanes():
+                    break
+                if not self.restore(shed[0]):
+                    break
+                shed.popleft()
             while pending and self.free_lanes():
+                if ladder is not None and ladder.refusing_admissions \
+                        and (self.live_lanes() or shed):
+                    # backpressure rung: finish in-flight work first
+                    break
                 if not self.admit(pending[0]):
-                    break           # wait for retirements to free pages
+                    # a lane is free but the pages are not: wait for
+                    # retirements to refill the pool
+                    if ladder is not None and self.paged:
+                        ladder.note_admission_blocked(pending[0].uid)
+                        self.stats["degrade_transitions"] = \
+                            len(ladder.transitions)
+                    break
+                if ladder is not None:
+                    ladder.note_ok()
                 pending.pop(0)
             if not self.live_lanes():
+                if shed:
+                    # every live lane was shed and none could restore:
+                    # the head checkpoint fit before, so it fits an
+                    # empty engine
+                    restored = self.restore(shed[0])
+                    invariant(restored, "shed checkpoint no longer fits "
+                              "an empty engine", uid=shed[0].uid)
+                    shed.popleft()
+                    continue
                 raise self._never_admissible(pending[0])
-            self.decode_n(dispatch_n if dispatch_n is not None
-                          else self.dispatch_n)
+            n = dispatch_n if dispatch_n is not None else self.dispatch_n
+            if ladder is not None:
+                n = ladder.dispatch_n(n)
+            self.decode_n(n)
+            if ladder is not None:
+                if self.paged:
+                    pool = self.pool
+                    ladder.note_pressure(
+                        (pool.n_pages - pool.available()) / pool.n_pages)
+                else:
+                    ladder.note_ok()
+                self.stats["degrade_transitions"] = len(ladder.transitions)
+                if ladder.should_evict and self.paged:
+                    victim = self._shed_victim()
+                    if victim is not None:
+                        uid = self.lane_req[victim].uid
+                        shed.append(self.evict(victim))
+                        self.stats["degrade_sheds"] += 1
+                        self.tracer.instant(
+                            "degrade.shed", track=self.lane_track(victim),
+                            uid=uid, level=ladder.level_name)
         return requests
+
+
+#: the flat stats keys, in the schema's order
+STATS_KEYS = tuple(ServeEngine.STATS_SCHEMA)

@@ -49,7 +49,11 @@ def test_every_module_imports_with_jax_blocked():
         "          'models.ssm', 'configs.mamba2_780m',\n"
         "          'configs.hymba_1_5b', 'serving.prefix_cache',\n"
         "          'configs.olmo_1b', 'configs.mistral_nemo_12b',\n"
-        "          'configs.qwen2_5_32b', 'configs.qwen1_5_110b'):\n"
+        "          'configs.qwen2_5_32b', 'configs.qwen1_5_110b',\n"
+        "          'obs.metrics', 'obs.trace', 'obs.events', 'obs.flight',\n"
+        "          'obs.requests', 'obs.slo', 'obs.schema', 'obs.dump',\n"
+        "          'serving.resilience', 'analysis.sanitizer',\n"
+        "          'analysis.interleave'):\n"
         "    assert 'repro_torch.' + m in names, names\n"
         "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -57,7 +61,7 @@ def test_every_module_imports_with_jax_blocked():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 34
+    assert int(res.stdout.strip()) >= 68
 
 
 def test_no_source_names_jax_or_the_reference():
