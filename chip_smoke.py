@@ -250,7 +250,39 @@ order (any failure raises and the script exits non-zero):
    every stream equals an engine's without a ladder (same ``n_lanes``,
    ``n_pages`` and seed) bit for bit; decode_compiles equals the
    number of distinct dispatch sizes (one graph each); transitions,
-   sizes and both walls printed.
+   sizes and both walls printed;
+32. (there too) quantized weights at SMOKE width in float32:
+   ``quantize_params`` on the card gives the CPU port's stats and
+   planes bit for bit in q8_0, q6_k, q4_k and q2_k (one leaf,
+   ``embed.tok``: the reference's rule on its stacked tree), the
+   dequantized tensors bitwise too; greedy streams over the dequantized
+   q8_0 and q4_k weights equal CPU vs card, fixed-lane and paged; the
+   README's canonical launch (``--smoke --quant q8_0 --paged
+   --page-size 16 --prefix-sharing``) exits 0 on the card;
+33. full width, qwen2.5-1.5b bf16, phase 7's traffic paged (256 pages,
+   8 lanes), served over the dense weights and over the dequantized
+   q8_0 and q4_k weights: one leaf quantized, ``embed.tok`` (152064 x
+   1536), its planes quantized on the card bitwise those quantized on
+   the CPU; K1 28 times a decode step, the replay gates of phase 7;
+   tok/s of each serve;
+34. multi-model serving at full width: qwen2.5-1.5b and olmo-1b in
+   bf16 (host master copies in one ``ModelPool``), an alternating trace
+   of 6 requests through ``MultiModelServeEngine`` (pages of 16, 8
+   lanes, ``max_len`` 1024) at 6.0e9 B (both resident) and 4.0e9 B (one
+   at a time, LRU swaps and reloads): every stream bitwise equal to its
+   model's single-engine serve, every pool checked and empty, each
+   unload returning at least 90% of the model's weight bytes of device
+   memory; weight and page bytes, swaps, the modelled swap seconds over
+   the CMP 170HX's host link and the measured host-to-device seconds
+   of each load printed;
+35. the execution replay: at SMOKE width ``run_trace_on_engine`` (dense
+   and paged), ``run_trace_with_faults`` and
+   ``run_multimodel_trace_on_engine`` give the CPU port's results on
+   the card; at full width (qwen2.5-1.5b paged, a Poisson trace of 19
+   requests) ``validate_recovery_exactness`` and
+   ``validate_preemption_exactness`` hold, the crashed node's flight
+   dump exists, and ``calibrate_replay`` of the replay against
+   ``predict_replay`` passes its gate.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -3551,6 +3583,476 @@ def phase_ladder_full(dev, cfg, params):
     return out
 
 
+# ----------------------------------------------------------------------
+# quantized weights (M11 + M14), multi-model serving on one byte budget
+# (M9), the execution replay with crash recovery (M10)
+# ----------------------------------------------------------------------
+
+def _planes_differ(a, b):
+    """Planes of two ``QTensor``s that are not bitwise equal."""
+    import torch
+    from repro_torch.quant import PLANES
+    out = []
+    for name in PLANES:
+        x, y = getattr(a, name), getattr(b, name)
+        if (x is None) != (y is None) or (
+                x is not None and not torch.equal(x.cpu(), y.cpu())):
+            out.append(name)
+    return out
+
+
+def phase_quant_smoke(dev):
+    """Phase 32: ``quantize_params`` of float32 SMOKE qwen2.5-1.5b on the
+    card, planes bitwise the CPU port's in all four formats, dequantized
+    tensors bitwise; greedy streams over the dequantized q8_0 and q4_k
+    weights equal CPU vs card, fixed-lane and paged (K3, K1 and K2's
+    CUDA-core kernel launched); the README's canonical launch exits 0
+    on the card."""
+    import dataclasses
+    import os
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving import (ServeEngine, dequantize_params,
+                                     device_copy, quantize_params)
+    tag = "[quant smoke]"
+    cfg = dataclasses.replace(get_config("qwen2.5-1.5b", smoke=True),
+                              dtype="float32")
+    cpu = torch.device("cpu")
+    params = build_model(cfg).init(torch.Generator().manual_seed(SEED), cpu)
+    on_card = device_copy(cfg, params, dev)
+    out = {}
+    for fmt in QFMTS:
+        qc, sc = quantize_params(params, fmt)
+        qd, sd = quantize_params(on_card, fmt)
+        if sc != sd or sorted(qc.quantized) != ["embed.tok"]:
+            fail(f"{tag} {fmt}: stats CPU {sc}, card {sd}, quantized "
+                 f"{sorted(qc.quantized)}")
+        for path in sorted(qc.quantized):
+            differ = _planes_differ(qc.quantized[path], qd.quantized[path])
+            if differ:
+                fail(f"{tag} {fmt} {path}: planes {differ} differ CPU vs "
+                     f"card")
+        dc, dd = dequantize_params(qc), dequantize_params(qd)
+        if not torch.equal(dc.embed.tok, dd.embed.tok.cpu()):
+            fail(f"{tag} {fmt}: dequantized embed.tok differs CPU vs card")
+        out[fmt] = {"stats": sd}
+        if fmt not in ("q8_0", "q4_k"):
+            continue
+        for paged in (False, True):
+            streams = {}
+            for where, p in (("cpu", dc), ("cuda", dd)):
+                eng = ServeEngine(cfg, p, n_lanes=4, max_len=128,
+                                  rng_seed=SEED + 3, paged=paged,
+                                  page_size=16, n_pages=24, device=where)
+                reqs = _requests(cfg, 10, 3, 140, 16, SEED + 1)
+                reset_launch_counts()
+                eng.run(reqs)
+                counts = launch_counts()
+                streams[where] = [r.generated for r in reqs]
+                if where == "cuda":
+                    k = ("decode_attention_paged" if paged
+                         else "decode_attention_lengthaware")
+                    if not (counts[k] and counts["flash_attention_cc"]):
+                        fail(f"{tag} {fmt} paged={paged}: a kernel of the "
+                             f"path never launched: {counts}")
+                    eng.graphs.release()
+            if streams["cpu"] != streams["cuda"]:
+                fail(f"{tag} {fmt} paged={paged}: streams differ CPU vs "
+                     f"card")
+            print(f"{tag} {fmt} paged={paged}: {len(streams['cpu'])}/"
+                  f"{len(streams['cpu'])} float32 SMOKE streams over the "
+                  f"dequantized weights identical CPU vs card")
+    print(f"{tag} planes bitwise CPU vs card for {list(QFMTS)}; stats "
+          f"{ {f: out[f]['stats'] for f in QFMTS} }")
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            "qwen2.5-1.5b", "--smoke", "--quant", "q8_0", "--paged",
+            "--page-size", "16", "--prefix-sharing"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or \
+            not lines[-1].endswith("(q8_0)") or \
+            not any(ln.startswith("quantized 1 weight matrices")
+                    for ln in lines):
+        fail(f"{tag} the README's canonical launch failed (exit "
+             f"{res.returncode}): {res.stdout[-2000:]} {res.stderr[-2000:]}")
+    print(f"{tag} README launch `{' '.join(argv[2:])}` exit 0 in "
+          f"{time.perf_counter() - t0:.1f}s on the card:")
+    for ln in lines:
+        if ln.startswith(("quantized", "served", "prefix sharing",
+                          "capability")):
+            print(f"{tag}   {ln}")
+    out["readme_launch"] = [ln for ln in lines
+                            if ln.startswith(("quantized", "served"))]
+    return out
+
+
+def phase_quant_full(dev, cfg, params):
+    """Phase 33: full-width qwen2.5-1.5b bf16, the main path's traffic,
+    paged (256 pages of 16, 8 lanes), served over the unquantized
+    weights and over ``dequantize_params`` of q8_0 and q4_k: one leaf
+    quantized (``embed.tok``, 152064 x 1536), its planes quantized on
+    the card bitwise those quantized on the CPU; K1 28 times a decode
+    step, K2's tensor-core kernel, replays == dispatches -
+    decode_compiles (``serve_full``); tok/s of each serve."""
+    import torch
+    from repro_torch.quant import quantize
+    from repro_torch.serving import dequantize_params, quantize_params
+    tag = "[quant full]"
+    need = ("decode_attention_paged", "flash_attention_mma")
+    kw = dict(paged=True, page_size=16, n_pages=256)
+    out = {}
+    _, plain = serve_full(dev, cfg, params, "quant full none paged", need,
+                          **kw)
+    out["none"] = {"tok_s": plain["tok_s"], "wall_s": plain["wall_s"]}
+    for fmt in ("q8_0", "q4_k"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qp, st = quantize_params(params, fmt)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t0
+        print(f"{tag} {fmt}: quantized {st['quantized']} weight matrices "
+              f"({st['quantized_bytes']/1e6:.1f} MB vs dense "
+              f"{st['dense_bytes']/1e6:.1f} MB kept dense); stats {st}; "
+              f"{q_s:.3f}s on the card")
+        qt = qp.quantized.get("embed.tok")
+        if st["quantized"] != 1 or sorted(qp.quantized) != ["embed.tok"] \
+                or tuple(qt.shape) != (cfg.padded_vocab, cfg.d_model):
+            fail(f"{tag} {fmt}: expected embed.tok "
+                 f"({cfg.padded_vocab}, {cfg.d_model}) alone, got "
+                 f"{ {p: q.shape for p, q in qp.quantized.items()} }")
+        t0 = time.perf_counter()
+        on_cpu = quantize(params.embed.tok.cpu(), fmt)
+        cpu_s = time.perf_counter() - t0
+        differ = _planes_differ(qt, on_cpu)
+        if differ:
+            fail(f"{tag} {fmt}: embed.tok planes {differ} differ card vs "
+                 f"CPU")
+        print(f"{tag} {fmt}: embed.tok planes bitwise card vs CPU "
+              f"({cpu_s:.1f}s on the CPU)")
+        deq = dequantize_params(qp)
+        del qp, qt, on_cpu
+        counts, summary = serve_full(dev, cfg, deq, f"quant full {fmt} paged",
+                                     need, **kw)
+        per_step = counts["decode_attention_paged"] / summary["decode_steps"]
+        if per_step != cfg.n_layers:
+            fail(f"{tag} {fmt}: K1 launched {per_step} times a decode step")
+        out[fmt] = {"stats": st, "tok_s": summary["tok_s"],
+                    "wall_s": summary["wall_s"], "quantize_s": q_s,
+                    "replays": summary["graphs"]["replays"]}
+        del deq
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"{tag} tok/s paged, 16 requests: none {out['none']['tok_s']:.1f}"
+          f", q8_0 {out['q8_0']['tok_s']:.1f}, q4_k "
+          f"{out['q4_k']['tok_s']:.1f} ({gpu_line()})")
+    return out
+
+
+#: phase 34's byte budgets: both models resident with shrunk pools, and
+#: one at a time (LRU swaps and reloads)
+MM_BUDGETS = (6.0e9, 4.0e9)
+
+
+def phase_multimodel_full(dev, cfg, params):
+    """Phase 34: qwen2.5-1.5b and olmo-1b at full width, bf16, pages of
+    16, 8 lanes, max_len 1024, host master copies registered in one
+    ``ModelPool``; an alternating trace served by
+    ``MultiModelServeEngine`` at 6.0e9 B (both resident, their pools
+    below the two dense targets: the later load is shrunk to what is
+    left) and 4.0e9 B (one at a time: LRU swaps and reloads).  Each
+    model's streams equal the same requests served alone by one
+    ``ServeEngine`` bit for bit; every pool checks and holds no page; after each unload ``memory_allocated`` has fallen
+    by at least 90% of the model's weight bytes; swaps, bytes, the
+    modelled swap seconds (the CMP 170HX's host link) and the measured
+    host-to-device seconds of each load."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving import (ModelPool, MultiModelServeEngine,
+                                     ServeEngine, device_copy,
+                                     kv_page_bytes, params_nbytes)
+    tag = "[multimodel full]"
+    cpu = torch.device("cpu")
+    ocfg = get_config("olmo-1b")
+    t0 = time.perf_counter()
+    olmo_card = build_model(ocfg).init(
+        torch.Generator(device=dev).manual_seed(SEED + 1), dev)
+    hosts = {"olmo-1b": (ocfg, device_copy(ocfg, olmo_card, cpu)),
+             "qwen2.5-1.5b": (cfg, device_copy(cfg, params, cpu))}
+    del olmo_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{tag} host master copies made in "
+          f"{time.perf_counter() - t0:.1f}s")
+    n_lanes, max_len, ps = 8, 1024, 16
+    bt = max_len // ps
+    figures = {}
+    for mid, (c, p) in sorted(hosts.items()):
+        wb, pb = params_nbytes(p), kv_page_bytes(c, ps)
+        figures[mid] = {"weight_bytes": wb, "page_bytes": pb,
+                        "dense_target_bytes": (n_lanes * bt + 1) * pb}
+        print(f"{tag} {mid}: weights {wb} B ({wb / 1e9:.3f} GB), a page "
+              f"{pb} B, the dense target {n_lanes * bt + 1} pages = "
+              f"{(n_lanes * bt + 1) * pb} B")
+
+    def reqs():
+        out = _requests(cfg, 6, 64, 300, 32, SEED + 7)
+        for r in out:
+            r.model_id = ("qwen2.5-1.5b", "olmo-1b")[r.uid % 2]
+            r.prompt = r.prompt % min(c.vocab_size
+                                      for c, _ in hosts.values())
+        return out
+
+    class Watched(MultiModelServeEngine):
+        """Records device memory around every unload."""
+
+        freed = []
+
+        def _unload(self, model_id):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated(dev)
+            super()._unload(model_id)
+            torch.cuda.synchronize()
+            self.freed.append((model_id,
+                               before - torch.cuda.memory_allocated(dev)))
+
+    engine_kw = dict(n_lanes=n_lanes, max_len=max_len, dispatch_n=8,
+                     rng_seed=SEED)
+    streams, runs = {}, {}
+    for budget in MM_BUDGETS:
+        pool = ModelPool(budget, page_size=ps)
+        for mid in sorted(hosts):
+            pool.register(mid, *hosts[mid])
+        mm = Watched(pool, device=dev, **engine_kw)
+        mm.freed = []
+        rs = reqs()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        mm.run(rs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        if min(counts[k] for k in ("decode_attention_paged",
+                                   "flash_attention_mma")) <= 0:
+            fail(f"{tag} {budget:.1e} B: a kernel of the path never "
+                 f"launched: {counts}")
+        if not all(r.done and len(r.generated) == 32 for r in rs):
+            fail(f"{tag} {budget:.1e} B: a budget did not finish")
+        active = mm.kv_pages_active()
+        # (no loop variable may keep an engine, and its memory, alive
+        # past the unloads below)
+        for mid in sorted(mm.engines):
+            mm.engines[mid].pool.check()
+            if mm.engines[mid].pool.n_in_use:
+                fail(f"{tag} {budget:.1e} B: {mid} holds pages after the "
+                     f"run")
+        st = dict(mm.stats)
+        phys = mm.physical_kv_bytes()
+        if budget == MM_BUDGETS[0]:
+            # both resident; the later load found less than its dense
+            # target free, so the pools hold fewer pages than the two
+            # dense targets
+            if st["weight_evictions"] or len(mm.engines) != 2 or \
+                    sum(active.values()) >= 2 * n_lanes * bt:
+                fail(f"{tag} 6.0e9 B: expected both resident with shrunk "
+                     f"pools: {st}, active pages {active}")
+        elif st["weight_evictions"] < 1 or st["model_swaps"] <= 2:
+            fail(f"{tag} 4.0e9 B: expected LRU swaps and reloads: {st}")
+        for mid in sorted(mm.engines):
+            mm.unload(mid)
+        for mid, dropped in mm.freed:
+            if dropped < 0.9 * figures[mid]["weight_bytes"]:
+                fail(f"{tag} {budget:.1e} B: unloading {mid} freed "
+                     f"{dropped} B of device memory, its weights are "
+                     f"{figures[mid]['weight_bytes']} B")
+        loads = [(m, b, round(s, 4), round(b / s / 1e9, 2))
+                 for m, b, s in mm.load_seconds]
+        print(f"{tag} {budget:.1e} B: {len(rs)} requests in {wall:.3f}s; "
+              f"swaps {st['model_swaps']}, swap bytes {st['swap_bytes']}, "
+              f"modelled swap seconds {st['swap_seconds']:.3f} "
+              f"({pool.profile.name}'s host link), weight evictions "
+              f"{st['weight_evictions']}, pages shrunk "
+              f"{st['kv_pages_shrunk']}, grown {st['kv_pages_grown']}; "
+              f"active pages at the end {active}, physical KV bytes "
+              f"{phys}")
+        print(f"{tag} {budget:.1e} B: measured host-to-device loads "
+              f"(model, bytes, s, GB/s) {loads} on {gpu_line()}; device "
+              f"memory freed per unload {mm.freed}")
+        streams[budget] = {r.uid: r.generated for r in rs}
+        runs[str(budget)] = {"stats": st, "wall_s": wall,
+                             "active_pages": active,
+                             "physical_kv_bytes": phys,
+                             "loads": loads, "freed": list(mm.freed)}
+        del mm, pool
+        gc.collect()
+        torch.cuda.empty_cache()
+    for mid in sorted(hosts):
+        c, host = hosts[mid]
+        solo = [r for r in reqs() if r.model_id == mid]
+        for r in solo:
+            r.model_id = None
+        eng = ServeEngine(c, device_copy(c, host, dev), paged=True,
+                          page_size=ps, device=dev, **engine_kw)
+        eng.run(solo)
+        for budget in MM_BUDGETS:
+            for r in solo:
+                if streams[budget][r.uid] != r.generated:
+                    fail(f"{tag} {budget:.1e} B: {mid} uid {r.uid} "
+                         f"differs from the same request served alone")
+        eng.graphs.release()
+        del eng
+        gc.collect()
+    print(f"{tag} every stream at both budgets bitwise equal to its "
+          f"model's single-engine serve")
+    del hosts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"figures": figures, "runs": runs}
+
+
+def phase_replay(dev, cfg, params):
+    """Phase 35: the execution replay.  SMOKE (float32 qwen2.5-1.5b, and
+    olmo-1b for the multi-model replay): ``run_trace_on_engine`` dense
+    and paged, ``run_trace_with_faults`` (a crash at dispatch 10,
+    ``checkpoint_every`` 4, transient dispatches 2 and 5) and
+    ``run_multimodel_trace_on_engine`` give on the card what they give
+    on the CPU, field for field.  Full width (qwen2.5-1.5b bf16, paged,
+    8 lanes, a Poisson trace of 19 requests): ``validate_recovery_
+    exactness`` (a crash at dispatch 9, when 5 live lanes hold a
+    checkpoint and 3 do not) and ``validate_preemption_exactness`` hold,
+    the crashed node's flight dump exists, and
+    ``calibrate_replay(real, predict_replay(...))`` is printed and
+    gated."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.fleet import (FleetRequest, LengthDist, poisson_trace,
+                                   run_multimodel_trace_on_engine,
+                                   run_trace_on_engine,
+                                   run_trace_with_faults,
+                                   validate_preemption_exactness,
+                                   validate_recovery_exactness)
+    from repro_torch.models import build_model
+    from repro_torch.obs import (MetricsRegistry, SpanTracer,
+                                 calibrate_replay, predict_replay)
+    from repro_torch.serving import device_copy
+    tag = "[replay]"
+    cpu = torch.device("cpu")
+    smoke = {}
+    for i, arch in enumerate(("qwen2.5-1.5b", "olmo-1b")):
+        c = dataclasses.replace(get_config(arch, smoke=True),
+                                dtype="float32")
+        p = build_model(c).init(torch.Generator().manual_seed(SEED + i), cpu)
+        smoke[arch] = (c, p)
+    scfg, sparams = smoke["qwen2.5-1.5b"]
+    trace = poisson_trace(2.0, 6.0, seed=3, prompt=LengthDist(12, cv=0.3),
+                          gen=LengthDist(14, cv=0.4))
+    mm_trace = [FleetRequest(uid=i, arrival_s=0.1 * i, prompt_len=4 + i % 3,
+                             gen_len=5, model_id=("qwen2.5-1.5b",
+                                                  "olmo-1b")[i % 2])
+                for i in range(6)]
+    kw = dict(n_lanes=2, max_len=32, dispatch_n=4, page_size=8, seed=5)
+    got = {}
+    for side, where in (("cpu", cpu), ("card", dev)):
+        p = sparams if side == "cpu" else device_copy(scfg, sparams, dev)
+        res = {
+            "dense": run_trace_on_engine(trace, scfg, p, device=where, **kw),
+            "paged": run_trace_on_engine(trace, scfg, p, paged=True,
+                                         device=where, **kw),
+            "faults": run_trace_with_faults(
+                trace, scfg, p, crash_at_dispatch=10, checkpoint_every=4,
+                transient_dispatches=(2, 5), device=where, **kw),
+            "multimodel": run_multimodel_trace_on_engine(
+                mm_trace, smoke, device=where, **kw)}
+        got[side] = {k: dataclasses.asdict(v) for k, v in res.items()}
+    for k in sorted(got["cpu"]):
+        if got["cpu"][k] != got["card"][k]:
+            fail(f"{tag} SMOKE {k}: card {got['card'][k]} != CPU "
+                 f"{got['cpu'][k]}")
+    f = got["card"]["faults"]
+    if f["crashes"] != 1 or f["retry_attempts"] < 3:
+        fail(f"{tag} SMOKE faults: {f}")
+    print(f"{tag} SMOKE card == CPU: dense "
+          f"{got['card']['dense']['gen_tokens']} tokens in "
+          f"{got['card']['dense']['decode_dispatches']} "
+          f"dispatches; paged hwm {got['card']['paged']['kv_pages_hwm']}; "
+          f"faults: checkpointed {f['checkpointed_uids']}, replayed "
+          f"{f['replayed_uids']}, retries {f['retry_attempts']}, "
+          f"checkpoints {f['checkpoints']}; multimodel swaps "
+          f"{got['card']['multimodel']['model_swaps']}")
+
+    full_trace = poisson_trace(4.0, 4.0, seed=SEED + 5,
+                               prompt=LengthDist(256, cv=0.5, max_len=700),
+                               gen=LengthDist(64, cv=0.3, max_len=120))
+    fkw = dict(n_lanes=8, max_len=1024, dispatch_n=8, page_size=16,
+               seed=SEED)
+    reg = MetricsRegistry()
+    tracer = SpanTracer(registry=reg)
+    t0 = time.perf_counter()
+    real = run_trace_on_engine(full_trace, cfg, params, paged=True,
+                               tracer=tracer, registry=reg, device=dev,
+                               **fkw)
+    replay_s = time.perf_counter() - t0
+    sim = predict_replay(full_trace, n_lanes=8, max_len=1024, dispatch_n=8,
+                         paged=True, page_size=16)
+    rep = calibrate_replay(real, sim, spans=tracer.spans)
+    print(f"{tag} full width: {len(full_trace)} requests, "
+          f"{real.prompt_tokens} prompt and {real.gen_tokens} generated "
+          f"tokens in {replay_s:.3f}s; calibrate_replay "
+          f"{json.dumps(rep.as_dict())} ({gpu_line()})")
+    if not rep.ok:
+        fail(f"{tag} the scheduling model drifted from the replay: "
+             f"{rep.as_dict()}")
+    flight_dir = ROOT / "build" / "flight"
+    flight_dir.mkdir(parents=True, exist_ok=True)
+    dump = flight_dir / "flight_node0.jsonl"
+    if dump.exists():
+        dump.unlink()
+    t0 = time.perf_counter()
+    rec = validate_recovery_exactness(full_trace, cfg, params,
+                                      crash_at_dispatch=9,
+                                      checkpoint_every=4,
+                                      transient_dispatches=(2,),
+                                      flight_dir=str(flight_dir),
+                                      device=dev, **fkw)
+    rec_s = time.perf_counter() - t0
+    if not (rec["resume_exact"] and rec["replay_exact"]
+            and rec["counts_match"] and rec["crashes"] == 1
+            and rec["recovered_lanes"] >= 1
+            and rec["replayed_from_prompt"] >= 1):
+        fail(f"{tag} recovery is not exact at full width: {rec}")
+    if not dump.is_file() or dump.stat().st_size == 0:
+        fail(f"{tag} no flight dump for the crashed node at {dump}")
+    t0 = time.perf_counter()
+    pre = validate_preemption_exactness(full_trace, cfg, params,
+                                        preempt_every=3, device=dev, **fkw)
+    pre_s = time.perf_counter() - t0
+    if not pre["resume_exact"] or pre["preemptions"] < 1:
+        fail(f"{tag} preemption is not exact at full width: {pre}")
+    print(f"{tag} full width recovery exact ({rec_s:.1f}s): crashes "
+          f"{rec['crashes']}, recovered lanes {rec['recovered_lanes']}, "
+          f"replayed from the prompt {rec['replayed_from_prompt']}, "
+          f"retries {rec['retry_attempts']}, checkpoints "
+          f"{rec['checkpoints']}, flight dump {dump.name} "
+          f"({dump.stat().st_size} B); preemption exact ({pre_s:.1f}s): "
+          f"{pre['preemptions']} evictions, {pre['restores']} restores, "
+          f"{pre['pages_migrated']} pages")
+    return {"smoke": {k: {x: y for x, y in v.items()
+                          if x not in ("streams", "gen_by_uid")}
+                      for k, v in got["card"].items()},
+            "calibration": rep.as_dict(), "replay_s": replay_s,
+            "recovery": {k: v for k, v in rec.items() if k != "mismatches"},
+            "recovery_s": rec_s,
+            "preemption": {k: v for k, v in pre.items()
+                           if k != "mismatches"}, "preemption_s": pre_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -3594,6 +4096,13 @@ def main() -> int:
     ladder_full = phase_ladder_full(dev, cfg, params)
     print(f"[obs] the observability and ladder phases took "
           f"{time.perf_counter() - t_obs:.1f}s")
+    t_slice = time.perf_counter()
+    quant_smoke = phase_quant_smoke(dev)
+    quant_full = phase_quant_full(dev, cfg, params)
+    multimodel = phase_multimodel_full(dev, cfg, params)
+    replay = phase_replay(dev, cfg, params)
+    print(f"[quant/multimodel/replay] phases 32-35 took "
+          f"{time.perf_counter() - t_slice:.1f}s")
     del params
     rows = phase_timings(dev)
     compute_errs = {**phase_k8_check(dev), **phase_k9_check(dev),
@@ -3928,6 +4437,9 @@ def main() -> int:
     print(f"[share] {json.dumps(share_full)}")
     print(f"[preempt] {json.dumps(preempt)}")
     print(f"[obs] {json.dumps({'smoke': obs_smoke, 'full': obs_full, 'ladder': ladder_full})}")
+    print(f"[quant] {json.dumps({'smoke': quant_smoke, 'full': quant_full})}")
+    print(f"[multimodel] {json.dumps(multimodel)}")
+    print(f"[replay] {json.dumps(replay)}")
     print(f"[sweep] {json.dumps(sweep_summary)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())

@@ -3,6 +3,7 @@
 C1 capability characterization -> :mod:`repro_torch.core.device_profile`
 C2 compute-path rerouting      -> :mod:`repro_torch.core.compute_path`
 C3 analytic performance model  -> :mod:`repro_torch.core.perf_model`
+C5 energy / fleet economics    -> :mod:`repro_torch.core.energy`
 """
 
 from repro_torch.core.compute_path import (OpDescriptor, PathDecision,

@@ -1,11 +1,15 @@
 """Serving launcher: continuous batching on synthetic prompts.
 
-``python -m repro_torch.launch.serve --arch qwen2.5-1.5b [--paged
---page-size 16] [--prefix-sharing [--shared-prefix-len H]] [--kv-quant
-int8] --requests N --prompt-len P --gen G --lanes B [--smoke] [--device
-cuda|cpu] [--profile tpu-v5e] [--trace TRACE.json]`` builds seeded
-random weights of the config ``--arch`` names (any id of
-:mod:`repro_torch.configs`), serves N requests of P prompt tokens and G
+``python -m repro_torch.launch.serve --arch qwen2.5-1.5b [--quant
+q8_0|q6_k|q4_k|q2_k] [--paged --page-size 16] [--prefix-sharing
+[--shared-prefix-len H]] [--kv-quant int8] --requests N --prompt-len P
+--gen G --lanes B [--smoke] [--device cuda|cpu] [--profile tpu-v5e]
+[--trace TRACE.json]`` builds seeded random weights of the config
+``--arch`` names (any id of :mod:`repro_torch.configs`); with
+``--quant`` it block-quantizes the leaves the reference quantizes
+(:func:`~repro_torch.serving.quantize_params`), prints the reference's
+``quantized N weight matrices`` line and serves the dequantized weights
+dense, as the reference does.  It serves N requests of P prompt tokens and G
 generated tokens each through the fixed-lane engine (the default) or,
 with ``--paged``, the page-pool engine, over a KV cache in the compute
 dtype or, with ``--kv-quant int8``, in int8 with per-token scales.
@@ -16,9 +20,9 @@ line.  It prints tokens/s with the prefill/decode split,
 the decode compiles (on the card, one CUDA graph captured per
 ``n_steps``; with the seconds each capture took), then, as the
 reference does, the capability-model prediction for the device profile
-``--profile`` names.  ``--trace`` records the run with
-``torch.profiler``, writes a Chrome trace and prints device time by
-kernel.  Runs on ``cuda`` unless ``--device cpu``.
+``--profile`` names, in the ``--quant`` format (``f16`` without it).
+``--trace`` records the run with ``torch.profiler``, writes a Chrome
+trace and prints device time by kernel.  Runs on ``cuda`` unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -38,13 +42,16 @@ from repro_torch.core.device_profile import get_profile
 from repro_torch.core.perf_model import InferencePerfModel, LLMSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.serving import Request, ServeEngine
+from repro_torch.serving import (Request, ServeEngine, dequantize_params,
+                                 quantize_params)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-1.5b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--quant", default=None,
+                    choices=[None, "q8_0", "q6_k", "q4_k", "q2_k"])
     ap.add_argument("--paged", action="store_true",
                     help="serve over the page-pool KV cache")
     ap.add_argument("--page-size", type=int, default=16)
@@ -76,6 +83,12 @@ def main(argv=None):
                               kv_quant=args.kv_quant)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = build_model(cfg).init(gen, device)
+    if args.quant:
+        qp, stats = quantize_params(params, args.quant)
+        print(f"quantized {stats['quantized']} weight matrices "
+              f"({stats['quantized_bytes']/1e6:.1f} MB vs dense "
+              f"{stats['dense_bytes']/1e6:.1f} MB kept dense)")
+        params = dequantize_params(qp)   # served dense, as the reference
 
     rng = np.random.default_rng(args.seed)
     head_len = 0
@@ -162,7 +175,7 @@ def main(argv=None):
                    d_ff=cfg.d_ff, vocab_size=cfg.vocab_size,
                    tied_embeddings=cfg.tie_embeddings)
     m = InferencePerfModel(prof, spec)
-    fmt = "f16"                    # the port serves no quantized weights
+    fmt = args.quant or "f16"
     print(f"capability-model prediction on {prof.name}: "
           f"prefill {m.prefill(fmt).tokens_per_s:,.0f} tok/s, "
           f"decode {m.decode(fmt).tokens_per_s:,.0f} tok/s ({fmt})")

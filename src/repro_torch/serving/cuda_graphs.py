@@ -136,6 +136,15 @@ class StepGraphs:
         g.replays += 1
         return g.out
 
+    def release(self) -> None:
+        """Destroy every graph and drop the shared pool now (an engine
+        being unloaded), outside any capture, so their memory returns
+        and no later capture sees them destroyed."""
+        self._graphs.clear()
+        self._seen.clear()
+        self._pool = None
+        self._stream = None
+
     def pool_bytes(self) -> Optional[int]:
         """Device bytes the shared pool holds (segments the caching
         allocator reserved for it); None on the CPU, before a capture,

@@ -68,12 +68,17 @@ engine, in either framework.
 The engine carries the reference's observability and resilience stack
 (metrics registry, span tracer, flight recorder, SLO controller,
 degradation ladder, page sanitizer; :class:`ServeEngine` says what each
-measures on the card).  ``shrink``/``grow`` of the page pool come in a
-later slice.
+measures on the card).  The pool's ``shrink``/``grow`` trade KV pages
+for weight residency (:mod:`repro_torch.serving.modelpool`).
+
+Weights can be stored block-quantized (:func:`quantize_params`) and
+served dequantized and dense (:func:`dequantize_params`), as the
+reference serves them.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from collections import defaultdict, deque
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -86,18 +91,151 @@ from repro_torch.analysis.invariants import invariant
 from repro_torch.analysis.sanitizer import PageSanitizer
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import quantize_kv_token
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, frozen
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import paged_capacity, sample_tokens
+from repro_torch.models.transformer import (LM, paged_capacity,
+                                            sample_tokens)
 from repro_torch.obs.flight import FlightRecorder, flight_guard
 from repro_torch.obs.metrics import MetricsRegistry, StatsView
 from repro_torch.obs.trace import SpanTracer
+from repro_torch.quant.formats import get_format
+from repro_torch.quant.quantize import QTensor, dequantize, quantize
 from repro_torch.serving.cuda_graphs import StepGraphs
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.resilience import AdmissionRejected, DegradationLadder
 
-__all__ = ["LaneCheckpoint", "PagePool", "PrefixHit", "Request",
-           "ServeEngine", "STATS_KEYS", "prefix_sharing_supported"]
+__all__ = ["LaneCheckpoint", "PagePool", "PrefixHit", "QuantizedParams",
+           "Request", "ServeEngine", "STATS_KEYS", "dequantize_params",
+           "prefix_sharing_supported", "quantize_params", "reference_leaves"]
+
+
+# ----------------------------------------------------------------------
+# weight quantization store
+# ----------------------------------------------------------------------
+
+def reference_leaves(params: LM) -> List[Tuple[str, List[torch.nn.Parameter],
+                                               Tuple[int, ...]]]:
+    """The leaves of the reference's parameter tree, each as ``(path,
+    the port's tensors that hold it, the reference leaf's shape)``.
+
+    The reference stacks every block leaf along a leading layer axis,
+    so ``blocks.attn.wq`` is ONE leaf of shape ``(L, d, q)`` held here
+    by the ``L`` per-layer tensors; ``embed`` and ``final_norm`` leaves
+    are one tensor each, of the same shape on both sides."""
+    out = []
+    for name, t in params.embed.named_parameters():
+        out.append((f"embed.{name}", [t], tuple(t.shape)))
+    n_layers = len(params.blocks)
+    per_layer = [dict(b.named_parameters()) for b in params.blocks]
+    for name, t in params.blocks[0].named_parameters():
+        out.append((f"blocks.{name}", [layer[name] for layer in per_layer],
+                    (n_layers,) + tuple(t.shape)))
+    for name, t in params.final_norm.named_parameters():
+        out.append((f"final_norm.{name}", [t], tuple(t.shape)))
+    return out
+
+
+def _slot(params: LM, path: str, layer: int) -> Tuple[torch.nn.Module, str]:
+    """(module, attribute) holding layer ``layer`` of a reference leaf."""
+    parts = path.split(".")
+    mod = params.blocks[layer] if parts[0] == "blocks" else getattr(
+        params, parts[0])
+    for part in parts[1:-1]:
+        mod = getattr(mod, part)
+    return mod, parts[-1]
+
+
+def _share(params: LM) -> LM:
+    """A new module tree over the SAME tensors (no copy)."""
+    memo = {id(t): t for t in params.parameters()}
+    return copy.deepcopy(params, memo)
+
+
+@dataclasses.dataclass
+class QuantizedParams:
+    """A quantized parameter store: ``quantized`` maps each quantized
+    reference leaf (by path, e.g. ``"embed.tok"``) to its planes, and
+    ``dense`` is the model's module tree over the weights kept dense (a
+    quantized leaf's own slots hold only a shape, on the ``meta``
+    device).  ``dtypes`` keeps each quantized leaf's compute dtype."""
+
+    dense: LM
+    quantized: Dict[str, QTensor]
+    dtypes: Dict[str, torch.dtype]
+
+    def nbytes(self) -> int:
+        """Bytes held: the dense leaves plus every quantized leaf's
+        planes."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.dense.parameters()
+                   if t.device.type != "meta") + sum(
+            qt.nbytes() for qt in self.quantized.values())
+
+
+def quantize_params(params: LM, fmt: str, min_size: int = 1 << 16):
+    """Quantize every leaf the reference's ``quantize_params`` quantizes.
+
+    Returns ``(QuantizedParams, stats)``.  The rule runs on the
+    REFERENCE's tree (:func:`reference_leaves`): a leaf is quantized
+    when it is 2-D, has at least ``min_size`` elements and its first
+    axis divides the format's block.  The reference stacks its block
+    weights ``(L, k, n)``, so they are 3-D and stay dense, though the
+    port holds them per layer as 2-D matrices; today that leaves
+    ``embed.tok`` (and ``embed.head`` when untied), and a stacked 1-D
+    leaf (a norm scale, a bias) of a deep enough model, whose ``(L, n)``
+    stack is quantized along the layer axis as the reference does.
+    Small and odd-shaped weights stay dense, as llama.cpp keeps them.
+
+    ``stats`` counts leaves as the reference does (one per stacked
+    leaf); its byte counts are the bytes the port holds: equal to the
+    reference's on float32 configs, and about half on bf16 configs,
+    whose weights the port keeps in bf16 where the reference keeps a
+    float32 tree.  The planes are :func:`repro_torch.quant.quantize`'s,
+    bitwise the reference's for the same values, on either device."""
+    blk = get_format(fmt).block
+    n_q = n_dense = bytes_q = bytes_dense = 0
+    shell = _share(params)
+    quantized: Dict[str, QTensor] = {}
+    dtypes: Dict[str, torch.dtype] = {}
+    for path, tensors, shape in reference_leaves(params):
+        size = int(np.prod(shape))
+        if len(shape) == 2 and size >= min_size and shape[0] % blk == 0:
+            w = tensors[0] if len(tensors) == 1 else torch.stack(
+                [t.reshape(-1) for t in tensors])
+            qt = quantize(w, fmt)
+            quantized[path] = qt
+            dtypes[path] = tensors[0].dtype
+            n_q += 1
+            bytes_q += qt.nbytes()
+            for layer, t in enumerate(tensors):
+                mod, attr = _slot(shell, path, layer)
+                setattr(mod, attr, frozen(torch.empty(
+                    t.shape, dtype=t.dtype, device="meta")))
+            continue
+        n_dense += 1
+        bytes_dense += sum(t.numel() * t.element_size() for t in tensors)
+    stats = {"quantized": n_q, "dense": n_dense,
+             "quantized_bytes": bytes_q, "dense_bytes": bytes_dense}
+    return QuantizedParams(shell, quantized, dtypes), stats
+
+
+def dequantize_params(q_params: QuantizedParams) -> LM:
+    """Materialize dense weights (carrying the quantization error): an
+    :class:`LM` over the dense leaves, each quantized leaf dequantized
+    (float32, as the reference's) and cast to its compute dtype -- the
+    value the reference's cast at each use gives.  A tied head reads the
+    dequantized ``embed.tok``."""
+    out = _share(q_params.dense)
+    for path, qt in sorted(q_params.quantized.items()):
+        dense = dequantize(qt).to(q_params.dtypes[path])
+        if not path.startswith("blocks."):
+            mod, attr = _slot(out, path, 0)
+            setattr(mod, attr, frozen(dense))
+            continue
+        for layer, row in enumerate(dense):    # an (L, n) stack
+            mod, attr = _slot(out, path, layer)
+            setattr(mod, attr, frozen(row.clone()))
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -106,9 +244,7 @@ __all__ = ["LaneCheckpoint", "PagePool", "PrefixHit", "Request",
 
 class PagePool:
     """Host-side free-list allocator over the global KV page pool, with
-    a refcount per page (the reference's ``PagePool`` without ``shrink``
-    / ``grow``: the disabled set stays empty, and ``pages.disabled``
-    reads 0).
+    a refcount per page (the reference's ``PagePool``).
 
     Invariants: ``n_free + n_in_use + n_disabled == n_pages``; pages move
     between disjoint sets (no double alloc, no double free); every
@@ -118,9 +254,13 @@ class PagePool:
     when its LAST holder lets go; ``reserve(n)`` promises ``n`` future
     ``alloc`` (or ``cow``) pages and ``available()`` (what admission
     gates on) never counts promised pages, so mid-generation growth and
-    a copy-on-write split cannot fail.  The free list is LIFO, as in the
-    reference, so both hand out the same page ids for the same call
-    sequence.  ``holder`` arguments are opaque owner tags, forwarded to
+    a copy-on-write split cannot fail; ``shrink(n)`` retires up to ``n``
+    FREE and unpromised pages into a disabled set and ``grow(n)``
+    returns them, so the multi-model pool trades KV pages for weight
+    residency without touching a page a lane holds or was promised
+    (a shared page is in use like any other).  The free list is LIFO, as
+    in the reference, so both hand out the same page ids for the same
+    call sequence.  ``holder`` arguments are opaque owner tags, forwarded to
     the lifecycle ``monitor`` (a :class:`~repro_torch.analysis.sanitizer.
     PageSanitizer`) when one is attached: every mutator pays one
     attribute check for it, the whole cost of running unsanitized.
@@ -152,6 +292,11 @@ class PagePool:
     @property
     def n_disabled(self) -> int:
         return len(self._disabled)
+
+    @property
+    def n_active(self) -> int:
+        """Pages currently part of the pool (physical minus disabled)."""
+        return self.n_pages - len(self._disabled)
 
     def available(self) -> int:
         """Pages admissible to NEW requests (free minus promised)."""
@@ -265,6 +410,29 @@ class PagePool:
         """Total references across all in-use pages."""
         return sum(self._refcount.values())
 
+    def shrink(self, n: int) -> int:
+        """Retire up to ``n`` free, unpromised pages from the pool (HBM
+        bytes leave the KV pool for weights).  Returns the number
+        retired -- never a page a lane holds or a reservation promised."""
+        take = max(min(int(n), self.available()), 0)
+        pages = [self._free.pop() for _ in range(take)]
+        self._disabled.extend(pages)
+        m = self.monitor
+        if m is not None and pages:
+            m.record("shrink", pages=pages)
+        return take
+
+    def grow(self, n: int) -> int:
+        """Return up to ``n`` retired pages to the free list (weights left
+        the board; the KV pool gets its bytes back)."""
+        back = max(min(int(n), len(self._disabled)), 0)
+        pages = [self._disabled.pop() for _ in range(back)]
+        self._free.extend(pages)
+        m = self.monitor
+        if m is not None and pages:
+            m.record("grow", pages=pages)
+        return back
+
     def bind_registry(self, registry: MetricsRegistry,
                       prefix: str = "pool") -> None:
         """Publish the pool's occupancy as live callback gauges (they
@@ -303,8 +471,14 @@ class PagePool:
                   n_disabled=len(self._disabled), n_pages=self.n_pages)
         invariant(len(set(self._free)) == len(self._free),
                   "duplicate page on the free list")
+        invariant(len(set(self._disabled)) == len(self._disabled),
+                  "duplicate page on the disabled list")
         invariant(not self._in_use.intersection(self._free),
                   "page both in use and free")
+        invariant(not self._in_use.intersection(self._disabled),
+                  "page both in use and disabled")
+        invariant(not set(self._free).intersection(self._disabled),
+                  "page both free and disabled")
         invariant(0 <= self._reserved <= len(self._free),
                   "reservation exceeds the free list",
                   reserved=self._reserved, n_free=len(self._free))
@@ -325,6 +499,9 @@ class Request:
     max_new_tokens: int
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    #: which registered model serves this request (the multi-model
+    #: engine; a single-model ServeEngine ignores it)
+    model_id: Optional[str] = None
     #: degradation-ladder victim order: LOWER priority is evicted first
     #: when the engine sheds load (ties: the longest live context)
     priority: int = 0
