@@ -18,8 +18,11 @@ order (any failure raises and the script exits non-zero):
    at Sq 64, 100, 512 and 1024, a sliding window, no mask, a window
    without causality, D 64, 96 (phi-3-vision's, causal and windowed)
    and 256, the float32 SMOKE serve's own shape (H 4, Hkv 2, D 32)
-   at its prompt buckets 8 to 128, and hymba-1.5b's (H 25 over Hkv 5, D
-   64, window 1024, Sq 2048 and 512; SMOKE's window 32 at D 32); float32
+   at its prompt buckets 8 to 128, hymba-1.5b's (H 25 over Hkv 5, D
+   64, window 1024, Sq 2048 and 512; SMOKE's window 32 at D 32),
+   whisper-base's encoder (Sq = Sk = 1500, unmasked, D 64, H 8 over 8)
+   and cross-attention (Sq 64 against Sk 1500, unmasked), and
+   phi-3-vision-4.2b's prefill (causal Sq 1024, D 96, H 32); float32
    on the CUDA-core kernel
    (``flash_attention_cc``, tol 1e-4) and bfloat16 on the tensor-core
    kernel (``flash_attention_mma``, tol 2e-2) at D 64 and 128, on the
@@ -27,9 +30,10 @@ order (any failure raises and the script exits non-zero):
    naming the kernel its dtype and D select;
 4. K3 (length-aware dense decode) and K6a (masked dense decode), one
    split-KV launch each, against their plain version at the fixed-lane
-   path's shapes (S = 1024) and at S = 1000, same tolerances; a dead
-   lane gives exactly 0, K3 equals K6a, and a second call of each gives
-   the same bits;
+   path's shapes (S = 1024) and at S = 1000, and at whisper-base's
+   cross-attention (4 lanes, H 8 over 8, D 64, every lane at S = 1500),
+   same tolerances; a dead lane gives exactly 0, K3 equals K6a, and a
+   second call of each gives the same bits;
 5. K5 (length-aware int8 dense decode), K6b (masked int8 dense decode)
    and K4 (paged int8 decode) against their plain versions at the same
    shapes, q in float32 and bfloat16, at the model's ``qblock=1``
@@ -211,19 +215,28 @@ order (any failure raises and the script exits non-zero):
 24. the rest of the dense family at SMOKE width in float32: olmo (MHA,
    non-parametric LN), KV in float32 and int8, through the checks of
    phase 6 (K2's CUDA-core kernel, K3/K1, K5/K4 in int8);
-25. K2, K3, K1, K5 and K4 at olmo-1b's, mistral-nemo-12b's and
-   qwen2.5-32b's shapes (D 128, GQA group 1, 4 and 5; the serves'
-   lanes) against their plain versions, K1 == K3 and K4 == K5 bitwise;
+25. K2, K3, K1, K5 and K4 at olmo-1b's, mistral-nemo-12b's,
+   qwen2.5-32b's, moonshot-v1-16b-a3b's and phi-3-vision-4.2b's shapes
+   (D 128, GQA group 1, 4 and 5; D 96 for phi-3-vision, whose bf16 K2
+   is the CUDA-core kernel; the serves' lanes) against their plain
+   versions, K1 == K3 and K4 == K5 bitwise;
 26. full width in bf16 with seeded random weights, each loaded after
    every earlier model is dropped and the cache emptied: olmo-1b (16
    requests, 8 lanes) and mistral-nemo-12b (8 requests, 8 lanes;
    ``head_dim`` 128 against d_model / n_heads = 160) on both layouts,
    qwen2.5-32b (~65.5 GB; 4 requests, 32 new tokens, 4 lanes) paged;
-   prompts 64-700, max_len 1024, pages of 16; K2 28 (or the config's
-   layer count) times a prompt and K3/K1 a decode step, the replay gates
-   and check, tok/s, prefill ms per bucket, decode ms per dispatch, the
-   phase's peak device memory;
-27. timings at those three configs' shapes, as in phase 21;
+   then the moe family's moonshot-v1-16b-a3b (~57.8 GB: 64 experts
+   top-6 routed by the sort-based capacity dispatch inside the captured
+   decode step, every expert read each step; 8 requests, 32 new
+   tokens, 8 lanes) paged, and the vlm family's
+   phi-3-vision-4.2b (8 requests, 8 lanes; K2's CUDA-core kernel at D
+   96) on both layouts, with ``Model.forward`` at S 1024 over a
+   256-token ``vision_embeds`` prefix from the seed (finite logits, 32
+   K2 launches); prompts 64-700, max_len 1024, pages of 16; K2 once a
+   layer a prompt and K3/K1 a decode step, the replay gates and check,
+   tok/s, prefill ms per bucket, decode ms per dispatch, the phase's
+   peak device memory;
+27. timings at those five configs' shapes, as in phase 21;
 28. (after phase 23, with qwen2.5-1.5b's weights loaded) observability
    at SMOKE width in float32, paged (pages of 8, a pool that blocks an
    admission): the full stack (tracer, registry, flight recorder, a
@@ -282,7 +295,27 @@ order (any failure raises and the script exits non-zero):
    requests) ``validate_recovery_exactness`` and
    ``validate_preemption_exactness`` hold, the crashed node's flight
    dump exists, and ``calibrate_replay`` of the replay against
-   ``predict_replay`` passes its gate.
+   ``predict_replay`` passes its gate;
+36. (after phase 27) the moe and vlm families at SMOKE width in
+   float32: moonshot (experts and a shared expert), arctic (experts
+   beside a dense FFN) and phi-3-vision (the text decoder) through the
+   checks of phase 6, K2's CUDA-core kernel, K3 and K1;
+37. ``quantize_params`` of SMOKE moonshot in q8_0 on the card: the
+   reference's leaf rule on the moe tree (``embed.tok`` and
+   ``embed.head``; the 4-D expert stacks and 3-D routers stay dense),
+   planes and stats bitwise the CPU port's, streams over the
+   dequantized weights CPU vs card; the launcher's ``--arch
+   moonshot-v1-16b-a3b --smoke --quant q8_0`` exits 0;
+38. whisper-base at SMOKE width in float32: ``encode`` and 16 tokens
+   through ``decode_n_steps``, greedy and t=0.8, equal CPU vs card;
+39. whisper-base at full width in bf16: ``encode`` of (4, 1500, 512)
+   frames (K2 unmasked at Sq = Sk = 1500), 64 greedy tokens a lane
+   through ``decode_n_steps`` (K3 over the self-attention ring and the
+   cross K/V), and the reference's check of each decode step against
+   ``decode_forward`` at the same position (log-probabilities; float32
+   weights within 1e-4, bf16 within ``WHISPER_LOGPROB_TOL_BF16``);
+40. timings at whisper-base's shapes: K2 at the encoder's and the
+   cross-attention's, K3 over the cross K/V, as in phase 21.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -644,25 +677,35 @@ def phase_k1(dev):
     return errs
 
 
-def k2_inputs(sq, dtype, dev, d=128, h=12, hkv=2):
+def k2_inputs(sq, dtype, dev, d=128, h=12, hkv=2, sk=None, b=1):
+    """q (b, h, sq, d) and k/v (b, hkv, sk, d) from the seed (sk: sq by
+    default, whisper's cross-attention reads sk != sq)."""
     import numpy as np
     import torch
+    sk = sq if sk is None else sk
     rng = np.random.default_rng(SEED + sq + (0 if d == 128 else d)
-                                + (0 if hkv == 2 else 1000 * hkv))
-    shapes = ((1, h, sq, d), (1, hkv, sq, d), (1, hkv, sq, d))
+                                + (0 if hkv == 2 else 1000 * hkv)
+                                + (0 if sk == sq else 7 * sk)
+                                + (0 if b == 1 else 100000 * b))
+    shapes = ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
     return [torch.from_numpy(rng.standard_normal(s, np.float32)
                              ).to(dev, dtype) for s in shapes]
 
 
-#: K2's check cases (Sq, causal, window, D, H, Hkv): the full-width
-#: serve's buckets 64, 512 and 1024, a ragged length, a sliding window,
-#: no mask (whisper's cross-attention later), a window without
-#: causality, D 64, 96 (phi-3-vision's; causal, and a ragged windowed
-#: prompt) and 256, and the float32 SMOKE serve's shape (D 32, H 4) at
-#: its prompt buckets (prompts of 3 to 127 tokens); then hymba-1.5b's
-#: (H 25 over Hkv 5, D 64, window 1024) at its serve's largest bucket,
-#: 2048, where most query tiles start past key 0, and at 512, and its
-#: SMOKE serve's (window 32, D 32, H 4 over 2)
+#: K2's check cases (Sq, causal, window, D, H, Hkv[, Sk, B]; Sk = Sq
+#: and B = 1 when left out): the full-width serve's buckets 64, 512 and 1024, a ragged
+#: length, a sliding window, no mask, a window without causality, D 64,
+#: 96 (phi-3-vision's; causal, and a ragged windowed prompt) and 256,
+#: and the float32 SMOKE serve's shape (D 32, H 4) at its prompt buckets
+#: (prompts of 3 to 127 tokens); then hymba-1.5b's (H 25 over Hkv 5, D
+#: 64, window 1024) at its serve's largest bucket, 2048, where most
+#: query tiles start past key 0, and at 512, and its SMOKE serve's
+#: (window 32, D 32, H 4 over 2); then whisper-base's encoder (Sq = Sk =
+#: 1500, not a multiple of the 64-key block, unmasked, D 64, H 8 over
+#: 8) and its cross-attention (64 decoder positions against the 1500
+#: encoder keys), both at the served batch of 4 (the tensor-core
+#: kernel's TMA maps span B x Hkv), and phi-3-vision-4.2b's prefill (causal Sq 1024, D 96,
+#: H 32 over 32)
 K2_CASES = ((64, True, None, 128, 12, 2), (100, True, None, 128, 12, 2),
             (512, True, None, 128, 12, 2), (512, True, 128, 128, 12, 2),
             (1024, True, None, 128, 12, 2), (200, False, None, 128, 12, 2),
@@ -671,7 +714,10 @@ K2_CASES = ((64, True, None, 128, 12, 2), (100, True, None, 128, 12, 2),
             (256, True, None, 256, 12, 2),
             *((sq, True, None, 32, 4, 2) for sq in (8, 16, 32, 64, 128)),
             (2048, True, 1024, 64, 25, 5), (512, True, 1024, 64, 25, 5),
-            (64, True, 32, 32, 4, 2))
+            (64, True, 32, 32, 4, 2),
+            (1500, False, None, 64, 8, 8, 1500, 4),
+            (64, False, None, 64, 8, 8, 1500, 4),
+            (1024, True, None, 96, 32, 32))
 #: (D, H) of the float32 SMOKE serve's prefill, which runs K2's CUDA-core
 #: kernel on the main path
 SMOKE_K2_SHAPE = (32, 4)
@@ -684,7 +730,11 @@ def phase_k2(dev):
     for bf16 at D 64 and 128, the CUDA-core kernel otherwise.  Returns
     {kernel: {dtype: (worst error over its cases, tol)}}, under
     ``"smoke"`` the worst float32 error at ``SMOKE_K2_SHAPE``, and under
-    ``"hymba"`` the worst at hymba-1.5b's shapes (Hkv 5)."""
+    ``"hymba"`` the worst at hymba-1.5b's shapes (Hkv 5), under
+    ``"whisper"`` at whisper-base's (Hkv 8) and under ``"phi3v"`` at
+    phi-3-vision-4.2b's (Hkv 32).  whisper's bf16 cases are also held
+    element by element within ``k2_scaled_check``'s bound (under
+    ``"scaled"``) and by their least-squares scale (under ``"scale"``)."""
     import torch
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import (attention_ref,
@@ -693,9 +743,10 @@ def phase_k2(dev):
     errs = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         key = str(dtype).split(".")[-1]
-        for sq, causal, window, d, h, hkv in K2_CASES:
+        for sq, causal, window, d, h, hkv, *rest in K2_CASES:
+            sk, b = rest if rest else (sq, 1)
             kernel = f"flash_attention_{kernel_for(dtype, d)}"
-            q, k, v = k2_inputs(sq, dtype, dev, d, h, hkv)
+            q, k, v = k2_inputs(sq, dtype, dev, d, h, hkv, sk=sk, b=b)
             before = launch_counts()
             out = flash_attention(q, k, v, causal=causal, window=window)
             ran = {n: c - before[n] for n, c in launch_counts().items()
@@ -703,8 +754,9 @@ def phase_k2(dev):
             ref = attention_ref(q, k, v, causal=causal, window=window)
             torch.cuda.synchronize()
             err = max_err(out, ref)
-            print(f"[K2] {dtype} Sq={sq} causal={causal} window={window} "
-                  f"D={d} H={h} Hkv={hkv}: {kernel}, max_abs_err "
+            print(f"[K2] {dtype} B={b} Sq={sq} Sk={sk} causal={causal} "
+                  f"window={window} D={d} H={h} Hkv={hkv}: {kernel}, "
+                  f"max_abs_err "
                   f"{err:.3e} (tol {tol})")
             if ran != {kernel: 1}:
                 fail(f"K2 {dtype} D={d} launched {ran}, not {kernel}")
@@ -716,41 +768,57 @@ def phase_k2(dev):
             if dtype == torch.float32 and (d, h) == SMOKE_K2_SHAPE:
                 worst = errs[kernel].get("smoke", (0.0, tol))[0]
                 errs[kernel]["smoke"] = (max(worst, err), tol)
-            if hkv == 5:
-                worst = errs[kernel].get("hymba", (0.0, tol))[0]
-                errs[kernel]["hymba"] = (max(worst, err), tol)
+            shape_key = {5: "hymba", 8: "whisper", 32: "phi3v"}.get(hkv)
+            if shape_key:
+                worst = errs[kernel].get(shape_key, (0.0, tol))[0]
+                errs[kernel][shape_key] = (max(worst, err), tol)
+            if shape_key == "whisper" and dtype == torch.bfloat16:
+                k2_scaled_check(errs, "whisper-base", out, q, k, v, kernel,
+                                causal=causal)
     return errs
 
 
-def dense_inputs(dtype, dev, s=1024):
+#: whisper-base's cross-attention decode: 4 lanes, H 8 over Hkv 8, D 64,
+#: every lane at the full 1500 encoder positions
+WHISPER_CROSS = dict(b=4, h=8, hkv=8, d=64, s=1500)
+
+
+def dense_inputs(dtype, dev, s=1024, b=8, h=12, hkv=2, d=128, full=False):
     """Fixed-lane path shapes: B=8 lanes, H=12, Hkv=2, D=128, a cache of
     S positions (max_len 1024), ragged lengths incl. a dead lane and a
-    full lane (clipped to S)."""
+    full lane (clipped to S); ``full``: every lane at S (whisper's cross
+    K/V)."""
     import numpy as np
     import torch
-    b, h, hkv, d = 8, 12, 2, 128
-    rng = np.random.default_rng(SEED + s)
+    rng = np.random.default_rng(SEED + s + (0 if (b, h, hkv, d) == (
+        8, 12, 2, 128) else 31 * b + h + hkv + d))
     q = torch.from_numpy(rng.standard_normal((b, h, d), np.float32))
     k = torch.from_numpy(rng.standard_normal((b, hkv, s, d), np.float32))
     v = torch.from_numpy(rng.standard_normal((b, hkv, s, d), np.float32))
-    lens = torch.tensor([0, 1, 15, 16, 17, 300, 777, 1024],
-                        dtype=torch.int32).clamp(max=s)
+    if full:
+        lens = torch.full((b,), s, dtype=torch.int32)
+    else:
+        lens = torch.tensor([0, 1, 15, 16, 17, 300, 777, 1024],
+                            dtype=torch.int32).clamp(max=s)
     return [x.to(dev, dtype) for x in (q, k, v)] + [lens.to(dev)]
 
 
 def phase_dense(dev):
-    """K3 and K6a against their plain version at S 1024 and 1000, f32
-    (tol 1e-4) and bf16 (tol 2e-2): a dead lane gives exactly 0, K3
-    equals K6a, and a second call of each repeats the bits (the merge
-    adds the chunks in a fixed order)."""
+    """K3 and K6a against their plain version at S 1024 and 1000, and at
+    whisper-base's cross-attention (``WHISPER_CROSS``: S 1500, every
+    lane at full length), f32 (tol 1e-4) and bf16 (tol 2e-2): a dead
+    lane gives exactly 0, K3 equals K6a, and a second call of each
+    repeats the bits (the merge adds the chunks in a fixed order).
+    Under ``"whisper"`` the bf16 error at the cross shape."""
     import torch
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
     errs = {"decode_attention_lengthaware": {}, "decode_attention_masked": {}}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         worst = {name: 0.0 for name in errs}
-        for s in (1024, 1000):
-            args = dense_inputs(dtype, dev, s)
+        for s, shape in ((1024, {}), (1000, {}), (1500, WHISPER_CROSS)):
+            args = (dense_inputs(dtype, dev, full=True, **shape) if shape
+                    else dense_inputs(dtype, dev, s))
             la = decode_attention(*args)
             masked = decode_attention(*args, length_aware=False)
             again = (decode_attention(*args),
@@ -760,14 +828,17 @@ def phase_dense(dev):
             for name, out in (("decode_attention_lengthaware", la),
                               ("decode_attention_masked", masked)):
                 err = max_err(out, ref)
-                print(f"[K3/K6a] {name} {dtype} S={s}: max_abs_err "
-                      f"{err:.3e} (tol {tol})")
+                print(f"[K3/K6a] {name} {dtype} S={s}"
+                      f"{' (whisper cross, every lane full)' if shape else ''}"
+                      f": max_abs_err {err:.3e} (tol {tol})")
                 if not err <= tol:
                     fail(f"{name} {dtype} S={s} disagrees with its plain "
                          f"version: {err}")
-                if not bool(torch.all(out[0] == 0)):
+                if not shape and not bool(torch.all(out[0] == 0)):
                     fail(f"{name}: dead lane did not give 0")
                 worst[name] = max(worst[name], err)
+                if shape and dtype == torch.bfloat16:
+                    errs[name]["whisper"] = (err, tol)
             if not torch.equal(la, masked):
                 fail(f"K3 and K6a differ ({dtype}, S={s})")
             if not (torch.equal(la, again[0]) and
@@ -1230,21 +1301,28 @@ def phase_full_int8(dev, cfg, params):
     return out
 
 
-def _k2_row(q, k, v, bytes_per_elem):
-    """K2's timing row at one causal shape: the kernel (through the
+def _k2_row(q, k, v, bytes_per_elem, causal=True):
+    """K2's timing row at one shape, causal (the work: the Sq (Sq + 1) /
+    2 live pairs) or unmasked (Sq x Sk pairs): the kernel (through the
     wrapper, which picks the kernel by dtype and head dim), its plain
     version, and SDPA on the same inputs."""
     from torch.nn import functional as F
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
-    sq = q.shape[2]
-    pairs = sq * (sq + 1) // 2
+    import torch
+    sq, sk = q.shape[2], k.shape[2]
+    pairs = sq * (sq + 1) // 2 if causal else sq * sk
     return dict(
-        ms=time_ms_queued(lambda: flash_attention(q, k, v, causal=True)),
-        host_ms=host_ms(lambda: flash_attention(q, k, v, causal=True)),
-        plain_ms=time_ms_queued(lambda: attention_ref(q, k, v, causal=True)),
+        # the peak of the input type, whichever arm the wrapper picks:
+        # TF32 for float32 inputs, bf16 tensor cores for bf16 ones
+        peak=TF32_FLOPS_PER_S if q.dtype == torch.float32
+        else BF16_FLOPS_PER_S,
+        ms=time_ms_queued(lambda: flash_attention(q, k, v, causal=causal)),
+        host_ms=host_ms(lambda: flash_attention(q, k, v, causal=causal)),
+        plain_ms=time_ms_queued(lambda: attention_ref(q, k, v,
+                                                      causal=causal)),
         library_ms=time_ms_queued(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
+            q, k, v, is_causal=causal, enable_gqa=True)),
         bytes=bytes_per_elem * (2 * q.numel() + k.numel() + v.numel()),
         flops=4 * q.shape[0] * q.shape[1] * pairs * q.shape[3])
 
@@ -1374,9 +1452,8 @@ def phase_timings(dev):
                         (" bf16 D 96", r.get("d96"))):
             if rr is None:
                 continue
-            # f32 products: the TF32 rule, as for K7 and K10
-            peak = TF32_FLOPS_PER_S if name.endswith("_cc") else \
-                BF16_FLOPS_PER_S
+            # K2's rows carry their input type's peak; the rest are bf16
+            peak = rr.get("peak", BF16_FLOPS_PER_S)
             t_bytes = 1e3 * rr["bytes"] / HBM_BYTES_PER_S
             t_ops = 1e3 * rr["flops"] / peak
             rr["bound_ms"] = max(t_bytes, t_ops)
@@ -2592,7 +2669,14 @@ def k10_timing(dev):
 #: (requests, new tokens, lanes, layouts) per config, prompts 64-700
 FAMILY_SERVES = {"olmo-1b": (16, 64, 8, ("fixed-lane", "paged")),
                  "mistral-nemo-12b": (8, 64, 8, ("fixed-lane", "paged")),
-                 "qwen2.5-32b": (4, 32, 4, ("paged",))}
+                 "qwen2.5-32b": (4, 32, 4, ("paged",)),
+                 # ~57.8 GB of bf16 weights: every step reads all 64
+                 # experts (the reference's dispatch), >= 16 ms a step;
+                 # paged only, as qwen2.5-32b (phase 25 holds K3 at its
+                 # shapes)
+                 "moonshot-v1-16b-a3b": (8, 32, 8, ("paged",)),
+                 # D 96: K2's CUDA-core kernel on its prefill
+                 "phi-3-vision-4.2b": (8, 64, 8, ("fixed-lane", "paged"))}
 #: decode lengths of the kernel checks and timings at each config's
 #: shapes: a dead lane, lengths across page and chunk edges, a full lane
 FAMILY_LENS = {8: (0, 1, 15, 16, 17, 300, 777, 1024), 4: (0, 64, 700, 1024)}
@@ -2623,48 +2707,75 @@ def family_decode_inputs(arch, dtype, dev, ps=16, s=1024):
     return q, kp, vp, bt, lens, gather_pages(kp, bt), gather_pages(vp, bt)
 
 
-def k2_scaled_check(errs, arch, out, q, k, v):
-    """Hold the tensor-core K2's bf16 output to an error bound scaled by
-    the reference, element by element, so that late causal rows (|out|
-    a few hundredths) are held as tightly as early ones (|out| a few
-    units).  The reference is float32 attention of the same bf16
+#: the most K2's bf16 output may be scaled against its float32 reference
+#: (least squares over the whole output): the relative rounding of one
+#: bf16 weight, 2^-9
+K2_SCALE_TOL = 2.0 ** -9
+
+
+def k2_scaled_check(errs, arch, out, q, k, v, kernel="flash_attention_mma",
+                    causal=True):
+    """Hold K2's bf16 output (causal or unmasked) to an error bound
+    scaled by the reference, element by element, so that late causal
+    rows and long unmasked ones (|out| a few hundredths) are held as
+    tightly as early ones (|out| a few units).  The reference is float32 attention of the same bf16
     inputs.  The kernel rounds each weight to bf16 (relative 2^-9) and
-    normalises by the rounded weights, which moves an element by at
+    normalises by the rounded weights (the tensor-core kernel; the
+    CUDA-core one keeps f32 weights and is inside the bound with room),
+    which moves an element by at
     most 2^-9 * sum_j w_j |v_j - ref| <= 2^-9 * (ref_abs + |ref|), where
     ref_abs is the same attention over |V|; the bf16 output adds
     2^-9 * |ref|.  So |out - ref| <= 2^-8 * (|ref| + ref_abs) + 1e-5
     (float32 summation order) holds for a sound kernel; the ratio of the
-    error to that bound must stay at or below 1."""
+    error to that bound must stay at or below 1.
+
+    That bound is per element and leaves room for a small bias: keys
+    past Sk let into the softmax (zero keys and values) shrink every
+    output by their share of the weight, 1.4% at whisper's 36 pad keys
+    of 1536, which stays inside it.  So the least-squares scale of the
+    output on the reference, sum(out ref) / sum(ref ref), is held too:
+    the kernel's roundings are unbiased, so it stays within
+    ``K2_SCALE_TOL`` of 1 (PERF.md has the sound and the control
+    readings)."""
     import torch
     from repro_torch.kernels.flash_attention import attention_ref
     qf, kf, vf = (x.float() for x in (q, k, v))
-    ref = attention_ref(qf, kf, vf, causal=True)
-    ref_abs = attention_ref(qf, kf, vf.abs(), causal=True)
+    ref = attention_ref(qf, kf, vf, causal=causal)
+    ref_abs = attention_ref(qf, kf, vf.abs(), causal=causal)
     err = (out.float() - ref).abs()
     ratio = float((err / (2.0 ** -8 * (ref.abs() + ref_abs) + 1e-5))
                   .max().item())
+    bias = abs(float((out.float() * ref).sum() / (ref * ref).sum()) - 1.0)
     sq = q.shape[2]
     late = slice(3 * sq // 4, sq)
-    print(f"[{arch} kernels] flash_attention_mma bf16 Sq={sq} against a "
+    print(f"[{arch} kernels] {kernel} bf16 B={q.shape[0]} Sq={sq} "
+          f"Sk={k.shape[2]} causal={causal} against a "
           f"float32 reference: error over the scaled bound {ratio:.3f} "
-          f"(limit 1); last quarter of rows: max_abs_err "
+          f"(limit 1), |least-squares scale - 1| {bias:.3e} (limit "
+          f"{K2_SCALE_TOL:.3e}); last quarter of rows: max_abs_err "
           f"{float(err[:, :, late].max()):.3e}, median |ref| "
           f"{float(ref[:, :, late].abs().median()):.3e}, bound there "
           f"{float((2.0 ** -8 * (ref.abs() + ref_abs))[:, :, late].median()):.3e}"
           f" at the median")
     if not ratio <= 1.0:
-        fail(f"flash_attention_mma at {arch}'s shapes (Sq {sq}) passes its "
+        fail(f"{kernel} at {arch}'s shapes (Sq {sq}) exceeds its "
              f"reference-scaled bound: error/bound {ratio}")
-    worst = errs.setdefault("flash_attention_mma", {}).get(
-        "scaled", (0.0, 1.0))[0]
-    errs["flash_attention_mma"]["scaled"] = (max(worst, ratio), 1.0)
+    if not bias <= K2_SCALE_TOL:
+        fail(f"{kernel} at {arch}'s shapes (Sq {sq}) is biased: its "
+             f"least-squares scale on the reference is {1 - bias} or "
+             f"{1 + bias}, beyond {K2_SCALE_TOL} of 1")
+    worst = errs.setdefault(kernel, {}).get("scaled", (0.0, 1.0))[0]
+    errs[kernel]["scaled"] = (max(worst, ratio), 1.0)
+    worst = errs[kernel].get("scale", (0.0, K2_SCALE_TOL))[0]
+    errs[kernel]["scale"] = (max(worst, bias), K2_SCALE_TOL)
 
 
 def phase_family_kernels(dev, arch):
     """The attention kernels at ``arch``'s shapes against their plain
     versions, f32 (tol 1e-4) and bf16 (tol 2e-2): K2 causal at Sq 1024
-    (bf16 on the tensor cores, f32 on the CUDA cores) and at a ragged
-    Sq 700, the bf16 one also within ``k2_scaled_check``'s bound; K3, K1, K5 and K4 (per-token int8 scales) at the serve's
+    (bf16 on the kernel ``kernel_for`` picks: the tensor cores at D 128,
+    the CUDA cores at phi-3-vision's D 96; f32 on the CUDA cores) and at
+    a ragged Sq 700, the bf16 one also within ``k2_scaled_check``'s bound; K3, K1, K5 and K4 (per-token int8 scales) at the serve's
     lanes over ``FAMILY_LENS``; K1 gives K3's bits on the gathered pools
     and K4 K5's, and each repeats its bits.  Returns {kernel: {dtype:
     (max_abs_err, tol)}}."""
@@ -2678,6 +2789,7 @@ def phase_family_kernels(dev, arch):
         gather_pages, quantize_kv_q8)
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.ops import kernel_for
     cfg = get_config(arch)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     errs = {}
@@ -2693,8 +2805,7 @@ def phase_family_kernels(dev, arch):
         errs[name][key] = (max(worst, err), tol)
 
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        kernel = ("flash_attention_mma" if dtype == torch.bfloat16 else
-                  "flash_attention_cc")
+        kernel = f"flash_attention_{kernel_for(dtype, d)}"
         for sq in (1024, 700):
             q, k, v = k2_inputs(sq, dtype, dev, d, h, hkv)
             before = launch_counts()
@@ -2708,7 +2819,7 @@ def phase_family_kernels(dev, arch):
                                                              causal=True)),
                    tol, f"Sq={sq} H={h} Hkv={hkv} D={d}")
             if dtype == torch.bfloat16:
-                k2_scaled_check(errs, arch, out, q, k, v)
+                k2_scaled_check(errs, arch, out, q, k, v, kernel)
         q, kp, vp, bt, lens, kd, vd = family_decode_inputs(arch, dtype, dev)
         kq, ks = quantize_kv_q8(kp.float(), 1)
         vq, vs = quantize_kv_q8(vp.float(), 1)
@@ -2757,7 +2868,8 @@ def phase_family_timings(dev, arch):
     """The attention kernels of ``arch``'s path at its shapes, as device
     time per call (``time_ms_queued``) beside their plain versions, one
     PyTorch call where one computes the function, and the bound: K2 bf16
-    causal at B 1, Sq 1024 (beside SDPA); K3 (beside SDPA with the length
+    causal at B 1, Sq 1024 (beside SDPA; the kernel ``kernel_for`` picks,
+    its bound at the bf16 peak whichever arm runs); K3 (beside SDPA with the length
     mask), K1 (beside its pages gathered then SDPA), K5 and K4 (beside
     the dequantize route) with bf16 q at the serve's lanes and
     ``FAMILY_LENS``."""
@@ -2769,12 +2881,14 @@ def phase_family_timings(dev, arch):
         decode_attention_paged_q8_ref, decode_attention_paged_ref,
         decode_attention_q8, decode_attention_q8_ref, decode_attention_ref,
         gather_pages, quantize_kv_q8)
+    from repro_torch.kernels.flash_attention.ops import kernel_for
     cfg = get_config(arch)
     h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     rows = {}
     q, k, v = k2_inputs(1024, torch.bfloat16, dev, d, h, hkv)
-    rows["flash_attention_mma"] = with_bound(dict(
-        _k2_row(q, k, v, 2), peak=BF16_FLOPS_PER_S,
+    k2 = kernel_for(torch.bfloat16, d)
+    rows[f"flash_attention_{k2}"] = with_bound(dict(
+        _k2_row(q, k, v, 2),
         shape=f"bf16 B 1 H {h} Hkv {hkv} Sq 1024 D {d} causal"))
     q, kp, vp, bt, lens, kd, vd = family_decode_inputs(arch, torch.bfloat16,
                                                        dev)
@@ -2869,13 +2983,17 @@ def init_config(dev, arch):
 def phase_family_serve(dev, arch):
     """``arch`` at full width (bf16, random weights from the seed) served
     with ``FAMILY_SERVES``' traffic on its layouts through
-    :func:`serve_full` (the replay gates and check): K2's tensor-core
-    kernel once a layer a prompt and K3 (fixed-lane) or K1 (paged) once
-    a layer a decode step; the prefill's last-position logits finite
-    with the padded vocab masked.  Loaded after every earlier model is
-    dropped and the cache emptied; reports the phase's peak device
-    memory.  Returns {layout: (counts, summary)}."""
+    :func:`serve_full` (the replay gates and check): K2 (the kernel
+    ``kernel_for`` picks at the config's head dim: the tensor cores, or
+    the CUDA cores at phi-3-vision's D 96) once a layer a prompt and K3
+    (fixed-lane) or K1 (paged) once a layer a decode step; the prefill's
+    last-position logits finite with the padded vocab masked; a vlm
+    also runs :func:`vision_forward_check`.  Loaded after every earlier
+    model is dropped and the cache emptied; reports the phase's peak
+    device memory.  Returns {layout: (counts, summary)}; a vlm's first
+    summary holds ``"vision_forward"``."""
     import torch
+    from repro_torch.kernels.flash_attention.ops import kernel_for
     from repro_torch.models.transformer import lm_prefill_batched
     n_req, gen, lanes, layouts = FAMILY_SERVES[arch]
     gc.collect()
@@ -2885,6 +3003,7 @@ def phase_family_serve(dev, arch):
           f" GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
           f"reserved")
     cfg, params = init_config(dev, arch)
+    k2 = f"flash_attention_{kernel_for(cfg.compute_dtype, cfg.hd)}"
     out = {}
     for layout in layouts:
         kw = dict(paged=True, page_size=16) if layout == "paged" else {}
@@ -2892,18 +3011,14 @@ def phase_family_serve(dev, arch):
                   "decode_attention_lengthaware")
         tag = f"{arch} {layout}"
         reqs = _requests(cfg, n_req, 64, 700, gen, SEED + 2)
-        counts, summary = serve_full(dev, cfg, params, tag,
-                                     (kernel, "flash_attention_mma"),
+        counts, summary = serve_full(dev, cfg, params, tag, (kernel, k2),
                                      reqs=reqs, n_lanes=lanes, **kw)
         per_step = counts[kernel] / summary["decode_steps"]
         print(f"[{tag}] {kernel} launches per decode step: {per_step}; "
-              f"flash_attention_mma {counts['flash_attention_mma']} for "
-              f"{n_req} prompts")
-        if per_step != cfg.n_layers or \
-                counts["flash_attention_mma"] != cfg.n_layers * n_req:
-            fail(f"{tag}: {kernel} {per_step} a step, K2 "
-                 f"{counts['flash_attention_mma']}, not {cfg.n_layers} a "
-                 f"step and a prompt")
+              f"{k2} {counts[k2]} for {n_req} prompts")
+        if per_step != cfg.n_layers or counts[k2] != cfg.n_layers * n_req:
+            fail(f"{tag}: {kernel} {per_step} a step, K2 ({k2}) "
+                 f"{counts[k2]}, not {cfg.n_layers} a step and a prompt")
         out[layout] = (counts, summary)
     prompt = torch.from_numpy(_requests(cfg, 1, 64, 64, 1, SEED)[0]
                               .prompt[None]).to(dev)
@@ -2912,15 +3027,64 @@ def phase_family_serve(dev, arch):
             not bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()) or \
             not bool((logits[:, cfg.vocab_size:] == -1e30).all()):
         fail(f"{arch}: prefill logits are not finite/masked as expected")
+    if cfg.family == "vlm":
+        out[layouts[0]][1]["vision_forward"] = vision_forward_check(
+            dev, cfg, params)
     peak = torch.cuda.max_memory_allocated()
     print(f"[{arch}] phase peak device memory allocated {peak / 2**30:.2f} "
           f"GiB ({torch.cuda.get_device_name(0)})")
-    for layout, (_, r) in out.items():
-        r["peak_gib"] = peak / 2**30
+    for layout in layouts:
+        out[layout][1]["peak_gib"] = peak / 2**30
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def vision_forward_check(dev, cfg, params, s=1024):
+    """``build_model(cfg).forward`` at S ``s`` with a ``n_vision_tokens``
+    prefix of ``vision_embeds`` drawn from the seed (launch counts zeroed
+    before and read after): K2 (CUDA-core kernel at D 96) once a layer,
+    finite logits of the right shape with the padded vocab masked, and
+    the logits at the vision positions moved by the embeddings (against
+    the same tokens without them).  Returns the launches and the host
+    ms of the call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.flash_attention.ops import kernel_for
+    from repro_torch.models import build_model
+    rng = np.random.default_rng(SEED + 17)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, s)).astype(
+        np.int32)).to(dev)
+    vis = torch.from_numpy(rng.standard_normal(
+        (1, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+    model = build_model(cfg)
+    k2 = f"flash_attention_{kernel_for(cfg.compute_dtype, cfg.hd)}"
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = model.forward(params, toks, vision_embeds=vis)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = launch_counts()
+    plain = model.forward(params, toks)
+    n = cfg.n_vision_tokens
+    v = cfg.vocab_size
+    if logits.shape != (1, s, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits[..., :v]).all()) or \
+            not bool((logits[..., v:] == -1e30).all()):
+        fail(f"[{cfg.name} vision] forward logits are not finite/masked")
+    if counts[k2] != cfg.n_layers:
+        fail(f"[{cfg.name} vision] {k2} launched {counts[k2]} times, not "
+             f"{cfg.n_layers}")
+    if torch.equal(logits[:, :n], plain[:, :n]):
+        fail(f"[{cfg.name} vision] the vision prefix changed no logit")
+    print(f"[{cfg.name} vision] forward at S {s} with a {n}-token vision "
+          f"prefix: {k2} {counts[k2]} launches, finite logits "
+          f"{tuple(logits.shape)}, {ms:.2f} ms host (first call)")
+    return {"launches": {k2: counts[k2]}, "ms_host": ms, "s": s,
+            "n_vision_tokens": n}
 
 
 # ----------------------------------------------------------------------
@@ -4053,6 +4217,408 @@ def phase_replay(dev, cfg, params):
                            if k != "mismatches"}, "preemption_s": pre_s}
 
 
+# ----------------------------------------------------------------------
+# the moe and vlm families at SMOKE width, and whisper-base's
+# encoder-decoder
+# ----------------------------------------------------------------------
+
+#: the SMOKE configs of the moe and vlm families served CPU vs card
+MOE_VLM_SMOKE = ("moonshot-v1-16b-a3b", "arctic-480b", "phi-3-vision-4.2b")
+
+
+def phase_moe_vlm_smoke(dev):
+    """Phase 36: the checks of phase 6 (CPU and card streams identical,
+    fixed-lane and paged, greedy and at t=0.8, the replay gates and
+    check) at float32 SMOKE width for moonshot (experts routed inside
+    the captured decode step), arctic (experts beside a dense FFN) and
+    phi-3-vision (the text decoder); K2's CUDA-core kernel on every card
+    prefill, K3 (fixed-lane) and K1 (paged) in the decode.  Returns
+    {arch: (fixed-lane counts, paged counts)}."""
+    out = {}
+    for arch in MOE_VLM_SMOKE:
+        fixed, paged = phase_smoke_e2e(dev, arch=arch)
+        if not (fixed["flash_attention_cc"] and
+                fixed["decode_attention_lengthaware"] and
+                paged["decode_attention_paged"]):
+            fail(f"the float32 {arch} SMOKE serves missed a kernel of their "
+                 f"path: {fixed} {paged}")
+        out[arch] = (fixed, paged)
+    return out
+
+
+def phase_moe_quant_smoke(dev):
+    """Phase 37: ``quantize_params`` of float32 SMOKE moonshot in q8_0 on
+    the card: the quantized leaves are the ones the reference's rule
+    picks on its stacked tree (2-D, at least 2^16 elements, first axis
+    a multiple of the block: ``embed.tok`` and ``embed.head``; the
+    stacked experts are 4-D, the router and shared experts 3-D), stats
+    and planes bitwise the CPU port's; greedy streams over the
+    dequantized weights equal CPU vs card, paged; the launcher's
+    ``--arch moonshot-v1-16b-a3b --smoke --quant q8_0`` exits 0 on the
+    card with the reference's ``quantized 2 weight matrices`` line."""
+    import dataclasses
+    import os
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.quant.formats import get_format
+    from repro_torch.serving import (ServeEngine, dequantize_params,
+                                     device_copy, quantize_params)
+    from repro_torch.serving.engine import reference_leaves
+    tag = "[moe quant smoke]"
+    arch, fmt = "moonshot-v1-16b-a3b", "q8_0"
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    cpu = torch.device("cpu")
+    params = build_model(cfg).init(torch.Generator().manual_seed(SEED), cpu)
+    on_card = device_copy(cfg, params, dev)
+    blk = get_format(fmt).block
+    rule = sorted(path for path, _, shape in reference_leaves(params)
+                  if len(shape) == 2 and int(np.prod(shape)) >= 1 << 16
+                  and shape[0] % blk == 0)
+    qc, sc = quantize_params(params, fmt)
+    qd, sd = quantize_params(on_card, fmt)
+    if rule != ["embed.head", "embed.tok"] or sorted(qd.quantized) != rule \
+            or sc != sd:
+        fail(f"{tag} quantized {sorted(qd.quantized)}, the rule picks "
+             f"{rule}; stats CPU {sc}, card {sd}")
+    for path in rule:
+        differ = _planes_differ(qc.quantized[path], qd.quantized[path])
+        if differ:
+            fail(f"{tag} {path}: planes {differ} differ CPU vs card")
+    streams = {}
+    for where, p in (("cpu", dequantize_params(qc)),
+                     ("cuda", dequantize_params(qd))):
+        eng = ServeEngine(cfg, p, n_lanes=4, max_len=128, rng_seed=SEED + 3,
+                          paged=True, page_size=16, n_pages=24, device=where)
+        reqs = _requests(cfg, 10, 3, 140, 16, SEED + 1)
+        eng.run(reqs)
+        streams[where] = [r.generated for r in reqs]
+        eng.graphs.release()
+    if streams["cpu"] != streams["cuda"]:
+        fail(f"{tag} streams over the dequantized weights differ CPU vs "
+             f"card")
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+            arch, "--smoke", "--quant", fmt, "--paged", "--page-size", "16"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    res = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not any(
+            ln.startswith("quantized 2 weight matrices") for ln in lines):
+        fail(f"{tag} the launch failed (exit {res.returncode}): "
+             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    print(f"{tag} {fmt}: quantized {rule} (the reference's rule on the moe "
+          f"tree), planes bitwise CPU vs card, stats {sd}; "
+          f"{len(streams['cpu'])}/{len(streams['cpu'])} streams equal CPU "
+          f"vs card; `{' '.join(argv[2:])}` exit 0 in "
+          f"{time.perf_counter() - t0:.1f}s:")
+    for ln in lines:
+        if ln.startswith(("quantized", "served")):
+            print(f"{tag}   {ln}")
+    return {"quantized": rule, "stats": sd,
+            "launch": [ln for ln in lines
+                       if ln.startswith(("quantized", "served"))]}
+
+
+def whisper_frames(cfg, b, s_enc, seed):
+    """Stub frame embeddings (b, s_enc, d) float32 and each lane's first
+    decoder token, from the seed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, s_enc, cfg.d_model)).astype(np.float32))
+    first = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(
+        np.int32))
+    return frames, first
+
+
+def whisper_generate(model, params, enc, first, gen, n_steps, temperature,
+                     dev):
+    """``gen`` tokens a lane through ``Model.decode_n_steps`` in dispatches
+    of ``n_steps`` from a cache over ``enc`` (budgets of ``gen``): the
+    (gen, B) tokens and valid flags and the cache."""
+    import torch
+    from repro_torch import rng as trng
+    b = first.shape[0]
+    cache = model.init_cache(b, gen + 8, params=params, enc=enc)
+    tok = first.to(dev)
+    rem = torch.full((b,), gen, dtype=torch.int32, device=dev)
+    seed = torch.arange(b, dtype=torch.int32, device=dev)
+    idx = torch.zeros(b, dtype=torch.int32, device=dev)
+    key = trng.PRNGKey(SEED + 5, device=dev)
+    toks, valid = [], []
+    for _ in range(gen // n_steps):
+        t, v, tok, cache, rem, idx = model.decode_n_steps(
+            params, cache, tok, key, rem, seed, idx, n_steps=n_steps,
+            temperature=temperature, len_cap=gen + 7)
+        toks.append(t)
+        valid.append(v)
+    return torch.cat(toks), torch.cat(valid), cache
+
+
+def phase_whisper_smoke(dev):
+    """Phase 38: float32 SMOKE whisper (2 + 2 layers, d 128) on the CPU
+    and the card: ``encode`` of (3, 100, d) frames within 1e-4, then 16
+    tokens a lane through ``decode_n_steps`` (dispatches of 8), greedy
+    and at t=0.8: every valid token equal CPU vs card; on the card K2's
+    CUDA-core kernel (float32) once an encoder layer and K3 twice a
+    decoder layer a step (self- and cross-attention)."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    tag = "[whisper smoke]"
+    cfg = dataclasses.replace(get_config("whisper-base", smoke=True),
+                              dtype="float32")
+    model = build_model(cfg)
+    cpu = torch.device("cpu")
+    params = model.init(torch.Generator().manual_seed(SEED), cpu)
+    on_card = copy.deepcopy(params).to(dev)
+    frames, first = whisper_frames(cfg, 3, 100, SEED + 21)
+    gen, n_steps = 16, 8
+    out = {}
+    for temperature in (0.0, 0.8):
+        res = {}
+        for where, p in (("cpu", params), ("cuda", on_card)):
+            d = cpu if where == "cpu" else dev
+            reset_launch_counts()
+            enc = model.encode(p, frames.to(d))
+            toks, valid, _ = whisper_generate(model, p, enc, first, gen,
+                                              n_steps, temperature, d)
+            res[where] = (enc.cpu(), toks.cpu(), valid.cpu(),
+                          launch_counts())
+        err = max_err(res["cpu"][0], res["cuda"][0])
+        if not err <= 1e-4:
+            fail(f"{tag} encoder states differ CPU vs card: {err}")
+        if not (torch.equal(res["cpu"][2], res["cuda"][2]) and torch.equal(
+                res["cpu"][1][res["cpu"][2]], res["cuda"][1][res["cuda"][2]])):
+            fail(f"{tag} t={temperature}: tokens differ CPU vs card")
+        counts = res["cuda"][3]
+        k3 = 2 * cfg.n_layers * gen
+        if counts["flash_attention_cc"] != cfg.n_encoder_layers or \
+                counts["decode_attention_lengthaware"] != k3:
+            fail(f"{tag} launches {counts}: want K2 (cc) "
+                 f"{cfg.n_encoder_layers}, K3 {k3}")
+        print(f"{tag} t={temperature}: encoder states within {err:.2e} "
+              f"CPU vs card, {int(res['cpu'][2].sum())} tokens equal; "
+              f"card launches K2 cc {counts['flash_attention_cc']}, K3 "
+              f"{counts['decode_attention_lengthaware']}")
+        out[f"t{temperature}"] = {"encode_max_abs_err": err,
+                                  "tokens": int(res["cpu"][2].sum())}
+    return out
+
+
+#: whisper-base at full width: 4 lanes of 1500 encoder frames (30 s of
+#: audio), 64 greedy tokens in dispatches of 8
+WHISPER_FULL = dict(b=4, s_enc=1500, gen=64, n_steps=8)
+#: the reference's own bound on a decode step's log-probabilities against
+#: the teacher-forced pass (tests/test_decode_consistency.py, bf16 at
+#: SMOKE width, 2 lanes of 8 tokens)
+WHISPER_LOGPROB_TOL = 2e-2
+#: the same check in float32, where the two paths compute the same
+#: numbers up to summation order: the float32 kernel tolerance
+WHISPER_LOGPROB_TOL_F32 = 1e-4
+#: the check in bf16 at full width: above the sound kernels' reading
+#: (0.0205) and below a control's (0.0356), the tensor-core K2 with
+#: Sk's tail keys left unmasked (PERF.md, whisper-base)
+WHISPER_LOGPROB_TOL_BF16 = 2.8e-2
+
+
+def whisper_step_check(model, params, enc, seq, full, toks):
+    """``seq`` (B, T) teacher-forced through ``decode_step`` on a fresh
+    cache over ``enc``: the largest |log-prob| difference of a step
+    against ``full``'s (the forward's logits at that position), whether
+    every step's argmax is ``toks[t]``, and the host ms of each step
+    (synced)."""
+    import torch
+    v = model.cfg.vocab_size
+    b, n = seq.shape
+    cache = model.init_cache(b, n + 8, params=params, enc=enc)
+    worst, same, step_ms = 0.0, True, []
+    for t in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, cache, seq[:, t])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        inc = torch.log_softmax(logits[:, :v].float(), dim=-1)
+        ref = torch.log_softmax(full[:, t, :v].float(), dim=-1)
+        worst = max(worst, float((inc - ref).abs().max()))
+        same &= bool(torch.equal(
+            torch.argmax(logits, dim=-1).to(torch.int32), toks[t]))
+    return worst, same, step_ms
+
+
+def phase_whisper_full(dev):
+    """Phase 39: whisper-base at full width in bf16 with random weights
+    from the seed, through the reference's entry points: ``encode`` of
+    (4, 1500, 512) frames (K2's tensor-core kernel unmasked at Sq = Sk =
+    1500, once a layer), ``init_cache(enc=...)``, 64 greedy tokens a
+    lane through ``decode_n_steps`` (K3 twice a layer a step: the
+    self-attention ring and the cross K/V at every lane's 1500
+    positions); then the reference's check: the generated tokens,
+    teacher-forced through ``forward`` (``encode`` again, then
+    ``decode_forward``: K2 causal, and unmasked at Sq 64 against Sk
+    1500, once a layer each) and step by step through ``decode_step`` on
+    a fresh cache, each step's argmax the token ``decode_n_steps``
+    generated and its log-probabilities against the forward's at that
+    position.  The same weights upcast to float32 (K2's CUDA-core
+    kernel, K3 in float32) hold that difference within
+    ``WHISPER_LOGPROB_TOL_F32``, and bf16 within
+    ``WHISPER_LOGPROB_TOL_BF16``; the bf16 forward's distance from the
+    float32 one (the rounding of the serve dtype) and the reference's
+    SMOKE bound ``WHISPER_LOGPROB_TOL`` are printed beside it.  Times (host clock, synced): encode,
+    a decode step, the forward."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.models.whisper import Whisper
+    tag = "[whisper full]"
+    cfg = get_config("whisper-base")
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev)
+    n_params = sum(p.numel() for p in params.parameters())
+    w = WHISPER_FULL
+    frames, first = whisper_frames(cfg, w["b"], w["s_enc"], SEED + 22)
+    frames = frames.to(dev)
+
+    def synced(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, 1e3 * (time.perf_counter() - t0)
+
+    model.encode(params, frames)                  # warm-up (cuBLAS, ...)
+    reset_launch_counts()
+    enc, enc_ms = synced(lambda: model.encode(params, frames))
+    enc_counts = launch_counts()
+    reset_launch_counts()
+    (toks, valid, _), gen_ms = synced(lambda: whisper_generate(
+        model, params, enc, first, w["gen"], w["n_steps"], 0.0, dev))
+    gen_counts = launch_counts()
+    k3 = 2 * cfg.n_layers * w["gen"]
+    if enc.shape != (w["b"], w["s_enc"], cfg.d_model) or \
+            not bool(torch.isfinite(enc).all()):
+        fail(f"{tag} encoder states {tuple(enc.shape)} not finite")
+    if enc_counts["flash_attention_mma"] != cfg.n_encoder_layers or \
+            gen_counts["decode_attention_lengthaware"] != k3 or \
+            not bool(valid.all()):
+        fail(f"{tag} encode launched {enc_counts}, decode {gen_counts} (K3 "
+             f"{k3} wanted); valid {int(valid.sum())}")
+    seq = torch.cat([first.to(dev)[None], toks[:-1]]).t().contiguous()
+    reset_launch_counts()
+    full, fwd_ms = synced(lambda: model.forward(params, seq, frames=frames))
+    fwd_counts = launch_counts()
+    want_fwd = {"flash_attention_mma": 2 * cfg.n_layers
+                + cfg.n_encoder_layers}
+    if {k: fwd_counts[k] for k in want_fwd} != want_fwd:
+        fail(f"{tag} forward launched {fwd_counts}, want {want_fwd}")
+    worst, argmax_same, step_ms = whisper_step_check(model, params, enc, seq,
+                                                     full, toks)
+    # the float32 twin: the same (bf16) weights upcast
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = build_model(cfg32)
+    params32 = Whisper(cfg32, dev)
+    src = dict(params.named_parameters())
+    with torch.no_grad():
+        for name, t in params32.named_parameters():
+            t.copy_(src[name].float())
+    enc32 = model32.encode(params32, frames)
+    full32 = model32.forward(params32, seq, frames=frames)
+    worst32, _, _ = whisper_step_check(model32, params32, enc32, seq, full32,
+                                       toks)
+    v = cfg.vocab_size
+    floor = float((torch.log_softmax(full[..., :v].float(), dim=-1)
+                   - torch.log_softmax(full32[..., :v], dim=-1)).abs().max())
+    if not worst32 <= WHISPER_LOGPROB_TOL_F32:
+        fail(f"{tag} float32: decode steps against the forward differ by "
+             f"{worst32} in log-probability (tol {WHISPER_LOGPROB_TOL_F32})")
+    if not worst <= WHISPER_LOGPROB_TOL_BF16 or not argmax_same:
+        fail(f"{tag} bf16: decode steps against the forward differ by "
+             f"{worst} in log-probability (tol {WHISPER_LOGPROB_TOL_BF16}); "
+             f"argmax equal to the generated tokens: {argmax_same}")
+    summary = {
+        "params": n_params, "encode_ms": enc_ms,
+        "decode_n_steps_ms": gen_ms,
+        "decode_ms_per_step": gen_ms / w["gen"],
+        "decode_step_ms_median": statistics.median(step_ms),
+        "forward_ms": fwd_ms, "logprob_max_abs_diff": worst,
+        "logprob_max_abs_diff_f32": worst32,
+        "bf16_forward_vs_f32": floor,
+        "reference_smoke_bound": WHISPER_LOGPROB_TOL,
+        "tol": WHISPER_LOGPROB_TOL_BF16,
+        "tol_f32": WHISPER_LOGPROB_TOL_F32,
+        "launches": {"encode": enc_counts["flash_attention_mma"],
+                     "decode_n_steps": gen_counts[
+                         "decode_attention_lengthaware"],
+                     "forward": fwd_counts["flash_attention_mma"]},
+        **w}
+    print(f"{tag} {cfg.name} {cfg.dtype}, {n_params / 1e6:.1f}M params: "
+          f"encode {tuple(frames.shape)} {enc_ms:.2f} ms (K2 mma "
+          f"{enc_counts['flash_attention_mma']} launches); {w['gen']} "
+          f"tokens x {w['b']} lanes through "
+          f"decode_n_steps in {gen_ms:.1f} ms ({gen_ms / w['gen']:.2f} ms a "
+          f"step, eager; K3 {gen_counts['decode_attention_lengthaware']}); "
+          f"forward {fwd_ms:.2f} ms (K2 mma "
+          f"{fwd_counts['flash_attention_mma']}); decode steps vs the "
+          f"forward, max |log-prob diff|: bf16 {worst:.3e} (tol "
+          f"{WHISPER_LOGPROB_TOL_BF16}; the bf16 "
+          f"forward vs the float32 one {floor:.3e}; the reference's SMOKE "
+          f"bound {WHISPER_LOGPROB_TOL}), float32 {worst32:.3e} (tol "
+          f"{WHISPER_LOGPROB_TOL_F32}); argmax == generated: {argmax_same}")
+    del params, params32, enc, enc32, full, full32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary
+
+
+def phase_whisper_timings(dev):
+    """Phase 40: the attention kernels at whisper-base's shapes as
+    device time per call beside their plain versions, SDPA and the
+    bound: K2 bf16 unmasked at the encoder's (4, 8, 1500, 64) (~18.4
+    GFLOP) and the cross-attention's (Sq 64 against Sk 1500), K3 bf16
+    over the cross K/V (``WHISPER_CROSS``, every lane at 1500)."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    rows = {}
+    for key, sq in (("encoder", 1500), ("cross", 64)):
+        q, k, v = k2_inputs(sq, torch.bfloat16, dev, 64, 8, 8, sk=1500, b=4)
+        rows[f"flash_attention_mma/{key}"] = with_bound(dict(
+            _k2_row(q, k, v, 2, causal=False),
+            shape=f"bf16 B 4 H 8 Hkv 8 Sq {sq} Sk 1500 D 64 unmasked"))
+    q, k, v, lens = dense_inputs(torch.bfloat16, dev, full=True,
+                                 **WHISPER_CROSS)
+    b, hkv, s, d = k.shape
+    h = q.shape[1]
+    rows["decode_attention_lengthaware/cross"] = with_bound(dict(
+        ms=time_ms_queued(lambda: decode_attention(q, k, v, lens)),
+        plain_ms=time_ms_queued(lambda: decode_attention_ref(q, k, v, lens)),
+        library_ms=time_ms_queued(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v)),
+        bytes=2 * b * s * hkv * d * 2 + 2 * q.numel() * 2 + 4 * b,
+        flops=4 * b * s * h * d, peak=BF16_FLOPS_PER_S,
+        shape=f"bf16 q, B {b} H {h} Hkv {hkv} D {d}, S {s}, every lane "
+              f"full"))
+    for name, rr in rows.items():
+        print(f"[time whisper] {name} ({rr['shape']}): kernel "
+              f"{rr['ms']:.4f} ms, plain {rr['plain_ms']:.4f} ms, SDPA "
+              f"{rr['library_ms']:.4f} ms, bound {rr['bound_ms']:.5f} ms "
+              f"({rr['bound_by']}: {rr['bytes']} B, {rr['flops']} flop)")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -4169,8 +4735,17 @@ def main() -> int:
     family = {arch: phase_family_serve(dev, arch) for arch in FAMILY_SERVES}
     family_rows = {arch: phase_family_timings(dev, arch)
                    for arch in FAMILY_SERVES}
-    print(f"[family] the dense-family phases took "
+    print(f"[family] the dense-family phases (and moonshot-v1-16b-a3b's "
+          f"and phi-3-vision-4.2b's full width) took "
           f"{time.perf_counter() - t_family:.1f}s")
+    t_encdec = time.perf_counter()
+    moe_vlm_smoke = phase_moe_vlm_smoke(dev)
+    moe_quant = phase_moe_quant_smoke(dev)
+    whisper_smoke = phase_whisper_smoke(dev)
+    whisper_full = phase_whisper_full(dev)
+    whisper_rows = phase_whisper_timings(dev)
+    print(f"[moe/vlm/whisper] phases 36-40 took "
+          f"{time.perf_counter() - t_encdec:.1f}s")
 
     replaces = {
         "decode_attention_paged":
@@ -4239,18 +4814,25 @@ def main() -> int:
                     hymba_errs[name][dtype]
         return out
 
-    # the dense family: K2's tensor-core kernel and K3 from each config's
-    # fixed-lane serve (qwen2.5-32b: its paged serve), K1 from the paged
-    # serve; K2's CUDA-core kernel, K5 and K4 from olmo's float32 SMOKE
-    # serves (KV in float32, and in int8: fixed-lane and paged, greedy);
-    # errors and timings at each config's shapes
+    # the dense family, moonshot and phi-3-vision at full width: K2
+    # (the kernel its head dim selects: the tensor cores, or the CUDA
+    # cores at phi-3-vision's D 96) and K3 from each config's fixed-lane
+    # serve (qwen2.5-32b and moonshot: the paged serve, which launches no
+    # K3), K1 from the paged serve; K2's CUDA-core kernel, K5 and K4
+    # from olmo's float32 SMOKE serves (KV in float32, and in int8:
+    # fixed-lane and paged, greedy); errors and timings at each config's
+    # shapes
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import kernel_for
+
     def family_entry(name):
         out = {}
         for arch, serves in family.items():
             counts = {layout: c for layout, (c, _) in serves.items()}
             first = counts.get("fixed-lane", counts["paged"])
+            k2 = f"flash_attention_{kernel_for(torch.bfloat16, get_config(arch).hd)}"
             launches = {
-                "flash_attention_mma": first["flash_attention_mma"],
+                k2: first[k2],
                 "decode_attention_lengthaware":
                     first["decode_attention_lengthaware"],
                 "decode_attention_paged":
@@ -4271,12 +4853,38 @@ def main() -> int:
             if r is not None:
                 e.update({k: r[k] for k in r if k not in ("peak",)})
             for dtype, tag in (("bfloat16", ""), ("float32", "_f32"),
-                               ("scaled", "_scaled")):
+                               ("scaled", "_scaled"), ("scale", "_scale")):
                 if dtype in family_errs[arch].get(name, {}):
                     e[f"max_abs_err{tag}"], e[f"tol{tag}"] = \
                         family_errs[arch][name][dtype]
             if e:
                 out[arch] = e
+        return out
+
+    # whisper-base at full width: K2's tensor-core kernel from ``encode``
+    # (unmasked, Sq = Sk = 1500) and the teacher-forced ``decode_forward``
+    # (causal, and unmasked at Sq 64 against Sk 1500), K3 from
+    # ``decode_n_steps`` (self-attention and the cross K/V); errors at
+    # its shapes (phases 3 and 4) and timings (phase 40)
+    def whisper_entry(name):
+        launches = {"flash_attention_mma": {
+            "encode": whisper_full["launches"]["encode"],
+            "forward": whisper_full["launches"]["forward"]},
+            "decode_attention_lengthaware":
+                whisper_full["launches"]["decode_n_steps"]}
+        out = {}
+        if name in launches:
+            out["launches"] = launches[name]
+        if "whisper" in errs.get(name, {}):
+            out["max_abs_err"], out["tol"] = errs[name]["whisper"]
+        for key in ("scaled", "scale"):
+            if key in errs.get(name, {}):
+                out[f"max_abs_err_{key}"], out[f"tol_{key}"] = \
+                    errs[name][key]
+        for key, r in whisper_rows.items():
+            kname, part = key.split("/")
+            if kname == name:
+                out[part] = {k: r[k] for k in r if k != "peak"}
         return out
 
     int8_fixed = int8["full e2e fixed-lane int8"][0]
@@ -4330,6 +4938,9 @@ def main() -> int:
         fam = family_entry(name)
         if fam:
             entry["dense_family"] = fam
+        wh = whisper_entry(name)
+        if wh:
+            entry["whisper"] = wh
         kernels.append(entry)
     compute_replaces = {
         "mixbench_fma": "src/repro/kernels/mixbench/kernel.py:56",
@@ -4440,6 +5051,9 @@ def main() -> int:
     print(f"[quant] {json.dumps({'smoke': quant_smoke, 'full': quant_full})}")
     print(f"[multimodel] {json.dumps(multimodel)}")
     print(f"[replay] {json.dumps(replay)}")
+    print(f"[moe/vlm smoke] {json.dumps({a: {'fixed_lane': f, 'paged': p} for a, (f, p) in moe_vlm_smoke.items()})}")
+    print(f"[moe quant] {json.dumps(moe_quant)}")
+    print(f"[whisper] {json.dumps({'smoke': whisper_smoke, 'full': whisper_full})}")
     print(f"[sweep] {json.dumps(sweep_summary)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())

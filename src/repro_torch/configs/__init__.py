@@ -26,6 +26,15 @@ _MODULES: Dict[str, str] = {
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "qwen2.5-32b": "repro_torch.configs.qwen2_5_32b",
     "qwen1.5-110b": "repro_torch.configs.qwen1_5_110b",
+    # the moe family: top-k routing with sort-based capacity dispatch
+    # (arctic-480b at SMOKE width only: ~960 GB of bf16 weights)
+    "moonshot-v1-16b-a3b": "repro_torch.configs.moonshot_v1_16b_a3b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    # the vlm family: phi3-mini backbone with a 256-token vision prefix
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
+    # the encoder-decoder: driven through Model.encode / init_cache(enc=)
+    # / decode_n_steps, not served by ServeEngine (as in the reference)
+    "whisper-base": "repro_torch.configs.whisper_base",
 }
 
 

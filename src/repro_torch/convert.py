@@ -1,13 +1,19 @@
 """Reference parameters and quantized tensors -> the port's objects.
 
-:func:`params_from_jax`: the input is the nested dict the reference's ``init_lm`` returns, brought
-to the host as numpy arrays (``jax.device_get(params)``): ``embed``
-(``tok``, and ``head`` when untied), ``blocks`` with every leaf stacked
-``(L, ...)`` along the layer axis (``norm1``, ``attn``, ``norm2``,
-``mlp``; an ssm model's ``norm1`` and ``ssm``; a hybrid model's
-``norm1``, ``attn``, ``ssm``, ``norm2`` and ``mlp``), and
-``final_norm``.  Taking numpy only
-keeps JAX out of the port.
+:func:`params_from_jax`: the input is the nested dict the reference's
+``init_lm`` (or, for an encoder-decoder, ``init_whisper``) returns,
+brought to the host as numpy arrays (``jax.device_get(params)``).  A
+decoder's tree is ``embed`` (``tok``, and ``head`` when untied),
+``blocks`` with every leaf stacked ``(L, ...)`` along the layer axis
+(``norm1``, ``attn``, ``norm2``, ``mlp``; a moe block's ``moe`` --
+``router`` (L, d, E), ``w_gate``/``w_up`` (L, E, d, f), ``w_down`` (L,
+E, f, d), ``shared`` -- with Arctic's ``mlp`` beside it; an ssm model's
+``norm1`` and ``ssm``; a hybrid model's ``norm1``, ``attn``, ``ssm``,
+``norm2`` and ``mlp``), and ``final_norm``.  Whisper's holds ``embed``,
+``encoder`` (``norm1``, ``attn``, ``norm2``, ``mlp``) and ``decoder``
+(``norm1``, ``self_attn``, ``norm_x``, ``cross_attn``, ``norm2``,
+``mlp``), each stacked, ``enc_final_norm`` and ``final_norm``.  Taking
+numpy only keeps JAX out of the port.
 
 :func:`qtensor_from_numpy`: the planes of a reference ``QTensor``
 (``jax.device_get`` of each) become a port :class:`QTensor` with the
@@ -20,9 +26,11 @@ from typing import Any, Mapping, Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import LM
+from repro_torch.models.whisper import Whisper
 from repro_torch.quant import PLANES, QTensor, plane_layout
 
 __all__ = ["params_from_jax", "qtensor_from_numpy"]
@@ -36,34 +44,59 @@ def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
     dst.copy_(torch.from_numpy(arr).to(dst.dtype))
 
 
+def _leaf(tree: Mapping[str, Any], name: str, layer: int) -> Any:
+    """Layer ``layer`` of the stacked leaf a port parameter names:
+    ``"moe.shared.w_gate"`` is ``tree["moe"]["shared"]["w_gate"][layer]``."""
+    node = tree
+    for part in name.split("."):
+        node = node[part]
+    return node[layer]
+
+
+def _copy_stack(blocks: nn.ModuleList, tree: Mapping[str, Any],
+                where: str) -> None:
+    """Every layer's parameters from the reference's stacked subtree."""
+    for i, blk in enumerate(blocks):
+        for name, w in blk.named_parameters():
+            _copy(w, _leaf(tree, name, i), f"{where}[{i}].{name}")
+
+
+def _copy_norm(norm: nn.Module, tree: Mapping[str, Any], where: str) -> None:
+    """A norm's leaves: RMSNorm "scale", LayerNorm "scale" and "bias",
+    OLMo's non-parametric LN none (the reference's ``{}``)."""
+    for name, w in norm.named_parameters():
+        _copy(w, tree[name], f"{where}.{name}")
+
+
 @torch.no_grad()
 def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
                     device: torch.device,
-                    dtype: Optional[torch.dtype] = None) -> LM:
+                    dtype: Optional[torch.dtype] = None
+                    ) -> Union[LM, Whisper]:
     """Unstack the ``(L, ...)`` blocks into per-layer modules on
-    ``device``.  Weights are stored in ``dtype`` (default: the config's
-    compute dtype) -- the values the reference gets from its cast at
-    each use; norm scales stay float32 as the reference reads them."""
+    ``device``: an :class:`LM`, or a :class:`Whisper` for an
+    encoder-decoder config.  Weights are stored in ``dtype`` (default:
+    the config's compute dtype) -- the values the reference gets from
+    its cast at each use; norm scales and a moe router stay float32 as
+    the reference reads them."""
     if dtype is not None and dtype != cfg.compute_dtype:
         raise ValueError(f"dtype {dtype} differs from the config's "
                          f"{cfg.compute_dtype}; replace cfg.dtype instead")
-    lm = LM(cfg, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    model = Whisper(cfg, cpu) if cfg.is_encdec else LM(cfg, cpu)
     emb = np_params["embed"]
-    _copy(lm.embed.tok, emb["tok"], "embed.tok")
+    _copy(model.embed.tok, emb["tok"], "embed.tok")
     if not cfg.tie_embeddings:
-        _copy(lm.embed.head, emb["head"], "embed.head")
-    blocks = np_params["blocks"]
-    for i, blk in enumerate(lm.blocks):
-        # the block's modules are the reference's subtrees, one level
-        # deep: "attn.wq" is blocks["attn"]["wq"][i]
-        for name, w in blk.named_parameters():
-            branch, leaf = name.split(".")
-            _copy(w, blocks[branch][leaf][i], name)
-    # the norm's leaves: RMSNorm "scale", LayerNorm "scale" and "bias",
-    # OLMo's non-parametric LN none (the reference's ``{}``)
-    for name, w in lm.final_norm.named_parameters():
-        _copy(w, np_params["final_norm"][name], f"final_norm.{name}")
-    return lm.to(device)
+        _copy(model.embed.head, emb["head"], "embed.head")
+    if cfg.is_encdec:
+        _copy_stack(model.encoder, np_params["encoder"], "encoder")
+        _copy_stack(model.decoder, np_params["decoder"], "decoder")
+        _copy_norm(model.enc_final_norm, np_params["enc_final_norm"],
+                   "enc_final_norm")
+    else:
+        _copy_stack(model.blocks, np_params["blocks"], "blocks")
+    _copy_norm(model.final_norm, np_params["final_norm"], "final_norm")
+    return model.to(device)
 
 
 def qtensor_from_numpy(fmt: str, shape, values: Any, super_scales: Any,

@@ -5,7 +5,8 @@ q8_0|q6_k|q4_k|q2_k] [--paged --page-size 16] [--prefix-sharing
 [--shared-prefix-len H]] [--kv-quant int8] --requests N --prompt-len P
 --gen G --lanes B [--smoke] [--device cuda|cpu] [--profile tpu-v5e]
 [--trace TRACE.json]`` builds seeded random weights of the config
-``--arch`` names (any id of :mod:`repro_torch.configs`); with
+``--arch`` names (any id of :mod:`repro_torch.configs` but the
+encoder-decoder ``whisper-base``, which it refuses by name); with
 ``--quant`` it block-quantizes the leaves the reference quantizes
 (:func:`~repro_torch.serving.quantize_params`), prints the reference's
 ``quantized N weight matrices`` line and serves the dequantized weights
@@ -78,9 +79,14 @@ def main(argv=None):
                          "kernel")
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = dataclasses.replace(get_config(args.arch, smoke=args.smoke),
                               kv_quant=args.kv_quant)
+    if cfg.is_encdec:
+        ap.error(f"--arch {args.arch}: {cfg.name} is an encoder-decoder, "
+                 f"which ServeEngine does not serve (as in the reference); "
+                 f"run Model.encode, Model.init_cache(enc=...) and "
+                 f"Model.decode_n_steps")
+    device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = build_model(cfg).init(gen, device)
     if args.quant:

@@ -1,7 +1,7 @@
 """GQA attention with RoPE: prompt forward (flash, K2), dense decode step
 (length-aware decode, K3; K5 over an int8 cache) and paged decode step
 (block-table decode, K1; K4 over int8 pools).  Port of the reference's
-``models/attention.py`` dense paths."""
+``models/attention.py``."""
 
 from __future__ import annotations
 
@@ -39,6 +39,17 @@ class Attention(nn.Module):
             self.bv = z(cfg.n_kv_heads * hd)
 
 
+def project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    """x (B, S, d) -> q (B, S, H, D), with its bias: a cross-attention's
+    query (whisper), whose K/V come from the encoder."""
+    b, s, _ = x.shape
+    q = torch.matmul(x, p.wq)
+    if cfg.qkv_bias:
+        q = q + p.bq
+    return q.reshape(b, s, cfg.n_heads, cfg.hd)
+
+
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
     b, s, _ = x.shape
     hd = cfg.hd
@@ -55,9 +66,10 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
 
 
 def attention_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
-                      return_kv: bool = False):
-    """Causal full-sequence attention at positions 0..S-1. x: (B, S, d).
-    With ``return_kv`` also returns (k, v) as (B, Hkv, S, D)."""
+                      causal: bool = True, return_kv: bool = False):
+    """Full-sequence attention at positions 0..S-1, causal unless
+    ``causal=False`` (whisper's encoder). x: (B, S, d).  With
+    ``return_kv`` also returns (k, v) as (B, Hkv, S, D)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     positions = torch.arange(s, device=x.device)[None, :]
@@ -67,7 +79,7 @@ def attention_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
-    out = flash_attention(qt, kt, vt, causal=True,
+    out = flash_attention(qt, kt, vt, causal=causal,
                           window=cfg.sliding_window)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     out = torch.matmul(out, p.wo)

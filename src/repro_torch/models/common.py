@@ -1,8 +1,9 @@
 """Shared model substrate: config, norms, RoPE, embedding, LM head, init.
 
-Port of the dense-, ssm- and hybrid-family parts of the reference's
-``models/common.py``, with its three norms (RMSNorm, LayerNorm and
-OLMo's LayerNorm without an affine).
+Port of the reference's ``models/common.py`` for every family it
+serves (dense, moe, ssm, hybrid, vlm and the whisper encoder-decoder),
+with its three norms (RMSNorm, LayerNorm and OLMo's LayerNorm without
+an affine).
 Parameters live in ``nn.Module``s (one module per layer, no stacked
 ``(L, ...)`` leaves); weight matrices keep the reference layout
 ``(d_in, d_out)``.  Matrices, biases and the embedding are stored in the
@@ -29,6 +30,19 @@ def pad_vocab(v: int, align: int = VOCAB_ALIGN) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts widths, as the reference's ``MoEConfig``."""
+
+    n_experts: int
+    top_k: int
+    d_expert_ff: int
+    capacity_factor: float = 1.25
+    dense_residual: bool = False   # Arctic: dense FFN in parallel with MoE
+    n_shared_experts: int = 0      # Moonlight/DeepSeek style
+    router_aux_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     """Mamba-2 (SSD) block widths, as the reference's ``SSMConfig``."""
 
@@ -43,11 +57,11 @@ class SSMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """The dense-decoder, ssm and hybrid fields of the reference
-    ``ModelConfig``."""
+    """The reference ``ModelConfig`` without its ``use_pallas`` switch
+    (the port picks kernels by device)."""
 
     name: str
-    family: str                    # "dense", "ssm" or "hybrid"
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -61,7 +75,12 @@ class ModelConfig:
     rope_theta: float = 10000.0
     max_seq_len: int = 131072
     sliding_window: Optional[int] = None
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # encoder-decoder (whisper)
+    n_encoder_layers: int = 0
+    # vlm: number of prefix vision tokens the stub frontend provides
+    n_vision_tokens: int = 0
     dtype: str = "bfloat16"
     kv_quant: Optional[str] = None  # "int8": int8 KV cache, f32 scales
 
@@ -76,6 +95,10 @@ class ModelConfig:
     @property
     def compute_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_encoder_layers > 0
 
     @property
     def attn_free(self) -> bool:

@@ -1,4 +1,5 @@
-"""SwiGLU feed-forward block (the reference's ``models/mlp.py:swiglu``)."""
+"""Feed-forward blocks: SwiGLU (the LM default) and the GELU MLP with
+biases (whisper); the reference's ``models/mlp.py``."""
 
 from __future__ import annotations
 
@@ -9,15 +10,18 @@ from torch.nn import functional as F
 from repro_torch.models.common import frozen
 
 
+def _zeros(dtype, device):
+    def z(*shape):
+        return frozen(torch.zeros(shape, dtype=dtype, device=device))
+    return z
+
+
 class SwiGLU(nn.Module):
     """w_gate/w_up (d_model, d_ff), w_down (d_ff, d_model)."""
 
     def __init__(self, d_model: int, d_ff: int, dtype, device=None):
         super().__init__()
-
-        def z(*shape):
-            return frozen(torch.zeros(shape, dtype=dtype, device=device))
-
+        z = _zeros(dtype, device)
         self.w_gate = z(d_model, d_ff)
         self.w_up = z(d_model, d_ff)
         self.w_down = z(d_ff, d_model)
@@ -28,3 +32,24 @@ def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     u = torch.matmul(x, p.w_up)
     h = F.silu(g.float()).to(x.dtype) * u
     return torch.matmul(h, p.w_down)
+
+
+class GeluMLP(nn.Module):
+    """w1 (d_model, d_ff) with bias b1, w2 (d_ff, d_model) with bias b2
+    (zero-initialised, as the reference's ``init_gelu_mlp``)."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device=None):
+        super().__init__()
+        z = _zeros(dtype, device)
+        self.w1 = z(d_model, d_ff)
+        self.b1 = z(d_ff)
+        self.w2 = z(d_ff, d_model)
+        self.b2 = z(d_model)
+
+
+def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default is the tanh approximation; the GELU runs
+    in float32 and is rounded to the compute dtype, as the reference."""
+    h = torch.matmul(x, p.w1) + p.b1
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return torch.matmul(h, p.w2) + p.b2

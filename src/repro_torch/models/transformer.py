@@ -1,7 +1,11 @@
-"""Decoder-only LM, dense, ssm and hybrid families: full-sequence
-forward, prompt prefill, dense and paged caches, decode step, on-device
-sampling and the multi-step decode dispatch.  Port of the reference's
-``models/transformer.py`` for those three families.
+"""Decoder-only LM, dense, moe, ssm, hybrid and vlm families:
+full-sequence forward, prompt prefill, dense and paged caches, decode
+step, on-device sampling and the multi-step decode dispatch.  Port of
+the reference's ``models/transformer.py``.  A moe block routes its FFN
+through :mod:`repro_torch.models.moe` (Arctic's dense residual FFN
+beside it); a vlm model is the dense decoder whose first positions can
+take precomputed vision embeddings (``vision_embeds``) in place of the
+token embeddings.
 
 The reference stacks layers along a leading axis and runs them with
 ``lax.scan``; here each layer is its own module in a ``ModuleList`` and
@@ -34,25 +38,29 @@ from repro_torch.models.common import (Embedding, ModelConfig, apply_norm,
                                        dense_init, embed, lm_logits,
                                        make_norm)
 from repro_torch.models.mlp import SwiGLU, swiglu
+from repro_torch.models.moe import MoE, moe_forward
 from repro_torch.models.ssm import (Mamba2, init_mamba2, init_mamba2_state,
                                     mamba2_decode, mamba2_forward)
 
 Cache = Dict[str, torch.Tensor]
 
-#: families the port serves
-FAMILIES = ("dense", "ssm", "hybrid")
+#: decoder families the port serves (the encoder-decoder is
+#: :mod:`repro_torch.models.whisper`)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 #: norms the port serves
 NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """The port serves the dense, ssm and hybrid decoders with any of the
-    reference's three norms; every other family is refused by name."""
-    if cfg.family not in FAMILIES or cfg.norm not in NORMS:
+    """The port's decoders are the families ``FAMILIES`` with any of the
+    reference's three norms (a moe config carries its ``MoEConfig``);
+    every other decoder is refused by name."""
+    if cfg.family not in FAMILIES or cfg.norm not in NORMS or \
+            (cfg.family == "moe") != (cfg.moe is not None):
         raise ValueError(f"{cfg.name}: family {cfg.family!r} with norm "
-                         f"{cfg.norm!r} is not ported yet (decoders of the "
-                         f"families {FAMILIES} with the norms {NORMS} "
-                         f"only)")
+                         f"{cfg.norm!r} and moe {cfg.moe} is not a decoder "
+                         f"the port has (the families {FAMILIES}, a "
+                         f"MoEConfig exactly for moe, the norms {NORMS})")
 
 
 # ----------------------------------------------------------------------
@@ -60,9 +68,11 @@ def check_family(cfg: ModelConfig) -> None:
 # ----------------------------------------------------------------------
 
 class Block(nn.Module):
-    """Dense: ``norm1``, ``attn``, ``norm2``, ``mlp``; ssm: ``norm1`` and
-    ``ssm`` only; hybrid: ``norm1``, ``attn``, ``ssm``, ``norm2``,
-    ``mlp``; as the reference's ``init_block``."""
+    """Dense and vlm: ``norm1``, ``attn``, ``norm2``, ``mlp``; moe:
+    ``moe`` in place of ``mlp`` (and ``mlp`` beside it with a dense
+    residual); ssm: ``norm1`` and ``ssm`` only; hybrid: ``norm1``,
+    ``attn``, ``ssm``, ``norm2``, ``mlp``; as the reference's
+    ``init_block``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -74,7 +84,11 @@ class Block(nn.Module):
         if cfg.has_ssm:
             self.ssm = Mamba2(cfg, device)
         self.norm2 = make_norm(cfg, device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, cfg.compute_dtype, device)
+        if cfg.moe is not None:
+            self.moe = MoE(cfg.d_model, cfg.moe, cfg.compute_dtype, device)
+        if cfg.moe is None or cfg.moe.dense_residual:
+            self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, cfg.compute_dtype,
+                              device)
 
 
 class LM(nn.Module):
@@ -94,10 +108,12 @@ class LM(nn.Module):
 def init_lm(cfg: ModelConfig, generator: torch.Generator,
             device: torch.device) -> LM:
     """Random weights with the reference's init scheme (fan-in truncated
-    normal, 0.02 embedding, zero biases, unit norms; ``init_mamba2``'s
+    normal over the first axis -- an expert stack's is E, as there --,
+    0.02 embedding and router, zero biases, unit norms; ``init_mamba2``'s
     for an ssm block and a hybrid block's ``ssm``), drawn in float32 on
-    ``device`` from ``generator`` and stored in the compute dtype.  The
-    values differ from ``jax.random``'s for the same seed."""
+    ``device`` from ``generator`` and stored in each parameter's dtype
+    (the compute dtype; a router stays float32).  The values differ
+    from ``jax.random``'s for the same seed."""
     lm = LM(cfg, device)
     dt = cfg.compute_dtype
     lm.embed.tok.copy_(dense_init(tuple(lm.embed.tok.shape), generator,
@@ -109,11 +125,12 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator,
         if cfg.attn_free:
             init_mamba2(blk.ssm, generator)
             continue
-        for mod in (blk.attn, blk.mlp):
-            for w in mod.parameters():
-                if w.dim() == 2:                 # matrices; biases stay 0
-                    w.copy_(dense_init(tuple(w.shape), generator,
-                                       device).to(dt))
+        for name, w in blk.named_parameters():
+            # matrices and expert stacks; biases and norms stay as made
+            if w.dim() >= 2 and not name.startswith("ssm."):
+                scale = 0.02 if name == "moe.router" else None
+                w.copy_(dense_init(tuple(w.shape), generator, device,
+                                   scale=scale).to(w.dtype))
         if cfg.has_ssm:
             init_mamba2(blk.ssm, generator)
     return lm
@@ -130,37 +147,68 @@ def _hybrid_mix(att: torch.Tensor, ssm: torch.Tensor) -> torch.Tensor:
     return 0.5 * (att + ssm)
 
 
+def _ffn(p: Block, h2: torch.Tensor, cfg: ModelConfig):
+    """The block's feed-forward on the normed stream: (out, aux), aux
+    the experts' float32 loss scalar (None without experts).  A moe
+    block routes through its experts and adds the dense residual FFN's
+    output when it has one."""
+    if cfg.moe is None:
+        return swiglu(p.mlp, h2), None
+    out, aux = moe_forward(p.moe, h2, cfg.moe)
+    if cfg.moe.dense_residual:
+        out = out + swiglu(p.mlp, h2)
+    return out, aux
+
+
 def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig):
-    """Full-sequence block; returns (x, (k, v)), or (x, None) for ssm.
-    A hybrid block runs attention (sliding window, K2) and Mamba-2 (K10)
-    on the same normed input and adds their mean."""
+    """Full-sequence block; returns (x, (k, v), aux), (k, v) None for
+    ssm and aux None without experts.  A hybrid block runs attention
+    (sliding window, K2) and Mamba-2 (K10) on the same normed input and
+    adds their mean."""
     h = apply_norm(p.norm1, x)
     if cfg.attn_free:
-        return x + mamba2_forward(p.ssm, h, cfg), None
+        return x + mamba2_forward(p.ssm, h, cfg), None, None
     att, kv = attention_forward(p.attn, h, cfg, return_kv=True)
     if cfg.has_ssm:
         att = _hybrid_mix(att, mamba2_forward(p.ssm, h, cfg))
     x = x + att
-    h2 = apply_norm(p.norm2, x)
-    return x + swiglu(p.mlp, h2), kv
+    out, aux = _ffn(p, apply_norm(p.norm2, x), cfg)
+    return x + out, kv, aux
+
+
+def _maybe_inject_vision(x: torch.Tensor,
+                         vision_embeds: Optional[torch.Tensor],
+                         cfg: ModelConfig) -> torch.Tensor:
+    """The first ``n`` positions' embeddings replaced by the stub
+    frontend's ``vision_embeds`` (B, n, d) (cast to the stream's dtype),
+    when the config takes vision tokens; otherwise ``x`` unchanged."""
+    if vision_embeds is None or cfg.n_vision_tokens == 0:
+        return x
+    n = vision_embeds.shape[1]
+    return torch.cat([vision_embeds.to(x.dtype), x[:, n:, :]], dim=1)
 
 
 @torch.no_grad()
-def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig
+def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
+               vision_embeds: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
     """tokens: (B, S) -> logits (B, S, V) float32 at every position (the
-    reference's ``lm_forward`` for the port's families, without the aux
-    loss, which is zero for them)."""
-    x = embed(params.embed, tokens)
+    reference's ``lm_forward`` without the aux loss, which no serving
+    path reads; ``block_forward`` returns each block's).
+    ``vision_embeds`` (B, n, d) takes the place of the first n
+    positions' embeddings (vlm)."""
+    x = _maybe_inject_vision(embed(params.embed, tokens), vision_embeds,
+                             cfg)
     for blk in params.blocks:
-        x, _ = block_forward(blk, x, cfg)
+        x, _, _ = block_forward(blk, x, cfg)
     x = apply_norm(params.final_norm, x)
     return lm_logits(params.embed, x, cfg)
 
 
 @torch.no_grad()
 def lm_prefill_batched(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
-                       last_pos: Optional[torch.Tensor] = None):
+                       last_pos: Optional[torch.Tensor] = None,
+                       vision_embeds: Optional[torch.Tensor] = None):
     """Serving prefill: full-sequence pass returning the last-position
     logits and the KV cache ``(k, v)``, each (L, B, Hkv, S, D) -- or
     ``None`` for an attention-free (ssm) model.  The engine rebuilds an
@@ -169,11 +217,14 @@ def lm_prefill_batched(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
     ``last_pos`` (B,) selects which position's logits to return, so the
     engine can right-pad prompts to a shape bucket (causal attention and
     the causal scan keep positions < last_pos untouched by the
-    padding)."""
-    x = embed(params.embed, tokens)
+    padding).  A moe model routes every position of the bucket, padding
+    included, as the reference does (the capacity counts them all).
+    ``vision_embeds`` as in :func:`lm_forward`."""
+    x = _maybe_inject_vision(embed(params.embed, tokens), vision_embeds,
+                             cfg)
     ks, vs = [], []
     for blk in params.blocks:
-        x, kv = block_forward(blk, x, cfg)
+        x, kv, _ = block_forward(blk, x, cfg)
         if kv is not None:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -303,8 +354,7 @@ def block_decode(p: Block, x: torch.Tensor, cfg: ModelConfig,
     if cfg.has_ssm:
         att = _hybrid_mix(att, mamba2_decode(p.ssm, h, cfg, ssm_h, ssm_conv))
     x = x + att
-    h2 = apply_norm(p.norm2, x)
-    return x + swiglu(p.mlp, h2)
+    return x + _ffn(p, apply_norm(p.norm2, x), cfg)[0]
 
 
 @torch.no_grad()
@@ -368,7 +418,8 @@ def lm_decode_n_steps(params: LM, cfg: ModelConfig, cache: Cache,
                       tokens: torch.Tensor, rng: torch.Tensor,
                       remaining: torch.Tensor, lane_seed: torch.Tensor,
                       tok_idx: torch.Tensor, *, n_steps: int,
-                      temperature: float = 0.0, len_cap: int = 0):
+                      temperature: float = 0.0, len_cap: int = 0,
+                      step_fn=None):
     """Advance every lane ``n_steps`` tokens with no host sync.
 
     Each lane samples with key ``fold_in(fold_in(rng, lane_seed),
@@ -389,6 +440,8 @@ def lm_decode_n_steps(params: LM, cfg: ModelConfig, cache: Cache,
     their samples are flagged invalid, their token index stops advancing
     and their cache length is frozen.  ``len_cap`` > 0 zeroes the budget
     once the length reaches it (the engine passes ``max_len - 1``).
+    ``step_fn(cache, tokens) -> (logits, cache)`` replaces the decoder's
+    step (whisper's, which also reads its cross-attention cache).
     Same semantics as the reference's ``lm_decode_n_steps``.
 
     Returns (tokens (n, B) int32, valid (n, B) bool, next_tokens (B,),
@@ -404,11 +457,14 @@ def lm_decode_n_steps(params: LM, cfg: ModelConfig, cache: Cache,
         keys = trng.fold_in(trng.fold_in(rng, lane_seed)[None],
                             tok_idx[None] + steps)           # (n, B, 2)
         noise = trng.gumbel(keys, (cfg.padded_vocab,))      # (n, B, V)
+    if step_fn is None:
+        def step_fn(c, t):
+            return lm_decode_step(params, cfg, c, t)
     tok, rem, idx = tokens, remaining, tok_idx
     for step in range(n_steps):
         live = rem > 0
         len_before = cache["len"]
-        logits, cache = lm_decode_step(params, cfg, cache, tok)
+        logits, cache = step_fn(cache, tok)
         cache["len"] = torch.where(live, cache["len"], len_before)
         if sampling:    # sample_tokens_lanes with this step's noise
             tok = torch.argmax(noise[step] + logits / temperature,

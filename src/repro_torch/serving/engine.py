@@ -561,9 +561,9 @@ def prefix_sharing_supported(cfg: ModelConfig) -> bool:
     """Whether ``cfg`` can serve with ``prefix_sharing=True``: the whole
     prompt context must be page-resident and append-only, so no sliding
     window (its lanes rewrite their page set in place) and no recurrent
-    state (a mapped prefix would skip rebuilding it): the dense family
-    without a window."""
-    return (not cfg.attn_free and not cfg.has_ssm
+    state (a mapped prefix would skip rebuilding it): the dense, moe and
+    vlm families without a window."""
+    return (not cfg.is_encdec and not cfg.attn_free and not cfg.has_ssm
             and cfg.sliding_window is None)
 
 
@@ -597,7 +597,12 @@ _POOL_KEY = {"k": "k_pages", "v": "v_pages", "k_scale": "k_scale_pages",
 
 
 class ServeEngine:
-    """Continuous batcher around a decoder (dense, ssm or hybrid).
+    """Continuous batcher around a decoder (dense, moe, ssm, hybrid or
+    vlm; a vlm is served as its text decoder, with no vision input, as
+    in the reference).  An encoder-decoder (whisper) is refused by name:
+    the reference's engine builds a decoder cache and cannot serve one
+    either; drive it through ``Model.encode``, ``Model.init_cache(enc=
+    ...)`` and ``Model.decode_n_steps``.
 
     ``n_lanes`` bounds the decode batch width; with ``paged=True``,
     ``n_pages`` bounds KV bytes (default: ``n_lanes`` full contexts).
@@ -715,6 +720,12 @@ class ServeEngine:
                  clock: Optional[Callable[[], float]] = None,
                  flight: Optional[FlightRecorder] = None,
                  slo=None, device=None, timed: bool = False):
+        if cfg.is_encdec:
+            raise ValueError(
+                f"{cfg.name}: an encoder-decoder (family {cfg.family!r}) "
+                f"is not served by ServeEngine, as in the reference; run "
+                f"Model.encode, Model.init_cache(enc=...) and "
+                f"Model.decode_n_steps")
         self.device = resolve_device(device)
         param_dev = next(params.parameters()).device
         if param_dev.type != self.device.type:

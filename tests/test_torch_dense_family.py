@@ -244,13 +244,19 @@ def test_prefill_and_decode_logits_match(models, name):
 
 
 def test_unported_families_are_refused_by_name():
+    """Every family of the reference is ported (moe, vlm and the whisper
+    encoder-decoder build); a decoder of any other family, a moe family without its MoEConfig, an "audio"
+    config without encoder layers and an unknown norm are refused by
+    name."""
     for arch, family in (("moonshot-v1-16b-a3b", "moe"),
                          ("phi-3-vision-4.2b", "vlm"),
                          ("whisper-base", "audio")):
         jcfg = jax_get_config(arch, smoke=True)
         assert jcfg.family == family
+        assert build_model(get_config(arch, smoke=True)).cfg.family == family
+    for family in ("moe", "audio", "retnet"):
         cfg = dataclasses.replace(get_config("olmo-1b", smoke=True),
-                                  name=arch, family=family)
+                                  name=f"olmo-as-{family}", family=family)
         with pytest.raises(ValueError, match=family):
             build_model(cfg)
     with pytest.raises(ValueError, match="norm"):

@@ -449,7 +449,10 @@ def test_forward_and_prefill_match_reference(smoke):
 def test_family_guard_refuses_unported_families():
     from repro_torch.models.common import ModelConfig
     from repro_torch.models.transformer import LM
-    for family in ("moe", "vlm", "audio"):
+    # every family of the reference is ported: a moe config without its
+    # MoEConfig, an "audio" config without encoder layers and an unknown
+    # family are still refused
+    for family in ("moe", "audio", "retnet"):
         cfg = ModelConfig(name=f"x-{family}", family=family, n_layers=1,
                           d_model=32, n_heads=2, n_kv_heads=2, d_ff=64,
                           vocab_size=64)
@@ -457,6 +460,9 @@ def test_family_guard_refuses_unported_families():
             build_model(cfg)
         with pytest.raises(ValueError, match=family):
             LM(cfg)
+    vlm = ModelConfig(name="x-vlm", family="vlm", n_layers=1, d_model=32,
+                      n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64)
+    assert build_model(vlm).cfg is vlm
     # the hybrid family is ported, and so are the reference's three
     # norms; a norm the reference does not have is refused by name
     hybrid = get_config("hymba-1.5b", smoke=True)
