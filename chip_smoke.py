@@ -16,8 +16,9 @@ order (any failure raises and the script exits non-zero):
    gathered pools bit for bit;
 3. K2 (flash prefill) against its plain version at ``K2_CASES``: causal
    at Sq 64, 100, 512 and 1024, a sliding window, no mask, a window
-   without causality, D 64, 96 (phi-3-vision's, causal and windowed)
-   and 256, the float32 SMOKE serve's own shape (H 4, Hkv 2, D 32)
+   without causality, D 64, 96 (phi-3-vision's: causal at Sq 256, 100
+   and 1000, windowed, B 2, unmasked Sq 200 against Sk 256, GQA group
+   4) and 256, the float32 SMOKE serve's own shape (H 4, Hkv 2, D 32)
    at its prompt buckets 8 to 128, hymba-1.5b's (H 25 over Hkv 5, D
    64, window 1024, Sq 2048 and 512; SMOKE's window 32 at D 32),
    whisper-base's encoder (Sq = Sk = 1500, unmasked, D 64, H 8 over 8)
@@ -25,8 +26,9 @@ order (any failure raises and the script exits non-zero):
    phi-3-vision-4.2b's prefill (causal Sq 1024, D 96, H 32); float32
    on the CUDA-core kernel
    (``flash_attention_cc``, tol 1e-4) and bfloat16 on the tensor-core
-   kernel (``flash_attention_mma``, tol 2e-2) at D 64 and 128, on the
-   CUDA-core one at D 32, 96 and 256, each call's launch counters
+   kernel (``flash_attention_mma``, tol 2e-2) at D 64, 96 and 128 (D
+   96's bf16 cases also within ``k2_scaled_check``'s bound and scale),
+   on the CUDA-core one at D 32 and 256, each call's launch counters
    naming the kernel its dtype and D select;
 4. K3 (length-aware dense decode) and K6a (masked dense decode), one
    split-KV launch each, against their plain version at the fixed-lane
@@ -86,7 +88,7 @@ order (any failure raises and the script exits non-zero):
    launch cost stays out): each kernel, its plain version and
    ``F.scaled_dot_product_attention`` where one call computes the same
    function, beside the card's bound; K2 in bf16 at Sq 512 and 1024 and
-   in float32 at Sq 512, and in bf16 at D 96 (the CUDA-core kernel);
+   in float32 at Sq 512, and in bf16 at D 96 (the tensor-core kernel);
    for K1 also its pages gathered and then SDPA
    (no single call reads a block table); for the int8 kernels also the
    reference model's route (dequantize to float32, then K3 or K1);
@@ -218,7 +220,7 @@ order (any failure raises and the script exits non-zero):
 25. K2, K3, K1, K5 and K4 at olmo-1b's, mistral-nemo-12b's,
    qwen2.5-32b's, moonshot-v1-16b-a3b's and phi-3-vision-4.2b's shapes
    (D 128, GQA group 1, 4 and 5; D 96 for phi-3-vision, whose bf16 K2
-   is the CUDA-core kernel; the serves' lanes) against their plain
+   is the tensor-core kernel too; the serves' lanes) against their plain
    versions, K1 == K3 and K4 == K5 bitwise;
 26. full width in bf16 with seeded random weights, each loaded after
    every earlier model is dropped and the cache emptied: olmo-1b (16
@@ -229,8 +231,8 @@ order (any failure raises and the script exits non-zero):
    top-6 routed by the sort-based capacity dispatch inside the captured
    decode step, every expert read each step; 8 requests, 32 new
    tokens, 8 lanes) paged, and the vlm family's
-   phi-3-vision-4.2b (8 requests, 8 lanes; K2's CUDA-core kernel at D
-   96) on both layouts, with ``Model.forward`` at S 1024 over a
+   phi-3-vision-4.2b (8 requests, 8 lanes; K2's tensor-core kernel at
+   D 96) on both layouts, with ``Model.forward`` at S 1024 over a
    256-token ``vision_embeds`` prefix from the seed (finite logits, 32
    K2 launches); prompts 64-700, max_len 1024, pages of 16; K2 once a
    layer a prompt and K3/K1 a decode step, the replay gates and check,
@@ -695,7 +697,9 @@ def k2_inputs(sq, dtype, dev, d=128, h=12, hkv=2, sk=None, b=1):
 #: K2's check cases (Sq, causal, window, D, H, Hkv[, Sk, B]; Sk = Sq
 #: and B = 1 when left out): the full-width serve's buckets 64, 512 and 1024, a ragged
 #: length, a sliding window, no mask, a window without causality, D 64,
-#: 96 (phi-3-vision's; causal, and a ragged windowed prompt) and 256,
+#: 96 (phi-3-vision's; causal, a ragged windowed prompt, Sq 100 and 1000
+#: (not multiples of 64), B 2, no mask at Sq 200 against Sk 256, GQA
+#: group 4) and 256,
 #: and the float32 SMOKE serve's shape (D 32, H 4) at its prompt buckets
 #: (prompts of 3 to 127 tokens); then hymba-1.5b's (H 25 over Hkv 5, D
 #: 64, window 1024) at its serve's largest bucket, 2048, where most
@@ -711,6 +715,10 @@ K2_CASES = ((64, True, None, 128, 12, 2), (100, True, None, 128, 12, 2),
             (1024, True, None, 128, 12, 2), (200, False, None, 128, 12, 2),
             (512, False, 96, 128, 12, 2), (512, True, None, 64, 12, 2),
             (256, True, None, 96, 12, 2), (300, True, 128, 96, 12, 2),
+            (100, True, None, 96, 12, 2), (1000, True, None, 96, 12, 2),
+            (300, True, None, 96, 12, 2, 300, 2),
+            (200, False, None, 96, 12, 2, 256, 1),
+            (512, True, None, 96, 16, 4),
             (256, True, None, 256, 12, 2),
             *((sq, True, None, 32, 4, 2) for sq in (8, 16, 32, 64, 128)),
             (2048, True, 1024, 64, 25, 5), (512, True, 1024, 64, 25, 5),
@@ -727,14 +735,16 @@ def phase_k2(dev):
     """K2 against its plain version at K2_CASES, float32 (tol 1e-4) and
     bfloat16 (tol 2e-2); the launch counters must name the kernel that
     ``kernel_for`` picks from the dtype and D: the tensor-core kernel
-    for bf16 at D 64 and 128, the CUDA-core kernel otherwise.  Returns
-    {kernel: {dtype: (worst error over its cases, tol)}}, under
+    for bf16 at D 64, 96 and 128, the CUDA-core kernel otherwise.
+    Returns {kernel: {dtype: (worst error over its cases, tol)}}, under
     ``"smoke"`` the worst float32 error at ``SMOKE_K2_SHAPE``, and under
     ``"hymba"`` the worst at hymba-1.5b's shapes (Hkv 5), under
     ``"whisper"`` at whisper-base's (Hkv 8) and under ``"phi3v"`` at
     phi-3-vision-4.2b's (Hkv 32).  whisper's bf16 cases are also held
     element by element within ``k2_scaled_check``'s bound (under
-    ``"scaled"``) and by their least-squares scale (under ``"scale"``)."""
+    ``"scaled"``) and by their least-squares scale (under ``"scale"``);
+    every bf16 D 96 case likewise (under ``"d96_scaled"`` and
+    ``"d96_scale"``; its worst error under ``"d96"``)."""
     import torch
     from repro_torch.kernels import launch_counts
     from repro_torch.kernels.flash_attention import (attention_ref,
@@ -775,6 +785,12 @@ def phase_k2(dev):
             if shape_key == "whisper" and dtype == torch.bfloat16:
                 k2_scaled_check(errs, "whisper-base", out, q, k, v, kernel,
                                 causal=causal)
+            if d == 96 and dtype == torch.bfloat16:
+                worst = errs[kernel].get("d96", (0.0, tol))[0]
+                errs[kernel]["d96"] = (max(worst, err), tol)
+                k2_scaled_check(errs, f"D 96 (H {h}/{hkv})",
+                                out, q, k, v, kernel, causal=causal,
+                                window=window, key="d96_")
     return errs
 
 
@@ -1372,7 +1388,7 @@ def phase_timings(dev):
     # K2: B=1, H 12, Hkv 2, D 128, causal; bf16 (the serves' dtype: the
     # tensor-core kernel) at Sq 512 and the serve's largest bucket, 1024;
     # float32 (the CUDA-core kernel) at Sq 512 beside f32 SDPA, and bf16
-    # at phi-3-vision's D 96 (the CUDA-core kernel too) beside bf16 SDPA
+    # at phi-3-vision's D 96 (the tensor-core kernel) beside bf16 SDPA
     q, k, v = k2_inputs(512, torch.bfloat16, dev)
     rows["flash_attention_mma"] = _k2_row(q, k, v, 2)
     q, k, v = k2_inputs(1024, torch.bfloat16, dev)
@@ -1380,7 +1396,7 @@ def phase_timings(dev):
     q, k, v = k2_inputs(512, torch.float32, dev)
     rows["flash_attention_cc"] = _k2_row(q, k, v, 4)
     q, k, v = k2_inputs(512, torch.bfloat16, dev, d=96)
-    rows["flash_attention_cc"]["d96"] = _k2_row(q, k, v, 2)
+    rows["flash_attention_mma"]["d96"] = _k2_row(q, k, v, 2)
     # K3 / K6a: bf16, fixed-lane path shapes (S = 1024)
     q, k, v, lens = dense_inputs(torch.bfloat16, dev)
     b, hkv, s, d = k.shape
@@ -2675,7 +2691,7 @@ FAMILY_SERVES = {"olmo-1b": (16, 64, 8, ("fixed-lane", "paged")),
                  # paged only, as qwen2.5-32b (phase 25 holds K3 at its
                  # shapes)
                  "moonshot-v1-16b-a3b": (8, 32, 8, ("paged",)),
-                 # D 96: K2's CUDA-core kernel on its prefill
+                 # D 96: K2's tensor-core kernel on its prefill
                  "phi-3-vision-4.2b": (8, 64, 8, ("fixed-lane", "paged"))}
 #: decode lengths of the kernel checks and timings at each config's
 #: shapes: a dead lane, lengths across page and chunk edges, a full lane
@@ -2714,7 +2730,7 @@ K2_SCALE_TOL = 2.0 ** -9
 
 
 def k2_scaled_check(errs, arch, out, q, k, v, kernel="flash_attention_mma",
-                    causal=True):
+                    causal=True, window=None, key=""):
     """Hold K2's bf16 output (causal or unmasked) to an error bound
     scaled by the reference, element by element, so that late causal
     rows and long unmasked ones (|out| a few hundredths) are held as
@@ -2736,12 +2752,13 @@ def k2_scaled_check(errs, arch, out, q, k, v, kernel="flash_attention_mma",
     output on the reference, sum(out ref) / sum(ref ref), is held too:
     the kernel's roundings are unbiased, so it stays within
     ``K2_SCALE_TOL`` of 1 (PERF.md has the sound and the control
-    readings)."""
+    readings).  The ratio and the scale go into ``errs[kernel]`` under
+    ``key + "scaled"`` and ``key + "scale"``."""
     import torch
     from repro_torch.kernels.flash_attention import attention_ref
     qf, kf, vf = (x.float() for x in (q, k, v))
-    ref = attention_ref(qf, kf, vf, causal=causal)
-    ref_abs = attention_ref(qf, kf, vf.abs(), causal=causal)
+    ref = attention_ref(qf, kf, vf, causal=causal, window=window)
+    ref_abs = attention_ref(qf, kf, vf.abs(), causal=causal, window=window)
     err = (out.float() - ref).abs()
     ratio = float((err / (2.0 ** -8 * (ref.abs() + ref_abs) + 1e-5))
                   .max().item())
@@ -2749,7 +2766,7 @@ def k2_scaled_check(errs, arch, out, q, k, v, kernel="flash_attention_mma",
     sq = q.shape[2]
     late = slice(3 * sq // 4, sq)
     print(f"[{arch} kernels] {kernel} bf16 B={q.shape[0]} Sq={sq} "
-          f"Sk={k.shape[2]} causal={causal} against a "
+          f"Sk={k.shape[2]} causal={causal} window={window} against a "
           f"float32 reference: error over the scaled bound {ratio:.3f} "
           f"(limit 1), |least-squares scale - 1| {bias:.3e} (limit "
           f"{K2_SCALE_TOL:.3e}); last quarter of rows: max_abs_err "
@@ -2764,17 +2781,17 @@ def k2_scaled_check(errs, arch, out, q, k, v, kernel="flash_attention_mma",
         fail(f"{kernel} at {arch}'s shapes (Sq {sq}) is biased: its "
              f"least-squares scale on the reference is {1 - bias} or "
              f"{1 + bias}, beyond {K2_SCALE_TOL} of 1")
-    worst = errs.setdefault(kernel, {}).get("scaled", (0.0, 1.0))[0]
-    errs[kernel]["scaled"] = (max(worst, ratio), 1.0)
-    worst = errs[kernel].get("scale", (0.0, K2_SCALE_TOL))[0]
-    errs[kernel]["scale"] = (max(worst, bias), K2_SCALE_TOL)
+    worst = errs.setdefault(kernel, {}).get(key + "scaled", (0.0, 1.0))[0]
+    errs[kernel][key + "scaled"] = (max(worst, ratio), 1.0)
+    worst = errs[kernel].get(key + "scale", (0.0, K2_SCALE_TOL))[0]
+    errs[kernel][key + "scale"] = (max(worst, bias), K2_SCALE_TOL)
 
 
 def phase_family_kernels(dev, arch):
     """The attention kernels at ``arch``'s shapes against their plain
     versions, f32 (tol 1e-4) and bf16 (tol 2e-2): K2 causal at Sq 1024
-    (bf16 on the kernel ``kernel_for`` picks: the tensor cores at D 128,
-    the CUDA cores at phi-3-vision's D 96; f32 on the CUDA cores) and at
+    (bf16 on the tensor cores, the kernel ``kernel_for`` picks at D 128
+    and at phi-3-vision's D 96; f32 on the CUDA cores) and at
     a ragged Sq 700, the bf16 one also within ``k2_scaled_check``'s bound; K3, K1, K5 and K4 (per-token int8 scales) at the serve's
     lanes over ``FAMILY_LENS``; K1 gives K3's bits on the gathered pools
     and K4 K5's, and each repeats its bits.  Returns {kernel: {dtype:
@@ -2984,8 +3001,8 @@ def phase_family_serve(dev, arch):
     """``arch`` at full width (bf16, random weights from the seed) served
     with ``FAMILY_SERVES``' traffic on its layouts through
     :func:`serve_full` (the replay gates and check): K2 (the kernel
-    ``kernel_for`` picks at the config's head dim: the tensor cores, or
-    the CUDA cores at phi-3-vision's D 96) once a layer a prompt and K3
+    ``kernel_for`` picks at the config's head dim: the tensor cores at D
+    128 and at phi-3-vision's D 96) once a layer a prompt and K3
     (fixed-lane) or K1 (paged) once a layer a decode step; the prefill's
     last-position logits finite with the padded vocab masked; a vlm
     also runs :func:`vision_forward_check`.  Loaded after every earlier
@@ -3044,7 +3061,7 @@ def phase_family_serve(dev, arch):
 def vision_forward_check(dev, cfg, params, s=1024):
     """``build_model(cfg).forward`` at S ``s`` with a ``n_vision_tokens``
     prefix of ``vision_embeds`` drawn from the seed (launch counts zeroed
-    before and read after): K2 (CUDA-core kernel at D 96) once a layer,
+    before and read after): K2 (tensor-core kernel at D 96) once a layer,
     finite logits of the right shape with the padded vocab masked, and
     the logits at the vision positions moved by the embeddings (against
     the same tokens without them).  Returns the launches and the host
@@ -4815,8 +4832,8 @@ def main() -> int:
         return out
 
     # the dense family, moonshot and phi-3-vision at full width: K2
-    # (the kernel its head dim selects: the tensor cores, or the CUDA
-    # cores at phi-3-vision's D 96) and K3 from each config's fixed-lane
+    # (the kernel its head dim selects: the tensor cores, at D 128 and at
+    # phi-3-vision's D 96) and K3 from each config's fixed-lane
     # serve (qwen2.5-32b and moonshot: the paged serve, which launches no
     # K3), K1 from the paged serve; K2's CUDA-core kernel, K5 and K4
     # from olmo's float32 SMOKE serves (KV in float32, and in int8:
@@ -4933,6 +4950,13 @@ def main() -> int:
                 entry[sub] = {key: r[sub][key] for key in (
                     "ms", "host_ms", "plain_ms", "library_ms", "bound_ms",
                     "bound_by")}
+        # bf16 D 96 (phase 3's cases): worst error, scaled-bound ratio
+        # and least-squares scale
+        for key, tag in (("d96", ""), ("d96_scaled", "_scaled"),
+                         ("d96_scale", "_scale")):
+            if key in errs[name]:
+                sub = entry.setdefault("d96", {})
+                sub[f"max_abs_err{tag}"], sub[f"tol{tag}"] = errs[name][key]
         if name in hymba_launches:
             entry["hymba"] = hymba_entry(name)
         fam = family_entry(name)

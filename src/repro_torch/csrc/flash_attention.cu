@@ -13,7 +13,7 @@
 // the time, one key block after another, and what each block costs is
 // what python -m repro_torch.kernels.breakdown --target k2 reads.
 //
-// flash_attention_mma_bf16_d{64,128} (bf16, the serves' dtype: every
+// flash_attention_mma_bf16_d{64,96,128} (bf16, the serves' dtype: every
 // prefill of a bf16 model at these head dims):
 //   * grid (B*H, ceil(Sq/64)); one CTA of 8 warps owns 64 query rows of
 //     one head: warp w takes rows 16 (w % 4) .. + 15 and keys 32 (w / 4)
@@ -29,7 +29,16 @@
 //     (cp.async.bulk.tensor, one thread issuing, an mbarrier a stage)
 //     in boxes of 64 rows x 128 bytes with the 128-byte swizzle, so the
 //     fragment loads meet no bank twice; rows past Sq or Sk arrive as
-//     zeros; a stage is refilled as soon as the block that used it is
+//     zeros.  At D 96 (phi-3-vision's) a 192-byte row is not a whole
+//     number of 128-byte boxes: its tiles come as three boxes of 64 rows
+//     x 64 bytes with the 64-byte swizzle, which again keeps an
+//     ldmatrix's 8 rows in 32 banks; a tile holds just the 96 real
+//     columns (87 KB of shared memory a CTA) and the kernel is held to
+//     128 registers a thread, so two CTAs share an SM and one's softmax
+//     runs under the other's products.  (Tiles padded to 128 columns in
+//     128-byte boxes, the padding TMA's zero fill, took 115 KB and one
+//     CTA an SM, and ran ~1.2x slower at phi-3-vision's prefill.)  A
+//     stage is refilled as soon as the block that used it is
 //     done (one block barrier a key block), so three blocks are in
 //     flight.  TMA rather than 16-byte cp.async copies: with cp.async
 //     each block's copies cost its CTA more time than the products;
@@ -46,10 +55,9 @@
 //     masked score is -1e30 and its weight 0); a row with no live key
 //     writes 0.
 // flash_attention_cc_* (float32 at every head dim; bf16 at D 256, where
-// the tensor-core kernel's accumulators would not fit in registers, at
-// D 32, whose 64-byte rows the 128-byte swizzle does not take, and at
-// D 96, phi-3-vision's, until the tensor-core kernel takes it): the
-// first design, on the CUDA cores in f32:
+// the tensor-core kernel's accumulators would not fit in registers, and
+// at D 32, the float32 SMOKE configs' head dim, which no bf16 model
+// serves): the first design, on the CUDA cores in f32:
 //   * grid (B*H, ceil(Sq/64)); one CTA owns 64 query rows of one head and
 //     walks the key axis in 64-key blocks staged through shared memory
 //     (f32, rows padded against bank conflicts);
@@ -94,11 +102,18 @@ constexpr int MTHREADS = 32 * MWARPS;
 constexpr int STAGES = 3;               // K/V ring depth
 constexpr int BOX = 64;                 // bf16 columns of a TMA box (128 B)
 
-// Shared memory, 1024-aligned (the swizzle's period): Q (64 rows x D),
+// the columns of a TMA box at head dim d: 64 (128 bytes, the 128-byte
+// swizzle) where they divide d, else 32 (64 bytes, the 64-byte swizzle;
+// D 96)
+__host__ __device__ constexpr int box_cols(int d) {
+  return d % BOX == 0 ? BOX : BOX / 2;
+}
+
+// Shared memory, 1024-aligned (the swizzles' period): Q (64 rows x D),
 // then STAGES stages of K and V (64 rows x D each), each a row of boxes
-// of 64 rows x 64 columns; then STAGES + 1 mbarriers (one a stage, one
-// for Q); and room to align.  After the walk the ring holds the key
-// halves' merge.
+// of 64 rows x box_cols(D) columns; then STAGES + 1 mbarriers (one a
+// stage, one for Q); and room to align.  After the walk the ring holds
+// the key halves' merge.
 template <int D>
 constexpr int mma_smem_bytes() {
   return 1024 + (int)sizeof(bf16) * MBQ * D * (1 + 2 * STAGES) +
@@ -108,12 +123,19 @@ constexpr int mma_smem_bytes() {
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-// element (r, c) of a tile stored as TMA's 128-byte swizzle left it:
-// the 16-byte chunk j of row r of a box sits at chunk j ^ (r % 8), so the
-// 8 rows an ldmatrix reads at one chunk fall in 32 different banks
+// element (r, c) of a tile stored as TMA's swizzle left it, in boxes of
+// BW columns.  128-byte swizzle (BW 64): the 16-byte chunk j of row r of
+// a box sits at chunk j ^ (r % 8); 64-byte swizzle (BW 32): at j ^ ((r /
+// 2) % 4), two rows to 128 bytes.  Either way the 8 rows an ldmatrix
+// reads at one chunk fall in 32 different banks.
+template <int BW>
 __device__ __forceinline__ const bf16* swz(const bf16* tile, int r, int c) {
-  return tile + (c >> 6) * (MBQ * BOX) + r * BOX +
-         ((((c & 63) >> 3) ^ (r & 7)) << 3) + (c & 7);
+  if constexpr (BW == BOX)
+    return tile + (c >> 6) * (MBQ * BOX) + r * BOX +
+           ((((c & 63) >> 3) ^ (r & 7)) << 3) + (c & 7);
+  else
+    return tile + (c >> 5) * (MBQ * 32) + r * 32 +
+           ((((c & 31) >> 3) ^ ((r >> 1) & 3)) << 3) + (c & 7);
 }
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
@@ -139,8 +161,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "r"(smem_u32(bar)), "r"(parity)
         : "memory");
 }
-// TMA: the (64 columns, 64 rows) box of a 3-d tensor map at (c, r,
-// slab) into shared memory, completing on bar; rows past the slab's
+// TMA: the (box_cols columns, 64 rows) box of a 3-d tensor map at (c,
+// r, slab) into shared memory, completing on bar; rows past the slab's
 // end arrive as zeros
 __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
                                         int c, int r, int slab,
@@ -152,13 +174,13 @@ __device__ __forceinline__ void tma_box(void* dst, const CUtensorMap* map,
       "r"(smem_u32(bar))
       : "memory");
 }
-// rows [r, r + 64) of slab `slab`, all D columns, as D / 64 boxes
-template <int D>
+// rows [r, r + 64) of slab `slab`, all D columns, as D / BW boxes
+template <int D, int BW>
 __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map,
                                          int r, int slab, uint64_t* bar) {
 #pragma unroll
-  for (int b = 0; b < D / BOX; ++b)
-    tma_box(dst + b * MBQ * BOX, map, b * BOX, r, slab, bar);
+  for (int b = 0; b < D / BW; ++b)
+    tma_box(dst + b * MBQ * BW, map, b * BW, r, slab, bar);
 }
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile(
@@ -205,6 +227,7 @@ __device__ __forceinline__ void mma_body(const CUtensorMap* qmap,
   constexpr int KT = D / 16;            // k-steps of Q K^T
   constexpr int NT = MBK / 16;          // score tiles of 8 keys, a half
   constexpr int DT = D / 8;             // output tiles of 8 columns
+  constexpr int BW = box_cols(D);       // columns of a TMA box
   constexpr int TILE = MBQ * D;         // elements of a 64-row tile
   constexpr int STAGE = 2 * TILE;       // K then V
   constexpr int TILE_BYTES = TILE * (int)sizeof(bf16);
@@ -244,12 +267,12 @@ __device__ __forceinline__ void mma_body(const CUtensorMap* qmap,
     uint64_t* bar = &bars[j % STAGES];
     bf16* st = kv0 + (j % STAGES) * STAGE;
     mbar_expect(bar, 2 * TILE_BYTES);
-    tma_tile<D>(st, kmap, k_begin + j * MBK, kv_slab, bar);
-    tma_tile<D>(st + TILE, vmap, k_begin + j * MBK, kv_slab, bar);
+    tma_tile<D, BW>(st, kmap, k_begin + j * MBK, kv_slab, bar);
+    tma_tile<D, BW>(st + TILE, vmap, k_begin + j * MBK, kv_slab, bar);
   };
   if (tid == 0) {
     mbar_expect(qbar, TILE_BYTES);
-    tma_tile<D>(qs, qmap, q0, bh, qbar);
+    tma_tile<D, BW>(qs, qmap, q0, bh, qbar);
     for (int j = 0; j < STAGES && j < n_blk; ++j) load(j);
   }
 
@@ -263,7 +286,7 @@ __device__ __forceinline__ void mma_body(const CUtensorMap* qmap,
   uint32_t qa[KT][4];
 #pragma unroll
   for (int kk = 0; kk < KT; ++kk)
-    ldsm_x4(qa[kk], swz(qs, wr * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
+    ldsm_x4(qa[kk], swz<BW>(qs, wr * 16 + (lane & 15), kk * 16 + (lane >> 4) * 8));
 
   for (int it = 0; it < n_blk; ++it) {
     mbar_wait(&bars[it % STAGES], (it / STAGES) & 1);   // block it landed
@@ -281,7 +304,7 @@ __device__ __forceinline__ void mma_body(const CUtensorMap* qmap,
 #pragma unroll
       for (int np = 0; np < NT / 2; ++np) {
         uint32_t bfr[4];
-        ldsm_x4(bfr, swz(ks, r0 + np * 16 + (lane >> 4) * 8 + (lane & 7),
+        ldsm_x4(bfr, swz<BW>(ks, r0 + np * 16 + (lane >> 4) * 8 + (lane & 7),
                          kk * 16 + ((lane >> 3) & 1) * 8));
         mma_bf16(s[2 * np], qa[kk], bfr[0], bfr[1]);
         mma_bf16(s[2 * np + 1], qa[kk], bfr[2], bfr[3]);
@@ -357,7 +380,7 @@ __device__ __forceinline__ void mma_body(const CUtensorMap* qmap,
 #pragma unroll
       for (int dp = 0; dp < DT / 2; ++dp) {
         uint32_t bfr[4];
-        ldsm_x4_t(bfr, swz(vs, r0 + kk * 16 + (lane & 7) +
+        ldsm_x4_t(bfr, swz<BW>(vs, r0 + kk * 16 + (lane & 7) +
                                    ((lane >> 3) & 1) * 8,
                            dp * 16 + (lane >> 4) * 8));
         mma_bf16(o[2 * dp], pa[kk], bfr[0], bfr[1]);
@@ -425,8 +448,11 @@ __device__ __forceinline__ void mma_body(const CUtensorMap* qmap,
   }
 }
 
-#define MMA_KERNEL(D)                                                      \
-  __global__ void __launch_bounds__(MTHREADS) flash_attention_mma_bf16_d##D( \
+// BOUNDS: the launch bounds; at D 96 the registers must allow two CTAs
+// an SM, as its shared memory does
+#define MMA_KERNEL(D, BOUNDS)                                              \
+  __global__ void __launch_bounds__ BOUNDS                                 \
+      flash_attention_mma_bf16_d##D(                                       \
       const __grid_constant__ CUtensorMap qmap,                            \
       const __grid_constant__ CUtensorMap kmap,                            \
       const __grid_constant__ CUtensorMap vmap, bf16* out, int H, int Hkv, \
@@ -434,8 +460,9 @@ __device__ __forceinline__ void mma_body(const CUtensorMap* qmap,
     mma_body<D>(&qmap, &kmap, &vmap, out, H, Hkv, Sq, Sk, causal, window,  \
                 scale_log2);                                               \
   }
-MMA_KERNEL(64)
-MMA_KERNEL(128)
+MMA_KERNEL(64, (MTHREADS))
+MMA_KERNEL(96, (MTHREADS, 2))
+MMA_KERNEL(128, (MTHREADS))
 #undef MMA_KERNEL
 
 using MmaKernel = void (*)(const CUtensorMap, const CUtensorMap,
@@ -464,22 +491,25 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a bf16 (slabs, rows, D) array at p, read in boxes of
-// 64 columns x 64 rows of one slab, with the 128-byte swizzle; rows past
-// a slab's end read as zeros.
+// The tensor map of a bf16 (slabs, rows, d) array at p, read in boxes of
+// box_cols(d) columns x 64 rows of one slab, with the swizzle of that
+// width (128 or 64 bytes); rows past a slab's end read as zeros.
 bool tensor_map(CUtensorMap* map, const void* p, int d, int rows,
                 int slabs) {
   const EncodeTiled encode = encode_tiled();
+  const int bw = box_cols(d);
   const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
                               (cuuint64_t)slabs};
   const cuuint64_t stride[2] = {(cuuint64_t)d * sizeof(bf16),
                                 (cuuint64_t)rows * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {BOX, MBQ, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)bw, MBQ, 1};
   const cuuint32_t step[3] = {1, 1, 1};
   return encode != nullptr &&
          encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
                 const_cast<void*>(p), dims, stride, box, step,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                bw == BOX ? CU_TENSOR_MAP_SWIZZLE_128B
+                          : CU_TENSOR_MAP_SWIZZLE_64B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -680,7 +710,6 @@ CC_KERNEL(flash_attention_cc_f32_d96, 96, float)
 CC_KERNEL(flash_attention_cc_f32_d128, 128, float)
 CC_KERNEL(flash_attention_cc_f32_d256, 256, float)
 CC_KERNEL(flash_attention_cc_bf16_d32, 32, bf16)
-CC_KERNEL(flash_attention_cc_bf16_d96, 96, bf16)
 CC_KERNEL(flash_attention_cc_bf16_d256, 256, bf16)
 #undef CC_KERNEL
 
@@ -705,8 +734,8 @@ cudaError_t launch_cc(void (*kernel)(const T*, const T*, const T*, T*, int,
 }  // namespace
 
 // window <= 0 means no sliding window.  kernel 1 is the tensor-core
-// kernel (bf16, D 64/128, 16-byte aligned q/k/v/out), kernel 0 the
-// CUDA-core one (float32 at D 32/64/96/128/256, bf16 at D 32/96/256).
+// kernel (bf16, D 64/96/128, 16-byte aligned q/k/v/out), kernel 0 the
+// CUDA-core one (float32 at D 32/64/96/128/256, bf16 at D 32/256).
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* out, int B, int H,
                                    int Hkv, int Sq, int Sk, int D, int causal,
@@ -727,6 +756,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
     switch (D) {
       case 64: GO(mma, 64, bf16, flash_attention_mma_bf16_d64)
+      case 96: GO(mma, 96, bf16, flash_attention_mma_bf16_d96)
       case 128: GO(mma, 128, bf16, flash_attention_mma_bf16_d128)
       default: return (int)cudaErrorInvalidValue;
     }
@@ -744,7 +774,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   if (kernel == 0 && dtype == 1) {
     switch (D) {
       case 32: GO(cc, 32, bf16, flash_attention_cc_bf16_d32)
-      case 96: GO(cc, 96, bf16, flash_attention_cc_bf16_d96)
       case 256: GO(cc, 256, bf16, flash_attention_cc_bf16_d256)
       default: return (int)cudaErrorInvalidValue;
     }

@@ -45,11 +45,12 @@ SASS_KERNELS = ("mixbench_f32_fma", "mixbench_bf16_fma",
                 "fma_matmul_mul_add_staged_bf16",
                 "fma_matmul_splitk_reduce",
                 "flash_attention_mma_bf16_d64",
+                "flash_attention_mma_bf16_d96",
                 "flash_attention_mma_bf16_d128",
                 "flash_attention_cc_f32_d32", "flash_attention_cc_f32_d64",
                 "flash_attention_cc_f32_d96", "flash_attention_cc_f32_d128",
                 "flash_attention_cc_f32_d256", "flash_attention_cc_bf16_d32",
-                "flash_attention_cc_bf16_d96", "flash_attention_cc_bf16_d256",
+                "flash_attention_cc_bf16_d256",
                 "decode_dense_f32", "decode_dense_bf16",
                 "decode_dense_masked_f32", "decode_dense_masked_bf16",
                 "decode_dense_q8_f32", "decode_dense_q8_bf16",

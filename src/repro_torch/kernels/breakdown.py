@@ -28,7 +28,8 @@ back-to-back ``full`` calls at the first float32 shape:
   of tiles to the workspace; the reduce still adds what it holds).
 
 K2, the tensor-core kernel (``csrc/flash_attention.cu``; bf16, B 1, H
-12, Hkv 2, D 128, causal, Sq 512 and 1024; the CUDA-core kernel in
+12, Hkv 2, D 128, causal, Sq 512 and 1024, and phi-3-vision-4.2b's
+prefill, H 32 over 32, D 96, causal Sq 1024; the CUDA-core kernel in
 float32 at Sq 512, ``full`` and ``before`` only), beside
 ``F.scaled_dot_product_attention``:
 
@@ -429,13 +430,16 @@ def _k2_rows(dev, libs):
     from torch.nn import functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     rows = {}
-    for dtype, sq in ((torch.bfloat16, 512), (torch.bfloat16, 1024),
-                      (torch.float32, 512)):
+    for dtype, sq, h, hkv, d in ((torch.bfloat16, 512, 12, 2, 128),
+                                 (torch.bfloat16, 1024, 12, 2, 128),
+                                 (torch.float32, 512, 12, 2, 128),
+                                 (torch.bfloat16, 1024, 32, 32, 96)):
         gen = torch.Generator(device=dev).manual_seed(sq)
-        q, k, v = (torch.randn(1, h, sq, 128, device=dev, generator=gen,
-                               dtype=dtype) for h in (12, 2, 2))
+        q, k, v = (torch.randn(1, n, sq, d, device=dev, generator=gen,
+                               dtype=dtype) for n in (h, hkv, hkv))
+        shape = "" if d == 128 else f" H {h} Hkv {hkv} D {d}"
         row = rows[f"{'f32' if dtype == torch.float32 else 'bf16'} "
-                   f"Sq {sq}"] = {}
+                   f"Sq {sq}{shape}"] = {}
         for name, lib in libs.items():
             if dtype == torch.float32 and lib is not None:
                 continue                # the cuts are in the bf16 kernel

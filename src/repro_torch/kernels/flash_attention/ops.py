@@ -4,9 +4,10 @@ A CPU tensor takes the plain version (``ref.py``); a CUDA tensor
 launches one of the two kernels of ``csrc/flash_attention.cu`` or
 raises -- there is no fallback on the card.  :func:`kernel_for` picks
 the kernel from the dtype and head dim alone: bf16 at
-``MMA_HEAD_DIMS`` runs on the tensor cores (``flash_attention_mma``),
-everything else (float32, and bf16 at D 32, 96 and 256) on the CUDA cores
-in f32 (``flash_attention_cc``); each has its own launch counter.
+``MMA_HEAD_DIMS`` (64, 96 and 128) runs on the tensor cores
+(``flash_attention_mma``), everything else (float32, and bf16 at D 32
+and 256) on the CUDA cores in f32 (``flash_attention_cc``); each has its
+own launch counter.
 """
 
 from __future__ import annotations
@@ -26,11 +27,12 @@ COUNTER_MMA = LaunchCounter("flash_attention_mma")
 COUNTER_CC = LaunchCounter("flash_attention_cc")
 #: head dims a kernel is instantiated for (csrc: flash_attention_fwd)
 HEAD_DIMS = (32, 64, 96, 128, 256)
-#: head dims of the bf16 tensor-core kernel; at 256 its f32 accumulators
-#: would not fit in registers, at 32 a row is shorter than its TMA box,
-#: and 96 (phi-3-vision) is not instantiated there yet, so bf16 D 32, 96
-#: and 256 stay on the CUDA cores
-MMA_HEAD_DIMS = (64, 128)
+#: head dims of the bf16 tensor-core kernel (at 96, phi-3-vision's, a
+#: row comes as three 64-byte TMA boxes with the 64-byte swizzle, not
+#: 128-byte ones); at 256 its f32 accumulators would not fit in
+#: registers, and 32 (the float32 SMOKE configs') no bf16 model serves,
+#: so bf16 D 32 and 256 stay on the CUDA cores
+MMA_HEAD_DIMS = (64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_CODE = {"cc": 0, "mma": 1}
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [

@@ -36,6 +36,8 @@ from repro_torch.kernels._sass import (SASS_KERNELS,  # noqa: E402
                                        parse_sass)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention)
+from repro_torch.kernels.flash_attention import \
+    ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     HEAD_DIMS, MMA_HEAD_DIMS, kernel_for)
 
@@ -244,16 +246,17 @@ def test_wrappers_reject_unsupported_device():
 @pytest.mark.parametrize("dtype,d,kernel", [
     ("float32", 32, "cc"), ("float32", 64, "cc"), ("float32", 96, "cc"),
     ("float32", 128, "cc"), ("float32", 256, "cc"), ("bfloat16", 32, "cc"),
-    ("bfloat16", 64, "mma"), ("bfloat16", 96, "cc"), ("bfloat16", 128, "mma"),
+    ("bfloat16", 64, "mma"), ("bfloat16", 96, "mma"), ("bfloat16", 128, "mma"),
     ("bfloat16", 256, "cc")])
 def test_flash_kernel_dispatch(dtype, d, kernel):
-    """K2's dispatch rule, by dtype and head dim alone: bf16 at D 64 and
-    128 runs the tensor-core kernel; float32 (full f32 products, which
-    the float32 tolerance and token-exact serve need), bf16 at D 256
-    (accumulators too large for registers), at D 32 (rows shorter
-    than a TMA box) and at D 96 (phi-3-vision's; not instantiated on the
-    tensor cores yet) the CUDA-core kernel.  Each choice names a kernel
-    the source instantiates, held by the SASS rule."""
+    """K2's dispatch rule, by dtype and head dim alone: bf16 at D 64, 96
+    (phi-3-vision's: rows of three 64-byte TMA boxes) and 128 runs the
+    tensor-core kernel;
+    float32 (full f32 products, which the float32 tolerance and
+    token-exact serve need), bf16 at D 256 (accumulators too large for
+    registers) and at D 32 (no bf16 model serves it) the CUDA-core
+    kernel.  Each choice names a kernel the source instantiates, held by
+    the SASS rule."""
     dt = getattr(torch, dtype)
     assert kernel_for(dt, d) == kernel
     assert d in HEAD_DIMS and (kernel == "mma") == (
@@ -267,11 +270,11 @@ def test_flash_kernel_dispatch(dtype, d, kernel):
 def test_flash_head_dim_96_plain_matches_pallas(causal, window):
     """D 96 (phi-3-vision-4.2b: d 3072 over 32 heads), which the
     reference's blocks take since they span the whole head dim: the port
-    admits it on the card (``HEAD_DIMS``, the CUDA-core kernel in both
-    dtypes), and its CPU path at D 96 matches the Pallas kernel in
-    interpret mode and the jnp oracle."""
-    assert 96 in HEAD_DIMS and 96 not in MMA_HEAD_DIMS
-    assert kernel_for(torch.bfloat16, 96) == "cc"
+    admits it on the card (``HEAD_DIMS``; bf16 on the tensor-core kernel,
+    float32 on the CUDA-core one), and its CPU path at D 96 matches the
+    Pallas kernel in interpret mode and the jnp oracle."""
+    assert 96 in HEAD_DIMS and 96 in MMA_HEAD_DIMS
+    assert kernel_for(torch.bfloat16, 96) == "mma"
     assert kernel_for(torch.float32, 96) == "cc"
     q, k, v = _flash_inputs(4, 2, 64, d=96, seed=96)
     before = launch_counts()
@@ -288,6 +291,29 @@ def test_flash_head_dim_96_plain_matches_pallas(causal, window):
     assert np.max(np.abs(out - ref)) < TOL
 
 
+@pytest.mark.parametrize("dtype,offset,refused", [
+    ("bfloat16", 1, True), ("bfloat16", 4, True), ("bfloat16", 8, False),
+    ("float32", 1, False)])
+def test_flash_check_refuses_unaligned_d96_view(dtype, offset, refused):
+    """The tensor-core kernel reads q, k and v by TMA, so a bf16 D 96
+    view that does not start on 16 bytes is refused before any launch;
+    float32 (the CUDA-core kernel) takes it.  ``_check`` reads only
+    pointers and shapes, so CPU tensors stand in for the card's."""
+    dt = getattr(torch, dtype)
+    n = 1 * 2 * 64 * 96
+    buf = torch.zeros(n + 16, dtype=dt)
+    assert buf.data_ptr() % 16 == 0
+    view = buf[offset:offset + n].view(1, 2, 64, 96)
+    aligned = torch.zeros(1, 2, 64, 96, dtype=dt)
+    for q, k, v in ((view, aligned, aligned), (aligned, view, aligned),
+                    (aligned, aligned, view)):
+        if refused:
+            with pytest.raises(ValueError, match="16-byte"):
+                flash_ops._check(q, k, v, None)
+        else:
+            flash_ops._check(q, k, v, None)
+
+
 def test_flash_cpu_launches_no_kernel():
     """On the CPU both dtypes take the plain version: no counter moves."""
     q, k, v = map(torch.from_numpy, _flash_inputs(4, 2, 16))
@@ -302,6 +328,9 @@ _SASS_ATTN = """
         /*0000*/                   LDSM.16.M88.4 R20, [R2+UR4] ;
         /*0010*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
         /*0020*/                   MUFU.EX2 R5, R5 ;
+        Function : _ZN12_GLOBAL__N_128flash_attention_mma_bf16_d96E14CUtensorMap_stS0_S0_P13__nv_bfloat16iiiiiif
+        /*0000*/                   LDSM.16.MT88.4 R28, [R2+UR4] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R24, R28, R12, R24 ;
         Function : _ZN12_GLOBAL__N_127flash_attention_cc_f32_d128EPKfS1_S1_Pfiiiiiif
         /*0000*/                   FFMA R5, R4, R2, R3 ;
         Function : _ZN12_GLOBAL__N_117decode_dense_bf16EPK13__nv_bfloat16S2_PKfS2_S4_PKiPS0_PfS8_Piiiiiiif
@@ -323,6 +352,8 @@ _SASS_ATTN = """
     (None, None),
     (("HMMA.16816.F32.BF16 R4, R8, R12, R4", "FFMA R4, R8, R12, R4"),
      "flash_attention_mma_bf16_d128"),
+    (("HMMA.16816.F32.BF16 R24, R28, R12, R24", "FFMA R24, R28, R12, R24"),
+     "flash_attention_mma_bf16_d96"),
     (("FFMA R5, R4, R2, R3 ;\n        Function : _ZN12_GLOBAL__N_117",
       "HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n        Function : "
       "_ZN12_GLOBAL__N_117"), "flash_attention_cc_f32_d128"),
@@ -336,7 +367,9 @@ _SASS_ATTN = """
      "decode_paged_q8_f32"),
 ])
 def test_sass_rules_cover_the_attention_kernels(edit, breach):
-    """K2's bf16 kernel must run HMMA (mma.sync); its CUDA-core kernel
+    """K2's bf16 kernels (D 64, 96 and 128) must run HMMA (mma.sync);
+    a D 96 one without HMMA is flagged like the others; its CUDA-core
+    kernel
     and every dense and paged decode kernel (one split-KV body) must hold
     no HMMA and no HGMMA (wgmma): their f32 arithmetic stays off the
     tensor cores."""
@@ -344,6 +377,7 @@ def test_sass_rules_cover_the_attention_kernels(edit, breach):
     assert text.count(edit[1]) == 1 if edit else True
     found = kernel_counts(parse_sass(text))
     assert set(found) == {"flash_attention_mma_bf16_d128",
+                          "flash_attention_mma_bf16_d96",
                           "flash_attention_cc_f32_d128",
                           "decode_dense_bf16", "decode_dense_q8_masked_f32",
                           "decode_paged_bf16", "decode_paged_q8_f32"}
@@ -352,8 +386,9 @@ def test_sass_rules_cover_the_attention_kernels(edit, breach):
     for name in ("decode_dense_f32", "decode_dense_masked_bf16",
                  "decode_dense_q8_bf16", "flash_attention_mma_bf16_d64",
                  "flash_attention_cc_bf16_d256", "decode_paged_f32",
-                 "decode_paged_q8_bf16"):
+                 "decode_paged_q8_bf16", "flash_attention_mma_bf16_d96"):
         assert name in SASS_KERNELS
+    assert "flash_attention_cc_bf16_d96" not in SASS_KERNELS
 
 
 @pytest.mark.parametrize("kernel,variant", [
@@ -490,10 +525,10 @@ def test_flash_mma_kernel_on_card(sq, causal, window, d):
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 128)])
 @pytest.mark.parametrize("sq", [100, 512])
 def test_flash_d96_kernel_on_card(sq, causal, window, dtype, tol):
-    """K2 at D 96 (phi-3-vision's head dim, which the reference takes) on
-    the CUDA-core kernel in both dtypes, causal and windowed, against
-    ``attention_ref``: float32 within 1e-4, bf16 within 2e-2; the counter
-    shows that kernel ran, once."""
+    """K2 at D 96 (phi-3-vision's head dim, which the reference takes),
+    causal and windowed, against ``attention_ref``: float32 on the
+    CUDA-core kernel within 1e-4, bf16 on the tensor-core kernel within
+    2e-2; the counters show that kernel ran, once, and the other not."""
     _need_cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
@@ -504,9 +539,38 @@ def test_flash_d96_kernel_on_card(sq, causal, window, dtype, tol):
     after = launch_counts()
     ref = attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert after["flash_attention_cc"] - before["flash_attention_cc"] == 1
-    assert after["flash_attention_mma"] == before["flash_attention_mma"]
+    ran, idle = (("flash_attention_mma", "flash_attention_cc")
+                 if dt == torch.bfloat16 else
+                 ("flash_attention_cc", "flash_attention_mma"))
+    assert after[ran] - before[ran] == 1
+    assert after[idle] == before[idle]
     assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,hkv,sq,sk,causal", [
+    (1, 12, 2, 100, 100, True), (1, 12, 2, 1000, 1000, True),
+    (2, 12, 2, 300, 300, True), (1, 12, 2, 200, 256, False),
+    (1, 16, 4, 512, 512, True), (1, 32, 32, 1024, 1024, True)])
+def test_flash_mma_d96_kernel_on_card(b, h, hkv, sq, sk, causal):
+    """bf16 D 96 on the tensor-core kernel (rows of 192 bytes, three
+    64-byte TMA boxes) against ``attention_ref`` within 2e-2: Sq not a
+    multiple of 64, B 2 (the TMA maps span B x H), no mask with Sk past
+    Sq, GQA group 4 and phi-3-vision's prefill; one tensor-core launch
+    and no CUDA-core one."""
+    _need_cuda()
+    rng = np.random.default_rng(b * 1000 + sq + sk + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .cuda().bfloat16() for s in ((b, h, sq, 96), (b, hkv, sk, 96),
+                                            (b, hkv, sk, 96)))
+    before = launch_counts()
+    out = flash_attention(q, k, v, causal=causal)
+    after = launch_counts()
+    ref = attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert after["flash_attention_mma"] - before["flash_attention_mma"] == 1
+    assert after["flash_attention_cc"] == before["flash_attention_cc"]
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.cuda

@@ -71,7 +71,7 @@ def test_config_copies_the_reference():
             assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     full = get_config(ARCH)
     assert (full.family, full.n_vision_tokens, full.hd) == ("vlm", 256, 96)
-    assert kernel_for(torch.bfloat16, full.hd) == "cc"
+    assert kernel_for(torch.bfloat16, full.hd) == "mma"
 
 
 def test_forward_with_vision_embeds_matches_reference(model):
