@@ -317,7 +317,30 @@ order (any failure raises and the script exits non-zero):
    ``decode_forward`` at the same position (log-probabilities; float32
    weights within 1e-4, bf16 within ``WHISPER_LOGPROB_TOL_BF16``);
 40. timings at whisper-base's shapes: K2 at the encoder's and the
-   cross-attention's, K3 over the cross K/V, as in phase 21.
+   cross-attention's, K3 over the cross K/V, as in phase 21;
+41. K2 under autograd (``FlashAttentionFn``): its forward is K2's launch
+   (the counters name the arm) and its dq, dk and dv agree with
+   autograd through the plain version on the card, bf16 at D 64, 96
+   and 128 on the tensor-core kernel and float32 at D 32 on the
+   CUDA-core one, causal at S 256 and 1000, a window, GQA groups of 4
+   and 6 (K2's tolerances, 2e-2 and 1e-4, over max(1, max|grad|)); a
+   control whose backward zeroes dq and dk fails the gate; forward plus
+   backward at qwen2.5-1.5b's training shape timed beside the plain
+   version's autograd and SDPA's;
+42. training at SMOKE width in float32 (qwen2.5-1.5b): ``make_train_step``
+   on the CPU and on the card from one state, 3 steps, remat off and on,
+   microbatches 1 and 2: losses and first-step gradient leaves within
+   1e-5 relative, the parameters' change per leaf within 1e-2; K2's
+   CUDA-core kernel once a layer a microbatch (twice with remat);
+43. training at full width: qwen2.5-1.5b in bf16 from seed 0 with the
+   launcher's defaults (batch 8, seq 256, remat, warmup 20 over 30
+   steps): every first-step gradient leaf with K2 within 5e-2 of the
+   same step with the plain attention under autograd (the zeroed
+   control beyond it), 30 steps with a checkpoint at 15 and a restart
+   from it to 30 (the restarted losses equal the uninterrupted ones),
+   losses finite and falling, K2's tensor-core kernel 56 launches a
+   step; the median step, tokens/s, the optimizer's and K2's backward
+   ms a step and peak memory, beside the card's name and power limit.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -4636,6 +4659,498 @@ def phase_whisper_timings(dev):
     return rows
 
 
+# ----------------------------------------------------------------------
+# training: K2 under autograd, SMOKE CPU vs card, full width
+# ----------------------------------------------------------------------
+
+#: K2's backward cases (dtype, B, H, Hkv, Sq, D, causal, window): bf16 on
+#: the tensor-core kernel at D 128 (qwen2.5-1.5b's training shape, and
+#: causal Sq 1000), D 64 with a window, D 96 at a GQA group of 4 and at
+#: Sq 1000; float32 on the CUDA-core kernel at D 32 (the SMOKE train
+#: step's shape, a group of 4 at Sq 1000, a window)
+K2_BWD_CASES = (
+    ("bfloat16", 8, 12, 2, 256, 128, True, None),
+    ("bfloat16", 1, 12, 2, 1000, 128, True, None),
+    ("bfloat16", 2, 12, 2, 256, 64, True, 64),
+    ("bfloat16", 1, 16, 4, 256, 96, True, None),
+    ("bfloat16", 1, 8, 2, 1000, 96, True, None),
+    ("float32", 4, 4, 2, 64, 32, True, None),
+    ("float32", 1, 4, 1, 1000, 32, True, None),
+    ("float32", 2, 4, 2, 256, 32, True, 32))
+#: K2's own tolerances, on each gradient's largest error over its largest
+#: element (at least 1)
+K2_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+#: the SMOKE train step, CPU against card (float32): each loss, and each
+#: first-step gradient leaf (L2, relative); the parameters' change over
+#: three steps per leaf (relative: AdamW's first steps move a weight by
+#: ~lr * sign(g), so an element whose gradient sits at float32 noise
+#: steps the other way; sound runs read at most ~5e-5, the zeroed-dq/dk
+#: control ~1, PERF.md has the readings)
+TRAIN_SMOKE_TOL = {"loss": 1e-5, "grad": 1e-5, "update": 1e-3}
+#: full width, first step: each gradient leaf with K2 against the same
+#: step with the plain attention under autograd (L2, relative)
+TRAIN_FULL_GRAD_TOL = 5e-2
+#: the SMOKE train step's schedule: it moves the weights within 3 steps
+TRAIN_SMOKE_OPT = dict(lr=1e-2, warmup_steps=2, total_steps=10)
+
+
+def _zeroed_qk_fn():
+    """The control: K2's Function with dq and dk replaced by zeros."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+
+    class ZeroedQK(FlashAttentionFn):
+        @staticmethod
+        def backward(ctx, d_out):
+            import torch
+            dq, dk, dv, *rest = FlashAttentionFn.backward(ctx, d_out)
+            return (torch.zeros_like(dq), torch.zeros_like(dk), dv, *rest)
+
+    return ZeroedQK
+
+
+def _plain_attention_fn(q, k, v, *, causal=True, window=None, scale=None):
+    """The plain version under autograd (the gradient gate's baseline)."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def k2_bwd_inputs(dtype, b, h, hkv, sq, d, dev):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 7 * sq + 13 * d + h + 1000 * b)
+    shapes = ((b, h, sq, d), (b, hkv, sq, d), (b, hkv, sq, d), (b, h, sq, d))
+    return [torch.from_numpy(rng.standard_normal(s, np.float32)).to(
+        dev, getattr(torch, dtype)) for s in shapes]
+
+
+def k2_grads(fn_cls, q, k, v, d_out, causal, window, with_out=False):
+    """(dq, dk, dv) through ``fn_cls`` (a Function), or through the plain
+    version's autograd when ``fn_cls`` is None; with ``with_out``,
+    (output, (dq, dk, dv))."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    if fn_cls is None:
+        out = attention_ref(qs, ks, vs, causal=causal, window=window)
+    else:
+        out = fn_cls.apply(qs, ks, vs, causal, window, None)
+    grads = torch.autograd.grad(out, (qs, ks, vs), d_out)
+    return (out.detach(), grads) if with_out else grads
+
+
+def k2_bwd_err(got, want) -> float:
+    return max(max_err(g, w) / max(1.0, float(w.float().abs().max()))
+               for g, w in zip(got, want))
+
+
+def phase_k2_backward(dev):
+    """Phase 41: K2 under autograd on the card.  The Function's forward
+    is K2's launch (the counters name the arm ``kernel_for`` picks); its
+    output agrees with the plain version's on the same inputs within
+    K2's tolerances (bf16 also within ``k2_scaled_check``'s bound and
+    scale), and its dq, dk and dv agree with autograd through the plain
+    version on the card within them, at ``K2_BWD_CASES`` (the first is
+    the training path's shape: the backward recomputes P from q, k and
+    v and never reads the forward's output, so the output is held on its
+    own); a control
+    whose backward zeroes dq and dk fails the same gate.  Then fwd+bwd
+    at qwen2.5-1.5b's training shape (B 8, H 12 over 2, S 256, D 128,
+    causal, bf16) beside the plain version's autograd and SDPA's, and
+    the backward alone.  Returns {kernel: {dtype: (worst, tol)}} with
+    the timings under ``"timing"`` and the control under ``"control"``."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.kernels import launch_counts, launch_delta
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     attention_backward,
+                                                     attention_ref)
+    from repro_torch.kernels.flash_attention.ops import kernel_for
+    errs = {}
+    for dtype, b, h, hkv, sq, d, causal, window in K2_BWD_CASES:
+        q, k, v, d_out = k2_bwd_inputs(dtype, b, h, hkv, sq, d, dev)
+        kernel = f"flash_attention_{kernel_for(q.dtype, d)}"
+        before = launch_counts()
+        out, got = k2_grads(FlashAttentionFn, q, k, v, d_out, causal,
+                            window, with_out=True)
+        ran = launch_delta(before, launch_counts())
+        plain, want = k2_grads(None, q, k, v, d_out, causal, window,
+                               with_out=True)
+        err, tol = k2_bwd_err(got, want), K2_BWD_TOL[dtype]
+        fwd_err = max_err(out, plain)
+        print(f"[K2 bwd] {dtype} B={b} H={h} Hkv={hkv} S={sq} D={d} "
+              f"causal={causal} window={window}: forward {ran}, output "
+              f"max_abs_err {fwd_err:.3e} (tol {tol}), dq/dk/dv err "
+              f"{err:.3e} (tol {tol}, over max(1, max|grad|))")
+        if ran != {kernel: 1}:
+            fail(f"K2's Function at {dtype} D={d} launched {ran}, not "
+                 f"{kernel} once")
+        if not fwd_err <= tol:
+            fail(f"K2's Function forward {dtype} B={b} S={sq} D={d} "
+                 f"window={window} disagrees with the plain version: "
+                 f"{fwd_err}")
+        if dtype == "bfloat16":
+            k2_scaled_check(errs, "train", out, q, k, v, kernel,
+                            causal=causal, window=window, key="fwd ")
+        worst = errs.setdefault(kernel, {}).get("fwd " + dtype,
+                                                (0.0, tol))[0]
+        errs[kernel]["fwd " + dtype] = (max(worst, fwd_err), tol)
+        if not err <= tol:
+            fail(f"K2's backward {dtype} S={sq} D={d} window={window} "
+                 f"disagrees with the plain autograd: {err}")
+        worst = errs.setdefault(kernel, {}).get(dtype, (0.0, tol))[0]
+        errs[kernel][dtype] = (max(worst, err), tol)
+    dtype, b, h, hkv, sq, d, causal, window = K2_BWD_CASES[0]
+    q, k, v, d_out = k2_bwd_inputs(dtype, b, h, hkv, sq, d, dev)
+    ctrl = k2_bwd_err(k2_grads(_zeroed_qk_fn(), q, k, v, d_out, causal,
+                               window),
+                      k2_grads(None, q, k, v, d_out, causal, window))
+    print(f"[K2 bwd] control (dq, dk zeroed) at the first case: err "
+          f"{ctrl:.3e} against tol {K2_BWD_TOL[dtype]}")
+    if ctrl <= K2_BWD_TOL[dtype]:
+        fail(f"the zeroed-dq/dk control passed K2's backward gate: {ctrl}")
+
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def fwd_bwd(forward):
+        return lambda: torch.autograd.grad(forward(), (qs, ks, vs), d_out)
+
+    timing = {
+        "shape": f"bf16 B {b} H {h} Hkv {hkv} S {sq} D {d} causal",
+        "backward_ms": time_ms(lambda: attention_backward(
+            q, k, v, d_out, causal=causal)),
+        "fwd_bwd_ms": time_ms(fwd_bwd(lambda: FlashAttentionFn.apply(
+            qs, ks, vs, causal, None, None))),
+        "plain_fwd_bwd_ms": time_ms(fwd_bwd(lambda: attention_ref(
+            qs, ks, vs, causal=causal))),
+        "library_fwd_bwd_ms": time_ms(fwd_bwd(
+            lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True)))}
+    print(f"[K2 bwd] timing at {timing['shape']}: backward "
+          f"{timing['backward_ms']:.4f} ms; forward+backward "
+          f"{timing['fwd_bwd_ms']:.4f} ms, plain autograd "
+          f"{timing['plain_fwd_bwd_ms']:.4f} ms, SDPA "
+          f"{timing['library_fwd_bwd_ms']:.4f} ms")
+    errs["timing"] = timing
+    errs["control"] = (ctrl, K2_BWD_TOL[dtype])
+    return errs
+
+
+def _leaf_rel(a, b) -> float:
+    import torch
+    den = float(torch.linalg.vector_norm(b.double()))
+    return float(torch.linalg.vector_norm((a - b).double())) / max(den,
+                                                                   1e-30)
+
+
+def phase_train_smoke(dev):
+    """Phase 42: SMOKE qwen2.5-1.5b in float32, ``make_train_step`` on the
+    CPU and on the card from one state, 3 steps at remat off and on,
+    microbatches 1 and 2 (f32 moments): losses, first-step gradients
+    and the parameters' change per leaf within ``TRAIN_SMOKE_TOL``; the
+    card's steps run K2's CUDA-core kernel once a layer a microbatch
+    (twice with remat) and nothing else of K2.  A control (remat off,
+    one microbatch, K2's backward with dq and dk zeroed on the card)
+    must fail the gradient and update gates."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.checkpoint import (empty_train_state, load_train_state,
+                                        train_state_to_numpy)
+    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.kernels import launch_counts, launch_delta
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.train_loop import batch_to_device
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(get_config("qwen2.5-1.5b", smoke=True),
+                              dtype="float32")
+    start = {n: (a, dt) for n, a, dt in train_state_to_numpy(
+        init_train_state(build_model(cfg),
+                         torch.Generator().manual_seed(SEED), cpu))}
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+    zeroed = _zeroed_qk_fn()
+
+    def control(q, k, v, **kw):
+        return zeroed.apply(q, k, v, kw.get("causal", True),
+                            kw.get("window"), None)
+
+    def run(where, tcfg, attend=None):
+        from repro_torch.models import attention as attn_mod
+        saved = attn_mod.flash_attention_fn
+        if attend is not None:
+            attn_mod.flash_attention_fn = attend
+        try:
+            state = load_train_state(empty_train_state(cfg, where), start)
+            step = make_train_step(cfg, tcfg)
+            _, g0 = step.grads_of(state.params, batch_to_device(
+                synth_batch(dc, 0), where))
+            before = launch_counts()
+            losses = []
+            for i in range(3):
+                state, m = step(state, synth_batch(dc, i))
+                losses.append(float(m["loss"]))
+            ran = launch_delta(before, launch_counts())
+        finally:
+            attn_mod.flash_attention_fn = saved
+        return (losses, {n: g.cpu() for n, g in g0.items()},
+                {n: torch.from_numpy(a.astype("float64"))
+                 for n, a, _ in train_state_to_numpy(state)}, ran)
+
+    def readings(cpu_run, dev_run):
+        (l_cpu, g_cpu, s_cpu, _), (l_dev, g_dev, s_dev, _) = cpu_run, dev_run
+        return {
+            "loss": max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_dev)),
+            "grad": max(_leaf_rel(g_dev[n], g_cpu[n]) for n in g_cpu),
+            "update": max(_leaf_rel(
+                s_dev[n] - start[n][0].astype("float64"),
+                s_cpu[n] - start[n][0].astype("float64"))
+                for n in s_cpu if n.startswith(".params/")),
+            "leaf": max(_leaf_rel(s_dev[n], s_cpu[n]) for n in s_cpu)}
+
+    out = {}
+    for remat, mb in ((False, 1), (True, 1), (False, 2), (True, 2)):
+        tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_SMOKE_OPT),
+                           remat=remat, microbatches=mb)
+        cpu_run, dev_run = run(cpu, tcfg), run(dev, tcfg)
+        (l_cpu, _, _, _), (l_dev, _, _, ran) = cpu_run, dev_run
+        r = readings(cpu_run, dev_run)
+        loss_err, grad_err, upd_err, param_err = (
+            r["loss"], r["grad"], r["update"], r["leaf"])
+        if (remat, mb) == (False, 1):
+            ctrl = readings(cpu_run, run(dev, tcfg, control))
+            print(f"[train smoke] control (dq, dk zeroed on the card), "
+                  f"remat=False microbatches=1: loss rel "
+                  f"{ctrl['loss']:.3e}, first-step grad rel "
+                  f"{ctrl['grad']:.3e}, update rel {ctrl['update']:.3e} "
+                  f"(tols {TRAIN_SMOKE_TOL})")
+            for key in ("grad", "update"):
+                if ctrl[key] <= TRAIN_SMOKE_TOL[key]:
+                    fail(f"the zeroed-dq/dk control passed the SMOKE "
+                         f"training {key} gate: {ctrl[key]}")
+            out["control"] = ctrl
+        want = {"flash_attention_cc": 3 * mb * cfg.n_layers * (2 if remat
+                                                               else 1)}
+        tag = f"remat={remat} microbatches={mb}"
+        print(f"[train smoke] {tag}: losses cpu {l_cpu} card {l_dev}; "
+              f"loss rel {loss_err:.3e}, first-step grad rel "
+              f"{grad_err:.3e}, update rel {upd_err:.3e}, leaf rel "
+              f"{param_err:.3e}; card launches {ran}")
+        if ran != want:
+            fail(f"the SMOKE train steps ({tag}) launched {ran}, not {want}")
+        for key, err in (("loss", loss_err), ("grad", grad_err),
+                         ("update", upd_err)):
+            if not err <= TRAIN_SMOKE_TOL[key]:
+                fail(f"SMOKE training {tag}: {key} CPU vs card {err} > "
+                     f"{TRAIN_SMOKE_TOL[key]}")
+        out[tag] = {"losses_cpu": l_cpu, "losses_card": l_dev,
+                    "loss_rel": loss_err, "grad_rel": grad_err,
+                    "update_rel": upd_err, "leaf_rel": param_err,
+                    "launches": ran}
+    return out
+
+
+def _grads_with(step, params, batch, attend):
+    """First-step gradients with ``attend`` standing in for K2's Function
+    in the model's attention (None: the Function itself)."""
+    from repro_torch.models import attention as attn_mod
+    saved = attn_mod.flash_attention_fn
+    try:
+        if attend is not None:
+            attn_mod.flash_attention_fn = attend
+        return step.grads_of(params, batch)[1]
+    finally:
+        attn_mod.flash_attention_fn = saved
+
+
+def phase_train_full(dev):
+    """Phase 43: qwen2.5-1.5b at full width in bf16 from seed 0, with the
+    launcher's defaults (batch 8, seq 256, remat, AdamW warmup 20 over
+    30 steps): the first step's gradients with K2 against the same step
+    with the plain attention under autograd (and the zeroed-dq/dk
+    control against the same), 30 steps with a checkpoint at step 15,
+    then a restart from it (the launcher's init and ``restore_latest``)
+    to step 30.  Gates: every gradient leaf within
+    ``TRAIN_FULL_GRAD_TOL`` and the control beyond it; losses finite and
+    falling; the restarted losses equal the uninterrupted ones (bitwise
+    or within 1e-5 relative); K2's tensor-core kernel 56 launches a
+    step.  Prints the median step, tokens/s, the optimizer's and K2's
+    backward ms a step, and peak memory."""
+    import math
+    import shutil
+    import torch
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_latest
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataLoader, synth_batch
+    from repro_torch.kernels import (launch_counts, launch_delta,
+                                     reset_launch_counts)
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     attention_backward)
+    from repro_torch.launch.train import SEED as TRAIN_SEED
+    from repro_torch.launch.train import parse_args, train_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_update
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.train_loop import batch_to_device
+    t_phase = time.perf_counter()
+    args = parse_args(["--arch", "qwen2.5-1.5b", "--steps", "30"])
+    cfg = get_config(args.arch)
+    model = build_model(cfg)
+    tcfg = train_config(args)
+    ck_step = 15
+    per_step = 2 * cfg.n_layers        # forward and remat's recompute
+    step = make_train_step(cfg, tcfg)
+    state = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(TRAIN_SEED), dev)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                    global_batch=args.batch)
+    batch0 = batch_to_device(synth_batch(dc, 0), dev)
+    g_plain = _grads_with(step, state.params, batch0, _plain_attention_fn)
+    reading = {}
+    zeroed = _zeroed_qk_fn()
+    for tag, attend in (("k2", None), ("control", lambda q, k, v, **kw:
+                                       zeroed.apply(q, k, v,
+                                                    kw.get("causal", True),
+                                                    kw.get("window"), None))):
+        g = _grads_with(step, state.params, batch0, attend)
+        errs = {n: _leaf_rel(g[n], g_plain[n]) for n in g_plain}
+        worst = max(errs, key=errs.get)
+        reading[tag] = (errs[worst], worst)
+        del g
+    del g_plain
+    print(f"[train full] first-step gradients against the plain attention "
+          f"under autograd: K2 worst leaf {reading['k2'][1]} rel "
+          f"{reading['k2'][0]:.3e}; control (dq, dk zeroed) worst "
+          f"{reading['control'][1]} rel {reading['control'][0]:.3e}; tol "
+          f"{TRAIN_FULL_GRAD_TOL}")
+    if not reading["k2"][0] <= TRAIN_FULL_GRAD_TOL:
+        fail(f"full-width gradients with K2 disagree with the plain "
+             f"attention's: {reading['k2']}")
+    if reading["control"][0] <= TRAIN_FULL_GRAD_TOL:
+        fail(f"the zeroed-dq/dk control passed the full-width gradient "
+             f"gate: {reading['control']}")
+
+    ckdir = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = AsyncCheckpointer(str(ckdir))
+    loader = DataLoader(dc, start_step=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, secs = [], []
+    try:
+        for i, batch in zip(range(args.steps), loader):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+            if i + 1 == ck_step:
+                t0 = time.perf_counter()
+                ck.save(ck_step, state)
+                save_host_s = time.perf_counter() - t0
+    finally:
+        loader.close()
+    counts = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    ck.close()
+    write_wait_s = time.perf_counter() - t0
+    ran = {n: c for n, c in counts.items() if c}
+    if ran != {"flash_attention_mma": per_step * args.steps}:
+        fail(f"the full-width train run launched {ran}, not "
+             f"{per_step * args.steps} of flash_attention_mma")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite full-width losses: {losses}")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        fail(f"full-width losses did not fall: {losses}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    state = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(TRAIN_SEED), dev)
+    got, state = restore_latest(str(ckdir), state)
+    restore_s = time.perf_counter() - t0
+    if got != ck_step:
+        fail(f"restore_latest found step {got}, not {ck_step}")
+    loader = DataLoader(dc, start_step=ck_step)
+    before = launch_counts()
+    resumed = []
+    try:
+        for i, batch in zip(range(ck_step, args.steps), loader):
+            state, m = step(state, batch)
+            resumed.append(float(m["loss"]))
+    finally:
+        loader.close()
+    ran2 = launch_delta(before, launch_counts())
+    tail = losses[ck_step:]
+    bitwise = resumed == tail
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(resumed, tail))
+    if ran2 != {"flash_attention_mma": per_step * (args.steps - ck_step)}:
+        fail(f"the restarted run launched {ran2}")
+    if not resume_err <= 1e-5:
+        fail(f"the restarted losses differ from the uninterrupted run's: "
+             f"{resumed} vs {tail}")
+
+    _, grads = step.grads_of(state.params,
+                             batch_to_device(synth_batch(dc, args.steps),
+                                             dev))
+    opt_ms = time_ms(lambda: adamw_update(tcfg.optimizer, state.params,
+                                          grads, state.opt),
+                     warmup=1, iters=3)
+    del grads, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    shape = (args.batch, cfg.n_heads, cfg.n_kv_heads, args.seq, cfg.hd)
+    q, k, v, d_out = k2_bwd_inputs("bfloat16", *shape, dev)
+    bwd_ms = time_ms(lambda: attention_backward(q, k, v, d_out,
+                                                causal=True))
+    fwd_ms = time_ms(lambda: FlashAttentionFn.apply(q, k, v, True, None,
+                                                    None))
+    step_ms = 1e3 * statistics.median(secs[3:])
+    # the writer thread shares the host with the steps after the save
+    step_ms_before = 1e3 * statistics.median(secs[3:ck_step])
+    out = {
+        "gpu": gpu_line(), "batch": args.batch, "seq": args.seq,
+        "steps": args.steps, "remat": tcfg.remat,
+        "grad_rel_k2": reading["k2"], "grad_rel_control":
+            reading["control"], "grad_tol": TRAIN_FULL_GRAD_TOL,
+        "losses": losses, "loss_first3": first, "loss_last3": last,
+        "resumed_losses": resumed, "resume_bitwise": bitwise,
+        "resume_max_rel": resume_err,
+        "launches": ran, "launches_resumed": ran2,
+        "launches_per_step": per_step,
+        "step_ms_median": step_ms, "step_ms_median_before_ckpt":
+            step_ms_before, "step_ms": [1e3 * s for s in secs],
+        "tok_s": args.batch * args.seq / (step_ms / 1e3),
+        "optimizer_ms": opt_ms,
+        "k2_backward_ms_per_call": bwd_ms,
+        "k2_backward_ms_per_step": cfg.n_layers * bwd_ms,
+        "k2_forward_ms_per_call": fwd_ms,
+        "k2_forward_ms_per_step": per_step * fwd_ms,
+        "peak_gib": peak_gib, "ckpt_host_copy_s": save_host_s,
+        "ckpt_write_wait_s": write_wait_s, "restore_s": restore_s,
+        "phase_s": time.perf_counter() - t_phase}
+    print(f"[train full] {out['gpu']}: losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of first 3 {first:.4f}, last 3 "
+          f"{last:.4f}); restart from step {ck_step}: losses "
+          f"{'bitwise equal' if bitwise else 'not bitwise'} (max rel "
+          f"{resume_err:.3e}); median step {step_ms:.2f} ms after 3 warm "
+          f"steps ({step_ms_before:.2f} before the checkpoint's writer "
+          f"starts), {out['tok_s']:,.0f} tok/s, optimizer {opt_ms:.2f} ms a "
+          f"step, K2 backward {out['k2_backward_ms_per_step']:.2f} ms a "
+          f"step ({bwd_ms:.4f} a layer), K2 forward "
+          f"{out['k2_forward_ms_per_step']:.2f} ms a step, peak "
+          f"{peak_gib:.2f} GiB; checkpoint: host copy {save_host_s:.1f} s, "
+          f"write waited {write_wait_s:.1f} s, restore {restore_s:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4763,6 +5278,13 @@ def main() -> int:
     whisper_rows = phase_whisper_timings(dev)
     print(f"[moe/vlm/whisper] phases 36-40 took "
           f"{time.perf_counter() - t_encdec:.1f}s")
+    t_train = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    k2_bwd = phase_k2_backward(dev)
+    train_smoke = phase_train_smoke(dev)
+    train_full = phase_train_full(dev)
+    print(f"[train] phases 41-43 took {time.perf_counter() - t_train:.1f}s")
 
     replaces = {
         "decode_attention_paged":
@@ -4904,6 +5426,43 @@ def main() -> int:
                 out[part] = {k: r[k] for k in r if k != "peak"}
         return out
 
+    # training: K2's tensor-core kernel from the full-width run (30 steps
+    # uninterrupted, then 15 resumed from the checkpoint; 56 a step), its
+    # CUDA-core kernel from the SMOKE float32 steps on the card (all four
+    # remat/microbatch runs); the backward's error (phase 41) and time
+    def training_entry(name):
+        if name == "flash_attention_mma":
+            t = k2_bwd["timing"]
+            return {
+                "launches": train_full["launches"][name],
+                "launches_resumed": train_full["launches_resumed"][name],
+                "launches_per_step": train_full["launches_per_step"],
+                "forward_max_abs_err": k2_bwd[name]["fwd bfloat16"][0],
+                "forward_scaled": k2_bwd[name]["fwd scaled"][0],
+                "forward_scale": k2_bwd[name]["fwd scale"][0],
+                "backward_max_abs_err": k2_bwd[name]["bfloat16"][0],
+                "backward_tol": k2_bwd[name]["bfloat16"][1],
+                "backward_control_err": k2_bwd["control"][0],
+                "backward_ms_per_call": train_full[
+                    "k2_backward_ms_per_call"],
+                "backward_ms_per_step": train_full[
+                    "k2_backward_ms_per_step"],
+                "forward_ms_per_step": train_full["k2_forward_ms_per_step"],
+                "fwd_bwd_ms": t["fwd_bwd_ms"],
+                "plain_fwd_bwd_ms": t["plain_fwd_bwd_ms"],
+                "library_fwd_bwd_ms": t["library_fwd_bwd_ms"],
+                "shape": t["shape"],
+                "step_ms_median": train_full["step_ms_median"]}
+        if name == "flash_attention_cc":
+            return {
+                "launches": sum(r["launches"].get(name, 0)
+                                for tag, r in train_smoke.items()
+                                if tag != "control"),
+                "forward_max_abs_err": k2_bwd[name]["fwd float32"][0],
+                "backward_max_abs_err": k2_bwd[name]["float32"][0],
+                "backward_tol": k2_bwd[name]["float32"][1]}
+        return None
+
     int8_fixed = int8["full e2e fixed-lane int8"][0]
     int8_paged = int8["full e2e paged int8"][0]
     launches = dict(fixed_counts)
@@ -4965,6 +5524,9 @@ def main() -> int:
         wh = whisper_entry(name)
         if wh:
             entry["whisper"] = wh
+        tr = training_entry(name)
+        if tr:
+            entry["training"] = tr
         kernels.append(entry)
     compute_replaces = {
         "mixbench_fma": "src/repro/kernels/mixbench/kernel.py:56",
@@ -5079,6 +5641,7 @@ def main() -> int:
     print(f"[moe quant] {json.dumps(moe_quant)}")
     print(f"[whisper] {json.dumps({'smoke': whisper_smoke, 'full': whisper_full})}")
     print(f"[sweep] {json.dumps(sweep_summary)}")
+    print(f"[train] {json.dumps({'k2_backward': k2_bwd, 'smoke': train_smoke, 'full': train_full})}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

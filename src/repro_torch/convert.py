@@ -15,6 +15,12 @@ E, f, d), ``shared`` -- with Arctic's ``mlp`` beside it; an ssm model's
 ``mlp``), each stacked, ``enc_final_norm`` and ``final_norm``.  Taking
 numpy only keeps JAX out of the port.
 
+:func:`train_state_from_jax`: the reference's ``TrainState`` brought to
+the host becomes the port's (float32 masters tracked by autograd,
+moments per port parameter), through the checkpoint's layout
+(:mod:`repro_torch.checkpoint.layout`), which names and stacks its
+leaves as the reference's tree does.
+
 :func:`qtensor_from_numpy`: the planes of a reference ``QTensor``
 (``jax.device_get`` of each) become a port :class:`QTensor` with the
 same bytes, so a test can quantize once and feed both packages.
@@ -22,18 +28,19 @@ same bytes, so a test can quantize once and feed both packages.
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.checkpoint.layout import empty_train_state, load_train_state
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import LM
 from repro_torch.models.whisper import Whisper
 from repro_torch.quant import PLANES, QTensor, plane_layout
 
-__all__ = ["params_from_jax", "qtensor_from_numpy"]
+__all__ = ["params_from_jax", "qtensor_from_numpy", "train_state_from_jax"]
 
 
 def _copy(dst: torch.Tensor, src: Any, what: str) -> None:
@@ -129,3 +136,44 @@ def qtensor_from_numpy(fmt: str, shape, values: Any, super_scales: Any,
                              f"want {w_dtype}{w_shape}")
         planes[name] = t.to(device)
     return QTensor(fmt=fmt, shape=(k, n), **planes)
+
+
+# ----------------------------------------------------------------------
+# Training state
+# ----------------------------------------------------------------------
+
+def _reference_leaves(np_state) -> Dict[str, Tuple[np.ndarray, str]]:
+    """The reference's ``TrainState`` (numpy leaves) by leaf name."""
+    out: Dict[str, Tuple[np.ndarray, str]] = {}
+
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, Mapping):
+            for key in sorted(node):
+                walk(f"{prefix}/{key}", node[key])
+        elif hasattr(node, "q") and hasattr(node, "scale"):
+            walk(f"{prefix}/q", node.q)
+            walk(f"{prefix}/scale", node.scale)
+        else:
+            arr = np.asarray(node)
+            out[prefix] = (arr, str(arr.dtype))
+
+    walk(".params", np_state.params)
+    walk(".opt/.step", np_state.opt.step)
+    walk(".opt/.mu", np_state.opt.mu)
+    walk(".opt/.nu", np_state.opt.nu)
+    return out
+
+
+def train_state_from_jax(np_state, cfg: ModelConfig, device: torch.device):
+    """The reference's ``TrainState`` brought to the host
+    (``jax.device_get(state)``) as the port's on ``device``: float32
+    masters, and moments in the reference's storage (f32, bf16, or int8
+    momentum beside bf16 variance)."""
+    leaves = _reference_leaves(np_state)
+    mu = next(v for k, v in leaves.items() if k.startswith(".opt/.mu/"))
+    if any(k.startswith(".opt/.mu/") and k.endswith("/q") for k in leaves):
+        moment_dtype = "int8"
+    else:
+        moment_dtype = "bf16" if mu[1] == "bfloat16" else "f32"
+    state = empty_train_state(cfg, device, moment_dtype)
+    return load_train_state(state, leaves)

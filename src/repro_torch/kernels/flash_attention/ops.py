@@ -8,6 +8,14 @@ the kernel from the dtype and head dim alone: bf16 at
 (``flash_attention_mma``), everything else (float32, and bf16 at D 32
 and 256) on the CUDA cores in f32 (``flash_attention_cc``); each has its
 own launch counter.
+
+:class:`FlashAttentionFn` (``flash_attention_fn``) is the same forward
+under autograd: on the card it is exactly :func:`flash_attention`'s
+launch, and its backward, :func:`attention_backward`, is written out in
+PyTorch (the reference differentiates its blockwise attention with
+XLA's autodiff, outside any Pallas kernel).  The kernel's output alone
+has no ``grad_fn``: a loss through :func:`flash_attention` would treat
+attention as a constant on the card.
 """
 
 from __future__ import annotations
@@ -18,9 +26,12 @@ import torch
 
 from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
                                         bind)
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     live_mask,
+                                                     masked_softmax)
 
-__all__ = ["flash_attention", "kernel_for", "COUNTER_MMA", "COUNTER_CC",
+__all__ = ["flash_attention", "flash_attention_fn", "FlashAttentionFn",
+           "attention_backward", "kernel_for", "COUNTER_MMA", "COUNTER_CC",
            "HEAD_DIMS", "MMA_HEAD_DIMS"]
 
 COUNTER_MMA = LaunchCounter("flash_attention_mma")
@@ -105,3 +116,79 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                                 f"{rc}")
     (COUNTER_MMA if kernel == "mma" else COUNTER_CC).n += 1
     return out
+
+
+#: bytes of one float32 (rows, Sq, Sk) temporary the backward allows; it
+#: holds four at once, so it works over (batch, KV head) rows in chunks
+#: of at most ~1 GB of scores
+BWD_CHUNK_BYTES = 1 << 28
+
+
+def attention_backward(q, k, v, d_out, *, causal: bool = True, window=None,
+                       scale=None):
+    """Gradients (dq, dk, dv) of ``attention_ref(q, k, v)`` for the
+    cotangent ``d_out``, in q's, k's and v's dtypes.
+
+    The scores are recomputed in float32 and P is the masked softmax of
+    ``attention_ref`` (a row with no live key is 0); then dV = P^T dO,
+    dP = dO V^T, dS = P * (dP - rowsum(P * dP)) (rowsum(P * dP) equals
+    rowsum(dO * O), O the float32 output before its cast), dQ = scale
+    dS K and dK = scale dS^T Q.  A GQA group's query heads are the rows
+    of one (batch, KV head) product, so dK and dV come out summed over
+    the group.  Causal, window and unmasked attention share this one
+    formula."""
+    b, h, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    g = h // hkv
+    scale = float(scale if scale is not None else d ** -0.5)
+    mask = live_mask(sq, sk, causal, window, q.device)
+    n = b * hkv
+    qf = q.reshape(n, g * sq, d)
+    kf = k.reshape(n, sk, d)
+    vf = v.reshape(n, sk, d)
+    dof = d_out.reshape(n, g * sq, d)
+    dq = torch.empty(qf.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(kf.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(vf.shape, dtype=v.dtype, device=v.device)
+    rows = max(1, BWD_CHUNK_BYTES // (g * sq * sk * 4))
+    for i in range(0, n, rows):
+        sl = slice(i, i + rows)
+        qc, kc, vc = qf[sl].float(), kf[sl].float(), vf[sl].float()
+        doc = dof[sl].float()
+        c = qc.shape[0]
+        s = (torch.bmm(qc, kc.transpose(1, 2)) * scale).view(c, g, sq, sk)
+        p = masked_softmax(s, mask).view(c, g * sq, sk)
+        dv[sl] = torch.bmm(p.transpose(1, 2), doc).to(v.dtype)
+        dp = torch.bmm(doc, vc.transpose(1, 2))
+        ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
+        dq[sl] = (torch.bmm(ds, kc) * scale).to(q.dtype)
+        dk[sl] = (torch.bmm(ds.transpose(1, 2), qc) * scale).to(k.dtype)
+    return (dq.view(b, h, sq, d), dk.view(b, hkv, sk, d),
+            dv.view(b, hkv, sk, d))
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K2 under autograd: the forward is :func:`flash_attention` (the
+    kernel's launch on the card, counted as ever; the plain version on
+    the CPU), the backward :func:`attention_backward` from the saved q,
+    k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, d_out, causal=ctx.causal,
+                                        window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_fn(q, k, v, *, causal: bool = True, window=None,
+                       scale=None) -> torch.Tensor:
+    """:func:`flash_attention` with a gradient (:class:`FlashAttentionFn`)."""
+    return FlashAttentionFn.apply(q, k, v, causal, window, scale)

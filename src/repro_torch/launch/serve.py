@@ -140,7 +140,7 @@ def main(argv=None):
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0
     if args.trace:
-        _report_profile(tracer, dt, args.trace)
+        report_profile(tracer, dt, args.trace)
     n_gen = sum(len(r.generated) for r in reqs)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
@@ -187,7 +187,7 @@ def main(argv=None):
           f"decode {m.decode(fmt).tokens_per_s:,.0f} tok/s ({fmt})")
 
 
-def _report_profile(prof, wall_s: float, path: str) -> None:
+def report_profile(prof, wall_s: float, path: str) -> None:
     """Device time by kernel and the device's busy share of the run."""
     prof.export_chrome_trace(path)
     # device-side rows only: a CPU op's row repeats its kernels' time

@@ -13,7 +13,8 @@ from torch import nn
 from repro_torch.kernels.decode_attention import (
     decode_attention, decode_attention_paged, decode_attention_paged_q8,
     decode_attention_q8)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_fn)
 from repro_torch.models.common import (ModelConfig, apply_rope, frozen,
                                        rope_angles)
 
@@ -69,7 +70,10 @@ def attention_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                       causal: bool = True, return_kv: bool = False):
     """Full-sequence attention at positions 0..S-1, causal unless
     ``causal=False`` (whisper's encoder). x: (B, S, d).  With
-    ``return_kv`` also returns (k, v) as (B, Hkv, S, D)."""
+    ``return_kv`` also returns (k, v) as (B, Hkv, S, D).  When autograd
+    records (training), K2 runs through ``flash_attention_fn``, whose
+    backward gives q, k and v their gradients; the forward's launch and
+    bits are the same either way."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg)
     positions = torch.arange(s, device=x.device)[None, :]
@@ -79,8 +83,11 @@ def attention_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
-    out = flash_attention(qt, kt, vt, causal=causal,
-                          window=cfg.sliding_window)
+    attend = flash_attention
+    if torch.is_grad_enabled() and (qt.requires_grad or kt.requires_grad
+                                    or vt.requires_grad):
+        attend = flash_attention_fn
+    out = attend(qt, kt, vt, causal=causal, window=cfg.sliding_window)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     out = torch.matmul(out, p.wo)
     if return_kv:

@@ -133,6 +133,26 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def trainable(module: nn.Module) -> nn.Module:
+    """``module`` with every parameter tracked by autograd (training);
+    serving's parameters stay :func:`frozen`."""
+    return module.requires_grad_(True)
+
+
+#: top-level parameter groups the reference stacks along a layer axis
+STACKED = ("blocks", "encoder", "decoder")
+
+
+def reference_path(name: str) -> Tuple[str, Optional[int]]:
+    """A port parameter's leaf in the reference's tree: ``("blocks/attn/
+    wq", 3)`` for ``"blocks.3.attn.wq"`` (layer 3 of the stacked ``(L,
+    ...)`` leaf), ``("embed/tok", None)`` for ``"embed.tok"``."""
+    parts = name.split(".")
+    if parts[0] in STACKED and len(parts) > 2 and parts[1].isdigit():
+        return "/".join([parts[0]] + parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
 # ----------------------------------------------------------------------
 # Norms
 # ----------------------------------------------------------------------
@@ -242,6 +262,22 @@ class Embedding(nn.Module):
 
 def embed(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
     return p.tok[tokens.long()]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in float32 (the reference's): logsumexp
+    minus the gold logit, a masked mean when ``mask`` is given.  The gold
+    logit is a gather; the reference's one-hot product only serves its
+    sharding, and at full width a one-hot of the logits' shape would be
+    ~1.2 GB."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 def lm_logits(p: Embedding, x: torch.Tensor, cfg: ModelConfig

@@ -6,12 +6,13 @@ transformer`, the encoder-decoder (whisper) through
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.models import transformer, whisper
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, trainable
 
 
 class Model:
@@ -31,10 +32,28 @@ class Model:
                              f"encode, init_cache(enc=...) and decode_step "
                              f"/ decode_n_steps")
 
-    def init(self, generator: torch.Generator, device: torch.device):
+    def init(self, generator: torch.Generator, device: torch.device, *,
+             train: bool = False):
+        """Random weights from ``generator``.  For serving (the default)
+        every weight is stored in the compute dtype and frozen.  With
+        ``train`` they are the reference's training parameters: float32
+        at every leaf (the master copy; the train step casts them to the
+        compute dtype at use) and tracked by autograd; the values are
+        the same draws as serving's before its cast."""
+        if train:
+            transformer.check_trainable(self.cfg)
+            master = dataclasses.replace(self.cfg, dtype="float32")
+            return trainable(transformer.init_lm(master, generator, device))
         if self.cfg.is_encdec:
             return whisper.init_whisper(self.cfg, generator, device)
         return transformer.init_lm(self.cfg, generator, device)
+
+    def loss(self, params, batch: Dict[str, torch.Tensor],
+             remat: bool = False) -> torch.Tensor:
+        """Training loss (``transformer.lm_loss``) of a batch of device
+        tensors, differentiable in ``params``, whose weights are in the
+        compute dtype."""
+        return transformer.lm_loss(params, batch, self.cfg, remat=remat)
 
     def forward(self, params, tokens, *, frames=None, vision_embeds=None):
         """tokens (B, S) -> logits (B, S, V) float32 at every position: a

@@ -28,6 +28,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng as trng
 from repro_torch.analysis.invariants import invariant
@@ -35,8 +37,8 @@ from repro_torch.models.attention import (Attention, attention_decode,
                                           attention_decode_paged,
                                           attention_forward)
 from repro_torch.models.common import (Embedding, ModelConfig, apply_norm,
-                                       dense_init, embed, lm_logits,
-                                       make_norm)
+                                       cross_entropy, dense_init, embed,
+                                       lm_logits, make_norm)
 from repro_torch.models.mlp import SwiGLU, swiglu
 from repro_torch.models.moe import MoE, moe_forward
 from repro_torch.models.ssm import (Mamba2, init_mamba2, init_mamba2_state,
@@ -49,6 +51,18 @@ Cache = Dict[str, torch.Tensor]
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 #: norms the port serves
 NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
+#: decoder families the port trains: attention plus a SwiGLU MLP (the
+#: vlm's loss masks its vision positions); moe's aux loss, ssm and hybrid
+#: (K10 has no gradient) and whisper's loss are not ported yet
+TRAIN_FAMILIES = ("dense", "vlm")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse, by name, a config whose training the port does not have."""
+    if cfg.is_encdec or cfg.family not in TRAIN_FAMILIES:
+        raise ValueError(f"{cfg.name}: the port trains the families "
+                         f"{TRAIN_FAMILIES}, not {cfg.family!r}"
+                         f"{' (encoder-decoder)' if cfg.is_encdec else ''}")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -188,21 +202,69 @@ def _maybe_inject_vision(x: torch.Tensor,
     return torch.cat([vision_embeds.to(x.dtype), x[:, n:, :]], dim=1)
 
 
+def _train_block(p: Block, x: torch.Tensor, cfg: ModelConfig):
+    x, _, aux = block_forward(p, x, cfg)
+    return x, aux
+
+
+def lm_forward_train(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
+                     vision_embeds: Optional[torch.Tensor] = None,
+                     remat: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``lm_forward``: tokens (B, S) ->
+    (logits (B, S, V) float32, aux float32 scalar, the blocks' summed
+    experts' loss).  With ``remat`` each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    dropped after the forward and recomputed in the backward, as
+    ``jax.checkpoint`` on the reference's scan body, so a training step
+    launches K2 twice a layer.  The token lookup is ``F.embedding``:
+    the same gather as serving's ``embed``, with a backward that sums
+    each row's cotangents in a fixed order (the indexing backward
+    accumulates atomically, so its float32 sums vary run to run)."""
+    x = _maybe_inject_vision(F.embedding(tokens.long(), params.embed.tok),
+                             vision_embeds, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in params.blocks:
+        if remat:
+            x, a = checkpoint(_train_block, blk, x, cfg, use_reentrant=False)
+        else:
+            x, a = _train_block(blk, x, cfg)
+        if a is not None:
+            aux = aux + a
+    x = apply_norm(params.final_norm, x)
+    return lm_logits(params.embed, x, cfg), aux
+
+
 @torch.no_grad()
 def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
                vision_embeds: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V) float32 at every position (the
-    reference's ``lm_forward`` without the aux loss, which no serving
-    path reads; ``block_forward`` returns each block's).
+    """Serving's full-sequence pass: tokens (B, S) -> logits (B, S, V)
+    float32 at every position, :func:`lm_forward_train`'s logits with no
+    autograd record (its attention is K2's plain launch).
     ``vision_embeds`` (B, n, d) takes the place of the first n
     positions' embeddings (vlm)."""
-    x = _maybe_inject_vision(embed(params.embed, tokens), vision_embeds,
-                             cfg)
-    for blk in params.blocks:
-        x, _, _ = block_forward(blk, x, cfg)
-    x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embed, x, cfg)
+    return lm_forward_train(params, tokens, cfg,
+                            vision_embeds=vision_embeds)[0]
+
+
+def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            remat: bool = False) -> torch.Tensor:
+    """The reference's ``lm_loss``: cross-entropy of the next tokens
+    ``batch["labels"]`` plus the aux loss, under ``batch["loss_mask"]``
+    when given; a vlm without one masks its first ``n_vision_tokens``
+    positions (they hold ``batch["vision_embeds"]``)."""
+    check_trainable(cfg)
+    tokens = batch["tokens"]
+    logits, aux = lm_forward_train(params, tokens, cfg,
+                                   vision_embeds=batch.get("vision_embeds"),
+                                   remat=remat)
+    mask = batch.get("loss_mask")
+    if mask is None and cfg.n_vision_tokens:
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        mask = (pos[None, :] >= cfg.n_vision_tokens).float().expand(
+            tokens.shape)
+    return cross_entropy(logits, batch["labels"], mask) + aux
 
 
 @torch.no_grad()
