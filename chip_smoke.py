@@ -323,10 +323,12 @@ order (any failure raises and the script exits non-zero):
    autograd through the plain version on the card, bf16 at D 64, 96
    and 128 on the tensor-core kernel and float32 at D 32 on the
    CUDA-core one, causal at S 256 and 1000, a window, GQA groups of 4
-   and 6 (K2's tolerances, 2e-2 and 1e-4, over max(1, max|grad|)); a
-   control whose backward zeroes dq and dk fails the gate; forward plus
-   backward at qwen2.5-1.5b's training shape timed beside the plain
-   version's autograd and SDPA's;
+   and 6, whisper-base's unmasked encoder (1500 x 1500) and
+   cross-attention (Sq 256 against Sk 1500) and hymba-1.5b's window of
+   1024 at S 2048 (K2's tolerances, 2e-2 and 1e-4, over max(1,
+   max|grad|)); at each case a control whose backward zeroes dq and dk
+   fails the gate; forward plus backward at qwen2.5-1.5b's training
+   shape timed beside the plain version's autograd and SDPA's;
 42. training at SMOKE width in float32 (qwen2.5-1.5b): ``make_train_step``
    on the CPU and on the card from one state, 3 steps, remat off and on,
    microbatches 1 and 2: losses and first-step gradient leaves within
@@ -340,7 +342,29 @@ order (any failure raises and the script exits non-zero):
    from it to 30 (the restarted losses equal the uninterrupted ones),
    losses finite and falling, K2's tensor-core kernel 56 launches a
    step; the median step, tokens/s, the optimizer's and K2's backward
-   ms a step and peak memory, beside the card's name and power limit.
+   ms a step and peak memory, beside the card's name and power limit;
+44. K10 under autograd (``SSDChunkFn``): its forward is one K10 launch
+   within ``K10_TOL`` of the plain version, and its five gradients (every
+   output's cotangent live) agree with autograd through the plain
+   version on the card within 1e-5 (L2, relative) at mamba2-780m's and
+   hymba-1.5b's training shapes (bf16) and SMOKE's (float32), and the
+   full SSD's at S 1000 padded to the chunk; at each case a control
+   whose backward zeroes dx fails the gate; the backward and forward
+   plus backward timed at mamba2-780m's shape;
+45. phase 42 for moonshot, arctic, mamba2, hymba and whisper-base at
+   SMOKE width (whisper with seeded frames): the same gates, K2's
+   CUDA-core kernel and K10's float32 arm launched exactly once a layer
+   a microbatch (twice with remat), a control with K10's gradients
+   zeroed at mamba2;
+46. training at full width: mamba2-780m, hymba-1.5b, whisper-base
+   (frames (8, 1500, 512)) and moonshot-v1-16b-a3b at its published
+   widths cut to 2 layers, bf16 from seed 0, batch 8, seq 256, remat:
+   every first-step gradient leaf with the kernels within 5e-2 of the
+   plain versions under autograd (a control beyond it), 8 steps with
+   finite, falling losses, exact K2 and K10 launches a step, a restart
+   of mamba2-780m from a step-4 checkpoint equal to the uninterrupted
+   losses, moonshot's first-step gradients bitwise twice; the median
+   step, tokens/s, the optimizer's ms and peak memory.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -349,6 +373,7 @@ no CUDA device is present or the port's sources are not beside it.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -4663,20 +4688,26 @@ def phase_whisper_timings(dev):
 # training: K2 under autograd, SMOKE CPU vs card, full width
 # ----------------------------------------------------------------------
 
-#: K2's backward cases (dtype, B, H, Hkv, Sq, D, causal, window): bf16 on
-#: the tensor-core kernel at D 128 (qwen2.5-1.5b's training shape, and
-#: causal Sq 1000), D 64 with a window, D 96 at a GQA group of 4 and at
-#: Sq 1000; float32 on the CUDA-core kernel at D 32 (the SMOKE train
-#: step's shape, a group of 4 at Sq 1000, a window)
+#: K2's backward cases (dtype, B, H, Hkv, Sq, Sk, D, causal, window):
+#: bf16 on the tensor-core kernel at D 128 (qwen2.5-1.5b's training
+#: shape, and causal Sq 1000), D 64 with a window, D 96 at a GQA group of
+#: 4 and at Sq 1000, whisper-base's training shapes (the encoder unmasked
+#: at 1500 x 1500, the cross-attention's 256 decoder rows unmasked over
+#: 1500 frames) and hymba-1.5b's window of 1024 where it bites (S 2048,
+#: H 25 over 5); float32 on the CUDA-core kernel at D 32 (the SMOKE
+#: train step's shape, a group of 4 at Sq 1000, a window)
 K2_BWD_CASES = (
-    ("bfloat16", 8, 12, 2, 256, 128, True, None),
-    ("bfloat16", 1, 12, 2, 1000, 128, True, None),
-    ("bfloat16", 2, 12, 2, 256, 64, True, 64),
-    ("bfloat16", 1, 16, 4, 256, 96, True, None),
-    ("bfloat16", 1, 8, 2, 1000, 96, True, None),
-    ("float32", 4, 4, 2, 64, 32, True, None),
-    ("float32", 1, 4, 1, 1000, 32, True, None),
-    ("float32", 2, 4, 2, 256, 32, True, 32))
+    ("bfloat16", 8, 12, 2, 256, 256, 128, True, None),
+    ("bfloat16", 1, 12, 2, 1000, 1000, 128, True, None),
+    ("bfloat16", 2, 12, 2, 256, 256, 64, True, 64),
+    ("bfloat16", 1, 16, 4, 256, 256, 96, True, None),
+    ("bfloat16", 1, 8, 2, 1000, 1000, 96, True, None),
+    ("bfloat16", 8, 8, 8, 1500, 1500, 64, False, None),
+    ("bfloat16", 8, 8, 8, 256, 1500, 64, False, None),
+    ("bfloat16", 1, 25, 5, 2048, 2048, 64, True, 1024),
+    ("float32", 4, 4, 2, 64, 64, 32, True, None),
+    ("float32", 1, 4, 1, 1000, 1000, 32, True, None),
+    ("float32", 2, 4, 2, 256, 256, 32, True, 32))
 #: K2's own tolerances, on each gradient's largest error over its largest
 #: element (at least 1)
 K2_BWD_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
@@ -4714,11 +4745,15 @@ def _plain_attention_fn(q, k, v, *, causal=True, window=None, scale=None):
     return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
 
 
-def k2_bwd_inputs(dtype, b, h, hkv, sq, d, dev):
+def k2_bwd_inputs(dtype, b, h, hkv, sq, d, dev, sk=None):
+    """q, k, v and the output's cotangent from the seed (Sk = Sq unless
+    given)."""
     import numpy as np
     import torch
-    rng = np.random.default_rng(SEED + 7 * sq + 13 * d + h + 1000 * b)
-    shapes = ((b, h, sq, d), (b, hkv, sq, d), (b, hkv, sq, d), (b, h, sq, d))
+    sk = sq if sk is None else sk
+    rng = np.random.default_rng(SEED + 7 * sq + 13 * d + h + 1000 * b
+                                + 3 * (sk - sq))
+    shapes = ((b, h, sq, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, h, sq, d))
     return [torch.from_numpy(rng.standard_normal(s, np.float32)).to(
         dev, getattr(torch, dtype)) for s in shapes]
 
@@ -4752,8 +4787,8 @@ def phase_k2_backward(dev):
     version on the card within them, at ``K2_BWD_CASES`` (the first is
     the training path's shape: the backward recomputes P from q, k and
     v and never reads the forward's output, so the output is held on its
-    own); a control
-    whose backward zeroes dq and dk fails the same gate.  Then fwd+bwd
+    own); at every case a control whose backward zeroes dq and dk fails
+    the same gate.  Then fwd+bwd
     at qwen2.5-1.5b's training shape (B 8, H 12 over 2, S 256, D 128,
     causal, bf16) beside the plain version's autograd and SDPA's, and
     the backward alone.  Returns {kernel: {dtype: (worst, tol)}} with
@@ -4766,8 +4801,9 @@ def phase_k2_backward(dev):
                                                      attention_ref)
     from repro_torch.kernels.flash_attention.ops import kernel_for
     errs = {}
-    for dtype, b, h, hkv, sq, d, causal, window in K2_BWD_CASES:
-        q, k, v, d_out = k2_bwd_inputs(dtype, b, h, hkv, sq, d, dev)
+    ctrl = None
+    for dtype, b, h, hkv, sq, sk, d, causal, window in K2_BWD_CASES:
+        q, k, v, d_out = k2_bwd_inputs(dtype, b, h, hkv, sq, d, dev, sk)
         kernel = f"flash_attention_{kernel_for(q.dtype, d)}"
         before = launch_counts()
         out, got = k2_grads(FlashAttentionFn, q, k, v, d_out, causal,
@@ -4777,10 +4813,17 @@ def phase_k2_backward(dev):
                                with_out=True)
         err, tol = k2_bwd_err(got, want), K2_BWD_TOL[dtype]
         fwd_err = max_err(out, plain)
-        print(f"[K2 bwd] {dtype} B={b} H={h} Hkv={hkv} S={sq} D={d} "
-              f"causal={causal} window={window}: forward {ran}, output "
-              f"max_abs_err {fwd_err:.3e} (tol {tol}), dq/dk/dv err "
-              f"{err:.3e} (tol {tol}, over max(1, max|grad|))")
+        ctrl_err = k2_bwd_err(k2_grads(_zeroed_qk_fn(), q, k, v, d_out,
+                                       causal, window), want)
+        print(f"[K2 bwd] {dtype} B={b} H={h} Hkv={hkv} Sq={sq} Sk={sk} "
+              f"D={d} causal={causal} window={window}: forward {ran}, "
+              f"output max_abs_err {fwd_err:.3e} (tol {tol}), dq/dk/dv err "
+              f"{err:.3e} (tol {tol}, over max(1, max|grad|)); control "
+              f"(dq, dk zeroed) {ctrl_err:.3e}")
+        if ctrl_err <= tol:
+            fail(f"the zeroed-dq/dk control passed K2's backward gate at "
+                 f"{dtype} Sq={sq} Sk={sk} D={d}: {ctrl_err}")
+        ctrl = ctrl_err if ctrl is None else min(ctrl, ctrl_err)
         if ran != {kernel: 1}:
             fail(f"K2's Function at {dtype} D={d} launched {ran}, not "
                  f"{kernel} once")
@@ -4791,6 +4834,11 @@ def phase_k2_backward(dev):
         if dtype == "bfloat16":
             k2_scaled_check(errs, "train", out, q, k, v, kernel,
                             causal=causal, window=window, key="fwd ")
+            errs[kernel].setdefault("cases", []).append({
+                "shape": f"B {b} H {h} Hkv {hkv} Sq {sq} Sk {sk} D {d} "
+                         f"causal={causal} window={window}",
+                "forward_max_abs_err": fwd_err, "backward_err": err,
+                "control_err": ctrl_err})
         worst = errs.setdefault(kernel, {}).get("fwd " + dtype,
                                                 (0.0, tol))[0]
         errs[kernel]["fwd " + dtype] = (max(worst, fwd_err), tol)
@@ -4799,15 +4847,10 @@ def phase_k2_backward(dev):
                  f"disagrees with the plain autograd: {err}")
         worst = errs.setdefault(kernel, {}).get(dtype, (0.0, tol))[0]
         errs[kernel][dtype] = (max(worst, err), tol)
-    dtype, b, h, hkv, sq, d, causal, window = K2_BWD_CASES[0]
+    dtype, b, h, hkv, sq, sk, d, causal, window = K2_BWD_CASES[0]
     q, k, v, d_out = k2_bwd_inputs(dtype, b, h, hkv, sq, d, dev)
-    ctrl = k2_bwd_err(k2_grads(_zeroed_qk_fn(), q, k, v, d_out, causal,
-                               window),
-                      k2_grads(None, q, k, v, d_out, causal, window))
-    print(f"[K2 bwd] control (dq, dk zeroed) at the first case: err "
+    print(f"[K2 bwd] control (dq, dk zeroed): smallest err over the cases "
           f"{ctrl:.3e} against tol {K2_BWD_TOL[dtype]}")
-    if ctrl <= K2_BWD_TOL[dtype]:
-        fail(f"the zeroed-dq/dk control passed K2's backward gate: {ctrl}")
 
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
 
@@ -4842,21 +4885,182 @@ def _leaf_rel(a, b) -> float:
                                                                    1e-30)
 
 
-def phase_train_smoke(dev):
-    """Phase 42: SMOKE qwen2.5-1.5b in float32, ``make_train_step`` on the
-    CPU and on the card from one state, 3 steps at remat off and on,
-    microbatches 1 and 2 (f32 moments): losses, first-step gradients
+def _zeroed_k10_fn(every=False):
+    """A control: K10's Function with dx replaced by zeros, or with
+    ``every`` all five gradients (the model-level control: at
+    initialisation dt ~ 0.01 keeps the scan's share of dx near 1% of the
+    D skip's, while A's and dt's gradients come through the scan
+    alone)."""
+    from repro_torch.kernels.ssd_scan import SSDChunkFn
+
+    class Zeroed(SSDChunkFn):
+        @staticmethod
+        def backward(ctx, d_y, d_states, d_decay):
+            import torch
+            grads = list(SSDChunkFn.backward(ctx, d_y, d_states, d_decay))
+            for i in range(5 if every else 1):
+                if grads[i] is not None:
+                    grads[i] = torch.zeros_like(grads[i])
+            return tuple(grads)
+
+    return Zeroed
+
+
+def _plain_scan_fn(x, dt, a, b, c, *, chunk):
+    """K10's plain version under autograd (the gradient gate's
+    baseline)."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk_ref
+    return ssd_chunk_ref(x, dt, a, b, c, chunk)
+
+
+def _through(plain_out, kernel_out):
+    """``kernel_out``'s values (exactly: ``plain - plain`` is 0) with
+    ``plain_out``'s gradient."""
+    return plain_out - plain_out.detach() + kernel_out
+
+
+def _plain_bwd_attention_fn(q, k, v, *, causal=True, window=None,
+                            scale=None):
+    """The plain version's autograd through K2's forward values: the
+    full-width gradient gate's baseline, which differs from the
+    Function only in its backward."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    out = flash_attention(q.detach(), k.detach(), v.detach(), causal=causal,
+                          window=window, scale=scale)
+    return _through(attention_ref(q, k, v, causal=causal, window=window,
+                                  scale=scale), out)
+
+
+def _plain_bwd_scan_fn(x, dt, a, b, c, *, chunk):
+    """The plain version's autograd through K10's forward values."""
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
+    outs = ssd_chunk(*(t.detach() for t in (x, dt, a, b, c)), chunk=chunk)
+    return tuple(_through(p, o) for p, o in
+                 zip(ssd_chunk_ref(x, dt, a, b, c, chunk), outs))
+
+
+@contextlib.contextmanager
+def routes_recorded(routes):
+    """Each moe layer's expert ids (t, k), appended to ``routes`` as the
+    model routes (a remat recompute appends again)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    inner = moe_mod._moe_tokens
+
+    def recording(p, x, moe):
+        with torch.no_grad():
+            logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(),
+                                  p.router.float())
+            ids = torch.topk(torch.softmax(logits, -1), moe.top_k)[1]
+            routes.append(torch.sort(ids, dim=-1)[0])
+        return inner(p, x, moe)
+
+    moe_mod._moe_tokens = recording
+    try:
+        yield
+    finally:
+        moe_mod._moe_tokens = inner
+
+
+def _control_fns(kind):
+    """(attend, scan) of a control: ``"k2"`` K2's Function with dq and dk
+    zeroed, ``"k10"`` K10's with every gradient zeroed."""
+    if kind == "k2":
+        zeroed = _zeroed_qk_fn()
+        return (lambda q, k, v, **kw: zeroed.apply(
+            q, k, v, kw.get("causal", True), kw.get("window"), None)), None
+    zeroed = _zeroed_k10_fn(every=True)
+    return None, (lambda x, dt, a, b, c, *, chunk: zeroed.apply(
+        x, dt, a, b, c, chunk))
+
+
+@contextlib.contextmanager
+def functions_swapped(attend=None, scan=None):
+    """The model's training Functions replaced, for a baseline or a
+    control: ``attend`` for K2's (every attention: the decoders', and
+    whisper's encoder, self- and cross-attention), ``scan`` for K10's
+    (the SSD's intra-chunk pass); None keeps the Function."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import whisper as whisper_mod
+    sites = []
+    if attend is not None:
+        sites += [(attn_mod, "flash_attention_fn", attend),
+                  (whisper_mod, "flash_attention_fn", attend)]
+    if scan is not None:
+        sites.append((ssd_ops, "ssd_chunk_fn", scan))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in sites]
+    try:
+        for mod, name, fn in sites:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def train_batch(dc, step, cfg, s_enc=None):
+    """The pipeline's batch of ``step`` (numpy); an encoder-decoder's
+    also holds seeded random frames (B, S_enc, d) float32, S_enc the
+    sequence length unless given."""
+    import numpy as np
+    from repro_torch.data import synth_batch
+    batch = synth_batch(dc, step)
+    if cfg.is_encdec:
+        rng = np.random.default_rng(SEED + 1000 + step)
+        batch["frames"] = rng.standard_normal(
+            (dc.global_batch, s_enc or dc.seq_len, cfg.d_model),
+            dtype=np.float32)
+    return batch
+
+
+def train_launches(cfg, passes):
+    """K2's and K10's launches in ``passes`` forward passes of ``cfg``'s
+    training loss (each (micro)batch's forward, and remat's recompute):
+    one K2 a self-attention (a decoder block with attention; whisper's
+    encoder, decoder and cross-attention) and one K10 an ssm or hybrid
+    block, the K2 arm the one ``kernel_for`` picks."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import kernel_for
+    k2 = (cfg.n_encoder_layers + 2 * cfg.n_layers if cfg.is_encdec
+          else 0 if cfg.attn_free else cfg.n_layers)
+    k10 = cfg.n_layers if cfg.has_ssm or cfg.attn_free else 0
+    want = {}
+    if k2:
+        name = f"flash_attention_{kernel_for(cfg.compute_dtype, cfg.hd)}"
+        want[name] = k2 * passes
+    if k10:
+        want["ssd_chunk"] = k10 * passes
+    return want
+
+
+#: the SMOKE training phase's configs and the control each runs (K2's
+#: zeroed dq/dk, K10's zeroed dx, or none)
+TRAIN_SMOKE_ARCHS = {"qwen2.5-1.5b": "k2", "moonshot-v1-16b-a3b": None,
+                     "arctic-480b": None, "mamba2-780m": "k10",
+                     "hymba-1.5b": None, "whisper-base": None}
+
+
+def phase_train_smoke(dev, arch="qwen2.5-1.5b"):
+    """Phases 42 and 45: SMOKE ``arch`` in float32, ``make_train_step``
+    on the CPU and on the card from one state, 3 steps at remat off and
+    on, microbatches 1 and 2 (f32 moments): losses, first-step gradients
     and the parameters' change per leaf within ``TRAIN_SMOKE_TOL``; the
-    card's steps run K2's CUDA-core kernel once a layer a microbatch
-    (twice with remat) and nothing else of K2.  A control (remat off,
-    one microbatch, K2's backward with dq and dk zeroed on the card)
-    must fail the gradient and update gates."""
+    card's steps launch exactly ``train_launches``: K2's CUDA-core
+    kernel once a self-attention a microbatch and K10's float32 arm
+    once an ssm or hybrid block (twice each with remat), and nothing
+    else of either.  The control ``TRAIN_SMOKE_ARCHS`` names (remat off,
+    one microbatch, on the card: K2's backward with dq and dk zeroed,
+    or K10's with every gradient zeroed) must fail the gradient and
+    update gates.
+    whisper-base's batches carry seeded frames as long as its tokens."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
     from repro_torch.checkpoint import (empty_train_state, load_train_state,
                                         train_state_to_numpy)
-    from repro_torch.data import DataConfig, synth_batch
+    from repro_torch.data import DataConfig
     from repro_torch.kernels import launch_counts, launch_delta
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
@@ -4864,51 +5068,45 @@ def phase_train_smoke(dev):
                                    make_train_step)
     from repro_torch.train.train_loop import batch_to_device
     cpu = torch.device("cpu")
-    cfg = dataclasses.replace(get_config("qwen2.5-1.5b", smoke=True),
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
     start = {n: (a, dt) for n, a, dt in train_state_to_numpy(
         init_train_state(build_model(cfg),
                          torch.Generator().manual_seed(SEED), cpu))}
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
-    zeroed = _zeroed_qk_fn()
 
-    def control(q, k, v, **kw):
-        return zeroed.apply(q, k, v, kw.get("causal", True),
-                            kw.get("window"), None)
-
-    def run(where, tcfg, attend=None):
-        from repro_torch.models import attention as attn_mod
-        saved = attn_mod.flash_attention_fn
-        if attend is not None:
-            attn_mod.flash_attention_fn = attend
-        try:
+    def run(where, tcfg, control=None):
+        attend, scan = _control_fns(control) if control else (None, None)
+        with functions_swapped(attend, scan):
             state = load_train_state(empty_train_state(cfg, where), start)
             step = make_train_step(cfg, tcfg)
             _, g0 = step.grads_of(state.params, batch_to_device(
-                synth_batch(dc, 0), where))
+                train_batch(dc, 0, cfg), where))
             before = launch_counts()
             losses = []
             for i in range(3):
-                state, m = step(state, synth_batch(dc, i))
+                state, m = step(state, train_batch(dc, i, cfg))
                 losses.append(float(m["loss"]))
             ran = launch_delta(before, launch_counts())
-        finally:
-            attn_mod.flash_attention_fn = saved
         return (losses, {n: g.cpu() for n, g in g0.items()},
                 {n: torch.from_numpy(a.astype("float64"))
                  for n, a, _ in train_state_to_numpy(state)}, ran)
 
     def readings(cpu_run, dev_run):
         (l_cpu, g_cpu, s_cpu, _), (l_dev, g_dev, s_dev, _) = cpu_run, dev_run
+        grad = {n: _leaf_rel(g_dev[n], g_cpu[n]) for n in g_cpu}
+        update = {n: _leaf_rel(s_dev[n] - start[n][0].astype("float64"),
+                               s_cpu[n] - start[n][0].astype("float64"))
+                  for n in s_cpu if n.startswith(".params/")}
         return {
             "loss": max(abs(a - b) / abs(a) for a, b in zip(l_cpu, l_dev)),
-            "grad": max(_leaf_rel(g_dev[n], g_cpu[n]) for n in g_cpu),
-            "update": max(_leaf_rel(
-                s_dev[n] - start[n][0].astype("float64"),
-                s_cpu[n] - start[n][0].astype("float64"))
-                for n in s_cpu if n.startswith(".params/")),
-            "leaf": max(_leaf_rel(s_dev[n], s_cpu[n]) for n in s_cpu)}
+            "grad": max(grad.values()),
+            "update": max(update.values()),
+            "leaf": max(_leaf_rel(s_dev[n], s_cpu[n]) for n in s_cpu),
+            "grad_leaf": max(grad, key=grad.get),
+            "update_leaf": max(update, key=update.get)}
 
+    t0 = time.perf_counter()
+    control = TRAIN_SMOKE_ARCHS[arch]
     out = {}
     for remat, mb in ((False, 1), (True, 1), (False, 2), (True, 2)):
         tcfg = TrainConfig(optimizer=AdamWConfig(**TRAIN_SMOKE_OPT),
@@ -4918,50 +5116,49 @@ def phase_train_smoke(dev):
         r = readings(cpu_run, dev_run)
         loss_err, grad_err, upd_err, param_err = (
             r["loss"], r["grad"], r["update"], r["leaf"])
-        if (remat, mb) == (False, 1):
+        if (remat, mb) == (False, 1) and control:
             ctrl = readings(cpu_run, run(dev, tcfg, control))
-            print(f"[train smoke] control (dq, dk zeroed on the card), "
+            what = ("dq, dk zeroed" if control == "k2" else
+                    "K10's gradients zeroed")
+            print(f"[train smoke {arch}] control ({what} on the card), "
                   f"remat=False microbatches=1: loss rel "
                   f"{ctrl['loss']:.3e}, first-step grad rel "
                   f"{ctrl['grad']:.3e}, update rel {ctrl['update']:.3e} "
                   f"(tols {TRAIN_SMOKE_TOL})")
             for key in ("grad", "update"):
                 if ctrl[key] <= TRAIN_SMOKE_TOL[key]:
-                    fail(f"the zeroed-dq/dk control passed the SMOKE "
+                    fail(f"the {what} control passed {arch}'s SMOKE "
                          f"training {key} gate: {ctrl[key]}")
             out["control"] = ctrl
-        want = {"flash_attention_cc": 3 * mb * cfg.n_layers * (2 if remat
-                                                               else 1)}
+        want = train_launches(cfg, 3 * mb * (2 if remat else 1))
         tag = f"remat={remat} microbatches={mb}"
-        print(f"[train smoke] {tag}: losses cpu {l_cpu} card {l_dev}; "
-              f"loss rel {loss_err:.3e}, first-step grad rel "
-              f"{grad_err:.3e}, update rel {upd_err:.3e}, leaf rel "
+        print(f"[train smoke {arch}] {tag}: losses cpu {l_cpu} card "
+              f"{l_dev}; loss rel {loss_err:.3e}, first-step grad rel "
+              f"{grad_err:.3e} ({r['grad_leaf']}), update rel "
+              f"{upd_err:.3e} ({r['update_leaf']}), leaf rel "
               f"{param_err:.3e}; card launches {ran}")
         if ran != want:
-            fail(f"the SMOKE train steps ({tag}) launched {ran}, not {want}")
+            fail(f"{arch}'s SMOKE train steps ({tag}) launched {ran}, not "
+                 f"{want}")
         for key, err in (("loss", loss_err), ("grad", grad_err),
                          ("update", upd_err)):
             if not err <= TRAIN_SMOKE_TOL[key]:
-                fail(f"SMOKE training {tag}: {key} CPU vs card {err} > "
-                     f"{TRAIN_SMOKE_TOL[key]}")
+                fail(f"{arch} SMOKE training {tag}: {key} CPU vs card "
+                     f"{err} > {TRAIN_SMOKE_TOL[key]}")
         out[tag] = {"losses_cpu": l_cpu, "losses_card": l_dev,
                     "loss_rel": loss_err, "grad_rel": grad_err,
                     "update_rel": upd_err, "leaf_rel": param_err,
-                    "launches": ran}
+                    "grad_leaf": r["grad_leaf"],
+                    "update_leaf": r["update_leaf"], "launches": ran}
+    out["phase_s"] = time.perf_counter() - t0
     return out
 
 
-def _grads_with(step, params, batch, attend):
+def _grads_with(step, params, batch, attend=None, scan=None):
     """First-step gradients with ``attend`` standing in for K2's Function
-    in the model's attention (None: the Function itself)."""
-    from repro_torch.models import attention as attn_mod
-    saved = attn_mod.flash_attention_fn
-    try:
-        if attend is not None:
-            attn_mod.flash_attention_fn = attend
+    and ``scan`` for K10's (None: the Function itself)."""
+    with functions_swapped(attend, scan):
         return step.grads_of(params, batch)[1]
-    finally:
-        attn_mod.flash_attention_fn = saved
 
 
 def phase_train_full(dev):
@@ -5008,11 +5205,7 @@ def phase_train_full(dev):
     batch0 = batch_to_device(synth_batch(dc, 0), dev)
     g_plain = _grads_with(step, state.params, batch0, _plain_attention_fn)
     reading = {}
-    zeroed = _zeroed_qk_fn()
-    for tag, attend in (("k2", None), ("control", lambda q, k, v, **kw:
-                                       zeroed.apply(q, k, v,
-                                                    kw.get("causal", True),
-                                                    kw.get("window"), None))):
+    for tag, attend in (("k2", None), ("control", _control_fns("k2")[0])):
         g = _grads_with(step, state.params, batch0, attend)
         errs = {n: _leaf_rel(g[n], g_plain[n]) for n in g_plain}
         worst = max(errs, key=errs.get)
@@ -5151,6 +5344,398 @@ def phase_train_full(dev):
     return out
 
 
+# ----------------------------------------------------------------------
+# training, the other families: K10 under autograd, SMOKE CPU vs card,
+# full width
+# ----------------------------------------------------------------------
+
+#: K10's backward cases (dtype, B, S, (H, P, N), chunk): mamba2-780m's
+#: training shape (bf16 x/b/c, B 8, S 256, one chunk of 256),
+#: hymba-1.5b's (H 50, N 16), and float32 at SMOKE mamba2's widths
+K10_BWD_CASES = (
+    ("bfloat16", 8, 256, (SSD_H, SSD_P, SSD_N), SSD_Q),
+    ("bfloat16", 8, 256, HYMBA_SSD, SSD_Q),
+    ("float32", 4, 64, SMOKE_SSD[:3], SMOKE_SSD[3]))
+#: the full SSD (``ssd``) at a length it pads to the chunk: S 1000 to
+#: 1024 at chunk 256, mamba2-780m's widths, bf16
+K10_BWD_PADDED = ("bfloat16", 2, 1000, (SSD_H, SSD_P, SSD_N), SSD_Q)
+#: K10's gradients against autograd through its plain version on the
+#: card, each gradient's L2 error over its L2 norm: the Function's
+#: backward differentiates a float32 recompute of the plain version,
+#: so a sound reading sits at rounding level
+K10_BWD_TOL = 1e-5
+
+
+def k10_bwd_case(dname, bsz, s, widths, chunk, dev):
+    """Tracked K10 inputs (x/b/c in ``dname``, dt and a float32) and
+    cotangents for the three outputs, from the seed."""
+    import torch
+    dtype = getattr(torch, dname)
+    ins = [t.detach().requires_grad_()
+           for t in k10_inputs(bsz, s, dtype, "model", dev, seed=SEED + 5,
+                               widths=widths)]
+    h, p, n = widths
+    nc = s // min(chunk, s)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17 * s + h)
+    cots = [torch.randn(shape, device=dev, generator=g) for shape in (
+        (bsz, s, h, p), (bsz, nc, h, n, p), (bsz, nc, h))]
+    return ins, cots
+
+
+def k10_grads(fn, ins, cots, chunk):
+    """(outputs, gradients of the five inputs) through ``fn`` (K10's
+    Function or a control class; None: the plain version's autograd)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunk_ref
+    leaves = [t.detach().requires_grad_() for t in ins]
+    outs = (ssd_chunk_ref(*leaves, chunk) if fn is None
+            else fn.apply(*leaves, chunk))
+    grads = torch.autograd.grad(outs, leaves, cots)
+    return [o.detach() for o in outs], grads
+
+
+def k10_bwd_err(got, want) -> float:
+    return max(_leaf_rel(g, w) for g, w in zip(got, want))
+
+
+def phase_k10_backward(dev):
+    """Phase 44: K10 under autograd (``SSDChunkFn``) on the card.  Its
+    forward is one launch of K10's arm for the dtype and its outputs
+    agree with the plain version's within ``K10_TOL`` (relative max);
+    its dx, ddt, da, db and dc (every output's cotangent live) agree
+    with autograd through the plain version on the card within
+    ``K10_BWD_TOL`` at ``K10_BWD_CASES``, and so do the full SSD's at a
+    padded length; a control whose backward zeroes dx fails the gate at
+    every case.  Then the backward alone and forward + backward at
+    mamba2-780m's training shape, beside the plain version's autograd.
+    Returns the readings and the timings."""
+    import torch
+    from repro_torch.kernels import launch_counts, launch_delta
+    from repro_torch.kernels.ssd_scan import (SSDChunkFn, ssd, ssd_chunked,
+                                              ssd_chunk_ref)
+    from repro_torch.kernels.ssd_scan.ops import ssd_chunk_backward
+    t0 = time.perf_counter()
+    zeroed = _zeroed_k10_fn()
+    out = {"cases": [], "tol": K10_BWD_TOL, "fwd_tol": K10_TOL}
+    for dname, bsz, s, widths, chunk in K10_BWD_CASES:
+        ins, cots = k10_bwd_case(dname, bsz, s, widths, chunk, dev)
+        before = launch_counts()
+        outs, got = k10_grads(SSDChunkFn, ins, cots, chunk)
+        ran = launch_delta(before, launch_counts())
+        plain, want = k10_grads(None, ins, cots, chunk)
+        fwd = max(rel_err(o, w) for o, w in zip(outs, plain))
+        err = k10_bwd_err(got, want)
+        ctrl = k10_bwd_err(k10_grads(zeroed, ins, cots, chunk)[1], want)
+        dtypes = [str(g.dtype).split(".")[-1] for g in got]
+        tag = f"{dname} B={bsz} S={s} (H, P, N)={widths} Q={chunk}"
+        print(f"[K10 bwd] {tag}: forward {ran}, outputs rel max err "
+              f"{fwd:.3e} (tol {K10_TOL}); dx/ddt/da/db/dc ({dtypes}) L2 "
+              f"rel err {err:.3e} (tol {K10_BWD_TOL}); control (dx "
+              f"zeroed) {ctrl:.3e}")
+        if ran != {"ssd_chunk": 1}:
+            fail(f"K10's Function at {tag} launched {ran}, not K10 once")
+        if not fwd <= K10_TOL:
+            fail(f"K10's Function forward at {tag} disagrees with the "
+                 f"plain version: {fwd}")
+        if dtypes != [dname, "float32", "float32", dname, dname]:
+            fail(f"K10's gradients at {tag} came back in {dtypes}")
+        if not err <= K10_BWD_TOL:
+            fail(f"K10's backward at {tag} disagrees with the plain "
+                 f"autograd: {err}")
+        if ctrl <= K10_BWD_TOL:
+            fail(f"the dx-zeroed control passed K10's backward gate at "
+                 f"{tag}: {ctrl}")
+        out["cases"].append({"shape": tag, "forward_rel_err": fwd,
+                             "backward_rel_err": err, "control_err": ctrl})
+    dname, bsz, s, widths, chunk = K10_BWD_PADDED
+    ins, _ = k10_bwd_case(dname, bsz, s, widths, chunk, dev)
+    cot = torch.randn(ins[0].shape, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(
+                          SEED + s))
+    grads = []
+    for full in (ssd, ssd_chunked):
+        leaves = [t.detach().requires_grad_() for t in ins]
+        before = launch_counts()
+        y = full(*leaves, chunk=chunk)
+        grads.append(torch.autograd.grad(y, leaves, cot))
+        if full is ssd:
+            ran = launch_delta(before, launch_counts())
+    padded = k10_bwd_err(*grads)
+    print(f"[K10 bwd] full SSD, {dname} B={bsz} S={s} padded to the chunk "
+          f"{chunk}: launches {ran}, gradients against ssd_chunked's "
+          f"autograd L2 rel err {padded:.3e} (tol {K10_BWD_TOL})")
+    if ran != {"ssd_chunk": 1} or not padded <= K10_BWD_TOL:
+        fail(f"the full SSD's gradients at S {s}: launches {ran}, err "
+             f"{padded}")
+    out["padded_rel_err"] = padded
+    out["control_err_min"] = min(c["control_err"] for c in out["cases"])
+    out["max_backward_rel_err"] = max(c["backward_rel_err"]
+                                      for c in out["cases"] + [
+                                          {"backward_rel_err": padded}])
+
+    dname, bsz, s, widths, chunk = K10_BWD_CASES[0]
+    ins, cots = k10_bwd_case(dname, bsz, s, widths, chunk, dev)
+    leaves = [t.detach().requires_grad_() for t in ins]
+
+    def fwd_bwd(forward):
+        return lambda: torch.autograd.grad(forward(), leaves, cots)
+
+    timing = {
+        "shape": f"{dname} B {bsz} S {s} H {widths[0]} P {widths[1]} "
+                 f"N {widths[2]} chunk {chunk}",
+        "backward_ms": time_ms(lambda: ssd_chunk_backward(
+            *ins, chunk, *cots)),
+        "fwd_bwd_ms": time_ms(fwd_bwd(lambda: SSDChunkFn.apply(
+            *leaves, chunk))),
+        "plain_fwd_bwd_ms": time_ms(fwd_bwd(lambda: ssd_chunk_ref(
+            *leaves, chunk)))}
+    print(f"[K10 bwd] timing at {timing['shape']}: backward "
+          f"{timing['backward_ms']:.4f} ms; forward+backward "
+          f"{timing['fwd_bwd_ms']:.4f} ms, plain autograd "
+          f"{timing['plain_fwd_bwd_ms']:.4f} ms (no library call)")
+    out["timing"] = timing
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+#: full-width training per family: (arch, layers kept (None: all), the
+#: control, the step of the restart's checkpoint (None: no restart))
+TRAIN_FAMILIES_FULL = (("mamba2-780m", None, "k10", 4),
+                       ("hymba-1.5b", None, "k10", None),
+                       ("whisper-base", None, "k2", None),
+                       ("moonshot-v1-16b-a3b", 2, "k2", None))
+#: steps of each family's full-width run, at the launcher's batch and
+#: length; whisper's frames are (B, 1500, 512)
+TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 8, 8, 256
+WHISPER_FRAMES = 1500
+
+
+def phase_train_family_full(dev, arch, layers, control, ck_step):
+    """Phase 46: ``arch`` at its published widths (``layers`` of them when
+    cut, said where it prints) in bf16 over float32 masters and moments
+    from seed 0, batch 8, seq 256, remat, the launcher's learning rate
+    (3e-4) warmed up over 2 steps and decayed over 8 (the launcher's 20
+    warm-up steps would keep 8 steps' rates below 1.2e-4), synthetic
+    Zipf tokens (whisper: seeded
+    random frames (8, 1500, 512) beside them).  Gates: the first step's
+    gradients with K2 and K10 against the same step with both plain
+    versions' autograd through the kernels' forward values, every leaf
+    within ``TRAIN_FULL_GRAD_TOL``, and the ``control`` (K2's dq/dk or
+    K10's gradients zeroed) beyond it (against the plain versions end to
+    end, forward too, the reading is printed and not gated: in bf16 a
+    forward's last-bit differences reach the gradients of the SSM's A and
+    dt bias, whose sums cancel, and move a moe's near-tied routes; a
+    plain twin with half-length SSD chunks and the share of tokens whose
+    experts differ show it); 8
+    steps with finite, falling losses; exactly ``train_launches`` a
+    step (2 a layer with remat).  With ``ck_step``, a checkpoint there
+    and a restart from it (``restore_latest``) to step 8, whose losses
+    equal the uninterrupted ones (bitwise or within 1e-5 relative); the
+    moe run also takes its first-step gradients twice, which must be
+    bitwise equal (the dispatch's backward has no atomics).  Prints the
+    median step after 3 warm, tokens/s, the optimizer's ms and peak
+    memory."""
+    import dataclasses
+    import math
+    import shutil
+    import torch
+    from repro_torch.checkpoint import AsyncCheckpointer, restore_latest
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.train import SEED as TRAIN_SEED
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig, adamw_update
+    from repro_torch.train import (TrainConfig, init_train_state,
+                                   make_train_step)
+    from repro_torch.train.train_loop import batch_to_device
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    cut = ""
+    if layers is not None:
+        cut = (f", cut from {cfg.n_layers} layers to {layers} (the whole "
+               f"model's training state does not fit one card)")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    steps = TRAIN_FAMILY_STEPS
+    model = build_model(cfg)
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                             total_steps=steps), remat=True)
+    step = make_train_step(cfg, tcfg)
+    per_step = train_launches(cfg, 2)
+    state = init_train_state(
+        model, torch.Generator(device=dev).manual_seed(TRAIN_SEED), dev)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    print(f"[train full {arch}] {n_params / 1e9:.3f}e9 parameters at the "
+          f"published widths{cut}")
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_FAMILY_SEQ,
+                    global_batch=TRAIN_FAMILY_BATCH)
+
+    def batch(i):
+        return batch_to_device(train_batch(dc, i, cfg, WHISPER_FRAMES), dev)
+
+    batch0 = batch(0)
+    reading = {}
+
+    def worst(g, base):
+        errs = {n: _leaf_rel(g[n], base[n]) for n in base}
+        name = max(errs, key=errs.get)
+        return errs[name], name
+
+    routes = []
+    with routes_recorded(routes):
+        g = _grads_with(step, state.params, batch0)
+    base = _grads_with(step, state.params, batch0, _plain_bwd_attention_fn,
+                       _plain_bwd_scan_fn)
+    reading["kernels"] = worst(g, base)
+    reading["control"] = worst(_grads_with(step, state.params, batch0,
+                                           *_control_fns(control)), base)
+    del base
+    if cfg.moe is not None:
+        again = _grads_with(step, state.params, batch0)
+        reading["repeat_bitwise"] = all(torch.equal(g[n], again[n])
+                                        for n in g)
+        del again
+    plain_routes = []
+    with routes_recorded(plain_routes):
+        g_plain = _grads_with(step, state.params, batch0,
+                              _plain_attention_fn, _plain_scan_fn)
+    reading["plain"] = worst(g, g_plain)
+    del g
+    if routes:
+        # the first n_layers entries are the forward's (remat recomputes)
+        reading["routes_changed"] = [
+            float((a != b).any(dim=-1).float().mean())
+            for a, b in zip(routes[:cfg.n_layers],
+                            plain_routes[:cfg.n_layers])]
+    if cfg.ssm is not None:
+        # a sound twin of the plain run: the same SSD in chunks of half
+        # the length (the dual form sums in another order)
+        twin_cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+            cfg.ssm, chunk=cfg.ssm.chunk // 2))
+        g_twin = _grads_with(make_train_step(twin_cfg, tcfg), state.params,
+                             batch0, _plain_attention_fn, _plain_scan_fn)
+        reading["plain_twin"] = worst(g_twin, g_plain)
+        del g_twin
+    del g_plain
+    gc.collect()
+    what = ("dq, dk zeroed" if control == "k2" else
+            "K10's gradients zeroed")
+    print(f"[train full {arch}] first-step gradients against the plain "
+          f"versions' autograd through the kernels' forward values: worst "
+          f"leaf {reading['kernels'][1]} rel {reading['kernels'][0]:.3e}; "
+          f"control ({what}) worst {reading['control'][1]} rel "
+          f"{reading['control'][0]:.3e}; tol {TRAIN_FULL_GRAD_TOL}"
+          + (f"; the same step twice bitwise: {reading['repeat_bitwise']}"
+             if "repeat_bitwise" in reading else ""))
+    print(f"[train full {arch}] against the plain versions end to end "
+          f"(forward too; not gated: bf16 roundings of the forward carried "
+          f"through every layer): worst leaf {reading['plain'][1]} rel "
+          f"{reading['plain'][0]:.3e}"
+          + (f"; a plain twin with SSD chunks of {cfg.ssm.chunk // 2} "
+             f"against the plain run: worst {reading['plain_twin'][1]} rel "
+             f"{reading['plain_twin'][0]:.3e}" if "plain_twin" in reading
+             else "")
+          + (f"; tokens whose experts differ, by layer: "
+             f"{reading['routes_changed']}" if "routes_changed" in reading
+             else ""))
+    if not reading["kernels"][0] <= TRAIN_FULL_GRAD_TOL:
+        fail(f"{arch}'s full-width gradients with the kernels disagree "
+             f"with the plain versions' backward: {reading['kernels']}")
+    if reading["control"][0] <= TRAIN_FULL_GRAD_TOL:
+        fail(f"the {what} control passed {arch}'s full-width gradient "
+             f"gate: {reading['control']}")
+    if reading.get("repeat_bitwise") is False:
+        fail(f"{arch}'s first-step gradients differ between two runs")
+
+    ckdir = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = AsyncCheckpointer(str(ckdir)) if ck_step else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, secs = [], []
+    for i in range(steps):
+        b = batch(i)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        if ck and i + 1 == ck_step:
+            ck.save(ck_step, state)
+    ran = {n: c for n, c in launch_counts().items() if c}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if ck:
+        ck.close()
+    want = {n: c * steps for n, c in per_step.items()}
+    if ran != want:
+        fail(f"{arch}'s full-width train run launched {ran}, not {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite full-width {arch} losses: {losses}")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not last < first:
+        fail(f"{arch}'s full-width losses did not fall: {losses}")
+    step_ms = 1e3 * statistics.median(secs[3:])
+    out = {"gpu": gpu_line(), "arch": arch, "layers": cfg.n_layers,
+           "cut": cut.lstrip(", "), "parameters": n_params,
+           "batch": TRAIN_FAMILY_BATCH, "seq": TRAIN_FAMILY_SEQ,
+           "steps": steps, "remat": tcfg.remat,
+           "grad_rel_kernels": reading["kernels"],
+           "grad_rel_control": reading["control"], "control": control,
+           "grad_rel_plain": reading["plain"],
+           "grad_tol": TRAIN_FULL_GRAD_TOL, "losses": losses,
+           "loss_first3": first, "loss_last3": last, "launches": ran,
+           "launches_per_step": per_step, "step_ms_median": step_ms,
+           "step_ms": [1e3 * x for x in secs],
+           "tok_s": TRAIN_FAMILY_BATCH * TRAIN_FAMILY_SEQ / (step_ms / 1e3),
+           "peak_gib": peak_gib}
+    for key in ("repeat_bitwise", "plain_twin", "routes_changed"):
+        if key in reading:
+            out[f"grad_{key}"] = reading[key]
+    if ck:
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        state = init_train_state(
+            model, torch.Generator(device=dev).manual_seed(TRAIN_SEED), dev)
+        got, state = restore_latest(str(ckdir), state)
+        out["restore_s"] = time.perf_counter() - t0
+        if got != ck_step:
+            fail(f"restore_latest found step {got}, not {ck_step}")
+        resumed = []
+        for i in range(ck_step, steps):
+            state, m = step(state, batch(i))
+            resumed.append(float(m["loss"]))
+        tail = losses[ck_step:]
+        out["resumed_losses"] = resumed
+        out["resume_bitwise"] = resumed == tail
+        out["resume_max_rel"] = max(abs(a - b) / abs(b)
+                                    for a, b in zip(resumed, tail))
+        print(f"[train full {arch}] restart from step {ck_step}: losses "
+              f"{'bitwise equal' if resumed == tail else 'not bitwise'} "
+              f"(max rel {out['resume_max_rel']:.3e}); restore "
+              f"{out['restore_s']:.1f} s")
+        if not out["resume_max_rel"] <= 1e-5:
+            fail(f"{arch}'s restarted losses differ from the uninterrupted "
+                 f"run's: {resumed} vs {tail}")
+        shutil.rmtree(ckdir, ignore_errors=True)
+    _, grads = step.grads_of(state.params, batch(steps))
+    out["optimizer_ms"] = time_ms(lambda: adamw_update(
+        tcfg.optimizer, state.params, grads, state.opt), warmup=1, iters=3)
+    del grads, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[train full {arch}] {out['gpu']}: losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (mean of first 3 {first:.4f}, last 3 "
+          f"{last:.4f}); launches a step {per_step}; median step "
+          f"{step_ms:.2f} ms after 3 warm, {out['tok_s']:,.0f} tok/s, "
+          f"optimizer {out['optimizer_ms']:.2f} ms, peak {peak_gib:.2f} "
+          f"GiB; phase {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5285,6 +5870,23 @@ def main() -> int:
     train_smoke = phase_train_smoke(dev)
     train_full = phase_train_full(dev)
     print(f"[train] phases 41-43 took {time.perf_counter() - t_train:.1f}s")
+    t_families = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    k10_bwd = phase_k10_backward(dev)
+    families_smoke = {arch: phase_train_smoke(dev, arch)
+                      for arch in TRAIN_SMOKE_ARCHS if arch != "qwen2.5-1.5b"}
+    families_full = {}
+    for arch, layers, control, ck_step in TRAIN_FAMILIES_FULL:
+        families_full[arch] = phase_train_family_full(dev, arch, layers,
+                                                      control, ck_step)
+    family_phase_s = {
+        "44 (K10 backward)": k10_bwd["phase_s"],
+        **{f"45 ({a} SMOKE)": r["phase_s"] for a, r in families_smoke.items()},
+        **{f"46 ({a} full)": r["phase_s"] for a, r in families_full.items()}}
+    print(f"[train families] phases 44-46 took "
+          f"{time.perf_counter() - t_families:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}s" for k, v in family_phase_s.items()))
 
     replaces = {
         "decode_attention_paged":
@@ -5429,11 +6031,30 @@ def main() -> int:
     # training: K2's tensor-core kernel from the full-width run (30 steps
     # uninterrupted, then 15 resumed from the checkpoint; 56 a step), its
     # CUDA-core kernel from the SMOKE float32 steps on the card (all four
-    # remat/microbatch runs); the backward's error (phase 41) and time
+    # remat/microbatch runs); the backward's error (phase 41) and time;
+    # the other families' launches a step at full width (phase 46) and
+    # over their SMOKE steps (phase 45)
+    def smoke_launches(runs, name):
+        """``name``'s launches over one config's SMOKE runs (the four
+        remat/microbatch runs; not the control's)."""
+        return sum(r["launches"].get(name, 0) for r in runs.values()
+                   if isinstance(r, dict) and "launches" in r)
+
+    def family_launches(name):
+        full = {a: r["launches_per_step"][name]
+                for a, r in families_full.items()
+                if name in r["launches_per_step"]}
+        smoke = {a: smoke_launches(runs, name)
+                 for a, runs in families_smoke.items()}
+        return {"per_step_full_width": full,
+                "smoke": {a: n for a, n in smoke.items() if n}}
+
     def training_entry(name):
         if name == "flash_attention_mma":
             t = k2_bwd["timing"]
             return {
+                "families": family_launches(name),
+                "backward_cases": k2_bwd[name]["cases"],
                 "launches": train_full["launches"][name],
                 "launches_resumed": train_full["launches_resumed"][name],
                 "launches_per_step": train_full["launches_per_step"],
@@ -5455,12 +6076,11 @@ def main() -> int:
                 "step_ms_median": train_full["step_ms_median"]}
         if name == "flash_attention_cc":
             return {
-                "launches": sum(r["launches"].get(name, 0)
-                                for tag, r in train_smoke.items()
-                                if tag != "control"),
+                "launches": smoke_launches(train_smoke, name),
                 "forward_max_abs_err": k2_bwd[name]["fwd float32"][0],
                 "backward_max_abs_err": k2_bwd[name]["float32"][0],
-                "backward_tol": k2_bwd[name]["float32"][1]}
+                "backward_tol": k2_bwd[name]["float32"][1],
+                "families": family_launches(name)}
         return None
 
     int8_fixed = int8["full e2e fixed-lane int8"][0]
@@ -5574,7 +6194,18 @@ def main() -> int:
             "max_rel_err": k10_errs["max_rel_err_hymba"],
             "max_rel_err_f32": k10_errs["max_rel_err_hymba_f32"],
             "tol": K10_TOL,
-            "launches_paged_serve": h_paged_counts["ssd_chunk"]}})
+            "launches_paged_serve": h_paged_counts["ssd_chunk"]},
+        # training (phases 44-46): launches a step at full width (mamba2
+        # 96, hymba 64), over the SMOKE float32 steps, the backward's
+        # readings against the plain autograd and its times
+        "training": {
+            **family_launches("ssd_chunk"),
+            "backward_max_rel_err": k10_bwd["max_backward_rel_err"],
+            "backward_tol": K10_BWD_TOL,
+            "backward_control_err": k10_bwd["control_err_min"],
+            "backward_cases": k10_bwd["cases"],
+            "padded_rel_err": k10_bwd["padded_rel_err"],
+            **k10_bwd["timing"]}})
     e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e,
            "paged_int8": int8["full e2e paged int8"][1],
            "fixed_lane_int8": int8["full e2e fixed-lane int8"][1]}
@@ -5642,6 +6273,7 @@ def main() -> int:
     print(f"[whisper] {json.dumps({'smoke': whisper_smoke, 'full': whisper_full})}")
     print(f"[sweep] {json.dumps(sweep_summary)}")
     print(f"[train] {json.dumps({'k2_backward': k2_bwd, 'smoke': train_smoke, 'full': train_full})}")
+    print(f"[train families] {json.dumps({'k10_backward': k10_bwd, 'smoke': families_smoke, 'full': families_full, 'phase_s': family_phase_s})}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

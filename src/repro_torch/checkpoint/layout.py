@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig, reference_path, trainable
-from repro_torch.models.transformer import LM, check_trainable
+from repro_torch.models.registry import param_module
 from repro_torch.optim.adamw import Q8Moment, init_adamw
 from repro_torch.train.train_loop import TrainState
 
@@ -129,9 +129,9 @@ def load_train_state(state, leaves: Mapping[str, Tuple[np.ndarray, str]]):
 
 def empty_train_state(cfg: ModelConfig, device: torch.device,
                       moment_dtype: str = "f32") -> TrainState:
-    """A zeroed training state of ``cfg``'s shapes (float32 masters
-    tracked by autograd, fresh moments), to restore into."""
-    check_trainable(cfg)
+    """A zeroed training state of ``cfg``'s shapes (float32 masters of
+    its family's module tracked by autograd, fresh moments), to restore
+    into."""
     master = dataclasses.replace(cfg, dtype="float32")
-    params = trainable(LM(master, device))
+    params = trainable(param_module(master, device))
     return TrainState(params=params, opt=init_adamw(params, moment_dtype))

@@ -36,6 +36,7 @@ from torch import nn
 
 from repro_torch.checkpoint.layout import empty_train_state, load_train_state
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.registry import param_module
 from repro_torch.models.transformer import LM
 from repro_torch.models.whisper import Whisper
 from repro_torch.quant import PLANES, QTensor, plane_layout
@@ -89,8 +90,7 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ModelConfig,
     if dtype is not None and dtype != cfg.compute_dtype:
         raise ValueError(f"dtype {dtype} differs from the config's "
                          f"{cfg.compute_dtype}; replace cfg.dtype instead")
-    cpu = torch.device("cpu")
-    model = Whisper(cfg, cpu) if cfg.is_encdec else LM(cfg, cpu)
+    model = param_module(cfg, torch.device("cpu"))
     emb = np_params["embed"]
     _copy(model.embed.tok, emb["tok"], "embed.tok")
     if not cfg.tie_embeddings:

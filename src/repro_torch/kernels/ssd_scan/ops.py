@@ -12,6 +12,16 @@ port's ``ssd_pallas``: zero-pads S to a multiple of the chunk, runs
 :func:`ssd_chunk`, then the inter-chunk recurrence and its output term
 in plain PyTorch (about 0.1% of the operations, outside any kernel in
 the reference too).
+
+:class:`SSDChunkFn` (``ssd_chunk_fn``) is :func:`ssd_chunk` under
+autograd: on the card its forward is exactly the kernel's launch, and
+its backward recomputes the plain version in float32 from the saved
+inputs and takes that recompute's vector-Jacobian product (the
+reference differentiates its ``ssd_chunked`` with XLA's autodiff,
+outside any Pallas kernel).  The kernel's outputs alone have no
+``grad_fn``: a loss through :func:`ssd_chunk` would treat the
+intra-chunk scan as a constant on the card.  :func:`ssd` runs the
+Function exactly when autograd records.
 """
 
 from __future__ import annotations
@@ -24,7 +34,8 @@ from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
                                         bind)
 from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_from_intra
 
-__all__ = ["ssd", "ssd_chunk", "workspace_floats", "COUNTER", "MAX_N",
+__all__ = ["ssd", "ssd_chunk", "ssd_chunk_fn", "SSDChunkFn",
+           "ssd_chunk_backward", "workspace_floats", "COUNTER", "MAX_N",
            "MAX_P", "MAX_Q"]
 
 COUNTER = LaunchCounter("ssd_chunk")
@@ -112,11 +123,57 @@ def ssd_chunk(x, dt, a, b, c, *, chunk: int):
     return y, states, decay
 
 
+def ssd_chunk_backward(x, dt, a, b, c, chunk: int, d_y, d_states,
+                       d_decay):
+    """Gradients (dx, ddt, da, db, dc) of :func:`ssd_chunk_ref` for the
+    cotangents of its three outputs, each in its input's dtype: the
+    plain version recomputed in float32 under autograd (its decay
+    exponent masked to -inf above the diagonal before ``exp``, so that
+    ``exp``'s backward there is 0, not ``inf * 0``) and differentiated.
+    ``chunk_decay`` depends on dt and a only; y and the states on all
+    five."""
+    ins = [t.detach().requires_grad_() for t in (x, dt, a, b, c)]
+    with torch.enable_grad():
+        outs = ssd_chunk_ref(*ins, chunk)
+    return torch.autograd.grad(outs, ins, (d_y, d_states, d_decay))
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """K10 under autograd: the forward is :func:`ssd_chunk` (the
+    kernel's launch on the card, counted as ever; the plain version on
+    the CPU), the backward :func:`ssd_chunk_backward` from the saved
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, chunk):
+        ctx.save_for_backward(x, dt, a, b, c)
+        ctx.chunk = chunk
+        return ssd_chunk(x, dt, a, b, c, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, d_y, d_states, d_decay):
+        grads = ssd_chunk_backward(*ctx.saved_tensors, ctx.chunk, d_y,
+                                   d_states, d_decay)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,)
+
+
+def ssd_chunk_fn(x, dt, a, b, c, *, chunk: int):
+    """:func:`ssd_chunk` with gradients (:class:`SSDChunkFn`)."""
+    return SSDChunkFn.apply(x, dt, a, b, c, chunk)
+
+
 def ssd(x, dt, a, b, c, *, chunk: int):
     """Full SSD through K10, the reference's ``ssd_pallas`` with
     ``ssd_chunked``'s padding: x (B,S,H,P), dt (B,S,H), ``a`` (H,)
     negative, b/c (B,S,N) -> y (B,S,H,P) in x's dtype.  Any S: it is
     zero-padded to a multiple of ``Q = min(chunk, S)`` (padded steps
     get dt = 0: decay 1, no input) and cropped back; the inter-chunk
-    recurrence is plain PyTorch, as in the reference."""
-    return ssd_from_intra(ssd_chunk, x, dt, a, b, c, chunk)
+    recurrence is plain PyTorch, as in the reference.  When autograd
+    records, the intra-chunk pass is :func:`ssd_chunk_fn`; its launch
+    and bits are the same either way."""
+    intra = ssd_chunk
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, a, b, c)):
+        intra = ssd_chunk_fn
+    return ssd_from_intra(intra, x, dt, a, b, c, chunk)

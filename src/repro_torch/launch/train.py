@@ -16,6 +16,9 @@ Chrome trace and prints device time by kernel and the device's busy
 share (the serve launcher's report).  Runs on
 ``cuda`` unless ``--device cpu``; the reference's ``--mesh`` (a
 multi-device mesh) is refused, the parallel layer not being ported.
+Every decoder family trains (dense, moe, ssm, hybrid, vlm); an
+encoder-decoder (``whisper-base``) is refused by name: the data
+pipeline has no ``frames`` for its encoder.
 """
 
 from __future__ import annotations
@@ -64,6 +67,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.mesh:
         ap.error("--mesh: the port trains on one device; the mesh and "
                  "sharding layer (M16) is not ported")
+    if get_config(args.arch, smoke=args.smoke).is_encdec:
+        ap.error(f"--arch {args.arch}: an encoder-decoder trains on "
+                 f"frames (B, S_enc, d) beside its tokens, and the data "
+                 f"pipeline gives tokens and labels only (no frames), as "
+                 f"the reference's does; train it through make_train_step "
+                 f"with a batch that holds frames")
     return args
 
 

@@ -16,7 +16,9 @@ kept ``(expert, slot)`` is written once; only the dump slot past the
 capacity takes duplicates, and it is never read.  The combine adds a
 token's k expert outputs in the order the reference's scatter-add
 applies them (the sorted assignment order, i.e. ascending expert id),
-with no atomics, so a call repeats its bits on the card.
+with no atomics, so a call repeats its bits on the card; so does its
+backward (a token's k cotangents are summed by a reduction, and every
+read slot takes one).
 """
 
 from __future__ import annotations
@@ -122,7 +124,11 @@ def _moe_tokens(p: MoE, x: torch.Tensor, moe: MoEConfig
     c_idx = torch.where(keep, pos, cap)                  # cap: the dump slot
     zero = torch.zeros((), dtype=x.dtype, device=dev)
     buf = torch.zeros((n_e, cap + 1, d), dtype=x.dtype, device=dev)
-    buf[e_idx, c_idx] = torch.where(keep[:, None], xf[st], zero)
+    # xf[st] as a permutation of each token's k copies: the backward
+    # sums a token's k cotangents in a fixed order (expand's reduction),
+    # where the gather's backward would accumulate them atomically
+    xk = xf[:, None, :].expand(t, k, d).reshape(n, d)
+    buf[e_idx, c_idx] = torch.where(keep[:, None], xk[order], zero)
     ebuf = buf[:, :cap]                                        # (E, C, d)
 
     g = torch.bmm(ebuf, p.w_gate)
@@ -131,7 +137,8 @@ def _moe_tokens(p: MoE, x: torch.Tensor, moe: MoEConfig
     eout = torch.bmm(h, p.w_down)                              # (E, C, d)
 
     # combine: a dropped assignment reads a clamped slot (as the
-    # reference's gather does out of bounds) and is zeroed
+    # reference's gather does out of bounds) and is zeroed, so in the
+    # backward every slot takes at most one nonzero cotangent
     gathered = torch.where(keep[:, None],
                            eout[e_idx, torch.clamp(c_idx, max=cap - 1)],
                            zero)

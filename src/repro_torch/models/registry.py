@@ -10,9 +10,20 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+from torch import nn
 
 from repro_torch.models import transformer, whisper
 from repro_torch.models.common import ModelConfig, trainable
+
+
+def param_module(cfg: ModelConfig, device=None) -> nn.Module:
+    """A zero-filled parameter module of ``cfg``'s family, in its
+    dtypes: a :class:`~repro_torch.models.whisper.Whisper` for an
+    encoder-decoder, else an :class:`~repro_torch.models.transformer.
+    LM`.  Each refuses, by name, a config the port does not have."""
+    if cfg.is_encdec:
+        return whisper.Whisper(cfg, device)
+    return transformer.LM(cfg, device)
 
 
 class Model:
@@ -39,20 +50,25 @@ class Model:
         ``train`` they are the reference's training parameters: float32
         at every leaf (the master copy; the train step casts them to the
         compute dtype at use) and tracked by autograd; the values are
-        the same draws as serving's before its cast."""
+        the same draws as serving's before its cast.  Every family
+        trains."""
+        init = (whisper.init_whisper if self.cfg.is_encdec
+                else transformer.init_lm)
         if train:
-            transformer.check_trainable(self.cfg)
             master = dataclasses.replace(self.cfg, dtype="float32")
-            return trainable(transformer.init_lm(master, generator, device))
-        if self.cfg.is_encdec:
-            return whisper.init_whisper(self.cfg, generator, device)
-        return transformer.init_lm(self.cfg, generator, device)
+            return trainable(init(master, generator, device))
+        return init(self.cfg, generator, device)
 
     def loss(self, params, batch: Dict[str, torch.Tensor],
              remat: bool = False) -> torch.Tensor:
-        """Training loss (``transformer.lm_loss``) of a batch of device
-        tensors, differentiable in ``params``, whose weights are in the
-        compute dtype."""
+        """Training loss of a batch of device tensors, differentiable in
+        ``params``, whose weights are in the compute dtype: a decoder's
+        ``transformer.lm_loss``, an encoder-decoder's
+        ``whisper.whisper_loss`` (the batch adds ``frames`` (B, S_enc,
+        d)), as the reference's registry dispatches."""
+        if self.cfg.is_encdec:
+            return whisper.whisper_loss(params, batch, self.cfg,
+                                        remat=remat)
         return transformer.lm_loss(params, batch, self.cfg, remat=remat)
 
     def forward(self, params, tokens, *, frames=None, vision_embeds=None):

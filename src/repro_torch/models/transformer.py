@@ -51,18 +51,6 @@ Cache = Dict[str, torch.Tensor]
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 #: norms the port serves
 NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
-#: decoder families the port trains: attention plus a SwiGLU MLP (the
-#: vlm's loss masks its vision positions); moe's aux loss, ssm and hybrid
-#: (K10 has no gradient) and whisper's loss are not ported yet
-TRAIN_FAMILIES = ("dense", "vlm")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse, by name, a config whose training the port does not have."""
-    if cfg.is_encdec or cfg.family not in TRAIN_FAMILIES:
-        raise ValueError(f"{cfg.name}: the port trains the families "
-                         f"{TRAIN_FAMILIES}, not {cfg.family!r}"
-                         f"{' (encoder-decoder)' if cfg.is_encdec else ''}")
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -217,7 +205,7 @@ def lm_forward_train(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``torch.utils.checkpoint`` (non-reentrant): its activations are
     dropped after the forward and recomputed in the backward, as
     ``jax.checkpoint`` on the reference's scan body, so a training step
-    launches K2 twice a layer.  The token lookup is ``F.embedding``:
+    launches K2 (and K10) twice a layer.  The token lookup is ``F.embedding``:
     the same gather as serving's ``embed``, with a backward that sums
     each row's cotangents in a fixed order (the indexing backward
     accumulates atomically, so its float32 sums vary run to run)."""
@@ -251,10 +239,12 @@ def lm_forward(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
 def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             remat: bool = False) -> torch.Tensor:
     """The reference's ``lm_loss``: cross-entropy of the next tokens
-    ``batch["labels"]`` plus the aux loss, under ``batch["loss_mask"]``
-    when given; a vlm without one masks its first ``n_vision_tokens``
-    positions (they hold ``batch["vision_embeds"]``)."""
-    check_trainable(cfg)
+    ``batch["labels"]`` plus the experts' aux loss (moe), under
+    ``batch["loss_mask"]`` when given; a vlm without one masks its
+    first ``n_vision_tokens`` positions (they hold
+    ``batch["vision_embeds"]``).  Every decoder family trains: attention
+    through K2's Function, an ssm or hybrid block's scan through K10's
+    (``SSDChunkFn``)."""
     tokens = batch["tokens"]
     logits, aux = lm_forward_train(params, tokens, cfg,
                                    vision_embeds=batch.get("vision_embeds"),

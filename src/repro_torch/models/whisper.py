@@ -15,6 +15,13 @@ cross-attention K/V, computed once from the encoder states, in
 (the cross read at every lane's full S_enc).  The cache stays dense and
 in the compute dtype: the reference refuses int8 KV here, and so does
 the port.
+
+Training (:func:`whisper_loss`) runs :func:`encode_train` and
+:func:`decode_forward_train`, each block under ``torch.utils.
+checkpoint`` with ``remat`` (the reference's ``jax.checkpoint`` on its
+scan body), every attention through K2's Function when autograd
+records; serving's :func:`encode` and :func:`decode_forward` are the
+same passes with no autograd record.
 """
 
 from __future__ import annotations
@@ -23,14 +30,17 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_fn)
 from repro_torch.models.attention import (Attention, attention_decode,
                                           attention_forward, project_q)
 from repro_torch.models.common import (Embedding, ModelConfig, apply_norm,
-                                       dense_init, embed, lm_logits,
-                                       make_norm)
+                                       cross_entropy, dense_init, embed,
+                                       lm_logits, make_norm)
 from repro_torch.models.mlp import GeluMLP, gelu_mlp
 from repro_torch.models.transformer import NORMS
 
@@ -109,17 +119,41 @@ def init_whisper(cfg: ModelConfig, generator: torch.Generator,
 # forward
 # ----------------------------------------------------------------------
 
+def _encoder_block(p: EncoderBlock, x: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    h = apply_norm(p.norm1, x)
+    x = x + attention_forward(p.attn, h, cfg, causal=False)
+    return x + gelu_mlp(p.mlp, apply_norm(p.norm2, x))
+
+
+def _run_blocks(block, blocks, x, *args, remat: bool):
+    """``x = block(p, x, *args)`` for each layer ``p``, each under a
+    (non-reentrant) ``torch.utils.checkpoint`` with ``remat``."""
+    for p in blocks:
+        if remat:
+            x = checkpoint(block, p, x, *args, use_reentrant=False)
+        else:
+            x = block(p, x, *args)
+    return x
+
+
+def encode_train(params: Whisper, frames: torch.Tensor, cfg: ModelConfig,
+                 *, remat: bool = False) -> torch.Tensor:
+    """The reference's ``encode``: frames (B, S_enc, d) stub embeddings
+    -> encoder states (B, S_enc, d) in the compute dtype,
+    differentiable (K2 unmasked through its Function when autograd
+    records)."""
+    x = _run_blocks(_encoder_block, params.encoder,
+                    frames.to(cfg.compute_dtype), cfg, remat=remat)
+    return apply_norm(params.enc_final_norm, x)
+
+
 @torch.no_grad()
 def encode(params: Whisper, frames: torch.Tensor, cfg: ModelConfig
            ) -> torch.Tensor:
-    """frames: (B, S_enc, d) stub embeddings -> encoder states (B,
-    S_enc, d) in the compute dtype."""
-    x = frames.to(cfg.compute_dtype)
-    for blk in params.encoder:
-        h = apply_norm(blk.norm1, x)
-        x = x + attention_forward(blk.attn, h, cfg, causal=False)
-        x = x + gelu_mlp(blk.mlp, apply_norm(blk.norm2, x))
-    return apply_norm(params.enc_final_norm, x)
+    """Serving's encoder pass: :func:`encode_train` with no autograd
+    record."""
+    return encode_train(params, frames, cfg)
 
 
 def enc_kv(p: Attention, enc: torch.Tensor, cfg: ModelConfig
@@ -141,29 +175,65 @@ def enc_kv(p: Attention, enc: torch.Tensor, cfg: ModelConfig
 def cross_attention(p: Attention, x: torch.Tensor, kv, cfg: ModelConfig
                     ) -> torch.Tensor:
     """Unmasked attention of the decoder stream x (B, S, d) into the
-    encoder's K/V (``enc_kv``): K2 at Sq = S, Sk = S_enc."""
+    encoder's K/V (``enc_kv``): K2 at Sq = S, Sk = S_enc, through
+    ``flash_attention_fn`` when autograd records (as
+    ``attention_forward``), its plain launch otherwise."""
     b, s, _ = x.shape
     q = project_q(p, x, cfg).transpose(1, 2).contiguous()
-    out = flash_attention(q, kv[0], kv[1], causal=False)
+    attend = flash_attention
+    if torch.is_grad_enabled() and (q.requires_grad or kv[0].requires_grad
+                                    or kv[1].requires_grad):
+        attend = flash_attention_fn
+    out = attend(q, kv[0], kv[1], causal=False)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
     return torch.matmul(out, p.wo)
+
+
+def _decoder_block(p: DecoderBlock, x: torch.Tensor, enc: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    h = apply_norm(p.norm1, x)
+    x = x + attention_forward(p.self_attn, h, cfg, causal=True)
+    hx = apply_norm(p.norm_x, x)
+    x = x + cross_attention(p.cross_attn, hx, enc_kv(p.cross_attn, enc, cfg),
+                            cfg)
+    return x + gelu_mlp(p.mlp, apply_norm(p.norm2, x))
+
+
+def decode_forward_train(params: Whisper, tokens: torch.Tensor,
+                         enc: torch.Tensor, cfg: ModelConfig, *,
+                         remat: bool = False) -> torch.Tensor:
+    """The reference's ``decode_forward``: teacher-forced decoder pass,
+    tokens (B, S_dec) over the encoder states ``enc`` -> logits (B,
+    S_dec, V) float32, differentiable.  The token lookup is
+    ``F.embedding`` (its backward sums in a fixed order, as
+    ``lm_forward_train``'s); each layer's cross K/V are made inside its
+    block, so remat recomputes them as the reference's does."""
+    x = _run_blocks(_decoder_block, params.decoder,
+                    F.embedding(tokens.long(), params.embed.tok), enc, cfg,
+                    remat=remat)
+    x = apply_norm(params.final_norm, x)
+    return lm_logits(params.embed, x, cfg)
 
 
 @torch.no_grad()
 def decode_forward(params: Whisper, tokens: torch.Tensor, enc: torch.Tensor,
                    cfg: ModelConfig) -> torch.Tensor:
-    """Teacher-forced decoder pass: tokens (B, S_dec) over the encoder
-    states ``enc`` -> logits (B, S_dec, V) float32."""
-    x = embed(params.embed, tokens)
-    for blk in params.decoder:
-        h = apply_norm(blk.norm1, x)
-        x = x + attention_forward(blk.self_attn, h, cfg, causal=True)
-        hx = apply_norm(blk.norm_x, x)
-        x = x + cross_attention(blk.cross_attn, hx,
-                                enc_kv(blk.cross_attn, enc, cfg), cfg)
-        x = x + gelu_mlp(blk.mlp, apply_norm(blk.norm2, x))
-    x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embed, x, cfg)
+    """Serving's teacher-forced pass: :func:`decode_forward_train` with
+    no autograd record."""
+    return decode_forward_train(params, tokens, enc, cfg)
+
+
+def whisper_loss(params: Whisper, batch: Dict[str, torch.Tensor],
+                 cfg: ModelConfig, *, remat: bool = False) -> torch.Tensor:
+    """The reference's ``whisper_loss``: ``batch["frames"]`` (B, S_enc,
+    d) through :func:`encode_train`, the tokens through
+    :func:`decode_forward_train`, and the mean cross-entropy of
+    ``batch["labels"]`` under ``batch["loss_mask"]`` when given (no aux
+    loss)."""
+    enc = encode_train(params, batch["frames"], cfg, remat=remat)
+    logits = decode_forward_train(params, batch["tokens"], enc, cfg,
+                                  remat=remat)
+    return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
 
 # ----------------------------------------------------------------------

@@ -18,16 +18,16 @@ from typing import Any, Callable, Dict, List, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.models.common import ModelConfig, trainable
-from repro_torch.models.registry import Model, build_model
-from repro_torch.models.transformer import LM
+from repro_torch.models.registry import Model, build_model, param_module
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_update,
                                      init_adamw)
 
 
 class TrainState(NamedTuple):
-    params: LM            # float32 masters, tracked by autograd
+    params: nn.Module     # float32 masters (LM or Whisper), tracked
     opt: AdamWState
 
 
@@ -67,12 +67,12 @@ class _ComputeCopy:
         self.work = None
 
     @torch.no_grad()
-    def of(self, master: LM) -> LM:
+    def of(self, master: nn.Module) -> nn.Module:
         if self.cfg.compute_dtype == torch.float32:
             return master
         if self.work is None:
             dev = next(master.parameters()).device
-            self.work = trainable(LM(self.cfg, dev))
+            self.work = trainable(param_module(self.cfg, dev))
         for w, m in zip(self.work.parameters(), master.parameters()):
             w.copy_(m)
         return self.work
@@ -85,11 +85,13 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()
     ``grad_norm`` and ``lr`` are float32 scalars on the device.  The
     state is updated in place (the reference's jitted step donates it).
     ``batch`` holds ``tokens`` and ``labels`` (B, S), numpy or tensors,
-    and optionally ``loss_mask`` and ``vision_embeds``."""
+    and optionally ``loss_mask`` and ``vision_embeds`` (a vlm's (B, n,
+    d)); an encoder-decoder's also holds ``frames`` (B, S_enc, d).  With
+    microbatches every entry is split along its batch axis."""
     model = build_model(cfg)
     compute = _ComputeCopy(cfg)
 
-    def value_and_grad(work: LM, batch) -> Tuple[torch.Tensor,
+    def value_and_grad(work: nn.Module, batch) -> Tuple[torch.Tensor,
                                                  List[torch.Tensor]]:
         leaves = list(work.parameters())
         loss = model.loss(work, batch, remat=tcfg.remat)
@@ -98,7 +100,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()
             torch.zeros(t.shape, dtype=torch.float32, device=t.device)
             if g is None else g.float() for t, g in zip(leaves, grads)]
 
-    def grads_of(params: LM, batch):
+    def grads_of(params: nn.Module, batch):
         work = compute.of(params)
         n = tcfg.microbatches
         if n <= 1:

@@ -9,7 +9,9 @@
 * atomicity (an uncommitted directory is skipped), the async writer and
   pruning;
 * a reference-written directory restores in the port and a port-written
-  one in the reference (f32 moments), bitwise;
+  one in the reference (f32 moments), bitwise: qwen2.5-1.5b's tree, and
+  the moe (moonshot, arctic), ssm (mamba2), hybrid (hymba) and
+  encoder-decoder (whisper-base) trees;
 * on a bf16 or int8 directory the reference's own ``restore`` raises
   ``ValueError: No cast function available`` (ml_dtypes' bfloat16
   does not survive ``np.savez``), while the port restores it bitwise
@@ -198,3 +200,58 @@ def test_reference_cannot_restore_low_precision_moments_port_can(
         jax_restore(str(tmp_path), 3, template)
     got = restore(str(tmp_path), 3, empty_train_state(cfg, CPU, md))
     _assert_state_equals(got, _ref_named(ref_states[md]))
+
+
+#: the other families' trees: moe (shared experts; a dense residual
+#: FFN), ssm, hybrid and encoder-decoder
+FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "arctic-480b", "mamba2-780m",
+                "hymba-1.5b", "whisper-base")
+
+
+@pytest.fixture(scope="module")
+def family_states():
+    """Each family's reference SMOKE state (f32 moments) after one AdamW
+    update with seeded gradients."""
+    out = {}
+    for arch in FAMILY_ARCHS:
+        jcfg, _ = _cfgs(arch)
+        state = jax_init_train_state(jax_build_model(jcfg),
+                                     jax.random.PRNGKey(0))
+        rng = np.random.default_rng(1)
+        grads = jax.tree_util.tree_map(
+            lambda p: jnp.asarray(rng.standard_normal(p.shape).astype(
+                np.float32)), state.params)
+        cfg = JaxAdamWConfig(lr=1e-2, warmup_steps=1)
+        params, opt, _ = jax_adamw_update(cfg, state.params, grads,
+                                          state.opt)
+        out[arch] = jax.device_get(JaxTrainState(params=params, opt=opt))
+    return out
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_reference_save_port_restore_f32(tmp_path, family_states,
+                                                arch):
+    _, cfg = _cfgs(arch)
+    jax_save(str(tmp_path), 5, family_states[arch])
+    step, got = restore_latest(str(tmp_path), empty_train_state(cfg, CPU))
+    assert step == 5
+    _assert_state_equals(got, _ref_named(family_states[arch]))
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_port_save_reference_restore_f32(tmp_path, family_states,
+                                                arch):
+    jcfg, cfg = _cfgs(arch)
+    state = train_state_from_jax(family_states[arch], cfg, CPU)
+    with torch.no_grad():     # a state of the port's own
+        for p in state.params.parameters():
+            p.mul_(1.5)
+    save(str(tmp_path), 2, state)
+    template = jax_init_train_state(jax_build_model(jcfg),
+                                    jax.random.PRNGKey(1))
+    got = _ref_named(jax.device_get(jax_restore(str(tmp_path), 2,
+                                                template)))
+    want = train_state_to_numpy(state)
+    assert list(got) == [n for n, _, _ in want]
+    for name, arr, _ in want:
+        assert np.array_equal(got[name], arr), name

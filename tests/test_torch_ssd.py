@@ -11,6 +11,12 @@ model in float32 1e-5 (both sum the same products in other orders).
 The kernel's split TF32 arithmetic is emulated here in plain PyTorch
 and held within 1e-6 of the plain version (one TF32 product is not);
 the ``cuda`` test holds K10 to its plain version on the card.
+``SSDChunkFn`` (K10 under autograd): its gradients of all five inputs,
+with every output's cotangent live, against autograd through the plain
+version within 1e-5 relative; the full SSD's at a padded length against
+autograd of ``ssd_chunked`` and ``jax.grad`` of the reference's; the
+Mamba-2 block runs the Function when autograd records and the plain
+pass otherwise.
 """
 
 import dataclasses
@@ -38,7 +44,8 @@ from repro_torch.kernels import breakdown, launch_counts  # noqa: E402
 from repro_torch.kernels._sass import (SASS_KERNELS, SASS_LIBS,  # noqa: E402
                                        check_counts, kernel_counts,
                                        parse_sass)
-from repro_torch.kernels.ssd_scan import (ssd, ssd_chunk,  # noqa: E402
+from repro_torch.kernels.ssd_scan import (SSDChunkFn, ssd,  # noqa: E402
+                                          ssd_chunk, ssd_chunk_fn,
                                           ssd_chunk_ref, ssd_chunked,
                                           ssd_naive)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -375,6 +382,94 @@ def test_wrapper_checks():
 
 
 # ----------------------------------------------------------------------
+# K10 under autograd
+# ----------------------------------------------------------------------
+
+GRAD_TOL = 1e-5
+
+
+def _grad_rel(got, want) -> float:
+    """Worst over the leaves of ||got - want|| / ||want|| (L2)."""
+    return max(float(torch.linalg.vector_norm((g - w).double()))
+               / max(float(torch.linalg.vector_norm(w.double())), 1e-30)
+               for g, w in zip(got, want))
+
+
+def _leaves(args, dtype):
+    """x, b and c in ``dtype``, dt and a in float32, all tracked."""
+    return [t.to(dtype if i in (0, 3, 4) else torch.float32)
+            .requires_grad_() for i, t in enumerate(_torch(args))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ssd_chunk_fn_backward_matches_plain_autograd(shape, dtype):
+    """Every output's cotangent live (the decay's too): dx, ddt, da, db
+    and dc in their inputs' dtypes against autograd through the plain
+    version; the forward and a no-grad call equal ``ssd_chunk``'s."""
+    b, s, h, p, n, q = shape
+    dtype = getattr(torch, dtype)
+    args = _inputs(b, s, h, p, n, seed=11, a_model_range=True)
+    ins = _leaves(args, dtype)
+    outs = ssd_chunk_fn(*ins, chunk=q)
+    assert type(outs[0].grad_fn).__name__ == "SSDChunkFnBackward"
+    assert outs[0].grad_fn.__class__.__qualname__.startswith(
+        SSDChunkFn.__name__)
+    gen = torch.Generator().manual_seed(s + h)
+    cots = [torch.randn(o.shape, generator=gen) for o in outs]
+    got = torch.autograd.grad(outs, ins, cots)
+    ref_ins = _leaves(args, dtype)
+    want = torch.autograd.grad(ssd_chunk_ref(*ref_ins, q), ref_ins, cots)
+    assert [g.dtype for g in got] == [t.dtype for t in ins]
+    assert _grad_rel(got, want) <= GRAD_TOL
+    only_decay = torch.autograd.grad(ssd_chunk_fn(*ins, chunk=q)[2],
+                                     ins[1:3], cots[2])
+    assert all(bool(g.abs().max() > 0) for g in only_decay)
+    plain = ssd_chunk(*(t.detach() for t in ins), chunk=q)
+    for o, w in zip(outs, plain):
+        assert torch.equal(o.detach(), w)
+    with torch.no_grad():
+        again = ssd_chunk_fn(*ins, chunk=q)
+    assert again[0].grad_fn is None
+    assert all(torch.equal(o, w) for o, w in zip(again, plain))
+
+
+@pytest.mark.parametrize("s,chunk", [(70, 32), (96, 32), (20, 64)])
+def test_full_ssd_gradients_match_plain_and_reference(s, chunk):
+    """``ssd`` under autograd (the Function, at a length padded to the
+    chunk) against autograd of the plain ``ssd_chunked`` and ``jax.grad``
+    of the reference's ``ssd_chunked``, for a random cotangent."""
+    args = _inputs(2, s, 3, 16, 8, seed=s, a_model_range=True)
+    cot = np.random.default_rng(s + 1).standard_normal(
+        (2, s, 3, 16)).astype(np.float32)
+    ins = _leaves(args, torch.float32)
+    y = ssd(*ins, chunk=chunk)
+    assert "SSDChunkFnBackward" in _graph_nodes(y)
+    got = torch.autograd.grad(y, ins, torch.from_numpy(cot))
+    ref_ins = _leaves(args, torch.float32)
+    want = torch.autograd.grad(ssd_chunked(*ref_ins, chunk), ref_ins,
+                               torch.from_numpy(cot))
+    assert _grad_rel(got, want) <= GRAD_TOL
+    jgot = jax.grad(lambda *t: jnp.sum(jax_ssd_chunked(*t, chunk=chunk)
+                                       * cot), argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in args))
+    assert _grad_rel(got, [torch.from_numpy(np.array(g)) for g in jgot]
+                     ) <= GRAD_TOL
+
+
+def _graph_nodes(t):
+    seen, todo, names = set(), [t.grad_fn], []
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.append(type(node).__name__)
+        todo.extend(n for n, _ in node.next_functions)
+    return names
+
+
+# ----------------------------------------------------------------------
 # the Mamba-2 block and the ssm model, SMOKE in float32
 # ----------------------------------------------------------------------
 
@@ -401,6 +496,25 @@ def test_block_forward_matches_reference(smoke):
     got = mamba2_forward(params.blocks[0].ssm, torch.from_numpy(x), cfg)
     assert got.dtype == torch.float32
     assert _err(got, want) < 1e-5
+
+
+def test_block_forward_runs_the_function_when_training():
+    """``mamba2_forward`` on float32 masters: the graph holds
+    ``SSDChunkFn``'s node; under no-grad the same values, no graph."""
+    cfg = dataclasses.replace(get_config("mamba2-780m", smoke=True),
+                              dtype="float32")
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), CPU,
+                                   train=True)
+    x = torch.randn(2, 40, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    out = mamba2_forward(params.blocks[0].ssm, x, cfg)
+    assert "SSDChunkFnBackward" in _graph_nodes(out)
+    with torch.no_grad():
+        plain = mamba2_forward(params.blocks[0].ssm, x, cfg)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+    again = mamba2_forward(params.requires_grad_(False).blocks[0].ssm, x,
+                           cfg)
+    assert again.grad_fn is None and torch.equal(again, plain)
 
 
 def test_block_decode_matches_reference(smoke):

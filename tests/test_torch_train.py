@@ -7,14 +7,19 @@
   the reference's update run op by op (its jitted step fuses and
   differs in the last bits); the decayed-leaf set equals the
   reference's on every family's tree;
-* ``lm_loss`` and every gradient leaf against ``jax.value_and_grad`` of
-  the reference's ``lm_loss``: qwen2.5-1.5b, olmo-1b and phi-3-vision
-  (the vision mask), loss within 1e-5, each gradient leaf within 1e-5
-  relative (L2 over the reference's stacked leaf; observed ~1.5e-6);
+* ``Model.loss`` and every gradient leaf against ``jax.value_and_grad``
+  of the reference's ``Model.loss``: qwen2.5-1.5b, olmo-1b,
+  phi-3-vision (the vision mask), moonshot and arctic (the experts' aux
+  loss; each layer's routing equals the reference's first), mamba2 and
+  hymba (K10's Function, at a length padded to the chunk and past
+  hymba's window) and whisper-base (``whisper_loss`` over frames):
+  loss within 1e-5, each gradient leaf within 1e-5 relative (L2 over
+  the reference's stacked leaf; observed ~1.5e-6);
 * three steps of ``make_train_step`` against the reference's jitted
   step, remat on and off, microbatches 1 and 2, all three moment
-  dtypes: losses within 1e-4, and per leaf the parameters' change and
-  the moments within 1e-2 relative.  AdamW's first steps move each
+  dtypes, and one case (remat, 2 microbatches) for each of moonshot,
+  arctic, mamba2, hymba and whisper-base: losses within 1e-4, and per
+  leaf the parameters' change and the moments within 1e-2 relative.  AdamW's first steps move each
   weight by ~lr * sign(g), so the few elements whose gradient sits at
   float32 noise (observed: 1-60 of 16k-98k a leaf) take opposite
   steps; the gradients themselves are held to 1e-5 above.  Remat on
@@ -27,9 +32,11 @@
 * the fault-tolerance harness: ``run_resumable`` with injected failures
   gives the uninterrupted loss series bitwise, ``StragglerMonitor`` and
   ``elastic_remesh_plan`` equal the reference's;
-* the launcher as a subprocess (CPU): a run with checkpoints, then a
-  resumed one that prints ``resumed from step 6``; ``--mesh`` refused
-  by name; serving's parameters stay frozen.
+* the launcher as a subprocess (CPU), olmo-1b and mamba2-780m: a run
+  with checkpoints, then a resumed one that prints ``resumed from step
+  6``; ``--mesh`` refused by name, and whisper-base (no frames in the
+  pipeline); serving's parameters stay frozen, and every family's
+  training parameters are float32 tracked leaves.
 """
 
 import dataclasses
@@ -61,6 +68,8 @@ from repro.train import TrainState as JaxTrainState  # noqa: E402
 from repro.train import init_train_state as jax_init_train_state  # noqa: E402
 from repro.train import make_train_step as jax_make_train_step  # noqa: E402
 from repro.train import fault_tolerance as jax_ft  # noqa: E402
+from repro.models import transformer as jax_transformer  # noqa: E402
+from repro.models.common import embed as jax_embed  # noqa: E402
 from repro_torch.checkpoint import (AsyncCheckpointer,  # noqa: E402
                                     train_state_to_numpy)
 from repro_torch.configs import get_config  # noqa: E402
@@ -71,9 +80,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     FlashAttentionFn, attention_ref, flash_attention, flash_attention_fn)
 from repro_torch.launch.train import parse_args  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.attention import attention_forward  # noqa: E402
 from repro_torch.models.common import reference_path  # noqa: E402
-from repro_torch.models.transformer import LM  # noqa: E402
+from repro_torch.models.registry import param_module  # noqa: E402
 from repro_torch.optim import (AdamWConfig, adamw_update,  # noqa: E402
                                global_norm, lr_schedule)
 from repro_torch.optim.adamw import decays  # noqa: E402
@@ -222,7 +232,8 @@ def test_adamw_update_bitwise_with_same_grads(moment_dtype):
 
 @pytest.mark.parametrize("arch", ["qwen2.5-1.5b", "olmo-1b",
                                   "phi-3-vision-4.2b", "mamba2-780m",
-                                  "hymba-1.5b", "moonshot-v1-16b-a3b"])
+                                  "hymba-1.5b", "moonshot-v1-16b-a3b",
+                                  "whisper-base", "arctic-480b"])
 def test_decayed_leaf_set_equals_reference(arch):
     """The reference decays a leaf by its name and ITS (stacked) ndim."""
     jcfg = jax_get_config(arch, smoke=True)
@@ -230,11 +241,12 @@ def test_decayed_leaf_set_equals_reference(arch):
                             jax.random.PRNGKey(0))
     want = {name for name, x in _flatten_with_names(shapes)
             if name.split("/")[-1] not in JAX_NO_DECAY and len(x.shape) >= 2}
-    lm = LM(get_config(arch, smoke=True), CPU)
-    got = {reference_path(n)[0] for n, p in lm.named_parameters()
+    params = param_module(get_config(arch, smoke=True), CPU)
+    got = {reference_path(n)[0] for n, p in params.named_parameters()
            if decays(n, p)}
-    kept = {reference_path(n)[0] for n, p in lm.named_parameters()
+    kept = {reference_path(n)[0] for n, p in params.named_parameters()
             if not decays(n, p)}
+    assert got | kept == {name for name, _ in _flatten_with_names(shapes)}
     assert got == want
     assert not got & kept
 
@@ -252,39 +264,99 @@ def _batch(cfg, b, s, seed):
     if cfg.n_vision_tokens:
         batch["vision_embeds"] = rng.standard_normal(
             (b, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:     # frames as long as the tokens, as arch smoke's
+        batch["frames"] = rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)
     return batch
 
 
+def _routes_port(params, cfg, tokens, monkeypatch):
+    """Each layer's expert ids (t, k) in the port's forward."""
+    from repro_torch.models import moe as moe_mod
+    routes, inner = [], moe_mod._moe_tokens
+
+    def recording(p, x, moe):
+        logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(),
+                              p.router.float())
+        routes.append(torch.topk(torch.softmax(logits, -1),
+                                 moe.top_k)[1].numpy())
+        return inner(p, x, moe)
+
+    monkeypatch.setattr(moe_mod, "_moe_tokens", recording)
+    with torch.no_grad():
+        transformer.lm_forward_train(params, torch.from_numpy(tokens), cfg)
+    monkeypatch.undo()
+    return routes
+
+
+def _routes_reference(jparams, jcfg, tokens, monkeypatch):
+    """Each layer's expert ids in the reference's forward, run a layer at
+    a time outside ``lax.scan`` so that the ids are concrete values."""
+    routes, inner = [], jax_transformer.moe_forward
+
+    def recording(p, x, moe):
+        probs = jax.nn.softmax(jnp.einsum(
+            "td,de->te", x.reshape(-1, x.shape[-1]).astype(jnp.float32),
+            p["router"].astype(jnp.float32)), axis=-1)
+        routes.append(np.asarray(jax.lax.top_k(probs, moe.top_k)[1]))
+        return inner(p, x, moe)
+
+    monkeypatch.setattr(jax_transformer, "moe_forward", recording)
+    x = jax_embed(jparams["embed"], jnp.asarray(tokens), jcfg.compute_dtype)
+    for i in range(jcfg.n_layers):
+        layer = jax.tree_util.tree_map(lambda a: a[i], jparams["blocks"])
+        x, _ = jax_transformer.block_forward(layer, x, jcfg)
+    monkeypatch.undo()
+    return routes
+
+
+#: the gradient tests' lengths: 40 pads mamba2's and hymba's SSD to two
+#: chunks of 32 and passes hymba's window of 32
+LOSS_SEQ = {"mamba2-780m": 40, "hymba-1.5b": 40}
+
+
 @pytest.mark.parametrize("arch", ["qwen2.5-1.5b", "olmo-1b",
-                                  "phi-3-vision-4.2b"])
-def test_loss_and_every_gradient_leaf_match_reference(arch):
+                                  "phi-3-vision-4.2b", "moonshot-v1-16b-a3b",
+                                  "arctic-480b", "mamba2-780m",
+                                  "hymba-1.5b", "whisper-base"])
+def test_loss_and_every_gradient_leaf_match_reference(arch, monkeypatch):
     jcfg, cfg = _cfgs(arch)
     jm = jax_build_model(jcfg)
     jparams = jm.init(jax.random.PRNGKey(0))
-    batch = _batch(cfg, 2, 24, seed=1)
+    seq = LOSS_SEQ.get(arch, 24)
+    batch = _batch(cfg, 2, seq, seed=1)
     jloss, jgrads = jax.jit(jax.value_and_grad(jm.loss))(
         jparams, {k: jnp.asarray(v) for k, v in batch.items()})
     state = train_state_from_jax(jax.device_get(jax_init_train_state(
         jm, jax.random.PRNGKey(0))), cfg, CPU)
     params = state.params
+    if cfg.moe is not None:   # a flipped route would differ grossly
+        got = _routes_port(params, cfg, batch["tokens"], monkeypatch)
+        want = _routes_reference(jparams, jcfg, batch["tokens"],
+                                 monkeypatch)
+        assert len(got) == len(want) == cfg.n_layers
+        for layer, (g, w) in enumerate(zip(got, want)):
+            assert np.array_equal(g, w), layer
     loss = build_model(cfg).loss(
         params, {k: torch.from_numpy(v) for k, v in batch.items()})
     if cfg.n_vision_tokens:   # the mask is live: without it, another loss
         unmasked = build_model(cfg).loss(params, {
-            "loss_mask": torch.ones(2, 24),
+            "loss_mask": torch.ones(2, seq),
             **{k: torch.from_numpy(v) for k, v in batch.items()}})
         assert abs(unmasked.item() - loss.item()) > 1e-3
     names = [n for n, _ in params.named_parameters()]
     grads = torch.autograd.grad(loss, list(params.parameters()))
     assert abs(loss.item() - float(jloss)) <= LOSS_TOL
     want = {n: np.asarray(x) for n, x in _flatten_with_names(jgrads)}
-    by_leaf = {}
+    by_leaf, stacked = {}, set()
     for name, g in zip(names, grads):
         path, layer = reference_path(name)
         by_leaf.setdefault(path, []).append(g.numpy())
+        if layer is not None:
+            stacked.add(path)
     assert sorted(by_leaf) == sorted(want)
     for path, gs in by_leaf.items():
-        got = np.stack(gs) if path.startswith("blocks/") else gs[0]
+        got = np.stack(gs) if path in stacked else gs[0]
         assert got.shape == want[path].shape, path
         assert _rel(got, want[path]) <= GRAD_TOL, (path, _rel(got,
                                                               want[path]))
@@ -294,22 +366,40 @@ def test_loss_and_every_gradient_leaf_match_reference(arch):
 # train steps
 # ----------------------------------------------------------------------
 
-STEP_CASES = [("f32", False, 1), ("f32", True, 1), ("f32", False, 2),
-              ("f32", True, 2), ("bf16", True, 1), ("int8", False, 2)]
+STEP_CASES = [pytest.param("qwen2.5-1.5b", md, remat, mb,
+                           id=f"{md}-{remat}-{mb}")
+              for md, remat, mb in (
+                  ("f32", False, 1), ("f32", True, 1), ("f32", False, 2),
+                  ("f32", True, 2), ("bf16", True, 1), ("int8", False, 2))]
+STEP_CASES += [pytest.param(arch, "f32", True, 2, id=f"{arch}-f32-True-2")
+               for arch in ("moonshot-v1-16b-a3b", "arctic-480b",
+                            "mamba2-780m", "hymba-1.5b", "whisper-base")]
 
 
-def _run_steps(state, step, n, seq=32, batch=4, vocab=512):
+def _step_batch(dc, step, d_model=None, synth=synth_batch):
+    """``synth``'s batch of ``step`` (the port's pipeline or the
+    reference's); with ``d_model`` (an encoder-decoder) also seeded
+    frames (B, S, d_model)."""
+    batch = synth(dc, step)
+    if d_model:
+        batch["frames"] = np.random.default_rng(100 + step).standard_normal(
+            (dc.global_batch, dc.seq_len, d_model)).astype(np.float32)
+    return batch
+
+
+def _run_steps(state, step, n, seq=32, batch=4, vocab=512, d_model=None):
     dc = DataConfig(vocab_size=vocab, seq_len=seq, global_batch=batch)
     losses = []
     for i in range(n):
-        state, m = step(state, synth_batch(dc, i))
+        state, m = step(state, _step_batch(dc, i, d_model))
         losses.append(float(m["loss"]))
     return state, losses
 
 
-@pytest.mark.parametrize("moment_dtype,remat,microbatches", STEP_CASES)
-def test_train_steps_match_reference(moment_dtype, remat, microbatches):
-    jcfg, cfg = _cfgs("qwen2.5-1.5b")
+@pytest.mark.parametrize("arch,moment_dtype,remat,microbatches", STEP_CASES)
+def test_train_steps_match_reference(arch, moment_dtype, remat,
+                                     microbatches):
+    jcfg, cfg = _cfgs(arch)
     opt = dict(OPT, moment_dtype=moment_dtype)
     js = jax_init_train_state(jax_build_model(jcfg), jax.random.PRNGKey(0),
                               moment_dtype)
@@ -321,13 +411,14 @@ def test_train_steps_match_reference(moment_dtype, remat, microbatches):
     step = make_train_step(cfg, TrainConfig(
         optimizer=AdamWConfig(**opt), remat=remat,
         microbatches=microbatches))
+    d_model = cfg.d_model if cfg.is_encdec else None
     dc = JaxDataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=4)
     jlosses = []
     for i in range(3):
-        js, jm = jstep(js, {k: jnp.asarray(v)
-                            for k, v in jax_synth_batch(dc, i).items()})
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in _step_batch(
+            dc, i, d_model, jax_synth_batch).items()})
         jlosses.append(float(jm["loss"]))
-    state, losses = _run_steps(state, step, 3)
+    state, losses = _run_steps(state, step, 3, d_model=d_model)
     assert np.max(np.abs(np.array(losses) - jlosses)) <= STEP_LOSS_TOL
     assert jlosses[-1] < jlosses[0] - 0.1       # the steps do learn
     want = _ref_leaves(js)
@@ -427,13 +518,11 @@ def test_serving_parameters_stay_frozen():
     conv = params_from_jax(jax.device_get(jax_build_model(jcfg).init(
         jax.random.PRNGKey(0))), cfg, CPU)
     assert not any(p.requires_grad for p in conv.parameters())
-    trained = build_model(get_config("qwen2.5-1.5b", smoke=True)).init(
-        torch.Generator().manual_seed(0), CPU, train=True)
-    assert all(p.requires_grad and p.dtype == torch.float32
-               for p in trained.parameters())
-    with pytest.raises(ValueError, match="trains the families"):
-        build_model(get_config("mamba2-780m", smoke=True)).init(
+    for arch in ("qwen2.5-1.5b", "mamba2-780m", "whisper-base"):
+        trained = build_model(get_config(arch, smoke=True)).init(
             torch.Generator().manual_seed(0), CPU, train=True)
+        assert all(p.requires_grad and p.dtype == torch.float32
+                   for p in trained.parameters()), arch
 
 
 # ----------------------------------------------------------------------
@@ -523,19 +612,20 @@ def test_straggler_monitor_and_remesh_equal_reference():
 # launcher
 # ----------------------------------------------------------------------
 
-def _launch(*args):
+def _launch(*args, arch="olmo-1b"):
     return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "olmo-1b", "--smoke", "--device", "cpu", "--batch", "2", "--seq",
+         arch, "--smoke", "--device", "cpu", "--batch", "2", "--seq",
          "32", "--log-every", "2", *args], cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
              "OMP_NUM_THREADS": "2"},
         capture_output=True, text=True, timeout=300)
 
 
-def test_launcher_checkpoints_and_resumes(tmp_path):
+def _launch_and_resume(tmp_path, arch):
     ck = str(tmp_path / "ck")
-    first = _launch("--steps", "6", "--ckpt-dir", ck, "--ckpt-every", "3")
+    first = _launch("--steps", "6", "--ckpt-dir", ck, "--ckpt-every", "3",
+                    arch=arch)
     assert first.returncode == 0, first.stderr
     lines = first.stdout.splitlines()
     assert lines[0].startswith("step     1 loss ") and "stragglers=[]" in \
@@ -543,7 +633,8 @@ def test_launcher_checkpoints_and_resumes(tmp_path):
     assert lines[-1] == "done" and "resumed" not in first.stdout
     assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
         "step_00000003", "step_00000006"]
-    second = _launch("--steps", "8", "--ckpt-dir", ck, "--ckpt-every", "3")
+    second = _launch("--steps", "8", "--ckpt-dir", ck, "--ckpt-every", "3",
+                     arch=arch)
     assert second.returncode == 0, second.stderr
     lines = second.stdout.splitlines()
     assert lines[0] == "resumed from step 6"
@@ -551,8 +642,26 @@ def test_launcher_checkpoints_and_resumes(tmp_path):
     assert lines[-1] == "done"
 
 
+def test_launcher_checkpoints_and_resumes(tmp_path):
+    _launch_and_resume(tmp_path, "olmo-1b")
+
+
+def test_launcher_trains_an_ssm_model_and_resumes(tmp_path):
+    """The ssm family through the launcher: K10's Function in every
+    step (its plain version here), checkpoints, a resume."""
+    _launch_and_resume(tmp_path, "mamba2-780m")
+
+
 def test_launcher_refuses_a_mesh(capsys):
     with pytest.raises(SystemExit) as exc:
         parse_args(["--arch", "olmo-1b", "--mesh", "2,2"])
     assert exc.value.code != 0
     assert "M16" in capsys.readouterr().err
+
+
+def test_launcher_refuses_whisper_by_name(capsys):
+    with pytest.raises(SystemExit) as exc:
+        parse_args(["--arch", "whisper-base", "--smoke"])
+    assert exc.value.code != 0
+    err = capsys.readouterr().err
+    assert "whisper-base" in err and "frames" in err

@@ -16,7 +16,11 @@ reference's side, so that every leaf is checked).
   ``decode_forward``'s at the same position within the reference's own
   bound (``tests/test_decode_consistency.py``, 2e-2);
 * the int8 KV cache, ``ServeEngine``, the launcher and the paged cache
-  refuse the encoder-decoder, by name where a name is asked for.
+  refuse the encoder-decoder, by name where a name is asked for;
+* training: cross-attention runs K2's Function when autograd records
+  and the plain pass otherwise, and the training passes (remat on and
+  off) give serving's values (the loss and its gradients against the
+  reference are in ``tests/test_torch_train.py``).
 """
 
 import dataclasses
@@ -46,8 +50,8 @@ from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.attention import attention_forward  # noqa: E402
 from repro_torch.models.mlp import gelu_mlp  # noqa: E402
 from repro_torch.models.whisper import (  # noqa: E402
-    Whisper, decode_forward, encode, init_whisper_cache,
-    whisper_decode_step)
+    Whisper, cross_attention, decode_forward, decode_forward_train,
+    enc_kv, encode, encode_train, init_whisper_cache, whisper_decode_step)
 from repro_torch.serving import ServeEngine  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
@@ -261,3 +265,40 @@ def test_launcher_names_whisper_when_refusing(capsys):
         launch_serve.main(["--arch", ARCH, "--smoke", "--device", "cpu"])
     assert exc.value.code != 0
     assert "whisper" in capsys.readouterr().err
+
+
+def _graph_nodes(t):
+    seen, todo, names = set(), [t.grad_fn], []
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.append(type(node).__name__)
+        todo.extend(n for n, _ in node.next_functions)
+    return names
+
+
+def test_training_passes_run_the_function_and_give_servings_values(model):
+    _, _, cfg, _, frames, toks = model
+    params = build_model(cfg).init(torch.Generator().manual_seed(0), CPU,
+                                   train=True)
+    enc_in = torch.from_numpy(frames)
+    x = torch.randn(B, S_DEC, cfg.d_model,
+                    generator=torch.Generator().manual_seed(2))
+    p = params.decoder[0].cross_attn
+    out = cross_attention(p, x, enc_kv(p, enc_in, cfg), cfg)
+    assert "FlashAttentionFnBackward" in _graph_nodes(out)
+    with torch.no_grad():
+        plain = cross_attention(p, x, enc_kv(p, enc_in, cfg), cfg)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+    served_enc = encode(params, enc_in, cfg)
+    served = decode_forward(params, torch.from_numpy(toks), served_enc, cfg)
+    assert served.grad_fn is None
+    for remat in (False, True):
+        enc = encode_train(params, enc_in, cfg, remat=remat)
+        logits = decode_forward_train(params, torch.from_numpy(toks), enc,
+                                      cfg, remat=remat)
+        assert "FlashAttentionFnBackward" in _graph_nodes(logits)
+        assert torch.equal(enc.detach(), served_enc)
+        assert torch.equal(logits.detach(), served)
