@@ -364,7 +364,30 @@ order (any failure raises and the script exits non-zero):
    finite, falling losses, exact K2 and K10 launches a step, a restart
    of mamba2-780m from a step-4 checkpoint equal to the uninterrupted
    losses, moonshot's first-step gradients bitwise twice; the median
-   step, tokens/s, the optimizer's ms and peak memory.
+   step, tokens/s, the optimizer's ms and peak memory;
+47. the fleet simulator: the mixed plan (2 a100-40g, 8
+   cmp-170hx-nofma) under a seeded bursty trace, run twice with equal
+   ``metrics()`` (TTFT/TPOT p99, goodput, $/Mtok printed); then the
+   token accounting at full width: a seeded Poisson trace of 16
+   requests (prompts 64-512, generations 16-128) through a prefill and
+   an 8-lane decode board, replayed on the card (qwen2.5-1.5b bf16,
+   seed 0, fixed-lane, 8 lanes, ``max_len`` 1024): the simulator's
+   prompt and generated tokens equal the engine's, K2 launches = 16 x
+   28, K3 launches = the engine's decode steps x 28, a control with one
+   record's ``gen_len`` off by one mismatches; the replay's tokens/s;
+48. the dry run over every cell of ``all_cells()`` (32) on the meta
+   device in parallel processes: no cell fails, ``model_flops`` is
+   ``_model_flops``, and the counted FLOPs equal ``derived_flops``
+   exactly (one line a cell, the ratio to ``model_flops`` printed);
+49. the dry run against the card: qwen2.5-1.5b train (batch 8, seq 256,
+   remat, f32 moments), qwen2.5-1.5b decode (8 lanes, a 1024-deep
+   cache) and mamba2-780m train (batch 8, seq 256), one step each from
+   ``reset_peak_memory_stats``: the meta pass's peak within
+   ``DRYRUN_MEM_TOL`` of ``max_memory_allocated`` above what was there
+   before, a control without the optimizer moments outside it, the
+   counted FLOPs over the measured step as TFLOP/s; the launcher's
+   ``--mesh 1,1`` trains 2 SMOKE steps on the card and ``--mesh 2,1``
+   is refused with its device count.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -377,6 +400,7 @@ import contextlib
 import gc
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -5736,6 +5760,314 @@ def phase_train_family_full(dev, arch, layers, control, ck_step):
     return out
 
 
+
+# ----------------------------------------------------------------------
+# the fleet simulator, the token accounting and the dry run (M16)
+# ----------------------------------------------------------------------
+
+#: the replay's fleet and trace (phase 47): 16 requests, prompts 64-512,
+#: generations 16-128, through one prefill and one 8-lane decode board
+FLEET_REPLAY = dict(n=16, lanes=8, max_len=1024)
+#: phase 49's shapes: (arch, kind, batch, seq)
+DRYRUN_CHECKS = (("qwen2.5-1.5b", "train", 8, 256),
+                 ("qwen2.5-1.5b", "decode", 8, 1024),
+                 ("mamba2-780m", "train", 8, 256))
+#: the dry run's peak against ``max_memory_allocated``: the meta pass
+#: counts every storage's bytes; the card's allocator rounds each block
+#: to 512 bytes and may keep an unsplit remainder (< 1 MiB) of a large
+#: segment with it, and cuBLAS takes its workspace -- a few hundred MiB
+#: at most over the thousands of live tensors of a train step, against
+#: peaks of 3 to 33 GiB; the moment-less control sits 35-45% below
+DRYRUN_MEM_TOL = 0.10
+
+
+def phase_fleet(dev):
+    """Phase 47: the fleet simulator and the token accounting on the
+    card."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels
+    from repro_torch.fleet import (FleetSim, LengthDist, NodeSpec,
+                                   bursty_trace, diff_token_accounting,
+                                   fleet_from_plan, poisson_trace,
+                                   run_trace_on_engine)
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.serving import Workload, plan_fleet
+    tag = "[fleet]"
+    t_phase = time.perf_counter()
+    wl = Workload(512, 128, "q8_0")
+    plan = plan_fleet({"a100-40g": 2, "cmp-170hx-nofma": 8}, wl)
+    trace = bursty_trace(40.0, 60.0, seed=7, prompt=LengthDist(512, cv=0.3),
+                         gen=LengthDist(128, cv=0.3))
+    specs = fleet_from_plan(plan, decode_lanes=4)
+    t0 = time.perf_counter()
+    reps = [FleetSim(specs, trace, fmt=wl.fmt, ttft_slo_s=2.0,
+                     tpot_slo_s=0.05).run() for _ in range(2)]
+    sim_s = (time.perf_counter() - t0) / 2
+    m = reps[0].metrics()
+    if reps[1].metrics() != m:
+        fail(f"{tag} two runs of one seeded simulation differ")
+    if reps[0].completed != reps[0].offered:
+        fail(f"{tag} the mixed fleet left requests: {m}")
+    print(f"{tag} mixed plan ({plan.requests_per_s:.2f} req/s planned), "
+          f"{len(trace)} bursty requests, twice equal ({sim_s:.2f}s a "
+          f"run): TTFT p99 {m['ttft_p99_s']:.4f}s, TPOT p99 "
+          f"{m['tpot_p99_s']:.5f}s, goodput {m['goodput_rps']:.3f} req/s, "
+          f"${m['usd_per_mtok']:.4f}/Mtok")
+
+    cfg, params = init_full(dev)
+    full = poisson_trace(8.0, 8.0, seed=SEED + 11,
+                         prompt=LengthDist(256, cv=0.6, min_len=64,
+                                           max_len=512),
+                         gen=LengthDist(64, cv=0.6, min_len=16,
+                                        max_len=128))[:FLEET_REPLAY["n"]]
+    if len(full) != FLEET_REPLAY["n"]:
+        fail(f"{tag} the trace holds {len(full)} requests")
+    nodes = [NodeSpec("a100-40g", 1, "prefill"),
+             NodeSpec("cmp-170hx-nofma", 1, "decode", FLEET_REPLAY["lanes"])]
+    sim = FleetSim(nodes, full, fmt="q8_0")
+    report = sim.run()
+    if report.completed != len(full):
+        fail(f"{tag} the simulator completed {report.completed} of "
+             f"{len(full)}")
+    reg = MetricsRegistry()
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe = run_trace_on_engine([rec.req for rec in sim.records], cfg, params,
+                              n_lanes=FLEET_REPLAY["lanes"],
+                              max_len=FLEET_REPLAY["max_len"], device=dev,
+                              registry=reg)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    res = diff_token_accounting(sim, report, exe)
+    steps = next(reg[n].value for n in reg.names()
+                 if n.endswith(".decode.steps"))
+    k2 = counts["flash_attention_mma"]
+    k3 = counts["decode_attention_lengthaware"]
+    if not (res["match"] and res["sim_prompt_tokens"] ==
+            res["engine_prompt_tokens"] and res["sim_gen_tokens"] ==
+            res["engine_gen_tokens"]):
+        fail(f"{tag} token accounting differs at full width: {res}")
+    if k2 != len(full) * cfg.n_layers:
+        fail(f"{tag} K2 launched {k2} times for {len(full)} prompts x "
+             f"{cfg.n_layers} layers")
+    if k3 != steps * cfg.n_layers:
+        fail(f"{tag} K3 launched {k3} times for {steps} decode steps x "
+             f"{cfg.n_layers} layers")
+    # the control: one record's claim one token off
+    bad = [dataclasses.replace(r, gen_len=r.gen_len + (r.uid == 3))
+           for r in full]
+    ctrl_sim = FleetSim(nodes, bad, fmt="q8_0")
+    ctrl = diff_token_accounting(ctrl_sim, ctrl_sim.run(), exe)
+    if ctrl["match"] or list(ctrl["mismatches"]) != [3]:
+        fail(f"{tag} the control (uid 3's gen_len off by one) passed: "
+             f"{ctrl}")
+    tokens = exe.prompt_tokens + exe.gen_tokens
+    print(f"{tag} token accounting at full width (qwen2.5-1.5b bf16, "
+          f"fixed-lane, {FLEET_REPLAY['lanes']} lanes): match, "
+          f"{exe.prompt_tokens} prompt and {exe.gen_tokens} generated "
+          f"tokens == the simulator's; K2 {k2} = {len(full)} x "
+          f"{cfg.n_layers}, K3 {k3} = {steps} steps x {cfg.n_layers}; the "
+          f"off-by-one control mismatches uid 3; replay {replay_s:.3f}s, "
+          f"{exe.gen_tokens / replay_s:.1f} generated tok/s, "
+          f"{tokens / replay_s:.1f} tok/s with prompts ({gpu_line()})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sim": {k: m[k] for k in ("ttft_p99_s", "tpot_p99_s",
+                                      "goodput_rps", "usd_per_mtok",
+                                      "completed", "offered")},
+            "sim_s": sim_s, "accounting": {k: v for k, v in res.items()
+                                           if k != "mismatches"},
+            "control_mismatches": {str(k): v for k, v in
+                                   ctrl["mismatches"].items()},
+            "launches": {"flash_attention_mma": k2,
+                         "decode_attention_lengthaware": k3},
+            "decode_steps": steps, "replay_s": replay_s,
+            "gen_tok_s": exe.gen_tokens / replay_s,
+            "tok_s": tokens / replay_s,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def phase_dryrun_cells():
+    """Phase 48: ``run_cell`` over every cell of ``all_cells()`` on the
+    meta device, in parallel processes; the same pool runs phase 49's
+    meta passes (returned beside the cells)."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.configs import SHAPES, all_cells, get_config
+    from repro_torch.launch.dryrun import (_cell_or_error, _model_flops,
+                                           analyze_step, derived_flops)
+    tag = "[dryrun]"
+    t0 = time.perf_counter()
+    workers = max(1, min(8, os.cpu_count() or 1))
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(workers,
+                                                mp_context=ctx) as pool:
+        # the longest first: phase 49's train passes, the train cells
+        checks = {}
+        for arch, kind, b, s in DRYRUN_CHECKS:
+            for mdt in ((None, "none") if kind == "train" else (None,)):
+                checks[(arch, kind, mdt)] = pool.submit(
+                    analyze_step, get_config(arch), kind, b, s,
+                    moment_dtype=mdt)
+        cells = sorted(all_cells(),
+                       key=lambda c: SHAPES[c[1]]["kind"] != "train")
+        futs = [pool.submit(_cell_or_error, a, sh, 1) for a, sh in cells]
+        recs = [f.result() for f in futs]
+        metas = {k: f.result() for k, f in checks.items()}
+    wall = time.perf_counter() - t0
+    errors = [r for r in recs if "error" in r]
+    if errors or len(recs) != 32:
+        for r in errors:
+            print(r.get("traceback", ""), file=sys.stderr)
+        fail(f"{tag} {len(errors)} of {len(recs)} cells failed: "
+             f"{[(r['arch'], r['shape'], r['error']) for r in errors]}")
+    out = {}
+    for r in recs:
+        cfg, sh = get_config(r["arch"]), SHAPES[r["shape"]]
+        want = derived_flops(cfg, sh["kind"], sh["global_batch"],
+                             sh["seq_len"])
+        if r["model_flops"] != _model_flops(cfg, r["shape"]):
+            fail(f"{tag} {r['arch']}/{r['shape']}: model_flops "
+                 f"{r['model_flops']}")
+        if r["hlo_flops"] != want:
+            fail(f"{tag} {r['arch']}/{r['shape']}: counted "
+                 f"{r['hlo_flops']:.6e} FLOPs, the derived count {want:.6e}")
+        ratio = r["hlo_flops"] / r["model_flops"]
+        print(f"{tag} {r['arch']}/{r['shape']} ({r['kind']}): counted "
+              f"{r['hlo_flops']:.4e} FLOPs = derived, model "
+              f"{r['model_flops']:.4e} (x{ratio:.4f}), bytes "
+              f"{r['hlo_bytes']:.4e}, peak {r['bytes_per_device'] / 2**30:.2f}"
+              f" GiB (args {r['argument_size_in_bytes'] / 2**30:.2f}), fits "
+              f"{r['fits_device']}, {r['meta_s']}s")
+        out[f"{r['arch']}/{r['shape']}"] = {
+            k: r[k] for k in ("hlo_flops", "model_flops", "hlo_bytes",
+                              "bytes_per_device", "argument_size_in_bytes",
+                              "fits_device", "meta_s")}
+    print(f"{tag} {len(recs)} cells on the meta device, every count equal "
+          f"to its derivation, in {wall:.1f}s ({workers} processes, with "
+          f"phase 49's {len(metas)} meta passes)")
+    return {"cells": out, "n_cells": len(recs), "wall_s": wall,
+            "workers": workers}, metas
+
+
+def _real_step(dev, cfg, kind, batch, seq):
+    """One step of ``kind`` on the card from fresh state: (bytes of the
+    peak above what was allocated before the state, step seconds, a
+    second step's seconds, the launches of the first)."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.train import TrainConfig, init_train_state, \
+        make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                           device=dev, dtype=torch.int32)
+    if kind == "train":
+        state = init_train_state(model, gen, dev)
+        batch_ = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+        step = make_train_step(cfg, TrainConfig(remat=True))
+
+        def run():
+            step(state, batch_)
+    else:
+        params = model.init(gen, dev)
+        cache = model.init_cache(batch, seq, device=dev)
+        tok = tokens[:, 0].contiguous()
+
+        def run():
+            model.decode_step(params, cache, tok)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = kernels.launch_delta(
+        {n: 0 for n in kernels.COUNTERS}, kernels.launch_counts())
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    second_s = time.perf_counter() - t0
+    return peak, first_s, second_s, launches
+
+
+def phase_dryrun_check(dev, metas):
+    """Phase 49: the dry run's peak bytes (``metas``, phase 48's meta
+    passes) against the card's ``max_memory_allocated`` on three shapes,
+    a moment-less control, the counted FLOPs over the measured step, and
+    the launcher's ``--mesh``."""
+    import torch
+    from repro_torch.configs import get_config
+    tag = "[dryrun check]"
+    t_phase = time.perf_counter()
+    out = {}
+    for arch, kind, b, s in DRYRUN_CHECKS:
+        cfg = get_config(arch)
+        meta = metas[(arch, kind, None)]
+        peak, first_s, second_s, launches = _real_step(dev, cfg, kind, b, s)
+        err = meta["peak_bytes"] / peak - 1.0
+        if abs(err) > DRYRUN_MEM_TOL:
+            fail(f"{tag} {arch} {kind} B {b} S {s}: dry run "
+                 f"{meta['peak_bytes'] / 2**30:.3f} GiB, card "
+                 f"{peak / 2**30:.3f} GiB ({err:+.2%}, tol "
+                 f"{DRYRUN_MEM_TOL:.0%})")
+        entry = {"dry_bytes": meta["peak_bytes"], "card_bytes": peak,
+                 "rel_err": err, "flops": meta["flops"],
+                 "first_step_s": first_s, "step_s": second_s,
+                 "tflops": meta["flops"] / second_s / 1e12,
+                 "launches": launches}
+        line = (f"{tag} {arch} {kind} B {b} S {s}: dry run "
+                f"{meta['peak_bytes'] / 2**30:.3f} GiB, card peak "
+                f"{peak / 2**30:.3f} GiB ({err:+.2%}, tol "
+                f"{DRYRUN_MEM_TOL:.0%})")
+        if kind == "train":
+            ctrl = metas[(arch, kind, "none")]
+            cerr = ctrl["peak_bytes"] / peak - 1.0
+            if abs(cerr) <= DRYRUN_MEM_TOL:
+                fail(f"{tag} {arch}: the control without moments "
+                     f"({ctrl['peak_bytes'] / 2**30:.3f} GiB, {cerr:+.2%}) "
+                     f"passed the gate")
+            entry["control_bytes"], entry["control_rel_err"] = \
+                ctrl["peak_bytes"], cerr
+            line += f"; control without moments {cerr:+.2%}"
+        print(f"{line}; {meta['flops']:.4e} counted FLOPs in "
+              f"{second_s * 1e3:.1f} ms = {entry['tflops']:.2f} TFLOP/s "
+              f"(first step {first_s * 1e3:.1f} ms); launches {launches} "
+              f"({gpu_line()})")
+        out[f"{arch} {kind}"] = entry
+        gc.collect()
+        torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen2.5-1.5b", "--smoke", "--steps", "2", "--batch", "2",
+           "--seq", "32"]
+    ok = subprocess.run(cmd + ["--mesh", "1,1"], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=300)
+    if ok.returncode != 0 or "done" not in ok.stdout:
+        fail(f"{tag} --mesh 1,1 did not train: {ok.stdout[-800:]} "
+             f"{ok.stderr[-800:]}")
+    no = subprocess.run(cmd + ["--mesh", "2,1"], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=300)
+    if no.returncode == 0 or "needs 2 devices" not in no.stderr:
+        fail(f"{tag} --mesh 2,1 was not refused: {no.stderr[-800:]}")
+    print(f"{tag} the launcher on the card: --mesh 1,1 trains "
+          f"({ok.stdout.strip().splitlines()[-2]}), --mesh 2,1 refused "
+          f"({no.stderr.strip().splitlines()[-1]})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -5887,6 +6219,33 @@ def main() -> int:
     print(f"[train families] phases 44-46 took "
           f"{time.perf_counter() - t_families:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s" for k, v in family_phase_s.items()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_m16 = time.perf_counter()
+    fleet = phase_fleet(dev)
+    dry_cells, dry_metas = phase_dryrun_cells()
+    dry_check = phase_dryrun_check(dev, dry_metas)
+    print(f"[fleet/dryrun] phases 47-49 took "
+          f"{time.perf_counter() - t_m16:.1f}s: 47 (fleet, token "
+          f"accounting) {fleet['phase_s']:.1f}s, 48 (dry run, "
+          f"{dry_cells['n_cells']} cells) {dry_cells['wall_s']:.1f}s, 49 "
+          f"(dry run vs card, --mesh) {dry_check['phase_s']:.1f}s")
+    m16_launches = {
+        "flash_attention_mma": {
+            "fleet_replay": fleet["launches"]["flash_attention_mma"],
+            "dryrun_check": {k: v["launches"].get("flash_attention_mma", 0)
+                             for k, v in dry_check.items()
+                             if isinstance(v, dict)}},
+        "decode_attention_lengthaware": {
+            "fleet_replay": fleet["launches"][
+                "decode_attention_lengthaware"],
+            "dryrun_check": {k: v["launches"].get(
+                "decode_attention_lengthaware", 0)
+                for k, v in dry_check.items() if isinstance(v, dict)}},
+        "ssd_chunk": {
+            "dryrun_check": {k: v["launches"].get("ssd_chunk", 0)
+                             for k, v in dry_check.items()
+                             if isinstance(v, dict)}}}
 
     replaces = {
         "decode_attention_paged":
@@ -6147,6 +6506,8 @@ def main() -> int:
         tr = training_entry(name)
         if tr:
             entry["training"] = tr
+        if name in m16_launches:
+            entry["m16"] = m16_launches[name]
         kernels.append(entry)
     compute_replaces = {
         "mixbench_fma": "src/repro/kernels/mixbench/kernel.py:56",
@@ -6205,7 +6566,8 @@ def main() -> int:
             "backward_control_err": k10_bwd["control_err_min"],
             "backward_cases": k10_bwd["cases"],
             "padded_rel_err": k10_bwd["padded_rel_err"],
-            **k10_bwd["timing"]}})
+            **k10_bwd["timing"]},
+        "m16": m16_launches["ssd_chunk"]})
     e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e,
            "paged_int8": int8["full e2e paged int8"][1],
            "fixed_lane_int8": int8["full e2e fixed-lane int8"][1]}
@@ -6274,6 +6636,8 @@ def main() -> int:
     print(f"[sweep] {json.dumps(sweep_summary)}")
     print(f"[train] {json.dumps({'k2_backward': k2_bwd, 'smoke': train_smoke, 'full': train_full})}")
     print(f"[train families] {json.dumps({'k10_backward': k10_bwd, 'smoke': families_smoke, 'full': families_full, 'phase_s': family_phase_s})}")
+    print(f"[fleet] {json.dumps(fleet)}")
+    print(f"[dryrun] {json.dumps({'cells': dry_cells, 'check': dry_check})}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -2,13 +2,16 @@
 
 Each module exports ``CONFIG`` (the published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests), copied from the
-reference package's ``configs/``.
+reference package's ``configs/``.  ``ARCH_IDS``, ``SHAPES`` and
+:func:`all_cells` are the reference's dry-run matrix (the assigned
+architectures, without the paper's own qwen2.5-1.5b, by four input
+shapes), which :mod:`repro_torch.launch.dryrun` walks.
 """
 
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List, Tuple
 
 from repro_torch.models.common import ModelConfig
 
@@ -44,3 +47,34 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
                          f"{sorted(_MODULES)}")
     mod = importlib.import_module(_MODULES[arch])
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+#: the assigned architectures (the dry-run matrix's rows), in the
+#: reference's order; the paper's own qwen2.5-1.5b is not one of them
+ARCH_IDS: List[str] = ["mamba2-780m", "qwen1.5-110b", "olmo-1b",
+                       "mistral-nemo-12b", "qwen2.5-32b", "arctic-480b",
+                       "moonshot-v1-16b-a3b", "hymba-1.5b",
+                       "phi-3-vision-4.2b", "whisper-base"]
+
+#: the four assigned input-shape cells (LM-family shapes)
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}
+
+#: sub-quadratic families that run the long_500k cell
+LONG_CONTEXT_ARCHS = ("mamba2-780m", "hymba-1.5b")
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_ARCHS
+    return True
+
+
+def all_cells() -> List[Tuple[str, str]]:
+    """Every applicable (arch, shape) pair -- the dry-run matrix."""
+    return [(a, s) for a in ARCH_IDS for s in SHAPES
+            if shape_applicable(a, s)]

@@ -4,6 +4,8 @@ C1 capability characterization -> :mod:`repro_torch.core.device_profile`
 C2 compute-path rerouting      -> :mod:`repro_torch.core.compute_path`
 C3 analytic performance model  -> :mod:`repro_torch.core.perf_model`
 C5 energy / fleet economics    -> :mod:`repro_torch.core.energy`
+Dry-run analysis               -> :mod:`repro_torch.core.roofline`,
+                                  :mod:`repro_torch.core.op_analysis`
 """
 
 from repro_torch.core.compute_path import (OpDescriptor, PathDecision,

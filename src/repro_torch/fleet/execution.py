@@ -1,13 +1,13 @@
 """Execution-backed mode: replay a trace on the *real* ServeEngine.
 
-Port of the reference's ``fleet/execution.py`` (all but the two
-functions that need its fleet simulator, ``simulated_token_accounting``
-and ``validate_token_accounting``).  It replays a
+Port of the reference's ``fleet/execution.py``.  It replays a
 :class:`~repro_torch.fleet.workload.FleetRequest` trace through the
 port's :class:`~repro_torch.serving.engine.ServeEngine` and
 :class:`~repro_torch.serving.modelpool.MultiModelServeEngine`, on the
 card unless ``device="cpu"``, and checks token accounting, preemption
-exactness, crash recovery and multi-model exactness.  Arrival times
+exactness, crash recovery and multi-model exactness;
+``validate_token_accounting`` holds the fleet simulator's served-token
+totals to the engine's.  Arrival times
 are ignored by the engine -- it saturates its lanes in arrival order --
 because the checks are about *accounting* (every prompt token
 prefilled, every generation capped at ``gen_len``) and streams, not
@@ -27,6 +27,7 @@ import numpy as np
 
 from repro_torch.device import resolve_device
 from repro_torch.fleet.faults import FaultPlan
+from repro_torch.fleet.sim import FleetReport, FleetSim
 from repro_torch.fleet.workload import FleetRequest
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import paged_capacity
@@ -679,3 +680,43 @@ def validate_multimodel_exactness(
                     model_swaps=verdict["model_swaps"],
                     weight_evictions=verdict["weight_evictions"])
     return verdict
+
+
+def simulated_token_accounting(sim: FleetSim,
+                               report: FleetReport) -> Dict[int, int]:
+    """Per-uid generated-token counts the simulator claims to have served."""
+    return {rec.req.uid: (rec.req.gen_len if rec.done else 0)
+            for rec in sim.records}
+
+
+def diff_token_accounting(sim: FleetSim, report: FleetReport,
+                          exe: ExecutionResult) -> Dict[str, object]:
+    """The comparison :func:`validate_token_accounting` makes: the
+    simulator's served-token claims against an engine replay's counts."""
+    sim_counts = simulated_token_accounting(sim, report)
+    mismatches = {uid: (sim_counts.get(uid, 0), got)
+                  for uid, got in exe.gen_by_uid.items()
+                  if sim_counts.get(uid, 0) != got}
+    return {
+        "sim_prompt_tokens": sum(rec.req.prompt_len
+                                 for rec in sim.records if rec.done),
+        "sim_gen_tokens": sum(sim_counts.values()),
+        "engine_prompt_tokens": exe.prompt_tokens,
+        "engine_gen_tokens": exe.gen_tokens,
+        "mismatches": mismatches,
+        "match": not mismatches,
+    }
+
+
+def validate_token_accounting(sim: FleetSim, report: FleetReport,
+                              cfg: ModelConfig, params,
+                              n_lanes: int = 2,
+                              max_len: int = 64,
+                              **replay_kw) -> Dict[str, object]:
+    """Replay the sim's trace on the engine and diff token counts.
+    ``replay_kw`` goes to :func:`run_trace_on_engine` (``device``, a
+    ``registry`` whose counters then hold the engine's stats, ...)."""
+    exe = run_trace_on_engine([rec.req for rec in sim.records], cfg,
+                              params, n_lanes=n_lanes, max_len=max_len,
+                              **replay_kw)
+    return diff_token_accounting(sim, report, exe)

@@ -15,6 +15,13 @@ and merge the chunks' partials in the same launch; the wrapper gives
 them a workspace (``torch.empty`` per call) and per-head counters
 (zeroed once, cached per device and stream, left at 0 by every launch,
 never freed).
+
+A ``meta`` tensor (the dry run's shape-only pass,
+:mod:`repro_torch.launch.dryrun`) in :func:`decode_attention` takes the
+blockwise attention over every position of the cache (the dry run's
+cache is full), so the pass counts the products the kernel does with no
+float64 temporaries; any other device but ``cpu`` and ``cuda`` is
+refused.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import torch
 
 from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
                                         bind)
+from repro_torch.kernels.flash_attention.blockwise import blockwise_attention
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_paged_q8_ref, decode_attention_paged_ref,
     decode_attention_q8_ref, decode_attention_ref)
@@ -51,6 +59,8 @@ _PAGED_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [
 _DENSE_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
+#: key block of :func:`decode_attention`'s meta arm
+META_BLOCK = 512
 #: {(device index, stream handle): int32 counters, one per (lane, kv head)}
 _COUNTERS = {}
 #: counters outgrown by a wider launch: a CUDA graph captured with them
@@ -293,6 +303,12 @@ def decode_attention(q, k, v, kv_lengths, *, scale=None,
     any S; D must be a multiple of 16.
     """
     scale = float(scale if scale is not None else q.shape[-1] ** -0.5)
+    if q.device.type == "meta":
+        s = k.shape[2]
+        return blockwise_attention(q[:, :, None], k, v, causal=False,
+                                   scale=scale,
+                                   block=META_BLOCK if s % META_BLOCK == 0
+                                   else s)[:, :, 0]
     if _on_cpu(q):
         return decode_attention_ref(q, k, v, kv_lengths, scale=scale)
     _check(q, k, v, {"kv_lengths": kv_lengths}, "(B,Hkv,S,D)")

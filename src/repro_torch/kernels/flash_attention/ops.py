@@ -16,6 +16,14 @@ PyTorch (the reference differentiates its blockwise attention with
 XLA's autodiff, outside any Pallas kernel).  The kernel's output alone
 has no ``grad_fn``: a loss through :func:`flash_attention` would treat
 attention as a constant on the card.
+
+A ``meta`` tensor (the dry run's shape-only pass,
+:mod:`repro_torch.launch.dryrun`) takes :func:`~repro_torch.kernels.
+flash_attention.blockwise.blockwise_attention`, so the pass counts
+flash-shaped work with no (Sq x Sk) scores; in :func:`attention_backward`
+its full chunks, which share one shape, are run once under
+:func:`~repro_torch.core.op_analysis.repeated`.  Any other device but
+``cpu`` and ``cuda`` is refused.
 """
 
 from __future__ import annotations
@@ -24,8 +32,10 @@ import ctypes
 
 import torch
 
+from repro_torch.core.op_analysis import repeated
 from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
                                         bind)
+from repro_torch.kernels.flash_attention.blockwise import blockwise_attention
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      live_mask,
                                                      masked_softmax)
@@ -97,6 +107,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              scale=scale)
+    if q.device.type == "meta":
+        sk = k.shape[2]
+        return blockwise_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale,
+                                   block=META_BLOCK if sk % META_BLOCK == 0
+                                   else sk)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k, v, window)
@@ -117,6 +133,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
     (COUNTER_MMA if kernel == "mma" else COUNTER_CC).n += 1
     return out
 
+
+#: key block of the meta arm's blockwise attention (the reference's)
+META_BLOCK = 512
 
 #: bytes of one float32 (rows, Sq, Sk) temporary the backward allows; it
 #: holds four at once, so it works over (batch, KV head) rows in chunks
@@ -151,7 +170,8 @@ def attention_backward(q, k, v, d_out, *, causal: bool = True, window=None,
     dk = torch.empty(kf.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(vf.shape, dtype=v.dtype, device=v.device)
     rows = max(1, BWD_CHUNK_BYTES // (g * sq * sk * 4))
-    for i in range(0, n, rows):
+
+    def chunk(i):
         sl = slice(i, i + rows)
         qc, kc, vc = qf[sl].float(), kf[sl].float(), vf[sl].float()
         doc = dof[sl].float()
@@ -163,6 +183,19 @@ def attention_backward(q, k, v, d_out, *, causal: bool = True, window=None,
         ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
         dq[sl] = (torch.bmm(ds, kc) * scale).to(q.dtype)
         dk[sl] = (torch.bmm(ds.transpose(1, 2), qc) * scale).to(k.dtype)
+
+    full = n // rows
+    if q.device.type == "meta" and full > 1:
+        # the meta arm: the full chunks share one shape and free their
+        # temporaries before the next, so one of them, counted ``full``
+        # times, stands for all (shape-only tensors compute nothing)
+        with repeated(full):
+            chunk(0)
+        starts = range(full * rows, n, rows)
+    else:
+        starts = range(0, n, rows)
+    for i in starts:
+        chunk(i)
     return (dq.view(b, h, sq, d), dk.view(b, hkv, sk, d),
             dv.view(b, hkv, sk, d))
 

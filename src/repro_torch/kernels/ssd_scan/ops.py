@@ -22,6 +22,10 @@ outside any Pallas kernel).  The kernel's outputs alone have no
 ``grad_fn``: a loss through :func:`ssd_chunk` would treat the
 intra-chunk scan as a constant on the card.  :func:`ssd` runs the
 Function exactly when autograd records.
+
+A ``meta`` tensor (the dry run's shape-only pass) takes the plain
+version, whose shapes and products are the kernel's function; any other
+device but ``cpu`` and ``cuda`` is refused.
 """
 
 from __future__ import annotations
@@ -97,7 +101,7 @@ def ssd_chunk(x, dt, a, b, c, *, chunk: int):
     q = min(chunk, s)
     if s % q:
         raise ValueError(f"sequence {s} is not a multiple of the chunk {q}")
-    if x.device.type == "cpu":
+    if x.device.type in ("cpu", "meta"):
         return ssd_chunk_ref(x, dt, a, b, c, q)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")

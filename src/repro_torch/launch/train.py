@@ -1,7 +1,7 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch olmo-1b
 [--smoke] [--steps N] [--batch B] [--seq S] [--lr LR] [--microbatches M]
 [--ckpt-dir DIR --ckpt-every K] [--log-every K] [--device cuda|cpu]
-[--trace TRACE.json]``.
+[--mesh D,M] [--trace TRACE.json]``.
 
 The reference's training launcher on one device: seeded random float32
 master weights (the seed is 0, as the reference's ``PRNGKey(0)``), the
@@ -14,8 +14,11 @@ step N``, ``step N loss L (X tok/s) stragglers=[...]`` every
 records every step after the first with ``torch.profiler``, writes a
 Chrome trace and prints device time by kernel and the device's busy
 share (the serve launcher's report).  Runs on
-``cuda`` unless ``--device cpu``; the reference's ``--mesh`` (a
-multi-device mesh) is refused, the parallel layer not being ported.
+``cuda`` unless ``--device cpu``.  ``--mesh`` takes the reference's
+mesh sizes (data, model); the port runs on one device, so a mesh whose
+sizes multiply to 1 (``--mesh 1,1``) trains under ``use_mesh`` exactly
+as without one, and a larger mesh is refused with the device count it
+needs.
 Every decoder family trains (dense, moe, ssm, hybrid, vlm); an
 encoder-decoder (``whisper-base``) is refused by name: the data
 pipeline has no ``frames`` for its encoder.
@@ -34,9 +37,11 @@ from repro_torch.checkpoint import AsyncCheckpointer, restore_latest
 from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, DataLoader
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.serve import report_profile
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig
+from repro_torch.parallel import use_mesh
 from repro_torch.train import TrainConfig, init_train_state, make_train_step
 from repro_torch.train.fault_tolerance import StragglerMonitor
 
@@ -56,8 +61,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
-    ap.add_argument("--mesh", default=None,
-                    help="a device mesh: refused (one device only)")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="mesh sizes (data, model); the port runs on one "
+                         "device, so their product must be 1")
     ap.add_argument("--device", default=None, choices=[None, "cuda", "cpu"])
     ap.add_argument("--trace", default=None, metavar="TRACE.json",
                     help="trace the steps after the first with "
@@ -65,8 +71,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "print device time by kernel")
     args = ap.parse_args(argv)
     if args.mesh:
-        ap.error("--mesh: the port trains on one device; the mesh and "
-                 "sharding layer (M16) is not ported")
+        try:
+            sizes = tuple(int(x) for x in args.mesh.split(","))
+            args.mesh = make_test_mesh(sizes, ("data", "model")[:len(sizes)])
+        except ValueError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
     if get_config(args.arch, smoke=args.smoke).is_encdec:
         ap.error(f"--arch {args.arch}: an encoder-decoder trains on "
                  f"frames (B, S_enc, d) beside its tokens, and the data "
@@ -114,6 +123,8 @@ def main(argv=None) -> None:
             acts.append(ProfilerActivity.CUDA)
         tracer = profile(activities=acts)
     traced = contextlib.ExitStack()
+    if args.mesh is not None:
+        traced.enter_context(use_mesh(args.mesh))
     try:
         t_last = time.time()
         for i, batch in zip(range(start, args.steps), data):

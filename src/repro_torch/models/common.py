@@ -110,6 +110,47 @@ class ModelConfig:
         """Mamba-2 layers, so per-lane recurrent state (ssm and hybrid)."""
         return self.family in ("ssm", "hybrid")
 
+    def active_params_per_layer(self) -> float:
+        """Active (per-token) parameter count of one block, the
+        reference's formula (the dry run's ``model_flops``)."""
+        d, hd = self.d_model, self.hd
+        attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+        if self.family == "ssm":
+            s = self.ssm or SSMConfig()
+            d_in = s.expand * d
+            return 2 * d * d_in + d_in * d + d_in * (2 * s.state_dim)
+        mlp = 3 * d * self.d_ff
+        if self.moe is not None:
+            m = self.moe
+            mlp = 3 * d * m.d_expert_ff * (m.top_k + m.n_shared_experts)
+            if m.dense_residual:
+                mlp += 3 * d * self.d_ff
+        if self.family == "hybrid":
+            s = self.ssm or SSMConfig()
+            d_in = s.d_inner_override or (s.expand * d)
+            return attn + mlp + 2 * d * d_in + d_in * d
+        return attn + mlp
+
+    def active_params(self) -> float:
+        body = self.n_layers * self.active_params_per_layer()
+        emb = self.d_model * self.padded_vocab
+        if not self.tie_embeddings:
+            emb *= 2
+        return body + emb
+
+    def total_params(self) -> float:
+        per = self.active_params_per_layer()
+        if self.moe is not None:
+            m = self.moe
+            d = self.d_model
+            per = (per - 3 * d * m.d_expert_ff * (m.top_k + m.n_shared_experts)
+                   + 3 * d * m.d_expert_ff * (m.n_experts
+                                              + m.n_shared_experts))
+        body = self.n_layers * per
+        emb = self.d_model * self.padded_vocab * (1 if self.tie_embeddings
+                                                  else 2)
+        return body + emb
+
 
 # ----------------------------------------------------------------------
 # Initialization

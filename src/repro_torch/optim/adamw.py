@@ -63,8 +63,9 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root on every device.  PyTorch's
     vectorized CPU ``sqrt`` is not (about one element in eight is an ulp
     off); the double's root rounds to the float32 one.  CUDA's float32
-    ``sqrtf`` is IEEE-exact."""
-    if x.is_cuda:
+    ``sqrtf`` is IEEE-exact; a ``meta`` tensor (the dry run) takes the
+    card's route, so its pass sees no float64 copy."""
+    if x.device.type != "cpu":
         return torch.sqrt(x)
     return torch.sqrt(x.double()).float()
 

@@ -146,11 +146,22 @@ def test_int8_kv_cache_layouts_match_reference():
             assert np.array_equal(mine[key].numpy(), np.asarray(val)), key
 
 
+class _Elsewhere:
+    """A tensor-like on a device the wrapper does not take (``meta`` is
+    the dry run's shape-only arm)."""
+
+    def __init__(self, shape):
+        self.shape = torch.Size(shape)
+        self.device = torch.device("xpu")
+
+
 def test_dense_wrapper_rejects_unsupported_device():
     q, k, v, lens = map(torch.from_numpy, _inputs(4, 2, 64))
     with pytest.raises(ValueError):
-        decode_attention(q.to("meta"), k.to("meta"), v.to("meta"),
-                         lens.to("meta"))
+        decode_attention(_Elsewhere(q.shape), k, v, lens)
+    out = decode_attention(q.to("meta"), k.to("meta"), v.to("meta"),
+                           lens.to("meta"))
+    assert out.device.type == "meta" and out.shape == q.shape
 
 
 @pytest.mark.parametrize("bad", ["lens_int64", "lens_batch", "head_dim",

@@ -359,11 +359,22 @@ def test_sass_rules_cover_the_ssd_kernels(edit, breach):
     assert [p.split()[0] for p in problems] == ([breach] if breach else [])
 
 
+class _Elsewhere:
+    """A tensor-like on a device the wrapper does not take (``meta`` is
+    the dry run's shape-only arm)."""
+
+    def __init__(self, shape):
+        self.shape = torch.Size(shape)
+        self.device = torch.device("xpu")
+
+
 def test_wrapper_checks():
     x, dt, a, b, c = _torch(_inputs(1, 64, 2, 8, 4))
     with pytest.raises(ValueError):
-        ssd_chunk(x.to("meta"), dt.to("meta"), a.to("meta"), b.to("meta"),
-                  c.to("meta"), chunk=16)
+        ssd_chunk(_Elsewhere(x.shape), dt, a, b, c, chunk=16)
+    outs = ssd_chunk(x.to("meta"), dt.to("meta"), a.to("meta"),
+                     b.to("meta"), c.to("meta"), chunk=16)
+    assert [t.device.type for t in outs] == ["meta"] * 3
     with pytest.raises(ValueError):
         ssd_chunk(x, dt, a, b, c, chunk=48)        # 64 % 48
     ssd_ops._check(x, dt, a, b, c, 16)

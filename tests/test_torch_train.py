@@ -34,7 +34,8 @@
   ``elastic_remesh_plan`` equal the reference's;
 * the launcher as a subprocess (CPU), olmo-1b and mamba2-780m: a run
   with checkpoints, then a resumed one that prints ``resumed from step
-  6``; ``--mesh`` refused by name, and whisper-base (no frames in the
+  6``; a ``--mesh`` of more than one device refused with its device
+  count (``--mesh 1,1`` taken), and whisper-base (no frames in the
   pipeline); serving's parameters stay frozen, and every family's
   training parameters are float32 tracked leaves.
 """
@@ -653,10 +654,13 @@ def test_launcher_trains_an_ssm_model_and_resumes(tmp_path):
 
 
 def test_launcher_refuses_a_mesh(capsys):
+    """A mesh of more than one device is refused with the count it
+    needs; a one-device mesh is taken."""
     with pytest.raises(SystemExit) as exc:
         parse_args(["--arch", "olmo-1b", "--mesh", "2,2"])
     assert exc.value.code != 0
-    assert "M16" in capsys.readouterr().err
+    assert "needs 4 devices" in capsys.readouterr().err
+    assert parse_args(["--arch", "olmo-1b", "--mesh", "1,1"]).mesh.size == 1
 
 
 def test_launcher_refuses_whisper_by_name(capsys):
