@@ -59,7 +59,11 @@ order (any failure raises and the script exits non-zero):
    prefill must run K2's CUDA-core kernel.  On the card every decode
    dispatch after the first of its size is a CUDA graph replay (one
    graph per ``n_steps``): each serve must count replays ==
-   ``decode_dispatches - decode_compiles`` > 0, and once in each serve,
+   ``decode_dispatches - decode_compiles`` > 0 -- and each prefill
+   after the first of its bucket replays that bucket's graph (prefill
+   replays == prefills - ``prefill_compiles`` > 0, ``prefill_compiles``
+   the prefill graphs captured; every later serve that gates its
+   decode replays gates these too) -- and once in each serve,
    after the ``dispatch_n`` graph is captured and with lanes live, one
    replayed dispatch is held bit for bit against the eager
    ``model.decode_n_steps`` on the same saved state (tokens, valid
@@ -155,7 +159,9 @@ order (any failure raises and the script exits non-zero):
    the engine's first streamed by a replay of the captured batch-1
    decode step;
 17. end to end at full width, mamba2-780m in bfloat16 with seeded
-   random weights: 3 requests fixed-lane and 2 of them paged, K10
+   random weights: 3 requests fixed-lane and 2 of them paged, each
+   serve then a fourth in an earlier prompt's bucket (a prefill graph
+   replays), K10
    launched 48 times per prompt; the prefill's logits at the last
    prompt position (K10's path) beside the streamed ones (the recurrent
    path); the graph gates and check of phase 16, and 64 prompt tokens
@@ -387,7 +393,17 @@ order (any failure raises and the script exits non-zero):
    before, a control without the optimizer moments outside it, the
    counted FLOPs over the measured step as TFLOP/s; the launcher's
    ``--mesh 1,1`` trains 2 SMOKE steps on the card and ``--mesh 2,1``
-   is refused with its device count.
+   is refused with its device count;
+50. the prefill graphs at full width: qwen2.5-1.5b bf16 (8 lanes,
+   ``max_len`` 1024, both layouts) at buckets 64 to 1024, then one
+   bucket of 1024 for hymba-1.5b (K2 windowed and K10), mamba2-780m
+   (K10; logits alone, the serve discards them) and phi-3-vision-4.2b
+   (K2 at D 96): each bucket's graph captured through the engine's own
+   call, then two other prompts of it replayed, each equal bit for bit
+   to the eager ``model.prefill`` on the same buffers (logits, K and
+   V), their logits different, a replay's launches equal to the eager
+   call's; 5 replays and 5 eager calls timed (host clock, synced), the
+   capture's seconds and the graph pool's bytes.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -603,11 +619,39 @@ def check_replay_midway(eng, tag, out):
     eng.decode_n = wrapped
 
 
-def graph_summary(eng, tag, check):
+def prefill_gate(eng, tag, expect_replays=True):
+    """Fail unless the serve replayed a bucket's prefill graph for every
+    prefill but the first of its bucket (replays == prefills -
+    ``prefill_compiles``, and > 0 unless ``expect_replays`` is False: a
+    sharing serve prefills only its misses, a prefix hit streams its
+    tail) and ``prefill_compiles`` equals the ``("prefill", b)`` graphs
+    captured; returns the figures."""
+    keys = sorted(k for k in eng.timings["capture"]
+                  if isinstance(k, tuple) and k[0] == "prefill")
+    flags = eng.timings["prefill_replayed"]
+    prefills = sum(len(v) for v in flags.values())
+    replays = sum(eng.graphs.replays(k) for k in keys)
+    compiles = eng.stats["prefill_compiles"]
+    if compiles != len(keys):
+        fail(f"{tag}: prefill_compiles {compiles} but prefill graphs "
+             f"captured for {keys}")
+    if replays != prefills - compiles or (expect_replays and
+                                          replays <= 0) or \
+            replays != sum(sum(v) for v in flags.values()):
+        fail(f"{tag}: {replays} prefill graph replays for {prefills} "
+             f"prefills and {compiles} compiles: a prefill ran eagerly")
+    return {"prefill_compiles": compiles, "prefill_replays": replays,
+            "prefill_capture_s": {k[1]: eng.timings["capture"][k]
+                                  for k in keys}}
+
+
+def graph_summary(eng, tag, check, prefill_replays=True):
     """Fail unless the serve replayed a graph for every dispatch but the
     first of each size (replays == decode_dispatches - decode_compiles
-    > 0, ``check``'s own replays left out) and ``check`` ran; returns
-    the serve's graph figures."""
+    > 0, ``check``'s own replays left out) and ``check`` ran, and for
+    every prefill but the first of its bucket (:func:`prefill_gate`,
+    ``prefill_replays`` its ``expect_replays``); returns the serve's
+    graph figures."""
     if check is None:
         fail(f"{tag}: the replay-vs-eager check never ran")
     sizes = sorted(k for k in eng.timings["capture"] if isinstance(k, int))
@@ -631,7 +675,23 @@ def graph_summary(eng, tag, check):
             "pool_bytes": eng.graphs.pool_bytes(),
             "replayed_ms_median": (1e3 * statistics.median(replayed)
                                    if replayed else None),
-            "first_dispatch_ms": [1e3 * t for t in first], **check}
+            "first_dispatch_ms": [1e3 * t for t in first], **check,
+            **prefill_gate(eng, tag, prefill_replays)}
+
+
+def prefill_split(eng):
+    """A timed serve's prefill ms by bucket: the first prompt's (eager on
+    the capture stream; capture excluded) and the median of the
+    replayed ones (None where the bucket had one prompt)."""
+    out = {}
+    for bucket, times in eng.timings["prefill"].items():
+        flags = eng.timings["prefill_replayed"][bucket]
+        rep = [1e3 * t for t, r in zip(times, flags) if r]
+        out[bucket] = {"first_ms": 1e3 * times[0],
+                       "replayed_ms": (round(statistics.median(rep), 3)
+                                       if rep else None),
+                       "n_replayed": len(rep)}
+    return out
 
 
 def stream_gate(eng, tag, reqs):
@@ -655,7 +715,9 @@ def print_graphs(tag, g):
           f"eager {g['decode_ms_eager']:.3f}, graph "
           f"{g['decode_ms_graph']:.3f}; the serve's replayed dispatches "
           f"median {g['replayed_ms_median']:.3f}, first (eager; capture "
-          f"excluded) {[round(t, 3) for t in g['first_dispatch_ms']]}")
+          f"excluded) {[round(t, 3) for t in g['first_dispatch_ms']]}; "
+          f"prefill_compiles {g['prefill_compiles']}, prefill replays "
+          f"{g['prefill_replays']}")
 
 
 # ----------------------------------------------------------------------
@@ -1253,13 +1315,15 @@ def init_full(dev):
 
 
 def serve_full(dev, cfg, params, tag, need, reqs=None, n_lanes=8,
-               **engine_kw):
+               prefill_replays=True, **engine_kw):
     """Serve the full-width traffic (``reqs``; by default 16 requests,
     prompts 64-700 from the seed, 64 new tokens; 8 lanes, max_len 1024)
     through one engine with the launch counts zeroed just before and
     read just after; fail unless every budget finishes and every kernel
-    in ``need`` ran.  The summary carries the engine's stats and
-    timings."""
+    in ``need`` ran, and unless the graphs replayed
+    (:func:`graph_summary`; ``prefill_replays`` False where the traffic
+    prefills no bucket twice).  The summary carries the engine's stats
+    and timings."""
     import numpy as np
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1287,16 +1351,18 @@ def serve_full(dev, cfg, params, tag, need, reqs=None, n_lanes=8,
         fail(f"{tag}: generated token outside the vocabulary")
     if min(counts[k] for k in need) <= 0:
         fail(f"{tag}: a kernel of the path never launched: {counts}")
-    graphs = graph_summary(eng, tag, checked.get("check"))
+    graphs = graph_summary(eng, tag, checked.get("check"), prefill_replays)
     pre = eng.timings["prefill"]
     dec = eng.timings["decode"]
     print(f"[{tag}] {len(reqs)} requests, {n_gen} tokens in {wall:.3f}s "
           f"= {n_gen / wall:.1f} tok/s end to end; stats {dict(eng.stats)}")
     print_graphs(tag, graphs)
+    replayed = prefill_split(eng)
     for bucket in sorted(pre):
         print(f"[{tag}] prefill bucket {bucket}: {len(pre[bucket])} "
               f"prompts, median {1e3 * statistics.median(pre[bucket]):.2f} "
-              f"ms")
+              f"ms (first, eager: {replayed[bucket]['first_ms']:.2f}; "
+              f"replayed: {replayed[bucket]['replayed_ms']})")
     print(f"[{tag}] decode: {len(dec)} dispatches, median "
           f"{1e3 * statistics.median(dec):.2f} ms per dispatch "
           f"({eng.dispatch_n} steps x {eng.n_lanes} lanes max)")
@@ -1304,6 +1370,7 @@ def serve_full(dev, cfg, params, tag, need, reqs=None, n_lanes=8,
     summary = {"tok_s": n_gen / wall, "wall_s": wall,
                "prefill_ms": {b: 1e3 * statistics.median(v)
                               for b, v in pre.items()},
+               "prefill_split_ms": replayed,
                "decode_ms_per_dispatch": 1e3 * statistics.median(dec),
                "n_dispatches": len(dec),
                "decode_steps": eng.stats["decode_steps"], "graphs": graphs,
@@ -2328,22 +2395,25 @@ def serve_streamed(dev, cfg, params, tag, reqs, gen, max_len, **engine_kw):
     eng = ServeEngine(cfg, params, n_lanes=4, max_len=max_len, device=dev,
                       timed=True, **engine_kw)
     pairs = {"prefill": [], "stream": [], "prefill_s": []}
-    prefill, first = eng.model.prefill, eng._set_first_token
+    run, first = eng.graphs.run, eng._set_first_token
 
-    def keep_prefill(*a, **kw):           # K10's logits at plen - 1
+    def keep_prefill(key, fn):            # K10's logits at plen - 1
+        if not (isinstance(key, tuple) and key[0] == "prefill"):
+            return run(key, fn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, kv = prefill(*a, **kw)
+        out, made = run(key, fn)          # the graph, or its capture
         torch.cuda.synchronize()
-        pairs["prefill_s"].append(time.perf_counter() - t0)
-        pairs["prefill"].append(logits.float().clone())
-        return logits, kv
+        capture = eng.graphs.capture_s[key] if made else 0.0
+        pairs["prefill_s"].append(time.perf_counter() - t0 - capture)
+        pairs["prefill"].append(out[0].float().clone())
+        return out, made
 
     def keep_stream(logits, lane):        # the streamed logits
         pairs["stream"].append(logits.float().clone())
         return first(logits, lane)
 
-    eng.model.prefill, eng._set_first_token = keep_prefill, keep_stream
+    eng.graphs.run, eng._set_first_token = keep_prefill, keep_stream
     checked = {}
     check_replay_midway(eng, tag, checked)
     reset_launch_counts()
@@ -2437,15 +2507,27 @@ def serve_streamed(dev, cfg, params, tag, reqs, gen, max_len, **engine_kw):
 
 def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
     """Serve the full-width ssm requests numbered ``which`` (prompts
-    64-512 from seed 2: 440, 181 and 113 tokens; 32 new tokens, 4 lanes,
-    max_len 1024) through :func:`serve_streamed`; K10 must launch 48
-    times per prompt.  Prompt streaming cost ~29-50 ms per token at this
-    depth on an H100 as eager decode steps (host-bound), so the serve
-    was cut to 3 requests to keep these phases near a minute; it now
-    replays a captured step."""
+    64-512 from seed 2: 440, 181 and 113 tokens) and then a prompt of
+    ``MAMBA_REPLAY_PLEN`` tokens in 113's bucket, so that a prefill
+    graph replays (32 new tokens, 4 lanes, max_len 1024) through
+    :func:`serve_streamed`; K10 must launch 48 times per prompt.  Prompt
+    streaming cost ~29-50 ms per token at this depth on an H100 as eager
+    decode steps (host-bound), so the serve was cut to a few requests to
+    keep these phases near a minute; it now replays a captured step."""
+    import numpy as np
+    from repro_torch.serving import Request
     reqs = _requests(cfg, 3, 64, 512, 32, SEED + 2)
-    return serve_streamed(dev, cfg, params, tag, [reqs[i] for i in which],
-                          32, 1024, **engine_kw)
+    prompt = np.random.default_rng(SEED + 5).integers(
+        0, cfg.vocab_size, MAMBA_REPLAY_PLEN).astype(np.int32)
+    again = Request(uid=len(reqs), prompt=prompt, max_new_tokens=32)
+    return serve_streamed(dev, cfg, params, tag,
+                          [reqs[i] for i in which] + [again], 32, 1024,
+                          **engine_kw)
+
+
+#: the full-width mamba2 serves' last prompt: bucket 128, as the 113
+#: tokens of their last seeded prompt, so its prefill replays that graph
+MAMBA_REPLAY_PLEN = 120
 
 
 #: the full-width hymba serve's prompt lengths: one in the 128 bucket,
@@ -3340,8 +3422,10 @@ def phase_share_full(dev, cfg, params):
     for tag, share in (("share full 1", True), ("share full 2", True),
                        ("share full unshared", False)):
         rq = share_full_requests(cfg)
+        # sharing, only the one miss prefills: no bucket recurs
         counts, summary = serve_full(dev, cfg, params, tag, need, reqs=rq,
-                                     paged=True, page_size=16, n_pages=256,
+                                     prefill_replays=not share, paged=True,
+                                     page_size=16, n_pages=256,
                                      prefix_sharing=share)
         runs[tag] = (counts, summary, [r.generated for r in rq])
     for tag in ("share full 1", "share full 2"):
@@ -3502,11 +3586,14 @@ def decode_replays(eng):
 
 
 def gate_replays(eng, tag):
+    """The decode replays, gated as :func:`graph_summary` gates them, and
+    the prefill's (:func:`prefill_gate`)."""
     st = eng.stats
     got = decode_replays(eng)
     if got != st["decode_dispatches"] - st["decode_compiles"] or got <= 0:
         fail(f"{tag}: {got} graph replays for {st['decode_dispatches']} "
              f"dispatches and {st['decode_compiles']} compiles")
+    prefill_gate(eng, tag)
     return got
 
 
@@ -6068,6 +6155,158 @@ def phase_dryrun_check(dev, metas):
     return out
 
 
+#: phase 50: qwen2.5-1.5b's serve buckets at full width (8 lanes,
+#: max_len 1024, both layouts), then one bucket each of the other
+#: families whose prefill runs a kernel: (arch, bucket, layouts)
+PREFILL_GRAPH_BUCKETS = (64, 128, 256, 512, 1024)
+PREFILL_GRAPH_OTHERS = (("hymba-1.5b", 1024, ("fixed-lane",)),
+                        ("mamba2-780m", 1024, ("fixed-lane",)),
+                        ("phi-3-vision-4.2b", 1024, ("fixed-lane",)))
+PREFILL_GRAPH_REPS = 5
+
+
+def prefill_graph_check(eng, tag, bucket, seed, reps=PREFILL_GRAPH_REPS):
+    """The engine's ``("prefill", bucket)`` graph: captured through
+    ``graphs.run`` (the engine's own call) over a prompt of the bucket,
+    then replayed over two other prompts of it, each replay's logits
+    and K/V (logits alone for an ssm model) equal bit for bit to the
+    eager ``model.prefill`` on the same buffers, the two prompts' logits
+    different, and the launches one replay adds equal to the eager
+    call's; then ``reps`` replays and ``reps`` eager calls timed on the
+    host clock with the device synced.  The serve's launch counts are
+    left as they were.  Returns the figures."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import add_launches, launch_counts, launch_delta
+    counts = launch_counts()
+    key = ("prefill", bucket)
+    tokens, last_pos = eng._prefill_inputs(bucket)
+    rng = np.random.default_rng(seed)
+    top = min(bucket, eng.max_len - 1)
+    plens = [int(p) for p in rng.integers(bucket // 2 + 1, top + 1, 3)]
+
+    def load(plen):
+        padded = np.zeros((1, bucket), np.int32)
+        padded[0, :plen] = rng.integers(0, eng.cfg.vocab_size, plen)
+        tokens.copy_(torch.from_numpy(padded))
+        last_pos.fill_(plen - 1)
+
+    def flat(out):
+        logits, kv = out
+        return [logits] + ([] if kv is None else list(kv))
+
+    def replay():
+        out, made = eng.graphs.run(key, lambda: eng._prefill_block(bucket))
+        if made:
+            fail(f"{tag} bucket {bucket}: the graph was captured again")
+        return flat(out)
+
+    def eager():
+        return flat(eng.model.prefill(eng.params, tokens,
+                                      last_pos=last_pos))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    if key in eng.graphs.capture_s:
+        fail(f"{tag} bucket {bucket}: a graph was there before the check")
+    load(plens[0])
+    first_s = timed(lambda: eng.graphs.run(
+        key, lambda: eng._prefill_block(bucket)))
+    capture_s = eng.graphs.capture_s[key]
+    names = ["logits", "k", "v"]
+    logits = []
+    for plen in plens[1:]:
+        load(plen)
+        before = launch_counts()
+        got = [t.clone() for t in replay()]
+        replay_delta = launch_delta(before, launch_counts())
+        before = launch_counts()
+        want = eager()
+        eager_delta = launch_delta(before, launch_counts())
+        torch.cuda.synchronize()
+        differ = [n for n, a, b in zip(names, got, want)
+                  if not torch.equal(a, b)]
+        if len(got) != len(want) or differ:
+            fail(f"{tag} bucket {bucket}: the replayed prefill differs from "
+                 f"the eager one on the same buffers in {differ}")
+        if replay_delta != eager_delta or not replay_delta:
+            fail(f"{tag} bucket {bucket}: a replay launched {replay_delta}, "
+                 f"the eager call {eager_delta}")
+        logits.append(got[0])
+    if torch.equal(logits[0], logits[1]):
+        fail(f"{tag} bucket {bucket}: prompts of {plens[1:]} tokens gave "
+             f"the same logits: the graph did not read its buffers")
+    replay_s = [timed(replay) for _ in range(reps)]
+    eager_s = [timed(eager) for _ in range(reps)]
+    add_launches(launch_delta(launch_counts(), counts))
+    eager_ms = 1e3 * statistics.median(eager_s)
+    replay_ms = 1e3 * statistics.median(replay_s)
+    saved = eager_ms - replay_ms
+    pays = int(np.ceil(1e3 * capture_s / saved)) if saved > 0 else None
+    print(f"{tag} bucket {bucket}: replay == eager prefill bitwise "
+          f"({', '.join(names[:len(got)])}; prompts {plens[1:]}"
+          f" differ), launches a replay {replay_delta}; host ms, synced: "
+          f"eager {[round(1e3 * t, 3) for t in eager_s]}, replayed "
+          f"{[round(1e3 * t, 3) for t in replay_s]}; capture "
+          f"{capture_s:.3f}s (first call {first_s:.3f}s); the capture pays "
+          f"after {pays} replayed prompts")
+    return {"eager_ms": eager_ms, "replayed_ms": replay_ms,
+            "eager_ms_all": [1e3 * t for t in eager_s],
+            "replayed_ms_all": [1e3 * t for t in replay_s],
+            "capture_s": capture_s, "first_call_s": first_s,
+            "launches_per_replay": replay_delta, "plens": plens,
+            "prompts_to_pay": pays}
+
+
+def phase_prefill_graphs(dev):
+    """Phase 50: the prefill graphs at full width, each bucket's graph
+    checked and timed by :func:`prefill_graph_check` in a fresh engine:
+    qwen2.5-1.5b bf16 (8 lanes, max_len 1024) at buckets 64 to 1024 on
+    both layouts, then one bucket of hymba-1.5b (K2 windowed and K10),
+    mamba2-780m (K10; the serve discards the logits, so they alone are
+    compared) and phi-3-vision-4.2b (K2 at D 96), fixed-lane; the graph
+    pool's bytes after each engine's last capture."""
+    import torch
+    from repro_torch.serving import ServeEngine
+    t_phase = time.perf_counter()
+    gpu = gpu_line()
+    out = {}
+    runs = [("qwen2.5-1.5b", PREFILL_GRAPH_BUCKETS, ("fixed-lane", "paged"))]
+    runs += [(arch, (b,), layouts)
+             for arch, b, layouts in PREFILL_GRAPH_OTHERS]
+    for arch, buckets, layouts in runs:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, params = init_config(dev, arch)
+        for layout in layouts:
+            tag = f"[prefill graphs {arch} {layout}]"
+            kw = dict(paged=True, page_size=16) if layout == "paged" else {}
+            eng = ServeEngine(cfg, params, n_lanes=8, max_len=1024,
+                              device=dev, **kw)
+            res = {b: prefill_graph_check(eng, tag, b, SEED + b)
+                   for b in buckets}
+            pool = eng.graphs.pool_bytes()
+            size = ("not measured" if pool is None
+                    else f"{pool / 2**20:.1f} MiB")
+            print(f"{tag} graph pool after {len(buckets)} captures: {size} "
+                  f"({gpu})")
+            out[f"{arch} {layout}"] = {"buckets": res, "pool_bytes": pool}
+            eng.graphs.release()
+            del eng
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = gpu
+    print(f"[prefill graphs] phase 50 took {out['phase_s']:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6230,6 +6469,7 @@ def main() -> int:
           f"accounting) {fleet['phase_s']:.1f}s, 48 (dry run, "
           f"{dry_cells['n_cells']} cells) {dry_cells['wall_s']:.1f}s, 49 "
           f"(dry run vs card, --mesh) {dry_check['phase_s']:.1f}s")
+    prefill_graphs = phase_prefill_graphs(dev)
     m16_launches = {
         "flash_attention_mma": {
             "fleet_replay": fleet["launches"]["flash_attention_mma"],
@@ -6638,6 +6878,7 @@ def main() -> int:
     print(f"[train families] {json.dumps({'k10_backward': k10_bwd, 'smoke': families_smoke, 'full': families_full, 'phase_s': family_phase_s})}")
     print(f"[fleet] {json.dumps(fleet)}")
     print(f"[dryrun] {json.dumps({'cells': dry_cells, 'check': dry_check})}")
+    print(f"[prefill graphs] {json.dumps(prefill_graphs)}")
     print(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._build import (KernelLaunchError, LaunchCounter,
@@ -38,7 +39,8 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_q8_ref, decode_attention_ref)
 
 __all__ = ["decode_attention", "decode_attention_paged",
-           "decode_attention_q8", "decode_attention_paged_q8", "split_plan",
+           "decode_attention_q8", "decode_attention_paged_q8",
+           "kv_blocks_fetched", "kv_pages_fetched", "split_plan",
            "COUNTER", "COUNTER_LENGTHAWARE", "COUNTER_MASKED",
            "COUNTER_PAGED_Q8", "COUNTER_Q8_LENGTHAWARE", "COUNTER_Q8_MASKED"]
 
@@ -79,6 +81,29 @@ def split_plan(s: int, b: int, hkv: int) -> tuple:
         raise ValueError(f"need S, B, Hkv >= 1 (got {s}, {b}, {hkv})")
     ch = CHUNKS[1] if b * hkv * -(-s // CHUNKS[1]) >= SMS else CHUNKS[0]
     return ch, -(-s // ch)
+
+
+def kv_blocks_fetched(kv_lengths, sk: int, bk: int = 512) -> np.ndarray:
+    """The reference's modeled key-block fetch count per lane of its
+    length-aware dense kernel: a lane of length L reads ``max(ceil(L /
+    bk), 1)`` blocks of ``min(bk, sk)`` keys (a dead lane still reads
+    block 0; the masked kernel reads ``sk / bk`` for every lane).  An
+    int64 array shaped like ``kv_lengths``, the contract a decode cost
+    model counts bytes with; the port's split kernels read a lane's
+    chunks (:func:`split_plan`) instead."""
+    lens = np.asarray(kv_lengths)
+    bk = min(bk, sk)
+    return np.maximum(-(-lens // bk), 1).astype(np.int64)
+
+
+def kv_pages_fetched(kv_lengths, bt_width: int, page_size: int
+                     ) -> np.ndarray:
+    """The reference's modeled page fetch count per lane of its paged
+    kernels, following the block table: ``clip(ceil(L / page_size), 1,
+    bt_width)`` pages for a lane of length L -- :func:`kv_blocks_fetched`
+    when ``page_size == bk``, the paged-vs-dense bytes-a-token parity."""
+    lens = np.asarray(kv_lengths)
+    return np.clip(-(-lens // page_size), 1, bt_width).astype(np.int64)
 
 
 def _counters(device, stream: int, n: int) -> torch.Tensor:

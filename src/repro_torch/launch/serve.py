@@ -18,8 +18,9 @@ dtype or, with ``--kv-quant int8``, in int8 with per-token scales.
 cache and copy-on-write pages, over prompts that open with a common
 head of H tokens (default P / 2), and prints the reference's prefix
 line.  It prints tokens/s with the prefill/decode split,
-the decode compiles (on the card, one CUDA graph captured per
-``n_steps``; with the seconds each capture took), then, as the
+the prefill and decode compiles (on the card, one CUDA graph captured
+per prompt bucket and per ``n_steps``; with the seconds each capture
+took and its replays), then, as the
 reference does, the capability-model prediction for the device profile
 ``--profile`` names, in the ``--quant`` format (``f16`` without it).
 ``--trace`` records the run with ``torch.profiler``, writes a Chrome
@@ -160,8 +161,9 @@ def main(argv=None):
     graphs = "CUDA graphs captured" if device.type == "cuda" else \
         "sizes served eagerly on the CPU"
     print(f"compiles: prefill {engine.stats['prefill_compiles']}, "
-          f"decode {engine.stats['decode_compiles']} (decode: {graphs}, "
-          f"one per n_steps; later dispatches replay them)")
+          f"decode {engine.stats['decode_compiles']} (prefill and decode: "
+          f"{graphs}, one per prompt bucket and one per n_steps; later "
+          f"prefills and dispatches replay them)")
     if args.prefix_sharing:
         s = engine.stats
         print(f"prefix sharing: {s['prefix_hits']} hits, "
@@ -172,8 +174,9 @@ def main(argv=None):
     if engine.timed and engine.timings["capture"]:
         caps = engine.timings["capture"]
         print("capture: " + ", ".join(
-            f"{k if isinstance(k, str) else f'n_steps {k}'} "
-            f"{caps[k]:.3f}s" for k in sorted(caps, key=str)))
+            f"{graph_name(k)} {caps[k]:.3f}s "
+            f"({engine.graphs.replays(k)} replays)"
+            for k in sorted(caps, key=str)))
 
     prof = get_profile(args.profile)
     spec = LLMSpec(name=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
@@ -185,6 +188,13 @@ def main(argv=None):
     print(f"capability-model prediction on {prof.name}: "
           f"prefill {m.prefill(fmt).tokens_per_s:,.0f} tok/s, "
           f"decode {m.decode(fmt).tokens_per_s:,.0f} tok/s ({fmt})")
+
+
+def graph_name(key) -> str:
+    """A graph's key as the ``capture:`` line names it."""
+    if isinstance(key, tuple):
+        return " ".join(str(part) for part in key)   # ("prefill", 64)
+    return key if isinstance(key, str) else f"n_steps {key}"
 
 
 def report_profile(prof, wall_s: float, path: str) -> None:

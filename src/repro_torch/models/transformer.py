@@ -1,6 +1,7 @@
 """Decoder-only LM, dense, moe, ssm, hybrid and vlm families:
-full-sequence forward, prompt prefill, dense and paged caches, decode
-step, on-device sampling and the multi-step decode dispatch.  Port of
+full-sequence forward, prompt prefill (batched, and streamed through
+the decode step), dense and paged caches, decode step, on-device
+sampling and the multi-step decode dispatch.  Port of
 the reference's ``models/transformer.py``.  A moe block routes its FFN
 through :mod:`repro_torch.models.moe` (Arctic's dense residual FFN
 beside it); a vlm model is the dense decoder whose first positions can
@@ -466,6 +467,18 @@ sample_tokens_lanes = sample_tokens
 
 
 @torch.no_grad()
+def lm_decode_sample_step(params: LM, cfg: ModelConfig, cache: Cache,
+                          tokens: torch.Tensor, key: torch.Tensor, *,
+                          temperature: float = 0.0
+                          ) -> Tuple[torch.Tensor, Cache]:
+    """One decode step and the next token sampled on the device: tokens
+    (B,) -> (sampled (B,) int32, cache), :func:`lm_decode_step` then
+    :func:`sample_tokens` with ``key`` (unused when greedy)."""
+    logits, cache = lm_decode_step(params, cfg, cache, tokens)
+    return sample_tokens(logits, key, temperature), cache
+
+
+@torch.no_grad()
 def lm_decode_n_steps(params: LM, cfg: ModelConfig, cache: Cache,
                       tokens: torch.Tensor, rng: torch.Tensor,
                       remaining: torch.Tensor, lane_seed: torch.Tensor,
@@ -531,3 +544,24 @@ def lm_decode_n_steps(params: LM, cfg: ModelConfig, cache: Cache,
         toks[step] = tok
         valid[step] = live
     return toks, valid, tok, cache, rem, idx
+
+
+@torch.no_grad()
+def lm_prefill(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
+               max_len: int, vision_embeds: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Cache]:
+    """Build a dense decode cache by streaming the prompt one token at a
+    time: tokens (B, S) through :func:`lm_decode_step` from a fresh
+    :func:`init_cache` of ``max_len`` on the tokens' device.  Returns
+    the last step's logits (B, V) and the cache (``len`` = S).
+
+    The simple, functional route, as in the reference: the serving
+    engine prefills through :func:`lm_prefill_batched` and keeps this
+    one for tests.  ``vision_embeds`` is accepted and never read, as in
+    the reference (the decode step embeds tokens only)."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_len, device=tokens.device)
+    logits = None
+    for t in range(s):
+        logits, cache = lm_decode_step(params, cfg, cache, tokens[:, t])
+    return logits, cache

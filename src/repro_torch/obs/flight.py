@@ -20,11 +20,11 @@ from __future__ import annotations
 
 import json
 from collections import deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 from repro_torch.analysis.invariants import InvariantError
 
-__all__ = ["FlightRecorder", "flight_guard"]
+__all__ = ["FlightRecorder", "flight_guard", "iter_flight_dumps"]
 
 
 class FlightRecorder:
@@ -161,3 +161,9 @@ class flight_guard:
                                registry=self.registry, op=self.op)
         return False
 
+
+def iter_flight_dumps(recorders) -> Iterator[str]:
+    """Every dump path the recorders in ``recorders`` wrote, recorder by
+    recorder, each in the order written."""
+    for rec in recorders:
+        yield from rec.dump_paths

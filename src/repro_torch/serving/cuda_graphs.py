@@ -2,10 +2,13 @@
 and replayed.
 
 The reference jit-compiles its decode scan once per ``n_steps`` and
-reruns the executable; the port's counterpart on the card is one CUDA
-graph per key.  :class:`StepGraphs` runs a function over tensors that
-keep their address for the engine's life (every input is read from, and
-every result copied into, such a tensor):
+its prefill once per prompt bucket, and reruns the executables; the
+port's counterpart on the card is one CUDA graph per key: ``n_steps``
+for a decode dispatch, ``("prefill", bucket)`` for a prefill, and
+``"stream_step"`` for the prompt stream's batch-1 decode step.
+:class:`StepGraphs` runs a function over tensors that keep their
+address for the engine's life (every input is read from, and every
+result copied into, such a tensor):
 
 * the first call with a key runs the function eagerly on the graphs'
   capture stream -- the real call, which also does every kernel's
@@ -15,7 +18,11 @@ every result copied into, such a tensor):
   share;
 * every later call replays the graph on the current stream; its
   outputs are the tensors the capture returned, overwritten in place,
-  so a caller reads them before the next call.
+  so a caller reads them before the next call.  All graphs draw on one
+  pool, so a caller also queues every read of a graph's outputs before
+  it runs any other graph: the engine scatters a prefill's K/V and
+  samples its first token before a hybrid prompt's stream replays
+  ``"stream_step"``.
 
 Capture does not run the kernels, so capturing changes no state.  The
 garbage collector is run before a capture and held off during it: a
@@ -29,9 +36,9 @@ stays the launches executed.
 
 On the CPU the function runs eagerly every time; ``run`` still reports
 the first use of each key, so counts built on it (the engine's
-``decode_compiles``) do not depend on the device.  A capture or replay
-that fails raises :class:`GraphCaptureError`: nothing falls back to
-eager on the card.
+``decode_compiles`` and ``prefill_compiles``) do not depend on the
+device.  A capture or replay that fails raises
+:class:`GraphCaptureError`: nothing falls back to eager on the card.
 """
 
 from __future__ import annotations
@@ -62,7 +69,8 @@ class _Graph:
 
 class StepGraphs:
     """One engine's graphs, keyed by any hashable (the decode dispatch
-    by ``n_steps``), sharing one memory pool and one capture stream.
+    by ``n_steps``, a prefill by ``("prefill", bucket)``), sharing one
+    memory pool and one capture stream.
 
     ``capture_s`` holds the seconds each capture took (``clock``, the
     engine's host clock, default ``time.perf_counter``; the eager first

@@ -16,7 +16,13 @@ On both:
 
 * ``prefill`` pads prompts to power-of-two buckets, keeps the tail of
   prompts longer than ``max_len - 1`` and scatters the prompt KV into
-  the lane's row or pages;
+  the lane's row or pages.  On the card each bucket's prefill is one
+  CUDA graph, keyed ``("prefill", bucket)``: the first prompt of a
+  bucket runs eagerly and is captured, later ones replay it over the
+  bucket's token and last-position buffers, as the reference reruns
+  its prefill jitted once per bucket (``prefill_compiles``).  The
+  scatter, the int8 quantize and the first token's sampling stay
+  outside the graph;
 * ``decode_n`` advances every lane ``dispatch_n`` tokens per dispatch
   with no host sync inside; one host transfer drains the block.  On
   the card a dispatch is one CUDA graph per ``n_steps``
@@ -611,7 +617,8 @@ class ServeEngine:
     ``prefill_bucketing=False`` prefills each prompt at its own length.
     ``stats`` holds the counters named in :data:`STATS_SCHEMA`;
     ``prefill_compiles`` counts distinct prefill shapes (the reference
-    compiles once per shape), ``decode_compiles`` the distinct dispatch
+    compiles once per shape; a CUDA graph captured for each on the
+    card), ``decode_compiles`` the distinct dispatch
     sizes (a CUDA graph captured for each on the card; the reference
     compiles its decode scan once per size), ``ssm_prefill_compiles``
     the distinct prompt-streaming buckets of an ssm model (the
@@ -623,9 +630,12 @@ class ServeEngine:
     ``decode_replayed`` beside it, True where the dispatch was a graph
     replay, and for an ssm model ``ssm_stream`` per prompt: the state
     rebuild, inside the prefill's time); off by default, since the syncs
-    cost throughput.  A capture's own seconds stay out of those and go
-    to ``timings["capture"]``, by graph (``n_steps``, or ``"stream_step"``
-    for the stream's step), whether timed or not.
+    cost throughput.  ``prefill_replayed`` holds, per bucket, one flag a
+    prefill, True where it was a graph replay, timed or not.  A
+    capture's own seconds stay out of those and go to
+    ``timings["capture"]``, by graph (``n_steps``, ``("prefill",
+    bucket)``, or ``"stream_step"`` for the stream's step), whether timed
+    or not.
 
     ``prefix_sharing=True`` (paged, dense family without a window:
     :func:`prefix_sharing_supported`) keeps a radix cache of prompt
@@ -805,6 +815,8 @@ class ServeEngine:
         self._tok_idx = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
         self._admit_count = 0
         self._buckets: set = set()
+        #: each prefill bucket's input buffers (``_prefill_inputs``)
+        self._prefill_in: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
         self._tail_buckets: set = set()
         if cfg.has_ssm or self.prefix_cache is not None:
             # the prompt stream's batch-1 cache and input token, at
@@ -851,6 +863,7 @@ class ServeEngine:
         self.graphs = StepGraphs(dev, clock=self.clock)
         self.timed = timed
         self.timings: Dict[str, Any] = {"prefill": defaultdict(list),
+                                        "prefill_replayed": defaultdict(list),
                                         "decode": [], "decode_replayed": [],
                                         "ssm_stream": [],
                                         "prefix_stream": [],
@@ -1159,19 +1172,27 @@ class ServeEngine:
         sampled (an ssm or hybrid lane streams the prompt first)."""
         plen = int(prompt.shape[0])
         bucket = _bucket_len(plen) if self.prefill_bucketing else plen
-        if bucket not in self._buckets:
-            self._buckets.add(bucket)
-            self.stats["prefill_compiles"] = len(self._buckets)
+        self._buckets.add(bucket)
+        tokens, last_pos = self._prefill_inputs(bucket)
         padded = np.zeros((1, bucket), np.int32)
         padded[0, :plen] = prompt
         if self.timed:
             self._sync()
             t0 = self.clock()
+            captured = sum(self.graphs.capture_s.values())
         with self.tracer.span("prefill.bucket", track=self.lane_track(lane),
                               bucket=bucket, plen=plen):
-            logits, kv = self.model.prefill(
-                self.params, torch.from_numpy(padded).to(self.device),
-                last_pos=torch.tensor([plen - 1], device=self.device))
+            # the graph's inputs are written in place outside it
+            tokens.copy_(torch.from_numpy(padded))
+            last_pos.fill_(plen - 1)
+            (logits, kv), first = self.graphs.run(
+                ("prefill", bucket), lambda: self._prefill_block(bucket))
+            if first:
+                self.stats["prefill_compiles"] += 1
+            self.timings["prefill_replayed"][bucket].append(
+                self.graphs.on_card and not first)
+            # a replay's outputs are the graph's own tensors: everything
+            # that reads them is queued here, before any other replay
             if kv is not None:
                 if self.paged:
                     self._scatter_prompt_paged(kv, lane, plen, first_block)
@@ -1186,7 +1207,32 @@ class ServeEngine:
             self._set_first_token(logits, lane)
         if self.timed:
             self._sync()
-            self.timings["prefill"][bucket].append(self.clock() - t0)
+            captured = sum(self.graphs.capture_s.values()) - captured
+            self.timings["prefill"][bucket].append(self.clock() - t0
+                                                   - captured)
+
+    def _prefill_inputs(self, bucket: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The bucket's prefill inputs, made on its first prompt and kept
+        at their addresses for the engine's life (its graph reads them):
+        the (1, bucket) int32 padded tokens and the (1,) int64 last
+        position."""
+        bufs = self._prefill_in.get(bucket)
+        if bufs is None:
+            bufs = (torch.zeros((1, bucket), dtype=torch.int32,
+                                device=self.device),
+                    torch.zeros((1,), dtype=torch.int64, device=self.device))
+            self._prefill_in[bucket] = bufs
+        return bufs
+
+    def _prefill_block(self, bucket: int):
+        """The prefill of one bucket over its input buffers and the
+        weights alone: ``(logits (1, V), (k, v) or None)``.  On the card
+        it is captured as the ``("prefill", bucket)`` graph (the
+        reference's jitted prefill), so it makes no tensor from host
+        data."""
+        tokens, last_pos = self._prefill_in[bucket]
+        return self.model.prefill(self.params, tokens, last_pos=last_pos)
 
     def _prompt_kv_views(self, kv, plen: int, smax: int):
         """Last ``take = min(plen, smax)`` prompt positions of the

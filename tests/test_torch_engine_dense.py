@@ -81,15 +81,21 @@ def _lockstep(setup, **kw):
     return teng, treqs
 
 
-@pytest.mark.parametrize("temperature,rng_seed", [(0.0, 0), (0.8, 0),
-                                                  (0.8, 5)])
-def test_fixed_lane_lockstep_matches_reference(setup, temperature, rng_seed):
+@pytest.mark.parametrize("temperature,rng_seed,bucketing", [
+    (0.0, 0, True), (0.8, 0, True), (0.8, 5, True), (0.0, 0, False),
+    (0.8, 5, False)], ids=["0.0-0", "0.8-0", "0.8-5", "0.0-0-unbucketed",
+                           "0.8-5-unbucketed"])
+def test_fixed_lane_lockstep_matches_reference(setup, temperature, rng_seed,
+                                               bucketing):
+    """Also with ``prefill_bucketing=False``: one prefill shape (on the
+    card, one graph) per prompt length, as the reference compiles one
+    executable per length."""
     before = launch_counts()
     teng, treqs = _lockstep(setup, temperature=temperature,
-                            rng_seed=rng_seed)
+                            rng_seed=rng_seed, prefill_bucketing=bucketing)
     assert not teng.paged and teng.pool is None
     assert teng.stats["kv_pages_hwm"] == 0
-    assert teng.stats["prefill_compiles"] == 4
+    assert teng.stats["prefill_compiles"] == (4 if bucketing else 7)
     assert np.array_equal(teng.cache["len"].numpy(), np.zeros(N_LANES))
     for tr in treqs:
         plen = min(PLENS[tr.uid], MAX_LEN - 1)

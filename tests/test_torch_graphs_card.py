@@ -10,7 +10,11 @@ step equals the same prompt streamed eagerly from the same state
 is not broken by an earlier engine's graphs being collected; and a
 sharing engine (a partial page copied on write, tails streamed by
 replays) gives the unshared streams, and a lane it evicts continues its
-stream in a fresh engine.
+stream in a fresh engine.  A bucket's replayed prefill graph equals the
+eager prefill on the same buffers bit for bit (qwen2.5-1.5b SMOKE in
+bf16, KV in bf16 and int8, hymba-1.5b and mamba2-780m SMOKE in float32;
+both layouts), and the K/V a replayed prefill scattered into a lane
+survives the next decode replay.
 Marked ``cuda``: skipped where there is no device.  The CPU side of the
 graphs is in ``tests/test_torch_cuda_graphs.py``.
 """
@@ -277,3 +281,78 @@ def test_sharing_and_evict_restore_on_card(kv_quant):
     while dst.live_lanes():
         dst.decode_n()
     assert reqs[2].generated == base[2].generated
+
+
+def _padded(prompt, bucket):
+    out = np.zeros((1, bucket), np.int32)
+    out[0, :len(prompt)] = prompt
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("arch,dtype,paged,kv_quant", [
+    ("qwen2.5-1.5b", "bfloat16", False, None),
+    ("qwen2.5-1.5b", "bfloat16", True, None),
+    ("qwen2.5-1.5b", "bfloat16", False, "int8"),
+    ("qwen2.5-1.5b", "bfloat16", True, "int8"),
+    ("hymba-1.5b", "float32", False, None),
+    ("hymba-1.5b", "float32", True, None),
+    ("mamba2-780m", "float32", False, None),
+    ("mamba2-780m", "float32", True, None)])
+def test_replayed_prefill_equals_eager_on_card(arch, dtype, paged, kv_quant):
+    """A bucket's prefill graph replayed over a new prompt in its buffers
+    equals the eager ``model.prefill`` on the same buffers bit for bit
+    (logits, and K/V where the model has them), and differs from the
+    capture's prompt.  Then a prompt admitted by that replay keeps the
+    K/V scattered into its lane through a later decode replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (graphs are captured on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=dtype,
+                              kv_quant=kv_quant)
+    dev = torch.device("cuda", 0)
+    params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                   torch.device("cpu")).to(dev)
+    kw = dict(paged=True, page_size=PAGE) if paged else {}
+    eng = ServeEngine(cfg, params, n_lanes=2, max_len=MAX_LEN, dispatch_n=N,
+                      device=dev, **kw)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 13, 11)]
+    key, bucket = ("prefill", 16), 16
+    assert eng.admit(Request(uid=0, prompt=prompts[0], max_new_tokens=20))
+    assert key in eng.graphs.capture_s and eng.stats["prefill_compiles"] == 1
+    eng.decode_n(N)                       # captures the n_steps graph
+    tokens, last_pos = eng._prefill_in[bucket]
+    tokens.copy_(_padded(prompts[1], bucket))
+    last_pos.fill_(len(prompts[1]) - 1)
+    (logits, kv), first = eng.graphs.run(
+        key, lambda: eng._prefill_block(bucket))
+    assert not first and eng.graphs.replays(key) == 1
+    got = [logits.clone()] + ([] if kv is None else [t.clone() for t in kv])
+    logits, kv = eng.model.prefill(eng.params, tokens, last_pos=last_pos)
+    want = [logits] + ([] if kv is None else list(kv))
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == (1 if cfg.attn_free else 3)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    tokens.copy_(_padded(prompts[0], bucket))
+    last_pos.fill_(len(prompts[0]) - 1)
+    assert not torch.equal(eng.model.prefill(eng.params, tokens,
+                                             last_pos=last_pos)[0], got[0])
+
+    req = Request(uid=1, prompt=prompts[2], max_new_tokens=20)
+    assert eng.admit(req)                 # a replay, then the scatter
+    assert eng.graphs.replays(key) == 2
+    lane = eng.lane_req.index(req)
+    plen = len(prompts[2])
+    if cfg.attn_free:
+        return
+    before = _lane_kv(eng, lane, plen)
+    replays = eng.graphs.replays(N)
+    eng.decode_n(N)
+    assert eng.graphs.replays(N) == replays + 1
+    after = _lane_kv(eng, lane, plen)
+    torch.cuda.synchronize()
+    assert sorted(before) == sorted(after)
+    for k in sorted(before):
+        assert torch.equal(before[k], after[k]), k
