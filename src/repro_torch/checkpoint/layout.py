@@ -10,6 +10,12 @@ leaf stacked ``(L, ...)``.  :func:`train_state_to_numpy` lays the port's
 state out so and :func:`load_train_state` reads it back, so a directory
 crosses between the two packages.  A bfloat16 leaf travels as its 16-bit
 patterns (numpy has no bfloat16).
+
+On a mesh of more than one rank each tensor of the state is this rank's
+block (``sharding.place_params``): :func:`train_state_to_numpy` gathers
+every leaf whole (every rank takes part; the bytes are the unsharded
+state's) and :func:`load_train_state` keeps this rank's block of each
+leaf it reads -- of whatever mesh the template state was placed on.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 from repro_torch.models.common import ModelConfig, reference_path, trainable
 from repro_torch.models.registry import param_module
 from repro_torch.optim.adamw import Q8Moment, init_adamw
+from repro_torch.parallel import comm, sharding
 from repro_torch.train.train_loop import TrainState
 
 __all__ = ["train_state_to_numpy", "load_train_state", "empty_train_state"]
@@ -41,7 +48,14 @@ Slot = Tuple[str, List[torch.Tensor], bool]
 
 def _state_slots(state) -> List[Slot]:
     """The reference's flattened ``TrainState``, leaf by leaf, over the
-    port state's tensors (see the module docstring)."""
+    port state's tensors (see the module docstring); a moment's tensors
+    carry their parameter's spec (``_spec``) when it is placed."""
+    for name, p in state.params.named_parameters():
+        spec = sharding.spec_of(p)
+        for moments in (state.opt.mu, state.opt.nu):
+            m = moments[name]
+            if spec is not None and torch.is_tensor(m):
+                m._spec = spec
     groups: Dict[str, List[str]] = {}
     tensors = dict(state.params.named_parameters())
     for name in tensors:
@@ -76,7 +90,11 @@ def train_state_to_numpy(state) -> List[Tuple[str, np.ndarray, str]]:
     flatten order, block leaves stacked ``(L, ...)``.  A bfloat16 leaf's
     array holds its bits (uint16).  Every array is a copy."""
     out = []
+    mesh = sharding.active()
     for name, tensors, stacked in _state_slots(state):
+        if mesh is not None:
+            tensors = [comm.gather_full(t, mesh, sharding.spec_of(t))
+                       for t in tensors]
         np_dtype, dt_name = _HOST[tensors[0].dtype]
         arr = np.empty(_slot_shape(tensors, stacked), dtype=np_dtype)
         dst = torch.from_numpy(arr)
@@ -108,7 +126,8 @@ def load_train_state(state, leaves: Mapping[str, Tuple[np.ndarray, str]]):
     """Copy the reference-named ``leaves`` ({name: (array, dtype name)})
     into ``state``'s tensors, each cast to the tensor's dtype, and return
     ``state``.  The names must be exactly the state's and each array of
-    the reference's stacked shape."""
+    the reference's stacked shape (a placed tensor takes its block of
+    it, on the active mesh)."""
     slots = _state_slots(state)
     want = [name for name, _, _ in slots]
     if sorted(want) != sorted(leaves):
@@ -116,22 +135,37 @@ def load_train_state(state, leaves: Mapping[str, Tuple[np.ndarray, str]]):
         extra = sorted(set(leaves) - set(want))
         raise ValueError(f"checkpoint leaves differ from the state's: "
                          f"missing {missing[:4]}, unexpected {extra[:4]}")
+    mesh = sharding.active()
     for name, tensors, stacked in slots:
         arr, dt_name = leaves[name]
-        shape = _slot_shape(tensors, stacked)
-        if tuple(arr.shape) != shape:
-            raise ValueError(f"{name}: {tuple(arr.shape)} vs {shape}")
+        if stacked and arr.shape[:1] != (len(tensors),):
+            raise ValueError(f"{name}: {tuple(arr.shape)} does not stack "
+                             f"{len(tensors)} layers")
         src = _host_tensor(arr, dt_name)
         for i, t in enumerate(tensors):
-            t.copy_(src[i] if stacked else src)
+            whole = src[i] if stacked else src
+            spec = sharding.spec_of(t)
+            if spec is not None:
+                if mesh is None:
+                    raise ValueError(f"{name}: the state is placed on a "
+                                     f"mesh and none is active")
+                whole = comm.local_of(whole, mesh, spec)
+            if tuple(whole.shape) != tuple(t.shape):
+                raise ValueError(f"{name}: {tuple(arr.shape)} does not "
+                                 f"fill {_slot_shape(tensors, stacked)}"
+                                 f"{' (blocks)' if spec else ''}")
+            t.copy_(whole)
     return state
 
 
 def empty_train_state(cfg: ModelConfig, device: torch.device,
-                      moment_dtype: str = "f32") -> TrainState:
+                      moment_dtype: str = "f32", mesh=None) -> TrainState:
     """A zeroed training state of ``cfg``'s shapes (float32 masters of
     its family's module tracked by autograd, fresh moments), to restore
-    into."""
+    into; with a ``mesh`` of more than one rank, this rank's blocks of
+    it (train mode)."""
     master = dataclasses.replace(cfg, dtype="float32")
     params = trainable(param_module(master, device))
+    if mesh is not None and mesh.size > 1:
+        sharding.place_params(mesh, params, cfg, "train")
     return TrainState(params=params, opt=init_adamw(params, moment_dtype))

@@ -8,6 +8,7 @@ a device's name.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
@@ -21,7 +22,10 @@ class DeviceUnavailable(RuntimeError):
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` means ``cuda``; ``"cpu"`` must be asked for by name."""
+    """``None`` means ``cuda``; ``"cpu"`` must be asked for by name.  A
+    ``cuda`` without an index is this rank's card: ``cuda:{LOCAL_RANK %
+    device_count}`` under ``torch.distributed.run`` (ranks beyond the
+    cards share them), the current card otherwise."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise DeviceUnavailable(
@@ -29,4 +33,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "plain PyTorch versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in \
+            os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                           % torch.cuda.device_count())
     return dev

@@ -385,7 +385,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     with the device count it needs.  ``microbatches`` (train) defaults
     to 1."""
     if multi_pod:
-        make_production_mesh(multi_pod=True)      # raises
+        make_production_mesh(multi_pod=True)   # raises without 512 ranks
+        raise ValueError("the dry run analyses one device (mesh 1x1); a "
+                         "cell on a mesh larger than 1 is not in it")
     cfg = get_config(arch)
     sh = SHAPES[shape_name]
     kind = sh["kind"]

@@ -1,7 +1,18 @@
 """GQA attention with RoPE: prompt forward (flash, K2), dense decode step
 (length-aware decode, K3; K5 over an int8 cache) and paged decode step
 (block-table decode, K1; K4 over int8 pools).  Port of the reference's
-``models/attention.py``."""
+``models/attention.py``.
+
+On a mesh (:mod:`repro_torch.parallel.sharding`) attention is split by
+heads over :func:`~repro_torch.parallel.sharding.head_axes`: the Q/K/V
+projections are column-parallel, so each rank holds ``H / n`` query and
+``Hkv / n`` KV heads and K2 and K3 run on those plain local tensors;
+the output projection is row-parallel and its partial sums are reduced
+over the same axes.  The shapes taken from the config are the global
+ones outside that boundary (``d``, the output's ``d``) and the local
+ones inside it (:func:`local_heads`).  The dense decode cache holds each
+rank's lanes and heads; the step brings its input rows to the cache's
+lanes and its output back."""
 
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_fn)
 from repro_torch.models.common import (ModelConfig, apply_rope, frozen,
                                        rope_angles)
+from repro_torch.parallel import comm, sharding
 
 
 class Attention(nn.Module):
@@ -40,6 +52,15 @@ class Attention(nn.Module):
             self.bv = z(cfg.n_kv_heads * hd)
 
 
+def local_heads(cfg: ModelConfig):
+    """(query heads, KV heads, the axes they are split over) on this
+    rank: the config's counts with no mesh."""
+    mesh = sharding.active()
+    axes = () if mesh is None else sharding.head_axes(mesh, cfg)
+    n = sharding.extent(axes)
+    return cfg.n_heads // n, cfg.n_kv_heads // n, axes
+
+
 def project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
     """x (B, S, d) -> q (B, S, H, D), with its bias: a cross-attention's
@@ -52,18 +73,34 @@ def project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
+    """q (B, S, H, D), k/v (B, S, Hkv, D) at this rank's heads (all of
+    them with no mesh): column-parallel products over the heads' axes."""
     b, s, _ = x.shape
     hd = cfg.hd
-    q = torch.matmul(x, p.wq)
-    k = torch.matmul(x, p.wk)
-    v = torch.matmul(x, p.wv)
-    if cfg.qkv_bias:
-        q = q + p.bq
-        k = k + p.bk
-        v = v + p.bv
-    return (q.reshape(b, s, cfg.n_heads, hd),
-            k.reshape(b, s, cfg.n_kv_heads, hd),
-            v.reshape(b, s, cfg.n_kv_heads, hd))
+    h, hkv, axes = local_heads(cfg)
+    x = sharding.copy_in(x, axes)
+
+    def proj(w, bias):
+        y = torch.matmul(x, sharding.weight(w, None, axes))
+        if bias is not None:
+            y = y + sharding.weight(bias, axes)
+        return y
+
+    q = proj(p.wq, p.bq if cfg.qkv_bias else None)
+    k = proj(p.wk, p.bk if cfg.qkv_bias else None)
+    v = proj(p.wv, p.bv if cfg.qkv_bias else None)
+    return (q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd),
+            v.reshape(b, s, hkv, hd))
+
+
+def _project_out(p: Attention, out: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """(B, S, H * D) at this rank's heads -> (B, S, d): the row-parallel
+    output projection, its partial sums reduced over the heads'
+    axes."""
+    axes = local_heads(cfg)[2]
+    return sharding.reduce_out(
+        torch.matmul(out, sharding.weight(p.wo, axes, None)), axes)
 
 
 def attention_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
@@ -88,8 +125,8 @@ def attention_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
                                     or vt.requires_grad):
         attend = flash_attention_fn
     out = attend(qt, kt, vt, causal=causal, window=cfg.sliding_window)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    out = torch.matmul(out, p.wo)
+    out = out.transpose(1, 2).reshape(b, s, qt.shape[1] * cfg.hd)
+    out = _project_out(p, out, cfg)
     if return_kv:
         return out, (kt, vt)
     return out
@@ -132,6 +169,12 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     scale are written at the slot, and K5 dequantizes in its read
     (``qblock=1``); the result also carries the scale tensors.
     """
+    mesh = sharding.active()
+    if mesh is not None:             # this rank's cache lanes
+        rows, lanes_ax = sharding.batch_axes(mesh, cache_len.shape[0]), \
+            sharding.kv_batch_axes(mesh, cache_len.shape[0])
+        x = sharding.relayout(x, 0, rows, lanes_ax)
+        cache_len = comm.take(cache_len, mesh, 0, lanes_ax)
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
     cos, sin = rope_angles(cache_len[:, None], cfg.hd, cfg.rope_theta)
@@ -156,8 +199,10 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         v_cache[lanes, :, slot] = v.to(v_cache.dtype)
         out = decode_attention(q, k_cache, v_cache, eff_len)
         caches = (k_cache, v_cache)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
-    return (torch.matmul(out, p.wo),) + caches
+    out = _project_out(p, out.reshape(b, 1, q.shape[1] * cfg.hd), cfg)
+    if mesh is not None:             # back to the step's rows
+        out = sharding.relayout(out, 0, lanes_ax, rows)
+    return (out,) + caches
 
 
 def attention_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -181,6 +226,9 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     dequantizes in its read (``qblock=1``); the result also carries the
     scale pools.
     """
+    if sharding.active() is not None:
+        raise ValueError("the paged cache does not run on a mesh of more "
+                         "than one rank (the serving engine has no mesh)")
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
     cos, sin = rope_angles(cache_len[:, None], cfg.hd, cfg.rope_theta)
@@ -212,4 +260,4 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                                      eff_len)
         caches = (k_pages, v_pages)
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
-    return (torch.matmul(out, p.wo),) + caches
+    return (_project_out(p, out, cfg),) + caches

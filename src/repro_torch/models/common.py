@@ -19,6 +19,9 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+from repro_torch.parallel import sharding
 
 VOCAB_ALIGN = 256  # Megatron convention: pad vocab for clean TP sharding
 
@@ -245,12 +248,14 @@ def apply_norm(p: nn.Module, x: torch.Tensor, eps: float = 1e-5
     xf = x.float()
     if isinstance(p, RMSNorm):
         rms = torch.sqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-        return (xf / rms * p.scale.float()).to(x.dtype)
+        return (xf / rms * sharding.weight(p.scale, None).float()
+                ).to(x.dtype)
     centered = xf - torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(centered * centered, dim=-1, keepdim=True)
     y = centered * torch.rsqrt(var + eps)
     if isinstance(p, LayerNorm):
-        y = y * p.scale.float() + p.bias.float()
+        y = y * sharding.weight(p.scale, None).float() + \
+            sharding.weight(p.bias, None).float()
     return y.to(x.dtype)
 
 
@@ -301,8 +306,32 @@ class Embedding(nn.Module):
                                            dtype=dt, device=device))
 
 
-def embed(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return p.tok[tokens.long()]
+def embed(p: Embedding, tokens: torch.Tensor, *, train: bool = False
+          ) -> torch.Tensor:
+    """The token rows of ``tokens``.  ``train`` looks them up with
+    ``F.embedding``, whose backward sums each row's cotangents in a
+    fixed order (the indexing backward accumulates atomically, and its
+    float32 sums vary run to run); serving indexes the table.
+
+    On a mesh whose ``tp`` axes split the vocab (Megatron's
+    vocab-parallel embedding), each rank looks up the tokens in its
+    block of rows, zero elsewhere, and the blocks' rows are summed over
+    those axes: one nonzero term a token, so the sum is the row."""
+    ids = tokens.long()
+
+    def lookup(table, i):
+        return F.embedding(i, table) if train else table[i]
+
+    axes = sharding.axes_of(p.tok, 0)
+    if not axes:
+        return lookup(sharding.weight(p.tok, None, None), ids)
+    tok = sharding.weight(p.tok, ..., None)
+    v0, v1 = sharding.block_of(tok.shape[0] * sharding.extent(axes), axes)
+    local = ids - v0
+    inside = (local >= 0) & (local < v1 - v0)
+    rows = lookup(tok, torch.where(inside, local, torch.zeros_like(local)))
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return sharding.reduce_out(rows, axes)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -321,11 +350,63 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
-def lm_logits(p: Embedding, x: torch.Tensor, cfg: ModelConfig
-              ) -> torch.Tensor:
-    """Final projection with the padded vocab masked to -1e30 (float32)."""
-    w = p.tok.t() if cfg.tie_embeddings else p.head
-    logits = torch.matmul(x, w).float()
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+def vocab_axes(p: Embedding, cfg: ModelConfig):
+    """The mesh axes the LM head's vocab dim is stored over (none with
+    no mesh)."""
+    if cfg.tie_embeddings:
+        return sharding.axes_of(p.tok, 0)
+    return sharding.axes_of(p.head, 1)
+
+
+def cross_entropy_split(logits: torch.Tensor, labels: torch.Tensor,
+                        mask: Optional[torch.Tensor], axes, v0: int,
+                        batch_axes) -> torch.Tensor:
+    """This rank's share of :func:`cross_entropy` on a mesh: ``logits``
+    (rows, V / n) float32 hold vocab ``[v0, v0 + V / n)`` of this rank's
+    rows, split over ``axes``; the rows are split over ``batch_axes``.
+    The max, the exponentials' sum and the gold logit are reduced over
+    the vocab axes (Megatron's vocab-parallel cross-entropy); the
+    returned value is this rank's rows' summed loss over the count of
+    every rank's (masked) tokens, so the shares sum over the batch axes
+    to the loss, and each rank's gradient is its rows'."""
+    m = sharding.all_reduce(torch.amax(logits.detach(), dim=-1), axes,
+                            op="max")
+    s = sharding.reduce_out(torch.sum(torch.exp(logits - m[..., None]),
+                                      dim=-1), axes)
+    logz = torch.log(s) + m
+    local = labels.long() - v0
+    inside = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(
+        inside, local, torch.zeros_like(local))[..., None])[..., 0]
+    gold = sharding.reduce_out(
+        torch.where(inside, gold, torch.zeros_like(gold)), axes)
+    nll = logz - gold
+    if mask is None:
+        count = torch.full((), float(nll.numel() * sharding.extent(
+            batch_axes)), dtype=torch.float32, device=nll.device)
+        return torch.sum(nll) / count
+    count = sharding.all_reduce(torch.sum(mask).detach().float(),
+                                batch_axes)
+    return torch.sum(nll * mask) / torch.clamp(count, min=1.0)
+
+
+def lm_logits(p: Embedding, x: torch.Tensor, cfg: ModelConfig, *,
+              local: bool = False) -> torch.Tensor:
+    """Final projection with the padded vocab masked to -1e30 (float32).
+
+    On a mesh whose axes split the vocab the projection is
+    column-parallel: each rank's logits are its block of the vocab,
+    gathered whole unless ``local`` (the training loss reads the
+    blocks)."""
+    axes = vocab_axes(p, cfg)
+    if cfg.tie_embeddings:
+        w = sharding.weight(p.tok, ..., None).t()
+    else:
+        w = sharding.weight(p.head, None, ...)
+    logits = torch.matmul(sharding.copy_in(x, axes), w).float()
+    v0, v1 = sharding.block_of(cfg.padded_vocab, axes)
+    if v1 > cfg.vocab_size:
+        logits[..., max(cfg.vocab_size - v0, 0):] = -1e30
+    if axes and not local:
+        logits = sharding.relayout(logits, logits.dim() - 1, axes, None)
     return logits

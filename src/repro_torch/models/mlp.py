@@ -8,6 +8,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.models.common import frozen
+from repro_torch.parallel import sharding
 
 
 def _zeros(dtype, device):
@@ -28,10 +29,16 @@ class SwiGLU(nn.Module):
 
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
-    g = torch.matmul(x, p.w_gate)
-    u = torch.matmul(x, p.w_up)
+    """On a mesh the gate and up products are column-parallel over the
+    axes d_ff is stored over, the down product row-parallel, its partial
+    sums reduced over them."""
+    axes = sharding.axes_of(p.w_gate, 1)
+    x = sharding.copy_in(x, axes)
+    g = torch.matmul(x, sharding.weight(p.w_gate, None, ...))
+    u = torch.matmul(x, sharding.weight(p.w_up, None, ...))
     h = F.silu(g.float()).to(x.dtype) * u
-    return torch.matmul(h, p.w_down)
+    return sharding.reduce_out(
+        torch.matmul(h, sharding.weight(p.w_down, ..., None)), axes)
 
 
 class GeluMLP(nn.Module):

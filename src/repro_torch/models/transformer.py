@@ -21,6 +21,13 @@ no block tables).  A hybrid (Hymba) model runs attention and Mamba-2
 side by side in every block, so its caches hold both: the K/V (a ring
 of the sliding window, dense or through the block table) and the dense
 per-lane state.
+
+On a mesh of more than one rank (:mod:`repro_torch.parallel.sharding`)
+the dense family trains and decodes sharded: the training forward takes
+this rank's rows of the batch, the decode step the whole batch and a
+cache placed by ``place_cache`` (``init_cache`` places it).  Every
+other family, the batched prefill and the paged cache refuse a mesh by
+name.
 """
 
 from __future__ import annotations
@@ -29,7 +36,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import rng as trng
@@ -38,12 +44,14 @@ from repro_torch.models.attention import (Attention, attention_decode,
                                           attention_decode_paged,
                                           attention_forward)
 from repro_torch.models.common import (Embedding, ModelConfig, apply_norm,
-                                       cross_entropy, dense_init, embed,
-                                       lm_logits, make_norm)
+                                       cross_entropy, cross_entropy_split,
+                                       dense_init, embed, lm_logits,
+                                       make_norm, vocab_axes)
 from repro_torch.models.mlp import SwiGLU, swiglu
 from repro_torch.models.moe import MoE, moe_forward
 from repro_torch.models.ssm import (Mamba2, init_mamba2, init_mamba2_state,
                                     mamba2_decode, mamba2_forward)
+from repro_torch.parallel import comm, sharding
 
 Cache = Dict[str, torch.Tensor]
 
@@ -198,7 +206,7 @@ def _train_block(p: Block, x: torch.Tensor, cfg: ModelConfig):
 
 def lm_forward_train(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
                      vision_embeds: Optional[torch.Tensor] = None,
-                     remat: bool = False
+                     remat: bool = False, local_vocab: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's ``lm_forward``: tokens (B, S) ->
     (logits (B, S, V) float32, aux float32 scalar, the blocks' summed
@@ -209,8 +217,11 @@ def lm_forward_train(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     launches K2 (and K10) twice a layer.  The token lookup is ``F.embedding``:
     the same gather as serving's ``embed``, with a backward that sums
     each row's cotangents in a fixed order (the indexing backward
-    accumulates atomically, so its float32 sums vary run to run)."""
-    x = _maybe_inject_vision(F.embedding(tokens.long(), params.embed.tok),
+    accumulates atomically, so its float32 sums vary run to run).  On a
+    mesh ``tokens`` are this rank's rows, and ``local_vocab`` keeps the
+    logits this rank's block of the vocab (the loss reads them so)."""
+    sharding.check_mesh_family(cfg)
+    x = _maybe_inject_vision(embed(params.embed, tokens, train=True),
                              vision_embeds, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:
@@ -221,7 +232,7 @@ def lm_forward_train(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
         if a is not None:
             aux = aux + a
     x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embed, x, cfg), aux
+    return lm_logits(params.embed, x, cfg, local=local_vocab), aux
 
 
 @torch.no_grad()
@@ -245,16 +256,24 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     first ``n_vision_tokens`` positions (they hold
     ``batch["vision_embeds"]``).  Every decoder family trains: attention
     through K2's Function, an ssm or hybrid block's scan through K10's
-    (``SSDChunkFn``)."""
+    (``SSDChunkFn``).  On a mesh the batch is this rank's rows (split
+    over ``sharding.split_batch``'s axes) and the value is this rank's
+    share of the loss (``cross_entropy_split``)."""
     tokens = batch["tokens"]
+    split = sharding.active() is not None
     logits, aux = lm_forward_train(params, tokens, cfg,
                                    vision_embeds=batch.get("vision_embeds"),
-                                   remat=remat)
+                                   remat=remat, local_vocab=split)
     mask = batch.get("loss_mask")
     if mask is None and cfg.n_vision_tokens:
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         mask = (pos[None, :] >= cfg.n_vision_tokens).float().expand(
             tokens.shape)
+    if split:
+        axes = vocab_axes(params.embed, cfg)
+        v0 = sharding.block_of(cfg.padded_vocab, axes)[0]
+        return cross_entropy_split(logits, batch["labels"], mask, axes, v0,
+                                   sharding.batch_split_axes()) + aux
     return cross_entropy(logits, batch["labels"], mask) + aux
 
 
@@ -273,6 +292,11 @@ def lm_prefill_batched(params: LM, tokens: torch.Tensor, cfg: ModelConfig,
     padding).  A moe model routes every position of the bucket, padding
     included, as the reference does (the capacity counts them all).
     ``vision_embeds`` as in :func:`lm_forward`."""
+    if sharding.active() is not None:
+        raise ValueError("the batched prefill does not run on a mesh of "
+                         "more than one rank (the serving engine has no "
+                         "mesh); build a sharded cache with init_cache and "
+                         "lm_decode_step")
     x = _maybe_inject_vision(embed(params.embed, tokens), vision_embeds,
                              cfg)
     ks, vs = [], []
@@ -326,7 +350,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``k_scale``/``v_scale`` (L, B, Hkv, S, 1).  An ssm model holds the
     zeroed float32 state of every layer instead: ``ssm_h`` (L, B, nh, N,
     P) and ``ssm_conv`` (L, B, W-1, conv_ch); a hybrid model holds both
-    the K/V and that state."""
+    the K/V and that state.  On a mesh of more than one rank the cache
+    is this rank's block (``sharding.place_cache``: its lanes and KV
+    heads; ``len`` whole)."""
     cache = {"len": torch.zeros(batch, dtype=torch.int32, device=device)}
     if not cfg.attn_free:
         shape = (cfg.n_layers, batch, cfg.n_kv_heads,
@@ -335,7 +361,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                  ("k", "v", "k_scale", "v_scale"), device))
     if cfg.has_ssm:
         cache.update(_ssm_entries(cfg, batch, device))
-    return cache
+    mesh = sharding.active()
+    return cache if mesh is None else sharding.place_cache(mesh, cache, cfg)
 
 
 def _ssm_entries(cfg: ModelConfig, batch: int, device) -> Cache:
@@ -357,6 +384,9 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     stays dense: ``ssm_h``/``ssm_conv`` and ``len``, no pool and no
     tables; a hybrid model holds the pool and tables beside that dense
     state."""
+    if sharding.active() is not None:
+        raise ValueError("the paged cache does not run on a mesh of more "
+                         "than one rank (the serving engine has no mesh)")
     if cfg.attn_free:
         return init_cache(cfg, batch, max_len, device=device)
     s = paged_capacity(max_len, cfg)
@@ -420,7 +450,19 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
     scales beside the values; an ssm cache holds ``ssm_h``/``ssm_conv``,
     a hybrid cache both the K/V and those.
     Each layer writes its new K/V (or state) into its slice of the cache
-    in place; the returned cache holds the same tensors and ``len + 1``."""
+    in place; the returned cache holds the same tensors and ``len + 1``.
+
+    On a mesh ``tokens`` and the logits are the whole batch on every
+    rank and the cache this rank's block (``init_cache``): the step
+    runs on its rows of the ``batch`` axes, each attention on the
+    cache's lanes and its local heads (K3), and the logits are gathered
+    whole."""
+    sharding.check_mesh_family(cfg)
+    mesh = sharding.active()
+    rows = () if mesh is None else sharding.batch_axes(mesh,
+                                                       tokens.shape[0])
+    if mesh is not None:
+        tokens = comm.take(tokens, mesh, 0, rows)
     x = embed(params.embed, tokens[:, None])
     cache_len = cache["len"]
     if cfg.attn_free:
@@ -442,7 +484,8 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
                              layer(ks_all, i), layer(vs_all, i),
                              layer(h_all, i), layer(conv_all, i))
     x = apply_norm(params.final_norm, x)
-    logits = lm_logits(params.embed, x[:, 0], cfg)
+    logits = sharding.relayout(lm_logits(params.embed, x[:, 0], cfg), 0,
+                               rows, None)
     new_cache = dict(cache)
     new_cache["len"] = cache_len + 1
     return logits, new_cache

@@ -19,12 +19,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterable, Mapping, NamedTuple, Union
+from typing import Any, Dict, Iterable, Mapping, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
 
 from repro_torch.models.common import reference_path
+from repro_torch.parallel import sharding
 from repro_torch.quant.quantize import true_div
 
 
@@ -126,9 +127,26 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(tree: Union[Mapping[str, torch.Tensor],
-                            Iterable[torch.Tensor]]) -> torch.Tensor:
-    leaves = tree.values() if isinstance(tree, Mapping) else tree
-    return _sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+                            Iterable[torch.Tensor]],
+                specs: Optional[Mapping[str, Any]] = None) -> torch.Tensor:
+    """The 2-norm of every leaf together.  With ``specs`` ({name: spec}
+    of a mapping's leaves, each this rank's block) on a mesh, a leaf's
+    squares count on the ranks that own its block -- the first along
+    every axis it is whole on -- and the sum runs over the mesh: the
+    norm of the whole tensors, the same on every rank."""
+    mesh = sharding.active()
+    if specs is None or mesh is None:
+        leaves = tree.values() if isinstance(tree, Mapping) else tree
+        return _sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    total = None
+    for name, x in tree.items():
+        if sharding.owns(mesh, specs[name]):
+            sq = torch.sum(torch.square(x.float()))
+            total = sq if total is None else total + sq
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32,
+                            device=next(iter(tree.values())).device)
+    return _sqrt(sharding.all_reduce(total, mesh.axis_names))
 
 
 _NO_DECAY = ("scale", "bias", "a_log", "dt_bias", "d_skip", "norm_scale",
@@ -152,8 +170,12 @@ def adamw_update(cfg: AdamWConfig, params: nn.Module,
     """One AdamW step, in place. Returns (params, new_state, metrics).
 
     With ``moment_dtype="int8"`` the momentum is dequantized, updated in
-    float32, and re-quantized row-wise each step (8-bit Adam)."""
-    gnorm = global_norm(grads)
+    float32, and re-quantized row-wise each step (8-bit Adam).  On a
+    mesh every leaf is this rank's block (the update is elementwise) and
+    the clipping norm is the whole tree's (:func:`global_norm`)."""
+    specs = {n: sharding.spec_of(p) for n, p in params.named_parameters()}
+    gnorm = global_norm(grads, specs if any(
+        v is not None for v in specs.values()) else None)
     clip = torch.clamp(torch.full_like(gnorm, cfg.grad_clip)
                        / (gnorm + 1e-9), max=1.0)
     step = state.step + 1

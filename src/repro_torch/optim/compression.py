@@ -5,14 +5,16 @@ Per-chunk absmax int8 quantization, a sum of the dequantized chunks
 over the participants, and an error-feedback residual carried between
 steps so that the compression bias vanishes over time.  The reference
 sums over a named mesh axis inside ``shard_map``; here the participants
-are a ``torch.distributed`` process group, and with none (the port's one
-device) the reduction is over one participant: the mean is the local
+are a ``torch.distributed`` process group -- a mesh axis's,
+``mesh.get_group("pod")`` -- each quantizing its own ``x``, and with none
+the reduction is over one participant: the mean is the local
 dequantized chunks and the residual ``x`` minus them, what the
 reference's returns over an axis of size 1.
 
 Usage::
 
-    g_hat, resid = compressed_psum(g + resid_prev)
+    g_hat, resid = compressed_psum(g + resid_prev,
+                                   group=mesh.get_group("pod"))
 """
 
 from __future__ import annotations
@@ -53,8 +55,10 @@ def compressed_psum(x: torch.Tensor, group=None, chunk: int = CHUNK
     size: Optional[int] = None
     if group is not None:
         import torch.distributed as dist
-        total = local.clone()
+        staged = local.is_cuda and dist.get_backend(group) == "gloo"
+        total = local.to("cpu", copy=True) if staged else local.clone()
         dist.all_reduce(total, group=group)
+        total = total.to(local.device)
         size = dist.get_world_size(group)
     mean = total if size is None else true_div(total, float(size))
     mean = mean.reshape(-1)[:n].reshape(x.shape)

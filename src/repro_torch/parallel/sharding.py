@@ -1,5 +1,5 @@
-"""Sharding rules of the reference's parallel layer, on the port's one
-device.
+"""Sharding rules of the reference's parallel layer, and the placement
+and layouts of the port's sharded model.
 
 The reference shards over its production mesh (FSDP + TP + EP + SP):
 
@@ -20,25 +20,48 @@ size does not divide the dim is dropped for that dim.  The rules read
 only ``mesh.axis_names`` and ``mesh.shape``, so they take the port's
 :class:`~repro_torch.launch.mesh.DeviceMesh` or any mesh-like object.
 
-On one device every constraint is the identity, as the reference's is
-with no mesh active: :func:`constrain` returns its input.
-:func:`use_mesh` keeps the reference's thread-local mesh context (the
-port's models read nothing from it).
+Placement (:func:`place_params`, :func:`place_batch`,
+:func:`place_cache`) hands each rank its block of every tensor under
+those specs; a placed parameter remembers its spec (``_spec``).  The
+sharded model is explicit, not propagated: at each product a stored
+weight is brought to the block the product reads (:func:`weight`: FSDP's
+gather over the batch axes, nothing over the tp axes it keeps), the
+attention and the MLP are column- then row-parallel over the tp axes
+(:func:`copy_in`, :func:`reduce_out`), each rank's kernels see plain
+tensors of its local heads, and the batch is split over the ``batch``
+axes before the step.  ``seq`` and ``expert`` are not in this slice:
+tensors the reference constrains by them keep the layout they get, and
+the KV cache, which the reference splits by ``seq`` over ``model``,
+holds each rank's heads there instead (:func:`cache_layout`), the
+layout the decode kernel reads.  For the same reason serve mode stores
+attention's weights by heads alone, not over the reference's (data,
+model) (:func:`place_params`), so a decode step gathers no weight.
+Only the dense family runs on a mesh of more than one rank; every other
+family is refused by name.
+
+:func:`use_mesh` keeps the reference's mesh context, process-wide
+rather than thread-local: on the card autograd runs a backward (and
+``torch.utils.checkpoint``'s recompute in it) on a thread of its own,
+which must see the mesh the forward ran under.  With no mesh, or a
+mesh of one rank, every function here is the identity and the model
+runs as it does unsharded.
 """
 
 from __future__ import annotations
 
 import contextlib
-import threading
+import types
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
+import torch
 from torch import nn
 
-from repro_torch.models.common import reference_path
+from repro_torch.parallel import comm
 
 Spec = Tuple[Any, ...]
 
-_ctx = threading.local()
+#: the mesh context: one a process (see the module docstring)
+_ctx = types.SimpleNamespace()
 
 
 def _axis_size(mesh, axes) -> int:
@@ -81,7 +104,7 @@ def mesh_logical_axes(mesh, mode: str = "train") -> Dict[str, Any]:
 
 @contextlib.contextmanager
 def use_mesh(mesh, mode: str = "train"):
-    """Make ``mesh`` (and ``mode``) current on this thread; the outer
+    """Make ``mesh`` (and ``mode``) current in this process; the outer
     context's come back on exit."""
     prev = getattr(_ctx, "mesh", None)
     prev_mode = getattr(_ctx, "mode", "train")
@@ -118,8 +141,20 @@ def _fallback_axes(mesh, dim: int, axes):
 
 def constrain(x, *logical: Optional[str]):
     """The reference's ``with_sharding_constraint`` by logical axis
-    names: on one device every constraint is the identity, so ``x``
-    comes back unchanged."""
+    names; ``x`` comes back unchanged, and no model module calls it.
+
+    The port's sharded model is laid out explicitly, so each of the
+    reference's sites holds the layout its constraint names without a
+    call: the projections' ``(batch, -, tp)`` (its ``attention.py``
+    37-41, 66-68, 105-107, 163-165) and the MLP's hidden ``tp`` dim
+    (``mlp.py`` 27, 45) come from their column-parallel weights
+    (:func:`weight`, :func:`copy_in`); the residual stream's ``(batch,
+    seq, -)`` and the Megatron-SP boundaries (``transformer.py`` 60, 65,
+    127, 132, 157) have the batch split by :func:`place_batch` before
+    the step, and ``seq`` is not in this slice, so the sequence stays
+    whole.  The moe and whisper sites (``moe.py`` 114-135, ``whisper.py``
+    79-141) belong to families that refuse a mesh of more than one rank.
+    With no mesh it is the identity, as the reference's is."""
     return x
 
 
@@ -236,6 +271,7 @@ def param_shardings(mesh, params: nn.Module, mode: str = "train"
     a slice of: a block's per-layer tensor is one layer of a stacked
     ``(L, ...)`` leaf there, so its spec is that leaf's without the
     layer entry."""
+    from repro_torch.models.common import reference_path
     n_layers: Dict[str, int] = {}
     for name, _ in params.named_parameters():
         path, layer = reference_path(name)
@@ -315,3 +351,271 @@ def cache_shardings(mesh, cache: Mapping[str, Any]) -> Dict[str, Spec]:
 def replicated(mesh) -> Spec:
     """The empty spec: every dim whole on every device."""
     return ()
+
+
+# ----------------------------------------------------------------------
+# the sharded model: layouts, placement, and the products' boundaries
+# ----------------------------------------------------------------------
+
+#: the families that run on a mesh of more than one rank
+MESH_FAMILIES = ("dense",)
+
+
+def active():
+    """The current mesh when it has more than one rank, else ``None``
+    (no mesh, or a mesh of one rank: the unsharded model)."""
+    mesh = current_mesh()
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def check_mesh_family(cfg, mesh=None) -> None:
+    """Refuse, by name, a config whose family does not run on ``mesh``
+    (the active mesh when ``None``) when it has more than one rank."""
+    mesh = mesh if mesh is not None else active()
+    if mesh is None or mesh.size == 1:
+        return
+    family = "encoder-decoder" if cfg.is_encdec else cfg.family
+    if family not in MESH_FAMILIES or cfg.kv_quant is not None:
+        raise ValueError(
+            f"{cfg.name}: the {family} family"
+            f"{' with an int8 KV cache' if cfg.kv_quant else ''} does not "
+            f"run on a mesh of more than one rank yet ({mesh}); the "
+            f"families that do: {MESH_FAMILIES}, KV in the compute dtype")
+
+
+def batch_axes(mesh, n: int, mode: Optional[str] = None
+               ) -> Tuple[str, ...]:
+    """The axes a batch of ``n`` rows is split over: the ``batch`` axes,
+    leading ones dropped until they divide ``n``."""
+    la = mesh_logical_axes(mesh, mode or current_mode())
+    return mesh.axes(_fallback_axes(mesh, n, la["batch"]))
+
+
+def kv_batch_axes(mesh, n: int) -> Tuple[str, ...]:
+    """The axes a decode cache's ``n`` lanes are split over (the
+    reference's ``kv_batch``: pod and data)."""
+    kv = tuple(a for a in ("pod", "data") if a in mesh.axis_names) or None
+    return mesh.axes(_fallback_axes(mesh, n, kv))
+
+
+def head_axes(mesh, cfg, mode: Optional[str] = None) -> Tuple[str, ...]:
+    """The axes attention's heads are split over: the ``tp`` axes not
+    holding the cache's lanes, leading ones dropped until they divide
+    the KV heads (a split is whole heads, and a query head group stays
+    with its KV head); none when nothing divides, and attention is whole
+    on every rank."""
+    la = mesh_logical_axes(mesh, mode or current_mode())
+    kv = {a for a in ("pod", "data") if a in mesh.axis_names}
+    tp = tuple(a for a in mesh.axes(la["tp"]) if a not in kv)
+    return mesh.axes(_fallback_axes(mesh, cfg.n_kv_heads, tp or None))
+
+
+def cache_layout(mesh, cfg, cache: Mapping[str, Any],
+                 mode: Optional[str] = None) -> Dict[str, Spec]:
+    """The port's spec of each entry of a dense decode cache: the
+    reference's (:func:`cache_shardings`) with its ``seq`` entry (not in
+    this slice) replaced by the heads' axes on the KV-head dim, the
+    layout the decode kernel reads; ``len`` whole on every rank."""
+    ref = cache_shardings(mesh, cache)
+    heads = head_axes(mesh, cfg, mode)
+    out = {}
+    for name, leaf in cache.items():
+        if name == "len":
+            out[name] = ref[name]
+        elif name in ("k", "v"):
+            spec = list(ref[name])
+            spec[2], spec[3] = heads or None, None
+            out[name] = tuple(spec)
+        else:
+            raise ValueError(f"cache entry {name!r} has no placement on a "
+                             f"mesh of more than one rank (the dense "
+                             f"cache's k, v and len do)")
+    return out
+
+
+def _rebind(module: nn.Module, name: str, t: torch.Tensor, spec) -> None:
+    """Replace parameter ``name`` of ``module`` by ``t`` with ``spec``."""
+    owner, _, leaf = name.rpartition(".")
+    sub = module.get_submodule(owner) if owner else module
+    old = sub._parameters[leaf]
+    p = nn.Parameter(t, requires_grad=old.requires_grad)
+    p._spec = spec
+    sub._parameters[leaf] = p
+
+
+#: attention's parameters and the dim of each that holds the heads
+_HEAD_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
+              "bv": 0}
+
+
+@torch.no_grad()
+def place_params(mesh, module: nn.Module, cfg, mode: str = "train"
+                 ) -> nn.Module:
+    """Each parameter of ``module`` (whole on every rank, the same
+    values) replaced by this rank's block under :func:`param_shardings`,
+    which it remembers as ``_spec``; the module is returned.  A mesh of
+    one rank leaves it as it is.
+
+    In serve mode attention's head dim is stored over :func:`head_axes`
+    alone, not over the reference's (data, model): the decode step runs
+    attention on the cache's lanes (over ``data``) at its local heads,
+    which would otherwise gather the ``data`` blocks of every layer's
+    weights each step.  Each ``data`` rank holds a copy of its heads'
+    weights instead."""
+    if mesh.size == 1:
+        return module
+    check_mesh_family(cfg, mesh)
+    specs = param_shardings(mesh, module, mode)
+    if mode == "serve":
+        heads = head_axes(mesh, cfg, mode)
+        entry = heads[0] if len(heads) == 1 else (heads or None)
+        for name, spec in specs.items():
+            owner, _, leaf = name.rpartition(".")
+            if owner.rpartition(".")[2] == "attn" and leaf in _HEAD_DIMS:
+                spec = list(spec)
+                spec[_HEAD_DIMS[leaf]] = entry
+                specs[name] = tuple(spec)
+    for name, p in list(module.named_parameters()):
+        _rebind(module, name, comm.local_of(p.detach(), mesh, specs[name]),
+                specs[name])
+    return module
+
+
+def placed_like(module: nn.Module, placed: nn.Module) -> nn.Module:
+    """``module`` (a parameter module of the same config, on the meta
+    device or whole) with every parameter an empty tensor of
+    ``placed``'s block shape and device, in ``module``'s own dtype, and
+    ``placed``'s specs; returned."""
+    src = dict(placed.named_parameters())
+    for name, p in list(module.named_parameters()):
+        ref = src[name]
+        _rebind(module, name, torch.empty(ref.shape, dtype=p.dtype,
+                                          device=ref.device),
+                getattr(ref, "_spec", None))
+    return module
+
+
+def place_batch(mesh, batch: Mapping[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a batch whole on every rank, by
+    :func:`batch_shardings`."""
+    specs = batch_shardings(mesh, batch)
+    return {k: comm.local_of(v, mesh, specs[k]) for k, v in batch.items()}
+
+
+@torch.no_grad()
+def place_cache(mesh, cache: Mapping[str, torch.Tensor], cfg,
+                mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """This rank's block of every entry of a dense decode cache whole on
+    every rank, by :func:`cache_layout`."""
+    check_mesh_family(cfg, mesh)
+    specs = cache_layout(mesh, cfg, cache, mode)
+    return {k: comm.local_of(v, mesh, specs[k]) for k, v in cache.items()}
+
+
+def owns(mesh, spec: Optional[Spec]) -> bool:
+    """Whether this rank holds the first copy of its block of a tensor
+    under ``spec``: its index is 0 along every axis the spec leaves the
+    tensor whole on."""
+    split = set()
+    for entry in spec or ():
+        split.update(mesh.axes(entry))
+    return all(mesh.coords[a] == 0 for a in mesh.axis_names
+               if a not in split)
+
+
+def spec_of(t: torch.Tensor) -> Optional[Spec]:
+    """A placed parameter's spec (``None`` for a tensor not placed)."""
+    return getattr(t, "_spec", None)
+
+
+_KEEP = ...
+
+
+def weight(t: torch.Tensor, *dst) -> torch.Tensor:
+    """A parameter as the product at hand reads it: with no mesh ``t``;
+    on a mesh, ``t``'s stored block brought to the spec ``dst`` (one
+    entry a dim; ``...`` keeps the stored entry), whose gradient sums
+    over the axes the batch is split over (:func:`split_batch`)."""
+    mesh = active()
+    spec = spec_of(t)
+    if mesh is None:
+        if spec is not None:
+            raise ValueError("a parameter placed on a mesh is used with no "
+                             "mesh of more than one rank active")
+        return t
+    if spec is None:
+        raise ValueError(f"a parameter of shape {tuple(t.shape)} is used "
+                         f"on {mesh} without a placement")
+    dst = tuple(s if d is _KEEP else d for s, d in zip(spec, dst))
+    return comm.Gather.apply(t, mesh, spec, dst, batch_split_axes())
+
+
+def axes_of(t: torch.Tensor, dim: int) -> Tuple[str, ...]:
+    """The mesh axes a placed parameter's dim is stored over (none with
+    no mesh)."""
+    mesh = active()
+    spec = spec_of(t)
+    return () if mesh is None or spec is None else mesh.axes(spec[dim])
+
+
+def copy_in(x: torch.Tensor, axes) -> torch.Tensor:
+    """The input of a product split over ``axes`` (column-parallel):
+    ``x``; its gradient sums over them."""
+    mesh = active()
+    if mesh is None or not mesh.axes(axes):
+        return x
+    return comm.CopyIn.apply(x, mesh, axes)
+
+
+def reduce_out(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum over ``axes`` of a row-parallel product's partial
+    outputs."""
+    mesh = active()
+    if mesh is None or not mesh.axes(axes):
+        return x
+    return comm.ReduceOut.apply(x, mesh, axes)
+
+
+def extent(axes) -> int:
+    """Ranks along ``axes`` on the active mesh (1 with none)."""
+    mesh = active()
+    return 1 if mesh is None else mesh.extent(axes)
+
+
+def block_of(n: int, axes) -> Tuple[int, int]:
+    """This rank's ``[start, stop)`` of a dim of ``n`` split over
+    ``axes`` (all of it with no mesh)."""
+    mesh = active()
+    return (0, n) if mesh is None else comm.block(mesh, n, axes)
+
+
+def relayout(t: torch.Tensor, dim: int, src, dst) -> torch.Tensor:
+    """:func:`comm.relayout` on the active mesh (``t`` with none)."""
+    mesh = active()
+    return t if mesh is None else comm.relayout(t, mesh, dim, src, dst)
+
+
+def all_reduce(t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+    """:func:`comm.all_reduce` on the active mesh (``t`` with none); no
+    gradient."""
+    mesh = active()
+    return t if mesh is None else comm.all_reduce(t, mesh, axes, op)
+
+
+def batch_split_axes() -> Tuple[str, ...]:
+    """The axes :func:`split_batch` says the batch is split over (none
+    outside it)."""
+    return getattr(_ctx, "sum_axes", ())
+
+
+@contextlib.contextmanager
+def split_batch(axes: Tuple[str, ...]):
+    """Within: the batch is split over ``axes``, so a weight's gradient
+    sums over them."""
+    prev = batch_split_axes()
+    _ctx.sum_axes = tuple(axes)
+    try:
+        yield
+    finally:
+        _ctx.sum_axes = prev

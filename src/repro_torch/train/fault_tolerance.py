@@ -15,7 +15,8 @@ Three mechanisms:
 * **Elastic re-mesh** -- :func:`elastic_remesh_plan` computes the
   largest (data', model) mesh that fits the surviving host set, so the
   job resumes from checkpoint on fewer nodes instead of dying (model
-  axis is preserved; the data axis shrinks -- batch is re-sharded).
+  axis is preserved; the data axis shrinks -- batch is re-sharded);
+  :func:`elastic_resume` restores the checkpoint onto that mesh.
 """
 
 from __future__ import annotations
@@ -118,6 +119,24 @@ def elastic_remesh_plan(n_alive_chips: int, model_parallel: int,
     if data < min_data:
         return None
     return (data, model_parallel)
+
+
+def elastic_resume(directory: str, cfg, mesh, device,
+                   moment_dtype: str = "f32"):
+    """Resume on the mesh of the ranks that survived (shaped by
+    :func:`elastic_remesh_plan`): the latest committed step of
+    ``directory``, whatever mesh wrote it, restored into a state placed
+    on ``mesh`` -- each rank reads its blocks.  Returns ``(step,
+    state)``; raises when no step is committed."""
+    from repro_torch.checkpoint import empty_train_state, restore_latest
+    from repro_torch.parallel import use_mesh
+    with use_mesh(mesh):
+        template = empty_train_state(cfg, device, moment_dtype, mesh)
+        step, state = restore_latest(directory, template)
+    if step is None:
+        raise FileNotFoundError(f"no committed checkpoint under "
+                                f"{directory}")
+    return step, state
 
 
 # ----------------------------------------------------------------------

@@ -9,6 +9,15 @@ float32: the masters run the forward themselves); the cotangent of each
 copied leaf, cast to float32, is the gradient the reference's transpose
 of ``astype`` gives.  Gradients reach the optimizer in float32, and
 microbatch gradients are summed in float32 and scaled by ``1/n``.
+
+On a mesh of more than one rank (``init_train_state(..., mesh=)``) the
+state is this rank's block of every leaf, placed by the reference's
+``param_shardings`` (FSDP over ``data``, TP over ``model``), the compute
+copy holds the same blocks, and the step takes the whole batch on every
+rank: each microbatch is split by rows over the ``batch`` axes
+(``place_batch``), each rank differentiates its share of the loss, and
+the weights' gradients sum over those axes (``sharding.weight``).  The
+reported loss is the sum of the shares, the microbatches as before.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from repro_torch.models.common import ModelConfig, trainable
 from repro_torch.models.registry import Model, build_model, param_module
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_update,
                                      init_adamw)
+from repro_torch.parallel import sharding
 
 
 class TrainState(NamedTuple):
@@ -39,9 +49,19 @@ class TrainConfig:
 
 
 def init_train_state(model: Model, generator: torch.Generator,
-                     device: torch.device,
-                     moment_dtype: str = "f32") -> TrainState:
+                     device: torch.device, moment_dtype: str = "f32",
+                     mesh=None) -> TrainState:
+    """Float32 masters drawn from ``generator`` and fresh moments.  With
+    a ``mesh`` of more than one rank every rank draws the same whole
+    masters and keeps its block (``sharding.place_params``, train mode);
+    the moments are made at the blocks' shapes."""
     params = model.init(generator, device, train=True)
+    if mesh is not None and mesh.size > 1:
+        if moment_dtype == "int8":
+            raise ValueError("int8 moments hold one scale a row, which a "
+                             "row split over model would change; they do "
+                             "not run on a mesh of more than one rank")
+        sharding.place_params(mesh, params, model.cfg, "train")
     return TrainState(params=params, opt=init_adamw(params, moment_dtype))
 
 
@@ -71,8 +91,12 @@ class _ComputeCopy:
         if self.cfg.compute_dtype == torch.float32:
             return master
         if self.work is None:
-            dev = next(master.parameters()).device
-            self.work = trainable(param_module(self.cfg, dev))
+            first = next(master.parameters())
+            if sharding.spec_of(first) is None:
+                self.work = trainable(param_module(self.cfg, first.device))
+            else:                    # the masters' blocks
+                self.work = trainable(sharding.placed_like(
+                    param_module(self.cfg, torch.device("meta")), master))
         for w, m in zip(self.work.parameters(), master.parameters()):
             w.copy_(m)
         return self.work
@@ -100,11 +124,24 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()
             torch.zeros(t.shape, dtype=torch.float32, device=t.device)
             if g is None else g.float() for t, g in zip(leaves, grads)]
 
+    def split_grad(work: nn.Module, mb):
+        """One microbatch (whole on every rank): on a mesh, this rank's
+        rows differentiated under ``split_batch``, the loss summed over
+        the rows' axes."""
+        mesh = sharding.active()
+        if mesh is None:
+            return value_and_grad(work, mb)
+        axes = sharding.batch_axes(mesh, mb["tokens"].shape[0])
+        with sharding.split_batch(axes):
+            loss, grads = value_and_grad(work, sharding.place_batch(mesh,
+                                                                    mb))
+        return sharding.all_reduce(loss, axes), grads
+
     def grads_of(params: nn.Module, batch):
         work = compute.of(params)
         n = tcfg.microbatches
         if n <= 1:
-            loss, grads = value_and_grad(work, batch)
+            loss, grads = split_grad(work, batch)
         else:
             mbs = [{k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
                     for k, v in batch.items()} for i in range(n)]
@@ -112,7 +149,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig = TrainConfig()
                                device=batch["tokens"].device)
             grads = None
             for mb in mbs:
-                mb_loss, g = value_and_grad(work, mb)
+                mb_loss, g = split_grad(work, mb)
                 loss = loss + mb_loss
                 grads = g if grads is None else [
                     a + b for a, b in zip(grads, g)]

@@ -132,6 +132,56 @@ def test_round_trip_in_the_port(tmp_path, ref_states, md):
     assert all(p.requires_grad for p in got.params.parameters())
 
 
+@pytest.mark.parametrize("ahead", [False, True])
+def test_reader_matches_np_load(tmp_path, ref_states, ahead):
+    """The restore's reader (each ``.npz`` member read at its offset;
+    with ``ahead``, inside ``with``, the next leaves read on worker
+    threads) gives every leaf of a reference-written bf16-moment step
+    as ``np.load`` does, bytes, dtype and shape; a compressed member
+    reads too; a flipped byte in a member's data raises on its
+    CRC-32."""
+    import contextlib
+    import zipfile
+    from repro_torch.checkpoint import checkpointer
+
+    def _read(directory, step):
+        shard = checkpointer._read(directory, step)
+        return shard if ahead else contextlib.nullcontext(shard)
+    jax_save(str(tmp_path), 2, ref_states["bf16"])
+    npz = tmp_path / "step_00000002" / "shard_0.npz"
+    meta = json.loads((npz.parent / "tree.json").read_text())
+    with np.load(npz) as data:
+        want = {m["name"]: data[f"a{i}"]
+                for i, m in enumerate(meta["leaves"])}
+    with _read(str(tmp_path), 2) as leaves:
+        assert list(leaves) == list(want)
+        for name, arr in want.items():
+            got, dt = leaves[name]
+            assert dt == meta["leaves"][list(want).index(name)]["dtype"]
+            assert (got.dtype, got.shape) == (arr.dtype, arr.shape), name
+            assert got.tobytes() == arr.tobytes(), name
+    # the same arrays compressed
+    with np.load(npz) as data:
+        np.savez_compressed(npz, **{k: data[k] for k in data.files})
+    with _read(str(tmp_path), 2) as leaves:
+        for name, arr in want.items():
+            assert leaves[name][0].tobytes() == arr.tobytes(), name
+    # stored again, then one byte of the largest member's data flipped
+    np.savez(npz, **{f"a{i}": a for i, a in enumerate(want.values())})
+    with zipfile.ZipFile(npz) as z:
+        info = max(z.infolist(), key=lambda i: i.file_size)
+    name = list(want)[int(info.filename[1:-4])]
+    with open(npz, "r+b") as f:
+        f.seek(info.header_offset + 30 + len(info.filename)
+               + info.file_size - 1)
+        byte = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([byte[0] ^ 1]))
+    with _read(str(tmp_path), 2) as leaves:
+        with pytest.raises(ValueError, match="CRC-32"):
+            leaves[name]
+
+
 def test_atomicity_async_and_prune(tmp_path, ref_states):
     _, cfg = _cfgs()
     d = str(tmp_path)
