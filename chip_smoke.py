@@ -188,7 +188,7 @@ order (any failure raises and the script exits non-zero):
    K2's CUDA-core kernel and K10 on every layer of every card prefill,
    K3 and K1 (K5 and K4 in int8) in the decode;
 20. end to end at full width, hymba-1.5b in bfloat16 with seeded random
-   weights: prompts of 96, 700, 1000 and 1100 tokens (one wraps the
+   weights: prompts of 96, 120, 1000 and 1100 tokens (one wraps the
    window of 1024, one decode crosses it), 64 new tokens, 4 lanes,
    ``max_len`` 2048, fixed-lane and paged (pages of 16); K2's
    tensor-core kernel and K10 launched 32 times a prompt, K3 (resp. K1)
@@ -344,7 +344,7 @@ order (any failure raises and the script exits non-zero):
    launcher's defaults (batch 8, seq 256, remat, warmup 20 over 30
    steps): every first-step gradient leaf with K2 within 5e-2 of the
    same step with the plain attention under autograd (the zeroed
-   control beyond it), 30 steps with a checkpoint at 15 and a restart
+   control beyond it), 30 steps with a checkpoint at 25 and a restart
    from it to 30 (the restarted losses equal the uninterrupted ones),
    losses finite and falling, K2's tensor-core kernel 56 launches a
    step; the median step, tokens/s, the optimizer's and K2's backward
@@ -381,14 +381,15 @@ order (any failure raises and the script exits non-zero):
    prompt and generated tokens equal the engine's, K2 launches = 16 x
    28, K3 launches = the engine's decode steps x 28, a control with one
    record's ``gen_len`` off by one mismatches; the replay's tokens/s;
-48. the dry run over every cell of ``all_cells()`` (32) on the meta
-   device in parallel processes: no cell fails, ``model_flops`` is
+48. (run beside phase 51, after phase 50) the dry run over every cell
+   of ``all_cells()`` (32) on the meta device in parallel processes on
+   the cores phase 51's ranks leave: no cell fails, ``model_flops`` is
    ``_model_flops``, and the counted FLOPs equal ``derived_flops``
    exactly (one line a cell, the ratio to ``model_flops`` printed);
-49. the dry run against the card: qwen2.5-1.5b train (batch 8, seq 256,
-   remat, f32 moments), qwen2.5-1.5b decode (8 lanes, a 1024-deep
-   cache) and mamba2-780m train (batch 8, seq 256), one step each from
-   ``reset_peak_memory_stats``: the meta pass's peak within
+49. (after phase 51) the dry run against the card: qwen2.5-1.5b train
+   (batch 8, seq 256, remat, f32 moments), qwen2.5-1.5b decode (8
+   lanes, a 1024-deep cache) and mamba2-780m train (batch 8, seq 256),
+   one step each from ``reset_peak_memory_stats``: the meta pass's peak within
    ``DRYRUN_MEM_TOL`` of ``max_memory_allocated`` above what was there
    before, a control without the optimizer moments outside it, the
    counted FLOPs over the measured step as TFLOP/s; the launcher's
@@ -405,17 +406,24 @@ order (any failure raises and the script exits non-zero):
    call's; 5 replays and 5 eager calls timed (host clock, synced), the
    capture's seconds and the graph pool's bytes;
 51. the mesh: two rank processes (this script with ``--mesh-rank``)
-   share the card over gloo on mesh (data 1, model 2) with qwen2.5-1.5b
-   at full width in bf16: the unsharded first step on each rank and
-   three steps on rank 0, then the same sharded (the first loss and the
-   three within 1e-2 relative, every gradient leaf within phase 43's
-   gate, the losses falling), and four sharded decode steps on a dense
-   cache in float32 (logits within 1e-2 of the unsharded step's) and
+   share the card over gloo on mesh (data 1, model 2) with, in turn,
+   qwen2.5-1.5b and mamba2-780m at full width and depth, hymba-1.5b and
+   phi-3-vision-4.2b at full width cut to 4 layers (phi-3-vision's rows
+   256 vision embeddings then 256 tokens), in bf16: the unsharded first
+   step on each rank and three steps on rank 0, then the same sharded
+   (the first loss and the three within 1e-2 relative, every gradient
+   leaf within phase 43's gate -- or, for the ssm and hybrid models, a
+   leaf past it no further from the float32 step's gradients than
+   twice the unsharded bf16 step's --, the losses falling), and four
+   sharded decode steps on a dense cache (the recurrent state by SSD
+   heads) in float32 (logits within 1e-2 of the unsharded step's) and
    bf16 (its distance from the float32 logits within twice the
-   unsharded bf16 step's);
-   K2 and K3 launches counted from zero on each rank, all at the local
-   heads (6 / 1), K2 and K3 checked and timed at those shapes; each
-   rank's peak memory and synced step times.
+   unsharded bf16 step's); K2, K3 and K10 launches counted from zero on
+   each rank, all at the local heads (qwen 6 / 1, phi-3-vision 16 / 16
+   at D 96, hymba's attention whole at 25 / 5; K10 at 24 SSD heads for
+   mamba2-780m, 25 for hymba), K2 and K3 checked and timed at qwen's
+   and phi-3-vision's local shapes, K10 at mamba2-780m's; each rank's
+   peak memory and synced step times.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -2542,11 +2550,12 @@ def serve_mamba(dev, cfg, params, tag, which, **engine_kw):
 MAMBA_REPLAY_PLEN = 120
 
 
-#: the full-width hymba serve's prompt lengths: one in the 128 bucket,
-#: two in the 1024 bucket (1000 + 64 new tokens decodes across position
-#: 1024, the window's last slot), and one past the window (1100: the
-#: ring has wrapped before the first decode step)
-HYMBA_PLENS = (96, 700, 1000, 1100)
+#: the full-width hymba serve's prompt lengths: two in the 128 bucket
+#: (so its prefill replays), one in the 1024 bucket (1000 + 64 new
+#: tokens decodes across position 1024, the window's last slot), and one
+#: past the window (1100: the ring has wrapped before the first decode
+#: step); 2316 prompt tokens streamed a serve
+HYMBA_PLENS = (96, 120, 1000, 1100)
 
 
 def init_hymba(dev):
@@ -5289,7 +5298,7 @@ def phase_train_full(dev):
     launcher's defaults (batch 8, seq 256, remat, AdamW warmup 20 over
     30 steps): the first step's gradients with K2 against the same step
     with the plain attention under autograd (and the zeroed-dq/dk
-    control against the same), 30 steps with a checkpoint at step 15,
+    control against the same), 30 steps with a checkpoint at step 25,
     then a restart from it (the launcher's init and ``restore_latest``)
     to step 30.  Gates: every gradient leaf within
     ``TRAIN_FULL_GRAD_TOL`` and the control beyond it; losses finite and
@@ -5318,7 +5327,7 @@ def phase_train_full(dev):
     cfg = get_config(args.arch)
     model = build_model(cfg)
     tcfg = train_config(args)
-    ck_step = 15
+    ck_step = 25                       # five steps resumed
     per_step = 2 * cfg.n_layers        # forward and remat's recompute
     step = make_train_step(cfg, tcfg)
     state = init_train_state(
@@ -5996,38 +6005,63 @@ def phase_fleet(dev):
             "phase_s": time.perf_counter() - t_phase}
 
 
-def phase_dryrun_cells():
-    """Phase 48: ``run_cell`` over every cell of ``all_cells()`` on the
-    meta device, in parallel processes; the same pool runs phase 49's
-    meta passes (returned beside the cells)."""
+#: the cores phase 48's pool leaves to phase 51, which it runs beside:
+#: the two rank processes and this one
+DRYRUN_SPARE_CORES = 3
+
+
+def phase_dryrun_start():
+    """Start phase 48: ``run_cell`` over every cell of ``all_cells()`` on
+    the meta device, and phase 49's meta passes, in a pool of processes
+    that runs beside phase 51 (the card's mesh, host-bound on its two
+    ranks), so the cells' CPU time stays off the script's wall; every
+    core but ``DRYRUN_SPARE_CORES``, at the lowest priority.  Returns
+    what
+    :func:`phase_dryrun_cells` collects."""
     import concurrent.futures
     import multiprocessing
     from repro_torch.configs import SHAPES, all_cells, get_config
-    from repro_torch.launch.dryrun import (_cell_or_error, _model_flops,
-                                           analyze_step, derived_flops)
-    tag = "[dryrun]"
+    from repro_torch.launch.dryrun import _cell_or_error, analyze_step
     t0 = time.perf_counter()
-    workers = max(1, min(8, os.cpu_count() or 1))
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(workers,
-                                                mp_context=ctx) as pool:
-        # the longest first: the longest train cells (the pool's wall is
-        # moonshot's), phase 49's train passes, the other train cells
-        cells = sorted(all_cells(),
-                       key=lambda c: SHAPES[c[1]]["kind"] != "train")
-        futs = {c: pool.submit(_cell_or_error, c[0], c[1], 1)
-                for c in cells if c in DRYRUN_LONGEST}
-        checks = {}
-        for arch, kind, b, s in DRYRUN_CHECKS:
-            for mdt in ((None, "none") if kind == "train" else (None,)):
-                checks[(arch, kind, mdt)] = pool.submit(
-                    analyze_step, get_config(arch), kind, b, s,
-                    moment_dtype=mdt)
-        for c in cells:
-            if c not in futs:
-                futs[c] = pool.submit(_cell_or_error, c[0], c[1], 1)
+    workers = max(1, min(8, os.cpu_count() or 1) - DRYRUN_SPARE_CORES)
+    # at the lowest priority: phase 51's ranks take the cores first
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"),
+        initializer=os.nice, initargs=(19,))
+    # the longest first: the longest train cells (the pool's wall is
+    # moonshot's), phase 49's train passes, the other train cells
+    cells = sorted(all_cells(), key=lambda c: SHAPES[c[1]]["kind"] != "train")
+    futs = {c: pool.submit(_cell_or_error, c[0], c[1], 1)
+            for c in cells if c in DRYRUN_LONGEST}
+    checks = {}
+    for arch, kind, b, s in DRYRUN_CHECKS:
+        for mdt in ((None, "none") if kind == "train" else (None,)):
+            checks[(arch, kind, mdt)] = pool.submit(
+                analyze_step, get_config(arch), kind, b, s,
+                moment_dtype=mdt)
+    for c in cells:
+        if c not in futs:
+            futs[c] = pool.submit(_cell_or_error, c[0], c[1], 1)
+    return dict(pool=pool, cells=cells, futs=futs, checks=checks, t0=t0,
+                workers=workers)
+
+
+def phase_dryrun_cells(started):
+    """Phase 48: the cells :func:`phase_dryrun_start` ran, each held to
+    its derivation; returns them and phase 49's meta passes."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import _model_flops, derived_flops
+    tag = "[dryrun]"
+    cells, futs, checks = started["cells"], started["futs"], \
+        started["checks"]
+    t_wait = time.perf_counter()
+    try:
         recs = [futs[c].result() for c in cells]
         metas = {k: f.result() for k, f in checks.items()}
+    finally:
+        started["pool"].shutdown(wait=True)
+    t0, workers = started["t0"], started["workers"]
+    waited = time.perf_counter() - t_wait
     wall = time.perf_counter() - t0
     errors = [r for r in recs if "error" in r]
     if errors or len(recs) != 32:
@@ -6058,10 +6092,11 @@ def phase_dryrun_cells():
                               "bytes_per_device", "argument_size_in_bytes",
                               "fits_device", "meta_s")}
     print(f"{tag} {len(recs)} cells on the meta device, every count equal "
-          f"to its derivation, in {wall:.1f}s ({workers} processes, with "
-          f"phase 49's {len(metas)} meta passes)")
+          f"to its derivation, in {wall:.1f}s beside phase 51 ({workers} "
+          f"processes, with phase 49's {len(metas)} meta passes; waited "
+          f"{waited:.1f}s after phase 51)")
     return {"cells": out, "n_cells": len(recs), "wall_s": wall,
-            "workers": workers}, metas
+            "waited_s": waited, "workers": workers}, metas
 
 
 def _real_step(dev, cfg, kind, batch, seq):
@@ -6345,6 +6380,19 @@ MESH_RANKS, MESH_SHAPE = 2, (1, 2)
 MESH_TRAIN = dict(batch=4, seq=256, steps=3)
 MESH_OPT = dict(lr=3e-4, warmup_steps=20, total_steps=30)
 MESH_DECODE = dict(lanes=4, max_len=64, steps=4)
+#: phi-3-vision's rows: its 256 vision tokens (the stub frontend's
+#: seeded embeddings) then 256 text tokens, the loss on the text
+MESH_PHI3V_SEQ = 512
+#: (arch, layers (full depth when None), train seq) in order, each on
+#: ``MESH_OPT``'s schedule: qwen2.5-1.5b, then mamba2-780m at full depth
+#: (K10 at 24 heads a rank), hymba-1.5b (attention whole: 5 KV heads; 25
+#: SSD heads a rank) and phi-3-vision-4.2b (16 heads a rank, D 96) cut
+#: to 4 layers (two ranks on one card cannot hold phi-3-vision's whole
+#: train state)
+MESH_MODELS = (("qwen2.5-1.5b", None, MESH_TRAIN["seq"]),
+               ("mamba2-780m", None, MESH_TRAIN["seq"]),
+               ("hymba-1.5b", 4, MESH_TRAIN["seq"]),
+               ("phi-3-vision-4.2b", 4, MESH_PHI3V_SEQ))
 #: the decode runs' weight dtypes: float32 is held to the reference's
 #: gate; bf16 cannot be (one bf16 ulp of a logit of magnitude 2 to 4 is
 #: 0.0156), so its sharded logits are held to the float32 step's (the
@@ -6360,7 +6408,7 @@ MESH_BF16_RATIO = 2.0
 #: sharded-decode gate, absolute)
 MESH_LOGIT_TOL = 1e-2
 #: seconds the ranks may take, start to exit
-MESH_TIMEOUT = 420
+MESH_TIMEOUT = 600
 
 
 def _mesh_kernel_rows(dev, b, h, hkv, s, d, lanes, s_dec):
@@ -6431,18 +6479,56 @@ def _mesh_steps(step, tcfg, state, batch, loss, grads):
     return state, losses, ms
 
 
-def _mesh_work(rank, world, dev):
-    """One rank's share of phase 51 (see :func:`phase_mesh`); returns
-    its readings."""
-    import collections
+def _mesh_counting(seen):
+    """Wrap the wrappers the sharded models call (K2 under autograd, K3,
+    and the SSD that launches K10) so each call records its head counts
+    in ``seen``; returns the undo."""
+    import repro_torch.models.attention as attention
+    import repro_torch.models.ssm as ssm
+    fn, dec, scan = attention.flash_attention_fn, \
+        attention.decode_attention, ssm.ssd
+
+    def k2_fn(q, k, v, **kw):
+        seen[f"flash_attention_mma H {q.shape[1]} Hkv {k.shape[1]}"] += 1
+        return fn(q, k, v, **kw)
+
+    def k3(q, k, v, lens, **kw):
+        seen[f"decode_attention_lengthaware H {q.shape[1]} Hkv "
+             f"{k.shape[1]}"] += 1
+        return dec(q, k, v, lens, **kw)
+
+    def k10(x, *a, **kw):
+        seen[f"ssd_chunk H {x.shape[2]}"] += 1
+        return scan(x, *a, **kw)
+    attention.flash_attention_fn, attention.decode_attention = k2_fn, k3
+    ssm.ssd = k10
+
+    def undo():
+        attention.flash_attention_fn, attention.decode_attention = fn, dec
+        ssm.ssd = scan
+    return undo
+
+
+def mesh_config(arch, layers):
+    """Phase 51's config of ``arch``: full width, cut to ``layers``
+    (full depth when ``None``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
+    """One model of phase 51 on this rank (see :func:`phase_mesh`):
+    the unsharded and the sharded first step, three steps each, and four
+    decode steps in each of ``MESH_DECODE_DTYPES``; returns the
+    readings."""
     import dataclasses
     import torch
     import torch.distributed as dist
-    import repro_torch.models.attention as attention
-    from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, synth_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import build_model
     from repro_torch.models.transformer import init_cache, lm_decode_step
     from repro_torch.optim import AdamWConfig, init_adamw
@@ -6450,22 +6536,29 @@ def _mesh_work(rank, world, dev):
     from repro_torch.train import TrainConfig, TrainState, make_train_step
     from repro_torch.train.train_loop import batch_to_device
     t0 = time.perf_counter()
-    cfg = get_config("qwen2.5-1.5b")
+    cfg = mesh_config(arch, layers)
     model = build_model(cfg)
-    mesh = make_test_mesh(MESH_SHAPE)
     tcfg = TrainConfig(optimizer=AdamWConfig(**MESH_OPT), remat=True)
-    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_TRAIN["seq"],
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                     global_batch=MESH_TRAIN["batch"])
     batch = batch_to_device(synth_batch(dc, 0), dev)
+    if cfg.n_vision_tokens:          # the stub frontend's rows, seeded
+        batch["vision_embeds"] = torch.randn(
+            (MESH_TRAIN["batch"], cfg.n_vision_tokens, cfg.d_model),
+            generator=torch.Generator(device=dev).manual_seed(SEED + 1),
+            device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev,
                         train=True)
-    out = {"rank": rank, "mesh": mesh.shape, "backend": dist.get_backend(),
-           "device": str(dev)}
+    out = {"rank": rank, "arch": arch, "layers": cfg.n_layers, "seq": seq}
     # the unsharded first step on every rank (each compares its blocks
     # with these gradients); on rank 0 also the unsharded steps, whose
     # masters are then drawn again for the sharded run
     step1 = make_train_step(cfg, tcfg)
     loss1, g1 = step1.grads_of(params, batch)
+    g32 = None
+    if cfg.has_ssm:      # the same step in float32: what bf16 rounds
+        g32 = make_train_step(dataclasses.replace(cfg, dtype="float32"),
+                              tcfg).grads_of(params, batch)[1]
     if rank == 0:
         state1 = TrainState(params=params, opt=init_adamw(params))
         state1, losses1, step_ms1 = _mesh_steps(step1, tcfg, state1, batch,
@@ -6480,117 +6573,119 @@ def _mesh_work(rank, world, dev):
     sharding.place_params(mesh, params, cfg, "train")
     state = TrainState(params=params, opt=init_adamw(params))
     specs = {n: sharding.spec_of(p) for n, p in params.named_parameters()}
-    seen = collections.Counter()
-    fn, dec = attention.flash_attention_fn, attention.decode_attention
-
-    def k2_fn(q, k, v, **kw):
-        seen[f"flash_attention_mma H {q.shape[1]} Hkv {k.shape[1]}"] += 1
-        return fn(q, k, v, **kw)
-
-    def k3(q, k, v, lens, **kw):
-        seen[f"decode_attention_lengthaware H {q.shape[1]} Hkv "
-             f"{k.shape[1]}"] += 1
-        return dec(q, k, v, lens, **kw)
-    attention.flash_attention_fn, attention.decode_attention = k2_fn, k3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    try:
-        with use_mesh(mesh):
+    seen.clear()
+    with use_mesh(mesh):
+        reset_launch_counts()
+        step = make_train_step(cfg, tcfg)
+        loss_s, gs = step.grads_of(state.params, batch)
+        # each leaf's relative L2 error: the squares of this rank's
+        # blocks against the same blocks of the unsharded gradients,
+        # summed over the ranks that own them; with float32 gradients,
+        # also both bf16 steps' distances from them
+        sq = torch.zeros(len(gs), 5, dtype=torch.float64, device=dev)
+        for i, (name, g) in enumerate(gs.items()):
+            if sharding.owns(mesh, specs[name]):
+                ref = comm.local_of(g1[name], mesh, specs[name]).double()
+                sq[i, 0] = torch.sum(torch.square(g.double() - ref))
+                sq[i, 1] = torch.sum(torch.square(ref))
+                if g32 is not None:
+                    t = comm.local_of(g32[name], mesh, specs[name]).double()
+                    sq[i, 2] = torch.sum(torch.square(g.double() - t))
+                    sq[i, 3] = torch.sum(torch.square(ref - t))
+                    sq[i, 4] = torch.sum(torch.square(t))
+        sq = torch.sqrt(comm.all_reduce(sq, mesh, mesh.axis_names))
+        rels = sq[:, 0] / sq[:, 1].clamp(min=1e-30)
+        i = int(torch.argmax(rels))
+        worst = (float(rels[i]), list(gs)[i])
+        # the leaves past the gate, each with the sharded and the
+        # unsharded step's distances from the float32 gradients
+        truth = {}
+        if g32 is not None:
+            for i, name in enumerate(gs):
+                if float(rels[i]) > TRAIN_FULL_GRAD_TOL:
+                    n32 = float(sq[i, 4].clamp(min=1e-30))
+                    truth[name] = (float(rels[i]), float(sq[i, 2]) / n32,
+                                   float(sq[i, 3]) / n32)
+        del g1, g32
+        state, losses, step_ms = _mesh_steps(step, tcfg, state, batch,
+                                             loss_s, gs)
+        del gs
+        train_launches = {n: c for n, c in launch_counts().items() if c}
+        train_heads = dict(seen)
+        ssd = (list(sharding.ssd_head_axes(mesh, cfg)) if cfg.has_ssm
+               else None)
+    out["train_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del state, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # decode: serving's weights from the same seed, in float32 (the
+    # gated run) and in bf16
+    toks = torch.randint(0, cfg.vocab_size, (MESH_DECODE["steps"],
+                                             MESH_DECODE["lanes"]),
+                         generator=torch.Generator().manual_seed(SEED),
+                         dtype=torch.int32).to(dev)
+    decode = {}
+    for dtype in MESH_DECODE_DTYPES:
+        dcfg = dataclasses.replace(cfg, dtype=dtype)
+        serve = build_model(dcfg).init(
+            torch.Generator(device=dev).manual_seed(SEED), dev)
+        if rank == 0:
+            cache = init_cache(dcfg, MESH_DECODE["lanes"],
+                               MESH_DECODE["max_len"], device=dev)
+            ref, ref_ms = [], []
+            for t in toks:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                lg, cache = lm_decode_step(serve, dcfg, cache, t)
+                torch.cuda.synchronize()
+                ref_ms.append(1e3 * (time.perf_counter() - t1))
+                ref.append(lg[:, :cfg.vocab_size].float())
+            del cache
+        sharding.place_params(mesh, serve, dcfg, "serve")
+        torch.cuda.reset_peak_memory_stats(dev)
+        seen.clear()
+        dec_ms = []
+        with use_mesh(mesh, mode="serve"):
             reset_launch_counts()
-            step = make_train_step(cfg, tcfg)
-            loss_s, gs = step.grads_of(state.params, batch)
-            # each leaf's relative L2 error: the squares of this rank's
-            # blocks against the same blocks of the unsharded gradients,
-            # summed over the ranks that own them
-            sq = torch.zeros(len(gs), 2, dtype=torch.float64, device=dev)
-            for i, (name, g) in enumerate(gs.items()):
-                if sharding.owns(mesh, specs[name]):
-                    ref = comm.local_of(g1[name], mesh, specs[name]).double()
-                    sq[i, 0] = torch.sum(torch.square(g.double() - ref))
-                    sq[i, 1] = torch.sum(torch.square(ref))
-            sq = comm.all_reduce(sq, mesh, mesh.axis_names)
-            rels = torch.sqrt(sq[:, 0]) / torch.sqrt(sq[:, 1]).clamp(
-                min=1e-30)
-            i = int(torch.argmax(rels))
-            worst = (float(rels[i]), list(gs)[i])
-            del g1
-            state, losses, step_ms = _mesh_steps(step, tcfg, state, batch,
-                                                 loss_s, gs)
-            del gs
-            train_launches = {n: c for n, c in launch_counts().items() if c}
-            train_heads = dict(seen)
-        out["train_peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-        del state, step, params
+            cache = init_cache(dcfg, MESH_DECODE["lanes"],
+                               MESH_DECODE["max_len"], device=dev)
+            got = []
+            for t in toks:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                lg, cache = lm_decode_step(serve, dcfg, cache, t)
+                torch.cuda.synchronize()
+                dec_ms.append(1e3 * (time.perf_counter() - t1))
+                got.append(lg[:, :cfg.vocab_size].float())
+            d = {"launches": {n: c for n, c in launch_counts().items()
+                              if c},
+                 "heads": dict(seen), "ms": dec_ms,
+                 "cache_shapes": {k: list(v.shape)
+                                  for k, v in cache.items()},
+                 "lens": cache["len"].tolist(),
+                 "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+        if rank == 0:
+            d["ms_unsharded"] = ref_ms
+            d["logit_err"] = max(max_err(a, b) for a, b in zip(got, ref))
+            d["logit_max"] = max(float(b.abs().max()) for b in ref)
+            if dtype == "float32":
+                ref32 = ref
+            else:
+                d["precision_err"] = max(max_err(a, b)
+                                         for a, b in zip(ref, ref32))
+                d["truth_err"] = max(max_err(a, b)
+                                     for a, b in zip(got, ref32))
+                del ref32
+            del ref
+        decode[dtype] = d
+        del serve, cache, got
         gc.collect()
         torch.cuda.empty_cache()
-        # decode: serving's weights from the same seed, in float32 (the
-        # gated run) and in bf16
-        toks = torch.randint(0, cfg.vocab_size, (MESH_DECODE["steps"],
-                                                 MESH_DECODE["lanes"]),
-                             generator=torch.Generator().manual_seed(SEED),
-                             dtype=torch.int32).to(dev)
-        decode = {}
-        for dtype in MESH_DECODE_DTYPES:
-            dcfg = dataclasses.replace(cfg, dtype=dtype)
-            serve = build_model(dcfg).init(
-                torch.Generator(device=dev).manual_seed(SEED), dev)
-            if rank == 0:
-                cache = init_cache(dcfg, MESH_DECODE["lanes"],
-                                   MESH_DECODE["max_len"], device=dev)
-                ref, ref_ms = [], []
-                for t in toks:
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    lg, cache = lm_decode_step(serve, dcfg, cache, t)
-                    torch.cuda.synchronize()
-                    ref_ms.append(1e3 * (time.perf_counter() - t1))
-                    ref.append(lg[:, :cfg.vocab_size].float())
-                del cache
-            sharding.place_params(mesh, serve, dcfg, "serve")
-            torch.cuda.reset_peak_memory_stats(dev)
-            seen.clear()
-            dec_ms = []
-            with use_mesh(mesh, mode="serve"):
-                reset_launch_counts()
-                cache = init_cache(dcfg, MESH_DECODE["lanes"],
-                                   MESH_DECODE["max_len"], device=dev)
-                got = []
-                for t in toks:
-                    torch.cuda.synchronize()
-                    t1 = time.perf_counter()
-                    lg, cache = lm_decode_step(serve, dcfg, cache, t)
-                    torch.cuda.synchronize()
-                    dec_ms.append(1e3 * (time.perf_counter() - t1))
-                    got.append(lg[:, :cfg.vocab_size].float())
-                d = {"launches": {n: c for n, c in launch_counts().items()
-                                  if c},
-                     "heads": dict(seen), "ms": dec_ms,
-                     "cache_k_shape": list(cache["k"].shape),
-                     "lens": cache["len"].tolist(),
-                     "peak_gib": torch.cuda.max_memory_allocated(dev)
-                     / 2**30}
-            if rank == 0:
-                d["ms_unsharded"] = ref_ms
-                d["logit_err"] = max(max_err(a, b) for a, b in zip(got, ref))
-                d["logit_max"] = max(float(b.abs().max()) for b in ref)
-                if dtype == "float32":
-                    ref32 = ref
-                else:
-                    d["precision_err"] = max(max_err(a, b)
-                                             for a, b in zip(ref, ref32))
-                    d["truth_err"] = max(max_err(a, b)
-                                         for a, b in zip(got, ref32))
-                    del ref32
-                del ref
-            decode[dtype] = d
-            del serve, cache, got
-            gc.collect()
-            torch.cuda.empty_cache()
-    finally:
-        attention.flash_attention_fn, attention.decode_attention = fn, dec
     out.update(train_launches=train_launches, train_heads=train_heads,
-               losses=losses, loss_first=losses[0], step_ms=step_ms,
-               decode=decode)
+               ssd_axes=ssd, losses=losses, loss_first=losses[0],
+               step_ms=step_ms, decode=decode)
     if rank == 0:
         out["loss_unsharded"] = losses1[0]
         out["losses_unsharded"] = losses1
@@ -6599,11 +6694,72 @@ def _mesh_work(rank, world, dev):
         out["losses_rel"] = max(abs(a - b) / abs(b)
                                 for a, b in zip(losses, losses1))
         out["grad_worst"] = list(worst)
-        h, hkv = cfg.n_heads // MESH_SHAPE[1], cfg.n_kv_heads // MESH_SHAPE[1]
-        out["k2"], out["k3"] = _mesh_kernel_rows(
-            dev, MESH_TRAIN["batch"], h, hkv, MESH_TRAIN["seq"], cfg.hd,
-            MESH_DECODE["lanes"], MESH_DECODE["max_len"])
+        out["grad_truth"] = truth
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_k10_row(dev, bsz, s, h):
+    """K10 at the mesh's local heads (mamba2-780m's widths at ``h``
+    heads, bf16 x/b/c, chunk 256): against its plain version (relative,
+    ``K10_TOL``) and timed beside it and its bound, as
+    :func:`k10_timing`."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_chunk, ssd_chunk_ref
+    args = k10_inputs(bsz, s, torch.bfloat16, "model", dev,
+                      widths=(h, SSD_P, SSD_N))
+    err = max(rel_err(o, r) for o, r in zip(ssd_chunk(*args, chunk=SSD_Q),
+                                            ssd_chunk_ref(*args, SSD_Q)))
+    nc, tri = s // SSD_Q, SSD_Q * (SSD_Q + 1) // 2
+    flops = (2 * bsz * nc * tri * SSD_N
+             + 2 * bsz * nc * h * (tri * SSD_P + SSD_Q * SSD_N * SSD_P))
+    out_bytes = 4 * (args[0].numel() + bsz * nc * h * (SSD_N * SSD_P + 1))
+    in_bytes = sum(t.numel() * t.element_size() for t in args)
+    r = with_bound(dict(
+        peak=TF32_FLOPS_PER_S, flops=flops, bytes=in_bytes + out_bytes,
+        ms=time_ms_queued(lambda: ssd_chunk(*args, chunk=SSD_Q)),
+        plain_ms=time_ms_queued(lambda: ssd_chunk_ref(*args, SSD_Q)),
+        library_ms=None))
+    return {"max_rel_err": err, "tol": K10_TOL,
+            **{x: r[x] for x in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                 "bound_by")},
+            "shape": [bsz, s, h, SSD_P, SSD_N]}
+
+
+def _mesh_work(rank, world, dev):
+    """One rank's share of phase 51 (see :func:`phase_mesh`); returns
+    its readings: qwen2.5-1.5b's at the top level, the other models'
+    under ``families``, the kernels' rows on rank 0."""
+    import collections
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    t0 = time.perf_counter()
+    mesh = make_test_mesh(MESH_SHAPE)
+    seen = collections.Counter()
+    undo = _mesh_counting(seen)
+    try:
+        models = [_mesh_model(rank, dev, mesh, *m, seen)
+                  for m in MESH_MODELS]
+    finally:
+        undo()
+    out = {"rank": rank, "mesh": mesh.shape, "backend": dist.get_backend(),
+           "device": str(dev), **models[0],
+           "families": {m["arch"]: m for m in models[1:]}}
+    if rank == 0:
+        m = MESH_SHAPE[1]
+        qwen = mesh_config("qwen2.5-1.5b", None)
+        out["k2"], out["k3"] = _mesh_kernel_rows(
+            dev, MESH_TRAIN["batch"], qwen.n_heads // m,
+            qwen.n_kv_heads // m, MESH_TRAIN["seq"], qwen.hd,
+            MESH_DECODE["lanes"], MESH_DECODE["max_len"])
+        phi = mesh_config("phi-3-vision-4.2b", None)
+        out["k2_phi3v"], out["k3_phi3v"] = _mesh_kernel_rows(
+            dev, MESH_TRAIN["batch"], phi.n_heads // m,
+            phi.n_kv_heads // m, MESH_PHI3V_SEQ, phi.hd,
+            MESH_DECODE["lanes"], MESH_DECODE["max_len"])
+        out["k10"] = _mesh_k10_row(dev, MESH_TRAIN["batch"],
+                                   MESH_TRAIN["seq"], SSD_H // m)
+    out["rank_seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -6626,24 +6782,152 @@ def mesh_rank_main(argv):
     return 0
 
 
+def _mesh_expect(cfg):
+    """A model's launches a rank on mesh ``MESH_SHAPE``: a train pass
+    runs K2 and K10 twice a layer (forward and remat's recompute) over
+    the first step's pass and the later steps; a decode step K3 once a
+    layer; each at the heads of this rank (whole where the model axis
+    does not divide the KV or SSD heads).  Returns (train launches,
+    train heads, decode launches, decode heads)."""
+    from repro_torch.parallel.sharding import ssd_dims
+    m = MESH_SHAPE[1]
+    passes = 2 * cfg.n_layers * MESH_TRAIN["steps"]
+    steps = cfg.n_layers * MESH_DECODE["steps"]
+    train, heads, dec, dec_heads = {}, {}, {}, {}
+    if not cfg.attn_free:
+        n = m if cfg.n_kv_heads % m == 0 else 1
+        at = f"H {cfg.n_heads // n} Hkv {cfg.n_kv_heads // n}"
+        train["flash_attention_mma"] = passes
+        heads[f"flash_attention_mma {at}"] = passes
+        dec["decode_attention_lengthaware"] = steps
+        dec_heads[f"decode_attention_lengthaware {at}"] = steps
+    if cfg.has_ssm:
+        nh = ssd_dims(cfg)[1]
+        train["ssd_chunk"] = passes
+        heads[f"ssd_chunk H {nh // m if nh % m == 0 else nh}"] = passes
+    return train, heads, dec, dec_heads
+
+
+def _mesh_report(tag, res, model, gpu):
+    """Print one model's readings of phase 51 (``res`` every rank's
+    readings of it) and hold them to the gates; returns its line for the
+    summary."""
+    r0 = res[0]
+    cfg = mesh_config(model[0], model[1])
+    losses = r0["losses"]
+    print(f"{tag} {r0['arch']} bf16 full width, {r0['layers']} layers, "
+          f"batch {MESH_TRAIN['batch']} x {r0['seq']}: first step loss "
+          f"{r0['loss_first']:.6f} sharded, {r0['loss_unsharded']:.6f} "
+          f"unsharded (rel {r0['loss_rel']:.3e}, tol {MESH_LOSS_TOL}); "
+          f"worst gradient leaf {r0['grad_worst'][1]} rel "
+          f"{r0['grad_worst'][0]:.3e} (tol {TRAIN_FULL_GRAD_TOL}); losses "
+          f"over {len(losses)} steps {losses}, unsharded "
+          f"{r0['losses_unsharded']} (worst rel {r0['losses_rel']:.3e}, "
+          f"tol {MESH_LOSS_TOL}); unsharded step ms "
+          f"{[round(x, 1) for x in r0['step_ms_unsharded']]}; SSD heads' "
+          f"axes {r0['ssd_axes']}; {r0['seconds']:.1f}s ({gpu})")
+    for dtype, d in r0["decode"].items():
+        gate = (f"tol {MESH_LOGIT_TOL}" if dtype == "float32" else
+                f"against the float32 step {d['truth_err']:.3e}, the "
+                f"unsharded bf16 step {d['precision_err']:.3e}, tol "
+                f"{MESH_BF16_RATIO}x")
+        print(f"{tag} {r0['arch']} decode {dtype}: {MESH_DECODE['steps']} "
+              f"steps of {MESH_DECODE['lanes']} lanes, logits max abs err "
+              f"{d['logit_err']:.3e} against the unsharded step (largest "
+              f"|logit| {d['logit_max']:.3f}; {gate}); each rank's cache "
+              f"{d['cache_shapes']}, len {d['lens']}; unsharded step ms "
+              f"median {statistics.median(d['ms_unsharded']):.2f} ({gpu})")
+    for r in res:
+        print(f"{tag} {r0['arch']} rank {r['rank']}: train launches "
+              f"{r['train_launches']} at {r['train_heads']}; peak "
+              f"{r['train_peak_gib']:.2f} GiB training; step ms "
+              f"{[round(x, 1) for x in r['step_ms']]} ({gpu})")
+        for dtype, d in r["decode"].items():
+            print(f"{tag} {r0['arch']} rank {r['rank']} decode {dtype}: "
+                  f"launches {d['launches']} at {d['heads']}; peak "
+                  f"{d['peak_gib']:.2f} GiB; step ms median "
+                  f"{statistics.median(d['ms']):.2f} ({gpu})")
+    name = r0["arch"]
+    if not r0["loss_rel"] <= MESH_LOSS_TOL:
+        fail(f"{tag} {name}: the sharded first loss is "
+             f"{r0['loss_rel']:.3e} from the unsharded one")
+    # a leaf past the gate is held, as the bf16 decode is, by its
+    # distance from the float32 step's gradients: within
+    # MESH_BF16_RATIO times the unsharded bf16 step's (the SSD's A and
+    # dt gradients move 5-13% with bf16's rounding order)
+    truth = r0.get("grad_truth", {})
+    if truth:
+        leaf = max(truth, key=lambda n: truth[n][1] / max(truth[n][2],
+                                                          1e-30))
+        rel, got, base = truth[leaf]
+        print(f"{tag} {name}: {len(truth)} gradient leaves past "
+              f"{TRAIN_FULL_GRAD_TOL} from the unsharded bf16 step, each "
+              f"held by its distance from the float32 step's; the worst "
+              f"ratio {leaf}: {got:.3e} sharded, {base:.3e} unsharded "
+              f"(rel {rel:.3e} between them; tol {MESH_BF16_RATIO}x)")
+    if not (r0["grad_worst"][0] <= TRAIN_FULL_GRAD_TOL or (
+            r0["grad_worst"][1] in truth and all(
+                got <= MESH_BF16_RATIO * base
+                for _, got, base in truth.values()))):
+        fail(f"{tag} {name}: sharded gradients disagree: "
+             f"{r0['grad_worst']} {truth}")
+    # falling as the reference's elastic test has it (the last below the
+    # first): at qwen's schedule the unsharded run's third loss sits
+    # above its second too
+    if not (all(x == x for x in losses) and losses[-1] < losses[0]):
+        fail(f"{tag} {name}: the sharded losses did not fall: {losses}")
+    if not r0["losses_rel"] <= MESH_LOSS_TOL:
+        fail(f"{tag} {name}: the sharded losses {losses} are not the "
+             f"unsharded {r0['losses_unsharded']}")
+    if not r0["decode"]["float32"]["logit_err"] <= MESH_LOGIT_TOL:
+        fail(f"{tag} {name}: sharded float32 decode logits off by "
+             f"{r0['decode']['float32']['logit_err']:.3e}")
+    bf16 = r0["decode"]["bfloat16"]
+    if not bf16["truth_err"] <= MESH_BF16_RATIO * bf16["precision_err"]:
+        fail(f"{tag} {name}: sharded bf16 decode logits "
+             f"{bf16['truth_err']:.3e} from the float32 step's, the "
+             f"unsharded bf16 step's {bf16['precision_err']:.3e}")
+    for dtype, d in r0["decode"].items():
+        if d["lens"] != [MESH_DECODE["steps"]] * MESH_DECODE["lanes"]:
+            fail(f"{tag} {name}: the {dtype} cache's len is {d['lens']}")
+    train, heads, dec, dec_heads = _mesh_expect(cfg)
+    for r in res:
+        if r["train_launches"] != train or r["train_heads"] != heads:
+            fail(f"{tag} {name} rank {r['rank']} trained with "
+                 f"{r['train_launches']} at {r['train_heads']}, not "
+                 f"{train} at {heads}")
+        for dtype, d in r["decode"].items():
+            if d["launches"] != dec or d["heads"] != dec_heads:
+                fail(f"{tag} {name} rank {r['rank']} decoded {dtype} with "
+                     f"{d['launches']} at {d['heads']}, not {dec} at "
+                     f"{dec_heads}")
+
+
 def phase_mesh(dev):
     """Phase 51: the mesh.  ``MESH_RANKS`` rank processes (this script
     with ``--mesh-rank``) share the card over gloo on mesh
-    ``MESH_SHAPE`` and run qwen2.5-1.5b at full width in bf16: the
-    unsharded first step on every rank (each compares its blocks of the
-    gradients) and three unsharded steps on rank 0, then the same
-    sharded (FSDP over data,
-    TP over model: K2 at the local heads) -- the first loss within
-    ``MESH_LOSS_TOL`` relative, every gradient leaf within
-    ``TRAIN_FULL_GRAD_TOL`` (phase 43's bf16 gate), three steps whose
-    losses fall, each within ``MESH_LOSS_TOL`` of the unsharded one's;
-    then four sharded ``lm_decode_step`` calls on a dense cache (serve
-    mode: K3 at the local KV heads) against the unsharded step's
-    logits: float32 within ``MESH_LOGIT_TOL``, bf16 by its distance from
-    the float32 logits (``MESH_DECODE_DTYPES``, ``MESH_BF16_RATIO``).
-    Launch counts are each rank's, from zero just before each path; K2 and K3 are checked and timed at the local
-    shapes.  Prints the mesh, the gaps, the launches at their head
-    counts, each rank's peak memory and the synchronized step times."""
+    ``MESH_SHAPE`` and run ``MESH_MODELS`` at full width in bf16 (each
+    in turn): the unsharded first step on every rank (each compares its
+    blocks of the gradients) and three unsharded steps on rank 0, then
+    the same sharded (FSDP over data, TP over model: K2 at the local
+    heads, the Mamba-2 mixer split by SSD heads with K10 at its heads)
+    -- the first loss within ``MESH_LOSS_TOL`` relative, every gradient
+    leaf within ``TRAIN_FULL_GRAD_TOL`` (phase 43's bf16 gate; for the
+    ssm and hybrid models a leaf past it is held by its distance from
+    the float32 step's gradients, within ``MESH_BF16_RATIO`` times the
+    unsharded bf16 step's), three steps whose losses fall, each within
+    ``MESH_LOSS_TOL`` of the unsharded one's; then four sharded
+    ``lm_decode_step`` calls on a
+    dense cache (serve mode: K3 at the local KV heads, the recurrent
+    state at the local SSD heads) against the unsharded step's logits:
+    float32 within ``MESH_LOGIT_TOL``, bf16 by its distance from the
+    float32 logits (``MESH_DECODE_DTYPES``, ``MESH_BF16_RATIO``).
+    Launch counts are each rank's, from zero just before each path, at
+    the head counts :func:`_mesh_expect` gives; K2 and K3 are checked
+    and timed at qwen's and phi-3-vision's local shapes, K10 at
+    mamba2-780m's.  Prints the mesh, the gaps, the launches at their
+    head counts, each rank's peak memory and the synchronized step
+    times."""
     import shutil
     import torch
     t_phase = time.perf_counter()
@@ -6683,94 +6967,32 @@ def phase_mesh(dev):
     r0 = res[0]
     gpu = gpu_line()
     print(f"{tag} mesh {r0['mesh']} over {MESH_RANKS} ranks on one card "
-          f"({r0['backend']}; {r0['device']}, {res[-1]['device']}), "
-          f"qwen2.5-1.5b bf16 full width ({gpu})")
-    losses = r0["losses"]
-    print(f"{tag} first step: loss {r0['loss_first']:.6f} sharded, "
-          f"{r0['loss_unsharded']:.6f} unsharded (rel {r0['loss_rel']:.3e},"
-          f" tol {MESH_LOSS_TOL}); worst gradient leaf {r0['grad_worst'][1]}"
-          f" rel {r0['grad_worst'][0]:.3e} (tol {TRAIN_FULL_GRAD_TOL}); "
-          f"losses over {len(losses)} steps {losses}, unsharded "
-          f"{r0['losses_unsharded']} (worst rel {r0['losses_rel']:.3e}, "
-          f"tol {MESH_LOSS_TOL}); unsharded step ms "
-          f"{[round(x, 1) for x in r0['step_ms_unsharded']]} ({gpu})")
-    for dtype, d in r0["decode"].items():
-        gate = (f"tol {MESH_LOGIT_TOL}" if dtype == "float32" else
-                f"against the float32 step {d['truth_err']:.3e}, the "
-                f"unsharded bf16 step {d['precision_err']:.3e}, tol "
-                f"{MESH_BF16_RATIO}x")
-        print(f"{tag} decode {dtype}: {MESH_DECODE['steps']} steps of "
-              f"{MESH_DECODE['lanes']} lanes, logits max abs err "
-              f"{d['logit_err']:.3e} against the unsharded step (largest "
-              f"|logit| {d['logit_max']:.3f}; {gate}); each rank's cache "
-              f"k {d['cache_k_shape']}, len {d['lens']}; unsharded step "
-              f"ms median {statistics.median(d['ms_unsharded']):.2f} "
-              f"({gpu})")
-    for r in res:
-        print(f"{tag} rank {r['rank']}: train launches "
-              f"{r['train_launches']} at {r['train_heads']}; peak "
-              f"{r['train_peak_gib']:.2f} GiB training; step ms "
-              f"{[round(x, 1) for x in r['step_ms']]} ({gpu})")
-        for dtype, d in r["decode"].items():
-            print(f"{tag} rank {r['rank']} decode {dtype}: launches "
-                  f"{d['launches']} at {d['heads']}; peak "
-                  f"{d['peak_gib']:.2f} GiB; step ms median "
-                  f"{statistics.median(d['ms']):.2f} ({gpu})")
-    if not r0["loss_rel"] <= MESH_LOSS_TOL:
-        fail(f"{tag} the sharded first loss is {r0['loss_rel']:.3e} from "
-             f"the unsharded one")
-    if not r0["grad_worst"][0] <= TRAIN_FULL_GRAD_TOL:
-        fail(f"{tag} sharded gradients disagree: {r0['grad_worst']}")
-    # falling as the reference's elastic test has it (the last below the
-    # first): at this schedule the unsharded run's third loss sits above
-    # its second too
-    if not (all(x == x for x in losses) and losses[-1] < losses[0]):
-        fail(f"{tag} the sharded losses did not fall: {losses}")
-    if not r0["losses_rel"] <= MESH_LOSS_TOL:
-        fail(f"{tag} the sharded losses {losses} are not the unsharded "
-             f"{r0['losses_unsharded']}")
-    if not r0["decode"]["float32"]["logit_err"] <= MESH_LOGIT_TOL:
-        fail(f"{tag} sharded float32 decode logits off by "
-             f"{r0['decode']['float32']['logit_err']:.3e}")
-    bf16 = r0["decode"]["bfloat16"]
-    if not bf16["truth_err"] <= MESH_BF16_RATIO * bf16["precision_err"]:
-        fail(f"{tag} sharded bf16 decode logits {bf16['truth_err']:.3e} "
-             f"from the float32 step's, the unsharded bf16 step's "
-             f"{bf16['precision_err']:.3e}")
-    for dtype, d in r0["decode"].items():
-        if d["lens"] != [MESH_DECODE["steps"]] * MESH_DECODE["lanes"]:
-            fail(f"{tag} the {dtype} cache's len is {d['lens']}")
-    from repro_torch.configs import get_config
-    cfg = get_config("qwen2.5-1.5b")
-    h, hkv = cfg.n_heads // MESH_SHAPE[1], cfg.n_kv_heads // MESH_SHAPE[1]
-    # a train pass runs K2 twice a layer (forward and remat's recompute):
-    # grads_of (the first step's gradients), then the later steps
-    k2_want = 2 * cfg.n_layers * MESH_TRAIN["steps"]
-    k3_want = cfg.n_layers * MESH_DECODE["steps"]
-    for r in res:
-        if r["train_launches"] != {"flash_attention_mma": k2_want} or \
-                r["train_heads"] != {f"flash_attention_mma H {h} Hkv {hkv}":
-                                     k2_want}:
-            fail(f"{tag} rank {r['rank']} trained with "
-                 f"{r['train_launches']} at {r['train_heads']}")
-        for dtype, d in r["decode"].items():
-            if d["launches"] != {"decode_attention_lengthaware":
-                                 k3_want} or d["heads"] != {
-                    f"decode_attention_lengthaware H {h} Hkv {hkv}":
-                    k3_want}:
-                fail(f"{tag} rank {r['rank']} decoded {dtype} with "
-                     f"{d['launches']} at {d['heads']}")
-    for name in ("k2", "k3"):
+          f"({r0['backend']}; {r0['device']}, {res[-1]['device']}) "
+          f"({gpu})")
+    _mesh_report(tag, res, MESH_MODELS[0], gpu)
+    for model in MESH_MODELS[1:]:
+        _mesh_report(tag, [r["families"][model[0]] for r in res], model,
+                     gpu)
+    for name in ("k2", "k3", "k2_phi3v", "k3_phi3v"):
         if not r0[name]["max_abs_err"] <= r0[name]["tol"]:
             fail(f"{tag} {name} at the local heads: {r0[name]}")
+    if not r0["k10"]["max_rel_err"] <= r0["k10"]["tol"]:
+        fail(f"{tag} K10 at the local heads: {r0['k10']}")
     out = {"card": gpu, "ranks": res, "phase_s": time.perf_counter() - t_phase}
-    print(f"{tag} K2 at the local heads {r0['k2']['shape']}: "
-          f"{r0['k2']['ms']:.4f} ms (plain {r0['k2']['plain_ms']:.4f}, SDPA "
-          f"{r0['k2']['library_ms']:.4f}, bound {r0['k2']['bound_ms']:.4f});"
-          f" K3 {r0['k3']['shape']}: {r0['k3']['ms']:.4f} ms (plain "
-          f"{r0['k3']['plain_ms']:.4f}, SDPA {r0['k3']['library_ms']:.4f}, "
-          f"bound {r0['k3']['bound_ms']:.4f}); phase 51 took "
-          f"{out['phase_s']:.1f}s")
+    for name, what in (("k2", "K2 qwen"), ("k3", "K3 qwen"),
+                       ("k2_phi3v", "K2 phi-3-vision"),
+                       ("k3_phi3v", "K3 phi-3-vision"),
+                       ("k10", "K10 mamba2-780m")):
+        k = r0[name]
+        lib = ("n/a" if k["library_ms"] is None
+               else f"{k['library_ms']:.4f}")
+        print(f"{tag} {what} at the local heads {k['shape']}: "
+              f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
+              f"{lib}, bound {k['bound_ms']:.5f} by {k['bound_by']}; err "
+              f"{k.get('max_abs_err', k.get('max_rel_err')):.3e}, tol "
+              f"{k['tol']}) ({gpu})")
+    print(f"{tag} phase 51 took {out['phase_s']:.1f}s (ranks "
+          f"{[round(r['rank_seconds'], 1) for r in res]})")
     shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -6930,15 +7152,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_m16 = time.perf_counter()
     fleet = phase_fleet(dev)
-    dry_cells, dry_metas = phase_dryrun_cells()
-    dry_check = phase_dryrun_check(dev, dry_metas)
-    print(f"[fleet/dryrun] phases 47-49 took "
-          f"{time.perf_counter() - t_m16:.1f}s: 47 (fleet, token "
-          f"accounting) {fleet['phase_s']:.1f}s, 48 (dry run, "
-          f"{dry_cells['n_cells']} cells) {dry_cells['wall_s']:.1f}s, 49 "
-          f"(dry run vs card, --mesh) {dry_check['phase_s']:.1f}s")
     prefill_graphs = phase_prefill_graphs(dev)
-    mesh = phase_mesh(dev)
+    # phase 48's cells run on the host's cores beside phase 51's ranks;
+    # phase 49 holds their peaks to the card after it
+    t_mesh = time.perf_counter()
+    dry_started = phase_dryrun_start()
+    try:
+        mesh = phase_mesh(dev)
+    except BaseException:            # queued cells dropped, running ones end
+        dry_started["pool"].shutdown(wait=False, cancel_futures=True)
+        raise
+    dry_cells, dry_metas = phase_dryrun_cells(dry_started)
+    t_mesh = time.perf_counter() - t_mesh
+    dry_check = phase_dryrun_check(dev, dry_metas)
+    print(f"[fleet/dryrun/mesh] phases 47-51 took "
+          f"{time.perf_counter() - t_m16:.1f}s: 47 (fleet, token "
+          f"accounting) {fleet['phase_s']:.1f}s, 50 (prefill graphs) "
+          f"{prefill_graphs['phase_s']:.1f}s, 51 (mesh) "
+          f"{mesh['phase_s']:.1f}s with 48 (dry run, "
+          f"{dry_cells['n_cells']} cells) beside it "
+          f"{dry_cells['wall_s']:.1f}s: both {t_mesh:.1f}s, 49 (dry run "
+          f"vs card, --mesh) {dry_check['phase_s']:.1f}s")
     m16_launches = {
         "flash_attention_mma": {
             "fleet_replay": fleet["launches"]["flash_attention_mma"],
@@ -7097,7 +7331,7 @@ def main() -> int:
         return out
 
     # training: K2's tensor-core kernel from the full-width run (30 steps
-    # uninterrupted, then 15 resumed from the checkpoint; 56 a step), its
+    # uninterrupted, then 5 resumed from the checkpoint; 56 a step), its
     # CUDA-core kernel from the SMOKE float32 steps on the card (all four
     # remat/microbatch runs); the backward's error (phase 41) and time;
     # the other families' launches a step at full width (phase 46) and
@@ -7152,22 +7386,48 @@ def main() -> int:
         return None
 
     # the mesh (phase 51): each rank's launches from zero before each
-    # path (K2: the sharded first step's pass and three steps; K3: four
-    # decode steps in each dtype) at the local heads, and the kernels
-    # checked and timed at those shapes on rank 0
+    # path (K2 and K10: the sharded first step's pass and three steps;
+    # K3: four decode steps in each dtype) at the local heads, by model,
+    # and the kernels checked and timed at those shapes on rank 0
     r0 = mesh["ranks"][0]
+
+    def by_model(get):
+        out = {r0["arch"]: [get(r) for r in mesh["ranks"]]}
+        for arch in r0["families"]:
+            out[arch] = [get(r["families"][arch]) for r in mesh["ranks"]]
+        return out
+
+    def train_by_model(name):
+        return by_model(lambda r: r["train_launches"].get(name, 0))
     mesh_entries = {
         "flash_attention_mma": {
             "mesh": r0["mesh"], "backend": r0["backend"],
             "launches_by_rank": [r["train_launches"].get(
                 "flash_attention_mma", 0) for r in mesh["ranks"]],
-            "heads": r0["train_heads"], **r0["k2"]},
+            "launches_by_model": train_by_model("flash_attention_mma"),
+            "heads": r0["train_heads"],
+            "heads_by_model": {a: f["train_heads"]
+                               for a, f in r0["families"].items()},
+            **r0["k2"], "phi3v": r0["k2_phi3v"]},
         "decode_attention_lengthaware": {
             "mesh": r0["mesh"], "backend": r0["backend"],
             "launches_by_rank": {dt: [r["decode"][dt]["launches"].get(
                 "decode_attention_lengthaware", 0) for r in mesh["ranks"]]
                 for dt in MESH_DECODE_DTYPES},
-            "heads": r0["decode"]["bfloat16"]["heads"], **r0["k3"]}}
+            "launches_by_model": {dt: by_model(
+                lambda r, dt=dt: r["decode"][dt]["launches"].get(
+                    "decode_attention_lengthaware", 0))
+                for dt in MESH_DECODE_DTYPES},
+            "heads": r0["decode"]["bfloat16"]["heads"],
+            "heads_by_model": {a: f["decode"]["bfloat16"]["heads"]
+                               for a, f in r0["families"].items()},
+            **r0["k3"], "phi3v": r0["k3_phi3v"]},
+        "ssd_chunk": {
+            "mesh": r0["mesh"], "backend": r0["backend"],
+            "launches_by_model": train_by_model("ssd_chunk"),
+            "heads_by_model": {a: f["train_heads"]
+                               for a, f in r0["families"].items()},
+            **r0["k10"]}}
     int8_fixed = int8["full e2e fixed-lane int8"][0]
     int8_paged = int8["full e2e paged int8"][0]
     launches = dict(fixed_counts)
@@ -7295,7 +7555,8 @@ def main() -> int:
             "backward_cases": k10_bwd["cases"],
             "padded_rel_err": k10_bwd["padded_rel_err"],
             **k10_bwd["timing"]},
-        "m16": m16_launches["ssd_chunk"]})
+        "m16": m16_launches["ssd_chunk"],
+        "mesh": mesh_entries["ssd_chunk"]})
     e2e = {"paged": paged_e2e, "fixed_lane": fixed_e2e,
            "paged_int8": int8["full e2e paged int8"][1],
            "fixed_lane_int8": int8["full e2e fixed-lane int8"][1]}

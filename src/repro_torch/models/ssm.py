@@ -16,12 +16,22 @@ causal depthwise conv on (x, B, C), SSD, gated RMSNorm, out_proj.  The
 two projections are stored in the compute dtype (the values of the
 reference's cast at each use); the conv weights, A, dt bias, D and the
 norm scale stay float32, as the reference reads them in float32.
+
+On a mesh (:mod:`repro_torch.parallel.sharding`) the mixer is split by
+SSD heads over :func:`~repro_torch.parallel.sharding.ssd_head_axes`:
+column-parallel in, row-parallel out.  Each rank reads ``in_proj`` and
+the conv weights whole and takes its heads' z, x and dt columns and B
+and C whole (one group), runs the conv on those channels and the SSD
+(K10) on its heads, the gated norm with its sum of squares summed over
+the heads' axes, and its rows of ``out_proj``, whose partial sums are
+reduced over the same axes.  The reads' gradients sum over the heads'
+axes (each rank's B and C gradients come from its heads only).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -30,6 +40,7 @@ from torch.nn import functional as F
 from repro_torch.kernels.ssd_scan import ssd
 from repro_torch.models.common import (ModelConfig, SSMConfig, dense_init,
                                        frozen)
+from repro_torch.parallel import sharding
 
 __all__ = ["Mamba2", "init_mamba2", "init_mamba2_state", "mamba2_decode",
            "mamba2_forward"]
@@ -92,12 +103,55 @@ def init_mamba2(p: Mamba2, generator: torch.Generator) -> None:
     p.norm_scale.fill_(1.0)
 
 
-def _split_in_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
-    s, d_inner, nh, _ = _dims(cfg)
-    n = s.state_dim
-    z, xin, b, c, dt = torch.split(zxbcdt, [d_inner, d_inner, n, n, nh],
-                                   dim=-1)
-    return z, xin, b, c, dt
+def _split_in_proj(zxbcdt: torch.Tensor, cfg: ModelConfig, nh: int):
+    """``[z | x | B | C | dt]`` of ``nh`` heads (this rank's)."""
+    s = cfg.ssm or SSMConfig()
+    d_in, n = nh * s.head_dim, s.state_dim
+    return torch.split(zxbcdt, [d_in, d_in, n, n, nh], dim=-1)
+
+
+class _Local:
+    """The mixer's weights as this rank reads them: ``nh`` its SSD heads
+    (all of them with no mesh), ``axes`` the axes they are split over,
+    ``d_in`` their x channels; ``in_proj``, ``conv_w``, ``conv_b`` the
+    columns and channels of those heads with B and C whole, ``a_log``,
+    ``dt_bias``, ``d_skip`` their entries, ``norm_scale`` and
+    ``out_proj`` their rows."""
+
+    def __init__(self, p: "Mamba2", cfg: ModelConfig):
+        s, d_inner, nh, _ = _dims(cfg)
+        mesh = sharding.active()
+        axes = () if mesh is None else sharding.ssd_head_axes(mesh, cfg)
+        h0, h1 = sharding.block_of(nh, axes)
+        hd, n = s.head_dim, s.state_dim
+        i0, i1 = h0 * hd, h1 * hd
+        self.axes, self.nh, self.d_in = axes, h1 - h0, i1 - i0
+
+        def whole(t):            # read whole, used in part when split
+            return sharding.weight(t, *(None,) * t.dim(), partial=axes)
+
+        def cols(t, spans):      # the spans of t's last dim, in order
+            if not axes:
+                return t
+            return torch.cat([t[..., a:b] for a, b in spans], dim=-1)
+
+        def rows(t):             # this rank's rows of a (d_inner, ...) leaf
+            if sharding.axes_of(t, 0) == axes:
+                return sharding.weight(t, ..., *(None,) * (t.dim() - 1))
+            return whole(t)[i0:i1] if axes else whole(t)
+
+        xs = (d_inner + i0, d_inner + i1)
+        bc = (2 * d_inner, 2 * d_inner + 2 * n)
+        self.in_proj = cols(whole(p.in_proj), [
+            (i0, i1), xs, bc, (bc[1] + h0, bc[1] + h1)])
+        conv = [(i0, i1), (d_inner, d_inner + 2 * n)]
+        self.conv_w = cols(whole(p.conv_w), conv)
+        self.conv_b = cols(whole(p.conv_b), conv)
+        self.a_log, self.dt_bias, self.d_skip = (
+            cols(whole(t), [(h0, h1)]) for t in (p.a_log, p.dt_bias,
+                                                 p.d_skip))
+        self.norm_scale = rows(p.norm_scale)
+        self.out_proj = rows(p.out_proj)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -107,43 +161,58 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 
-def _gated_norm(p: Mamba2, y: torch.Tensor, z: torch.Tensor,
+def _gated_norm(w: _Local, y: torch.Tensor, z: torch.Tensor, d_inner: int,
                 eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm of ``y * silu(z)`` in float32: divide by the rms, then
-    scale, in the reference's order."""
+    """RMSNorm over all of d_inner of ``y * silu(z)`` in float32: divide
+    by the rms, then scale, in the reference's order.  Split by heads,
+    the sum of squares of this rank's channels is summed over the heads'
+    axes first."""
     yf = y.to(F32) * F.silu(z.to(F32))
-    rms = torch.sqrt(torch.mean(yf * yf, dim=-1, keepdim=True) + eps)
-    return (yf / rms * p.norm_scale).to(y.dtype)
+    if w.axes:
+        ms = sharding.sum_shared(torch.sum(yf * yf, dim=-1, keepdim=True),
+                                 w.axes) / d_inner
+    else:
+        ms = torch.mean(yf * yf, dim=-1, keepdim=True)
+    rms = torch.sqrt(ms + eps)
+    return (yf / rms * w.norm_scale).to(y.dtype)
+
+
+def _project_out(w: _Local, y: torch.Tensor, dtype) -> torch.Tensor:
+    """The row-parallel ``out_proj``, its partial sums reduced over the
+    heads' axes."""
+    return sharding.reduce_out(torch.matmul(y, w.out_proj).to(dtype),
+                               w.axes)
 
 
 def mamba2_forward(p: Mamba2, x: torch.Tensor, cfg: ModelConfig
                    ) -> torch.Tensor:
     """x: (B, S, d_model) -> (B, S, d_model), the chunked SSD on K10."""
-    s_cfg, d_inner, nh, _ = _dims(cfg)
+    s_cfg, d_inner, _, _ = _dims(cfg)
+    w = _Local(p, cfg)
     bsz, s, _ = x.shape
-    zxbcdt = torch.matmul(x, p.in_proj)
-    z, xin, b, c, dt = _split_in_proj(zxbcdt, cfg)
+    zxbcdt = torch.matmul(sharding.copy_in(x, w.axes), w.in_proj)
+    z, xin, b, c, dt = _split_in_proj(zxbcdt, cfg, w.nh)
 
     # causal depthwise conv over (x, B, C) in x's dtype, summed in the
     # reference's order
     xbc = torch.cat([xin, b, c], dim=-1)                   # (B,S,conv_ch)
-    w = p.conv_w.to(xbc.dtype)
+    cw = w.conv_w.to(xbc.dtype)
     width = s_cfg.conv_width
     xp = F.pad(xbc, (0, 0, width - 1, 0))
-    conv = xp[:, 0:s] * w[0]
+    conv = xp[:, 0:s] * cw[0]
     for i in range(1, width):
-        conv = conv + xp[:, i:i + s] * w[i]
-    xbc = F.silu((conv + p.conv_b.to(conv.dtype)).to(F32)).to(x.dtype)
-    xin, b, c = torch.split(xbc, [d_inner, s_cfg.state_dim,
+        conv = conv + xp[:, i:i + s] * cw[i]
+    xbc = F.silu((conv + w.conv_b.to(conv.dtype)).to(F32)).to(x.dtype)
+    xin, b, c = torch.split(xbc, [w.d_in, s_cfg.state_dim,
                                   s_cfg.state_dim], dim=-1)
 
-    dt = _softplus(dt.to(F32) + p.dt_bias)                 # (B,S,H)
-    xh = xin.reshape(bsz, s, nh, s_cfg.head_dim)
-    y = ssd(xh, dt, -torch.exp(p.a_log), b, c, chunk=s_cfg.chunk)
-    y = y + p.d_skip[None, None, :, None] * xh.to(y.dtype)
-    y = y.reshape(bsz, s, d_inner).to(x.dtype)
-    y = _gated_norm(p, y, z)
-    return torch.matmul(y, p.out_proj).to(x.dtype)
+    dt = _softplus(dt.to(F32) + w.dt_bias)                 # (B,S,H)
+    xh = xin.reshape(bsz, s, w.nh, s_cfg.head_dim)
+    y = ssd(xh, dt, -torch.exp(w.a_log), b, c, chunk=s_cfg.chunk)
+    y = y + w.d_skip[None, None, :, None] * xh.to(y.dtype)
+    y = y.reshape(bsz, s, w.d_in).to(x.dtype)
+    y = _gated_norm(w, y, z, d_inner)
+    return _project_out(w, y, x.dtype)
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int,
@@ -159,33 +228,49 @@ def init_mamba2_state(cfg: ModelConfig, batch: int,
 
 
 def mamba2_decode(p: Mamba2, x: torch.Tensor, cfg: ModelConfig,
-                  h_state: torch.Tensor, conv_state: torch.Tensor
-                  ) -> torch.Tensor:
+                  h_state: torch.Tensor, conv_state: torch.Tensor,
+                  batch: Optional[int] = None) -> torch.Tensor:
     """One token. x: (B, 1, d_model); ``h_state`` (B, nh, N, P) and
     ``conv_state`` (B, W-1, conv_ch) are this layer's float32 state,
-    updated in place.  Returns y (B, 1, d_model)."""
-    s_cfg, d_inner, nh, _ = _dims(cfg)
+    updated in place.  Returns y (B, 1, d_model).
+
+    On a mesh ``x`` is the step's rows of a batch of ``batch`` lanes
+    and the state this rank's block (``sharding.place_cache``: its
+    lanes, SSD heads and their conv channels with B and C): the step
+    brings its rows to the cache's lanes and its output back, as
+    attention's decode does."""
+    s_cfg, d_inner, _, _ = _dims(cfg)
+    mesh = sharding.active()
+    if mesh is not None:             # this rank's cache lanes
+        n = batch if batch is not None else x.shape[0]
+        rows, lanes_ax = sharding.batch_axes(mesh, n), \
+            sharding.kv_batch_axes(mesh, n)
+        x = sharding.relayout(x, 0, rows, lanes_ax)
+    w = _Local(p, cfg)
     bsz = x.shape[0]
-    zxbcdt = torch.matmul(x, p.in_proj)
-    z, xin, b, c, dt = _split_in_proj(zxbcdt[:, 0], cfg)   # (B, ...)
+    zxbcdt = torch.matmul(x, w.in_proj)
+    z, xin, b, c, dt = _split_in_proj(zxbcdt[:, 0], cfg, w.nh)  # (B, ...)
 
     xbc = torch.cat([xin, b, c], dim=-1)                   # (B,conv_ch)
     hist = torch.cat([conv_state, xbc[:, None, :].to(F32)], dim=1)
-    conv = torch.einsum("bwc,wc->bc", hist, p.conv_w) + p.conv_b
+    conv = torch.einsum("bwc,wc->bc", hist, w.conv_w) + w.conv_b
     xbc = F.silu(conv).to(x.dtype)
     conv_state.copy_(hist[:, 1:, :])
-    xin, b, c = torch.split(xbc, [d_inner, s_cfg.state_dim,
+    xin, b, c = torch.split(xbc, [w.d_in, s_cfg.state_dim,
                                   s_cfg.state_dim], dim=-1)
 
-    dt = _softplus(dt.to(F32) + p.dt_bias[None, :])        # (B,H)
-    a = torch.exp(dt * (-torch.exp(p.a_log))[None, :])
-    xh = xin.reshape(bsz, nh, s_cfg.head_dim).to(F32)
+    dt = _softplus(dt.to(F32) + w.dt_bias[None, :])        # (B,H)
+    a = torch.exp(dt * (-torch.exp(w.a_log))[None, :])
+    xh = xin.reshape(bsz, w.nh, s_cfg.head_dim).to(F32)
     h = (h_state * a[..., None, None]
          + dt[..., None, None] * b.to(F32)[:, None, :, None]
          * xh[:, :, None, :])
     h_state.copy_(h)
     y = torch.einsum("bn,bhnp->bhp", c.to(F32), h)
-    y = y + p.d_skip[None, :, None] * xh
-    y = y.reshape(bsz, 1, d_inner).to(x.dtype)
-    y = _gated_norm(p, y, z[:, None, :])
-    return torch.matmul(y, p.out_proj).to(x.dtype)
+    y = y + w.d_skip[None, :, None] * xh
+    y = y.reshape(bsz, 1, w.d_in).to(x.dtype)
+    y = _gated_norm(w, y, z[:, None, :], d_inner)
+    y = _project_out(w, y, x.dtype)
+    if mesh is not None:             # back to the step's rows
+        y = sharding.relayout(y, 0, lanes_ax, rows)
+    return y

@@ -23,11 +23,15 @@ of the sliding window, dense or through the block table) and the dense
 per-lane state.
 
 On a mesh of more than one rank (:mod:`repro_torch.parallel.sharding`)
-the dense family trains and decodes sharded: the training forward takes
-this rank's rows of the batch, the decode step the whole batch and a
-cache placed by ``place_cache`` (``init_cache`` places it).  Every
-other family, the batched prefill and the paged cache refuse a mesh by
-name.
+the dense, ssm, hybrid and vlm families train and decode sharded:
+attention split by heads, the Mamba-2 mixer by SSD heads, a hybrid
+block's two branches each whole after its row-parallel output, so
+``_hybrid_mix`` sees whole tensors; the training forward takes this
+rank's rows of the batch (and of ``vision_embeds``), the decode step
+the whole batch and a cache placed by ``place_cache`` (``init_cache``
+places it: the K/V by heads, the recurrent state by SSD heads).  The
+moe and encoder-decoder families, the batched prefill and the paged
+cache refuse a mesh by name.
 """
 
 from __future__ import annotations
@@ -218,7 +222,8 @@ def lm_forward_train(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     the same gather as serving's ``embed``, with a backward that sums
     each row's cotangents in a fixed order (the indexing backward
     accumulates atomically, so its float32 sums vary run to run).  On a
-    mesh ``tokens`` are this rank's rows, and ``local_vocab`` keeps the
+    mesh ``tokens`` and ``vision_embeds`` are this rank's rows
+    (``sharding.place_batch``), and ``local_vocab`` keeps the
     logits this rank's block of the vocab (the loss reads them so)."""
     sharding.check_mesh_family(cfg)
     x = _maybe_inject_vision(embed(params.embed, tokens, train=True),
@@ -351,8 +356,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     zeroed float32 state of every layer instead: ``ssm_h`` (L, B, nh, N,
     P) and ``ssm_conv`` (L, B, W-1, conv_ch); a hybrid model holds both
     the K/V and that state.  On a mesh of more than one rank the cache
-    is this rank's block (``sharding.place_cache``: its lanes and KV
-    heads; ``len`` whole)."""
+    is this rank's block (``sharding.place_cache``: its lanes, KV heads
+    and SSD heads; ``len`` whole)."""
     cache = {"len": torch.zeros(batch, dtype=torch.int32, device=device)}
     if not cfg.attn_free:
         shape = (cfg.n_layers, batch, cfg.n_kv_heads,
@@ -435,7 +440,8 @@ def block_decode(p: Block, x: torch.Tensor, cfg: ModelConfig,
                                      block_tables, cache_len, k_scale,
                                      v_scale)[0]
     if cfg.has_ssm:
-        att = _hybrid_mix(att, mamba2_decode(p.ssm, h, cfg, ssm_h, ssm_conv))
+        att = _hybrid_mix(att, mamba2_decode(p.ssm, h, cfg, ssm_h, ssm_conv,
+                                             batch=cache_len.shape[0]))
     x = x + att
     return x + _ffn(p, apply_norm(p.norm2, x), cfg)[0]
 
@@ -455,7 +461,8 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
     On a mesh ``tokens`` and the logits are the whole batch on every
     rank and the cache this rank's block (``init_cache``): the step
     runs on its rows of the ``batch`` axes, each attention on the
-    cache's lanes and its local heads (K3), and the logits are gathered
+    cache's lanes and its local heads (K3), each Mamba-2 mixer on the
+    cache's lanes and its SSD heads, and the logits are gathered
     whole."""
     sharding.check_mesh_family(cfg)
     mesh = sharding.active()
@@ -468,7 +475,8 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
     if cfg.attn_free:
         for i, blk in enumerate(params.blocks):    # state updated in place
             x = x + mamba2_decode(blk.ssm, apply_norm(blk.norm1, x), cfg,
-                                  cache["ssm_h"][i], cache["ssm_conv"][i])
+                                  cache["ssm_h"][i], cache["ssm_conv"][i],
+                                  batch=cache_len.shape[0])
     else:
         bt = cache.get("block_tables")
         names = (("k", "v", "k_scale", "v_scale") if bt is None else

@@ -29,15 +29,21 @@ gather over the batch axes, nothing over the tp axes it keeps), the
 attention and the MLP are column- then row-parallel over the tp axes
 (:func:`copy_in`, :func:`reduce_out`), each rank's kernels see plain
 tensors of its local heads, and the batch is split over the ``batch``
-axes before the step.  ``seq`` and ``expert`` are not in this slice:
-tensors the reference constrains by them keep the layout they get, and
-the KV cache, which the reference splits by ``seq`` over ``model``,
-holds each rank's heads there instead (:func:`cache_layout`), the
-layout the decode kernel reads.  For the same reason serve mode stores
-attention's weights by heads alone, not over the reference's (data,
-model) (:func:`place_params`), so a decode step gathers no weight.
-Only the dense family runs on a mesh of more than one rank; every other
-family is refused by name.
+axes before the step.  The Mamba-2 mixer is split the same way by its
+SSD heads (:func:`ssd_head_axes`): each rank reads the whole ``in_proj``
+and conv weights and uses its heads' columns and B and C whole, so the
+gradients of those reads sum over the heads' axes (``weight(...,
+partial=)``).  ``seq`` and ``expert`` are not in this slice: tensors
+the reference constrains by them keep the layout they get, and the KV
+cache, which the reference splits by ``seq`` over ``model``, holds each
+rank's heads there instead (:func:`cache_layout`), the layout the
+decode kernel reads; the recurrent state holds each rank's SSD heads.
+For the same reason serve mode stores attention's weights by heads
+alone, not over the reference's (data, model), and the mixer's by SSD
+heads (:func:`place_params`), so a decode step gathers no weight.  The
+dense, ssm, hybrid and vlm families run on a mesh of more than one
+rank; the moe and encoder-decoder families and an int8 KV cache are
+refused by name.
 
 :func:`use_mesh` keeps the reference's mesh context, process-wide
 rather than thread-local: on the card autograd runs a backward (and
@@ -358,7 +364,7 @@ def replicated(mesh) -> Spec:
 # ----------------------------------------------------------------------
 
 #: the families that run on a mesh of more than one rank
-MESH_FAMILIES = ("dense",)
+MESH_FAMILIES = ("dense", "ssm", "hybrid", "vlm")
 
 
 def active():
@@ -410,27 +416,74 @@ def head_axes(mesh, cfg, mode: Optional[str] = None) -> Tuple[str, ...]:
     return mesh.axes(_fallback_axes(mesh, cfg.n_kv_heads, tp or None))
 
 
+def ssd_dims(cfg) -> Tuple[int, int, int]:
+    """A Mamba-2 mixer's (d_inner, SSD heads, state dim N): the heads
+    are ``d_inner // head_dim`` (48 at mamba2-780m, 50 at hymba-1.5b),
+    not ``cfg.n_heads``."""
+    s = cfg.ssm
+    d_inner = s.d_inner_override or (s.expand * cfg.d_model)
+    return d_inner, d_inner // s.head_dim, s.state_dim
+
+
+def ssd_head_axes(mesh, cfg, mode: Optional[str] = None
+                  ) -> Tuple[str, ...]:
+    """The axes the Mamba-2 mixer's SSD heads are split over: the ``tp``
+    axes not holding the cache's lanes, leading ones dropped until they
+    divide the SSD heads; none when nothing divides, and the mixer is
+    whole on every rank."""
+    la = mesh_logical_axes(mesh, mode or current_mode())
+    kv = {a for a in ("pod", "data") if a in mesh.axis_names}
+    tp = tuple(a for a in mesh.axes(la["tp"]) if a not in kv)
+    return mesh.axes(_fallback_axes(mesh, ssd_dims(cfg)[1], tp or None))
+
+
 def cache_layout(mesh, cfg, cache: Mapping[str, Any],
                  mode: Optional[str] = None) -> Dict[str, Spec]:
-    """The port's spec of each entry of a dense decode cache: the
-    reference's (:func:`cache_shardings`) with its ``seq`` entry (not in
-    this slice) replaced by the heads' axes on the KV-head dim, the
-    layout the decode kernel reads; ``len`` whole on every rank."""
+    """The port's spec of each entry of a decode cache: the reference's
+    (:func:`cache_shardings`), lanes over ``kv_batch``, with its ``seq``
+    and ``tp`` entries (not in this slice) replaced by the layout the
+    step reads; ``len`` whole on every rank.
+
+    * ``k``, ``v``: the KV-head dim over :func:`head_axes` (the
+      reference's ``seq`` on the positions dropped).
+    * ``ssm_h`` (L, B, nh, N, P): the SSD-head dim over
+      :func:`ssd_head_axes` (the reference's ``tp`` on the state dim N
+      dropped).
+    * ``ssm_conv`` (L, B, W-1, conv_ch): the entry on the channels names
+      :func:`ssd_head_axes`, but the block is not contiguous: it is the
+      x channels of this rank's heads followed by B and C whole
+      (:func:`_conv_block`), where the reference splits the channels
+      contiguously over ``tp``, which would leave B and C on one rank.
+    """
     ref = cache_shardings(mesh, cache)
-    heads = head_axes(mesh, cfg, mode)
+    heads = head_axes(mesh, cfg, mode) if not cfg.attn_free else ()
+    ssd = ssd_head_axes(mesh, cfg, mode) if cfg.has_ssm else ()
     out = {}
     for name, leaf in cache.items():
+        spec = list(ref[name])
         if name == "len":
-            out[name] = ref[name]
+            pass
         elif name in ("k", "v"):
-            spec = list(ref[name])
             spec[2], spec[3] = heads or None, None
-            out[name] = tuple(spec)
+        elif name == "ssm_h":
+            spec[2], spec[3] = ssd or None, None
+        elif name == "ssm_conv":
+            spec[3] = ssd or None
         else:
             raise ValueError(f"cache entry {name!r} has no placement on a "
-                             f"mesh of more than one rank (the dense "
-                             f"cache's k, v and len do)")
+                             f"mesh of more than one rank (k, v, ssm_h, "
+                             f"ssm_conv and len do)")
+        out[name] = tuple(spec)
     return out
+
+
+def _conv_block(t: torch.Tensor, mesh, axes, d_inner: int
+                ) -> torch.Tensor:
+    """This rank's channels (last dim) of a Mamba-2 conv tensor whole on
+    that dim (``[x | B | C]``, x of ``d_inner`` channels): the x
+    channels of its SSD heads over ``axes``, then B and C whole."""
+    x = comm.take(t.narrow(-1, 0, d_inner), mesh, t.dim() - 1, axes)
+    return torch.cat([x, t.narrow(-1, d_inner, t.shape[-1] - d_inner)], -1)
 
 
 def _rebind(module: nn.Module, name: str, t: torch.Tensor, spec) -> None:
@@ -446,6 +499,9 @@ def _rebind(module: nn.Module, name: str, t: torch.Tensor, spec) -> None:
 #: attention's parameters and the dim of each that holds the heads
 _HEAD_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
               "bv": 0}
+#: the Mamba-2 mixer's parameters whose first dim is d_inner, which
+#: serve mode stores by SSD heads; its others it stores whole
+_SSD_HEAD_ROWS = ("out_proj", "norm_scale")
 
 
 @torch.no_grad()
@@ -461,20 +517,31 @@ def place_params(mesh, module: nn.Module, cfg, mode: str = "train"
     attention on the cache's lanes (over ``data``) at its local heads,
     which would otherwise gather the ``data`` blocks of every layer's
     weights each step.  Each ``data`` rank holds a copy of its heads'
-    weights instead."""
+    weights instead.  The Mamba-2 mixer likewise: ``out_proj``'s rows
+    and ``norm_scale`` over :func:`ssd_head_axes`, and ``in_proj`` and
+    the conv weights, whose columns do not line up with the heads
+    (``[z | x | B | C | dt]``), whole on every rank."""
     if mesh.size == 1:
         return module
     check_mesh_family(cfg, mesh)
     specs = param_shardings(mesh, module, mode)
     if mode == "serve":
-        heads = head_axes(mesh, cfg, mode)
-        entry = heads[0] if len(heads) == 1 else (heads or None)
+        def entry(axes):
+            return axes[0] if len(axes) == 1 else (axes or None)
+        heads = entry(head_axes(mesh, cfg, mode)) \
+            if not cfg.attn_free else None
+        ssd = entry(ssd_head_axes(mesh, cfg, mode)) if cfg.has_ssm else None
         for name, spec in specs.items():
             owner, _, leaf = name.rpartition(".")
-            if owner.rpartition(".")[2] == "attn" and leaf in _HEAD_DIMS:
-                spec = list(spec)
-                spec[_HEAD_DIMS[leaf]] = entry
-                specs[name] = tuple(spec)
+            owner = owner.rpartition(".")[2]
+            spec = list(spec)
+            if owner == "attn" and leaf in _HEAD_DIMS:
+                spec[_HEAD_DIMS[leaf]] = heads
+            elif owner == "ssm":
+                spec = [None] * len(spec)
+                if leaf in _SSD_HEAD_ROWS:
+                    spec[0] = ssd
+            specs[name] = tuple(spec)
     for name, p in list(module.named_parameters()):
         _rebind(module, name, comm.local_of(p.detach(), mesh, specs[name]),
                 specs[name])
@@ -506,11 +573,50 @@ def place_batch(mesh, batch: Mapping[str, torch.Tensor]
 @torch.no_grad()
 def place_cache(mesh, cache: Mapping[str, torch.Tensor], cfg,
                 mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
-    """This rank's block of every entry of a dense decode cache whole on
-    every rank, by :func:`cache_layout`."""
+    """This rank's block of every entry of a decode cache whole on every
+    rank, by :func:`cache_layout`."""
     check_mesh_family(cfg, mesh)
     specs = cache_layout(mesh, cfg, cache, mode)
-    return {k: comm.local_of(v, mesh, specs[k]) for k, v in cache.items()}
+    out = {}
+    for k, v in cache.items():
+        spec = list(specs[k])
+        if k == "ssm_conv":
+            conv, spec[3] = spec[3], None
+        v = comm.local_of(v, mesh, spec)
+        if k == "ssm_conv":
+            v = _conv_block(v, mesh, conv, ssd_dims(cfg)[0]).contiguous()
+        out[k] = v
+    return out
+
+
+@torch.no_grad()
+def gather_cache(mesh, cache: Mapping[str, torch.Tensor], cfg,
+                 mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """The whole decode cache of this rank's block ``cache`` (the inverse
+    of :func:`place_cache`; every rank of the mesh takes part)."""
+    b = cache["len"].shape[0]
+    d_inner, nh, n = ssd_dims(cfg) if cfg.has_ssm else (0, 0, 0)
+    heads = {"k": cfg.n_kv_heads, "v": cfg.n_kv_heads, "ssm_h": nh}
+    whole = {}
+    for k, v in cache.items():
+        shape = list(v.shape)
+        if k != "len":
+            shape[1] = b
+        if k in heads:
+            shape[2] = heads[k]
+        elif k == "ssm_conv":
+            shape[3] = d_inner + 2 * n
+        whole[k] = _Stacked(shape)
+    specs = cache_layout(mesh, cfg, whole, mode)
+    out = {}
+    for k, v in cache.items():
+        spec = list(specs[k])
+        if k == "ssm_conv":
+            d_l = v.shape[-1] - 2 * n
+            x = comm.all_gather(v[..., :d_l], mesh, spec[3], v.dim() - 1)
+            v, spec[3] = torch.cat([x, v[..., d_l:]], -1), None
+        out[k] = comm.gather_full(v, mesh, spec)
+    return out
 
 
 def owns(mesh, spec: Optional[Spec]) -> bool:
@@ -532,11 +638,18 @@ def spec_of(t: torch.Tensor) -> Optional[Spec]:
 _KEEP = ...
 
 
-def weight(t: torch.Tensor, *dst) -> torch.Tensor:
+def weight(t: torch.Tensor, *dst, partial=()) -> torch.Tensor:
     """A parameter as the product at hand reads it: with no mesh ``t``;
     on a mesh, ``t``'s stored block brought to the spec ``dst`` (one
     entry a dim; ``...`` keeps the stored entry), whose gradient sums
-    over the axes the batch is split over (:func:`split_batch`)."""
+    over the axes the batch is split over (:func:`split_batch`).
+
+    ``partial`` names axes whose ranks each use only their part of what
+    they read (the Mamba-2 mixer reads its weights whole and uses its
+    SSD heads' part, B and C for its heads only): the gradient sums over
+    them too.  Only a read that every rank of ``partial`` gets whole may
+    name them (a block that differs along them would be summed with
+    other blocks)."""
     mesh = active()
     spec = spec_of(t)
     if mesh is None:
@@ -548,7 +661,8 @@ def weight(t: torch.Tensor, *dst) -> torch.Tensor:
         raise ValueError(f"a parameter of shape {tuple(t.shape)} is used "
                          f"on {mesh} without a placement")
     dst = tuple(s if d is _KEEP else d for s, d in zip(spec, dst))
-    return comm.Gather.apply(t, mesh, spec, dst, batch_split_axes())
+    sum_axes = mesh.axes(batch_split_axes() + mesh.axes(partial))
+    return comm.Gather.apply(t, mesh, spec, dst, sum_axes)
 
 
 def axes_of(t: torch.Tensor, dim: int) -> Tuple[str, ...]:
@@ -575,6 +689,13 @@ def reduce_out(x: torch.Tensor, axes) -> torch.Tensor:
     if mesh is None or not mesh.axes(axes):
         return x
     return comm.ReduceOut.apply(x, mesh, axes)
+
+
+def sum_shared(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum over ``axes`` of each rank's partial ``x``, which each rank
+    then uses for its own part (the gated norm's sum of squares over the
+    SSD heads): an all-reduce whose gradient is all-reduced too."""
+    return copy_in(reduce_out(x, axes), axes)
 
 
 def extent(axes) -> int:

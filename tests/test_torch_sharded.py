@@ -13,7 +13,8 @@ the installed jax):
   reference's jitted ``value_and_grad``, the loss within 1e-5 relative;
   after three steps the losses within 1e-4 relative and each
   parameter's change within 1e-2 (relative L2) of both single-device
-  runs'; an ssm and a moe config refused by name on the same mesh;
+  runs'; an ssm config placed, and a moe, an encoder-decoder and an
+  int8-KV config refused by name on the same mesh;
 * (b) qwen2.5-1.5b decodes three steps on a (4, 2) serve mesh (the MLP
   over all eight ranks, attention over ``model``, the cache's lanes over
   ``data``): each step's logits within 1e-5 of the single-device port's
@@ -23,6 +24,17 @@ the installed jax):
 * attention whole where the model axis does not divide the KV heads
   (olmo-1b on (1, 8)): gradients within 1e-5 of the single-device
   port's;
+* (g) the ssm, hybrid and vlm families (``FAMILY_CASES``): mamba2 and
+  hymba on (4, 2) and (2, 4) (the Mamba-2 mixer split by SSD heads;
+  hymba's 2 KV heads make attention whole on (2, 4)), mamba2 with 6 SSD
+  heads on (2, 4) (the mixer whole on every rank), phi-3-vision on
+  (4, 2) with ``vision_embeds``: the loss and every gradient leaf
+  within 1e-5 of the single-device port's and the reference's, three
+  steps within 1e-4 (losses) and 1e-2 (each parameter's change) of the
+  single-device port's, four serve-mode decode steps' logits and the
+  gathered ``ssm_h``/``ssm_conv`` (and K/V) within 1e-5 of both; the
+  mamba2 (4, 2) state after three steps, checkpointed on the mesh,
+  restores onto the unsharded model equal to the gathered state;
 * (c) ``compressed_psum`` over ``pod`` of a (2, 4) mesh: the mean within
   the reference's 2% of the exact mean and within one float32 ulp of a
   numpy model of the reference's per-participant arithmetic, the
@@ -40,7 +52,7 @@ Each group of ranks is spawned here (``python`` on this file, a file
 store under the test's temporary directory), joins with a 180 s
 timeout, and is killed if it overruns; a failing rank's log (its
 traceback) is reported with every other rank's.  One group of eight
-ranks runs (a), (b), (c) and (d)'s first phase (a module fixture), so
+ranks runs (a), (b), (c), (g) and (d)'s first phase (a module fixture), so
 the file spawns three groups in all: that one, (d)'s four ranks and
 (e)'s launcher.
 """
@@ -74,8 +86,26 @@ LOGIT_TOL = 1e-5
 #: the train tests' schedule (moves the weights within three steps)
 OPT = dict(lr=1e-2, warmup_steps=2, total_steps=10)
 TRAIN = dict(remat=True, microbatches=2)
+#: (g)'s steps: remat, one microbatch (the eight-rank group's time
+#: limit; (a) holds the microbatches' accumulation on a mesh)
+FAMILY_TRAIN = dict(remat=True, microbatches=1)
 BATCH, SEQ = 8, 32
 DECODE_TOKENS = [[1, 2, 3, 4], [5, 6, 7, 8], [9, 10, 11, 12]]
+#: (g): case -> (arch, mesh, SSMConfig fields replaced); each config's
+#: initial state is the reference's (one checkpoint a config)
+FAMILY_CASES = {
+    "mamba2-4x2": ("mamba2-780m", (4, 2), {}),
+    "mamba2-2x4": ("mamba2-780m", (2, 4), {}),
+    "mamba2-6heads-2x4": ("mamba2-780m", (2, 4), {"d_inner_override": 192}),
+    "hymba-4x2": ("hymba-1.5b", (4, 2), {}),
+    "hymba-2x4": ("hymba-1.5b", (2, 4), {}),
+    "phi3v-4x2": ("phi-3-vision-4.2b", (4, 2), {}),
+}
+#: (g)'s four decode steps of four lanes
+FAMILY_DECODE_TOKENS = DECODE_TOKENS + [[3, 1, 4, 1]]
+#: the Mamba-2 leaves (g) names among every gradient leaf it checks
+SSM_LEAVES = ("a_log", "dt_bias", "d_skip", "in_proj", "conv_w", "conv_b",
+              "norm_scale", "out_proj")
 
 
 def _cfg(arch):
@@ -84,16 +114,43 @@ def _cfg(arch):
 
 
 def _batch(step, cfg):
+    """The pipeline's batch ``step``; a vlm's also holds seeded
+    ``vision_embeds`` (B, n_vision_tokens, d)."""
     from repro_torch.data import DataConfig, synth_batch
-    return synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
-                                  global_batch=BATCH), step)
+    batch = synth_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=SEQ,
+                                   global_batch=BATCH), step)
+    if cfg.n_vision_tokens:
+        rng = np.random.default_rng(100 + step)
+        batch["vision_embeds"] = rng.standard_normal(
+            (BATCH, cfg.n_vision_tokens, cfg.d_model)).astype(np.float32)
+    return batch
 
 
-def _train_step(cfg):
+def _family_key(case):
+    """The config (g)'s ``case`` runs, as a name: its arch, and the SSM
+    fields it replaces."""
+    arch, _, ssm = FAMILY_CASES[case]
+    return arch + "".join(f"-{k}{v}" for k, v in sorted(ssm.items()))
+
+
+def _family_cfg(case, cfg_of=None):
+    """(g)'s config of ``case`` in float32 (``cfg_of(arch)`` the SMOKE
+    config: the port's by default, or the reference's)."""
+    arch, _, ssm = FAMILY_CASES[case]
+    cfg = (cfg_of or _cfg)(arch)
+    if cfg_of is not None:
+        cfg = dataclasses.replace(cfg, dtype="float32")
+    if ssm:
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
+                                                               **ssm))
+    return cfg
+
+
+def _train_step(cfg, train=TRAIN):
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import TrainConfig, make_train_step
     return make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(**OPT),
-                                            **TRAIN))
+                                            **train))
 
 
 # ----------------------------------------------------------------------
@@ -117,12 +174,17 @@ def _rank_train(rank, world, out, ckdir):
     cfg = _cfg("olmo-1b")
     mesh = make_test_mesh((4, 2))
     refusals = {}
-    for arch in ("mamba2-780m", "moonshot-v1-16b-a3b"):
+    for name, rcfg in (
+            ("mamba2-780m", _cfg("mamba2-780m")),
+            ("moonshot-v1-16b-a3b", _cfg("moonshot-v1-16b-a3b")),
+            ("whisper-base", _cfg("whisper-base")),
+            ("qwen2.5-1.5b-int8-kv", dataclasses.replace(
+                _cfg("qwen2.5-1.5b"), kv_quant="int8"))):
         try:
-            init_train_state(build_model(_cfg(arch)), torch.Generator(),
-                             CPU, mesh=mesh)
+            init_train_state(build_model(rcfg), torch.Generator(), CPU,
+                             mesh=mesh)
         except ValueError as e:
-            refusals[arch] = str(e)
+            refusals[name] = str(e)
     step = _train_step(cfg)
     with use_mesh(mesh):
         state = _restored(ckdir, cfg, mesh)
@@ -215,6 +277,68 @@ def _rank_decode(rank, world, out, params_path):
              "w_gate": list(params.blocks[0].mlp.w_gate.shape)}))
 
 
+def _rank_family(rank, world, out, ckdirs):
+    """(g): every case of ``FAMILY_CASES`` (its gradients, three steps and
+    four decode steps), each writing under its own directory."""
+    from repro_torch.checkpoint import (empty_train_state, restore, save,
+                                        train_state_to_numpy)
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import init_cache, lm_decode_step
+    from repro_torch.parallel import comm, sharding, use_mesh
+    from repro_torch.train.train_loop import batch_to_device
+    for case, (_, shape, _) in FAMILY_CASES.items():
+        t0 = time.perf_counter()
+        cfg = _family_cfg(case)
+        ckdir = ckdirs[_family_key(case)]
+        res = out / case
+        res.mkdir(exist_ok=True)
+        mesh = make_test_mesh(shape)
+        step = _train_step(cfg, FAMILY_TRAIN)
+        with use_mesh(mesh):
+            state = _restored(ckdir, cfg, mesh)
+            specs = {n: sharding.spec_of(p)
+                     for n, p in state.params.named_parameters()}
+            loss, grads = step.grads_of(
+                state.params, batch_to_device(_batch(0, cfg), CPU))
+            grads = {n: comm.gather_full(g, mesh, specs[n]).numpy()
+                     for n, g in grads.items()}
+            losses = []
+            for i in range(3):
+                state, m = step(state, _batch(i, cfg))
+                losses.append(float(m["loss"]))
+            leaves = train_state_to_numpy(state)
+            if case == "mamba2-4x2":
+                save(str(res / "ck"), 3, state)
+            ssd = (list(sharding.ssd_head_axes(mesh, cfg)) if cfg.has_ssm
+                   else None)
+            att = (None if cfg.attn_free else
+                   list(sharding.head_axes(mesh, cfg)))
+        # serve mode: the initial weights whole, then placed
+        params = restore(ckdir, 0, empty_train_state(cfg, CPU)).params
+        sharding.place_params(mesh, params, cfg, "serve")
+        logits = []
+        with use_mesh(mesh, mode="serve"):
+            cache = init_cache(cfg, 4, 64, device=CPU)
+            shapes = {k: list(v.shape) for k, v in cache.items()}
+            for toks in FAMILY_DECODE_TOKENS:
+                lg, cache = lm_decode_step(params, cfg, cache, torch.tensor(
+                    toks, dtype=torch.int32))
+                logits.append(lg.numpy())
+            whole = sharding.gather_cache(mesh, cache, cfg)
+        if rank == 0:
+            np.savez(res / "grads.npz", **grads)
+            np.savez(res / "state.npz", **{n: a for n, a, _ in leaves})
+            np.save(res / "logits.npy", np.stack(logits))
+            np.savez(res / "cache.npz",
+                     **{k: v.numpy() for k, v in whole.items()})
+            (res / "result.json").write_text(json.dumps(
+                {"loss": float(loss), "losses": losses, "ssd_axes": ssd,
+                 "head_axes": att, "cache_shapes": shapes,
+                 "seconds": time.perf_counter() - t0,
+                 "specs": {n: [list(mesh.axes(e)) for e in sp]
+                           for n, sp in specs.items()}}))
+
+
 def _psum_input():
     rng = np.random.default_rng(0)
     g = (rng.standard_normal((2, 4096)) * 1e-3).astype(np.float32)
@@ -271,17 +395,24 @@ def _rank_elastic(rank, world, out, ckdir, phase):
         (out / "result.json").write_text(json.dumps(result))
 
 
-def _rank_world8(rank, world, out, ckdir, params_path):
-    """(a), (d)'s first phase, (b), (c) and the whole-heads case in one
-    group of eight ranks, each case writing under its own directory."""
+def _rank_world8(rank, world, out, ckdir, params_path, ckdirs):
+    """(a), (d)'s first phase, (b), (c), the whole-heads case and (g) in
+    one group of eight ranks, each case writing under its own
+    directory."""
+    seconds = {}
     for name, case, kw in (
             ("train", _rank_train, {"ckdir": ckdir}),
             ("elastic", _rank_elastic, {"ckdir": ckdir, "phase": 1}),
             ("decode", _rank_decode, {"params_path": params_path}),
             ("psum", _rank_psum, {}),
-            ("whole_heads", _rank_whole_heads, {"ckdir": ckdir})):
+            ("whole_heads", _rank_whole_heads, {"ckdir": ckdir}),
+            ("family", _rank_family, {"ckdirs": ckdirs})):
         (out / name).mkdir(exist_ok=True)
+        t0 = time.perf_counter()
         case(rank, world, out / name, **kw)
+        seconds[name] = time.perf_counter() - t0
+    if rank == 0:           # each case's share of the group's time limit
+        (out / "seconds.json").write_text(json.dumps(seconds))
 
 
 RANK_CASES = {"world8": _rank_world8, "elastic": _rank_elastic}
@@ -348,7 +479,10 @@ class World8:
     """The single-device inputs of the eight-rank group and its output:
     the reference's initial olmo-1b training state (``js``) and a
     checkpoint of it as the port's (``ckdir``), the reference's qwen2.5-
-    1.5b parameters (``jparams``), and ``out``, a directory a case."""
+    1.5b parameters (``jparams``), (g)'s initial states by config
+    (``fstates``; checkpoints ``ckdirs``) and the single-device runs
+    they are held to (``fref``, filled at first use), and ``out``, a
+    directory a case."""
 
 
 @pytest.fixture(scope="module")
@@ -373,9 +507,26 @@ def world8(tmp_path_factory):
     params = params_from_jax(jax.device_get(w.jparams), _cfg("qwen2.5-1.5b"),
                              CPU)
     torch.save(params.state_dict(), tmp / "params.pt")
+    from repro_torch.convert import train_state_from_jax
+    w.fstates, w.fref, ckdirs = {}, {}, {}
+    for case in FAMILY_CASES:
+        key = _family_key(case)
+        if key in w.fstates:
+            continue
+        jcfg = _family_cfg(case, _smoke_of(jax_get_config))
+        w.fstates[key] = jax.device_get(jax_init_train_state(
+            jax_build_model(jcfg), jax.random.PRNGKey(0)))
+        ckdirs[key] = str(tmp / f"initial_{key}")
+        save(ckdirs[key], 0, train_state_from_jax(
+            w.fstates[key], _family_cfg(case), CPU))
     w.out = _spawn(tmp, "world8", 8, ckdir=w.ckdir,
-                   params_path=str(tmp / "params.pt"))
+                   params_path=str(tmp / "params.pt"), ckdirs=ckdirs)
     return w
+
+
+def _smoke_of(jax_get_config):
+    """The reference's SMOKE config of an arch."""
+    return lambda arch: jax_get_config(arch, smoke=True)
 
 
 def _port_state(w):
@@ -416,10 +567,9 @@ def test_sharded_train_matches_single_device(world8):
     assert res["specs"]["blocks.0.attn.wq"] == [["data"], ["model"]]
     assert res["specs"]["blocks.0.attn.wo"] == [["model"], ["data"]]
     assert res["specs"]["embed.tok"] == [["model"], ["data"]]
-    for arch, family in (("mamba2-780m", "ssm"),
-                         ("moonshot-v1-16b-a3b", "moe")):
-        msg = res["refusals"].get(arch, "")
-        assert f"the {family} family" in msg and "mesh" in msg, arch
+    assert "mamba2-780m" not in res["refusals"]      # (g) runs the ssm
+    msg = res["refusals"].get("moonshot-v1-16b-a3b", "")
+    assert "the moe family" in msg and "mesh" in msg
     # gradients: the single-device port and the reference's jitted
     # value_and_grad on the same batch
     step = _train_step(cfg)
@@ -522,6 +672,174 @@ def test_sharded_grads_with_whole_heads(world8):
     for name, g1 in grads1.items():
         assert _max_err(grads[name], g1.numpy()) <= GRAD_TOL, name
     assert abs(res["loss"] - float(loss1)) <= LOSS_TOL * abs(float(loss1))
+
+
+def test_mesh_refuses_moe_encdec_and_int8_kv_by_name(world8):
+    """On (4, 2) the moe family, the encoder-decoder (whisper-base) and
+    an int8 KV cache are refused by name; the ssm family is placed."""
+    res = json.loads((world8.out / "train" / "result.json").read_text())
+    for name, what in (("moonshot-v1-16b-a3b", "the moe family"),
+                       ("whisper-base", "the encoder-decoder family"),
+                       ("qwen2.5-1.5b-int8-kv", "with an int8 KV cache")):
+        msg = res["refusals"].get(name, "")
+        assert what in msg and "mesh" in msg, (name, msg)
+    assert sorted(res["refusals"]) == sorted(
+        ["moonshot-v1-16b-a3b", "whisper-base", "qwen2.5-1.5b-int8-kv"])
+
+
+def _family_ref(w, case):
+    """The single-device runs (g)'s ``case`` is held to, one a config:
+    the port's (gradients and loss of batch 0, three steps' losses and
+    final state, four decode steps' logits and cache) and the
+    reference's (jitted ``value_and_grad``, decode steps' logits and
+    cache) from the same initial state."""
+    key = _family_key(case)
+    if key in w.fref:
+        return w.fref[key]
+    import types
+    jax, jax_get_config, jax_build_model = _reference()
+    import jax.numpy as jnp
+    from repro.checkpoint.checkpointer import _flatten_with_names
+    from repro.models.transformer import init_cache as jax_init_cache
+    from repro.models.transformer import lm_decode_step as jax_decode_step
+    from repro_torch.checkpoint import train_state_to_numpy
+    from repro_torch.convert import train_state_from_jax
+    from repro_torch.models.transformer import init_cache, lm_decode_step
+    from repro_torch.train.train_loop import batch_to_device
+    cfg = _family_cfg(case)
+    jcfg = _family_cfg(case, _smoke_of(jax_get_config))
+    js = w.fstates[key]
+    state = train_state_from_jax(js, cfg, CPU)
+    r = types.SimpleNamespace(logits=[], jlogits=[])
+    r.start = {n: a for n, a, _ in train_state_to_numpy(state)}
+    cache, jcache = init_cache(cfg, 4, 64, device=CPU), \
+        jax_init_cache(jcfg, 4, 64)
+    for toks in FAMILY_DECODE_TOKENS:
+        lg, cache = lm_decode_step(state.params, cfg, cache, torch.tensor(
+            toks, dtype=torch.int32))
+        jlg, jcache = jax_decode_step(js.params, jcfg, jcache,
+                                      jnp.asarray(toks, jnp.int32))
+        r.logits.append(lg.numpy())
+        r.jlogits.append(np.asarray(jlg))
+    r.cache = {k: v.numpy() for k, v in cache.items()}
+    r.jcache = {k: np.asarray(v) for k, v in jax.device_get(jcache).items()}
+    step = _train_step(cfg, FAMILY_TRAIN)
+    batch0 = _batch(0, cfg)
+    loss, grads = step.grads_of(state.params, batch_to_device(batch0, CPU))
+    r.loss, r.grads = float(loss), {n: g.numpy() for n, g in grads.items()}
+    jloss, jgrads = jax.jit(jax.value_and_grad(jax_build_model(jcfg).loss))(
+        js.params, {k: jnp.asarray(v) for k, v in batch0.items()})
+    r.jloss = float(jloss)
+    r.jgrads = {n: np.asarray(x) for n, x in _flatten_with_names(
+        jax.device_get(jgrads))}
+    r.losses = []
+    for i in range(3):
+        state, m = step(state, _batch(i, cfg))
+        r.losses.append(float(m["loss"]))
+    r.final = {n: a for n, a, _ in train_state_to_numpy(state)}
+    w.fref[key] = r
+    return r
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_sharded_family_train_matches_single_device(world8, case):
+    """(g)'s training: the placement (the mixer split by SSD heads where
+    the model axis divides them, else whole), the loss and every
+    gradient leaf (the Mamba-2 leaves among them) against the
+    single-device port and the reference, three steps against the
+    single-device port."""
+    from repro_torch.models.common import reference_path
+    from repro_torch.parallel.sharding import ssd_dims
+    ref = _family_ref(world8, case)
+    cfg = _family_cfg(case)
+    shape = FAMILY_CASES[case][1]
+    out = world8.out / "family" / case
+    res = json.loads((out / "result.json").read_text())
+    grads = np.load(out / "grads.npz")
+    if cfg.has_ssm:
+        split = ssd_dims(cfg)[1] % shape[1] == 0
+        assert res["ssd_axes"] == (["model"] if split else []), res
+        leaves = {n.rsplit(".", 1)[1] for n in grads.files if ".ssm." in n}
+        assert set(SSM_LEAVES) <= leaves
+    if not cfg.attn_free:
+        split = cfg.n_kv_heads % shape[1] == 0
+        assert res["head_axes"] == (["model"] if split else []), res
+    assert sorted(grads.files) == sorted(ref.grads)
+    for name, g1 in ref.grads.items():
+        path, layer = reference_path(name)
+        want = ref.jgrads[path] if layer is None else ref.jgrads[path][layer]
+        assert grads[name].shape == g1.shape, name
+        assert _max_err(grads[name], g1) <= GRAD_TOL, name
+        assert _max_err(grads[name], want) <= GRAD_TOL, name
+    assert abs(res["loss"] - ref.loss) <= LOSS_TOL * abs(ref.loss)
+    assert abs(res["loss"] - ref.jloss) <= LOSS_TOL * abs(ref.jloss)
+    assert np.max(np.abs(np.array(res["losses"]) - ref.losses)
+                  / np.abs(ref.losses)) <= STEP_LOSS_TOL
+    got = np.load(out / "state.npz")
+    for name, final in ref.final.items():
+        if name.startswith(".params/"):
+            start = ref.start[name]
+            assert _rel(got[name] - start, final - start) <= STEP_REL_TOL, \
+                name
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_sharded_family_decode_step(world8, case):
+    """(g)'s four serve-mode decode steps: the logits within 1e-5 of the
+    single-device port's and the reference's, the gathered cache
+    (``ssm_h``, ``ssm_conv``, K/V) within 1e-5 of each entry's largest
+    value of both, each rank's recurrent state its lanes and SSD
+    heads."""
+    from repro_torch.parallel.sharding import ssd_dims
+    ref = _family_ref(world8, case)
+    cfg = _family_cfg(case)
+    shape = FAMILY_CASES[case][1]
+    out = world8.out / "family" / case
+    res = json.loads((out / "result.json").read_text())
+    got = np.load(out / "logits.npy")
+    v = cfg.vocab_size
+    for i in range(len(FAMILY_DECODE_TOKENS)):
+        assert np.max(np.abs(got[i][:, :v] - ref.logits[i][:, :v])) <= \
+            LOGIT_TOL, i
+        assert np.max(np.abs(got[i][:, :v] - ref.jlogits[i][:, :v])) <= \
+            LOGIT_TOL, i
+    cache = np.load(out / "cache.npz")
+    assert sorted(cache.files) == sorted(ref.cache)
+    assert cache["len"].tolist() == [len(FAMILY_DECODE_TOKENS)] * 4
+    for name in cache.files:
+        if name == "len":
+            continue
+        assert cache[name].shape == ref.cache[name].shape, name
+        assert _max_err(cache[name], ref.cache[name]) <= GRAD_TOL, name
+        assert _max_err(cache[name], ref.jcache[name]) <= GRAD_TOL, name
+    if cfg.has_ssm:
+        d_inner, nh, n = ssd_dims(cfg)
+        k = shape[1] if res["ssd_axes"] else 1
+        lanes = 4 // shape[0]
+        assert res["cache_shapes"]["ssm_h"][1:3] == [lanes, nh // k]
+        assert res["cache_shapes"]["ssm_conv"][3] == d_inner // k + 2 * n
+
+
+def test_sharded_ssm_checkpoint_restores_unsharded(world8):
+    """The mamba2 (4, 2) state after three steps, checkpointed on the
+    mesh (gathered, rank 0 writing), restores onto the unsharded model
+    equal, leaf by leaf and bit for bit, to the gathered state."""
+    from repro_torch.checkpoint import (empty_train_state, restore,
+                                        train_state_to_numpy)
+    from repro_torch.parallel.sharding import ssd_dims
+    cfg = _family_cfg("mamba2-4x2")
+    out = world8.out / "family" / "mamba2-4x2"
+    state = restore(str(out / "ck"), 3, empty_train_state(cfg, CPU))
+    d_inner, nh, n = ssd_dims(cfg)       # in_proj whole: [z|x|B|C|dt]
+    assert state.params.blocks[0].ssm.in_proj.shape == (
+        cfg.d_model, 2 * d_inner + 2 * n + nh)
+    got = {n: a for n, a, _ in train_state_to_numpy(state)}
+    want = np.load(out / "state.npz")
+    assert sorted(got) == sorted(want.files)
+    assert any(n.endswith("/ssm/a_log") for n in got)
+    for name, arr in got.items():
+        assert arr.shape == want[name].shape, name
+        assert arr.tobytes() == want[name].tobytes(), name
 
 
 def test_compressed_psum_over_pod(world8):
