@@ -407,23 +407,27 @@ order (any failure raises and the script exits non-zero):
    capture's seconds and the graph pool's bytes;
 51. the mesh: two rank processes (this script with ``--mesh-rank``)
    share the card over gloo on mesh (data 1, model 2) with, in turn,
-   qwen2.5-1.5b and mamba2-780m at full width and depth, hymba-1.5b and
+   qwen2.5-1.5b at full width and depth, mamba2-780m, hymba-1.5b and
    phi-3-vision-4.2b at full width cut to 4 layers (phi-3-vision's rows
-   256 vision embeddings then 256 tokens), in bf16: the unsharded first
-   step on each rank and three steps on rank 0, then the same sharded
-   (the first loss and the three within 1e-2 relative, every gradient
-   leaf within phase 43's gate -- or, for the ssm and hybrid models, a
-   leaf past it no further from the float32 step's gradients than
-   twice the unsharded bf16 step's --, the losses falling), and four
-   sharded decode steps on a dense cache (the recurrent state by SSD
-   heads) in float32 (logits within 1e-2 of the unsharded step's) and
-   bf16 (its distance from the float32 logits within twice the
-   unsharded bf16 step's); K2, K3 and K10 launches counted from zero on
-   each rank, all at the local heads (qwen 6 / 1, phi-3-vision 16 / 16
-   at D 96, hymba's attention whole at 25 / 5; K10 at 24 SSD heads for
-   mamba2-780m, 25 for hymba), K2 and K3 checked and timed at qwen's
-   and phi-3-vision's local shapes, K10 at mamba2-780m's; each rank's
-   peak memory and synced step times.
+   256 vision embeddings then 256 tokens), and moonshot-v1-16b-a3b at
+   full width cut to 2 layers (32 of its 64 experts a rank), in bf16:
+   the unsharded first step on each rank and three steps on rank 0,
+   then the same sharded (the first loss and the three within 1e-2
+   relative, every gradient leaf within phase 43's gate -- or, for the
+   ssm, hybrid and moe models, a leaf past it no further from the
+   float32 step's gradients than twice the unsharded bf16 step's --,
+   the losses falling; for moonshot the share of the first step's
+   token-expert assignments whose expert differs from the unsharded
+   step's), and four sharded decode steps on a dense cache (the
+   recurrent state by SSD heads) in float32 (logits within 1e-2 of the
+   unsharded step's) and bf16 (its distance from the float32 logits
+   within twice the unsharded bf16 step's); K2, K3 and K10 launches
+   counted from zero on each rank, all at the local heads (qwen 6 / 1,
+   phi-3-vision 16 / 16 at D 96, moonshot 8 / 8, hymba's attention
+   whole at 25 / 5; K10 at 24 SSD heads for mamba2-780m, 25 for hymba),
+   K2 and K3 checked and timed at qwen's, phi-3-vision's and moonshot's
+   local shapes, K10 at mamba2-780m's; each rank's peak memory and
+   synced step times.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -5075,18 +5079,21 @@ def _plain_bwd_scan_fn(x, dt, a, b, c, *, chunk):
 @contextlib.contextmanager
 def routes_recorded(routes):
     """Each moe layer's expert ids (t, k), appended to ``routes`` as the
-    model routes (a remat recompute appends again)."""
+    model routes (a remat recompute appends again); on a mesh, this
+    rank's tokens' (the router read whole, as the dispatch reads it)."""
     import torch
     from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import sharding
     inner = moe_mod._moe_tokens
 
-    def recording(p, x, moe):
+    def recording(p, x, moe, *args):
         with torch.no_grad():
-            logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(),
-                                  p.router.float())
+            logits = torch.matmul(
+                x.reshape(-1, x.shape[-1]).float(),
+                sharding.weight(p.router, None, None).float())
             ids = torch.topk(torch.softmax(logits, -1), moe.top_k)[1]
             routes.append(torch.sort(ids, dim=-1)[0])
-        return inner(p, x, moe)
+        return inner(p, x, moe, *args)
 
     moe_mod._moe_tokens = recording
     try:
@@ -6384,15 +6391,19 @@ MESH_DECODE = dict(lanes=4, max_len=64, steps=4)
 #: seeded embeddings) then 256 text tokens, the loss on the text
 MESH_PHI3V_SEQ = 512
 #: (arch, layers (full depth when None), train seq) in order, each on
-#: ``MESH_OPT``'s schedule: qwen2.5-1.5b, then mamba2-780m at full depth
+#: ``MESH_OPT``'s schedule: qwen2.5-1.5b at full depth, then mamba2-780m
 #: (K10 at 24 heads a rank), hymba-1.5b (attention whole: 5 KV heads; 25
 #: SSD heads a rank) and phi-3-vision-4.2b (16 heads a rank, D 96) cut
 #: to 4 layers (two ranks on one card cannot hold phi-3-vision's whole
-#: train state)
+#: train state; mamba2-780m's sharded steps, ~870 host-staged
+#: collectives each at full depth, would not leave the script room), and
+#: moonshot-v1-16b-a3b cut to 2 layers (8 heads and 32 experts a rank;
+#: its embedding and head alone are 0.67e9 parameters)
 MESH_MODELS = (("qwen2.5-1.5b", None, MESH_TRAIN["seq"]),
-               ("mamba2-780m", None, MESH_TRAIN["seq"]),
+               ("mamba2-780m", 4, MESH_TRAIN["seq"]),
                ("hymba-1.5b", 4, MESH_TRAIN["seq"]),
-               ("phi-3-vision-4.2b", 4, MESH_PHI3V_SEQ))
+               ("phi-3-vision-4.2b", 4, MESH_PHI3V_SEQ),
+               ("moonshot-v1-16b-a3b", 2, MESH_TRAIN["seq"]))
 #: the decode runs' weight dtypes: float32 is held to the reference's
 #: gate; bf16 cannot be (one bf16 ulp of a logit of magnitude 2 to 4 is
 #: 0.0156), so its sharded logits are held to the float32 step's (the
@@ -6509,6 +6520,21 @@ def _mesh_counting(seen):
     return undo
 
 
+def _flipped_share(got, want, n_experts):
+    """The share of token-expert assignments in ``got`` (a list of (t,
+    k) top-k ids, one a moe call: :func:`routes_recorded`'s) whose
+    expert is not among that token's in ``want``'s call at the same
+    place."""
+    import torch
+    differ = total = 0
+    for a, b in zip(got, want):
+        hot = [torch.zeros(a.shape[0], n_experts, device=a.device).scatter_(
+            1, ids, 1.0) for ids in (a, b)]
+        differ += a.numel() - int(torch.sum(hot[0] * hot[1]))
+        total += a.numel()
+    return differ / max(total, 1)
+
+
 def mesh_config(arch, layers):
     """Phase 51's config of ``arch``: full width, cut to ``layers``
     (full depth when ``None``)."""
@@ -6554,11 +6580,10 @@ def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
     # with these gradients); on rank 0 also the unsharded steps, whose
     # masters are then drawn again for the sharded run
     step1 = make_train_step(cfg, tcfg)
-    loss1, g1 = step1.grads_of(params, batch)
-    g32 = None
-    if cfg.has_ssm:      # the same step in float32: what bf16 rounds
-        g32 = make_train_step(dataclasses.replace(cfg, dtype="float32"),
-                              tcfg).grads_of(params, batch)[1]
+    ids1 = []
+    with routes_recorded(ids1):
+        loss1, g1 = step1.grads_of(params, batch)
+    del ids1[cfg.n_layers:]                 # the forward's, not remat's
     if rank == 0:
         state1 = TrainState(params=params, opt=init_adamw(params))
         state1, losses1, step_ms1 = _mesh_steps(step1, tcfg, state1, batch,
@@ -6569,17 +6594,34 @@ def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
         params = model.init(torch.Generator(device=dev).manual_seed(SEED),
                             dev, train=True)
     del step1
-    dist.barrier()
+    dist.barrier()          # rank 0's unsharded steps, done
+    g32 = None
+    if cfg.has_ssm or cfg.moe is not None:    # the same step in float32:
+        g32 = make_train_step(                # what bf16 rounds
+            dataclasses.replace(cfg, dtype="float32"), tcfg).grads_of(
+                params, batch)[1]
     sharding.place_params(mesh, params, cfg, "train")
     state = TrainState(params=params, opt=init_adamw(params))
     specs = {n: sharding.spec_of(p) for n, p in params.named_parameters()}
+    # this rank's blocks of the unsharded gradients, which it compares
+    g1 = {n: comm.local_of(g, mesh, specs[n]) for n, g in g1.items()}
+    if g32 is not None:
+        g32 = {n: comm.local_of(g, mesh, specs[n]) for n, g in g32.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     seen.clear()
     with use_mesh(mesh):
         reset_launch_counts()
         step = make_train_step(cfg, tcfg)
-        loss_s, gs = step.grads_of(state.params, batch)
+        ids = []
+        with routes_recorded(ids):
+            loss_s, gs = step.grads_of(state.params, batch)
+        flipped = (_flipped_share(ids[:cfg.n_layers], ids1,
+                                  cfg.moe.n_experts)
+                   if cfg.moe is not None else None)
+        del ids, ids1
         # each leaf's relative L2 error: the squares of this rank's
         # blocks against the same blocks of the unsharded gradients,
         # summed over the ranks that own them; with float32 gradients,
@@ -6587,11 +6629,11 @@ def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
         sq = torch.zeros(len(gs), 5, dtype=torch.float64, device=dev)
         for i, (name, g) in enumerate(gs.items()):
             if sharding.owns(mesh, specs[name]):
-                ref = comm.local_of(g1[name], mesh, specs[name]).double()
+                ref = g1[name].double()
                 sq[i, 0] = torch.sum(torch.square(g.double() - ref))
                 sq[i, 1] = torch.sum(torch.square(ref))
                 if g32 is not None:
-                    t = comm.local_of(g32[name], mesh, specs[name]).double()
+                    t = g32[name].double()
                     sq[i, 2] = torch.sum(torch.square(g.double() - t))
                     sq[i, 3] = torch.sum(torch.square(ref - t))
                     sq[i, 4] = torch.sum(torch.square(t))
@@ -6685,7 +6727,7 @@ def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
         torch.cuda.empty_cache()
     out.update(train_launches=train_launches, train_heads=train_heads,
                ssd_axes=ssd, losses=losses, loss_first=losses[0],
-               step_ms=step_ms, decode=decode)
+               step_ms=step_ms, decode=decode, flipped=flipped)
     if rank == 0:
         out["loss_unsharded"] = losses1[0]
         out["losses_unsharded"] = losses1
@@ -6756,6 +6798,11 @@ def _mesh_work(rank, world, dev):
         out["k2_phi3v"], out["k3_phi3v"] = _mesh_kernel_rows(
             dev, MESH_TRAIN["batch"], phi.n_heads // m,
             phi.n_kv_heads // m, MESH_PHI3V_SEQ, phi.hd,
+            MESH_DECODE["lanes"], MESH_DECODE["max_len"])
+        moon = mesh_config("moonshot-v1-16b-a3b", None)
+        out["k2_moonshot"], out["k3_moonshot"] = _mesh_kernel_rows(
+            dev, MESH_TRAIN["batch"], moon.n_heads // m,
+            moon.n_kv_heads // m, MESH_TRAIN["seq"], moon.hd,
             MESH_DECODE["lanes"], MESH_DECODE["max_len"])
         out["k10"] = _mesh_k10_row(dev, MESH_TRAIN["batch"],
                                    MESH_TRAIN["seq"], SSD_H // m)
@@ -6848,13 +6895,19 @@ def _mesh_report(tag, res, model, gpu):
                   f"{d['peak_gib']:.2f} GiB; step ms median "
                   f"{statistics.median(d['ms']):.2f} ({gpu})")
     name = r0["arch"]
+    if r0["flipped"] is not None:
+        print(f"{tag} {name}: {r0['flipped']:.4e} of the sharded first "
+              f"step's token-expert assignments (forward, every layer) "
+              f"have another expert than the unsharded step's "
+              f"(bf16 near-ties in top-{cfg.moe.top_k})")
     if not r0["loss_rel"] <= MESH_LOSS_TOL:
         fail(f"{tag} {name}: the sharded first loss is "
              f"{r0['loss_rel']:.3e} from the unsharded one")
     # a leaf past the gate is held, as the bf16 decode is, by its
     # distance from the float32 step's gradients: within
     # MESH_BF16_RATIO times the unsharded bf16 step's (the SSD's A and
-    # dt gradients move 5-13% with bf16's rounding order)
+    # dt gradients move 5-13% with bf16's rounding order; a moe's
+    # experts and router move with each flipped near-tie in top-k)
     truth = r0.get("grad_truth", {})
     if truth:
         leaf = max(truth, key=lambda n: truth[n][1] / max(truth[n][2],
@@ -6973,7 +7026,8 @@ def phase_mesh(dev):
     for model in MESH_MODELS[1:]:
         _mesh_report(tag, [r["families"][model[0]] for r in res], model,
                      gpu)
-    for name in ("k2", "k3", "k2_phi3v", "k3_phi3v"):
+    for name in ("k2", "k3", "k2_phi3v", "k3_phi3v", "k2_moonshot",
+                 "k3_moonshot"):
         if not r0[name]["max_abs_err"] <= r0[name]["tol"]:
             fail(f"{tag} {name} at the local heads: {r0[name]}")
     if not r0["k10"]["max_rel_err"] <= r0["k10"]["tol"]:
@@ -6982,6 +7036,8 @@ def phase_mesh(dev):
     for name, what in (("k2", "K2 qwen"), ("k3", "K3 qwen"),
                        ("k2_phi3v", "K2 phi-3-vision"),
                        ("k3_phi3v", "K3 phi-3-vision"),
+                       ("k2_moonshot", "K2 moonshot-v1-16b-a3b"),
+                       ("k3_moonshot", "K3 moonshot-v1-16b-a3b"),
                        ("k10", "K10 mamba2-780m")):
         k = r0[name]
         lib = ("n/a" if k["library_ms"] is None
@@ -7408,7 +7464,8 @@ def main() -> int:
             "heads": r0["train_heads"],
             "heads_by_model": {a: f["train_heads"]
                                for a, f in r0["families"].items()},
-            **r0["k2"], "phi3v": r0["k2_phi3v"]},
+            **r0["k2"], "phi3v": r0["k2_phi3v"],
+            "moonshot": r0["k2_moonshot"]},
         "decode_attention_lengthaware": {
             "mesh": r0["mesh"], "backend": r0["backend"],
             "launches_by_rank": {dt: [r["decode"][dt]["launches"].get(
@@ -7421,7 +7478,8 @@ def main() -> int:
             "heads": r0["decode"]["bfloat16"]["heads"],
             "heads_by_model": {a: f["decode"]["bfloat16"]["heads"]
                                for a, f in r0["families"].items()},
-            **r0["k3"], "phi3v": r0["k3_phi3v"]},
+            **r0["k3"], "phi3v": r0["k3_phi3v"],
+            "moonshot": r0["k3_moonshot"]},
         "ssd_chunk": {
             "mesh": r0["mesh"], "backend": r0["backend"],
             "launches_by_model": train_by_model("ssd_chunk"),

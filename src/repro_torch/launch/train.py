@@ -20,11 +20,12 @@ mesh sizes (data, model), whose product must be the world size: ``--mesh
 and a larger mesh runs one process a rank under ``python -m
 torch.distributed.run --nproc-per-node N -m repro_torch.launch.train
 ... --mesh D,M`` (each rank on ``cuda:{LOCAL_RANK % cards}``, NCCL when
-every rank has a card, gloo otherwise): the dense, ssm, hybrid and vlm
-families train FSDP over ``data`` and TP over ``model`` (the Mamba-2
-mixer by SSD heads; ``repro_torch.parallel.sharding``), the moe family
-is refused by name; rank 0 prints and writes the checkpoints.  A mesh
-that does not match the world is refused with both numbers.
+every rank has a card, gloo otherwise): the dense, moe, ssm, hybrid and
+vlm families train FSDP over ``data`` and TP over ``model`` (the Mamba-2
+mixer by SSD heads, a moe block's experts over ``model`` as the
+reference's ``expert`` axis; ``repro_torch.parallel.sharding``); rank 0
+prints and writes the checkpoints.  A mesh that does not match the
+world is refused with both numbers.
 Every decoder family trains (dense, moe, ssm, hybrid, vlm); an
 encoder-decoder (``whisper-base``) is refused by name: the data
 pipeline has no ``frames`` for its encoder.

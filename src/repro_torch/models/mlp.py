@@ -31,14 +31,20 @@ class SwiGLU(nn.Module):
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     """On a mesh the gate and up products are column-parallel over the
     axes d_ff is stored over, the down product row-parallel, its partial
-    sums reduced over them."""
+    sums reduced over them.  Where ``w_down``'s rows are not stored over
+    the axes of ``w_gate``'s columns, every weight is read whole and
+    nothing is split: a moe block's shared expert in train mode, which
+    the reference stores by the experts' rule (d over ``model``, d_ff
+    over the batch axes)."""
     axes = sharding.axes_of(p.w_gate, 1)
+    paired = sharding.axes_of(p.w_down, 0) == axes
+    axes, col = (axes, ...) if paired else ((), None)
     x = sharding.copy_in(x, axes)
-    g = torch.matmul(x, sharding.weight(p.w_gate, None, ...))
-    u = torch.matmul(x, sharding.weight(p.w_up, None, ...))
+    g = torch.matmul(x, sharding.weight(p.w_gate, None, col))
+    u = torch.matmul(x, sharding.weight(p.w_up, None, col))
     h = F.silu(g.float()).to(x.dtype) * u
     return sharding.reduce_out(
-        torch.matmul(h, sharding.weight(p.w_down, ..., None)), axes)
+        torch.matmul(h, sharding.weight(p.w_down, col, None)), axes)
 
 
 class GeluMLP(nn.Module):

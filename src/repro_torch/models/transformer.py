@@ -23,15 +23,16 @@ of the sliding window, dense or through the block table) and the dense
 per-lane state.
 
 On a mesh of more than one rank (:mod:`repro_torch.parallel.sharding`)
-the dense, ssm, hybrid and vlm families train and decode sharded:
-attention split by heads, the Mamba-2 mixer by SSD heads, a hybrid
-block's two branches each whole after its row-parallel output, so
-``_hybrid_mix`` sees whole tensors; the training forward takes this
-rank's rows of the batch (and of ``vision_embeds``), the decode step
-the whole batch and a cache placed by ``place_cache`` (``init_cache``
-places it: the K/V by heads, the recurrent state by SSD heads).  The
-moe and encoder-decoder families, the batched prefill and the paged
-cache refuse a mesh by name.
+the dense, moe, ssm, hybrid and vlm families train and decode sharded:
+attention split by heads, the Mamba-2 mixer by SSD heads, a moe block's
+experts over the expert axes (``models/moe.py``; its dense residual FFN
+column- and row-parallel as the dense MLP), a hybrid block's two
+branches each whole after its row-parallel output, so ``_hybrid_mix``
+sees whole tensors; the training forward takes this rank's rows of the
+batch (and of ``vision_embeds``), the decode step the whole batch and a
+cache placed by ``place_cache`` (``init_cache`` places it: the K/V by
+heads, the recurrent state by SSD heads).  The encoder-decoder family,
+the batched prefill and the paged cache refuse a mesh by name.
 """
 
 from __future__ import annotations
@@ -164,9 +165,10 @@ def _hybrid_mix(att: torch.Tensor, ssm: torch.Tensor) -> torch.Tensor:
 
 def _ffn(p: Block, h2: torch.Tensor, cfg: ModelConfig):
     """The block's feed-forward on the normed stream: (out, aux), aux
-    the experts' float32 loss scalar (None without experts).  A moe
-    block routes through its experts and adds the dense residual FFN's
-    output when it has one."""
+    the experts' float32 loss scalar (None without experts; on a mesh
+    this rank's share of it).  A moe block routes through its experts
+    and adds the dense residual FFN's output when it has one (on a mesh
+    column- and row-parallel, as the dense MLP)."""
     if cfg.moe is None:
         return swiglu(p.mlp, h2), None
     out, aux = moe_forward(p.moe, h2, cfg.moe)
@@ -263,7 +265,8 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     through K2's Function, an ssm or hybrid block's scan through K10's
     (``SSDChunkFn``).  On a mesh the batch is this rank's rows (split
     over ``sharding.split_batch``'s axes) and the value is this rank's
-    share of the loss (``cross_entropy_split``)."""
+    share of the loss (``cross_entropy_split``, and the experts' aux
+    loss as ``moe_forward`` gives it)."""
     tokens = batch["tokens"]
     split = sharding.active() is not None
     logits, aux = lm_forward_train(params, tokens, cfg,
@@ -462,14 +465,28 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
     rank and the cache this rank's block (``init_cache``): the step
     runs on its rows of the ``batch`` axes, each attention on the
     cache's lanes and its local heads (K3), each Mamba-2 mixer on the
-    cache's lanes and its SSD heads, and the logits are gathered
-    whole."""
+    cache's lanes and its SSD heads, each moe layer on its experts
+    (routing the rows of every rank of the ``batch`` axes together), and
+    the logits are gathered whole."""
     sharding.check_mesh_family(cfg)
     mesh = sharding.active()
     rows = () if mesh is None else sharding.batch_axes(mesh,
                                                        tokens.shape[0])
     if mesh is not None:
         tokens = comm.take(tokens, mesh, 0, rows)
+    with sharding.split_batch(rows):
+        x = _decode_blocks(params, cfg, cache, tokens)
+    logits = sharding.relayout(lm_logits(params.embed, x[:, 0], cfg), 0,
+                               rows, None)
+    new_cache = dict(cache)
+    new_cache["len"] = cache["len"] + 1
+    return logits, new_cache
+
+
+def _decode_blocks(params: LM, cfg: ModelConfig, cache: Cache,
+                   tokens: torch.Tensor) -> torch.Tensor:
+    """:func:`lm_decode_step`'s embedding and blocks on this rank's
+    ``tokens``: the final-normed stream (B, 1, d)."""
     x = embed(params.embed, tokens[:, None])
     cache_len = cache["len"]
     if cfg.attn_free:
@@ -491,12 +508,7 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
             x = block_decode(blk, x, cfg, k_all[i], v_all[i], cache_len, bt,
                              layer(ks_all, i), layer(vs_all, i),
                              layer(h_all, i), layer(conv_all, i))
-    x = apply_norm(params.final_norm, x)
-    logits = sharding.relayout(lm_logits(params.embed, x[:, 0], cfg), 0,
-                               rows, None)
-    new_cache = dict(cache)
-    new_cache["len"] = cache_len + 1
-    return logits, new_cache
+    return apply_norm(params.final_norm, x)
 
 
 def sample_tokens(logits: torch.Tensor, key: torch.Tensor,

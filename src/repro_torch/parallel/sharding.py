@@ -33,17 +33,24 @@ axes before the step.  The Mamba-2 mixer is split the same way by its
 SSD heads (:func:`ssd_head_axes`): each rank reads the whole ``in_proj``
 and conv weights and uses its heads' columns and B and C whole, so the
 gradients of those reads sum over the heads' axes (``weight(...,
-partial=)``).  ``seq`` and ``expert`` are not in this slice: tensors
-the reference constrains by them keep the layout they get, and the KV
-cache, which the reference splits by ``seq`` over ``model``, holds each
-rank's heads there instead (:func:`cache_layout`), the layout the
-decode kernel reads; the recurrent state holds each rank's SSD heads.
-For the same reason serve mode stores attention's weights by heads
-alone, not over the reference's (data, model), and the mixer's by SSD
-heads (:func:`place_params`), so a decode step gathers no weight.  The
-dense, ssm, hybrid and vlm families run on a mesh of more than one
-rank; the moe and encoder-decoder families and an int8 KV cache are
-refused by name.
+partial=)``).  The experts are split over ``expert`` as the reference
+stores them (:func:`expert_axes`): activations stay whole over
+``model``, so each rank routes every token it holds, runs only its own
+experts' slots of the ``(E, C, d)`` buffer and adds its partial combine,
+and the sum over the expert axes is a :func:`reduce_out` -- no
+all-to-all.  Capacity and drops are the unsharded call's: an
+assignment's slot counts the assignments of the lower batch ranks to
+its expert.  ``seq`` is not in this slice: tensors the reference
+constrains by it keep the layout they get, and the KV cache, which the
+reference splits by ``seq`` over ``model``, holds each rank's heads
+there instead (:func:`cache_layout`), the layout the decode kernel
+reads; the recurrent state holds each rank's SSD heads.  For the same
+reason serve mode stores attention's weights by heads alone, not over
+the reference's (data, model), the mixer's by SSD heads and a moe
+block's shared expert as the dense MLP (:func:`place_params`), so a
+decode step gathers no weight.  The dense, moe, ssm, hybrid and vlm
+families run on a mesh of more than one rank; the encoder-decoder
+family and an int8 KV cache are refused by name.
 
 :func:`use_mesh` keeps the reference's mesh context, process-wide
 rather than thread-local: on the card autograd runs a backward (and
@@ -158,8 +165,11 @@ def constrain(x, *logical: Optional[str]):
     seq, -)`` and the Megatron-SP boundaries (``transformer.py`` 60, 65,
     127, 132, 157) have the batch split by :func:`place_batch` before
     the step, and ``seq`` is not in this slice, so the sequence stays
-    whole.  The moe and whisper sites (``moe.py`` 114-135, ``whisper.py``
-    79-141) belong to families that refuse a mesh of more than one rank.
+    whole.  The moe sites (``moe.py`` 114-135) hold theirs the same way:
+    the buffer is this rank's experts (:func:`expert_axes`), its ``d``
+    whole, and the combine's output is this rank's rows.  The whisper
+    sites (``whisper.py`` 79-141) belong to a family that refuses a mesh
+    of more than one rank.
     With no mesh it is the identity, as the reference's is."""
     return x
 
@@ -364,7 +374,7 @@ def replicated(mesh) -> Spec:
 # ----------------------------------------------------------------------
 
 #: the families that run on a mesh of more than one rank
-MESH_FAMILIES = ("dense", "ssm", "hybrid", "vlm")
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def active():
@@ -414,6 +424,15 @@ def head_axes(mesh, cfg, mode: Optional[str] = None) -> Tuple[str, ...]:
     kv = {a for a in ("pod", "data") if a in mesh.axis_names}
     tp = tuple(a for a in mesh.axes(la["tp"]) if a not in kv)
     return mesh.axes(_fallback_axes(mesh, cfg.n_kv_heads, tp or None))
+
+
+def expert_axes(w_gate: torch.Tensor) -> Tuple[str, ...]:
+    """The axes a moe layer's experts are stored over: those of its
+    placed ``w_gate``'s dim 0 (E), ``expert`` (``model``) by the
+    reference's rules; none with no mesh, or when the axis does not
+    divide E (``_fallback_axes`` leaves the experts whole, and every
+    rank runs all of them)."""
+    return axes_of(w_gate, 0)
 
 
 def ssd_dims(cfg) -> Tuple[int, int, int]:
@@ -520,12 +539,18 @@ def place_params(mesh, module: nn.Module, cfg, mode: str = "train"
     weights instead.  The Mamba-2 mixer likewise: ``out_proj``'s rows
     and ``norm_scale`` over :func:`ssd_head_axes`, and ``in_proj`` and
     the conv weights, whose columns do not line up with the heads
-    (``[z | x | B | C | dt]``), whole on every rank."""
+    (``[z | x | B | C | dt]``), whole on every rank.  A moe block's
+    shared expert, which the reference's ``moe/`` rule stores as the
+    experts (its ``w_gate`` d over ``model``), is stored in serve mode
+    as the dense MLP, its d_ff over the tp axes; in train mode it keeps
+    the reference's layout and is read whole."""
     if mesh.size == 1:
         return module
     check_mesh_family(cfg, mesh)
     specs = param_shardings(mesh, module, mode)
     if mode == "serve":
+        params = dict(module.named_parameters())
+
         def entry(axes):
             return axes[0] if len(axes) == 1 else (axes or None)
         heads = entry(head_axes(mesh, cfg, mode)) \
@@ -541,6 +566,8 @@ def place_params(mesh, module: nn.Module, cfg, mode: str = "train"
                 spec = [None] * len(spec)
                 if leaf in _SSD_HEAD_ROWS:
                     spec[0] = ssd
+            elif owner == "shared":
+                spec = list(param_spec(mesh, leaf, params[name], mode))
             specs[name] = tuple(spec)
     for name, p in list(module.named_parameters()):
         _rebind(module, name, comm.local_of(p.detach(), mesh, specs[name]),

@@ -13,8 +13,9 @@ the installed jax):
   reference's jitted ``value_and_grad``, the loss within 1e-5 relative;
   after three steps the losses within 1e-4 relative and each
   parameter's change within 1e-2 (relative L2) of both single-device
-  runs'; an ssm config placed, and a moe, an encoder-decoder and an
-  int8-KV config refused by name on the same mesh;
+  runs'; an ssm and a moe config placed, and an encoder-decoder and an
+  int8-KV config refused by name on the same mesh (the moe family's
+  sharded steps are ``test_torch_sharded_moe.py``'s);
 * (b) qwen2.5-1.5b decodes three steps on a (4, 2) serve mesh (the MLP
   over all eight ranks, attention over ``model``, the cache's lanes over
   ``data``): each step's logits within 1e-5 of the single-device port's
@@ -126,23 +127,26 @@ def _batch(step, cfg):
     return batch
 
 
-def _family_key(case):
-    """The config (g)'s ``case`` runs, as a name: its arch, and the SSM
+def _family_key(case, cases=FAMILY_CASES):
+    """The config ``cases[case]`` runs, as a name: its arch, and the
     fields it replaces."""
-    arch, _, ssm = FAMILY_CASES[case]
-    return arch + "".join(f"-{k}{v}" for k, v in sorted(ssm.items()))
+    arch, _, sub = cases[case]
+    return arch + "".join(f"-{k}{v}" for k, v in sorted(sub.items()))
 
 
-def _family_cfg(case, cfg_of=None):
-    """(g)'s config of ``case`` in float32 (``cfg_of(arch)`` the SMOKE
-    config: the port's by default, or the reference's)."""
-    arch, _, ssm = FAMILY_CASES[case]
+def _family_cfg(case, cfg_of=None, cases=FAMILY_CASES):
+    """The config of ``cases[case]`` in float32 (``cfg_of(arch)`` the
+    SMOKE config: the port's by default, or the reference's), the
+    fields of its ``MoEConfig`` (a moe config) or ``SSMConfig`` the case
+    names replaced."""
+    arch, _, sub = cases[case]
     cfg = (cfg_of or _cfg)(arch)
     if cfg_of is not None:
         cfg = dataclasses.replace(cfg, dtype="float32")
-    if ssm:
-        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm,
-                                                               **ssm))
+    if sub:
+        field = "moe" if cfg.moe is not None else "ssm"
+        cfg = dataclasses.replace(cfg, **{field: dataclasses.replace(
+            getattr(cfg, field), **sub)})
     return cfg
 
 
@@ -278,18 +282,24 @@ def _rank_decode(rank, world, out, params_path):
 
 
 def _rank_family(rank, world, out, ckdirs):
-    """(g): every case of ``FAMILY_CASES`` (its gradients, three steps and
-    four decode steps), each writing under its own directory."""
+    """(g): every case of ``FAMILY_CASES``."""
+    _rank_cases(rank, world, out, ckdirs, FAMILY_CASES, "mamba2-4x2")
+
+
+def _rank_cases(rank, world, out, ckdirs, cases, ck_case):
+    """Every case of ``cases`` (its gradients, three steps and four
+    decode steps), each writing under its own directory; ``ck_case``'s
+    state after the steps is checkpointed on the mesh."""
     from repro_torch.checkpoint import (empty_train_state, restore, save,
                                         train_state_to_numpy)
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.transformer import init_cache, lm_decode_step
     from repro_torch.parallel import comm, sharding, use_mesh
     from repro_torch.train.train_loop import batch_to_device
-    for case, (_, shape, _) in FAMILY_CASES.items():
+    for case, (_, shape, _) in cases.items():
         t0 = time.perf_counter()
-        cfg = _family_cfg(case)
-        ckdir = ckdirs[_family_key(case)]
+        cfg = _family_cfg(case, cases=cases)
+        ckdir = ckdirs[_family_key(case, cases)]
         res = out / case
         res.mkdir(exist_ok=True)
         mesh = make_test_mesh(shape)
@@ -307,15 +317,19 @@ def _rank_family(rank, world, out, ckdirs):
                 state, m = step(state, _batch(i, cfg))
                 losses.append(float(m["loss"]))
             leaves = train_state_to_numpy(state)
-            if case == "mamba2-4x2":
+            if case == ck_case:
                 save(str(res / "ck"), 3, state)
             ssd = (list(sharding.ssd_head_axes(mesh, cfg)) if cfg.has_ssm
                    else None)
             att = (None if cfg.attn_free else
                    list(sharding.head_axes(mesh, cfg)))
+            experts = (list(sharding.expert_axes(
+                state.params.blocks[0].moe.w_gate)) if cfg.moe else None)
         # serve mode: the initial weights whole, then placed
         params = restore(ckdir, 0, empty_train_state(cfg, CPU)).params
         sharding.place_params(mesh, params, cfg, "serve")
+        serve_specs = {n: [list(mesh.axes(e)) for e in sharding.spec_of(p)]
+                       for n, p in params.named_parameters()}
         logits = []
         with use_mesh(mesh, mode="serve"):
             cache = init_cache(cfg, 4, 64, device=CPU)
@@ -333,10 +347,12 @@ def _rank_family(rank, world, out, ckdirs):
                      **{k: v.numpy() for k, v in whole.items()})
             (res / "result.json").write_text(json.dumps(
                 {"loss": float(loss), "losses": losses, "ssd_axes": ssd,
-                 "head_axes": att, "cache_shapes": shapes,
+                 "head_axes": att, "expert_axes": experts,
+                 "cache_shapes": shapes,
                  "seconds": time.perf_counter() - t0,
                  "specs": {n: [list(mesh.axes(e)) for e in sp]
-                           for n, sp in specs.items()}}))
+                           for n, sp in specs.items()},
+                 "serve_specs": serve_specs}))
 
 
 def _psum_input():
@@ -418,25 +434,27 @@ def _rank_world8(rank, world, out, ckdir, params_path, ckdirs):
 RANK_CASES = {"world8": _rank_world8, "elastic": _rank_elastic}
 
 
-def _rank_main(argv):
+def _rank_main(argv, cases=None):
     case, rank, world, store, out, kw = argv
     torch.set_num_threads(1)
     from repro_torch.parallel import runtime
     with runtime.process_group(store, int(rank), int(world), CPU):
-        RANK_CASES[case](int(rank), int(world), Path(out), **json.loads(kw))
+        (cases or RANK_CASES)[case](int(rank), int(world), Path(out),
+                                    **json.loads(kw))
 
 
-def _spawn(tmp_path, case, world, **kw) -> Path:
-    """Run ``case`` on ``world`` ranks; their output directory.  Fails
-    with every rank's log when one exits non-zero or the group
-    overruns ``GROUP_TIMEOUT``."""
+def _spawn(tmp_path, case, world, *, script=__file__, **kw) -> Path:
+    """Run ``case`` on ``world`` ranks (``python script case rank world
+    store out kw``); their output directory.  Fails with every rank's
+    log when one exits non-zero or the group overruns
+    ``GROUP_TIMEOUT``."""
     tag = f"{case}_{world}_{len(list(tmp_path.iterdir()))}"
     out = tmp_path / tag
     out.mkdir()
     env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     logs = [open(out / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen(
-        [sys.executable, __file__, case, str(r), str(world),
+        [sys.executable, str(script), case, str(r), str(world),
          str(tmp_path / f"store_{tag}"), str(out), json.dumps(kw)],
         env=env, stdout=logs[r], stderr=subprocess.STDOUT)
         for r in range(world)]
@@ -567,9 +585,11 @@ def test_sharded_train_matches_single_device(world8):
     assert res["specs"]["blocks.0.attn.wq"] == [["data"], ["model"]]
     assert res["specs"]["blocks.0.attn.wo"] == [["model"], ["data"]]
     assert res["specs"]["embed.tok"] == [["model"], ["data"]]
-    assert "mamba2-780m" not in res["refusals"]      # (g) runs the ssm
-    msg = res["refusals"].get("moonshot-v1-16b-a3b", "")
-    assert "the moe family" in msg and "mesh" in msg
+    # (g) runs the ssm family, test_torch_sharded_moe.py the moe family
+    assert "mamba2-780m" not in res["refusals"]
+    assert "moonshot-v1-16b-a3b" not in res["refusals"]
+    msg = res["refusals"].get("whisper-base", "")
+    assert "the encoder-decoder family" in msg and "mesh" in msg
     # gradients: the single-device port and the reference's jitted
     # value_and_grad on the same batch
     step = _train_step(cfg)
@@ -675,27 +695,32 @@ def test_sharded_grads_with_whole_heads(world8):
 
 
 def test_mesh_refuses_moe_encdec_and_int8_kv_by_name(world8):
-    """On (4, 2) the moe family, the encoder-decoder (whisper-base) and
-    an int8 KV cache are refused by name; the ssm family is placed."""
+    """On (4, 2) the encoder-decoder (whisper-base) and an int8 KV cache
+    are refused by name; the ssm and moe families are placed."""
     res = json.loads((world8.out / "train" / "result.json").read_text())
-    for name, what in (("moonshot-v1-16b-a3b", "the moe family"),
-                       ("whisper-base", "the encoder-decoder family"),
+    for name, what in (("whisper-base", "the encoder-decoder family"),
                        ("qwen2.5-1.5b-int8-kv", "with an int8 KV cache")):
         msg = res["refusals"].get(name, "")
         assert what in msg and "mesh" in msg, (name, msg)
     assert sorted(res["refusals"]) == sorted(
-        ["moonshot-v1-16b-a3b", "whisper-base", "qwen2.5-1.5b-int8-kv"])
+        ["whisper-base", "qwen2.5-1.5b-int8-kv"])
 
 
-def _family_ref(w, case):
-    """The single-device runs (g)'s ``case`` is held to, one a config:
-    the port's (gradients and loss of batch 0, three steps' losses and
-    final state, four decode steps' logits and cache) and the
-    reference's (jitted ``value_and_grad``, decode steps' logits and
-    cache) from the same initial state."""
-    key = _family_key(case)
-    if key in w.fref:
-        return w.fref[key]
+def _family_ref(w, case, cases=FAMILY_CASES):
+    """The single-device runs ``cases[case]`` is held to, one a config
+    (:func:`_family_runs`), kept in ``w.fref``."""
+    key = _family_key(case, cases)
+    if key not in w.fref:
+        w.fref[key] = _family_runs(case, cases, w.fstates[key])
+    return w.fref[key]
+
+
+def _family_runs(case, cases, js):
+    """The port's single-device runs of ``cases[case]`` (gradients and
+    loss of batch 0, three steps' losses and final state, four decode
+    steps' logits and cache) and the reference's (jitted
+    ``value_and_grad``, decode steps' logits and cache) from the
+    reference's initial state ``js``."""
     import types
     jax, jax_get_config, jax_build_model = _reference()
     import jax.numpy as jnp
@@ -706,9 +731,8 @@ def _family_ref(w, case):
     from repro_torch.convert import train_state_from_jax
     from repro_torch.models.transformer import init_cache, lm_decode_step
     from repro_torch.train.train_loop import batch_to_device
-    cfg = _family_cfg(case)
-    jcfg = _family_cfg(case, _smoke_of(jax_get_config))
-    js = w.fstates[key]
+    cfg = _family_cfg(case, cases=cases)
+    jcfg = _family_cfg(case, _smoke_of(jax_get_config), cases)
     state = train_state_from_jax(js, cfg, CPU)
     r = types.SimpleNamespace(logits=[], jlogits=[])
     r.start = {n: a for n, a, _ in train_state_to_numpy(state)}
@@ -737,7 +761,6 @@ def _family_ref(w, case):
         state, m = step(state, _batch(i, cfg))
         r.losses.append(float(m["loss"]))
     r.final = {n: a for n, a, _ in train_state_to_numpy(state)}
-    w.fref[key] = r
     return r
 
 
@@ -748,7 +771,6 @@ def test_sharded_family_train_matches_single_device(world8, case):
     gradient leaf (the Mamba-2 leaves among them) against the
     single-device port and the reference, three steps against the
     single-device port."""
-    from repro_torch.models.common import reference_path
     from repro_torch.parallel.sharding import ssd_dims
     ref = _family_ref(world8, case)
     cfg = _family_cfg(case)
@@ -764,6 +786,14 @@ def test_sharded_family_train_matches_single_device(world8, case):
     if not cfg.attn_free:
         split = cfg.n_kv_heads % shape[1] == 0
         assert res["head_axes"] == (["model"] if split else []), res
+    _check_train(out, res, grads, ref)
+
+
+def _check_train(out, res, grads, ref):
+    """A case's sharded loss and every gradient leaf against the
+    single-device port's and the reference's, and its three steps
+    against the single-device port's."""
+    from repro_torch.models.common import reference_path
     assert sorted(grads.files) == sorted(ref.grads)
     for name, g1 in ref.grads.items():
         path, layer = reference_path(name)
@@ -796,6 +826,19 @@ def test_sharded_family_decode_step(world8, case):
     shape = FAMILY_CASES[case][1]
     out = world8.out / "family" / case
     res = json.loads((out / "result.json").read_text())
+    _check_decode(out, cfg, ref)
+    if cfg.has_ssm:
+        d_inner, nh, n = ssd_dims(cfg)
+        k = shape[1] if res["ssd_axes"] else 1
+        lanes = 4 // shape[0]
+        assert res["cache_shapes"]["ssm_h"][1:3] == [lanes, nh // k]
+        assert res["cache_shapes"]["ssm_conv"][3] == d_inner // k + 2 * n
+
+
+def _check_decode(out, cfg, ref):
+    """A case's four decode steps' logits within 1e-5 of the
+    single-device port's and the reference's, and the gathered cache
+    within 1e-5 of each entry's largest value of both."""
     got = np.load(out / "logits.npy")
     v = cfg.vocab_size
     for i in range(len(FAMILY_DECODE_TOKENS)):
@@ -812,12 +855,6 @@ def test_sharded_family_decode_step(world8, case):
         assert cache[name].shape == ref.cache[name].shape, name
         assert _max_err(cache[name], ref.cache[name]) <= GRAD_TOL, name
         assert _max_err(cache[name], ref.jcache[name]) <= GRAD_TOL, name
-    if cfg.has_ssm:
-        d_inner, nh, n = ssd_dims(cfg)
-        k = shape[1] if res["ssd_axes"] else 1
-        lanes = 4 // shape[0]
-        assert res["cache_shapes"]["ssm_h"][1:3] == [lanes, nh // k]
-        assert res["cache_shapes"]["ssm_conv"][3] == d_inner // k + 2 * n
 
 
 def test_sharded_ssm_checkpoint_restores_unsharded(world8):

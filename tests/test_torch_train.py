@@ -276,12 +276,12 @@ def _routes_port(params, cfg, tokens, monkeypatch):
     from repro_torch.models import moe as moe_mod
     routes, inner = [], moe_mod._moe_tokens
 
-    def recording(p, x, moe):
+    def recording(p, x, moe, *args):
         logits = torch.matmul(x.reshape(-1, x.shape[-1]).float(),
                               p.router.float())
         routes.append(torch.topk(torch.softmax(logits, -1),
                                  moe.top_k)[1].numpy())
-        return inner(p, x, moe)
+        return inner(p, x, moe, *args)
 
     monkeypatch.setattr(moe_mod, "_moe_tokens", recording)
     with torch.no_grad():
