@@ -409,8 +409,10 @@ order (any failure raises and the script exits non-zero):
    share the card over gloo on mesh (data 1, model 2) with, in turn,
    qwen2.5-1.5b at full width and depth, mamba2-780m, hymba-1.5b and
    phi-3-vision-4.2b at full width cut to 4 layers (phi-3-vision's rows
-   256 vision embeddings then 256 tokens), and moonshot-v1-16b-a3b at
-   full width cut to 2 layers (32 of its 64 experts a rank), in bf16:
+   256 vision embeddings then 256 tokens), moonshot-v1-16b-a3b at full
+   width cut to 2 layers (32 of its 64 experts a rank), and whisper-base
+   at full width and depth (frames (4, 1500, 512), tokens 4 x 256, int8
+   moments in the unsharded and the sharded steps), in bf16:
    the unsharded first step on each rank and three steps on rank 0,
    then the same sharded (the first loss and the three within 1e-2
    relative, every gradient leaf within phase 43's gate -- or, for the
@@ -418,16 +420,23 @@ order (any failure raises and the script exits non-zero):
    float32 step's gradients than twice the unsharded bf16 step's --,
    the losses falling; for moonshot the share of the first step's
    token-expert assignments whose expert differs from the unsharded
-   step's), and four sharded decode steps on a dense cache (the
-   recurrent state by SSD heads) in float32 (logits within 1e-2 of the
-   unsharded step's) and bf16 (its distance from the float32 logits
-   within twice the unsharded bf16 step's); K2, K3 and K10 launches
-   counted from zero on each rank, all at the local heads (qwen 6 / 1,
-   phi-3-vision 16 / 16 at D 96, moonshot 8 / 8, hymba's attention
-   whole at 25 / 5; K10 at 24 SSD heads for mamba2-780m, 25 for hymba),
-   K2 and K3 checked and timed at qwen's, phi-3-vision's and moonshot's
-   local shapes, K10 at mamba2-780m's; each rank's peak memory and
-   synced step times.
+   step's; for whisper the int8-moment invariant on each rank: every
+   rank holding part of a row has the same scale, bitwise, and a
+   nonzero row's max |q| is 127), and four sharded decode steps on a
+   dense cache (the recurrent state by SSD heads, whisper's cross K/V
+   by heads) in float32 (logits within 1e-2 of the unsharded step's)
+   and bf16 (its distance from the float32 logits within twice the
+   unsharded bf16 step's), and qwen's placed bf16 weights four more
+   over an int8 KV cache (within twice the unsharded int8 step's
+   distance); K2, K3, K5 and K10 launches counted from zero on each
+   rank, all at the local heads (qwen 6 / 1, phi-3-vision 16 / 16 at D
+   96, moonshot 8 / 8, whisper 4 / 4 at D 64, hymba's attention whole
+   at 25 / 5; K10 at 24 SSD heads for mamba2-780m, 25 for hymba), K2
+   and K3 checked and timed at qwen's, phi-3-vision's, moonshot's and
+   whisper's local shapes (whisper's encoder 1500 x 1500 and
+   cross-attention 256 x 1500 unmasked, its cross decode at 1500), K5
+   at qwen's, K10 at mamba2-780m's; each rank's peak memory and synced
+   step times.
 
 The last two lines are the ``{"kernels": [...]}`` summary and the
 ``{"ok": true, ...}`` verdict.  Exits non-zero, printing no result, when
@@ -6398,12 +6407,26 @@ MESH_PHI3V_SEQ = 512
 #: train state; mamba2-780m's sharded steps, ~870 host-staged
 #: collectives each at full depth, would not leave the script room), and
 #: moonshot-v1-16b-a3b cut to 2 layers (8 heads and 32 experts a rank;
-#: its embedding and head alone are 0.67e9 parameters)
+#: its embedding and head alone are 0.67e9 parameters), and whisper-base
+#: at full depth (6 + 6 layers; 4 heads a rank, D 64)
 MESH_MODELS = (("qwen2.5-1.5b", None, MESH_TRAIN["seq"]),
                ("mamba2-780m", 4, MESH_TRAIN["seq"]),
                ("hymba-1.5b", 4, MESH_TRAIN["seq"]),
                ("phi-3-vision-4.2b", 4, MESH_PHI3V_SEQ),
-               ("moonshot-v1-16b-a3b", 2, MESH_TRAIN["seq"]))
+               ("moonshot-v1-16b-a3b", 2, MESH_TRAIN["seq"]),
+               ("whisper-base", None, MESH_TRAIN["seq"]))
+#: whisper-base's frames a row (the stub frontend's seeded embeddings,
+#: 30 s of audio): the training batch's (4, 1500, 512) and the decode
+#: lanes', whose cross K/V the cache holds
+MESH_S_ENC = 1500
+#: the models whose steps (unsharded and sharded) keep int8 moments
+MESH_INT8_MOMENTS = ("whisper-base",)
+#: the model whose placed bf16 weights also decode over an int8 KV cache
+#: (K5 at the local heads), held as the bf16 decode is: the sharded
+#: logits' distance from the float32 step's within ``MESH_BF16_RATIO``
+#: times the unsharded int8 step's
+MESH_INT8_KV = "qwen2.5-1.5b"
+MESH_INT8_KV_RUN = "bfloat16 int8 KV"
 #: the decode runs' weight dtypes: float32 is held to the reference's
 #: gate; bf16 cannot be (one bf16 ulp of a logit of magnitude 2 to 4 is
 #: 0.0156), so its sharded logits are held to the float32 step's (the
@@ -6422,51 +6445,105 @@ MESH_LOGIT_TOL = 1e-2
 MESH_TIMEOUT = 600
 
 
-def _mesh_kernel_rows(dev, b, h, hkv, s, d, lanes, s_dec):
-    """K2 and K3 at the local heads the ranks ran: each against its plain
-    version (bf16, tol 2e-2), and timed beside it and SDPA."""
+_MESH_ROW_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+
+
+def _mesh_rnd(dev, dtype="bfloat16"):
+    """Seeded tensors of a shape on ``dev`` (bf16 unless ``dtype``), for
+    the kernel rows."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    return lambda *shape: torch.randn(shape, generator=g, device=dev,
+                                      dtype=getattr(torch, dtype))
+
+
+def _mesh_k2_row(dev, b, h, hkv, s, d, causal=True, sk=None,
+                 dtype="bfloat16"):
+    """K2 at Sq ``s`` and Sk ``sk`` (``s`` when ``None``), causal or
+    unmasked, at the local heads the ranks ran: against its plain
+    version (bf16 tol 2e-2, on the tensor-core kernel; float32 tol 1e-4,
+    on the CUDA-core kernel), and timed beside it and SDPA."""
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention)
+    rnd = _mesh_rnd(dev, dtype)
+    sk = sk or s
+    q, k, v = rnd(b, h, s, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)
+    err = max_err(flash_attention(q, k, v, causal=causal),
+                  attention_ref(q, k, v, causal=causal))
+    r = with_bound(_k2_row(q, k, v, q.element_size(), causal=causal))
+    return {"max_abs_err": err, "tol": 1e-4 if dtype == "float32" else 2e-2,
+            **{x: r[x] for x in _MESH_ROW_KEYS},
+            "shape": [b, h, hkv, s, sk, d], "causal": causal,
+            "dtype": dtype}
+
+
+def _mesh_k3_row(dev, lanes, h, hkv, s, d):
+    """K3 with every lane at ``s``, at the local heads the ranks ran:
+    against its plain version (bf16, tol 2e-2), and timed beside it and
+    SDPA."""
     import torch
     from torch.nn import functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
-    from repro_torch.kernels.flash_attention import (attention_ref,
-                                                     flash_attention)
-    g = torch.Generator(device=dev).manual_seed(SEED)
-
-    def rnd(*shape):
-        return torch.randn(shape, generator=g, device=dev,
-                           dtype=torch.bfloat16)
-    q, k, v = rnd(b, h, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
-    k2_err = max_err(flash_attention(q, k, v, causal=True),
-                     attention_ref(q, k, v, causal=True))
-    k2 = with_bound(_k2_row(q, k, v, 2))
-    qd, kd, vd = rnd(lanes, h, d), rnd(lanes, hkv, s_dec, d), \
-        rnd(lanes, hkv, s_dec, d)
-    lens = torch.full((lanes,), s_dec, dtype=torch.int32, device=dev)
-    k3_err = max_err(decode_attention(qd, kd, vd, lens),
-                     decode_attention_ref(qd, kd, vd, lens))
-    n_pos = lanes * s_dec
-    k3 = with_bound(dict(
+    rnd = _mesh_rnd(dev)
+    q, k, v = rnd(lanes, h, d), rnd(lanes, hkv, s, d), rnd(lanes, hkv, s, d)
+    lens = torch.full((lanes,), s, dtype=torch.int32, device=dev)
+    err = max_err(decode_attention(q, k, v, lens),
+                  decode_attention_ref(q, k, v, lens))
+    n_pos = lanes * s
+    r = with_bound(dict(
         peak=BF16_FLOPS_PER_S,
-        ms=time_ms_queued(lambda: decode_attention(qd, kd, vd, lens)),
-        plain_ms=time_ms_queued(lambda: decode_attention_ref(qd, kd, vd,
+        ms=time_ms_queued(lambda: decode_attention(q, k, v, lens)),
+        plain_ms=time_ms_queued(lambda: decode_attention_ref(q, k, v,
                                                              lens)),
         library_ms=time_ms_queued(lambda: F.scaled_dot_product_attention(
-            qd[:, :, None], kd, vd, enable_gqa=True)),
-        bytes=2 * n_pos * hkv * d * 2 + 2 * qd.numel() * 2 + 4 * lanes,
+            q[:, :, None], k, v, enable_gqa=True)),
+        bytes=2 * n_pos * hkv * d * 2 + 2 * q.numel() * 2 + 4 * lanes,
         flops=4 * n_pos * h * d))
-    keep = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
-    return ({"max_abs_err": k2_err, "tol": 2e-2,
-             **{x: k2[x] for x in keep}, "shape": [b, h, hkv, s, d]},
-            {"max_abs_err": k3_err, "tol": 2e-2,
-             **{x: k3[x] for x in keep}, "shape": [lanes, h, hkv, s_dec, d]})
+    return {"max_abs_err": err, "tol": 2e-2,
+            **{x: r[x] for x in _MESH_ROW_KEYS},
+            "shape": [lanes, h, hkv, s, d]}
 
 
-def _mesh_steps(step, tcfg, state, batch, loss, grads):
+def _mesh_k5_row(dev, lanes, h, hkv, s, d):
+    """K5 at the local heads the int8 decode ran (every lane at ``s``, the
+    model's per-token scales): against its plain version (bf16 q, tol
+    2e-2), timed beside it and the reference model's route (dequantize
+    to float32, then K3: no single PyTorch call computes int8
+    attention)."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention_q8,
+                                                      decode_attention_q8_ref,
+                                                      quantize_kv_q8)
+    rnd = _mesh_rnd(dev)
+    q = rnd(lanes, h, d)
+    kq, ks = quantize_kv_q8(rnd(lanes, hkv, s, d).float(), 1)
+    vq, vs = quantize_kv_q8(rnd(lanes, hkv, s, d).float(), 1)
+    lens = torch.full((lanes,), s, dtype=torch.int32, device=dev)
+    args = (q, kq, ks, vq, vs, lens)
+    err = max_err(decode_attention_q8(*args, qblock=1),
+                  decode_attention_q8_ref(*args, qblock=1))
+    n_pos = lanes * s
+    r = with_bound(dict(
+        peak=BF16_FLOPS_PER_S,
+        ms=time_ms_queued(lambda: decode_attention_q8(*args, qblock=1)),
+        plain_ms=time_ms_queued(lambda: decode_attention_q8_ref(
+            *args, qblock=1)),
+        library_ms=None,
+        route_ms=time_ms_queued(lambda: _route_dense(*args, 1)),
+        bytes=n_pos * hkv * (2 * d + 2 * 4) + 2 * q.numel() * 2 + 4 * lanes,
+        flops=4 * n_pos * h * d + 2 * n_pos * hkv * d))
+    return {"max_abs_err": err, "tol": 2e-2, "route_ms": r["route_ms"],
+            **{x: r[x] for x in _MESH_ROW_KEYS},
+            "shape": [lanes, h, hkv, s, d]}
+
+
+def _mesh_steps(step, tcfg, state, batch, loss, grads, check=None):
     """``MESH_TRAIN["steps"]`` steps from ``state``: the first the update
     with ``grads`` (the first pass's, its loss ``loss``), the rest
     ``step``'s.  Returns (state, losses, host ms of the later steps,
-    synced and, on a mesh, between barriers)."""
+    synced and, on a mesh, between barriers, and ``check`` of the state
+    after each step, outside the timing: empty with none)."""
     import torch
     import torch.distributed as dist
     from repro_torch.optim import adamw_update
@@ -6475,6 +6552,7 @@ def _mesh_steps(step, tcfg, state, batch, loss, grads):
     params, opt, _ = adamw_update(tcfg.optimizer, state.params, grads,
                                   state.opt)
     state, losses, ms = TrainState(params=params, opt=opt), [float(loss)], []
+    checks = [check(state)] if check else []
     meshed = sharding.active() is not None
     for _ in range(MESH_TRAIN["steps"] - 1):
         if meshed:
@@ -6487,37 +6565,78 @@ def _mesh_steps(step, tcfg, state, batch, loss, grads):
         if meshed:
             dist.barrier()
         ms.append(1e3 * (time.perf_counter() - t))
-    return state, losses, ms
+        if check:
+            checks.append(check(state))
+    return state, losses, ms, checks
 
 
 def _mesh_counting(seen):
-    """Wrap the wrappers the sharded models call (K2 under autograd, K3,
-    and the SSD that launches K10) so each call records its head counts
-    in ``seen``; returns the undo."""
+    """Wrap the wrappers the sharded models call (K2 under autograd and
+    plain -- whisper's encoder pass before a decode --, K3, K5, and the
+    SSD that launches K10), in the modules that call them, so each call
+    records its head counts in ``seen``; returns the undo."""
     import repro_torch.models.attention as attention
     import repro_torch.models.ssm as ssm
-    fn, dec, scan = attention.flash_attention_fn, \
-        attention.decode_attention, ssm.ssd
+    import repro_torch.models.whisper as whisper
+    fn, plain, dec, q8, scan = (attention.flash_attention_fn,
+                                attention.flash_attention,
+                                attention.decode_attention,
+                                attention.decode_attention_q8, ssm.ssd)
 
     def k2_fn(q, k, v, **kw):
         seen[f"flash_attention_mma H {q.shape[1]} Hkv {k.shape[1]}"] += 1
         return fn(q, k, v, **kw)
+
+    def k2(q, k, v, **kw):
+        seen[f"flash_attention H {q.shape[1]} Hkv {k.shape[1]}"] += 1
+        return plain(q, k, v, **kw)
 
     def k3(q, k, v, lens, **kw):
         seen[f"decode_attention_lengthaware H {q.shape[1]} Hkv "
              f"{k.shape[1]}"] += 1
         return dec(q, k, v, lens, **kw)
 
+    def k5(q, kq, *a, **kw):
+        seen[f"decode_attention_q8_lengthaware H {q.shape[1]} Hkv "
+             f"{kq.shape[1]}"] += 1
+        return q8(q, kq, *a, **kw)
+
     def k10(x, *a, **kw):
         seen[f"ssd_chunk H {x.shape[2]}"] += 1
         return scan(x, *a, **kw)
-    attention.flash_attention_fn, attention.decode_attention = k2_fn, k3
-    ssm.ssd = k10
 
-    def undo():
-        attention.flash_attention_fn, attention.decode_attention = fn, dec
-        ssm.ssd = scan
-    return undo
+    def swap(k2_fn, k2, k3, k5, k10):
+        for mod in (attention, whisper):
+            mod.flash_attention_fn, mod.flash_attention, \
+                mod.decode_attention = k2_fn, k2, k3
+        attention.decode_attention_q8, ssm.ssd = k5, k10
+    swap(k2_fn, k2, k3, k5, k10)
+    return lambda: swap(fn, plain, dec, q8, scan)
+
+
+def _mesh_decode(cfg, params, toks, frames, dev):
+    """``MESH_DECODE``'s steps of ``cfg`` (``toks`` a step's tokens each)
+    from a fresh cache, through the model's entry points (an
+    encoder-decoder's cache made from ``encode(frames)``): (logits, each
+    step's synced ms, the cache)."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    lanes, max_len = MESH_DECODE["lanes"], MESH_DECODE["max_len"]
+    if cfg.is_encdec:
+        cache = model.init_cache(lanes, max_len, params=params,
+                                 enc=model.encode(params, frames))
+    else:
+        cache = model.init_cache(lanes, max_len, device=dev)
+    logits, ms = [], []
+    for t in toks:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, t)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        logits.append(lg[:, :cfg.vocab_size].float())
+    return logits, ms, cache
 
 
 def _flipped_share(got, want, n_experts):
@@ -6547,8 +6666,10 @@ def mesh_config(arch, layers):
 
 def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
     """One model of phase 51 on this rank (see :func:`phase_mesh`):
-    the unsharded and the sharded first step, three steps each, and four
-    decode steps in each of ``MESH_DECODE_DTYPES``; returns the
+    the unsharded and the sharded first step, three steps each (with
+    int8 moments for ``MESH_INT8_MOMENTS``, then the int8-moment
+    invariant), and four decode steps in each of ``MESH_DECODE_DTYPES``
+    (and over an int8 KV cache for ``MESH_INT8_KV``); returns the
     readings."""
     import dataclasses
     import torch
@@ -6556,23 +6677,31 @@ def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
     from repro_torch.data import DataConfig, synth_batch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import init_cache, lm_decode_step
-    from repro_torch.optim import AdamWConfig, init_adamw
+    from repro_torch.optim import AdamWConfig, adamw, init_adamw
     from repro_torch.parallel import comm, sharding, use_mesh
     from repro_torch.train import TrainConfig, TrainState, make_train_step
     from repro_torch.train.train_loop import batch_to_device
     t0 = time.perf_counter()
     cfg = mesh_config(arch, layers)
     model = build_model(cfg)
-    tcfg = TrainConfig(optimizer=AdamWConfig(**MESH_OPT), remat=True)
+    moments = "int8" if arch in MESH_INT8_MOMENTS else "f32"
+    tcfg = TrainConfig(optimizer=AdamWConfig(**MESH_OPT,
+                                             moment_dtype=moments),
+                       remat=True)
     dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
                     global_batch=MESH_TRAIN["batch"])
     batch = batch_to_device(synth_batch(dc, 0), dev)
-    if cfg.n_vision_tokens:          # the stub frontend's rows, seeded
-        batch["vision_embeds"] = torch.randn(
+
+    def seeded(shape, seed):         # the stub frontends' rows
+        return torch.randn(shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed))
+    if cfg.n_vision_tokens:
+        batch["vision_embeds"] = seeded(
             (MESH_TRAIN["batch"], cfg.n_vision_tokens, cfg.d_model),
-            generator=torch.Generator(device=dev).manual_seed(SEED + 1),
-            device=dev)
+            SEED + 1)
+    if cfg.is_encdec:
+        batch["frames"] = seeded((MESH_TRAIN["batch"], MESH_S_ENC,
+                                  cfg.d_model), SEED + 2)
     params = model.init(torch.Generator(device=dev).manual_seed(SEED), dev,
                         train=True)
     out = {"rank": rank, "arch": arch, "layers": cfg.n_layers, "seq": seq}
@@ -6585,9 +6714,9 @@ def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
         loss1, g1 = step1.grads_of(params, batch)
     del ids1[cfg.n_layers:]                 # the forward's, not remat's
     if rank == 0:
-        state1 = TrainState(params=params, opt=init_adamw(params))
-        state1, losses1, step_ms1 = _mesh_steps(step1, tcfg, state1, batch,
-                                                loss1, g1)
+        state1 = TrainState(params=params, opt=init_adamw(params, moments))
+        state1, losses1, step_ms1, _ = _mesh_steps(step1, tcfg, state1,
+                                                   batch, loss1, g1)
         del state1, params
         gc.collect()
         torch.cuda.empty_cache()
@@ -6596,12 +6725,12 @@ def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
     del step1
     dist.barrier()          # rank 0's unsharded steps, done
     g32 = None
-    if cfg.has_ssm or cfg.moe is not None:    # the same step in float32:
-        g32 = make_train_step(                # what bf16 rounds
-            dataclasses.replace(cfg, dtype="float32"), tcfg).grads_of(
-                params, batch)[1]
+    if cfg.has_ssm or cfg.moe is not None or cfg.is_encdec:
+        g32 = make_train_step(        # the same step in float32: what
+            dataclasses.replace(cfg, dtype="float32"),  # bf16 rounds
+            tcfg).grads_of(params, batch)[1]
     sharding.place_params(mesh, params, cfg, "train")
-    state = TrainState(params=params, opt=init_adamw(params))
+    state = TrainState(params=params, opt=init_adamw(params, moments))
     specs = {n: sharding.spec_of(p) for n, p in params.named_parameters()}
     # this rank's blocks of the unsharded gradients, which it compares
     g1 = {n: comm.local_of(g, mesh, specs[n]) for n, g in g1.items()}
@@ -6651,8 +6780,12 @@ def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
                     truth[name] = (float(rels[i]), float(sq[i, 2]) / n32,
                                    float(sq[i, 3]) / n32)
         del g1, g32
-        state, losses, step_ms = _mesh_steps(step, tcfg, state, batch,
-                                             loss_s, gs)
+        # int8 moments: after each step, each split row's scale the
+        # whole row's
+        state, losses, step_ms, out["q8_invariant"] = _mesh_steps(
+            step, tcfg, state, batch, loss_s, gs,
+            check=(lambda st: adamw.q8_invariant(st, mesh))
+            if moments == "int8" else None)
         del gs
         train_launches = {n: c for n, c in launch_counts().items() if c}
         train_heads = dict(seen)
@@ -6663,71 +6796,63 @@ def _mesh_model(rank, dev, mesh, arch, layers, seq, seen):
     gc.collect()
     torch.cuda.empty_cache()
     # decode: serving's weights from the same seed, in float32 (the
-    # gated run) and in bf16
+    # gated run) and in bf16; MESH_INT8_KV's bf16 weights, once placed,
+    # also over an int8 KV cache
     toks = torch.randint(0, cfg.vocab_size, (MESH_DECODE["steps"],
                                              MESH_DECODE["lanes"]),
                          generator=torch.Generator().manual_seed(SEED),
                          dtype=torch.int32).to(dev)
-    decode = {}
+    frames = (seeded((MESH_DECODE["lanes"], MESH_S_ENC, cfg.d_model),
+                     SEED + 3) if cfg.is_encdec else None)
+    decode, refs = {}, {}
     for dtype in MESH_DECODE_DTYPES:
         dcfg = dataclasses.replace(cfg, dtype=dtype)
         serve = build_model(dcfg).init(
             torch.Generator(device=dev).manual_seed(SEED), dev)
+        runs = {dtype: dcfg}
+        if dtype == "bfloat16" and arch == MESH_INT8_KV:
+            runs[MESH_INT8_KV_RUN] = dataclasses.replace(dcfg,
+                                                         kv_quant="int8")
         if rank == 0:
-            cache = init_cache(dcfg, MESH_DECODE["lanes"],
-                               MESH_DECODE["max_len"], device=dev)
-            ref, ref_ms = [], []
-            for t in toks:
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                lg, cache = lm_decode_step(serve, dcfg, cache, t)
-                torch.cuda.synchronize()
-                ref_ms.append(1e3 * (time.perf_counter() - t1))
-                ref.append(lg[:, :cfg.vocab_size].float())
-            del cache
+            for key, rcfg in runs.items():  # the unsharded steps
+                refs[key] = _mesh_decode(rcfg, serve, toks, frames, dev)[:2]
         sharding.place_params(mesh, serve, dcfg, "serve")
-        torch.cuda.reset_peak_memory_stats(dev)
-        seen.clear()
-        dec_ms = []
-        with use_mesh(mesh, mode="serve"):
-            reset_launch_counts()
-            cache = init_cache(dcfg, MESH_DECODE["lanes"],
-                               MESH_DECODE["max_len"], device=dev)
-            got = []
-            for t in toks:
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                lg, cache = lm_decode_step(serve, dcfg, cache, t)
-                torch.cuda.synchronize()
-                dec_ms.append(1e3 * (time.perf_counter() - t1))
-                got.append(lg[:, :cfg.vocab_size].float())
-            d = {"launches": {n: c for n, c in launch_counts().items()
-                              if c},
-                 "heads": dict(seen), "ms": dec_ms,
-                 "cache_shapes": {k: list(v.shape)
-                                  for k, v in cache.items()},
-                 "lens": cache["len"].tolist(),
-                 "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-        if rank == 0:
-            d["ms_unsharded"] = ref_ms
-            d["logit_err"] = max(max_err(a, b) for a, b in zip(got, ref))
-            d["logit_max"] = max(float(b.abs().max()) for b in ref)
-            if dtype == "float32":
-                ref32 = ref
-            else:
-                d["precision_err"] = max(max_err(a, b)
-                                         for a, b in zip(ref, ref32))
-                d["truth_err"] = max(max_err(a, b)
-                                     for a, b in zip(got, ref32))
-                del ref32
-            del ref
-        decode[dtype] = d
-        del serve, cache, got
+        for key, rcfg in runs.items():
+            torch.cuda.reset_peak_memory_stats(dev)
+            seen.clear()
+            with use_mesh(mesh, mode="serve"):
+                reset_launch_counts()
+                got, dec_ms, cache = _mesh_decode(rcfg, serve, toks, frames,
+                                                  dev)
+                d = {"cfg": [rcfg.dtype, rcfg.kv_quant],
+                     "launches": {n: c for n, c in launch_counts().items()
+                                  if c},
+                     "heads": dict(seen), "ms": dec_ms,
+                     "cache_shapes": {k: list(v.shape)
+                                      for k, v in cache.items()},
+                     "lens": cache["len"].tolist(),
+                     "peak_gib": torch.cuda.max_memory_allocated(dev)
+                     / 2**30}
+            if rank == 0:
+                ref, d["ms_unsharded"] = refs[key]
+                d["logit_err"] = max(max_err(a, b) for a, b in zip(got, ref))
+                d["logit_max"] = max(float(b.abs().max()) for b in ref)
+                if key != "float32":
+                    ref32 = refs["float32"][0]
+                    d["precision_err"] = max(max_err(a, b)
+                                             for a, b in zip(ref, ref32))
+                    d["truth_err"] = max(max_err(a, b)
+                                         for a, b in zip(got, ref32))
+            decode[key] = d
+            del cache, got
+        del serve
         gc.collect()
         torch.cuda.empty_cache()
+    del refs
     out.update(train_launches=train_launches, train_heads=train_heads,
                ssd_axes=ssd, losses=losses, loss_first=losses[0],
-               step_ms=step_ms, decode=decode, flipped=flipped)
+               step_ms=step_ms, decode=decode, flipped=flipped,
+               moments=moments)
     if rank == 0:
         out["loss_unsharded"] = losses1[0]
         out["losses_unsharded"] = losses1
@@ -6789,21 +6914,38 @@ def _mesh_work(rank, world, dev):
            "families": {m["arch"]: m for m in models[1:]}}
     if rank == 0:
         m = MESH_SHAPE[1]
+        b, lanes = MESH_TRAIN["batch"], MESH_DECODE["lanes"]
+        s, s_dec = MESH_TRAIN["seq"], MESH_DECODE["max_len"]
+        for key, arch, s_k2 in (("", "qwen2.5-1.5b", s),
+                                ("_phi3v", "phi-3-vision-4.2b",
+                                 MESH_PHI3V_SEQ),
+                                ("_moonshot", "moonshot-v1-16b-a3b", s)):
+            c = mesh_config(arch, None)
+            h, hkv = c.n_heads // m, c.n_kv_heads // m
+            out[f"k2{key}"] = _mesh_k2_row(dev, b, h, hkv, s_k2, c.hd)
+            out[f"k3{key}"] = _mesh_k3_row(dev, lanes, h, hkv, s_dec, c.hd)
         qwen = mesh_config("qwen2.5-1.5b", None)
-        out["k2"], out["k3"] = _mesh_kernel_rows(
-            dev, MESH_TRAIN["batch"], qwen.n_heads // m,
-            qwen.n_kv_heads // m, MESH_TRAIN["seq"], qwen.hd,
-            MESH_DECODE["lanes"], MESH_DECODE["max_len"])
-        phi = mesh_config("phi-3-vision-4.2b", None)
-        out["k2_phi3v"], out["k3_phi3v"] = _mesh_kernel_rows(
-            dev, MESH_TRAIN["batch"], phi.n_heads // m,
-            phi.n_kv_heads // m, MESH_PHI3V_SEQ, phi.hd,
-            MESH_DECODE["lanes"], MESH_DECODE["max_len"])
-        moon = mesh_config("moonshot-v1-16b-a3b", None)
-        out["k2_moonshot"], out["k3_moonshot"] = _mesh_kernel_rows(
-            dev, MESH_TRAIN["batch"], moon.n_heads // m,
-            moon.n_kv_heads // m, MESH_TRAIN["seq"], moon.hd,
-            MESH_DECODE["lanes"], MESH_DECODE["max_len"])
+        out["k5"] = _mesh_k5_row(dev, lanes, qwen.n_heads // m,
+                                 qwen.n_kv_heads // m, s_dec, qwen.hd)
+        # whisper-base: the encoder's unmasked K2, the decoder's causal
+        # one, cross-attention's (Sq 256 against Sk 1500), the float32
+        # decode's encoder pass (the CUDA-core K2 over the lanes'
+        # frames), and K3's self-attention read of the cache and cross
+        # read of every lane's 1500 frames
+        wh = mesh_config("whisper-base", None)
+        h, hkv = wh.n_heads // m, wh.n_kv_heads // m
+        out["k2_whisper"] = _mesh_k2_row(dev, b, h, hkv, MESH_S_ENC, wh.hd,
+                                         causal=False)
+        out["k2_whisper_dec"] = _mesh_k2_row(dev, b, h, hkv, s, wh.hd)
+        out["k2_whisper_cross"] = _mesh_k2_row(dev, b, h, hkv, s, wh.hd,
+                                               causal=False, sk=MESH_S_ENC)
+        out["k2_whisper_f32"] = _mesh_k2_row(dev, lanes, h, hkv, MESH_S_ENC,
+                                             wh.hd, causal=False,
+                                             dtype="float32")
+        out["k3_whisper_self"] = _mesh_k3_row(dev, lanes, h, hkv, s_dec,
+                                              wh.hd)
+        out["k3_whisper"] = _mesh_k3_row(dev, lanes, h, hkv, MESH_S_ENC,
+                                         wh.hd)
         out["k10"] = _mesh_k10_row(dev, MESH_TRAIN["batch"],
                                    MESH_TRAIN["seq"], SSD_H // m)
     out["rank_seconds"] = time.perf_counter() - t0
@@ -6829,25 +6971,37 @@ def mesh_rank_main(argv):
     return 0
 
 
-def _mesh_expect(cfg):
+def _mesh_expect(cfg, dtype="bfloat16"):
     """A model's launches a rank on mesh ``MESH_SHAPE``: a train pass
     runs K2 and K10 twice a layer (forward and remat's recompute) over
-    the first step's pass and the later steps; a decode step K3 once a
-    layer; each at the heads of this rank (whole where the model axis
+    the first step's pass and the later steps -- K2 at every attention,
+    whisper's encoder layers and its decoder's self- and cross-attention
+    --; a decode step K3 once a layer (K5 over an int8 KV cache), twice
+    for whisper (self and cross), whose decode first runs the encoder
+    (K2 once an encoder layer, the CUDA-core kernel in ``dtype``
+    float32); each at the heads of this rank (whole where the model axis
     does not divide the KV or SSD heads).  Returns (train launches,
     train heads, decode launches, decode heads)."""
     from repro_torch.parallel.sharding import ssd_dims
     m = MESH_SHAPE[1]
-    passes = 2 * cfg.n_layers * MESH_TRAIN["steps"]
-    steps = cfg.n_layers * MESH_DECODE["steps"]
+    sites = cfg.n_layers * (2 if cfg.is_encdec else 1)
+    passes = 2 * (sites + cfg.n_encoder_layers) * MESH_TRAIN["steps"]
+    steps = sites * MESH_DECODE["steps"]
     train, heads, dec, dec_heads = {}, {}, {}, {}
     if not cfg.attn_free:
         n = m if cfg.n_kv_heads % m == 0 else 1
         at = f"H {cfg.n_heads // n} Hkv {cfg.n_kv_heads // n}"
         train["flash_attention_mma"] = passes
         heads[f"flash_attention_mma {at}"] = passes
-        dec["decode_attention_lengthaware"] = steps
-        dec_heads[f"decode_attention_lengthaware {at}"] = steps
+        k3 = ("decode_attention_q8_lengthaware" if cfg.kv_quant
+               else "decode_attention_lengthaware")
+        dec[k3] = steps
+        dec_heads[f"{k3} {at}"] = steps
+        if cfg.is_encdec:
+            k2 = ("flash_attention_cc" if dtype == "float32"
+                  else "flash_attention_mma")
+            dec[k2] = cfg.n_encoder_layers
+            dec_heads[f"flash_attention {at}"] = cfg.n_encoder_layers
     if cfg.has_ssm:
         nh = ssd_dims(cfg)[1]
         train["ssd_chunk"] = passes
@@ -6859,11 +7013,15 @@ def _mesh_report(tag, res, model, gpu):
     """Print one model's readings of phase 51 (``res`` every rank's
     readings of it) and hold them to the gates; returns its line for the
     summary."""
+    import dataclasses
     r0 = res[0]
     cfg = mesh_config(model[0], model[1])
     losses = r0["losses"]
+    frames = (f" over frames {MESH_TRAIN['batch']} x {MESH_S_ENC}"
+              if cfg.is_encdec else "")
     print(f"{tag} {r0['arch']} bf16 full width, {r0['layers']} layers, "
-          f"batch {MESH_TRAIN['batch']} x {r0['seq']}: first step loss "
+          f"batch {MESH_TRAIN['batch']} x {r0['seq']}{frames}, "
+          f"{r0['moments']} moments: first step loss "
           f"{r0['loss_first']:.6f} sharded, {r0['loss_unsharded']:.6f} "
           f"unsharded (rel {r0['loss_rel']:.3e}, tol {MESH_LOSS_TOL}); "
           f"worst gradient leaf {r0['grad_worst'][1]} rel "
@@ -6876,7 +7034,7 @@ def _mesh_report(tag, res, model, gpu):
     for dtype, d in r0["decode"].items():
         gate = (f"tol {MESH_LOGIT_TOL}" if dtype == "float32" else
                 f"against the float32 step {d['truth_err']:.3e}, the "
-                f"unsharded bf16 step {d['precision_err']:.3e}, tol "
+                f"unsharded {dtype} step {d['precision_err']:.3e}, tol "
                 f"{MESH_BF16_RATIO}x")
         print(f"{tag} {r0['arch']} decode {dtype}: {MESH_DECODE['steps']} "
               f"steps of {MESH_DECODE['lanes']} lanes, logits max abs err "
@@ -6895,6 +7053,16 @@ def _mesh_report(tag, res, model, gpu):
                   f"{d['peak_gib']:.2f} GiB; step ms median "
                   f"{statistics.median(d['ms']):.2f} ({gpu})")
     name = r0["arch"]
+    for r in res:
+        for i, (same, full, split) in enumerate(r["q8_invariant"], 1):
+            print(f"{tag} {name} rank {r['rank']}: int8 moments after "
+                  f"sharded step {i}: {split} leaves' rows split over "
+                  f"ranks; every split row's scale the same on each rank "
+                  f"holding part of it: {same}; each nonzero row's max |q| "
+                  f"127: {full}")
+            if not (same and full and split):
+                fail(f"{tag} {name}: the int8-moment invariant fails after "
+                     f"step {i}: {r['q8_invariant']}")
     if r0["flipped"] is not None:
         print(f"{tag} {name}: {r0['flipped']:.4e} of the sharded first "
               f"step's token-expert assignments (forward, every layer) "
@@ -6935,21 +7103,24 @@ def _mesh_report(tag, res, model, gpu):
     if not r0["decode"]["float32"]["logit_err"] <= MESH_LOGIT_TOL:
         fail(f"{tag} {name}: sharded float32 decode logits off by "
              f"{r0['decode']['float32']['logit_err']:.3e}")
-    bf16 = r0["decode"]["bfloat16"]
-    if not bf16["truth_err"] <= MESH_BF16_RATIO * bf16["precision_err"]:
-        fail(f"{tag} {name}: sharded bf16 decode logits "
-             f"{bf16['truth_err']:.3e} from the float32 step's, the "
-             f"unsharded bf16 step's {bf16['precision_err']:.3e}")
     for dtype, d in r0["decode"].items():
+        if dtype != "float32" and not (
+                d["truth_err"] <= MESH_BF16_RATIO * d["precision_err"]):
+            fail(f"{tag} {name}: sharded {dtype} decode logits "
+                 f"{d['truth_err']:.3e} from the float32 step's, the "
+                 f"unsharded {dtype} step's {d['precision_err']:.3e}")
         if d["lens"] != [MESH_DECODE["steps"]] * MESH_DECODE["lanes"]:
             fail(f"{tag} {name}: the {dtype} cache's len is {d['lens']}")
-    train, heads, dec, dec_heads = _mesh_expect(cfg)
+    train, heads, _, _ = _mesh_expect(cfg)
     for r in res:
         if r["train_launches"] != train or r["train_heads"] != heads:
             fail(f"{tag} {name} rank {r['rank']} trained with "
                  f"{r['train_launches']} at {r['train_heads']}, not "
                  f"{train} at {heads}")
         for dtype, d in r["decode"].items():
+            run_dtype, kv_quant = d["cfg"]
+            _, _, dec, dec_heads = _mesh_expect(dataclasses.replace(
+                cfg, kv_quant=kv_quant), run_dtype)
             if d["launches"] != dec or d["heads"] != dec_heads:
                 fail(f"{tag} {name} rank {r['rank']} decoded {dtype} with "
                      f"{d['launches']} at {d['heads']}, not {dec} at "
@@ -6970,15 +7141,19 @@ def phase_mesh(dev):
     the float32 step's gradients, within ``MESH_BF16_RATIO`` times the
     unsharded bf16 step's), three steps whose losses fall, each within
     ``MESH_LOSS_TOL`` of the unsharded one's; then four sharded
-    ``lm_decode_step`` calls on a
-    dense cache (serve mode: K3 at the local KV heads, the recurrent
-    state at the local SSD heads) against the unsharded step's logits:
-    float32 within ``MESH_LOGIT_TOL``, bf16 by its distance from the
+    decode steps through the model's entry points on a dense cache
+    (serve mode: K3 at the local KV heads, the recurrent state at the
+    local SSD heads, whisper's cross K/V at its local heads) against the
+    unsharded step's logits: float32 within ``MESH_LOGIT_TOL``, bf16 --
+    and qwen's over an int8 KV cache (K5) -- by its distance from the
     float32 logits (``MESH_DECODE_DTYPES``, ``MESH_BF16_RATIO``).
-    Launch counts are each rank's, from zero just before each path, at
-    the head counts :func:`_mesh_expect` gives; K2 and K3 are checked
-    and timed at qwen's and phi-3-vision's local shapes, K10 at
-    mamba2-780m's.  Prints the mesh, the gaps, the launches at their
+    whisper-base trains with int8 moments and is held to the int8-moment
+    invariant on every rank after each sharded step.  Launch counts are
+    each rank's, from zero just before each path, at the head counts
+    :func:`_mesh_expect` gives; K2 and K3 are checked and timed at
+    qwen's, phi-3-vision's, moonshot's and whisper's local shapes
+    (whisper's every K2 and K3 site, its float32 encoder pass on the
+    CUDA-core K2 too), K5 at qwen's, K10 at mamba2-780m's.  Prints the mesh, the gaps, the launches at their
     head counts, each rank's peak memory and the synchronized step
     times."""
     import shutil
@@ -7027,7 +7202,9 @@ def phase_mesh(dev):
         _mesh_report(tag, [r["families"][model[0]] for r in res], model,
                      gpu)
     for name in ("k2", "k3", "k2_phi3v", "k3_phi3v", "k2_moonshot",
-                 "k3_moonshot"):
+                 "k3_moonshot", "k5", "k2_whisper", "k2_whisper_dec",
+                 "k2_whisper_cross", "k2_whisper_f32", "k3_whisper_self",
+                 "k3_whisper"):
         if not r0[name]["max_abs_err"] <= r0[name]["tol"]:
             fail(f"{tag} {name} at the local heads: {r0[name]}")
     if not r0["k10"]["max_rel_err"] <= r0["k10"]["tol"]:
@@ -7038,10 +7215,20 @@ def phase_mesh(dev):
                        ("k3_phi3v", "K3 phi-3-vision"),
                        ("k2_moonshot", "K2 moonshot-v1-16b-a3b"),
                        ("k3_moonshot", "K3 moonshot-v1-16b-a3b"),
+                       ("k5", "K5 qwen int8 KV"),
+                       ("k2_whisper", "K2 whisper-base encoder"),
+                       ("k2_whisper_dec", "K2 whisper-base decoder"),
+                       ("k2_whisper_cross", "K2 whisper-base cross"),
+                       ("k2_whisper_f32",
+                        "K2 whisper-base encoder float32 (cc)"),
+                       ("k3_whisper_self", "K3 whisper-base self"),
+                       ("k3_whisper", "K3 whisper-base cross"),
                        ("k10", "K10 mamba2-780m")):
         k = r0[name]
         lib = ("n/a" if k["library_ms"] is None
                else f"{k['library_ms']:.4f}")
+        if "route_ms" in k:
+            lib += f", dequantize + K3 {k['route_ms']:.4f}"
         print(f"{tag} {what} at the local heads {k['shape']}: "
               f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, library "
               f"{lib}, bound {k['bound_ms']:.5f} by {k['bound_by']}; err "
@@ -7465,7 +7652,17 @@ def main() -> int:
             "heads_by_model": {a: f["train_heads"]
                                for a, f in r0["families"].items()},
             **r0["k2"], "phi3v": r0["k2_phi3v"],
-            "moonshot": r0["k2_moonshot"]},
+            "moonshot": r0["k2_moonshot"], "whisper": r0["k2_whisper"],
+            "whisper_decoder": r0["k2_whisper_dec"],
+            "whisper_cross": r0["k2_whisper_cross"]},
+        "flash_attention_cc": {
+            # the float32 decode's encoder pass, over each rank's lanes
+            "mesh": r0["mesh"], "backend": r0["backend"],
+            "launches_by_model": {dt: by_model(
+                lambda r, dt=dt: r["decode"][dt]["launches"].get(
+                    "flash_attention_cc", 0))
+                for dt in MESH_DECODE_DTYPES},
+            **r0["k2_whisper_f32"]},
         "decode_attention_lengthaware": {
             "mesh": r0["mesh"], "backend": r0["backend"],
             "launches_by_rank": {dt: [r["decode"][dt]["launches"].get(
@@ -7479,7 +7676,15 @@ def main() -> int:
             "heads_by_model": {a: f["decode"]["bfloat16"]["heads"]
                                for a, f in r0["families"].items()},
             **r0["k3"], "phi3v": r0["k3_phi3v"],
-            "moonshot": r0["k3_moonshot"]},
+            "moonshot": r0["k3_moonshot"], "whisper": r0["k3_whisper"],
+            "whisper_self": r0["k3_whisper_self"]},
+        "decode_attention_q8_lengthaware": {
+            "mesh": r0["mesh"], "backend": r0["backend"],
+            "launches_by_rank": [r["decode"][MESH_INT8_KV_RUN]["launches"]
+                                 .get("decode_attention_q8_lengthaware", 0)
+                                 for r in mesh["ranks"]],
+            "heads": r0["decode"][MESH_INT8_KV_RUN]["heads"],
+            **r0["k5"]},
         "ssd_chunk": {
             "mesh": r0["mesh"], "backend": r0["backend"],
             "launches_by_model": train_by_model("ssd_chunk"),

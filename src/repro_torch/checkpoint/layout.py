@@ -49,13 +49,20 @@ Slot = Tuple[str, List[torch.Tensor], bool]
 def _state_slots(state) -> List[Slot]:
     """The reference's flattened ``TrainState``, leaf by leaf, over the
     port state's tensors (see the module docstring); a moment's tensors
-    carry their parameter's spec (``_spec``) when it is placed."""
+    carry their parameter's spec (``_spec``) when it is placed, an int8
+    momentum's ``scale`` that spec with its last dim whole (one scale a
+    row, the same on every rank that holds part of the row)."""
     for name, p in state.params.named_parameters():
         spec = sharding.spec_of(p)
+        if spec is None:
+            continue
         for moments in (state.opt.mu, state.opt.nu):
             m = moments[name]
-            if spec is not None and torch.is_tensor(m):
+            if torch.is_tensor(m):
                 m._spec = spec
+            else:
+                m.q._spec = spec
+                m.scale._spec = tuple(spec[:-1]) + (None,)
     groups: Dict[str, List[str]] = {}
     tensors = dict(state.params.named_parameters())
     for name in tensors:

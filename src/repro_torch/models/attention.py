@@ -12,7 +12,9 @@ over the same axes.  The shapes taken from the config are the global
 ones outside that boundary (``d``, the output's ``d``) and the local
 ones inside it (:func:`local_heads`).  The dense decode cache holds each
 rank's lanes and heads; the step brings its input rows to the cache's
-lanes and its output back."""
+lanes and its output back.  An int8 cache's per-token scales lie each
+inside one head (:func:`quantize_kv_token`), so the split by heads
+changes none of them, and K5 runs at the local heads as K3 does."""
 
 from __future__ import annotations
 
@@ -61,15 +63,27 @@ def local_heads(cfg: ModelConfig):
     return cfg.n_heads // n, cfg.n_kv_heads // n, axes
 
 
+def project(x: torch.Tensor, w: torch.Tensor, bias, axes) -> torch.Tensor:
+    """``x @ w`` at the columns of this rank's heads (``w``'s stored
+    block over ``axes``, all of them with no mesh), plus ``bias``'s
+    same block when there is one: a column-parallel product whose input
+    ``x`` has been through ``sharding.copy_in``."""
+    y = torch.matmul(x, sharding.weight(w, None, axes))
+    if bias is not None:
+        y = y + sharding.weight(bias, axes)
+    return y
+
+
 def project_q(p: Attention, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
-    """x (B, S, d) -> q (B, S, H, D), with its bias: a cross-attention's
-    query (whisper), whose K/V come from the encoder."""
+    """x (B, S, d) -> q (B, S, H, D) at this rank's heads, with its
+    bias: a cross-attention's query (whisper), whose K/V come from the
+    encoder."""
     b, s, _ = x.shape
-    q = torch.matmul(x, p.wq)
-    if cfg.qkv_bias:
-        q = q + p.bq
-    return q.reshape(b, s, cfg.n_heads, cfg.hd)
+    h, _, axes = local_heads(cfg)
+    q = project(sharding.copy_in(x, axes), p.wq,
+                p.bq if cfg.qkv_bias else None, axes)
+    return q.reshape(b, s, h, cfg.hd)
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
@@ -79,22 +93,16 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
     hd = cfg.hd
     h, hkv, axes = local_heads(cfg)
     x = sharding.copy_in(x, axes)
-
-    def proj(w, bias):
-        y = torch.matmul(x, sharding.weight(w, None, axes))
-        if bias is not None:
-            y = y + sharding.weight(bias, axes)
-        return y
-
-    q = proj(p.wq, p.bq if cfg.qkv_bias else None)
-    k = proj(p.wk, p.bk if cfg.qkv_bias else None)
-    v = proj(p.wv, p.bv if cfg.qkv_bias else None)
+    bias = cfg.qkv_bias
+    q = project(x, p.wq, p.bq if bias else None, axes)
+    k = project(x, p.wk, p.bk if bias else None, axes)
+    v = project(x, p.wv, p.bv if bias else None, axes)
     return (q.reshape(b, s, h, hd), k.reshape(b, s, hkv, hd),
             v.reshape(b, s, hkv, hd))
 
 
-def _project_out(p: Attention, out: torch.Tensor, cfg: ModelConfig
-                 ) -> torch.Tensor:
+def project_out(p: Attention, out: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
     """(B, S, H * D) at this rank's heads -> (B, S, d): the row-parallel
     output projection, its partial sums reduced over the heads'
     axes."""
@@ -126,7 +134,7 @@ def attention_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
         attend = flash_attention_fn
     out = attend(qt, kt, vt, causal=causal, window=cfg.sliding_window)
     out = out.transpose(1, 2).reshape(b, s, qt.shape[1] * cfg.hd)
-    out = _project_out(p, out, cfg)
+    out = project_out(p, out, cfg)
     if return_kv:
         return out, (kt, vt)
     return out
@@ -169,12 +177,11 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     scale are written at the slot, and K5 dequantizes in its read
     (``qblock=1``); the result also carries the scale tensors.
     """
-    mesh = sharding.active()
-    if mesh is not None:             # this rank's cache lanes
-        rows, lanes_ax = sharding.batch_axes(mesh, cache_len.shape[0]), \
-            sharding.kv_batch_axes(mesh, cache_len.shape[0])
-        x = sharding.relayout(x, 0, rows, lanes_ax)
-        cache_len = comm.take(cache_len, mesh, 0, lanes_ax)
+    mesh, n = sharding.active(), cache_len.shape[0]
+    x = sharding.to_lanes(x, n)      # this rank's cache lanes
+    if mesh is not None:
+        cache_len = comm.take(cache_len, mesh, 0,
+                              sharding.kv_batch_axes(mesh, n))
     b = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg)
     cos, sin = rope_angles(cache_len[:, None], cfg.hd, cfg.rope_theta)
@@ -199,10 +206,8 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         v_cache[lanes, :, slot] = v.to(v_cache.dtype)
         out = decode_attention(q, k_cache, v_cache, eff_len)
         caches = (k_cache, v_cache)
-    out = _project_out(p, out.reshape(b, 1, q.shape[1] * cfg.hd), cfg)
-    if mesh is not None:             # back to the step's rows
-        out = sharding.relayout(out, 0, lanes_ax, rows)
-    return (out,) + caches
+    out = project_out(p, out.reshape(b, 1, q.shape[1] * cfg.hd), cfg)
+    return (sharding.to_lanes(out, n, back=True),) + caches
 
 
 def attention_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -260,4 +265,4 @@ def attention_decode_paged(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                                      eff_len)
         caches = (k_pages, v_pages)
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd)
-    return (_project_out(p, out, cfg),) + caches
+    return (project_out(p, out, cfg),) + caches

@@ -390,6 +390,21 @@ def cross_entropy_split(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(nll * mask) / torch.clamp(count, min=1.0)
 
 
+def token_loss(p: Embedding, logits: torch.Tensor, labels: torch.Tensor,
+               mask: Optional[torch.Tensor], cfg: ModelConfig
+               ) -> torch.Tensor:
+    """The next-token loss of :func:`lm_logits`' ``logits``: with no mesh
+    :func:`cross_entropy`; on a mesh this rank's share
+    (:func:`cross_entropy_split`, ``logits`` this rank's rows and block
+    of the vocab)."""
+    if sharding.active() is None:
+        return cross_entropy(logits, labels, mask)
+    axes = vocab_axes(p, cfg)
+    v0 = sharding.block_of(cfg.padded_vocab, axes)[0]
+    return cross_entropy_split(logits, labels, mask, axes, v0,
+                               sharding.batch_split_axes())
+
+
 def lm_logits(p: Embedding, x: torch.Tensor, cfg: ModelConfig, *,
               local: bool = False) -> torch.Tensor:
     """Final projection with the padded vocab masked to -1e30 (float32).

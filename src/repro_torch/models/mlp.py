@@ -62,7 +62,17 @@ class GeluMLP(nn.Module):
 
 def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default is the tanh approximation; the GELU runs
-    in float32 and is rounded to the compute dtype, as the reference."""
-    h = torch.matmul(x, p.w1) + p.b1
+    in float32 and is rounded to the compute dtype, as the reference.
+
+    On a mesh the first product is column-parallel over the axes d_ff is
+    stored over (``b1`` stored so too, added to the local block), the
+    second row-parallel, its partial sums reduced over them; ``b2``,
+    stored whole, is added once after the reduction."""
+    axes = sharding.axes_of(p.w1, 1)
+    x = sharding.copy_in(x, axes)
+    h = torch.matmul(x, sharding.weight(p.w1, None, ...)) + \
+        sharding.weight(p.b1, ...)
     h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-    return torch.matmul(h, p.w2) + p.b2
+    return sharding.reduce_out(
+        torch.matmul(h, sharding.weight(p.w2, ..., None)), axes) + \
+        sharding.weight(p.b2, None)

@@ -240,12 +240,8 @@ def mamba2_decode(p: Mamba2, x: torch.Tensor, cfg: ModelConfig,
     brings its rows to the cache's lanes and its output back, as
     attention's decode does."""
     s_cfg, d_inner, _, _ = _dims(cfg)
-    mesh = sharding.active()
-    if mesh is not None:             # this rank's cache lanes
-        n = batch if batch is not None else x.shape[0]
-        rows, lanes_ax = sharding.batch_axes(mesh, n), \
-            sharding.kv_batch_axes(mesh, n)
-        x = sharding.relayout(x, 0, rows, lanes_ax)
+    n = batch if batch is not None else x.shape[0]
+    x = sharding.to_lanes(x, n)      # this rank's cache lanes
     w = _Local(p, cfg)
     bsz = x.shape[0]
     zxbcdt = torch.matmul(x, w.in_proj)
@@ -271,6 +267,4 @@ def mamba2_decode(p: Mamba2, x: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(bsz, 1, w.d_in).to(x.dtype)
     y = _gated_norm(w, y, z[:, None, :], d_inner)
     y = _project_out(w, y, x.dtype)
-    if mesh is not None:             # back to the step's rows
-        y = sharding.relayout(y, 0, lanes_ax, rows)
-    return y
+    return sharding.to_lanes(y, n, back=True)

@@ -30,9 +30,10 @@ column- and row-parallel as the dense MLP), a hybrid block's two
 branches each whole after its row-parallel output, so ``_hybrid_mix``
 sees whole tensors; the training forward takes this rank's rows of the
 batch (and of ``vision_embeds``), the decode step the whole batch and a
-cache placed by ``place_cache`` (``init_cache`` places it: the K/V by
-heads, the recurrent state by SSD heads).  The encoder-decoder family,
-the batched prefill and the paged cache refuse a mesh by name.
+cache placed by ``place_cache`` (``init_cache`` places it: the K/V, an
+int8 cache's scales with them, by heads, the recurrent state by SSD
+heads).  The batched prefill and the paged cache refuse a mesh by
+name.
 """
 
 from __future__ import annotations
@@ -49,9 +50,8 @@ from repro_torch.models.attention import (Attention, attention_decode,
                                           attention_decode_paged,
                                           attention_forward)
 from repro_torch.models.common import (Embedding, ModelConfig, apply_norm,
-                                       cross_entropy, cross_entropy_split,
                                        dense_init, embed, lm_logits,
-                                       make_norm, vocab_axes)
+                                       make_norm, token_loss)
 from repro_torch.models.mlp import SwiGLU, swiglu
 from repro_torch.models.moe import MoE, moe_forward
 from repro_torch.models.ssm import (Mamba2, init_mamba2, init_mamba2_state,
@@ -227,7 +227,6 @@ def lm_forward_train(params: LM, tokens: torch.Tensor, cfg: ModelConfig, *,
     mesh ``tokens`` and ``vision_embeds`` are this rank's rows
     (``sharding.place_batch``), and ``local_vocab`` keeps the
     logits this rank's block of the vocab (the loss reads them so)."""
-    sharding.check_mesh_family(cfg)
     x = _maybe_inject_vision(embed(params.embed, tokens, train=True),
                              vision_embeds, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -265,7 +264,7 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
     through K2's Function, an ssm or hybrid block's scan through K10's
     (``SSDChunkFn``).  On a mesh the batch is this rank's rows (split
     over ``sharding.split_batch``'s axes) and the value is this rank's
-    share of the loss (``cross_entropy_split``, and the experts' aux
+    share of the loss (``token_loss``, and the experts' aux
     loss as ``moe_forward`` gives it)."""
     tokens = batch["tokens"]
     split = sharding.active() is not None
@@ -277,12 +276,7 @@ def lm_loss(params: LM, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         mask = (pos[None, :] >= cfg.n_vision_tokens).float().expand(
             tokens.shape)
-    if split:
-        axes = vocab_axes(params.embed, cfg)
-        v0 = sharding.block_of(cfg.padded_vocab, axes)[0]
-        return cross_entropy_split(logits, batch["labels"], mask, axes, v0,
-                                   sharding.batch_split_axes()) + aux
-    return cross_entropy(logits, batch["labels"], mask) + aux
+    return token_loss(params.embed, logits, batch["labels"], mask, cfg) + aux
 
 
 @torch.no_grad()
@@ -468,7 +462,6 @@ def lm_decode_step(params: LM, cfg: ModelConfig, cache: Cache,
     cache's lanes and its SSD heads, each moe layer on its experts
     (routing the rows of every rank of the ``batch`` axes together), and
     the logits are gathered whole."""
-    sharding.check_mesh_family(cfg)
     mesh = sharding.active()
     rows = () if mesh is None else sharding.batch_axes(mesh,
                                                        tokens.shape[0])

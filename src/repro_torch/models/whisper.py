@@ -14,7 +14,7 @@ cross-attention K/V, computed once from the encoder states, in
 ``cross_k``/``cross_v`` (L, B, Hkv, S_enc, D); a step runs K3 over both
 (the cross read at every lane's full S_enc).  The cache stays dense and
 in the compute dtype: the reference refuses int8 KV here, and so does
-the port.
+the port, on a mesh as without one.
 
 Training (:func:`whisper_loss`) runs :func:`encode_train` and
 :func:`decode_forward_train`, each block under ``torch.utils.
@@ -22,6 +22,19 @@ checkpoint`` with ``remat`` (the reference's ``jax.checkpoint`` on its
 scan body), every attention through K2's Function when autograd
 records; serving's :func:`encode` and :func:`decode_forward` are the
 same passes with no autograd record.
+
+On a mesh of more than one rank (:mod:`repro_torch.parallel.sharding`)
+every attention is split by heads as the decoder-only families' is
+(``models/attention.py``), cross-attention too: its query from the
+decoder stream and its K/V from the encoder states at this rank's
+heads, each input through ``copy_in`` (every decoder layer reads the
+encoder states, so their gradient sums over the heads' axes once a
+layer), the output row-parallel.  The GELU MLPs are column- then
+row-parallel, the token lookup and the logits vocab-parallel and the
+loss :func:`~repro_torch.models.common.cross_entropy_split`; training
+takes this rank's rows of ``frames``, ``tokens`` and ``labels``.  The
+decode cache holds this rank's lanes and heads of every entry, the
+cross K/V made from its own columns (:func:`init_whisper_cache`).
 """
 
 from __future__ import annotations
@@ -30,19 +43,20 @@ from typing import Dict, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_fn)
 from repro_torch.models.attention import (Attention, attention_decode,
-                                          attention_forward, project_q)
+                                          attention_forward, local_heads,
+                                          project, project_out, project_q)
 from repro_torch.models.common import (Embedding, ModelConfig, apply_norm,
-                                       cross_entropy, dense_init, embed,
-                                       lm_logits, make_norm)
+                                       dense_init, embed, lm_logits,
+                                       make_norm, token_loss)
 from repro_torch.models.mlp import GeluMLP, gelu_mlp
 from repro_torch.models.transformer import NORMS
+from repro_torch.parallel import comm, sharding
 
 Cache = Dict[str, torch.Tensor]
 
@@ -159,17 +173,15 @@ def encode(params: Whisper, frames: torch.Tensor, cfg: ModelConfig
 def enc_kv(p: Attention, enc: torch.Tensor, cfg: ModelConfig
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A cross-attention's K/V of the encoder states: (B, Hkv, S_enc, D)
-    each, contiguous (the reference's ``_enc_kv``)."""
+    each at this rank's heads, contiguous (the reference's
+    ``_enc_kv``)."""
     b, s, _ = enc.shape
-    k = torch.matmul(enc, p.wk)
-    v = torch.matmul(enc, p.wv)
-    if cfg.qkv_bias:
-        k = k + p.bk
-        v = v + p.bv
-    return (k.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-            .contiguous(),
-            v.reshape(b, s, cfg.n_kv_heads, cfg.hd).transpose(1, 2)
-            .contiguous())
+    _, hkv, axes = local_heads(cfg)
+    enc = sharding.copy_in(enc, axes)
+    k = project(enc, p.wk, p.bk if cfg.qkv_bias else None, axes)
+    v = project(enc, p.wv, p.bv if cfg.qkv_bias else None, axes)
+    return (k.reshape(b, s, hkv, cfg.hd).transpose(1, 2).contiguous(),
+            v.reshape(b, s, hkv, cfg.hd).transpose(1, 2).contiguous())
 
 
 def cross_attention(p: Attention, x: torch.Tensor, kv, cfg: ModelConfig
@@ -185,8 +197,8 @@ def cross_attention(p: Attention, x: torch.Tensor, kv, cfg: ModelConfig
                                     or kv[1].requires_grad):
         attend = flash_attention_fn
     out = attend(q, kv[0], kv[1], causal=False)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.hd)
-    return torch.matmul(out, p.wo)
+    out = out.transpose(1, 2).reshape(b, s, q.shape[1] * cfg.hd)
+    return project_out(p, out, cfg)
 
 
 def _decoder_block(p: DecoderBlock, x: torch.Tensor, enc: torch.Tensor,
@@ -201,18 +213,21 @@ def _decoder_block(p: DecoderBlock, x: torch.Tensor, enc: torch.Tensor,
 
 def decode_forward_train(params: Whisper, tokens: torch.Tensor,
                          enc: torch.Tensor, cfg: ModelConfig, *,
-                         remat: bool = False) -> torch.Tensor:
+                         remat: bool = False, local_vocab: bool = False
+                         ) -> torch.Tensor:
     """The reference's ``decode_forward``: teacher-forced decoder pass,
     tokens (B, S_dec) over the encoder states ``enc`` -> logits (B,
     S_dec, V) float32, differentiable.  The token lookup is
-    ``F.embedding`` (its backward sums in a fixed order, as
-    ``lm_forward_train``'s); each layer's cross K/V are made inside its
-    block, so remat recomputes them as the reference's does."""
+    ``embed(train=True)``'s ``F.embedding`` (its backward sums in a
+    fixed order, as ``lm_forward_train``'s; vocab-parallel on a mesh);
+    each layer's cross K/V are made inside its block, so remat
+    recomputes them as the reference's does.  ``local_vocab`` keeps the
+    logits this rank's block of the vocab (the loss reads them so)."""
     x = _run_blocks(_decoder_block, params.decoder,
-                    F.embedding(tokens.long(), params.embed.tok), enc, cfg,
+                    embed(params.embed, tokens, train=True), enc, cfg,
                     remat=remat)
     x = apply_norm(params.final_norm, x)
-    return lm_logits(params.embed, x, cfg)
+    return lm_logits(params.embed, x, cfg, local=local_vocab)
 
 
 @torch.no_grad()
@@ -229,11 +244,15 @@ def whisper_loss(params: Whisper, batch: Dict[str, torch.Tensor],
     d) through :func:`encode_train`, the tokens through
     :func:`decode_forward_train`, and the mean cross-entropy of
     ``batch["labels"]`` under ``batch["loss_mask"]`` when given (no aux
-    loss)."""
+    loss).  On a mesh the batch is this rank's rows (split over
+    ``sharding.split_batch``'s axes) and the value is this rank's share
+    of the loss (``token_loss``), as ``lm_loss``'s."""
+    split = sharding.active() is not None
     enc = encode_train(params, batch["frames"], cfg, remat=remat)
     logits = decode_forward_train(params, batch["tokens"], enc, cfg,
-                                  remat=remat)
-    return cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
+                                  remat=remat, local_vocab=split)
+    return token_loss(params.embed, logits, batch["labels"],
+                      batch.get("loss_mask"), cfg)
 
 
 # ----------------------------------------------------------------------
@@ -245,9 +264,20 @@ def init_whisper_cache(params: Whisper, enc: torch.Tensor, cfg: ModelConfig,
                        batch: int, max_len: int) -> Cache:
     """``len`` (B,) int32 at 0, the self-attention cache ``k``/``v`` (L,
     B, Hkv, max_len, D) zeroed, and every layer's cross-attention K/V of
-    ``enc`` in ``cross_k``/``cross_v`` (L, B, Hkv, S_enc, D)."""
+    ``enc`` in ``cross_k``/``cross_v`` (L, B, Hkv, S_enc, D).
+
+    On a mesh of more than one rank ``enc`` is the whole batch's and the
+    cache this rank's block (``sharding.cache_layout``): its lanes over
+    the ``kv_batch`` axes and its KV heads, the cross K/V made from its
+    lanes' encoder states and its heads' columns of ``wk``/``wv`` (no
+    whole cache is made or gathered); ``len`` whole."""
+    lanes = batch
+    mesh = sharding.active()
+    if mesh is not None:
+        enc = comm.take(enc, mesh, 0, sharding.kv_batch_axes(mesh, batch))
+        lanes = enc.shape[0]
     dev = enc.device
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.hd)
+    shape = (cfg.n_layers, lanes, local_heads(cfg)[1], max_len, cfg.hd)
     cross = [enc_kv(blk.cross_attn, enc, cfg) for blk in params.decoder]
     return {
         "len": torch.zeros(batch, dtype=torch.int32, device=dev),
@@ -265,29 +295,56 @@ def whisper_decode_step(params: Whisper, cfg: ModelConfig, cache: Cache,
     """tokens (B,) -> (logits (B, V) float32, cache): each layer writes
     its new self-attention K/V in place and reads the cross K/V at every
     lane's full encoder length; the returned cache holds the same
-    tensors and ``len + 1``."""
+    tensors and ``len + 1``.
+
+    On a mesh ``tokens`` and the logits are the whole batch on every
+    rank and the cache this rank's block (:func:`init_whisper_cache`):
+    the step runs on its rows of the ``batch`` axes, each attention, the
+    cross-attention too, on the cache's lanes at its local heads (K3),
+    and the logits are gathered whole, as ``lm_decode_step``'s."""
     if cfg.kv_quant is not None:
         raise NotImplementedError(
             "int8 KV cache is wired for the decoder-only families; "
             "whisper-base caches are small enough in bf16")
-    x = embed(params.embed, tokens[:, None])
+    mesh = sharding.active()
+    rows = () if mesh is None else sharding.batch_axes(mesh,
+                                                       tokens.shape[0])
+    if mesh is not None:
+        tokens = comm.take(tokens, mesh, 0, rows)
     cache_len = cache["len"]
-    b = tokens.shape[0]
-    enc_len = torch.full((b,), cache["cross_k"].shape[3], dtype=torch.int32,
-                         device=tokens.device)
-    for i, blk in enumerate(params.decoder):
-        h = apply_norm(blk.norm1, x)
-        x = x + attention_decode(blk.self_attn, h, cfg, cache["k"][i],
-                                 cache["v"][i], cache_len)[0]
-        hx = apply_norm(blk.norm_x, x)
-        q = project_q(blk.cross_attn, hx, cfg)[:, 0].contiguous()
-        co = decode_attention(q, cache["cross_k"][i], cache["cross_v"][i],
-                              enc_len)
-        x = x + torch.matmul(co.reshape(b, 1, cfg.n_heads * cfg.hd),
-                             blk.cross_attn.wo)
-        x = x + gelu_mlp(blk.mlp, apply_norm(blk.norm2, x))
-    x = apply_norm(params.final_norm, x)
-    logits = lm_logits(params.embed, x[:, 0], cfg)
+    with sharding.split_batch(rows):
+        x = embed(params.embed, tokens[:, None])
+        enc_len = torch.full((cache["cross_k"].shape[1],),
+                             cache["cross_k"].shape[3], dtype=torch.int32,
+                             device=tokens.device)
+        for i, blk in enumerate(params.decoder):
+            h = apply_norm(blk.norm1, x)
+            x = x + attention_decode(blk.self_attn, h, cfg, cache["k"][i],
+                                     cache["v"][i], cache_len)[0]
+            x = x + _cross_decode(blk.cross_attn,
+                                  apply_norm(blk.norm_x, x), cfg,
+                                  cache["cross_k"][i], cache["cross_v"][i],
+                                  enc_len, cache_len.shape[0])
+            x = x + gelu_mlp(blk.mlp, apply_norm(blk.norm2, x))
+        x = apply_norm(params.final_norm, x)
+    logits = sharding.relayout(lm_logits(params.embed, x[:, 0], cfg), 0,
+                               rows, None)
     new_cache = dict(cache)
     new_cache["len"] = cache_len + 1
     return logits, new_cache
+
+
+def _cross_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                  k: torch.Tensor, v: torch.Tensor, enc_len: torch.Tensor,
+                  n_lanes: int) -> torch.Tensor:
+    """One token's cross-attention: x (B, 1, d) -> (B, 1, d) over one
+    layer's cross K/V (B, Hkv, S_enc, D), K3 at every lane's full
+    encoder length ``enc_len``.  On a mesh x is the step's rows of
+    ``n_lanes``, brought to the cache's lanes and back, as
+    ``attention_decode`` does."""
+    x = sharding.to_lanes(x, n_lanes)
+    b = x.shape[0]
+    q = project_q(p, x, cfg)[:, 0].contiguous()
+    out = decode_attention(q, k, v, enc_len)
+    out = project_out(p, out.reshape(b, 1, q.shape[1] * cfg.hd), cfg)
+    return sharding.to_lanes(out, n_lanes, back=True)

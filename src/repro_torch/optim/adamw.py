@@ -19,13 +19,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterable, Mapping, NamedTuple, Optional, Union
+from typing import (Any, Dict, Iterable, List, Mapping, NamedTuple,
+                    Optional, Union)
 
 import torch
 from torch import nn
 
 from repro_torch.models.common import reference_path
-from repro_torch.parallel import sharding
+from repro_torch.parallel import comm, sharding
 from repro_torch.quant.quantize import true_div
 
 
@@ -71,8 +72,13 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
-def _q8_store(x: torch.Tensor) -> Q8Moment:
-    scale = true_div(torch.amax(torch.abs(x), dim=-1, keepdim=True), 127.0)
+def _q8_store(x: torch.Tensor, amax: Optional[torch.Tensor] = None
+              ) -> Q8Moment:
+    """``x`` row-wise int8: ``amax`` is each row's largest magnitude
+    (``x``'s own rows' when ``None``)."""
+    if amax is None:
+        amax = torch.amax(torch.abs(x), dim=-1, keepdim=True)
+    scale = true_div(amax, 127.0)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return Q8Moment(q=q, scale=scale.float())
@@ -80,6 +86,63 @@ def _q8_store(x: torch.Tensor) -> Q8Moment:
 
 def _q8_load(st: Q8Moment) -> torch.Tensor:
     return st.q.float() * st.scale
+
+
+def _split_row_amax(params: nn.Module, grads: Mapping[str, torch.Tensor],
+                    mu: Mapping[str, Q8Moment], clip: torch.Tensor,
+                    b1: float) -> Dict[str, torch.Tensor]:
+    """The whole rows' maxima of this step's int8 momenta whose rows are
+    split over mesh axes (a parameter whose last dim is): a row's scale
+    is the whole row's, as the reference's ``max`` over a sharded dim
+    gives it.  Each block's updated momentum is formed for its row
+    maxima and dropped, and the maxima are maxed over the axes that
+    split the row -- one all-reduce for each set of such axes, every
+    leaf that shares it together -- so no float32 momentum outlives its
+    leaf and every rank holding part of a row stores the same scale.
+    Empty with no mesh."""
+    groups: Dict[tuple, Dict[str, torch.Tensor]] = {}
+    for name, p in params.named_parameters():
+        row_axes = sharding.axes_of(p, -1)
+        if row_axes:        # the update's own arithmetic, in its order
+            mu_f = b1 * _q8_load(mu[name]) + (1 - b1) * (
+                grads[name].float() * clip)
+            groups.setdefault(row_axes, {})[name] = torch.amax(
+                torch.abs(mu_f), dim=-1, keepdim=True)
+    out = {}
+    for axes, amax in groups.items():
+        flat = sharding.all_reduce(
+            torch.cat([a.reshape(-1) for a in amax.values()]), axes,
+            op="max")
+        for (name, a), row in zip(amax.items(), torch.split(
+                flat, [a.numel() for a in amax.values()])):
+            out[name] = row.view_as(a)
+    return out
+
+
+def q8_invariant(state, mesh) -> List:
+    """The int8-moment invariant over every momentum of ``state`` (a
+    ``TrainState`` of this rank's blocks, int8 moments; every rank of
+    ``mesh``, the active one, takes part): ``[same, full, split]`` --
+    whether the ranks holding parts of each row hold the same ``scale``
+    bitwise, whether each row's max |q| over those parts is 127 (or 0
+    with scale 1: a zero row), and how many leaves have their rows
+    split."""
+    same = full = True
+    split = 0
+    for name, p in state.params.named_parameters():
+        m = state.opt.mu[name]
+        axes = sharding.axes_of(p, -1)
+        split += bool(axes)
+        scales = comm.all_gather(m.scale, mesh, axes, m.scale.dim() - 1)
+        same &= bool(torch.all(scales == scales[..., :1]))
+        qmax = comm.all_reduce(torch.amax(torch.abs(m.q.int()), -1,
+                                          keepdim=True), mesh, axes, "max")
+        full &= bool(torch.all((qmax == 127) | ((qmax == 0)
+                                                & (m.scale == 1))))
+    ok = comm.all_reduce(torch.tensor([int(same), int(full)],
+                                      device=p.device), mesh,
+                         mesh.axis_names, "sum")
+    return [int(ok[0]) == mesh.size, int(ok[1]) == mesh.size, split]
 
 
 class AdamWState(NamedTuple):
@@ -172,7 +235,9 @@ def adamw_update(cfg: AdamWConfig, params: nn.Module,
     With ``moment_dtype="int8"`` the momentum is dequantized, updated in
     float32, and re-quantized row-wise each step (8-bit Adam).  On a
     mesh every leaf is this rank's block (the update is elementwise) and
-    the clipping norm is the whole tree's (:func:`global_norm`)."""
+    the clipping norm is the whole tree's (:func:`global_norm`); an
+    int8 momentum whose rows are split takes the whole row's scale
+    (:func:`_split_row_amax`)."""
     specs = {n: sharding.spec_of(p) for n, p in params.named_parameters()}
     gnorm = global_norm(grads, specs if any(
         v is not None for v in specs.values()) else None)
@@ -185,6 +250,7 @@ def adamw_update(cfg: AdamWConfig, params: nn.Module,
     c1 = 1 - torch.pow(b1, step_f)
     c2 = 1 - torch.pow(b2, step_f)
     q8 = cfg.moment_dtype == "int8"
+    amax = _split_row_amax(params, grads, state.mu, clip, b1) if q8 else {}
     new_mu, new_nu = {}, {}
     for name, p in params.named_parameters():
         mu, nu = state.mu[name], state.nu[name]
@@ -198,7 +264,7 @@ def adamw_update(cfg: AdamWConfig, params: nn.Module,
             upd = upd + cfg.weight_decay * p.float()
         p.copy_(p.float() - lr * upd)
         if q8:
-            new_mu[name] = _q8_store(mu_f)
+            new_mu[name] = _q8_store(mu_f, amax.get(name))
             new_nu[name] = nu.copy_(nu_f)
         else:
             new_mu[name] = mu.copy_(mu_f)

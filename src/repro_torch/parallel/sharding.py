@@ -43,14 +43,17 @@ assignment's slot counts the assignments of the lower batch ranks to
 its expert.  ``seq`` is not in this slice: tensors the reference
 constrains by it keep the layout they get, and the KV cache, which the
 reference splits by ``seq`` over ``model``, holds each rank's heads
-there instead (:func:`cache_layout`), the layout the decode kernel
-reads; the recurrent state holds each rank's SSD heads.  For the same
-reason serve mode stores attention's weights by heads alone, not over
-the reference's (data, model), the mixer's by SSD heads and a moe
-block's shared expert as the dense MLP (:func:`place_params`), so a
-decode step gathers no weight.  The dense, moe, ssm, hybrid and vlm
-families run on a mesh of more than one rank; the encoder-decoder
-family and an int8 KV cache are refused by name.
+there instead (:func:`cache_layout`), the layout the decode kernels
+read -- an int8 cache's per-token scales and the encoder-decoder's
+cross K/V with them; the recurrent state holds each rank's SSD heads.
+For the same reason serve mode stores attention's weights by heads
+alone, not over the reference's (data, model), the mixer's by SSD heads
+and a moe block's shared expert as the dense MLP (:func:`place_params`),
+so a decode step gathers no weight.  Every family runs on a mesh of
+more than one rank: the dense, moe, ssm, hybrid and vlm families and the
+encoder-decoder (whisper: its cross-attention split by heads as its
+self-attention, its GELU MLPs as the dense MLP), in the compute dtype
+or with an int8 KV cache.
 
 :func:`use_mesh` keeps the reference's mesh context, process-wide
 rather than thread-local: on the card autograd runs a backward (and
@@ -168,8 +171,11 @@ def constrain(x, *logical: Optional[str]):
     whole.  The moe sites (``moe.py`` 114-135) hold theirs the same way:
     the buffer is this rank's experts (:func:`expert_axes`), its ``d``
     whole, and the combine's output is this rank's rows.  The whisper
-    sites (``whisper.py`` 79-141) belong to a family that refuses a mesh
-    of more than one rank.
+    sites (``whisper.py`` 79-141) hold theirs the same way: the frames'
+    and tokens' ``(batch, seq, -)`` from :func:`place_batch`, the
+    encoder's and the decoder's attention and GELU MLP from their
+    column-parallel weights, cross-attention's K/V of the encoder states
+    at this rank's heads.
     With no mesh it is the identity, as the reference's is."""
     return x
 
@@ -373,30 +379,11 @@ def replicated(mesh) -> Spec:
 # the sharded model: layouts, placement, and the products' boundaries
 # ----------------------------------------------------------------------
 
-#: the families that run on a mesh of more than one rank
-MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
-
-
 def active():
     """The current mesh when it has more than one rank, else ``None``
     (no mesh, or a mesh of one rank: the unsharded model)."""
     mesh = current_mesh()
     return mesh if mesh is not None and mesh.size > 1 else None
-
-
-def check_mesh_family(cfg, mesh=None) -> None:
-    """Refuse, by name, a config whose family does not run on ``mesh``
-    (the active mesh when ``None``) when it has more than one rank."""
-    mesh = mesh if mesh is not None else active()
-    if mesh is None or mesh.size == 1:
-        return
-    family = "encoder-decoder" if cfg.is_encdec else cfg.family
-    if family not in MESH_FAMILIES or cfg.kv_quant is not None:
-        raise ValueError(
-            f"{cfg.name}: the {family} family"
-            f"{' with an int8 KV cache' if cfg.kv_quant else ''} does not "
-            f"run on a mesh of more than one rank yet ({mesh}); the "
-            f"families that do: {MESH_FAMILIES}, KV in the compute dtype")
 
 
 def batch_axes(mesh, n: int, mode: Optional[str] = None
@@ -456,6 +443,10 @@ def ssd_head_axes(mesh, cfg, mode: Optional[str] = None
     return mesh.axes(_fallback_axes(mesh, ssd_dims(cfg)[1], tp or None))
 
 
+#: the cache entries whose dim 2 holds the KV heads
+_HEAD_ENTRIES = ("k", "v", "k_scale", "v_scale", "cross_k", "cross_v")
+
+
 def cache_layout(mesh, cfg, cache: Mapping[str, Any],
                  mode: Optional[str] = None) -> Dict[str, Spec]:
     """The port's spec of each entry of a decode cache: the reference's
@@ -463,8 +454,10 @@ def cache_layout(mesh, cfg, cache: Mapping[str, Any],
     and ``tp`` entries (not in this slice) replaced by the layout the
     step reads; ``len`` whole on every rank.
 
-    * ``k``, ``v``: the KV-head dim over :func:`head_axes` (the
-      reference's ``seq`` on the positions dropped).
+    * ``k``, ``v``, an int8 cache's ``k_scale``/``v_scale`` and the
+      encoder-decoder's ``cross_k``/``cross_v``: the KV-head dim over
+      :func:`head_axes` (the reference's ``seq`` on the positions
+      dropped).
     * ``ssm_h`` (L, B, nh, N, P): the SSD-head dim over
       :func:`ssd_head_axes` (the reference's ``tp`` on the state dim N
       dropped).
@@ -482,7 +475,7 @@ def cache_layout(mesh, cfg, cache: Mapping[str, Any],
         spec = list(ref[name])
         if name == "len":
             pass
-        elif name in ("k", "v"):
+        elif name in _HEAD_ENTRIES:
             spec[2], spec[3] = heads or None, None
         elif name == "ssm_h":
             spec[2], spec[3] = ssd or None, None
@@ -490,8 +483,8 @@ def cache_layout(mesh, cfg, cache: Mapping[str, Any],
             spec[3] = ssd or None
         else:
             raise ValueError(f"cache entry {name!r} has no placement on a "
-                             f"mesh of more than one rank (k, v, ssm_h, "
-                             f"ssm_conv and len do)")
+                             f"mesh of more than one rank ({_HEAD_ENTRIES}, "
+                             f"ssm_h, ssm_conv and len do)")
         out[name] = tuple(spec)
     return out
 
@@ -518,6 +511,8 @@ def _rebind(module: nn.Module, name: str, t: torch.Tensor, spec) -> None:
 #: attention's parameters and the dim of each that holds the heads
 _HEAD_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0,
               "bv": 0}
+#: the modules holding attention (whisper's decoder has two a layer)
+_ATTN_OWNERS = ("attn", "self_attn", "cross_attn")
 #: the Mamba-2 mixer's parameters whose first dim is d_inner, which
 #: serve mode stores by SSD heads; its others it stores whole
 _SSD_HEAD_ROWS = ("out_proj", "norm_scale")
@@ -546,7 +541,6 @@ def place_params(mesh, module: nn.Module, cfg, mode: str = "train"
     the reference's layout and is read whole."""
     if mesh.size == 1:
         return module
-    check_mesh_family(cfg, mesh)
     specs = param_shardings(mesh, module, mode)
     if mode == "serve":
         params = dict(module.named_parameters())
@@ -560,7 +554,7 @@ def place_params(mesh, module: nn.Module, cfg, mode: str = "train"
             owner, _, leaf = name.rpartition(".")
             owner = owner.rpartition(".")[2]
             spec = list(spec)
-            if owner == "attn" and leaf in _HEAD_DIMS:
+            if owner in _ATTN_OWNERS and leaf in _HEAD_DIMS:
                 spec[_HEAD_DIMS[leaf]] = heads
             elif owner == "ssm":
                 spec = [None] * len(spec)
@@ -602,7 +596,6 @@ def place_cache(mesh, cache: Mapping[str, torch.Tensor], cfg,
                 mode: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """This rank's block of every entry of a decode cache whole on every
     rank, by :func:`cache_layout`."""
-    check_mesh_family(cfg, mesh)
     specs = cache_layout(mesh, cfg, cache, mode)
     out = {}
     for k, v in cache.items():
@@ -623,7 +616,8 @@ def gather_cache(mesh, cache: Mapping[str, torch.Tensor], cfg,
     of :func:`place_cache`; every rank of the mesh takes part)."""
     b = cache["len"].shape[0]
     d_inner, nh, n = ssd_dims(cfg) if cfg.has_ssm else (0, 0, 0)
-    heads = {"k": cfg.n_kv_heads, "v": cfg.n_kv_heads, "ssm_h": nh}
+    heads = dict.fromkeys(_HEAD_ENTRIES, cfg.n_kv_heads)
+    heads["ssm_h"] = nh
     whole = {}
     for k, v in cache.items():
         shape = list(v.shape)
@@ -742,6 +736,19 @@ def relayout(t: torch.Tensor, dim: int, src, dst) -> torch.Tensor:
     """:func:`comm.relayout` on the active mesh (``t`` with none)."""
     mesh = active()
     return t if mesh is None else comm.relayout(t, mesh, dim, src, dst)
+
+
+def to_lanes(t: torch.Tensor, n: int, back: bool = False) -> torch.Tensor:
+    """A decode step's ``t`` (rows first) from the step's rows of a
+    batch of ``n`` lanes (:func:`batch_axes`) to this rank's cache lanes
+    (:func:`kv_batch_axes`), or back with ``back`` (``t`` with no
+    mesh)."""
+    mesh = active()
+    if mesh is None:
+        return t
+    rows, lanes = batch_axes(mesh, n), kv_batch_axes(mesh, n)
+    return comm.relayout(t, mesh, 0, *((lanes, rows) if back
+                                       else (rows, lanes)))
 
 
 def all_reduce(t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:

@@ -54,13 +54,11 @@ def init_train_state(model: Model, generator: torch.Generator,
     """Float32 masters drawn from ``generator`` and fresh moments.  With
     a ``mesh`` of more than one rank every rank draws the same whole
     masters and keeps its block (``sharding.place_params``, train mode);
-    the moments are made at the blocks' shapes."""
+    the moments are made at the blocks' shapes (an int8 momentum's
+    scale, one a row, whole on the axes that split the row:
+    ``adamw_update`` gives each block the whole row's)."""
     params = model.init(generator, device, train=True)
     if mesh is not None and mesh.size > 1:
-        if moment_dtype == "int8":
-            raise ValueError("int8 moments hold one scale a row, which a "
-                             "row split over model would change; they do "
-                             "not run on a mesh of more than one rank")
         sharding.place_params(mesh, params, model.cfg, "train")
     return TrainState(params=params, opt=init_adamw(params, moment_dtype))
 

@@ -13,9 +13,12 @@ the installed jax):
   reference's jitted ``value_and_grad``, the loss within 1e-5 relative;
   after three steps the losses within 1e-4 relative and each
   parameter's change within 1e-2 (relative L2) of both single-device
-  runs'; an ssm and a moe config placed, and an encoder-decoder and an
-  int8-KV config refused by name on the same mesh (the moe family's
-  sharded steps are ``test_torch_sharded_moe.py``'s);
+  runs'; an ssm, a moe, an encoder-decoder and an int8-KV config placed
+  on the same mesh with none refused, an int8 KV cache placed by heads
+  with its scales, and whisper over an int8 KV cache raising the
+  reference's ``NotImplementedError`` there (the moe family's sharded
+  steps are ``test_torch_sharded_moe.py``'s, the encoder-decoder's and
+  int8's ``test_torch_sharded_encdec.py``'s);
 * (b) qwen2.5-1.5b decodes three steps on a (4, 2) serve mesh (the MLP
   over all eight ranks, attention over ``model``, the cache's lanes over
   ``data``): each step's logits within 1e-5 of the single-device port's
@@ -167,28 +170,57 @@ def _restored(ckdir, cfg, mesh):
     return restore(ckdir, 0, empty_train_state(cfg, CPU, mesh=mesh))
 
 
-def _rank_train(rank, world, out, ckdir):
-    """(a): gradients, three steps and the refusals on (4, 2)."""
-    from repro_torch.checkpoint import train_state_to_numpy
-    from repro_torch.launch.mesh import make_test_mesh
+def _rank_placements(mesh):
+    """(a)'s placements on ``mesh``: the configs ``placed`` and the
+    ``refusals`` by config name, ``int8_kv`` the shapes of this rank's
+    int8 KV cache (serve mode) and ``whisper_int8`` the message
+    whisper's decode step raises over an int8 KV cache."""
     from repro_torch.models import build_model
-    from repro_torch.parallel import comm, sharding, use_mesh
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.models.whisper import (encode, init_whisper_cache,
+                                            whisper_decode_step)
+    from repro_torch.parallel import sharding, use_mesh
     from repro_torch.train import init_train_state
-    from repro_torch.train.train_loop import batch_to_device
-    cfg = _cfg("olmo-1b")
-    mesh = make_test_mesh((4, 2))
-    refusals = {}
+    int8_kv = dataclasses.replace(_cfg("qwen2.5-1.5b"), kv_quant="int8")
+    placed, refusals = [], {}
     for name, rcfg in (
             ("mamba2-780m", _cfg("mamba2-780m")),
             ("moonshot-v1-16b-a3b", _cfg("moonshot-v1-16b-a3b")),
             ("whisper-base", _cfg("whisper-base")),
-            ("qwen2.5-1.5b-int8-kv", dataclasses.replace(
-                _cfg("qwen2.5-1.5b"), kv_quant="int8"))):
+            ("qwen2.5-1.5b-int8-kv", int8_kv)):
         try:
             init_train_state(build_model(rcfg), torch.Generator(), CPU,
                              mesh=mesh)
+            placed.append(name)
         except ValueError as e:
             refusals[name] = str(e)
+    wcfg = dataclasses.replace(_cfg("whisper-base"), kv_quant="int8")
+    params = build_model(wcfg).init(torch.Generator().manual_seed(0), CPU)
+    sharding.place_params(mesh, params, wcfg, "serve")
+    whisper_int8 = None
+    with use_mesh(mesh, mode="serve"):
+        cache = init_cache(int8_kv, 4, 16, device=CPU)
+        int8_shapes = {k: list(v.shape) for k, v in cache.items()}
+        enc = encode(params, torch.zeros(4, 8, wcfg.d_model), wcfg)
+        wcache = init_whisper_cache(params, enc, wcfg, 4, 8)
+        try:
+            whisper_decode_step(params, wcfg, wcache,
+                                torch.zeros(4, dtype=torch.int32))
+        except NotImplementedError as e:
+            whisper_int8 = str(e)
+    return {"placed": placed, "refusals": refusals,
+            "int8_kv": int8_shapes, "whisper_int8": whisper_int8}
+
+
+def _rank_train(rank, world, out, ckdir):
+    """(a): gradients, three steps and the placements on (4, 2)."""
+    from repro_torch.checkpoint import train_state_to_numpy
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import comm, sharding, use_mesh
+    from repro_torch.train.train_loop import batch_to_device
+    cfg = _cfg("olmo-1b")
+    mesh = make_test_mesh((4, 2))
+    placements = _rank_placements(mesh)
     step = _train_step(cfg)
     with use_mesh(mesh):
         state = _restored(ckdir, cfg, mesh)
@@ -207,7 +239,7 @@ def _rank_train(rank, world, out, ckdir):
         np.savez(out / "grads.npz", **grads)
         np.savez(out / "state.npz", **{n: a for n, a, _ in leaves})
         (out / "result.json").write_text(json.dumps(
-            {"loss": float(loss), "losses": losses, "refusals": refusals,
+            {"loss": float(loss), "losses": losses, **placements,
              "specs": {n: [list(mesh.axes(e)) for e in s]
                        for n, s in specs.items()}}))
 
@@ -565,7 +597,7 @@ def _rel(a, b) -> float:
 
 
 def test_sharded_train_matches_single_device(world8):
-    """(a) and the refusals of (f)."""
+    """(a) and the placements of (f)."""
     jax, _, jax_build_model = _reference()
     import jax.numpy as jnp
     from repro.checkpoint.checkpointer import _flatten_with_names
@@ -585,11 +617,9 @@ def test_sharded_train_matches_single_device(world8):
     assert res["specs"]["blocks.0.attn.wq"] == [["data"], ["model"]]
     assert res["specs"]["blocks.0.attn.wo"] == [["model"], ["data"]]
     assert res["specs"]["embed.tok"] == [["model"], ["data"]]
-    # (g) runs the ssm family, test_torch_sharded_moe.py the moe family
-    assert "mamba2-780m" not in res["refusals"]
-    assert "moonshot-v1-16b-a3b" not in res["refusals"]
-    msg = res["refusals"].get("whisper-base", "")
-    assert "the encoder-decoder family" in msg and "mesh" in msg
+    # (g) runs the ssm family, test_torch_sharded_moe.py the moe family,
+    # test_torch_sharded_encdec.py the encoder-decoder and int8
+    assert res["refusals"] == {}
     # gradients: the single-device port and the reference's jitted
     # value_and_grad on the same batch
     step = _train_step(cfg)
@@ -694,16 +724,27 @@ def test_sharded_grads_with_whole_heads(world8):
     assert abs(res["loss"] - float(loss1)) <= LOSS_TOL * abs(float(loss1))
 
 
-def test_mesh_refuses_moe_encdec_and_int8_kv_by_name(world8):
-    """On (4, 2) the encoder-decoder (whisper-base) and an int8 KV cache
-    are refused by name; the ssm and moe families are placed."""
+def test_mesh_places_encdec_and_int8(world8):
+    """On (4, 2) the ssm, moe and encoder-decoder (whisper-base) families
+    and an int8-KV config are placed with no refusal left; the int8 KV
+    cache holds each rank's lane and KV head of the values and their
+    scales; whisper over an int8 KV cache raises the reference's
+    ``NotImplementedError`` on the mesh, as it does unsharded."""
+    _, jax_get_config, _ = _reference()
+    from repro.models.whisper import whisper_decode_step as jax_step
     res = json.loads((world8.out / "train" / "result.json").read_text())
-    for name, what in (("whisper-base", "the encoder-decoder family"),
-                       ("qwen2.5-1.5b-int8-kv", "with an int8 KV cache")):
-        msg = res["refusals"].get(name, "")
-        assert what in msg and "mesh" in msg, (name, msg)
-    assert sorted(res["refusals"]) == sorted(
-        ["whisper-base", "qwen2.5-1.5b-int8-kv"])
+    assert res["refusals"] == {}
+    assert res["placed"] == ["mamba2-780m", "moonshot-v1-16b-a3b",
+                             "whisper-base", "qwen2.5-1.5b-int8-kv"]
+    cfg = _cfg("qwen2.5-1.5b")
+    for name, last in (("k", cfg.hd), ("k_scale", 1), ("v_scale", 1)):
+        assert res["int8_kv"][name] == [cfg.n_layers, 1,
+                                        cfg.n_kv_heads // 2, 16, last]
+    jcfg = dataclasses.replace(jax_get_config("whisper-base", smoke=True),
+                               kv_quant="int8")
+    with pytest.raises(NotImplementedError) as ref:
+        jax_step(None, jcfg, None, None)
+    assert res["whisper_int8"] == str(ref.value)
 
 
 def _family_ref(w, case, cases=FAMILY_CASES):

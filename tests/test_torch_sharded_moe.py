@@ -252,22 +252,42 @@ def test_sharded_moe_chunked_dispatch(world_moe, chunk):
 
 @pytest.mark.parametrize("shape", [(4, 2), (2, 4)])
 def test_check_mesh_family_places_moe(shape):
-    """``check_mesh_family`` lets moonshot and arctic onto a mesh of
-    eight ranks and refuses whisper-base and an int8 KV cache by
-    name."""
+    """The rules place moonshot and arctic on a mesh of eight ranks, and
+    whisper-base and an int8 KV cache beside them: no family is refused
+    any more (``check_mesh_family`` is gone), every parameter has a spec,
+    and every cache entry its placement, the heads dim of the K/V, an
+    int8 cache's scales and whisper's cross K/V over ``head_axes``."""
     from repro_torch.configs import get_config
-    from repro_torch.parallel.sharding import check_mesh_family
-    mesh = types.SimpleNamespace(size=shape[0] * shape[1])
-    for arch in ("moonshot-v1-16b-a3b", "arctic-480b"):
-        check_mesh_family(get_config(arch), mesh)
-    for cfg, what in (
-            (get_config("whisper-base"), "the encoder-decoder family"),
-            (dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
-                                 kv_quant="int8"),
-             "with an int8 KV cache")):
-        with pytest.raises(ValueError, match=what):
-            check_mesh_family(cfg, mesh)
-
+    from repro_torch.launch.mesh import DeviceMesh
+    from repro_torch.models.registry import param_module
+    from repro_torch.models.transformer import init_cache
+    from repro_torch.parallel import sharding
+    assert not hasattr(sharding, "check_mesh_family")
+    mesh = DeviceMesh.__new__(DeviceMesh)    # the rules read its shape
+    mesh.sizes, mesh.axis_names = shape, ("data", "model")
+    meta = torch.device("meta")
+    int8 = dataclasses.replace(get_config("moonshot-v1-16b-a3b"),
+                               kv_quant="int8")
+    for cfg in (get_config("moonshot-v1-16b-a3b"), get_config("arctic-480b"),
+                get_config("whisper-base"), int8):
+        module = param_module(cfg, meta)
+        for mode in ("train", "serve"):
+            specs = sharding.param_shardings(mesh, module, mode)
+            assert sorted(specs) == sorted(
+                n for n, _ in module.named_parameters()), cfg.name
+        heads = sharding.head_axes(mesh, cfg, "serve")
+        if cfg.is_encdec:
+            d = (cfg.n_layers, 4, cfg.n_kv_heads, 16, cfg.hd)
+            cache = {"len": torch.empty(4, device=meta),
+                     **{n: torch.empty(d, device=meta)
+                        for n in ("k", "v", "cross_k", "cross_v")}}
+        else:
+            cache = init_cache(cfg, 4, 16, device=meta)
+        layout = sharding.cache_layout(mesh, cfg, cache, "serve")
+        assert sorted(layout) == sorted(cache), cfg.name
+        for name, spec in layout.items():
+            if name != "len":
+                assert mesh.axes(spec[2]) == heads, (cfg.name, name)
 
 if __name__ == "__main__":
     sys.path.insert(0, str(SRC))
